@@ -1,0 +1,17 @@
+"""PredictionIO on PyTorch and CUDA (NVIDIA Hopper).
+
+The second package of the repository, beside ``incubator_predictionio_tpu``
+(the JAX reference). It imports ``torch``, ``numpy`` and the standard
+library only — never ``jax`` and nothing of the JAX package.
+
+Every entry point takes ``device=`` and defaults to ``"cuda"``; asking for
+CUDA on a host without a card raises (``device.resolve_device``). The CPU
+runs only when the caller asks for it, and then every kernel runs its
+plain PyTorch version.
+
+What is ported so far: the Recommendation template's train → persist →
+serve path (ALS with the Gauss-Jordan SPD solve as a hand-written CUDA
+kernel, ``ops/csrc/gauss_jordan.cu``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,66 @@
+"""The DASE component bases: DataSource, Preparator, Algorithm, Serving.
+
+Port of ``incubator_predictionio_tpu/controller/{datasource,preparator,
+algorithm,serving}.py``, trimmed to what the Recommendation template uses.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+from .base import AbstractDoer
+
+
+class DataSource(AbstractDoer):
+    """``read_training(ctx)`` feeds training."""
+
+    def read_training(self, ctx) -> Any:
+        raise NotImplementedError
+
+
+class Preparator(AbstractDoer):
+    def prepare(self, ctx, training_data) -> Any:
+        raise NotImplementedError
+
+
+class IdentityPreparator(Preparator):
+    """Pass-through."""
+
+    def prepare(self, ctx, training_data):
+        return training_data
+
+
+class Algorithm(AbstractDoer):
+    def train(self, ctx, prepared_data) -> Any:
+        raise NotImplementedError
+
+    def predict(self, model, query) -> Any:
+        raise NotImplementedError
+
+    def batch_predict(self, model, queries: Sequence) -> list:
+        """Default: loop over predict."""
+        return [self.predict(model, q) for q in queries]
+
+    def prepare_model_for_persistence(self, model) -> Any:
+        """Model → a dict of host (numpy / JSON-able) values."""
+        raise NotImplementedError
+
+    def restore_model(self, stored, ctx) -> Any:
+        """Inverse of prepare_model_for_persistence, onto ``ctx.device``."""
+        raise NotImplementedError
+
+
+class Serving(AbstractDoer):
+    def serve(self, query, predictions: Sequence) -> Any:
+        raise NotImplementedError
+
+    def supplement(self, query):
+        """Pre-predict query enrichment hook."""
+        return query
+
+
+class FirstServing(Serving):
+    """Single-algorithm passthrough."""
+
+    def serve(self, query, predictions):
+        return predictions[0]

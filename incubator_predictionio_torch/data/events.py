@@ -1,0 +1,116 @@
+"""Events in the wire format → the (user, item, rating) COO triple.
+
+Port of the row path of ``PEventStore.find_ratings``
+(``incubator_predictionio_tpu/data/store/p_event_store.py:161`` and
+``ratings_matrix``). Events are dicts in the event server's wire format, one
+JSON object per line in a ``pio import`` file::
+
+    {"event": "rate", "entityType": "user", "entityId": "u1",
+     "targetEntityType": "item", "targetEntityId": "i9",
+     "properties": {"rating": 4.5}, "eventTime": "2024-01-01T00:00:00.000Z"}
+
+The rules are the reference's: events are read time-sorted (stable, so
+equal times keep file order); users are indexed over ALL selected events
+and items only over events with a target, both in first-seen order; the
+rating is the ``rating`` property, or the per-event default
+(``event_default_ratings``, e.g. ``buy`` → 4.0) when the property is
+absent, or ``default_rating`` when it is present but not a finite number.
+Storage backends wait for a later slice.
+"""
+
+from __future__ import annotations
+
+import datetime as _dt
+import json
+from pathlib import Path
+from typing import Iterable, Mapping, Optional, Sequence
+
+import numpy as np
+
+from .bimap import BiMap
+
+_EPOCH = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+
+
+def read_events(path: "str | Path") -> list[dict]:
+    """Read a JSON-lines events file (blank lines skipped)."""
+    events = []
+    with open(path, encoding="utf-8") as fh:
+        for lineno, line in enumerate(fh, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                obj = json.loads(line)
+            except json.JSONDecodeError as e:
+                raise ValueError(f"{path}:{lineno}: invalid JSON: {e}") from e
+            if not isinstance(obj, dict):
+                raise ValueError(f"{path}:{lineno}: an event must be a JSON object")
+            events.append(obj)
+    return events
+
+
+def event_time_us(value: Optional[str]) -> float:
+    """ISO-8601 eventTime → epoch microseconds (naive times are UTC). An
+    event without a time sorts after every timed event."""
+    if value is None:
+        return float("inf")
+    t = _dt.datetime.fromisoformat(value.replace("Z", "+00:00"))
+    if t.tzinfo is None:
+        t = t.replace(tzinfo=_dt.timezone.utc)
+    return (t - _EPOCH) // _dt.timedelta(microseconds=1)
+
+
+def _coerce_rating(v, default_rating: float) -> float:
+    """The reference's rules: bool/None, strings outside the plain float
+    charset, and values not finite as float32 are "present but unusable"."""
+    if isinstance(v, bool) or v is None:
+        return default_rating
+    if isinstance(v, str) and set(v) - set("0123456789.+-eE \t\r\n"):
+        return default_rating
+    try:
+        f = np.float32(float(v))
+    except (TypeError, ValueError, OverflowError):
+        return default_rating
+    return float(f) if np.isfinite(f) else default_rating
+
+
+def _id(v) -> Optional[str]:
+    return None if v is None else str(v)
+
+
+def find_ratings(
+    events: Iterable[Mapping],
+    event_names: Optional[Sequence[str]] = None,
+    rating_from_props: bool = True,
+    default_rating: float = 1.0,
+    event_default_ratings: Optional[Mapping[str, float]] = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, BiMap, BiMap]:
+    """(user, item, rating) COO triple + id maps from wire-format events."""
+    names = None if event_names is None else set(event_names)
+    sel = [e for e in events if names is None or e.get("event") in names]
+    sel.sort(key=lambda e: event_time_us(e.get("eventTime")))  # stable
+    entity = [_id(e["entityId"]) for e in sel]
+    target = [_id(e.get("targetEntityId")) for e in sel]
+    users = BiMap.string_int(entity)
+    items = BiMap.string_int(t for t in target if t is not None)
+    u = users.map_array(entity)
+    i = np.fromiter((items(t) if t is not None else -1 for t in target),
+                    dtype=np.int32, count=len(sel))
+    if rating_from_props:
+        defaults = event_default_ratings or {}
+
+        def rating(e) -> float:
+            props = e.get("properties") or {}
+            if "rating" in props:
+                return _coerce_rating(props["rating"], default_rating)
+            dflt = defaults.get(e.get("event"))
+            return _coerce_rating(default_rating if dflt is None else dflt,
+                                  default_rating)
+
+        r = np.fromiter((rating(e) for e in sel), dtype=np.float32,
+                        count=len(sel))
+    else:
+        r = np.full(len(sel), default_rating, dtype=np.float32)
+    keep = i >= 0
+    return u[keep], i[keep], r[keep], users, items

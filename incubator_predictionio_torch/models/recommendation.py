@@ -1,0 +1,266 @@
+"""Recommendation template (ALS) — train, persist, serve.
+
+Port of ``incubator_predictionio_tpu/models/recommendation.py`` with the flat
+serving catalog of ``models/_sharded_serving.py``: the item factors are
+made resident on the device once and cached on the model. Wire format
+(the quickstart's)::
+
+  query  {"user": "1", "num": 4}
+  result {"itemScores": [{"item": "32", "score": 6.17}, ...]}
+
+Ranking mode: a query with ``"items"`` ranks the given candidates instead
+of searching the catalog.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..controller import (
+    Algorithm, DataSource, Engine, EngineFactory, Params, SanityCheck,
+)
+from ..data.bimap import BiMap
+from ..data.events import find_ratings
+from ..device import resolve_device
+from ..ops.als import ALSFactors, ALSParams, train_als
+from ..ops.topk import batch_top_k, top_k_items
+
+
+@dataclasses.dataclass
+class TrainingData(SanityCheck):
+    user_idx: np.ndarray
+    item_idx: np.ndarray
+    rating: np.ndarray
+    users: BiMap
+    items: BiMap
+
+    def sanity_check(self):
+        if len(self.user_idx) == 0:
+            raise ValueError("no rating events found")
+        if not len(self.user_idx) == len(self.item_idx) == len(self.rating):
+            raise ValueError("user, item and rating arrays differ in length")
+
+
+PreparedData = TrainingData  # identity preparation (quickstart parity)
+
+
+@dataclasses.dataclass
+class ALSModel:
+    factors: ALSFactors
+    users: BiMap
+    items: BiMap
+    device: torch.device
+    _dev_items: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def catalog(self) -> torch.Tensor:
+        """The item factors resident on the model's device (made once:
+        serving then uploads only the rank-float query vector)."""
+        if self._dev_items is None:
+            self._dev_items = torch.from_numpy(np.ascontiguousarray(
+                self.factors.item_factors, np.float32)).to(self.device)
+        return self._dev_items
+
+    def warm_up(self, num: int = 10):
+        """Make the catalog resident and answer one query (deploy time)."""
+        self.catalog()
+        if len(self.users):
+            self.recommend_products(next(iter(self.users.keys())), num)
+
+    def recommend_products(self, user: str, num: int):
+        uidx = self.users.get(user)
+        if uidx is None:
+            return []
+        scores, idx = top_k_items(self.factors.user_factors[uidx],
+                                  self.catalog(), num)
+        return [(self.items.inverse(int(i)), float(s))
+                for s, i in zip(scores, idx) if np.isfinite(s)]
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSourceParams(Params):
+    app_name: str = ""
+    event_names: Sequence[str] = ("rate", "buy")
+    buy_rating: float = 4.0  # "buy" events carry no rating (template parity)
+
+
+class RecommendationDataSource(DataSource):
+    params_cls = DataSourceParams
+    params_aliases = {"appName": "app_name", "eventNames": "event_names"}
+
+    def read_training(self, ctx) -> TrainingData:
+        if ctx.events is None:
+            raise ValueError("the workflow context holds no events")
+        p: DataSourceParams = self.params
+        u, i, r, users, items = find_ratings(
+            ctx.events, event_names=list(p.event_names),
+            event_default_ratings={"buy": p.buy_rating})
+        return TrainingData(u, i, r, users, items)
+
+
+@dataclasses.dataclass(frozen=True)
+class AlgorithmParams(Params):
+    rank: int = 10
+    num_iterations: int = 10
+    reg: float = 0.01  # engine.json "lambda"
+    seed: Optional[int] = None
+    implicit_prefs: bool = False
+    alpha: float = 1.0
+    lambda_scaling: str = "plain"
+    block_len: int = 32
+    compute_dtype: str = "auto"
+    chunk_tiles: int = -1
+    binary_ratings: Optional[bool] = None
+    # engine.json "shardedServing": the port serves the flat catalog, which
+    # is what "auto" and "never" choose at this size; "always" is refused
+    sharded_serving: str = "auto"
+
+
+class ALSAlgorithm(Algorithm):
+    """ALS recommender (the reference template's ALSAlgorithm)."""
+
+    params_cls = AlgorithmParams
+    params_aliases = {
+        "lambda": "reg",
+        "numIterations": "num_iterations",
+        "implicitPrefs": "implicit_prefs",
+        "lambdaScaling": "lambda_scaling",
+        "blockLen": "block_len",
+        "computeDtype": "compute_dtype",
+        "chunkTiles": "chunk_tiles",
+        "binaryRatings": "binary_ratings",
+        "shardedServing": "sharded_serving",
+    }
+
+    def __init__(self, params=None):
+        super().__init__(params)
+        mode = getattr(self.params, "sharded_serving", "auto")
+        if mode not in ("auto", "never"):
+            raise ValueError(
+                f"shardedServing={mode!r}: only the flat catalog is served "
+                "here ('auto' or 'never')")
+
+    @staticmethod
+    def als_params(p: AlgorithmParams) -> ALSParams:
+        return ALSParams(
+            rank=p.rank, num_iterations=p.num_iterations, reg=p.reg,
+            lambda_scaling=p.lambda_scaling, implicit_prefs=p.implicit_prefs,
+            alpha=p.alpha, seed=p.seed if p.seed is not None else 3,
+            block_len=p.block_len, compute_dtype=p.compute_dtype,
+            chunk_tiles=p.chunk_tiles, binary_ratings=p.binary_ratings)
+
+    def train(self, ctx, pd: PreparedData) -> ALSModel:
+        factors = train_als(
+            pd.user_idx, pd.item_idx, pd.rating, n_users=len(pd.users),
+            n_items=len(pd.items), params=self.als_params(self.params),
+            device=ctx.device)
+        return ALSModel(factors=factors, users=pd.users, items=pd.items,
+                        device=ctx.device)
+
+    @staticmethod
+    def _is_ranking_query(query: dict) -> bool:
+        # "items" present (even empty) selects ranking mode
+        return query.get("items") is not None
+
+    @staticmethod
+    def _rank_candidates(model: ALSModel, query: dict) -> dict:
+        """Rank the GIVEN candidates for the user. Unknown user → items
+        back in sent order with score 0 ("isOriginal"); unknown items rank
+        last in sent order."""
+        items = [str(x) for x in query["items"]]
+        uid = model.users.get(str(query["user"]))
+        if uid is None:
+            return {"itemScores": [{"item": it, "score": 0.0} for it in items],
+                    "isOriginal": True}
+        uvec = model.factors.user_factors[uid]
+        known = [(pos, model.items.get(it)) for pos, it in enumerate(items)]
+        rows = [iid for _, iid in known if iid is not None]
+        gathered = (model.factors.item_factors[rows] @ uvec
+                    if rows else np.zeros(0, np.float32))
+        scores = np.full(len(items), -np.inf, np.float64)
+        scores[[pos for pos, iid in known if iid is not None]] = gathered
+        order = sorted(range(len(items)), key=lambda p: (-scores[p], p))
+        return {"itemScores": [
+            {"item": items[p],
+             "score": float(scores[p]) if np.isfinite(scores[p]) else 0.0}
+            for p in order], "isOriginal": False}
+
+    def predict(self, model: ALSModel, query: dict) -> dict:
+        if self._is_ranking_query(query):
+            return self._rank_candidates(model, query)
+        num = int(query.get("num", 10))
+        item_scores = model.recommend_products(str(query["user"]), num)
+        return {"itemScores": [{"item": item, "score": score}
+                               for item, score in item_scores]}
+
+    def batch_predict(self, model: ALSModel, queries: Sequence[dict]) -> list[dict]:
+        if not queries:
+            return []
+        out: list[Optional[dict]] = [None] * len(queries)
+        for j, q in enumerate(queries):
+            if self._is_ranking_query(q):
+                out[j] = self._rank_candidates(model, q)
+        rest = [j for j in range(len(queries)) if out[j] is None]
+        if rest:
+            qs = [queries[j] for j in rest]
+            uids = [model.users.get(str(q["user"])) for q in qs]
+            k = model.factors.user_factors.shape[1]
+            uvecs = np.stack([
+                model.factors.user_factors[u] if u is not None
+                else np.zeros(k, np.float32) for u in uids])
+            num = max(int(q.get("num", 10)) for q in qs)
+            scores, idx = batch_top_k(uvecs, model.catalog(), num)
+            for t, (j, q, u) in enumerate(zip(rest, qs, uids)):
+                if u is None:
+                    out[j] = {"itemScores": []}
+                    continue
+                n = min(int(q.get("num", 10)), idx.shape[1])
+                out[j] = {"itemScores": [
+                    {"item": model.items.inverse(int(idx[t, c])),
+                     "score": float(scores[t, c])} for c in range(n)]}
+        return out  # type: ignore[return-value]
+
+    def prepare_model_for_persistence(self, model: ALSModel) -> dict:
+        return model_to_persisted(model)
+
+    def restore_model(self, stored, ctx) -> ALSModel:
+        return model_from_persisted(stored, ctx.device)
+
+
+def model_to_persisted(model: ALSModel) -> dict:
+    """The persisted dict: exactly the reference's keys and forms (numpy
+    float32 factors, persisted BiMaps), so models cross-load both ways."""
+    return {
+        "user_factors": np.asarray(model.factors.user_factors, np.float32),
+        "item_factors": np.asarray(model.factors.item_factors, np.float32),
+        "users": model.users.to_persisted(),
+        "items": model.items.to_persisted(),
+    }
+
+
+def model_from_persisted(stored: dict, device="cuda") -> ALSModel:
+    """The persisted dict (numpy factors + persisted BiMaps) → ALSModel
+    serving on ``device``."""
+    uf = np.asarray(stored["user_factors"], np.float32)
+    itf = np.asarray(stored["item_factors"], np.float32)
+    return ALSModel(
+        factors=ALSFactors(uf, itf, uf.shape[0], itf.shape[0]),
+        users=BiMap.from_persisted(stored["users"]),
+        items=BiMap.from_persisted(stored["items"]),
+        device=resolve_device(device))
+
+
+class RecommendationEngine(EngineFactory):
+    """engine.json: "engineFactory":
+    "incubator_predictionio_torch.models.recommendation.RecommendationEngine"
+    """
+
+    def apply(self) -> Engine:
+        return Engine(
+            data_source_class=RecommendationDataSource,
+            algorithm_class_map={"als": ALSAlgorithm, "": ALSAlgorithm},
+        )

@@ -1,0 +1,50 @@
+"""Persisted models: one ``.npz`` file per trained engine.
+
+Each algorithm's persisted dict (``prepare_model_for_persistence``) is
+written entry by entry: numpy arrays as arrays, every other value (the
+persisted BiMaps) as JSON text. The engine.json the models were trained
+with rides along, so a deploy rebuilds the same engine. Loading never
+unpickles (``allow_pickle=False``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
+
+import numpy as np
+
+_ENGINE_KEY = "engine.json"
+
+
+def save_models(path: "str | Path", engine_json: dict, stored: list[dict]) -> None:
+    entries = {_ENGINE_KEY: np.array(json.dumps(engine_json))}
+    for i, d in enumerate(stored):
+        for key, value in d.items():
+            if isinstance(value, np.ndarray):
+                entries[f"{i}/{key}"] = value
+            else:
+                entries[f"{i}/{key}.json"] = np.array(json.dumps(value))
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **entries)
+    os.replace(tmp, path)  # a reader never sees a half-written model
+
+
+def load_models(path: "str | Path") -> tuple[dict, list[dict]]:
+    """(engine_json, [persisted dict per algorithm])."""
+    with np.load(path, allow_pickle=False) as z:
+        engine_json = json.loads(str(z[_ENGINE_KEY]))
+        stored: dict[int, dict] = {}
+        for name in z.files:
+            if name == _ENGINE_KEY:
+                continue
+            idx, key = name.split("/", 1)
+            d = stored.setdefault(int(idx), {})
+            if key.endswith(".json"):
+                d[key[:-len(".json")]] = json.loads(str(z[name]))
+            else:
+                d[key] = z[name]
+    return engine_json, [stored[i] for i in sorted(stored)]

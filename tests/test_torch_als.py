@@ -1,0 +1,201 @@
+"""The port's ALS (incubator_predictionio_torch/ops/als.py, rowblocks.py) on
+the CPU against the JAX reference's single-device trainer.
+
+The reference runs on a one-device CPU mesh, where its solve is the XLA
+Cholesky; the port's CPU solve is the plain Gauss-Jordan that the CUDA
+kernel repeats. Factors are held at the reference's ALS tolerance,
+rtol = atol = 2e-4 (ROADMAP: the same bound as the solve).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from incubator_predictionio_tpu.ops import als as ref_als  # noqa: E402
+from incubator_predictionio_tpu.ops import rowblocks as ref_rowblocks  # noqa: E402
+from incubator_predictionio_tpu.parallel.mesh import mesh_from_devices  # noqa: E402
+from incubator_predictionio_torch.ops import als as port_als  # noqa: E402
+from incubator_predictionio_torch.ops import rowblocks as port_rowblocks  # noqa: E402
+
+TOL = 2e-4
+
+
+def _ratings(n_users=60, n_items=40, nnz=900, seed=0, heavy_user=0):
+    """Skewed synthetic ratings (bench.py's generator at a small size);
+    ``heavy_user`` > 0 gives user 0 that many extra entries, past the
+    overflow length, so the heavy bucket and its virtual rows are used."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_users, nnz).astype(np.int32)
+    i = np.minimum((n_items * rng.random(nnz) ** 2).astype(np.int32),
+                   n_items - 1)
+    r = rng.integers(1, 11, nnz).astype(np.float32) / 2.0
+    if heavy_user:
+        u = np.concatenate([u, np.zeros(heavy_user, np.int32)])
+        i = np.concatenate([i, rng.integers(0, n_items, heavy_user)
+                            .astype(np.int32)])
+        r = np.concatenate([r, rng.integers(1, 11, heavy_user)
+                            .astype(np.float32) / 2.0])
+    return u, i, r, n_users, n_items
+
+
+def _both(u, i, r, nu, ni, **kw):
+    mesh = mesh_from_devices(devices=jax.devices()[:1])
+    f_ref = ref_als.train_als(u, i, r, nu, ni, ref_als.ALSParams(**kw),
+                              mesh=mesh)
+    f_port = port_als.train_als(u, i, r, nu, ni, port_als.ALSParams(**kw),
+                                device="cpu")
+    return f_ref, f_port
+
+
+def _assert_close(f_ref, f_port):
+    assert f_port.user_factors.shape == f_ref.user_factors.shape
+    assert f_port.item_factors.shape == f_ref.item_factors.shape
+    np.testing.assert_allclose(f_port.user_factors, f_ref.user_factors,
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(f_port.item_factors, f_ref.item_factors,
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("scaling", ["plain", "nratings"])
+@pytest.mark.parametrize("binary", [False, True])
+def test_train_als_matches_reference(implicit, scaling, binary):
+    u, i, r, nu, ni = _ratings()
+    if binary:
+        r = np.ones_like(r)
+    f_ref, f_port = _both(u, i, r, nu, ni, rank=8, num_iterations=3,
+                          reg=0.1, lambda_scaling=scaling,
+                          implicit_prefs=implicit, alpha=0.5)
+    _assert_close(f_ref, f_port)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_heavy_bucket_with_overflow_rows(implicit):
+    u, i, r, nu, ni = _ratings(n_users=30, n_items=100, nnz=2000,
+                               heavy_user=4500)
+    plan = port_rowblocks.plan_layout(np.bincount(u, minlength=nu))
+    assert plan.has_heavy_bucket and plan.v_rows_per_shard == 2
+    # reg 1.0: the heavy user's 4500 ratings make the item grams nearly
+    # rank one; at reg 0.1 their conditioning alone puts two correct
+    # float32 solvers (Cholesky, Gauss-Jordan) further apart than 2e-4
+    f_ref, f_port = _both(u, i, r, nu, ni, rank=8, num_iterations=2,
+                          reg=1.0, implicit_prefs=implicit, alpha=0.2)
+    _assert_close(f_ref, f_port)
+
+
+def test_explicit_chunk_budget_matches_reference():
+    # chunkTiles × blockLen = 64 gathered entries per step: many small
+    # chunks, and a slab that needs several gram steps
+    u, i, r, nu, ni = _ratings(nnz=1500, seed=3)
+    f_ref, f_port = _both(u, i, r, nu, ni, rank=6, num_iterations=2,
+                          reg=0.05, chunk_tiles=8, block_len=8)
+    _assert_close(f_ref, f_port)
+
+
+def test_rank_above_128_uses_cholesky():
+    u, i, r, nu, ni = _ratings(n_users=20, n_items=15, nnz=200, seed=5)
+    f_ref, f_port = _both(u, i, r, nu, ni, rank=130, num_iterations=1,
+                          reg=0.5)
+    _assert_close(f_ref, f_port)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("with_val", [False, True])
+def test_grams_rows_matches_reference(implicit, with_val):
+    rng = np.random.default_rng(7)
+    p = rng.standard_normal((5, 12, 6)).astype(np.float32)
+    p[:, 9:] = 0.0  # padding slots gather zero rows
+    val = (rng.integers(1, 11, (5, 12)).astype(np.float32) / 2.0
+           if with_val else None)
+    g_ref, b_ref = ref_als._grams_rows(
+        jnp.asarray(p), None if val is None else jnp.asarray(val),
+        implicit=implicit, alpha=0.7, compute_dtype=jnp.float32)
+    g, b = port_als._grams_rows(
+        torch.from_numpy(p), None if val is None else torch.from_numpy(val),
+        implicit=implicit, alpha=0.7)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(b.numpy(), np.asarray(b_ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("heavy", [0, 4500])
+def test_layout_is_the_references(heavy):
+    """Same slot order, same slabs: the port's copy of rowblocks."""
+    u, i, r, nu, ni = _ratings(n_users=30, n_items=300, nnz=800,
+                               heavy_user=heavy)
+    ref = ref_rowblocks.plan_and_fill_both(u, i, r, nu, ni, 1,
+                                           parallel=False)
+    port = port_rowblocks.plan_and_fill_both(u, i, r, nu, ni)
+    for p_ref, p_port in zip(ref[:2], port[:2]):
+        np.testing.assert_array_equal(p_port.slot_of_row, p_ref.slot_of_row)
+        np.testing.assert_array_equal(p_port.lengths, p_ref.lengths)
+        np.testing.assert_array_equal(p_port.bucket_rows, p_ref.bucket_rows)
+        np.testing.assert_array_equal(p_port.v_parent, p_ref.v_parent)
+    for a_ref, a_port in zip(ref[2:], port[2:]):
+        for c_ref, c_port in zip(a_ref.cols, a_port.cols):
+            np.testing.assert_array_equal(c_port, c_ref)
+        for v_ref, v_port in zip(a_ref.vals, a_port.vals):
+            np.testing.assert_array_equal(v_port, v_ref)
+        np.testing.assert_array_equal(a_port.v_cols, a_ref.v_cols)
+
+
+@pytest.mark.parametrize("heavy,chunk_tiles", [(0, -1), (4500, -1), (0, 4)])
+def test_solve_calls_match_the_layout(heavy, chunk_tiles, monkeypatch):
+    """The count chip_smoke.py holds the kernel launches to: one solve per
+    fused chunk plus one for the heavy bucket, per side, per iteration."""
+    u, i, r, nu, ni = _ratings(n_users=700, n_items=300, nnz=6000,
+                               heavy_user=heavy)
+    calls = []
+    real = port_als.batched_spd_solve
+
+    def counting(a, b):
+        calls.append(a.shape[0])
+        return real(a, b)
+
+    monkeypatch.setattr(port_als, "batched_spd_solve", counting)
+    params = port_als.ALSParams(rank=4, num_iterations=2,
+                                chunk_tiles=chunk_tiles, block_len=8)
+    trainer = port_als.ALSTrainer(u, i, r, nu, ni, params, device="cpu")
+    trainer.iterate(2)
+    assert trainer.solve_calls_per_iteration() > 2
+    assert len(calls) == 2 * trainer.solve_calls_per_iteration()
+
+
+def test_fresh_init_is_the_references():
+    u, i, r, nu, ni = _ratings()
+    plans = port_rowblocks.plan_and_fill_both(u, i, r, nu, ni)
+    params = dict(rank=5, seed=11)
+    x_ref, y_ref = ref_als._fresh_init(ref_als.ALSParams(**params),
+                                       plans[0], plans[1], nu, ni)
+    x, y = port_als._fresh_init(port_als.ALSParams(**params), plans[0],
+                                plans[1], nu, ni)
+    np.testing.assert_array_equal(x, x_ref)
+    np.testing.assert_array_equal(y, y_ref)
+
+
+def test_unsupported_compute_dtype_raises():
+    u, i, r, nu, ni = _ratings()
+    with pytest.raises(ValueError, match="compute_dtype"):
+        port_als.train_als(u, i, r, nu, ni,
+                           port_als.ALSParams(compute_dtype="bfloat16"),
+                           device="cpu")
+
+
+def test_train_on_cuda_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    u, i, r, nu, ni = _ratings()
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_als.train_als(u, i, r, nu, ni, port_als.ALSParams())
+
+
+def test_predict_rmse_matches_reference():
+    u, i, r, nu, ni = _ratings()
+    f_ref, f_port = _both(u, i, r, nu, ni, rank=8, num_iterations=5,
+                          reg=0.1)
+    assert port_als.predict_rmse(f_port, u, i, r) == pytest.approx(
+        ref_als.predict_rmse(f_ref, u, i, r), rel=1e-4)

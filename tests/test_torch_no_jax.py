@@ -1,0 +1,99 @@
+"""The port never imports JAX or the JAX package.
+
+Statically: no file of ``incubator_predictionio_torch`` and not
+``chip_smoke.py`` imports ``jax``, ``jaxlib`` or ``incubator_predictionio_tpu``.
+At run time: a fresh interpreter trains, persists, deploys over HTTP and
+queries on the CPU, and neither ``jax`` nor the JAX package is loaded after.
+(This pytest process has JAX loaded by tests/conftest.py, so the run-time
+check needs its own process.)
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "incubator_predictionio_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "incubator_predictionio_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(node.args[0].value, str):
+            yield node.args[0].value
+
+
+def test_port_files_exist():
+    names = {p.name for p in _port_files()}
+    assert {"spd_solve.py", "als.py", "recommendation.py",
+            "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+_SCRIPT = r"""
+import http.client, json, sys
+import numpy as np
+from incubator_predictionio_torch.tools import console
+from incubator_predictionio_torch.workflow.create_server import EngineServer
+
+rng = np.random.default_rng(0)
+events = [{"event": "rate", "entityType": "user", "entityId": f"u{u}",
+           "targetEntityType": "item", "targetEntityId": f"i{i}",
+           "properties": {"rating": float(rng.integers(1, 6))},
+           "eventTime": "2024-01-01T00:00:00.000Z"}
+          for u in range(12) for i in range(9) if rng.random() < 0.5]
+engine_json = {"algorithms": [{"name": "als", "params": {
+    "rank": 4, "numIterations": 3, "lambda": 0.1}}]}
+path = sys.argv[1]
+console.train(engine_json, events, path, device="cpu")
+deployment, _ = console.load_deployment(path, device="cpu")
+server = EngineServer(deployment, "127.0.0.1", 0)
+_, port = server.start()
+conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+conn.request("POST", "/queries.json", body=json.dumps({"user": "u1", "num": 3}))
+resp = conn.getresponse()
+body = json.loads(resp.read())
+conn.close()
+server.stop()
+assert resp.status == 200 and len(body["itemScores"]) == 3, body
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "incubator_predictionio_tpu"))
+print(json.dumps({"loaded": loaded}))
+"""
+
+
+def test_train_and_serve_in_a_process_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, str(tmp_path / "model.npz")],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    last = out.stdout.strip().splitlines()[-1]
+    assert '"loaded": []' in last, last
