@@ -6,19 +6,26 @@ Phases (any failure exits non-zero; nothing is caught):
 
 0. device: the card's name and power limit (nvidia-smi).
 1. build: every CUDA kernel of the path, from the sources in the checkout.
-2. kernel vs plain: the Gauss-Jordan SPD solve kernel against its plain
-   PyTorch version at the reference's test shapes and at the main path's
-   shapes, rtol = atol = 2e-4 (the reference's tolerance); device times
-   (torch.profiler) and back-to-back loop times (CUDA events) of the kernel,
-   the plain version and torch's batched Cholesky (the yardstick; the port
-   never calls it) beside the kernel's bound.
-3. ALS on the card vs on the CPU (plain solve), ML-100K shape, rank 32.
+2. kernel vs plain: both Gauss-Jordan SPD solve kernels (the warp kernel,
+   k ≤ 32, and the wide kernel, 32 < k ≤ 128, every K it is built for)
+   against their plain PyTorch version at the reference's test shapes and
+   at the paths' shapes, rtol = atol = 2e-4 (the reference's tolerance);
+   nearly singular ALS-like systems are reported with their relative-norm
+   gap. Device times (torch.profiler) and back-to-back loop times (CUDA
+   events) of the kernel, the plain version and torch's batched Cholesky
+   (the yardstick; the port never calls it) beside the kernel's bound.
+3. ALS on the card vs on the CPU (plain solve), ML-100K shape, rank 32 and
+   rank 128.
 4. main path at full width: ML-20M-shaped synthetic ratings (138,493 users
    × 26,744 items × 20,000,263 ratings), rank 32, trained through the
-   Recommendation engine's ALSAlgorithm; kernel launches must equal the
-   solve calls the layout implies; persist → restore → HTTP server →
+   Recommendation engine's ALSAlgorithm; warp-kernel launches must equal
+   the solve calls the layout implies; persist → restore → HTTP server →
    ≥ 50 POST /queries.json; then the console's train → deploy → query on a
    small events file, in subprocesses; one steady iteration profiled.
+5. train_rank128: the same ratings at rank 128 through the same engine, 2
+   iterations: wide-kernel launches equal to the implied count and no
+   warp-kernel launch, the RMSE check, steady seconds per iteration, one
+   iteration profiled.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Every printed line carries the card's name
@@ -57,6 +64,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-4  # tests/test_pallas_kernels.py:41
 RANK = 32
 ITERS = 3  # ALS iterations of the main path (10 in BASELINE.json; cut for time)
+WIDE_RANK = 128  # the top of the Gauss-Jordan range: the wide kernel's path
+WIDE_ITERS = 2
+CHUNKED_LAUNCHES_PER_ITERATION = 348  # one solve launch per 512-row chunk
 ML20M = (138_493, 26_744, 20_000_263)  # bench.py SCALES["ml20m"]
 ML100K = (943, 1682, 100_000)  # bench.py SCALES["ml100k"]
 CARD = ""  # "name, power limit" from nvidia-smi, set in phase 0
@@ -139,6 +149,31 @@ def random_spd(n: int, k: int, seed: int, device) -> tuple[torch.Tensor, torch.T
     return a, b
 
 
+def als_like_spd(n: int, k: int, rows: int, seed: int, device):
+    """Nearly singular systems as ALS makes them for a row with fewer
+    ratings than the rank: the gram of ``rows`` < k counterpart factors
+    (standard normal / √k, the trainer's init) plus a 0.01 ridge."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    y = torch.randn((n, rows, k), generator=g, device=device) / k ** 0.5
+    a = torch.bmm(y.transpose(1, 2), y) + 0.01 * torch.eye(k, device=device)
+    r = torch.randint(1, 11, (n, rows), generator=g, device=device) / 2.0
+    b = torch.bmm(y.transpose(1, 2), r[:, :, None])[..., 0]
+    return a, b
+
+
+def reset_launches() -> None:
+    for counter in (spd_solve.gauss_jordan_launches,
+                    spd_solve.gauss_jordan_warp_launches,
+                    spd_solve.gauss_jordan_wide_launches):
+        counter.reset()
+
+
+def launches() -> dict:
+    return {"total": spd_solve.gauss_jordan_launches.count,
+            "warp": spd_solve.gauss_jordan_warp_launches.count,
+            "wide": spd_solve.gauss_jordan_wide_launches.count}
+
+
 def synth_ratings(n_users: int, n_items: int, nnz: int, seed: int = 7):
     """bench.py's synth_ratings: Zipf-ish items, ratings 0.5..5.0."""
     rng = np.random.default_rng(seed)
@@ -178,18 +213,27 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     spd_solve.build_kernel()
     info = _build.build_info["gauss_jordan"]
+    log = info["log"].splitlines()
+    # "Compiling entry function '<mangled name>'" lines name each kernel;
+    # the registers and spill lines follow it
     emit("build", kernel="gauss_jordan", seconds=time.perf_counter() - t0,
          nvcc_seconds=info["seconds"],
-         ptxas=[ln for ln in info["log"].splitlines() if "registers" in ln
-                or "smem" in ln])
+         ptxas=[ln.strip() for ln in log if "Compiling entry" in ln
+                or "registers" in ln or "spill" in ln])
+
+
+WIDE_KS = tuple(range(40, 129, 8))  # every K the wide kernel is built for
+TIMED = ((512, 32, 200), (ML20M[0], 32, 10), (512, 64, 50), (512, 96, 50),
+         (512, 128, 50), (8192, 128, 10))
 
 
 def phase_kernel_vs_plain() -> dict:
     dev = torch.device("cuda")
     cases = [(5, 10), (300, 32), (130, 7), (1, 1), (513, 16), (40, 80),
              (24, 128), (9, 100), (511, 8), (513, 8), (1025, 8),
-             (512, 32), (ML20M[0], 32)]
-    worst = 0.0
+             (512, 32), (ML20M[0], 32), (8192, 128)]
+    cases += [(n, k) for k in WIDE_KS for n in (1, 511, 513, 4096)]
+    worst = {"warp": 0.0, "wide": 0.0}
     for n, k in cases:
         a, b = random_spd(n, k, seed=n + k, device=dev)
         x = spd_solve.batched_spd_solve(a, b)
@@ -197,13 +241,32 @@ def phase_kernel_vs_plain() -> dict:
         x_plain = spd_solve.gauss_jordan_plain(a, b)
         err = (x - x_plain).abs().max().item()
         ok = torch.allclose(x, x_plain, rtol=TOL, atol=TOL)
-        emit("kernel_vs_plain", n=n, k=k, max_abs_err=err, ok=ok)
+        kind = "warp" if k <= spd_solve.MAX_WARP_K else "wide"
+        emit("kernel_vs_plain", n=n, k=k, kernel=kind, max_abs_err=err, ok=ok)
         check(ok, f"kernel disagrees with plain at n={n} k={k}: {err}")
         check(bool(torch.isfinite(x).all()), f"non-finite x at n={n} k={k}")
-        worst = max(worst, err)
+        worst[kind] = max(worst[kind], err)
+
+    # nearly singular ALS-like systems (fewer ratings than the rank): held
+    # to a relative-norm gap of 1e-2, as the plain-λ ALS parity is
+    near_singular = []
+    for k in (32, 64, 96, 128):
+        a, b = als_like_spd(4096, k, rows=k // 4, seed=k, device=dev)
+        x = spd_solve.batched_spd_solve(a, b)
+        torch.cuda.synchronize()
+        x_plain = spd_solve.gauss_jordan_plain(a, b)
+        err = (x - x_plain).abs().max().item()
+        rel = ((x - x_plain).norm() / x_plain.norm()).item()
+        ok = torch.allclose(x, x_plain, rtol=TOL, atol=TOL)
+        case = dict(n=4096, k=k, counterpart_rows=k // 4, ridge=0.01,
+                    max_abs_err=err, rel_norm_err=rel, within_2e4=ok)
+        emit("kernel_vs_plain_near_singular", **case)
+        check(bool(torch.isfinite(x).all()), f"non-finite x at k={k}")
+        check(rel < 1e-2, f"near-singular gap {rel} at k={k}")
+        near_singular.append(case)
 
     timings = {}
-    for n, k, reps in ((512, 32, 200), (ML20M[0], 32, 10), (512, 128, 20)):
+    for n, k, reps in TIMED:
         a, b = random_spd(n, k, seed=1, device=dev)
         kernel = lambda: spd_solve.batched_spd_solve(a, b)  # noqa: E731
         plain = lambda: spd_solve.gauss_jordan_plain(a, b)  # noqa: E731
@@ -218,7 +281,9 @@ def phase_kernel_vs_plain() -> dict:
             plain_loop_ms=loop_ms(plain, max(1, reps // 10)),
             library_loop_ms=loop_ms(library, reps))
         emit("kernel_time", n=n, k=k, **timings[(n, k)])
-    return {"max_abs_err": worst, "timings": timings}
+        del a, b
+    return {"max_abs_err": worst, "near_singular": near_singular,
+            "timings": timings}
 
 
 def phase_als_card_vs_cpu() -> None:
@@ -228,10 +293,18 @@ def phase_als_card_vs_cpu() -> None:
     0.01), where two correct float32 solvers (the reference's Cholesky and
     the port's Gauss-Jordan, both on the CPU) already drift apart by more
     than 2e-4 over 3 iterations; that case is reported and held to a
-    relative-norm gap of 1e-2."""
+    relative-norm gap of 1e-2.
+
+    Rank 128 (the wide kernel) runs with λ = 0.1·n_ratings, 2 iterations:
+    most items have fewer ratings than the rank, and at 0.01·n_ratings two
+    correct float32 solvers part by ~1e-3 already on the CPU
+    (tests/test_torch_als.py)."""
     u, i, r = synth_ratings(*ML100K, seed=11)
-    for scaling, strict in (("nratings", True), ("plain", False)):
-        params = ALSParams(rank=RANK, num_iterations=3, reg=0.01, seed=3,
+    for rank, iters, reg, scaling, strict in (
+            (RANK, 3, 0.01, "nratings", True),
+            (RANK, 3, 0.01, "plain", False),
+            (WIDE_RANK, 2, 0.1, "nratings", True)):
+        params = ALSParams(rank=rank, num_iterations=iters, reg=reg, seed=3,
                            lambda_scaling=scaling)
         t0 = time.perf_counter()
         f_gpu = train_als(u, i, r, ML100K[0], ML100K[1], params, device="cuda")
@@ -247,8 +320,8 @@ def phase_als_card_vs_cpu() -> None:
                           atol=TOL)
               and np.allclose(f_gpu.item_factors, f_cpu.item_factors,
                               rtol=TOL, atol=TOL))
-        emit("als_card_vs_cpu", shape=ML100K, rank=RANK, iterations=3,
-             reg=0.01, lambda_scaling=scaling, max_abs_err_user=err_u,
+        emit("als_card_vs_cpu", shape=ML100K, rank=rank, iterations=iters,
+             reg=reg, lambda_scaling=scaling, max_abs_err_user=err_u,
              max_abs_err_item=err_i, rel_norm_err=rel, within_2e4=ok,
              held_to="rtol=atol=2e-4" if strict else "rel_norm_err<1e-2",
              card_train_seconds=gpu_s)
@@ -294,13 +367,13 @@ def phase_main_path(workdir: str) -> dict:
     calls_i = solve_calls_per_half_step(plan_i, als_params)
     expected = ITERS * (calls_u + calls_i)
 
-    spd_solve.gauss_jordan_launches.reset()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = algo.train(ctx, td)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches_train = spd_solve.gauss_jordan_launches.count
+    launches_train = launches()
 
     uf, itf = model.factors.user_factors, model.factors.item_factors
     check(uf.shape == (n_users, RANK) and itf.shape == (n_items, RANK),
@@ -315,11 +388,16 @@ def phase_main_path(workdir: str) -> dict:
          train_events_per_s_end_to_end=nnz * ITERS / train_s,
          kernel_launches=launches_train, expected_launches=expected,
          solve_calls_per_iteration={"user": calls_u, "item": calls_i},
+         chunked_launches_per_iteration=CHUNKED_LAUNCHES_PER_ITERATION,
+         buckets={"user": len(plan_u.lengths), "item": len(plan_i.lengths)},
          heavy_bucket={"user": plan_u.has_heavy_bucket,
                        "item": plan_i.has_heavy_bucket},
          train_rmse_1m_sample=rmse)
-    check(launches_train == expected,
+    check(launches_train["warp"] == expected == launches_train["total"],
           f"kernel launches {launches_train} != implied {expected}")
+    check(calls_u + calls_i < CHUNKED_LAUNCHES_PER_ITERATION,
+          f"{calls_u + calls_i} launches per iteration, not fewer than "
+          f"one per chunk")
 
     # persist → restore → serve
     path = os.path.join(workdir, "ml20m_model.npz")
@@ -361,7 +439,6 @@ def phase_main_path(workdir: str) -> dict:
         conn.close()
         server.stop()
     lat_s = np.sort(np.asarray(lat[1:]))  # first query opens the connection
-    launches = spd_solve.gauss_jordan_launches.count
     emit("serve", queries=n_queries, p50_ms=float(np.percentile(lat_s, 50)),
          p99_ms=float(np.percentile(lat_s, 99)), catalog=n_items)
 
@@ -377,10 +454,77 @@ def phase_main_path(workdir: str) -> dict:
          seconds=steady_s, train_events_per_s=nnz * ITERS / steady_s,
          seconds_per_iteration=steady_s / ITERS)
     profile_iteration(trainer)
-    return {"launches": launches, "expected": expected}
+    return {"launches": launches_train["warp"], "expected": expected,
+            "ratings": (u, i, r)}
 
 
-def profile_iteration(trainer: ALSTrainer) -> None:
+def phase_train_rank128(ratings) -> dict:
+    """The wide kernel's path: the main path's ratings at rank 128 through
+    the same engine. Order: launches, RMSE, steady time, profile."""
+    n_users, n_items, nnz = ML20M
+    u, i, r = ratings
+    engine_json = {
+        "engineFactory": "incubator_predictionio_torch.models.recommendation."
+                         "RecommendationEngine",
+        "datasource": {"params": {"appName": "ml20m-synth"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": WIDE_RANK, "numIterations": WIDE_ITERS,
+            "lambda": 0.01}}],
+    }
+    engine = RecommendationEngine()()
+    _, _, algo_list, _ = engine.make_components(
+        EngineParams.from_json(engine_json))
+    algo = algo_list[0][1]
+    als_params = algo.als_params(algo.params)
+    plan_u = plan_layout(np.bincount(u, minlength=n_users))
+    plan_i = plan_layout(np.bincount(i, minlength=n_items))
+    calls_u = solve_calls_per_half_step(plan_u, als_params)
+    calls_i = solve_calls_per_half_step(plan_i, als_params)
+    expected = WIDE_ITERS * (calls_u + calls_i)
+    td = TrainingData(u, i, r, IdentityBiMap(n_users), IdentityBiMap(n_items))
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = algo.train(WorkflowContext(device="cuda"), td)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    got = launches()
+    emit("train_rank128_launches", rank=WIDE_RANK, iterations=WIDE_ITERS,
+         kernel_launches=got, expected_launches=expected,
+         solve_calls_per_iteration={"user": calls_u, "item": calls_i},
+         train_seconds=train_s)
+    check(got["wide"] == expected == got["total"] and got["warp"] == 0,
+          f"rank-128 launches {got} != implied {expected} wide, 0 warp")
+
+    uf, itf = model.factors.user_factors, model.factors.item_factors
+    check(uf.shape == (n_users, WIDE_RANK) and itf.shape == (n_items, WIDE_RANK),
+          f"factor shapes {uf.shape} {itf.shape}")
+    check(bool(np.isfinite(uf).all() and np.isfinite(itf).all()),
+          "non-finite rank-128 factors")
+    sample = np.random.default_rng(0).choice(nnz, 1_000_000, replace=False)
+    rmse = predict_rmse(model.factors, u[sample], i[sample], r[sample])
+    emit("train_rank128_rmse", train_rmse_1m_sample=rmse,
+         ratings_std=float(np.std(r)))
+    check(rmse < float(np.std(r)), f"rank-128 train RMSE {rmse} not below std")
+    del model
+
+    trainer = ALSTrainer(u, i, r, n_users, n_items, als_params, device="cuda")
+    trainer.iterate(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.iterate(WIDE_ITERS)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    emit("train_rank128_steady", events=nnz, iterations=WIDE_ITERS,
+         seconds=steady_s, train_events_per_s=nnz * WIDE_ITERS / steady_s,
+         seconds_per_iteration=steady_s / WIDE_ITERS)
+    profile_iteration(trainer, "train_rank128_profile")
+    return {"launches": got["wide"], "expected": expected}
+
+
+def profile_iteration(trainer: ALSTrainer,
+                      phase: str = "profile_iteration") -> None:
     """Where one steady-state iteration's device time goes: torch.profiler
     kernel times by name, and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -394,7 +538,7 @@ def profile_iteration(trainer: ALSTrainer) -> None:
     kernels = cuda_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    emit("profile_iteration", wall_ms_profiled=wall_ms,
+    emit(phase, wall_ms_profiled=wall_ms,
          device_busy_ms=busy_ms if kernels else "not measured",
          idle_share=(1 - busy_ms / wall_ms) if kernels else "not measured",
          top=[{"name": e.key[:90], "calls": e.count,
@@ -492,22 +636,38 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         main_path = phase_main_path(workdir)
         phase_console(workdir)
+    wide_path = phase_train_rank128(main_path.pop("ratings"))
     t = kv["timings"]
-    main_t = t[(512, 32)]
-    kernels = [{
-        "name": "gauss_jordan_spd_solve",
-        "route": "cuda",
-        "source": "incubator_predictionio_torch/ops/csrc/gauss_jordan.cu",
-        "replaces": "incubator_predictionio_tpu/ops/pallas_kernels.py:137",
-        "also_replaces": "incubator_predictionio_tpu/ops/pallas_kernels.py:173",
-        "launches": main_path["launches"],
-        "max_abs_err": kv["max_abs_err"],
-        "shape": "n=512, k=32 (one main-path chunk)",
-        **main_t,
-        "full_side_n138493_k32": t[(ML20M[0], 32)],
-        "wide_n512_k128": t[(512, 128)],
-        "card": CARD,
-    }]
+
+    def entry(name, kind, replaces, serves, launches, shape, extra_shapes):
+        n, k = shape
+        row = t[shape]
+        return {
+            "name": name, "route": "cuda",
+            "source": "incubator_predictionio_torch/ops/csrc/gauss_jordan.cu",
+            "replaces": replaces, "serves": serves, "launches": launches,
+            "max_abs_err": kv["max_abs_err"][kind],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": f"n={n}, k={k}",
+            "other_shapes": {f"n={sn}, k={sk}": t[(sn, sk)]
+                             for sn, sk in extra_shapes},
+            "card": CARD,
+        }
+
+    kernels = [
+        entry("gauss_jordan_warp", "warp",
+              "incubator_predictionio_tpu/ops/pallas_kernels.py:137",
+              "k <= 32 (of _solve_lanes' k <= 96)",
+              main_path["launches"], (ML20M[0], 32), [(512, 32)]),
+        entry("gauss_jordan_wide", "wide",
+              "incubator_predictionio_tpu/ops/pallas_kernels.py:173",
+              "32 < k <= 128 (_solve_slabs_wide's 96 < k <= 128, and "
+              "_solve_lanes' 32 < k <= 96, pallas_kernels.py:137)",
+              wide_path["launches"], (8192, 128),
+              [(512, 64), (512, 96), (512, 128)]),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,14 @@ data layout are the reference's:
   (:mod:`.rowblocks`, the same slot order as the reference), so the per-row
   normal equations fall straight out of a batched [R, C, k] product.
 - One half-step solves (YᵀY·[implicit] + Σ_c y_c y_cᵀ + λ·c·I) x = Yᵀr per
-  row, 512 rows at a time (``_FUSED_CHUNK_ROWS``): gather the counterpart
-  rows (``index_select``), build the grams and right-hand sides (``bmm``),
-  add the ridge, and solve with :func:`.spd_solve.batched_spd_solve` — the
-  hand-written CUDA Gauss-Jordan kernel on the card. The bucket's
-  [R, k, k] normal equations are never materialized.
+  row. The gather of the counterpart rows (``index_select``) and the
+  grams and right-hand sides (``bmm``) go 512 rows at a time
+  (``_FUSED_CHUNK_ROWS``), written into one bucket-wide solve buffer of at
+  most ``_SOLVE_BUFFER_BYTES`` of grams; the ridge is added there and the
+  buffer is solved in one :func:`.spd_solve.batched_spd_solve` call — one
+  launch of the hand-written CUDA Gauss-Jordan kernel on the card. The
+  cap bounds live memory as the reference's chunking does (at rank 128 a
+  whole side's grams would be ~11 GB).
 - Rows longer than the overflow length (the heavy bucket) materialize their
   grams, take the virtual rows' grams by ``index_add_`` and are solved in
   one call.
@@ -69,6 +72,9 @@ _AUTO_ENTRIES_PER_STEP = 1 << 17
 _FUSED_CHUNK_ROWS = 512
 #: cap on the gathered [chunk, C, k] slab bytes per fused step
 _FUSED_SLAB_BYTES = 512 * 1024 * 1024
+#: cap on the [n, k, k] gram bytes of one solve buffer (one kernel launch):
+#: 131,072 systems at rank 32, 8,192 at rank 128
+_SOLVE_BUFFER_BYTES = _FUSED_SLAB_BYTES
 
 
 def _resolve_params(params: ALSParams) -> tuple[ALSParams, int]:
@@ -90,30 +96,36 @@ def _resolve_params(params: ALSParams) -> tuple[ALSParams, int]:
 
 
 def _grams_rows(p: torch.Tensor, val: Optional[torch.Tensor], *,
-                implicit: bool, alpha: float):
+                implicit: bool, alpha: float, out=None):
     """Per-row normal-equation contributions from gathered counterpart rows
-    p [R, C, k]: grams [R, k, k], rhs [R, k] (float32).
+    p [R, C, k]: grams [R, k, k], rhs [R, k] (float32), written into
+    ``out`` = (grams, rhs) when given (contiguous views of a solve buffer).
 
     Padding slots must already be zero rows in p (the sentinel row), so
     they contribute nothing. ``val=None``: binary ratings — every real
     entry is 1.0 and the per-entry weights collapse to scalars.
     """
+    R, _, k = p.shape
+    if out is None:
+        out = (torch.empty((R, k, k), dtype=p.dtype, device=p.device),
+               torch.empty((R, k), dtype=p.dtype, device=p.device))
+    grams, rhs = out
     pt = p.transpose(1, 2)  # [R, k, C]
     if implicit:
         # Hu-Koren-Volinsky: A = YᵀY + Yᵀ(C-I)Y + λ·c·I, b = YᵀCp, with
         # C-I = alpha·r on observed entries only (YᵀY is added later).
         if val is None:
-            grams = torch.bmm(pt * alpha, p)
-            rhs = (1.0 + alpha) * p.sum(dim=1)
+            torch.bmm(pt * alpha, p, out=grams)
+            torch.mul(p.sum(dim=1), 1.0 + alpha, out=rhs)
         else:
-            grams = torch.bmm(pt * (alpha * val)[:, None, :], p)
-            rhs = torch.bmm(pt, (1.0 + alpha * val)[:, :, None])[..., 0]
+            torch.bmm(pt * (alpha * val)[:, None, :], p, out=grams)
+            torch.bmm(pt, (1.0 + alpha * val)[:, :, None], out=rhs[:, :, None])
     else:
-        grams = torch.bmm(pt, p)
+        torch.bmm(pt, p, out=grams)
         if val is None:
-            rhs = p.sum(dim=1)
+            torch.sum(p, dim=1, out=rhs)
         else:
-            rhs = torch.bmm(pt, val[:, :, None])[..., 0]
+            torch.bmm(pt, val[:, :, None], out=rhs[:, :, None])
     return grams, rhs
 
 
@@ -136,10 +148,18 @@ def _fused_chunk_rows(C: int, k: int, entries_budget: Optional[int]) -> int:
     return chunk_r
 
 
+def _solve_buffer_rows(R: int, chunk_r: int, k: int) -> int:
+    """Rows of one bucket's solve buffer: whole chunks, as many as
+    ``_SOLVE_BUFFER_BYTES`` of [k, k] grams hold (at least one chunk), and
+    no more than the bucket has."""
+    cap = _SOLVE_BUFFER_BYTES // (k * k * 4)
+    return min(max(chunk_r, cap // chunk_r * chunk_r), max(R, 1))
+
+
 def solve_calls_per_half_step(plan: LayoutPlan, params: ALSParams) -> int:
-    """SPD-solve calls one half-step makes on this side: the fused chunks
+    """SPD-solve calls one half-step makes on this side: the solve buffers
     of every non-heavy bucket plus one for the heavy bucket. On the card
-    with rank ≤ 128 each call is one launch of the Gauss-Jordan kernel."""
+    with rank ≤ 128 each call is one launch of a Gauss-Jordan kernel."""
     params, entries = _resolve_params(params)
     budget = entries if params.chunk_tiles > 0 else None
     n_fused = len(plan.lengths) - (1 if plan.has_heavy_bucket else 0)
@@ -148,7 +168,7 @@ def solve_calls_per_half_step(plan: LayoutPlan, params: ALSParams) -> int:
         R = int(plan.bucket_rows[bi]) * plan.n_shards
         chunk_r = min(_fused_chunk_rows(int(plan.lengths[bi]), params.rank,
                                         budget), max(R, 1))
-        calls += -(-R // chunk_r)
+        calls += -(-R // _solve_buffer_rows(R, chunk_r, params.rank))
     return calls + (1 if plan.has_heavy_bucket else 0)
 
 
@@ -274,12 +294,24 @@ class ALSTrainer:
             R, C = colb.shape
             chunk_r = min(_fused_chunk_rows(C, k, self.entries_budget),
                           max(R, 1))
-            for s in range(0, R, chunk_r):
-                a, b = grams(colb[s:s + chunk_r],
-                             None if valb is None else valb[s:s + chunk_r])
-                n = a.shape[0]
-                out[base + s:base + s + n] = _ridge_solve(
-                    a, b, side.lam[base + s:base + s + n], yty)
+            buf_r = _solve_buffer_rows(R, chunk_r, k)
+            if R:
+                a_buf = torch.empty((buf_r, k, k), dtype=torch.float32,
+                                    device=y.device)
+                b_buf = torch.empty((buf_r, k), dtype=torch.float32,
+                                    device=y.device)
+            for s0 in range(0, R, buf_r):
+                m = min(buf_r, R - s0)
+                for s in range(s0, s0 + m, chunk_r):
+                    e = min(s + chunk_r, s0 + m)
+                    _grams_rows(gather(colb[s:e]),
+                                None if valb is None else valb[s:e],
+                                implicit=p.implicit_prefs, alpha=p.alpha,
+                                out=(a_buf[s - s0:e - s0],
+                                     b_buf[s - s0:e - s0]))
+                out[base + s0:base + s0 + m] = _ridge_solve(
+                    a_buf[:m], b_buf[:m],
+                    side.lam[base + s0:base + s0 + m], yty)
             base += R
 
         if plan.has_heavy_bucket:

@@ -4,8 +4,9 @@ Port of ``incubator_predictionio_tpu/ops/pallas_kernels.py``
 (``batched_spd_solve``, :197). For 1 ≤ k ≤ 128 the solve is the
 normalization-free Gauss-Jordan elimination of the reference:
 
-- on a CUDA tensor, the hand-written kernel ``csrc/gauss_jordan.cu``
-  (built with ``nvcc`` for ``sm_90a`` at first use, bound with ``ctypes``);
+- on a CUDA tensor, the hand-written kernels of ``csrc/gauss_jordan.cu``
+  (built with ``nvcc`` for ``sm_90a`` at first use, bound with ``ctypes``):
+  the warp kernel for k ≤ 32, the wide kernel for 32 < k ≤ 128;
 - on a CPU tensor, its plain PyTorch version :func:`gauss_jordan_plain`,
   the same arithmetic as the reference's ``_gj_eliminate`` (:37).
 
@@ -17,9 +18,8 @@ the plain version: it launches the kernel or raises.
 Padding follows the reference (:222-240): k is rounded up to a multiple
 of 8 with an identity diagonal in the padding, so padded coordinates solve
 to 0 and do not couple to the real ones. The batch needs no padding on the
-card: the kernel holds systems past the end as identity rows in registers
-and never stores them (the reference pads the batch with identity systems
-for its 512-wide slabs).
+card: both kernels loop over the systems there are (the reference pads the
+batch with identity systems for its 512- and 128-wide slabs).
 """
 
 from __future__ import annotations
@@ -28,8 +28,9 @@ import ctypes
 
 import torch
 
-#: largest k the Gauss-Jordan kernel takes (a k = 128 system is 66 KB of
-#: shared memory); larger systems take the Cholesky rule
+#: largest k the Gauss-Jordan kernels take (a k = 128 system is a 64 KB
+#: register tile of one 256-thread block); larger systems take the Cholesky
+#: rule
 MAX_GJ_K = 128
 
 
@@ -43,8 +44,16 @@ class LaunchCounter:
         self.count = 0
 
 
-#: one tick per launch of the Gauss-Jordan CUDA kernel, and nowhere else
+#: one tick per launch of either Gauss-Jordan CUDA kernel, and nowhere else
 gauss_jordan_launches = LaunchCounter()
+#: one tick per launch of the warp kernel (k ≤ 32)
+gauss_jordan_warp_launches = LaunchCounter()
+#: one tick per launch of the wide kernel (32 < k ≤ 128)
+gauss_jordan_wide_launches = LaunchCounter()
+
+#: largest k the warp kernel takes; the wide kernel takes the rest up to
+#: :data:`MAX_GJ_K`
+MAX_WARP_K = 32
 
 
 def _round_up(x: int, m: int) -> int:
@@ -98,7 +107,8 @@ def _kernel_lib():
 
 
 def build_kernel() -> None:
-    """Build and load the CUDA kernel now (it is otherwise built at first use)."""
+    """Build and load the CUDA kernels now (they are otherwise built at
+    first use)."""
     _kernel_lib()
 
 
@@ -118,8 +128,9 @@ def _pad(a: torch.Tensor, b: torch.Tensor, kp: int):
 
 
 def gauss_jordan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on contiguous, 16-byte aligned float32 CUDA
-    tensors (a [N, k, k], b [N, k], k a multiple of 8 in [8, 128])."""
+    """Launch the CUDA kernel for k (warp or wide) on contiguous, 16-byte
+    aligned float32 CUDA tensors (a [N, k, k], b [N, k], k a multiple of 8
+    in [8, 128])."""
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"CUDA kernel needs a and b on one CUDA device, got "
                          f"{a.device} and {b.device}")
@@ -153,6 +164,10 @@ def _launch(lib, a, b, x, index: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"gauss_jordan kernel launch failed: CUDA error {err}")
     gauss_jordan_launches.count += 1
+    if k <= MAX_WARP_K:
+        gauss_jordan_warp_launches.count += 1
+    else:
+        gauss_jordan_wide_launches.count += 1
     return x
 
 

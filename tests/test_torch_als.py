@@ -95,6 +95,41 @@ def test_explicit_chunk_budget_matches_reference():
     _assert_close(f_ref, f_port)
 
 
+@pytest.mark.parametrize("rank", [64, 128])
+def test_wide_rank_matches_reference(rank):
+    """The ranks the wide kernel serves on the card (32 < k ≤ 128); here
+    the plain Gauss-Jordan that it repeats, held to the reference. Every
+    row has fewer ratings than the rank, so its gram is singular but for
+    the ridge; λ = 0.1·n_ratings keeps the conditioning where two correct
+    float32 solvers agree to 2e-4 (at 0.01 they part by ~1e-3)."""
+    u, i, r, nu, ni = _ratings(n_users=60, n_items=40, nnz=800, seed=9)
+    f_ref, f_port = _both(u, i, r, nu, ni, rank=rank, num_iterations=2,
+                          reg=0.1, lambda_scaling="nratings")
+    _assert_close(f_ref, f_port)
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_solve_buffer_cap_keeps_factors_bit_identical(implicit, monkeypatch):
+    """Solving a bucket in many small buffers or in one buffer gives the
+    same factors bit for bit: every system is solved the same way."""
+    u, i, r, nu, ni = _ratings(n_users=300, n_items=120, nnz=4000, seed=4)
+    params = port_als.ALSParams(rank=8, num_iterations=2, reg=0.05,
+                                implicit_prefs=implicit, alpha=0.3,
+                                chunk_tiles=4, block_len=8)
+    runs = {}
+    for name, cap in (("small", 3 * 8 * 8 * 4), ("whole", 1 << 30)):
+        monkeypatch.setattr(port_als, "_SOLVE_BUFFER_BYTES", cap)
+        trainer = port_als.ALSTrainer(u, i, r, nu, ni, params, device="cpu")
+        trainer.iterate(2)
+        runs[name] = (trainer.x.clone(), trainer.y.clone(),
+                      trainer.solve_calls_per_iteration())
+    (x_s, y_s, calls_s), (x_w, y_w, calls_w) = runs["small"], runs["whole"]
+    assert calls_s > calls_w
+    assert calls_w == sum(
+        len(plan.lengths) for plan in (trainer.plan_u, trainer.plan_i))
+    assert torch.equal(x_s, x_w) and torch.equal(y_s, y_w)
+
+
 def test_rank_above_128_uses_cholesky():
     u, i, r, nu, ni = _ratings(n_users=20, n_items=15, nnz=200, seed=5)
     f_ref, f_port = _both(u, i, r, nu, ni, rank=130, num_iterations=1,
@@ -163,6 +198,14 @@ def test_solve_calls_match_the_layout(heavy, chunk_tiles, monkeypatch):
     trainer.iterate(2)
     assert trainer.solve_calls_per_iteration() > 2
     assert len(calls) == 2 * trainer.solve_calls_per_iteration()
+    # a cap of 5 grams per solve buffer: one buffer per chunk (a buffer
+    # holds at least one chunk), still the implied count
+    default_calls = trainer.solve_calls_per_iteration()
+    monkeypatch.setattr(port_als, "_SOLVE_BUFFER_BYTES", 5 * 4 * 4 * 4)
+    calls.clear()
+    trainer.iterate(1)
+    assert trainer.solve_calls_per_iteration() >= default_calls
+    assert len(calls) == trainer.solve_calls_per_iteration()
 
 
 def test_fresh_init_is_the_references():
