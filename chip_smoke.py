@@ -15,17 +15,38 @@ Phases (any failure exits non-zero; nothing is caught):
    events) of the kernel, the plain version and torch's batched Cholesky
    (the yardstick; the port never calls it) beside the kernel's bound.
 3. ALS on the card vs on the CPU (plain solve), ML-100K shape, rank 32 and
-   rank 128.
+   rank 128, explicit and implicit (binary and weighted).
 4. main path at full width: ML-20M-shaped synthetic ratings (138,493 users
    × 26,744 items × 20,000,263 ratings), rank 32, trained through the
    Recommendation engine's ALSAlgorithm; warp-kernel launches must equal
    the solve calls the layout implies; persist → restore → HTTP server →
-   ≥ 50 POST /queries.json; then the console's train → deploy → query on a
-   small events file, in subprocesses; one steady iteration profiled.
-5. train_rank128: the same ratings at rank 128 through the same engine, 2
+   ≥ 50 POST /queries.json; the train's ``timings`` hook (upload, kernel
+   load, device seconds: ``train_timings``); steady seconds per iteration
+   with the uint16 column narrowing and without it, in turns; one steady
+   iteration profiled.
+5. train_checkpointed / train_resumed: the same ratings with a snapshot
+   every iteration, then a crash after the step-2 snapshot and a resumed
+   train (launches equal to the implied counts, factors within 2e-4 of the
+   unchunked train), then a changed rating that must be refused.
+6. train_nan_guard: the guarded train (one iteration at a time) and a
+   small triple with a NaN rating that must fail naming the iteration.
+7. fold_in: a batch of 20,000 events (2,000 new users, 500 new items)
+   folded into the main path's model: 2 warp launches, card vs CPU at
+   2e-4, seconds per fold-in, the folded model served over HTTP.
+8. console: train → deploy → query; a checkpointed console train that
+   crashes and its ``--resume``; the Similar-Product template's own
+   engine.json values through train → deploy → query.
+9. similar_product: bench_templates.py's config 3 (100,000 users × 20,000
+   items × 5,000,000 views, rank 32, 10 iterations, implicit) through the
+   Similar-Product engine, 20 item categories from $set events; persist →
+   restore → ≥ 50 filtered POST /queries.json held to a host cosine top-k.
+10. train_rank128: the same ratings at rank 128 through the same engine, 2
    iterations: wide-kernel launches equal to the implied count and no
    warp-kernel launch, the RMSE check, steady seconds per iteration, one
-   iteration profiled.
+   iteration profiled; one fold-in batch (2 wide launches, card vs CPU).
+
+Each path runs with every launch counter at 0 just before it and is read
+just after; the kernels line sums the paths' launches per kernel.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Every printed line carries the card's name
@@ -46,19 +67,28 @@ import time
 import numpy as np
 import torch
 
-from incubator_predictionio_torch.controller import EngineParams
+from incubator_predictionio_torch.common.nan_guard import NaNGuardError
+from incubator_predictionio_torch.controller import Engine, EngineParams
 from incubator_predictionio_torch.data.bimap import IdentityBiMap
-from incubator_predictionio_torch.models.recommendation import (
-    RecommendationEngine, TrainingData,
+from incubator_predictionio_torch.data.events import (
+    aggregate_properties, find_ratings, read_events,
 )
-from incubator_predictionio_torch.ops import _build, spd_solve
+from incubator_predictionio_torch.models import similar_product
+from incubator_predictionio_torch.models.recommendation import (
+    ALSModel, RecommendationEngine, TrainingData,
+)
+from incubator_predictionio_torch.ops import _build, als, spd_solve
 from incubator_predictionio_torch.ops.als import (
     ALSParams, ALSTrainer, predict_rmse, solve_calls_per_half_step, train_als,
 )
 from incubator_predictionio_torch.ops.rowblocks import plan_layout
+from incubator_predictionio_torch.workflow.checkpoint import (
+    CheckpointHook, CheckpointIncompatibleError,
+)
 from incubator_predictionio_torch.workflow.context import WorkflowContext
 from incubator_predictionio_torch.workflow.create_server import EngineServer
 from incubator_predictionio_torch.workflow.persist import load_models, save_models
+from incubator_predictionio_torch.workflow.workflow_params import WorkflowParams
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-4  # tests/test_pallas_kernels.py:41
@@ -69,7 +99,15 @@ WIDE_ITERS = 2
 CHUNKED_LAUNCHES_PER_ITERATION = 348  # one solve launch per 512-row chunk
 ML20M = (138_493, 26_744, 20_000_263)  # bench.py SCALES["ml20m"]
 ML100K = (943, 1682, 100_000)  # bench.py SCALES["ml100k"]
+#: bench_templates.py config 3 (Similar-Product): users, items, views
+SIMILAR = (100_000, 20_000, 5_000_000)
+SIMILAR_CATEGORIES = 20
+#: fold-in batches (new users, new items, events) at rank 32 and rank 128
+FOLD_IN = (2_000, 500, 20_000)
+FOLD_IN_RANK128 = (200, 50, 2_000)
 CARD = ""  # "name, power limit" from nvidia-smi, set in phase 0
+#: each path's kernel launches, counted from 0 over that path's run
+PATH_LAUNCHES: dict = {}
 
 
 def emit(phase: str, **fields) -> None:
@@ -172,6 +210,48 @@ def launches() -> dict:
     return {"total": spd_solve.gauss_jordan_launches.count,
             "warp": spd_solve.gauss_jordan_warp_launches.count,
             "wide": spd_solve.gauss_jordan_wide_launches.count}
+
+
+def record(path: str, got: dict) -> None:
+    """Keep one path's launches (counted from 0 over its run); a path that
+    launched no kernel fails."""
+    check(got["warp"] + got["wide"] > 0, f"path {path} launched no kernel")
+    PATH_LAUNCHES[path] = {"warp": got["warp"], "wide": got["wide"]}
+
+
+def implied_launches(u, i, n_users: int, n_items: int, params: ALSParams,
+                     iterations: int) -> tuple[int, int, int]:
+    """(launches, user calls, item calls per iteration) the layout implies."""
+    calls_u = solve_calls_per_half_step(
+        plan_layout(np.bincount(u, minlength=n_users)), params)
+    calls_i = solve_calls_per_half_step(
+        plan_layout(np.bincount(i, minlength=n_items)), params)
+    return iterations * (calls_u + calls_i), calls_u, calls_i
+
+
+def max_err(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def within(a: np.ndarray, b: np.ndarray) -> bool:
+    return bool(np.allclose(a, b, rtol=TOL, atol=TOL))
+
+
+def als_engine(rank: int, iterations: int, lam: float,
+               scaling: str = "plain"):
+    """(engine, engine.json, ALSAlgorithm) of the Recommendation template."""
+    engine_json = {
+        "engineFactory": "incubator_predictionio_torch.models.recommendation."
+                         "RecommendationEngine",
+        "datasource": {"params": {"appName": "ml20m-synth"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": rank, "numIterations": iterations, "lambda": lam,
+            "lambdaScaling": scaling}}],
+    }
+    engine = RecommendationEngine()()
+    _, _, algo_list, _ = engine.make_components(
+        EngineParams.from_json(engine_json))
+    return engine, engine_json, algo_list[0][1]
 
 
 def synth_ratings(n_users: int, n_items: int, nnz: int, seed: int = 7):
@@ -298,18 +378,32 @@ def phase_als_card_vs_cpu() -> None:
     Rank 128 (the wide kernel) runs with λ = 0.1·n_ratings, 2 iterations:
     most items have fewer ratings than the rank, and at 0.01·n_ratings two
     correct float32 solvers part by ~1e-3 already on the CPU
-    (tests/test_torch_als.py)."""
+    (tests/test_torch_als.py).
+
+    Implicit ALS (the Similar-Product path: the shared YᵀY term and the
+    confidence weights 1 + α·r) is held at 2e-4 at the main path's plain
+    λ = 0.01, binary (every rating 1, as views) and weighted: the full YᵀY
+    keeps every system well conditioned."""
     u, i, r = synth_ratings(*ML100K, seed=11)
-    for rank, iters, reg, scaling, strict in (
-            (RANK, 3, 0.01, "nratings", True),
-            (RANK, 3, 0.01, "plain", False),
-            (WIDE_RANK, 2, 0.1, "nratings", True)):
+    ones = np.ones_like(r)
+    for rank, iters, reg, scaling, strict, implicit, ratings in (
+            (RANK, 3, 0.01, "nratings", True, False, r),
+            (RANK, 3, 0.01, "plain", False, False, r),
+            (WIDE_RANK, 2, 0.1, "nratings", True, False, r),
+            (RANK, 3, 0.01, "plain", True, True, ones),
+            (RANK, 3, 0.01, "plain", True, True, r)):
         params = ALSParams(rank=rank, num_iterations=iters, reg=reg, seed=3,
-                           lambda_scaling=scaling)
+                           lambda_scaling=scaling, implicit_prefs=implicit,
+                           alpha=1.0)
+        reset_launches()
         t0 = time.perf_counter()
-        f_gpu = train_als(u, i, r, ML100K[0], ML100K[1], params, device="cuda")
+        f_gpu = train_als(u, i, ratings, ML100K[0], ML100K[1], params,
+                          device="cuda")
         gpu_s = time.perf_counter() - t0
-        f_cpu = train_als(u, i, r, ML100K[0], ML100K[1], params, device="cpu")
+        got = launches()
+        check(got["total"] > 0, f"ALS on the card launched no kernel: {got}")
+        f_cpu = train_als(u, i, ratings, ML100K[0], ML100K[1], params,
+                          device="cpu")
         err_u = float(np.abs(f_gpu.user_factors - f_cpu.user_factors).max())
         err_i = float(np.abs(f_gpu.item_factors - f_cpu.item_factors).max())
         rel = max(
@@ -321,7 +415,9 @@ def phase_als_card_vs_cpu() -> None:
               and np.allclose(f_gpu.item_factors, f_cpu.item_factors,
                               rtol=TOL, atol=TOL))
         emit("als_card_vs_cpu", shape=ML100K, rank=rank, iterations=iters,
-             reg=reg, lambda_scaling=scaling, max_abs_err_user=err_u,
+             reg=reg, lambda_scaling=scaling, implicit=implicit,
+             binary=bool(implicit and ratings is ones), kernel_launches=got,
+             max_abs_err_user=err_u,
              max_abs_err_item=err_i, rel_norm_err=rel, within_2e4=ok,
              held_to="rtol=atol=2e-4" if strict else "rel_norm_err<1e-2",
              card_train_seconds=gpu_s)
@@ -342,21 +438,51 @@ def _post(conn: http.client.HTTPConnection, obj) -> tuple[int, dict, float]:
     return resp.status, json.loads(data), (time.perf_counter() - t0) * 1e3
 
 
+def serve_checks(deployment, queries, check_answer) -> dict:
+    """Serve ``deployment`` over HTTP on a free port, POST every query on
+    one keep-alive connection, hold each answer to ``check_answer(query,
+    result)``; returns the latency percentiles (the first query, which
+    opens the connection, left out)."""
+    server = EngineServer(deployment, "127.0.0.1", 0)
+    host, port = server.start()
+    conn = http.client.HTTPConnection(host, port, timeout=30)
+    lat = []
+    try:
+        for q in queries:
+            status, res, ms = _post(conn, q)
+            check(status == 200, f"query status {status}: {res}")
+            check_answer(q, res)
+            lat.append(ms)
+    finally:
+        conn.close()
+        server.stop()
+    lat_s = np.sort(np.asarray(lat[1:]))
+    return {"queries": len(queries), "p50_ms": float(np.percentile(lat_s, 50)),
+            "p99_ms": float(np.percentile(lat_s, 99))}
+
+
+def check_user_answer(uf: np.ndarray, itf: np.ndarray, user: int,
+                      res: dict, num: int = 10) -> None:
+    """Against the host: the served scores are the dot products and no
+    item outside the answer scores higher."""
+    s = itf @ uf[user]
+    got = [int(e["item"]) for e in res["itemScores"]]
+    scores = [e["score"] for e in res["itemScores"]]
+    check(len(got) == num and scores == sorted(scores, reverse=True),
+          f"bad answer {res}")
+    check(np.allclose(s[got], scores, rtol=1e-4, atol=1e-4),
+          "served scores differ from the host's")
+    check(np.sort(s)[::-1][num - 1] <= scores[-1] + 1e-4,
+          "served top-k misses a better item")
+
+
 def phase_main_path(workdir: str) -> dict:
     n_users, n_items, nnz = ML20M
     u, i, r = synth_ratings(n_users, n_items, nnz)
-    engine_json = {
-        "engineFactory": "incubator_predictionio_torch.models.recommendation."
-                         "RecommendationEngine",
-        "datasource": {"params": {"appName": "ml20m-synth"}},
-        "algorithms": [{"name": "als", "params": {
-            "rank": RANK, "numIterations": ITERS, "lambda": 0.01}}],
-    }
-    engine = RecommendationEngine()()
-    params = EngineParams.from_json(engine_json)
-    _, _, algo_list, _ = engine.make_components(params)
-    algo = algo_list[0][1]
+    engine, engine_json, algo = als_engine(RANK, ITERS, 0.01)
+    # the product path with a benchmark's timings dict planted on it
     ctx = WorkflowContext(device="cuda")
+    ctx.bench_timings = {}
     td = TrainingData(u, i, r, IdentityBiMap(n_users), IdentityBiMap(n_items))
 
     # the launches the layout implies: fused chunks + heavy bucket, per side
@@ -374,13 +500,14 @@ def phase_main_path(workdir: str) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches_train = launches()
+    record("main", launches_train)
 
     uf, itf = model.factors.user_factors, model.factors.item_factors
     check(uf.shape == (n_users, RANK) and itf.shape == (n_items, RANK),
           f"factor shapes {uf.shape} {itf.shape}")
     check(bool(np.isfinite(uf).all() and np.isfinite(itf).all()),
           "non-finite factors")
-    sample = np.random.default_rng(0).choice(nnz, 1_000_000, replace=False)
+    sample = np.random.default_rng(0).choice(nnz, min(nnz, 1_000_000), replace=False)
     rmse = predict_rmse(model.factors, u[sample], i[sample], r[sample])
     check(rmse < float(np.std(r)), f"train RMSE {rmse} not below std")
     emit("train", events=nnz, iterations=ITERS, rank=RANK,
@@ -398,6 +525,12 @@ def phase_main_path(workdir: str) -> dict:
     check(calls_u + calls_i < CHUNKED_LAUNCHES_PER_ITERATION,
           f"{calls_u + calls_i} launches per iteration, not fewer than "
           f"one per chunk")
+    tm = ctx.bench_timings
+    check(set(tm) == {"upload_seconds", "compile_seconds",
+                      "device_train_seconds"}, f"timings keys {sorted(tm)}")
+    emit("train_timings", **tm, iterations=ITERS,
+         train_events_per_s_device=nnz * ITERS / tm["device_train_seconds"],
+         seconds_per_iteration=tm["device_train_seconds"] / ITERS)
 
     # persist → restore → serve
     path = os.path.join(workdir, "ml20m_model.npz")
@@ -409,78 +542,484 @@ def phase_main_path(workdir: str) -> dict:
     deployment.models[0].warm_up()
     check(np.array_equal(deployment.models[0].factors.item_factors, itf),
           "restored factors differ")
-    server = EngineServer(deployment, "127.0.0.1", 0)
-    host, port = server.start()
-    conn = http.client.HTTPConnection(host, port, timeout=30)
     rng = np.random.default_rng(1)
-    lat = []
-    n_queries = 200
-    try:
-        for q in range(n_queries):
-            user = str(int(rng.integers(0, n_users)))
-            status, res, ms = _post(conn, {"user": user, "num": 10})
-            check(status == 200, f"query status {status}: {res}")
-            lat.append(ms)
-            if q < 5:
-                # against the host: the served scores are the dot products
-                # and no item outside the answer scores higher
-                s = itf @ uf[int(user)]
-                got = [int(e["item"]) for e in res["itemScores"]]
-                scores = [e["score"] for e in res["itemScores"]]
-                check(len(got) == 10 and scores == sorted(scores, reverse=True),
-                      f"bad answer {res}")
-                check(np.allclose(s[got], scores, rtol=1e-4, atol=1e-4),
-                      "served scores differ from the host's")
-                check(np.sort(s)[::-1][9] <= scores[-1] + 1e-4,
-                      "served top-10 misses a better item")
-        status, res, _ = _post(conn, {"user": "0", "items": ["5", "nope", "3"]})
-        check(status == 200 and len(res["itemScores"]) == 3, f"ranking {res}")
-    finally:
-        conn.close()
-        server.stop()
-    lat_s = np.sort(np.asarray(lat[1:]))  # first query opens the connection
-    emit("serve", queries=n_queries, p50_ms=float(np.percentile(lat_s, 50)),
-         p99_ms=float(np.percentile(lat_s, 99)), catalog=n_items)
+    users = [int(rng.integers(0, n_users)) for _ in range(200)]
+    checked = iter(range(5))
 
-    # steady state: the same training state, timed iterations only
+    def answer(q, res):
+        if "items" in q:  # ranking mode: the given candidates, reordered
+            check(len(res["itemScores"]) == 3, f"ranking {res}")
+        elif next(checked, None) is not None:  # the first five: the host's
+            check_user_answer(uf, itf, int(q["user"]), res)
+
+    lat = serve_checks(deployment, [{"user": str(x), "num": 10}
+                                    for x in users]
+                       + [{"user": "0", "items": ["5", "nope", "3"]}], answer)
+    emit("serve", **lat, catalog=n_items)
+
+    # steady state: the same training state, timed iterations only; the
+    # user side's columns (26,744 item slots) as uint16 and as int32, in
+    # turns
     trainer = ALSTrainer(u, i, r, n_users, n_items, als_params, device="cuda")
-    trainer.iterate(1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.iterate(ITERS)
-    torch.cuda.synchronize()
-    steady_s = time.perf_counter() - t0
+    check(trainer.side_u.narrow and not trainer.side_i.narrow,
+          "uint16 narrowing: the user side only at ML-20M")
+    narrow_max = als._NARROW_COL_MAX
+    als._NARROW_COL_MAX = -1
+    try:
+        trainer_int32 = ALSTrainer(u, i, r, n_users, n_items, als_params,
+                                   device="cuda")
+    finally:
+        als._NARROW_COL_MAX = narrow_max
+    check(not trainer_int32.side_u.narrow, "int32 trainer narrowed")
+    runs = {"uint16": [], "int32": []}
+    for t in (trainer, trainer_int32):
+        t.iterate(1)
+    for _ in range(2):
+        for name, t in (("uint16", trainer), ("int32", trainer_int32)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.iterate(ITERS)
+            torch.cuda.synchronize()
+            runs[name].append((time.perf_counter() - t0) / ITERS)
+    del trainer_int32
+    steady_s = runs["uint16"][0] * ITERS
     emit("train_steady", events=nnz, iterations=ITERS,
          seconds=steady_s, train_events_per_s=nnz * ITERS / steady_s,
-         seconds_per_iteration=steady_s / ITERS)
+         seconds_per_iteration=steady_s / ITERS,
+         seconds_per_iteration_uint16_columns=runs["uint16"],
+         seconds_per_iteration_int32_columns=runs["int32"],
+         train_events_per_s_device_timings=nnz * ITERS
+         / tm["device_train_seconds"])
     profile_iteration(trainer)
+    del trainer
     return {"launches": launches_train["warp"], "expected": expected,
-            "ratings": (u, i, r)}
+            "ratings": (u, i, r), "als_params": als_params,
+            "calls_per_iteration": calls_u + calls_i, "model": model,
+            "engine": engine, "engine_json": engine_json, "algo": algo}
+
+
+class _InjectedCrash(RuntimeError):
+    pass
+
+
+class _CrashAfterStep2(CheckpointHook):
+    """A hook whose run dies right after its step-2 snapshot is on disk."""
+
+    def save(self, step, tree):
+        super().save(step, tree)
+        if step == 2:
+            raise _InjectedCrash("crash after the step-2 snapshot")
+
+
+def phase_train_checkpointed(workdir: str, main: dict) -> None:
+    """A snapshot every iteration, then a crash and a resume, then data
+    that changed. On the card chunked and unchunked trains are not bit
+    identical (the heavy bucket's index_add_ uses atomics), so the factors
+    are held to 2e-4 and the largest gap reported."""
+    n_users, n_items, _ = ML20M
+    u, i, r = main["ratings"]
+    params = main["als_params"]
+    per_iter = main["calls_per_iteration"]
+    ref = main["model"].factors
+
+    full_dir = os.path.join(workdir, "ckpt_full")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = train_als(u, i, r, n_users, n_items, params, device="cuda",
+                     checkpoint_hook=CheckpointHook(full_dir, every_n=1,
+                                                    max_to_keep=ITERS))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launches()
+    record("train_checkpointed", got)
+    steps = sorted(os.listdir(full_dir))
+    err = max(max_err(full.user_factors, ref.user_factors),
+              max_err(full.item_factors, ref.item_factors))
+    ok = (within(full.user_factors, ref.user_factors)
+          and within(full.item_factors, ref.item_factors))
+    emit("train_checkpointed", iterations=ITERS, every_n=1,
+         kernel_launches=got, expected_launches=ITERS * per_iter,
+         snapshots=steps, train_seconds=seconds,
+         max_abs_err_vs_unchunked=err, within_2e4=ok)
+    check(got["warp"] == ITERS * per_iter == got["total"],
+          f"checkpointed launches {got} != implied {ITERS * per_iter}")
+    check(steps == [f"{s}.npz" for s in range(1, ITERS)],
+          f"snapshots {steps}")
+    check(ok, f"checkpointed factors differ from the unchunked: {err}")
+
+    crash_dir = os.path.join(workdir, "ckpt_crash")
+    try:
+        train_als(u, i, r, n_users, n_items, params, device="cuda",
+                  checkpoint_hook=_CrashAfterStep2(crash_dir, every_n=1))
+        crashed = False
+    except _InjectedCrash:
+        crashed = True
+    check(crashed, "the injected crash did not happen")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = train_als(u, i, r, n_users, n_items, params, device="cuda",
+                        checkpoint_hook=CheckpointHook(crash_dir, every_n=1),
+                        resume=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launches()
+    record("train_resumed", got)
+    expected = (ITERS - 2) * per_iter
+    err = max(max_err(resumed.user_factors, full.user_factors),
+              max_err(resumed.item_factors, full.item_factors))
+    ok = (within(resumed.user_factors, full.user_factors)
+          and within(resumed.item_factors, full.item_factors))
+    emit("train_resumed", resumed_from_step=2, iterations=ITERS,
+         kernel_launches=got, expected_launches=expected,
+         train_seconds=seconds, max_abs_err_vs_uninterrupted=err,
+         within_2e4=ok)
+    check(got["warp"] == expected == got["total"],
+          f"resumed launches {got} != implied {expected}")
+    check(ok, f"resumed factors differ from the uninterrupted: {err}")
+
+    changed = r.copy()
+    changed[0] += 0.5
+    try:
+        train_als(u, i, changed, n_users, n_items, params, device="cuda",
+                  checkpoint_hook=CheckpointHook(crash_dir, every_n=1),
+                  resume=True)
+        refused = ""
+    except CheckpointIncompatibleError as e:
+        refused = str(e)
+    emit("train_resume_changed_data", refused=refused)
+    check("fingerprint" in refused, f"changed data was not refused: {refused!r}")
+
+
+def phase_train_nan_guard(main: dict) -> None:
+    n_users, n_items, nnz = ML20M
+    u, i, r = main["ratings"]
+    algo = main["algo"]
+    ref = main["model"].factors
+    ctx = WorkflowContext(device="cuda")
+    ctx.workflow_params = WorkflowParams(nan_guard=True)
+    td = TrainingData(u, i, r, IdentityBiMap(n_users), IdentityBiMap(n_items))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = algo.train(ctx, td)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launches()
+    record("train_nan_guard", got)
+    expected = ITERS * main["calls_per_iteration"]
+    err = max(max_err(model.factors.user_factors, ref.user_factors),
+              max_err(model.factors.item_factors, ref.item_factors))
+    ok = (within(model.factors.user_factors, ref.user_factors)
+          and within(model.factors.item_factors, ref.item_factors))
+
+    rng = np.random.default_rng(4)
+    su = rng.integers(0, 300, 5000).astype(np.int32)
+    si = rng.integers(0, 200, 5000).astype(np.int32)
+    sr = (rng.integers(1, 11, 5000) / 2.0).astype(np.float32)
+    sr[17] = np.nan
+    try:
+        algo.train(ctx, TrainingData(su, si, sr, IdentityBiMap(300),
+                                     IdentityBiMap(200)))
+        raised = ""
+    except NaNGuardError as e:
+        raised = str(e)
+    emit("train_nan_guard", iterations=ITERS, kernel_launches=got,
+         expected_launches=expected, train_seconds=seconds,
+         train_events_per_s_end_to_end=nnz * ITERS / seconds,
+         max_abs_err_vs_unguarded=err, within_2e4=ok, nan_input_error=raised)
+    check(got["warp"] == expected == got["total"],
+          f"guarded launches {got} != implied {expected}")
+    check(ok, f"guarded factors differ from the unguarded: {err}")
+    check("stage: algorithm[als], iteration 1:" in raised,
+          f"NaN rating not caught at iteration 1: {raised!r}")
+
+
+def fold_in_events(n_users: int, n_items: int, new_users: int,
+                   new_items: int, existing: int, seed: int) -> list:
+    """One fold-in batch: ``new_users`` new users with 5 events each on
+    known items, ``new_items`` new items with 4 events each from known
+    users, and ``existing`` events between known users and items. New ids
+    are the next consecutive integers, so the identity maps extend."""
+    rng = np.random.default_rng(seed)
+
+    def rate(user, item):
+        return {"event": "rate", "entityType": "user", "entityId": str(user),
+                "targetEntityType": "item", "targetEntityId": str(item),
+                "properties": {"rating": float(rng.integers(1, 11)) / 2.0}}
+
+    def known_item():
+        return min(int(n_items * rng.random() ** 2), n_items - 1)
+
+    events = [rate(n_users + j, known_item())
+              for j in range(new_users) for _ in range(5)]
+    events += [rate(int(rng.integers(n_users)), n_items + j)
+               for j in range(new_items) for _ in range(4)]
+    events += [rate(int(rng.integers(n_users)), known_item())
+               for _ in range(existing)]
+    return events
+
+
+def fold_in_gap(algo, model, events) -> tuple:
+    """Fold ``events`` into ``model`` on the card and on the CPU (plain
+    solve): (card's folded model, max abs gaps, relative-norm gap, within
+    2e-4)."""
+    folded = algo.fold_in(model, events)
+    on_cpu = algo.fold_in(ALSModel(model.factors, model.users, model.items,
+                                   device=torch.device("cpu")), events)
+    pairs = [(folded.factors.user_factors, on_cpu.factors.user_factors),
+             (folded.factors.item_factors, on_cpu.factors.item_factors)]
+    err = {"user": max_err(*pairs[0]), "item": max_err(*pairs[1])}
+    rel = max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
+              for a, b in pairs)
+    return folded, err, rel, all(within(a, b) for a, b in pairs)
+
+
+def phase_fold_in(phase: str, algo, model, events, kernel: str,
+                  new_users: int, new_items: int, held_algo=None,
+                  timed_runs: int = 3):
+    """One batch folded into ``model`` on the card (2 launches of
+    ``kernel``: items, then users), then ``timed_runs`` timed fold-ins.
+    Card vs CPU (plain solve): held at 2e-4 under ``algo``, or, where
+    ``algo``'s λ leaves the new rows' cold-start systems nearly singular
+    (λ = 0.01 with 4-5 events against rank 32), reported and held to a
+    relative-norm gap of 1e-2 as the plain-λ ALS case is, with the same
+    batch under ``held_algo`` (λ = 0.1·n_ratings) held at 2e-4."""
+    n_users, n_items = len(model.users), len(model.items)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    folded = algo.fold_in(model, events)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = launches()
+    record(phase, got)
+    check(got[kernel] == 2 == got["total"],
+          f"fold-in launches {got}, not 2 of the {kernel} kernel")
+    check(len(folded.users) == n_users + new_users
+          and len(folded.items) == n_items + new_items,
+          f"folded maps {len(folded.users)} users, {len(folded.items)} items")
+    check(folded.device.type == "cuda" and folded._dev_items is None,
+          "the folded model is not a cold model on the card")
+    check(bool(np.isfinite(folded.factors.user_factors).all()
+               and np.isfinite(folded.factors.item_factors).all()),
+          "non-finite folded factors")
+    runs = []
+    for _ in range(timed_runs):
+        t0 = time.perf_counter()
+        algo.fold_in(model, events)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    profile_call(lambda: algo.fold_in(model, events), phase + "_profile")
+    _, err, rel, ok = fold_in_gap(algo, model, events)
+    p = algo.params
+    gaps = {"reg": p.reg, "lambda_scaling": p.lambda_scaling,
+            "max_abs_err_card_vs_cpu": err, "rel_norm_err": rel,
+            "within_2e4": ok}
+    if held_algo is not None:
+        _, h_err, h_rel, h_ok = fold_in_gap(held_algo, model, events)
+        held = {"reg": held_algo.params.reg,
+                "lambda_scaling": held_algo.params.lambda_scaling,
+                "max_abs_err_card_vs_cpu": h_err, "rel_norm_err": h_rel,
+                "within_2e4": h_ok}
+    emit(phase, events=len(events), new_users=new_users, new_items=new_items,
+         rank=folded.factors.user_factors.shape[1], kernel_launches=got,
+         seconds_first=first_s, seconds_runs=runs, card_vs_cpu=gaps,
+         **({} if held_algo is None else {"card_vs_cpu_held": held}))
+    if held_algo is None:
+        check(ok, f"fold-in on the card differs from the CPU's: {err}")
+    else:
+        check(rel < 1e-2, f"fold-in drift {rel} (relative norm)")
+        check(h_ok, f"fold-in on the card differs from the CPU's at "
+                    f"λ = 0.1·n_ratings: {h_err}")
+    return folded
+
+
+def phase_fold_in_main(workdir: str, main: dict) -> None:
+    """The main path's rank-32 model folds 20,000 events; the folded model
+    is persisted, restored and served, and new users get answers."""
+    n_users, n_items, _ = ML20M
+    new_users, new_items, n_events = FOLD_IN
+    events = fold_in_events(n_users, n_items, new_users, new_items,
+                            n_events - 5 * new_users - 4 * new_items, seed=8)
+    algo, engine = main["algo"], main["engine"]
+    folded = phase_fold_in("fold_in", algo, main["model"], events, "warp",
+                           new_users, new_items,
+                           held_algo=als_engine(RANK, ITERS, 0.1,
+                                                "nratings")[2])
+    path = os.path.join(workdir, "ml20m_folded.npz")
+    save_models(path, main["engine_json"],
+                [algo.prepare_model_for_persistence(folded)])
+    engine_json, stored = load_models(path)
+    deployment = engine.prepare_deployment(
+        WorkflowContext(device="cuda"), EngineParams.from_json(engine_json),
+        stored)
+    deployment.models[0].warm_up()
+    uf, itf = folded.factors.user_factors, folded.factors.item_factors
+    queries = [{"user": str(n_users + j), "num": 10}
+               for j in range(0, new_users, max(1, new_users // 20))]
+    lat = serve_checks(deployment, queries, lambda q, res: check_user_answer(
+        uf, itf, int(q["user"]), res))
+    emit("fold_in_serve", new_user_queries=len(queries), **lat,
+         catalog=len(folded.items))
+
+
+def _cosine_answer_check(itf_normed: np.ndarray, item_factors: np.ndarray,
+                         cats: np.ndarray):
+    """A host cosine top-k for a Similar-Product answer: the query items'
+    normalized vectors summed, scored against the normalized catalog, the
+    category / whiteList / blackList / query-item rules applied."""
+
+    def check_answer(q, res):
+        qidx = [int(x) for x in q["items"]]
+        qv = item_factors[qidx]
+        qv = qv / (np.linalg.norm(qv, axis=1, keepdims=True) + 1e-9)
+        s = itf_normed @ qv.sum(axis=0)
+        allowed = np.isin(cats, [int(c[1:]) for c in q["categories"]])
+        if q.get("whiteList"):
+            white = np.zeros(len(s), bool)
+            white[[int(x) for x in q["whiteList"] if x.isdigit()]] = True
+            allowed &= white
+        for x in q.get("blackList", []):
+            allowed[int(x)] = False
+        allowed[qidx] = False
+        got = [int(e["item"]) for e in res["itemScores"]]
+        scores = [e["score"] for e in res["itemScores"]]
+        check(len(got) == min(q["num"], int(allowed.sum())),
+              f"{len(got)} answers for {int(allowed.sum())} allowed items")
+        check(bool(allowed[got].all()), f"an excluded item was returned: {q}")
+        check(not set(got) & set(qidx), "a query item was returned")
+        check(scores == sorted(scores, reverse=True), "answer not ordered")
+        check(np.allclose(s[got], scores, rtol=1e-4, atol=1e-4),
+              "served scores differ from the host's cosine")
+        best = np.sort(s[allowed])[::-1]
+        check(len(got) == 0 or best[len(got) - 1] <= scores[-1] + 1e-4,
+              "served top-k misses a better allowed item")
+
+    return check_answer
+
+
+def phase_similar_product(workdir: str) -> None:
+    """bench_templates.py config 3 through the Similar-Product engine's
+    algorithm: the views drawn as there (seed 2), the categories replayed
+    from one $set event per item; the engine's data source is the port's
+    event reader, so this phase hands the drawn triple to the algorithm as
+    the benchmark does."""
+    n_users, n_items, nnz = SIMILAR
+    rng = np.random.default_rng(2)
+    u = rng.integers(0, n_users, nnz).astype(np.int32)
+    i = np.minimum((n_items * rng.random(nnz) ** 2).astype(np.int32),
+                   n_items - 1)
+    r = np.ones(nnz, np.float32)
+    cats = np.random.default_rng(3).integers(0, SIMILAR_CATEGORIES, n_items)
+    set_events = [{"event": "$set", "entityType": "item", "entityId": str(j),
+                   "properties": {"categories": [f"c{cats[j]}"]}}
+                  for j in range(n_items)]
+
+    class ViewsSource(similar_product.SimilarProductDataSource):
+        def read_training(self, ctx):
+            categories = {k: set(v["categories"]) for k, v in
+                          aggregate_properties(ctx.events, "item").items()}
+            return similar_product.TrainingData(
+                u, i, r, IdentityBiMap(n_users), IdentityBiMap(n_items),
+                categories)
+
+    sp_engine = similar_product.SimilarProductEngine()()
+    engine = Engine(data_source_class=ViewsSource,
+                    algorithm_class_map=sp_engine.algorithm_class_map)
+    engine_json = {
+        "engineFactory": "incubator_predictionio_torch.models."
+                         "similar_product.SimilarProductEngine",
+        "algorithms": [{"name": "als", "params": {
+            "rank": RANK, "numIterations": 10, "lambda": 0.01,
+            "alpha": 1.0}}]}
+    params = EngineParams.from_json(engine_json)
+    # the algorithm's ALS parameters (its default seed 3)
+    als_params = ALSParams(rank=RANK, num_iterations=10, reg=0.01,
+                           implicit_prefs=True, alpha=1.0, seed=3)
+    expected, calls_u, calls_i = implied_launches(u, i, n_users, n_items,
+                                                  als_params, 10)
+    ctx = WorkflowContext(events=set_events, device="cuda")
+    ctx.bench_timings = {}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = engine.train(ctx, params)[0]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    got = launches()
+    record("similar_product", got)
+    itf = model.factors.item_factors
+    check(itf.shape == (n_items, RANK)
+          and model.factors.user_factors.shape == (n_users, RANK),
+          f"factor shapes {model.factors.user_factors.shape} {itf.shape}")
+    check(bool(np.isfinite(itf).all()
+               and np.isfinite(model.factors.user_factors).all()),
+          "non-finite Similar-Product factors")
+    tm = ctx.bench_timings
+    emit("similar_product_train", shape=SIMILAR, rank=RANK, iterations=10,
+         implicit=True, kernel_launches=got, expected_launches=expected,
+         solve_calls_per_iteration={"user": calls_u, "item": calls_i},
+         train_seconds=train_s, timings=tm,
+         seconds_per_iteration=tm["device_train_seconds"] / 10,
+         train_events_per_s_device=nnz * 10 / tm["device_train_seconds"],
+         categories=len(model.item_categories))
+    check(got["warp"] == expected == got["total"],
+          f"Similar-Product launches {got} != implied {expected}")
+    check(len(model.item_categories) == n_items, "categories not replayed")
+    trainer = ALSTrainer(u, i, r, n_users, n_items, als_params, device="cuda")
+    trainer.iterate(1)
+    profile_iteration(trainer, "similar_product_profile")
+    del trainer
+
+    algo = engine.make_components(params)[2][0][1]
+    path = os.path.join(workdir, "similar_model.npz")
+    save_models(path, engine_json, [algo.prepare_model_for_persistence(model)])
+    engine_json2, stored = load_models(path)
+    deployment = sp_engine.prepare_deployment(
+        WorkflowContext(device="cuda"), EngineParams.from_json(engine_json2),
+        stored)
+    deployment.models[0].warm_up()
+    check(np.array_equal(deployment.models[0].factors.item_factors, itf),
+          "restored Similar-Product factors differ")
+    qrng = np.random.default_rng(9)
+    head = min(5_000, n_items)  # query items from the viewed head
+    queries = []
+    for j in range(60):
+        q = {"items": [str(int(x)) for x in qrng.integers(0, head,
+                                                           1 + j % 3)],
+             "num": 10,
+             "categories": [f"c{int(c)}" for c in qrng.choice(
+                 SIMILAR_CATEGORIES, 1 + j % 2, replace=False)]}
+        if j % 3 == 1:
+            q["whiteList"] = [str(int(x)) for x in
+                              qrng.integers(0, n_items, 300)] + ["nope"]
+        if j % 4 == 2:
+            q["blackList"] = [str(int(x)) for x in
+                              qrng.integers(0, head, 100)]
+        queries.append(q)
+    itf_normed = itf / (np.linalg.norm(itf, axis=1, keepdims=True) + 1e-9)
+    lat = serve_checks(deployment, queries,
+                       _cosine_answer_check(itf_normed, itf, cats))
+    emit("similar_product_serve", **lat, catalog=n_items,
+         with_white_list=sum("whiteList" in q for q in queries),
+         with_black_list=sum("blackList" in q for q in queries))
 
 
 def phase_train_rank128(ratings) -> dict:
     """The wide kernel's path: the main path's ratings at rank 128 through
-    the same engine. Order: launches, RMSE, steady time, profile."""
+    the same engine. Order: launches, RMSE, steady time, profile, then one
+    fold-in batch (held card vs CPU at λ = 0.1·n_ratings: a new user's 5
+    events against rank 128 make a nearly singular system at λ = 0.01,
+    where two correct float32 solvers part by more than 2e-4, as in the
+    rank-128 ALS check)."""
     n_users, n_items, nnz = ML20M
     u, i, r = ratings
-    engine_json = {
-        "engineFactory": "incubator_predictionio_torch.models.recommendation."
-                         "RecommendationEngine",
-        "datasource": {"params": {"appName": "ml20m-synth"}},
-        "algorithms": [{"name": "als", "params": {
-            "rank": WIDE_RANK, "numIterations": WIDE_ITERS,
-            "lambda": 0.01}}],
-    }
-    engine = RecommendationEngine()()
-    _, _, algo_list, _ = engine.make_components(
-        EngineParams.from_json(engine_json))
-    algo = algo_list[0][1]
+    _, _, algo = als_engine(WIDE_RANK, WIDE_ITERS, 0.01)
     als_params = algo.als_params(algo.params)
-    plan_u = plan_layout(np.bincount(u, minlength=n_users))
-    plan_i = plan_layout(np.bincount(i, minlength=n_items))
-    calls_u = solve_calls_per_half_step(plan_u, als_params)
-    calls_i = solve_calls_per_half_step(plan_i, als_params)
-    expected = WIDE_ITERS * (calls_u + calls_i)
+    expected, calls_u, calls_i = implied_launches(u, i, n_users, n_items,
+                                                  als_params, WIDE_ITERS)
     td = TrainingData(u, i, r, IdentityBiMap(n_users), IdentityBiMap(n_items))
 
     reset_launches()
@@ -490,6 +1029,7 @@ def phase_train_rank128(ratings) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     got = launches()
+    record("train_rank128", got)
     emit("train_rank128_launches", rank=WIDE_RANK, iterations=WIDE_ITERS,
          kernel_launches=got, expected_launches=expected,
          solve_calls_per_iteration={"user": calls_u, "item": calls_i},
@@ -502,12 +1042,11 @@ def phase_train_rank128(ratings) -> dict:
           f"factor shapes {uf.shape} {itf.shape}")
     check(bool(np.isfinite(uf).all() and np.isfinite(itf).all()),
           "non-finite rank-128 factors")
-    sample = np.random.default_rng(0).choice(nnz, 1_000_000, replace=False)
+    sample = np.random.default_rng(0).choice(nnz, min(nnz, 1_000_000), replace=False)
     rmse = predict_rmse(model.factors, u[sample], i[sample], r[sample])
     emit("train_rank128_rmse", train_rmse_1m_sample=rmse,
          ratings_std=float(np.std(r)))
     check(rmse < float(np.std(r)), f"rank-128 train RMSE {rmse} not below std")
-    del model
 
     trainer = ALSTrainer(u, i, r, n_users, n_items, als_params, device="cuda")
     trainer.iterate(1)
@@ -520,19 +1059,32 @@ def phase_train_rank128(ratings) -> dict:
          seconds=steady_s, train_events_per_s=nnz * WIDE_ITERS / steady_s,
          seconds_per_iteration=steady_s / WIDE_ITERS)
     profile_iteration(trainer, "train_rank128_profile")
+    del trainer
+
+    _, _, fold_algo = als_engine(WIDE_RANK, WIDE_ITERS, 0.1, "nratings")
+    new_users, new_items, n_events = FOLD_IN_RANK128
+    events = fold_in_events(n_users, n_items, new_users, new_items,
+                            n_events - 5 * new_users - 4 * new_items, seed=12)
+    phase_fold_in("fold_in_rank128", fold_algo, model, events, "wide",
+                  new_users, new_items, timed_runs=1)
     return {"launches": got["wide"], "expected": expected}
 
 
 def profile_iteration(trainer: ALSTrainer,
                       phase: str = "profile_iteration") -> None:
-    """Where one steady-state iteration's device time goes: torch.profiler
-    kernel times by name, and the device's busy share of the wall time."""
+    """Where one steady-state iteration's device time goes."""
+    profile_call(lambda: trainer.iterate(1), phase)
+
+
+def profile_call(fn, phase: str) -> None:
+    """Where one call's device time goes: torch.profiler kernel times by
+    name, and the device's busy share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.iterate(1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = cuda_kernels(prof)
@@ -551,46 +1103,54 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_console(workdir: str) -> None:
-    """The entry points themselves: console train → deploy → query."""
-    rng = np.random.default_rng(5)
-    n_users, n_items, n = 500, 300, 20_000
-    events = os.path.join(workdir, "events.jsonl")
-    with open(events, "w", encoding="utf-8") as fh:
-        for j in range(n):
-            ev = "buy" if j % 10 == 0 else "rate"
-            e = {"event": ev, "entityType": "user",
-                 "entityId": f"u{int(rng.integers(n_users))}",
-                 "targetEntityType": "item",
-                 "targetEntityId": f"i{int(n_items * rng.random() ** 2)}",
-                 "eventTime": f"2024-01-01T00:{j // 3600 % 60:02d}:"
-                              f"{j // 60 % 60:02d}.{j % 60:03d}Z"}
-            if ev == "rate":
-                e["properties"] = {"rating": float(rng.integers(1, 6))}
-            fh.write(json.dumps(e) + "\n")
-    engine_json = os.path.join(workdir, "engine.json")
-    with open(engine_json, "w", encoding="utf-8") as fh:
-        json.dump({"engineFactory": "incubator_predictionio_torch.models."
-                                    "recommendation.RecommendationEngine",
-                   "datasource": {"params": {"appName": "smoke"}},
-                   "algorithms": [{"name": "als", "params": {
-                       "rank": RANK, "numIterations": 5, "lambda": 0.05}}]},
-                  fh)
-    model = os.path.join(workdir, "console_model.npz")
-    cmd = [sys.executable, "-m", "incubator_predictionio_torch.tools.console"]
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    out = subprocess.run(cmd + ["train", "--engine-json", engine_json,
-                                "--events", events, "--model-out", model],
-                         capture_output=True, text=True, env=env, cwd=ROOT,
-                         timeout=300)
+CONSOLE = [sys.executable, "-m", "incubator_predictionio_torch.tools.console"]
+#: ``console train`` whose run dies right after its step-2 snapshot
+_CRASHING_CONSOLE = r"""
+import sys
+from incubator_predictionio_torch.tools import console
+from incubator_predictionio_torch.workflow import checkpoint
+
+real = checkpoint.CheckpointHook.save
+
+def crashing_save(self, step, tree):
+    real(self, step, tree)
+    if step == 2:
+        raise RuntimeError("injected crash after the step-2 snapshot")
+
+checkpoint.CheckpointHook.save = crashing_save
+sys.exit(console.main(sys.argv[1:]))
+"""
+
+
+def _console_env() -> dict:
+    return dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
+def console_train(args: list, path: str, crash: bool = False) -> dict:
+    """``console train`` in a subprocess; returns its JSON line, with the
+    run's kernel launches recorded under ``path``."""
+    cmd = [sys.executable, "-c", _CRASHING_CONSOLE] if crash else CONSOLE
+    out = subprocess.run(cmd + ["train"] + args, capture_output=True,
+                         text=True, env=_console_env(), cwd=ROOT, timeout=300)
+    if crash:
+        check(out.returncode != 0 and "injected crash" in out.stderr,
+              f"the crashing console train did not crash: {out.returncode}")
+        return {}
     check(out.returncode == 0, f"console train failed: {out.stderr[-2000:]}")
     trained = json.loads(out.stdout.strip().splitlines()[-1])
+    record(path, trained["kernel_launches"])
+    return trained
+
+
+def console_queries(model: str, queries: list) -> list:
+    """``console deploy`` in a subprocess; POST the queries; stop it.
+    Returns [(status, result, ms)]."""
     port = _free_port()
-    proc = subprocess.Popen(cmd + ["deploy", "--model", model, "--port",
-                                   str(port)],
+    proc = subprocess.Popen(CONSOLE + ["deploy", "--model", model, "--port",
+                                       str(port)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=env, cwd=ROOT)
+                            text=True, env=_console_env(), cwd=ROOT)
     try:
         deadline = time.time() + 120
         while True:
@@ -609,14 +1169,9 @@ def phase_console(workdir: str) -> None:
             check(time.time() < deadline, "console deploy never came up")
             time.sleep(0.5)
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
-        answers = []
-        for user in ("u1", "u2", "u3", "nobody"):
-            status, res, ms = _post(conn, {"user": user, "num": 5})
-            check(status == 200, f"console query {status} {res}")
-            answers.append((user, len(res["itemScores"]), ms))
+        answers = [_post(conn, q) for q in queries]
         conn.close()
-        check(answers[0][1] == 5 and answers[-1][1] == 0,
-              f"console answers {answers}")
+        return answers
     finally:
         proc.terminate()
         try:
@@ -624,8 +1179,150 @@ def phase_console(workdir: str) -> None:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+
+
+def _event_time(j: int) -> str:
+    return (f"2024-01-01T00:{j // 3600 % 60:02d}:{j // 60 % 60:02d}."
+            f"{j % 60:03d}Z")
+
+
+def phase_console(workdir: str) -> None:
+    """The entry points themselves: console train → deploy → query; a
+    checkpointed console train that crashes, then ``--resume``."""
+    rng = np.random.default_rng(5)
+    n_users, n_items, n = 500, 300, 20_000
+    events = os.path.join(workdir, "events.jsonl")
+    with open(events, "w", encoding="utf-8") as fh:
+        for j in range(n):
+            ev = "buy" if j % 10 == 0 else "rate"
+            e = {"event": ev, "entityType": "user",
+                 "entityId": f"u{int(rng.integers(n_users))}",
+                 "targetEntityType": "item",
+                 "targetEntityId": f"i{int(n_items * rng.random() ** 2)}",
+                 "eventTime": _event_time(j)}
+            if ev == "rate":
+                e["properties"] = {"rating": float(rng.integers(1, 6))}
+            fh.write(json.dumps(e) + "\n")
+    engine_json = os.path.join(workdir, "engine.json")
+    iterations = 5
+    with open(engine_json, "w", encoding="utf-8") as fh:
+        json.dump({"engineFactory": "incubator_predictionio_torch.models."
+                                    "recommendation.RecommendationEngine",
+                   "datasource": {"params": {"appName": "smoke"}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": RANK, "numIterations": iterations,
+                       "lambda": 0.05}}]},
+                  fh)
+    model = os.path.join(workdir, "console_model.npz")
+    trained = console_train(["--engine-json", engine_json, "--events", events,
+                             "--model-out", model], "console")
+    users = ("u1", "u2", "u3", "nobody")
+    answers = []
+    for user, (status, res, ms) in zip(users, console_queries(
+            model, [{"user": x, "num": 5} for x in users])):
+        check(status == 200, f"console query {status} {res}")
+        answers.append((user, len(res["itemScores"]), ms))
+    check(answers[0][1] == 5 and answers[-1][1] == 0,
+          f"console answers {answers}")
     emit("console", events=n, train_seconds=trained["seconds"],
-         device=trained["device"], answers=answers)
+         device=trained["device"], kernel_launches=trained["kernel_launches"],
+         answers=answers)
+
+    # --checkpoint-every 1, a crash after the step-2 snapshot, --resume
+    u, i, _, users, items = find_ratings(
+        read_events(events), event_names=["rate", "buy"],
+        event_default_ratings={"buy": 4.0})
+    per_iter = implied_launches(u, i, len(users), len(items),
+                                ALSParams(rank=RANK, reg=0.05), 1)[0]
+    resumed = os.path.join(workdir, "console_resumed.npz")
+    snapshots = resumed + ".checkpoints"
+    base = ["--engine-json", engine_json, "--events", events, "--model-out",
+            resumed]
+    console_train(base + ["--checkpoint-every", "1"], "", crash=True)
+    left = sorted(os.listdir(os.path.join(snapshots, "algo_0_als")))
+    check(left == ["1.npz", "2.npz"] and not os.path.exists(resumed),
+          f"after the crash: snapshots {left}")
+    out = console_train(base + ["--resume"], "console_resume")
+    check(not os.path.exists(snapshots), "snapshots left after --resume")
+    _, whole = load_models(model)
+    _, part = load_models(resumed)
+    err = max(max_err(part[0][k], whole[0][k])
+              for k in ("user_factors", "item_factors"))
+    ok = all(within(part[0][k], whole[0][k])
+             for k in ("user_factors", "item_factors"))
+    expected = (iterations - 2) * per_iter
+    emit("console_resume", snapshots_after_crash=left,
+         kernel_launches=out["kernel_launches"], expected_launches=expected,
+         train_seconds=out["seconds"], max_abs_err_vs_uninterrupted=err,
+         within_2e4=ok)
+    check(out["kernel_launches"]["warp"] == expected,
+          f"resumed console launches {out['kernel_launches']} != {expected}")
+    check(ok, f"resumed console model differs: {err}")
+
+
+def phase_console_similar_product(workdir: str) -> None:
+    """The Similar-Product template's own engine.json values (rank 10, 20
+    iterations, λ 0.01), its factory set to the port's, through console
+    train → deploy → query on a small view-events file."""
+    with open(os.path.join(ROOT, "templates", "similar-product",
+                           "engine.json"), encoding="utf-8") as fh:
+        engine_json = json.load(fh)
+    engine_json["engineFactory"] = ("incubator_predictionio_torch.models."
+                                    "similar_product.SimilarProductEngine")
+    params = engine_json["algorithms"][0]["params"]
+    rng = np.random.default_rng(6)
+    n_users, n_items, n = 400, 250, 15_000
+    cats = {j: f"c{j % 5}" for j in range(n_items)}
+    events = os.path.join(workdir, "views.jsonl")
+    with open(events, "w", encoding="utf-8") as fh:
+        for j in range(n_items):
+            fh.write(json.dumps({
+                "event": "$set", "entityType": "item", "entityId": f"i{j}",
+                "properties": {"categories": [cats[j]]},
+                "eventTime": _event_time(j)}) + "\n")
+        for j in range(n):
+            fh.write(json.dumps({
+                "event": "view", "entityType": "user",
+                "entityId": f"u{int(rng.integers(n_users))}",
+                "targetEntityType": "item",
+                "targetEntityId": f"i{int(n_items * rng.random() ** 2)}",
+                "eventTime": _event_time(n_items + j)}) + "\n")
+    path = os.path.join(workdir, "similar_engine.json")
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(engine_json, fh)
+    model = os.path.join(workdir, "similar_console.npz")
+    u, i, _, users, items = find_ratings(read_events(events),
+                                         event_names=["view"],
+                                         rating_from_props=False)
+    expected = implied_launches(
+        u, i, len(users), len(items),
+        ALSParams(rank=params["rank"], reg=params["lambda"],
+                  implicit_prefs=True), params["numIterations"])[0]
+    trained = console_train(["--engine-json", path, "--events", events,
+                             "--model-out", model], "console_similar_product")
+    check(trained["kernel_launches"]["warp"] == expected,
+          f"console Similar-Product launches {trained['kernel_launches']} "
+          f"!= implied {expected}")
+    queries = [{"items": ["i1", "i2"], "num": 5, "categories": ["c3"]},
+               {"items": ["i7"], "num": 4, "blackList": ["i0", "i1"]},
+               {"items": ["i3"], "num": 3, "whiteList": ["i4", "i9", "i3"]},
+               {"items": ["nope"], "num": 3}]
+    answers = console_queries(model, queries)
+    for q, (status, res, _) in zip(queries, answers):
+        got = [e["item"] for e in res["itemScores"]]
+        check(status == 200, f"console Similar-Product query {status} {res}")
+        check(not set(got) & set(q["items"]), f"a query item returned: {got}")
+        check(not set(got) & set(q.get("blackList", [])), f"blackList {got}")
+        check(all(cats[int(x[1:])] in q.get("categories", [cats[int(x[1:])]])
+                  for x in got), f"categories not held: {got}")
+        if q.get("whiteList"):
+            check(set(got) <= set(q["whiteList"]), f"whiteList {got}")
+    counts = [len(res["itemScores"]) for _, res, _ in answers]
+    check(counts == [5, 4, 2, 0], f"console Similar-Product answers {counts}")
+    emit("console_similar_product", engine_json=engine_json, events=n,
+         items=n_items, kernel_launches=trained["kernel_launches"],
+         expected_launches=expected, train_seconds=trained["seconds"],
+         answers=counts)
 
 
 def main() -> int:
@@ -635,17 +1332,27 @@ def main() -> int:
     phase_als_card_vs_cpu()
     with tempfile.TemporaryDirectory() as workdir:
         main_path = phase_main_path(workdir)
+        phase_train_checkpointed(workdir, main_path)
+        phase_train_nan_guard(main_path)
+        phase_fold_in_main(workdir, main_path)
         phase_console(workdir)
-    wide_path = phase_train_rank128(main_path.pop("ratings"))
+        phase_console_similar_product(workdir)
+        phase_similar_product(workdir)
+    ratings = main_path.pop("ratings")
+    main_path.clear()
+    phase_train_rank128(ratings)
     t = kv["timings"]
 
-    def entry(name, kind, replaces, serves, launches, shape, extra_shapes):
+    def entry(name, kind, replaces, serves, shape, extra_shapes):
         n, k = shape
         row = t[shape]
+        by_path = {path: got[kind] for path, got in PATH_LAUNCHES.items()
+                   if got[kind]}
         return {
             "name": name, "route": "cuda",
             "source": "incubator_predictionio_torch/ops/csrc/gauss_jordan.cu",
-            "replaces": replaces, "serves": serves, "launches": launches,
+            "replaces": replaces, "serves": serves,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": kv["max_abs_err"][kind],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -660,14 +1367,15 @@ def main() -> int:
         entry("gauss_jordan_warp", "warp",
               "incubator_predictionio_tpu/ops/pallas_kernels.py:137",
               "k <= 32 (of _solve_lanes' k <= 96)",
-              main_path["launches"], (ML20M[0], 32), [(512, 32)]),
+              (ML20M[0], 32), [(512, 32)]),
         entry("gauss_jordan_wide", "wide",
               "incubator_predictionio_tpu/ops/pallas_kernels.py:173",
               "32 < k <= 128 (_solve_slabs_wide's 96 < k <= 128, and "
               "_solve_lanes' 32 < k <= 96, pallas_kernels.py:137)",
-              wide_path["launches"], (8192, 128),
-              [(512, 64), (512, 96), (512, 128)]),
+              (8192, 128), [(512, 64), (512, 96), (512, 128)]),
     ]
+    for e in kernels:
+        check(e["launches"] > 0, f"{e['name']} ran on no path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

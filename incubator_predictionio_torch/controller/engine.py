@@ -2,15 +2,20 @@
 
 Port of ``incubator_predictionio_tpu/controller/engine.py`` (``EngineParams``,
 ``Engine`` :110, ``Engine.train`` :169, ``Deployment``, ``EngineFactory``
-:377), without telemetry, fault points, placement or checkpoints.
+:377), with the workflow flags, the NaN guard and per-algorithm
+checkpoints, without telemetry, fault points or placement (one device).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any, Mapping, Sequence, Type
+import os
+from typing import Any, Mapping, Optional, Sequence, Type
 
+from ..common.nan_guard import check_finite
+from ..workflow.checkpoint import CheckpointHook
+from ..workflow.workflow_params import WorkflowParams
 from .base import SanityCheck, doer
 from .components import FirstServing, IdentityPreparator
 
@@ -103,24 +108,59 @@ class Engine:
         return ds, prep, algo_list, serving
 
     @staticmethod
-    def _sanity_check(obj, label: str) -> None:
-        if isinstance(obj, SanityCheck):
+    def _maybe_sanity_check(obj, label: str, enabled: bool,
+                            nan_guard: bool = False) -> None:
+        if enabled and isinstance(obj, SanityCheck):
             log.info("sanity check: %s", label)
             obj.sanity_check()
+        if nan_guard:
+            check_finite(obj, label)
 
-    def train(self, ctx, engine_params: EngineParams) -> list[Any]:
-        """read → prepare → train every algorithm; returns the models."""
+    def train(self, ctx, engine_params: EngineParams,
+              workflow_params: Optional[WorkflowParams] = None) -> list[Any]:
+        """read → prepare → train every algorithm; returns the models
+        (none when ``stop_after_read`` / ``stop_after_prepare`` halt it).
+
+        Sets ``ctx.workflow_params``, which the algorithms read. With a
+        ``ctx.checkpoint_hook``, each algorithm snapshots into its own
+        subdirectory ``algo_<idx>_<name>``; the root hook is back on the
+        context on every exit path."""
+        wp = workflow_params or WorkflowParams()
+        ctx.workflow_params = wp
         ds, prep, algo_list, _ = self.make_components(engine_params)
         td = ds.read_training(ctx)
-        self._sanity_check(td, "datasource")
+        self._maybe_sanity_check(td, "datasource", not wp.skip_sanity_check,
+                                 wp.nan_guard)
+        if wp.stop_after_read:
+            log.info("--stop-after-read: halting before prepare")
+            return []
         pd = prep.prepare(ctx, td)
-        self._sanity_check(pd, "preparator")
+        self._maybe_sanity_check(pd, "preparator", not wp.skip_sanity_check,
+                                 wp.nan_guard)
+        if wp.stop_after_prepare:
+            log.info("--stop-after-prepare: halting before train")
+            return []
         models = []
-        for name, algo in algo_list:
+        root_hook = ctx.checkpoint_hook
+        for idx, (name, algo) in enumerate(algo_list):
             log.info("training algorithm %s (%s)", name or "<default>",
                      type(algo).__name__)
-            model = algo.train(ctx, pd)
-            self._sanity_check(model, f"algorithm[{name or 'default'}]")
+            label = f"algorithm[{name or 'default'}]"
+            ctx.stage_label = label
+            if root_hook is not None:
+                ctx.checkpoint_hook = CheckpointHook(
+                    os.path.join(root_hook.directory,
+                                 f"algo_{idx}_{name or 'default'}"),
+                    every_n=root_hook.every_n,
+                    max_to_keep=root_hook.max_to_keep)
+            try:
+                model = algo.train(ctx, pd)
+            finally:
+                if root_hook is not None:
+                    ctx.checkpoint_hook.close()
+                    ctx.checkpoint_hook = root_hook
+            self._maybe_sanity_check(model, label, not wp.skip_sanity_check,
+                                     wp.nan_guard)
             models.append(model)
         return models
 

@@ -114,3 +114,34 @@ def find_ratings(
         r = np.full(len(sel), default_rating, dtype=np.float32)
     keep = i >= 0
     return u[keep], i[keep], r[keep], users, items
+
+
+def aggregate_properties(events: Iterable[Mapping], entity_type: str,
+                         required: Optional[Sequence[str]] = None
+                         ) -> dict[str, dict]:
+    """Entity id → properties, replayed from the ``$set`` / ``$unset`` /
+    ``$delete`` events of ``entity_type`` in event-time order (the
+    reference's ``aggregate_property_events``, data/storage/base.py:311):
+    ``$set`` merges its properties in, ``$unset`` drops the keys it
+    names from an entity that exists, ``$delete`` forgets the entity.
+    ``required``: keep only entities that hold every one of these keys."""
+    sel = [e for e in events
+           if e.get("entityType") == entity_type
+           and e.get("event") in ("$set", "$unset", "$delete")]
+    sel.sort(key=lambda e: event_time_us(e.get("eventTime")))  # stable
+    state: dict[str, dict] = {}
+    for e in sel:
+        eid = _id(e["entityId"])
+        props = e.get("properties") or {}
+        if e["event"] == "$set":
+            state.setdefault(eid, {}).update(props)
+        elif e["event"] == "$unset":
+            if eid in state:
+                for key in props:
+                    state[eid].pop(key, None)
+        else:
+            state.pop(eid, None)
+    if required:
+        req = set(required)
+        state = {k: v for k, v in state.items() if req.issubset(v)}
+    return state

@@ -15,6 +15,7 @@ of searching the catalog.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional, Sequence
 
 import numpy as np
@@ -23,11 +24,13 @@ import torch
 from ..controller import (
     Algorithm, DataSource, Engine, EngineFactory, Params, SanityCheck,
 )
-from ..data.bimap import BiMap
+from ..data.bimap import BiMap, extend_bimap
 from ..data.events import find_ratings
 from ..device import resolve_device
-from ..ops.als import ALSFactors, ALSParams, train_als
+from ..ops.als import ALSFactors, ALSParams, fold_in_factors, train_als
 from ..ops.topk import batch_top_k, top_k_items
+
+log = logging.getLogger("pio.torch.recommendation")
 
 
 @dataclasses.dataclass
@@ -157,7 +160,12 @@ class ALSAlgorithm(Algorithm):
         factors = train_als(
             pd.user_idx, pd.item_idx, pd.rating, n_users=len(pd.users),
             n_items=len(pd.items), params=self.als_params(self.params),
-            device=ctx.device)
+            device=ctx.device, checkpoint_hook=ctx.checkpoint_hook,
+            resume=ctx.workflow_params.resume,
+            nan_guard=ctx.workflow_params.nan_guard,
+            nan_guard_stage=ctx.stage_label,
+            # a benchmark plants a dict here to read the phase times
+            timings=ctx.bench_timings)
         return ALSModel(factors=factors, users=pd.users, items=pd.items,
                         device=ctx.device)
 
@@ -223,6 +231,102 @@ class ALSAlgorithm(Algorithm):
                     {"item": model.items.inverse(int(idx[t, c])),
                      "score": float(scores[t, c])} for c in range(n)]}
         return out  # type: ignore[return-value]
+
+    #: proximal weight μ of the fold-in's ‖x − x_old‖² term: an existing
+    #: entity's current factor enters its re-solve as a pseudo-observation
+    #: of this strength; new entities (a zero anchor row) get μ = 0 and
+    #: solve the exact cold-start ridge
+    FOLD_IN_ANCHOR_WEIGHT = 1.0
+
+    def fold_in(self, model: ALSModel, events, ctx=None,
+                data_source_params=None) -> Optional[ALSModel]:
+        """Closed-form fold-in of new rate/buy events (the reference's
+        ``ALSAlgorithm.fold_in``): events → (user, item, rating) with the
+        last write winning, id maps extended for unseen ids, then the
+        touched items are re-solved against the frozen users and the
+        touched users against the updated items, each side in one solve
+        on the model's device. Returns a new model on that device (None
+        when no event applies); ``model`` is never mutated."""
+        dsp = dict(data_source_params or {})
+        names = list(dsp.get("event_names") or dsp.get("eventNames")
+                     or DataSourceParams.event_names)
+        buy_rating = float(dsp.get("buy_rating",
+                                   dsp.get("buyRating",
+                                           DataSourceParams.buy_rating)))
+        triples: dict[tuple[str, str], float] = {}
+        for e in events:
+            if not isinstance(e, dict) or e.get("event") not in names:
+                continue
+            u, it = e.get("entityId"), e.get("targetEntityId")
+            if not u or not it:
+                continue
+            props = e.get("properties") or {}
+            try:
+                r = float(props["rating"])
+            except (KeyError, TypeError, ValueError):
+                r = buy_rating if e.get("event") == "buy" else 1.0
+            triples[(str(u), str(it))] = r  # last write wins, like upsert
+        if not triples:
+            return None
+        users, _ = extend_bimap(model.users, (u for u, _ in triples))
+        items, _ = extend_bimap(model.items, (i for _, i in triples))
+        # ids an IdentityBiMap could not extend (non-consecutive) drop out
+        coo = [(users.get(u), items.get(i), r)
+               for (u, i), r in triples.items()]
+        coo = [(ui, ii, r) for ui, ii, r in coo
+               if ui is not None and ii is not None]
+        if len(coo) < len(triples):
+            log.warning("fold-in: skipped %d event(s) whose ids cannot "
+                        "extend the identity catalog map",
+                        len(triples) - len(coo))
+        if not coo:
+            return None
+        k = model.factors.user_factors.shape[1]
+
+        def grown(f: np.ndarray, n: int) -> np.ndarray:
+            f = np.asarray(f, np.float32)
+            if n > f.shape[0]:
+                return np.vstack([f, np.zeros((n - f.shape[0], k), np.float32)])
+            return f.copy()
+
+        uf = grown(model.factors.user_factors, len(users))
+        itf = grown(model.factors.item_factors, len(items))
+        p = self.params
+        kw = dict(reg=p.reg, lambda_scaling=p.lambda_scaling,
+                  implicit_prefs=p.implicit_prefs, alpha=p.alpha,
+                  device=model.device)
+
+        def touched(axis: int):
+            by: dict[int, tuple[list, list]] = {}
+            for ui, ii, r in coo:
+                row, cp = (ui, ii) if axis == 0 else (ii, ui)
+                idx, val = by.setdefault(row, ([], []))
+                idx.append(cp)
+                val.append(r)
+            rows = sorted(by)
+            return (rows, [np.asarray(by[r][0], np.int64) for r in rows],
+                    [np.asarray(by[r][1], np.float32) for r in rows])
+
+        def mu_for(rows, n_trained: int) -> np.ndarray:
+            # rows appended past the trained matrix have no factor to stay
+            # near: they solve the cold-start ridge
+            return np.where(np.asarray(rows) < n_trained,
+                            np.float32(self.FOLD_IN_ANCHOR_WEIGHT),
+                            np.float32(0.0))
+
+        # items first against the frozen users, then users against the
+        # updated items: a new user's first event on a new item resolves
+        # both rows in one increment
+        n_u0 = model.factors.user_factors.shape[0]
+        n_i0 = model.factors.item_factors.shape[0]
+        i_rows, i_idx, i_val = touched(1)
+        itf[i_rows] = fold_in_factors(uf, i_idx, i_val, anchor=itf[i_rows],
+                                      anchor_weight=mu_for(i_rows, n_i0), **kw)
+        u_rows, u_idx, u_val = touched(0)
+        uf[u_rows] = fold_in_factors(itf, u_idx, u_val, anchor=uf[u_rows],
+                                     anchor_weight=mu_for(u_rows, n_u0), **kw)
+        return ALSModel(factors=ALSFactors(uf, itf, len(users), len(items)),
+                        users=users, items=items, device=model.device)
 
     def prepare_model_for_persistence(self, model: ALSModel) -> dict:
         return model_to_persisted(model)

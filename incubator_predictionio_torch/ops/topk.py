@@ -52,6 +52,25 @@ def top_k_items(user_vec, item_factors: torch.Tensor, k: int,
     return vals.cpu().numpy(), idx.cpu().numpy()
 
 
+def normalize_rows(x) -> np.ndarray:
+    """Row-normalize a factor matrix on the host (float32), once at deploy
+    time (the reference's rule: a device-side norm varies bitwise with
+    the row count)."""
+    x = np.asarray(x, np.float32)
+    return x / (np.linalg.norm(x, axis=1, keepdims=True) + 1e-9)
+
+
+def similar_items(query_vecs, item_factors_normed: torch.Tensor, k: int,
+                  exclude=None):
+    """Summed cosine similarity of the query items against the catalog
+    (Similar-Product). ``item_factors_normed`` is the device-resident,
+    row-normalized catalog. Σ_q ⟨f, q̂⟩ = ⟨f, Σ_q q̂⟩, so this is one
+    :func:`top_k_items` over the summed normalized query vectors."""
+    qn = normalize_rows(np.atleast_2d(np.asarray(query_vecs, np.float32)))
+    return top_k_items(qn.sum(axis=0), item_factors_normed, k,
+                       exclude=exclude)
+
+
 def bucket_k(k: int, n_total: int) -> int:
     """Pow2 (≥8) k buckets, as the reference, so results for varying
     ``num`` are prefixes of one computation."""

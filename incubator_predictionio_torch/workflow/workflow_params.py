@@ -1,0 +1,24 @@
+"""WorkflowParams: the flags of one train run.
+
+Port of ``incubator_predictionio_tpu/workflow/workflow_params.py`` with the
+fields this package honors. The profiler, placement and input-pipeline
+fields come with the slices that port those layers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class WorkflowParams:
+    skip_sanity_check: bool = False
+    stop_after_read: bool = False
+    stop_after_prepare: bool = False
+    # snapshot algorithm state every N iterations (0: no snapshots);
+    # ``resume`` continues from the latest snapshot
+    checkpoint_every: int = 0
+    resume: bool = False
+    # check every stage's output for NaN/Inf with stage attribution;
+    # iterative trainers run one iteration at a time to name the iteration
+    nan_guard: bool = False

@@ -242,3 +242,71 @@ def test_predict_rmse_matches_reference():
                           reg=0.1)
     assert port_als.predict_rmse(f_port, u, i, r) == pytest.approx(
         ref_als.predict_rmse(f_ref, u, i, r), rel=1e-4)
+
+
+def test_timings_hook_fills_the_three_keys(tmp_path):
+    """The benchmark's keys, from the product path (a dict planted on the
+    context) and from train_als; left empty under the NaN guard and when
+    more than one checkpoint chunk is left, as in the reference."""
+    from incubator_predictionio_torch.controller import EngineParams
+    from incubator_predictionio_torch.models import recommendation as rec
+    from incubator_predictionio_torch.workflow.checkpoint import CheckpointHook
+    from incubator_predictionio_torch.workflow.context import WorkflowContext
+
+    keys = {"upload_seconds", "compile_seconds", "device_train_seconds"}
+    u, i, r, nu, ni = _ratings()
+    events = [{"event": "rate", "entityType": "user", "entityId": str(a),
+               "targetEntityType": "item", "targetEntityId": str(b),
+               "properties": {"rating": float(c)}}
+              for a, b, c in zip(u, i, r)]
+    ctx = WorkflowContext(events=events, device="cpu")
+    ctx.bench_timings = {}
+    rec.RecommendationEngine()().train(ctx, EngineParams.from_json(
+        {"algorithms": [{"name": "als", "params": {"numIterations": 2}}]}))
+    assert set(ctx.bench_timings) == keys
+    assert all(v >= 0 for v in ctx.bench_timings.values())
+    assert ctx.bench_timings["compile_seconds"] < 1.0  # no kernel on the CPU
+
+    params = port_als.ALSParams(rank=4, num_iterations=4)
+    for kw, filled in (({}, True), ({"nan_guard": True}, False),
+                       ({"checkpoint_hook": CheckpointHook(
+                           str(tmp_path / "a"), every_n=2)}, False),
+                       ({"checkpoint_hook": CheckpointHook(
+                           str(tmp_path / "b"), every_n=4)}, True)):
+        timings = {}
+        port_als.train_als(u, i, r, nu, ni, params, device="cpu",
+                           timings=timings, **kw)
+        assert set(timings) == (keys if filled else set()), kw
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("heavy", [0, 4500])
+def test_uint16_column_narrowing_is_bit_identical(implicit, heavy,
+                                                  monkeypatch):
+    """Column slabs kept as 16-bit indices (the counterpart's sentinel slot
+    fits) and widened per gathered chunk give the int32 run's factors bit
+    for bit; a side whose counterpart is too wide keeps int32."""
+    u, i, r, nu, ni = _ratings(n_users=30, n_items=100, nnz=2000,
+                               heavy_user=heavy)
+    params = port_als.ALSParams(rank=8, num_iterations=2, reg=0.1,
+                                implicit_prefs=implicit, alpha=0.3)
+    narrow = port_als.ALSTrainer(u, i, r, nu, ni, params, device="cpu")
+    assert narrow.side_u.narrow and narrow.side_i.narrow
+    assert all(c.dtype == torch.uint16 for c in narrow.side_u.cols)
+    if heavy:
+        assert narrow.side_u.v_cols.dtype == torch.uint16
+    narrow.iterate(2)
+    monkeypatch.setattr(port_als, "_NARROW_COL_MAX", -1)
+    wide = port_als.ALSTrainer(u, i, r, nu, ni, params, device="cpu")
+    assert not wide.side_u.narrow
+    assert all(c.dtype != torch.uint16 for c in wide.side_u.cols)
+    wide.iterate(2)
+    assert torch.equal(narrow.x, wide.x) and torch.equal(narrow.y, wide.y)
+    # the rule: narrow exactly when the counterpart's sentinel slot fits
+    monkeypatch.setattr(port_als, "_NARROW_COL_MAX",
+                        narrow.plan_i.total_slots)
+    edge = port_als.ALSTrainer(u, i, r, nu, ni, params, device="cpu")
+    assert edge.side_u.narrow == (narrow.plan_i.total_slots
+                                  <= narrow.plan_i.total_slots)
+    assert edge.side_i.narrow == (narrow.plan_u.total_slots
+                                  <= narrow.plan_i.total_slots)

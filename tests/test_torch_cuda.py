@@ -61,3 +61,63 @@ def test_launch_counters_name_the_kernel(card, k, kernel):
     for name, c in counters.items():
         assert c.count == before[name] + (name == kernel)
     assert spd_solve.gauss_jordan_launches.count == total + 1
+
+
+def _fold_in_batch(k, rows=600, n=400):
+    import numpy as np
+
+    rng = np.random.default_rng(k)
+    y = rng.standard_normal((n, k)).astype(np.float32) / k ** 0.5
+    idx = [rng.choice(n, int(rng.integers(0, 2 * k)), replace=False)
+           for _ in range(rows)]
+    val = [(rng.integers(1, 11, len(ix)) / 2.0).astype(np.float32)
+           for ix in idx]
+    anchor = rng.standard_normal((rows, k)).astype(np.float32) / k ** 0.5
+    return y, idx, val, anchor
+
+
+@pytest.mark.parametrize("k,kernel", [(32, "warp"), (128, "wide")])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_fold_in_launches_the_kernel(card, k, kernel, implicit):
+    """A fold-in on the card is one launch of the kernel for k, and agrees
+    with the CPU's plain solve."""
+    import numpy as np
+
+    from incubator_predictionio_torch.ops import als
+
+    y, idx, val, anchor = _fold_in_batch(k)
+    kw = dict(reg=0.1, lambda_scaling="nratings", implicit_prefs=implicit,
+              alpha=0.5, anchor=anchor, anchor_weight=1.0)
+    counter = {"warp": spd_solve.gauss_jordan_warp_launches,
+               "wide": spd_solve.gauss_jordan_wide_launches}[kernel]
+    before, total = counter.count, spd_solve.gauss_jordan_launches.count
+    on_card = als.fold_in_factors(y, idx, val, device=card, **kw)
+    assert counter.count == before + 1
+    assert spd_solve.gauss_jordan_launches.count == total + 1
+    on_cpu = als.fold_in_factors(y, idx, val, device="cpu", **kw)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_implicit_als_card_matches_cpu(card, binary):
+    """Implicit ALS (the shared YᵀY term and the confidence weights) on the
+    card against the CPU's plain solve."""
+    import numpy as np
+
+    from incubator_predictionio_torch.ops import als
+
+    rng = np.random.default_rng(3)
+    u = rng.integers(0, 300, 6000).astype(np.int32)
+    i = np.minimum((200 * rng.random(6000) ** 2).astype(np.int32), 199)
+    r = (np.ones(6000, np.float32) if binary
+         else rng.integers(1, 6, 6000).astype(np.float32))
+    params = als.ALSParams(rank=32, num_iterations=3, reg=0.05,
+                           implicit_prefs=True, alpha=1.0)
+    before = spd_solve.gauss_jordan_warp_launches.count
+    f_card = als.train_als(u, i, r, 300, 200, params, device=card)
+    assert spd_solve.gauss_jordan_warp_launches.count > before
+    f_cpu = als.train_als(u, i, r, 300, 200, params, device="cpu")
+    np.testing.assert_allclose(f_card.user_factors, f_cpu.user_factors,
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(f_card.item_factors, f_cpu.item_factors,
+                               rtol=TOL, atol=TOL)

@@ -1,9 +1,11 @@
 """The port never imports JAX or the JAX package.
 
 Statically: no file of ``incubator_predictionio_torch`` and not
-``chip_smoke.py`` imports ``jax``, ``jaxlib`` or ``incubator_predictionio_tpu``.
-At run time: a fresh interpreter trains, persists, deploys over HTTP and
-queries on the CPU, and neither ``jax`` nor the JAX package is loaded after.
+``chip_smoke.py`` imports ``jax``, ``jaxlib``, ``orbax`` or
+``incubator_predictionio_tpu``. At run time: a fresh interpreter trains
+(checkpointed and NaN-guarded), persists, deploys over HTTP and queries on
+the CPU, folds events in and trains the Similar-Product template, and
+neither ``jax``, ``orbax`` nor the JAX package is loaded after.
 (This pytest process has JAX loaded by tests/conftest.py, so the run-time
 check needs its own process.)
 """
@@ -19,7 +21,7 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "incubator_predictionio_tpu")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "incubator_predictionio_tpu")
 
 
 def _port_files():
@@ -44,8 +46,9 @@ def _imports(path: Path):
 
 def test_port_files_exist():
     names = {p.name for p in _port_files()}
-    assert {"spd_solve.py", "als.py", "recommendation.py",
-            "chip_smoke.py"} <= names
+    assert {"spd_solve.py", "als.py", "recommendation.py", "chip_smoke.py",
+            "nan_guard.py", "checkpoint.py", "workflow_params.py",
+            "similar_product.py", "_filters.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -59,8 +62,12 @@ def test_no_jax_import(path):
 _SCRIPT = r"""
 import http.client, json, sys
 import numpy as np
+from incubator_predictionio_torch.controller import EngineParams
+from incubator_predictionio_torch.models import similar_product
 from incubator_predictionio_torch.tools import console
+from incubator_predictionio_torch.workflow.context import WorkflowContext
 from incubator_predictionio_torch.workflow.create_server import EngineServer
+from incubator_predictionio_torch.workflow.workflow_params import WorkflowParams
 
 rng = np.random.default_rng(0)
 events = [{"event": "rate", "entityType": "user", "entityId": f"u{u}",
@@ -71,7 +78,9 @@ events = [{"event": "rate", "entityType": "user", "entityId": f"u{u}",
 engine_json = {"algorithms": [{"name": "als", "params": {
     "rank": 4, "numIterations": 3, "lambda": 0.1}}]}
 path = sys.argv[1]
-console.train(engine_json, events, path, device="cpu")
+console.train(engine_json, events, path, device="cpu",
+              workflow_params=WorkflowParams(checkpoint_every=1,
+                                             nan_guard=True))
 deployment, _ = console.load_deployment(path, device="cpu")
 server = EngineServer(deployment, "127.0.0.1", 0)
 _, port = server.start()
@@ -82,8 +91,23 @@ body = json.loads(resp.read())
 conn.close()
 server.stop()
 assert resp.status == 200 and len(body["itemScores"]) == 3, body
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "incubator_predictionio_tpu"))
+folded = deployment.algo_list[0][1].fold_in(
+    deployment.models[0], [{"event": "rate", "entityId": "new",
+                            "targetEntityId": "i1",
+                            "properties": {"rating": 4.0}}])
+assert len(folded.recommend_products("new", 3)) == 3
+views = [{"event": "view", "entityType": "user", "entityId": f"u{u}",
+          "targetEntityType": "item", "targetEntityId": f"i{i}"}
+         for u in range(12) for i in range(9) if rng.random() < 0.5]
+views += [{"event": "$set", "entityType": "item", "entityId": "i1",
+           "properties": {"categories": ["c"]}}]
+sp = similar_product.SimilarProductEngine()()
+model = sp.train(WorkflowContext(events=views, device="cpu"),
+                 EngineParams.from_json({"algorithms": [{"name": "als",
+                     "params": {"rank": 4, "numIterations": 2}}]}))[0]
+assert model.similar(["i2"], 3, categories=["c"])[0][0] == "i1"
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "orbax", "incubator_predictionio_tpu"))
 print(json.dumps({"loaded": loaded}))
 """
 
