@@ -55,10 +55,13 @@ and power limit.
 
 from __future__ import annotations
 
+import calendar
 import http.client
 import json
 import os
+import resource
 import socket
+import sqlite3
 import subprocess
 import sys
 import tempfile
@@ -70,6 +73,7 @@ import torch
 from incubator_predictionio_torch.common.nan_guard import NaNGuardError
 from incubator_predictionio_torch.controller import Engine, EngineParams
 from incubator_predictionio_torch.data.bimap import IdentityBiMap
+from incubator_predictionio_torch.data.storage import Storage
 from incubator_predictionio_torch.data.events import (
     aggregate_properties, find_ratings, read_events,
 )
@@ -82,12 +86,15 @@ from incubator_predictionio_torch.ops.als import (
     ALSParams, ALSTrainer, predict_rmse, solve_calls_per_half_step, train_als,
 )
 from incubator_predictionio_torch.ops.rowblocks import plan_layout
+from incubator_predictionio_torch.workflow import model_artifact
 from incubator_predictionio_torch.workflow.checkpoint import (
     CheckpointHook, CheckpointIncompatibleError,
 )
 from incubator_predictionio_torch.workflow.context import WorkflowContext
 from incubator_predictionio_torch.workflow.create_server import EngineServer
-from incubator_predictionio_torch.workflow.persist import load_models, save_models
+from incubator_predictionio_torch.workflow.persist import (
+    load_models, models_from_bytes, save_models,
+)
 from incubator_predictionio_torch.workflow.workflow_params import WorkflowParams
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -108,10 +115,14 @@ FOLD_IN_RANK128 = (200, 50, 2_000)
 CARD = ""  # "name, power limit" from nvidia-smi, set in phase 0
 #: each path's kernel launches, counted from 0 over that path's run
 PATH_LAUNCHES: dict = {}
+START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, "card": CARD, **fields}), flush=True)
+    """One phase line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "card": CARD,
+                      "elapsed_s": time.perf_counter() - START, **fields}),
+          flush=True)
 
 
 def peak_rates() -> tuple[float, float, str]:
@@ -1143,42 +1154,68 @@ def console_train(args: list, path: str, crash: bool = False) -> dict:
     return trained
 
 
+class _Served:
+    """A verb that serves (eventserver / deploy) in its own process, up
+    once ``GET /`` answers; stopped with SIGTERM on exit."""
+
+    def __init__(self, args: list, env: dict, cwd: str):
+        self.port = _free_port()
+        self.proc = subprocess.Popen(
+            CONSOLE + args + ["--port", str(self.port)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=cwd)
+
+    def __enter__(self):
+        deadline = time.time() + 180
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"server exited: {self.proc.stderr.read()[-2000:]}")
+            try:
+                self.info = self.request("GET", "/")[1]
+                return self
+            except OSError:
+                check(time.time() < deadline, "server never came up")
+                time.sleep(0.25)
+
+    def connect(self) -> http.client.HTTPConnection:
+        return http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
+
+    def request(self, method, path, body=None, conn=None):
+        own = conn is None
+        conn = conn or self.connect()
+        try:
+            t0 = time.perf_counter()
+            conn.request(method, path, body=None if body is None
+                         else json.dumps(body),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = json.loads(resp.read())
+            return resp.status, data, (time.perf_counter() - t0) * 1e3
+        finally:
+            if own:
+                conn.close()
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.stderr = self.proc.stderr.read()
+        self.proc.stderr.close()
+
+
 def console_queries(model: str, queries: list) -> list:
     """``console deploy`` in a subprocess; POST the queries; stop it.
     Returns [(status, result, ms)]."""
-    port = _free_port()
-    proc = subprocess.Popen(CONSOLE + ["deploy", "--model", model, "--port",
-                                       str(port)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=_console_env(), cwd=ROOT)
-    try:
-        deadline = time.time() + 120
-        while True:
-            if proc.poll() is not None:
-                raise AssertionError(
-                    f"console deploy exited: {proc.stderr.read()[-2000:]}")
-            try:
-                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
-                conn.request("GET", "/")
-                status = conn.getresponse().status
-                conn.close()
-                if status == 200:
-                    break
-            except OSError:
-                pass
-            check(time.time() < deadline, "console deploy never came up")
-            time.sleep(0.5)
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
-        answers = [_post(conn, q) for q in queries]
+    with _Served(["deploy", "--model", model], _console_env(), ROOT) as srv:
+        conn = srv.connect()
+        answers = [srv.request("POST", "/queries.json", q, conn)
+                   for q in queries]
         conn.close()
-        return answers
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+    return answers
 
 
 def _event_time(j: int) -> str:
@@ -1325,6 +1362,308 @@ def phase_console_similar_product(workdir: str) -> None:
          answers=counts)
 
 
+ML1M = (6_040, 3_706, 1_000_209)  # bench.py SCALES["ml1m"]
+#: the live events of the pio_workflow phase: single POSTs, batches of 50,
+#: new users (10 events each) and new items
+LIVE = (1_000, 20, 200, 50)
+PIO_RANK, PIO_ITERS, PIO_LAMBDA = 32, 10, 0.01
+T0_MS = 1_704_067_200_000  # 2024-01-01T00:00:00Z
+
+
+def _iso_ms(ms: int) -> str:
+    sec, milli = divmod(int(ms), 1000)
+    t = time.gmtime(sec)
+    return time.strftime("%Y-%m-%dT%H:%M:%S", t) + f".{milli:03d}Z"
+
+
+def _pio_env(base: str) -> dict:
+    env = {k: v for k, v in _console_env().items()
+           if not k.startswith("PIO_STORAGE_")}
+    env["PIO_FS_BASEDIR"] = base
+    return env
+
+
+def _verb(args: list, env: dict, cwd: str, timeout: int = 900):
+    """One console verb in its own process; (completed process, seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run(CONSOLE + args, capture_output=True, text=True,
+                         env=env, cwd=cwd, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"verb {args[0]} failed ({out.returncode}): {out.stderr[-2000:]}")
+    return out, seconds
+
+
+def _percentiles(ms: list) -> dict:
+    a = np.asarray(ms)
+    return {"p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)), "n": len(ms)}
+
+
+def _write_ml1m_jsonl(path: str) -> tuple:
+    """ML-1M-shaped rate events (bench.py's synth_ratings at SCALES["ml1m"])
+    as a `pio import` file, each with a distinct eventTime, shuffled;
+    returns (users, items, ratings, event times in ms)."""
+    n_users, n_items, nnz = ML1M
+    u, i, r = synth_ratings(n_users, n_items, nnz, seed=21)
+    times = T0_MS + np.random.default_rng(22).permutation(nnz)
+    with open(path, "w", encoding="utf-8") as fh:
+        for a, b, c, t in zip(u.tolist(), i.tolist(), r.tolist(),
+                              times.tolist()):
+            fh.write('{"event": "rate", "entityType": "user", "entityId": '
+                     f'"u{a}", "targetEntityType": "item", "targetEntityId": '
+                     f'"i{b}", "properties": {{"rating": {c}}}, '
+                     f'"eventTime": "{_iso_ms(t)}"}}\n')
+    return u, i, r, times
+
+
+def _expected_triple(imported: tuple, live: list) -> dict:
+    """The plain reference of the store read, from the generated events
+    themselves: every event in time order (all times are distinct), users
+    and items indexed in first-seen order."""
+    u, i, r, times = imported
+    ids = lambda key: np.array([int(e[key][1:]) for e in live])  # noqa: E731
+    order = np.argsort(np.concatenate(
+        [times, [_ms(e["eventTime"]) for e in live]]), kind="stable")
+
+    def first_seen(seq: np.ndarray, prefix: str):
+        seq = seq[order]
+        keys, first = np.unique(seq, return_index=True)
+        keys = keys[np.argsort(first)]
+        dense = np.empty(keys.max() + 1, np.int64)
+        dense[keys] = np.arange(len(keys))
+        return [f"{prefix}{k}" for k in keys], dense[seq].astype(np.int32)
+
+    users, uidx = first_seen(np.concatenate([u, ids("entityId")]), "u")
+    items, iidx = first_seen(np.concatenate([i, ids("targetEntityId")]), "i")
+    rating = np.concatenate([r, [e["properties"]["rating"] for e in live]])
+    return {"users": users, "items": items, "u": uidx, "i": iidx,
+            "r": rating[order].astype(np.float32)}
+
+
+def _ms(iso: str) -> int:
+    """Inverse of :func:`_iso_ms`."""
+    t = time.strptime(iso[:19], "%Y-%m-%dT%H:%M:%S")
+    return (int(calendar.timegm(t)) * 1000 + int(iso[20:23]))
+
+
+def _live_events() -> list:
+    """2,000 events after the imported ones: 200 new users with 10 events
+    each; every fourth event rates one of 50 new items."""
+    n_users, n_items, nnz = ML1M
+    singles, batches, new_users, new_items = LIVE
+    rng = np.random.default_rng(23)
+    out = []
+    for k in range(singles + 50 * batches):
+        item = (n_items + (k // 4) % new_items if k % 4 == 0
+                else min(int(n_items * rng.random() ** 2), n_items - 1))
+        out.append({"event": "rate", "entityType": "user",
+                    "entityId": f"u{n_users + k % new_users}",
+                    "targetEntityType": "item", "targetEntityId": f"i{item}",
+                    "properties": {"rating": float(rng.integers(1, 11)) / 2},
+                    "eventTime": _iso_ms(T0_MS + nnz + k)})
+    return out
+
+
+def phase_pio_workflow(workdir: str) -> None:
+    """The user's path through the port's verbs, each in its own process,
+    on one SQLite store ($PIO_FS_BASEDIR/pio.sqlite): app new → import of
+    an ML-1M-shaped file → 2,000 live events through the event server →
+    train (rank 32, 10 iterations, λ 0.01, the warp kernel) → deploy →
+    50 queries held to a host top-k → a second train whose blob is
+    corrupted in the SQLite file, and a deploy that walks back past it."""
+    n_users, n_items, nnz = ML1M
+    singles, batches, new_users, new_items = LIVE
+    base = os.path.join(workdir, "pio_base")
+    env = _pio_env(base)
+    out, _ = _verb(["app", "new", "ml1m"], env, workdir)
+    key = out.stdout.split("Access Key:")[1].split()[0]
+
+    # bulk import
+    events_path = os.path.join(workdir, "ml1m.jsonl")
+    t0 = time.perf_counter()
+    imported = _write_ml1m_jsonl(events_path)
+    write_s = time.perf_counter() - t0
+    cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    out, wall_s = _verb(["import", "--app-name", "ml1m", "--input",
+                         events_path], env, workdir)
+    cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    line = [ln for ln in out.stdout.splitlines() if "Imported" in ln][-1]
+    check(f"Imported {nnz} events (0 skipped)" in line, f"import: {line}")
+    import_s = float(line.rsplit(" in ", 1)[1].rstrip("s."))
+    emit("pio_workflow_import", events=nnz, file_write_seconds=write_s,
+         import_seconds=import_s, events_per_s=nnz / import_s,
+         verb_wall_seconds=wall_s, events_per_s_wall=nnz / wall_s,
+         verb_cpu_user_seconds=cpu1.ru_utime - cpu0.ru_utime,
+         verb_cpu_sys_seconds=cpu1.ru_stime - cpu0.ru_stime,
+         store_bytes=os.path.getsize(os.path.join(base, "pio.sqlite")))
+    os.unlink(events_path)
+
+    # live events through the event server: acknowledged = committed
+    live = _live_events()
+    acked, single_ms, batch_ms = [], [], []
+    with _Served(["eventserver", "--ip", "127.0.0.1"], env, workdir) as srv:
+        conn = srv.connect()
+        for e in live[:singles]:
+            status, res, ms = srv.request(
+                "POST", f"/events.json?accessKey={key}", e, conn)
+            check(status == 201, f"event POST {status}: {res}")
+            acked.append(res["eventId"])
+            single_ms.append(ms)
+        for j in range(batches):
+            chunk = live[singles + 50 * j: singles + 50 * (j + 1)]
+            status, res, ms = srv.request(
+                "POST", f"/batch/events.json?accessKey={key}", chunk, conn)
+            check(status == 200 and [x["status"] for x in res] == [201] * 50,
+                  f"batch POST {status}: {res}")
+            acked += [x["eventId"] for x in res]
+            batch_ms.append(ms)
+        conn.close()
+    check(len(set(acked)) == len(live), "duplicate event ids")
+    emit("pio_workflow_ingest", events=len(live), new_users=new_users,
+         new_items=new_items, single=_percentiles(single_ms[1:]),
+         batch_of_50=_percentiles(batch_ms))
+
+    store = Storage({f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "S"
+                     for r in ("METADATA", "EVENTDATA", "MODELDATA")}
+                    | {"PIO_STORAGE_SOURCES_S_TYPE": "SQLITE",
+                       "PIO_STORAGE_SOURCES_S_PATH":
+                           os.path.join(base, "pio.sqlite")})
+    app_id = store.get_meta_data_apps().get_by_name("ml1m").id
+    missing = [eid for eid in acked
+               if store.get_l_events().get(eid, app_id) is None]
+    check(not missing, f"{len(missing)} acknowledged events not in the store")
+    # what the train must read, from the generated events themselves
+    ref = _expected_triple(imported, live)
+    u, i, r, users, items = ref["u"], ref["i"], ref["r"], ref["users"], ref["items"]
+    total = nnz + len(live)
+    check(len(u) == total and len(users) == n_users + new_users
+          and len(items) == n_items + new_items,
+          f"reference triple {len(u)}, {len(users)} users, {len(items)} items")
+
+    # train through the verb (the card, the warp kernel)
+    with open(os.path.join(workdir, "engine.json"), "w", encoding="utf-8") as fh:
+        json.dump({"id": "default",
+                   "engineFactory": "incubator_predictionio_torch.models."
+                                    "recommendation.RecommendationEngine",
+                   "datasource": {"params": {"appName": "ml1m"}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": PIO_RANK, "numIterations": PIO_ITERS,
+                       "lambda": PIO_LAMBDA}}]}, fh)
+    als_params = ALSParams(rank=PIO_RANK, num_iterations=PIO_ITERS,
+                           reg=PIO_LAMBDA)
+    expected, calls_u, calls_i = implied_launches(
+        u, i, len(users), len(items), als_params, PIO_ITERS)
+
+    def train(path: str) -> dict:
+        out, wall = _verb(["train"], env, workdir)
+        trained = json.loads(out.stdout.strip().splitlines()[-1])
+        record(path, trained["kernel_launches"])
+        got = trained["kernel_launches"]
+        check(got["warp"] == expected and got["wide"] == 0,
+              f"{path} launches {got} != implied {expected} warp")
+        check(trained["timings"]["ratings_read"] == total,
+              f"{path} read {trained['timings']['ratings_read']} ratings")
+        row = store.get_meta_data_engine_instances().get(
+            trained["engineInstanceId"])
+        check(row.status == "COMPLETED", f"{path} instance {row.status}")
+        trained["wall_seconds"] = wall
+        return trained
+
+    first = train("pio_workflow")
+    first_id = first["engineInstanceId"]
+    _, persisted = models_from_bytes(model_artifact.read_model(store, first_id))
+    stored = persisted[0]
+    m_users, m_items = stored["users"], stored["items"]
+    check(list(m_users) == users and list(m_items) == items,
+          "the model's id maps differ from the events' first-seen order")
+    check(all(f"u{n_users + j}" in m_users for j in range(new_users))
+          and all(f"i{n_items + j}" in m_items for j in range(new_items)),
+          "a live user or item is not in the model")
+    uf, itf = stored["user_factors"], stored["item_factors"]
+    check(uf.shape == (n_users + new_users, PIO_RANK)
+          and bool(np.isfinite(uf).all() and np.isfinite(itf).all()),
+          f"bad factors {uf.shape}")
+    tm = first["timings"]
+    reads = [tm["read_seconds"]]
+    # the steady iteration on the card, on the same triple
+    trainer = ALSTrainer(u, i, r, len(users), len(items), als_params,
+                         device="cuda")
+    trainer.iterate(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.iterate(PIO_ITERS)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t0) / PIO_ITERS * 1e3
+    del trainer
+    emit("pio_workflow_train", events=total, rank=PIO_RANK,
+         iterations=PIO_ITERS, reg=PIO_LAMBDA,
+         train_seconds_end_to_end=first["wall_seconds"],
+         train_seconds_run_train=first["seconds"], timings=tm,
+         read_share_of_run_train=tm["read_seconds"] / first["seconds"],
+         device_share_of_run_train=tm["device_train_seconds"] / first["seconds"],
+         steady_iteration_ms=steady_ms, kernel_launches=first["kernel_launches"],
+         expected_launches=expected,
+         solve_calls_per_iteration={"user": calls_u, "item": calls_i})
+
+    # deploy the newest COMPLETED; 25 live users, 25 imported ones
+    rng = np.random.default_rng(24)
+    queried = ([f"u{n_users + j}" for j in range(0, new_users, new_users // 25)]
+               + [f"u{int(x)}" for x in rng.integers(0, n_users, 25)])
+
+    def answer(res, user):
+        check_user_answer(uf, itf, m_users[user], {"itemScores": [
+            {"item": m_items[x["item"]], "score": x["score"]}
+            for x in res["itemScores"]]})
+
+    query_ms = []
+    with _Served(["deploy"], env, workdir) as srv:
+        check(srv.info["engineInstanceId"] == first_id
+              and srv.info["rejected"] == [], f"deployed {srv.info}")
+        conn = srv.connect()
+        for user in queried:
+            status, res, ms = srv.request("POST", "/queries.json",
+                                          {"user": user, "num": 10}, conn)
+            check(status == 200, f"query {status}: {res}")
+            answer(res, user)
+            query_ms.append(ms)
+        conn.close()
+    emit("pio_workflow_serve", queries=len(queried),
+         live_user_queries=sum(int(q[1:]) >= n_users for q in queried),
+         **_percentiles(query_ms[1:]))
+
+    # a second train, its blob corrupted in the SQLite file before deploy
+    second = train("pio_workflow_retrain")
+    second_id = second["engineInstanceId"]
+    reads.append(second["timings"]["read_seconds"])
+    emit("pio_workflow_read", events=total, seconds=reads,
+         seconds_per_million_events=[x / total * 1e6 for x in reads],
+         where="the train's own read (timings.read_seconds), two trains")
+    db = sqlite3.connect(os.path.join(base, "pio.sqlite"))
+    (blob,) = db.execute("SELECT models FROM pio_modeldata_models WHERE id=?",
+                         (second_id,)).fetchone()
+    flipped = bytearray(blob)
+    flipped[len(flipped) // 2] ^= 0x01
+    with db:
+        db.execute("UPDATE pio_modeldata_models SET models=? WHERE id=?",
+                   (bytes(flipped), second_id))
+    db.close()
+    with _Served(["deploy"], env, workdir) as srv:
+        info = srv.info
+        status, res, _ = srv.request("POST", "/queries.json",
+                                     {"user": queried[0], "num": 10})
+        check(status == 200, f"query after walk-back {status}: {res}")
+        answer(res, queried[0])
+    check(info["engineInstanceId"] == first_id and info["rejected"] == [
+        {"engineInstanceId": second_id, "kind": "checksum"}],
+        f"walk-back: {info}")
+    check("checksum" in srv.stderr, "deploy did not report the integrity kind")
+    store.close()
+    emit("pio_workflow_walk_back", corrupt=second_id, deployed=first_id,
+         rejected=info["rejected"], retrain_seconds_end_to_end=second["wall_seconds"],
+         retrain_timings=second["timings"])
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -1337,6 +1676,7 @@ def main() -> int:
         phase_fold_in_main(workdir, main_path)
         phase_console(workdir)
         phase_console_similar_product(workdir)
+        phase_pio_workflow(workdir)
         phase_similar_product(workdir)
     ratings = main_path.pop("ratings")
     main_path.clear()

@@ -9,9 +9,13 @@ CUDA on a host without a card raises (``device.resolve_device``). The CPU
 runs only when the caller asks for it, and then every kernel runs its
 plain PyTorch version.
 
-What is ported so far: the Recommendation template's train → persist →
-serve path (ALS with the Gauss-Jordan SPD solve as a hand-written CUDA
-kernel, ``ops/csrc/gauss_jordan.cu``).
+What is ported so far: the storage layer (``data/storage``: SQLite, the
+default, with the reference's schema; memory; localfs), the event stores
+(``data/store``), the event server (``data/api``), the train/deploy
+workflow over engine-instance rows and checksummed model artifacts
+(``workflow``), the ``pio`` verbs (``tools/console.py``), and the
+Recommendation and Similar-Product templates (ALS with the Gauss-Jordan
+SPD solve as hand-written CUDA kernels, ``ops/csrc/gauss_jordan.cu``).
 """
 
 __version__ = "0.1.0"

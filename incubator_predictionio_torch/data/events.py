@@ -15,7 +15,8 @@ and items only over events with a target, both in first-seen order; the
 rating is the ``rating`` property, or the per-event default
 (``event_default_ratings``, e.g. ``buy`` → 4.0) when the property is
 absent, or ``default_rating`` when it is present but not a finite number.
-Storage backends wait for a later slice.
+This is the file form's read (``train --events``); the event store's is
+``data/store/p_event_store.py``, which gives the same triple.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Iterable, Mapping, Optional, Sequence
 import numpy as np
 
 from .bimap import BiMap
+from .store.p_event_store import EventBatch, ratings_matrix
 
 _EPOCH = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
 
@@ -61,20 +63,6 @@ def event_time_us(value: Optional[str]) -> float:
     return (t - _EPOCH) // _dt.timedelta(microseconds=1)
 
 
-def _coerce_rating(v, default_rating: float) -> float:
-    """The reference's rules: bool/None, strings outside the plain float
-    charset, and values not finite as float32 are "present but unusable"."""
-    if isinstance(v, bool) or v is None:
-        return default_rating
-    if isinstance(v, str) and set(v) - set("0123456789.+-eE \t\r\n"):
-        return default_rating
-    try:
-        f = np.float32(float(v))
-    except (TypeError, ValueError, OverflowError):
-        return default_rating
-    return float(f) if np.isfinite(f) else default_rating
-
-
 def _id(v) -> Optional[str]:
     return None if v is None else str(v)
 
@@ -86,34 +74,32 @@ def find_ratings(
     default_rating: float = 1.0,
     event_default_ratings: Optional[Mapping[str, float]] = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, BiMap, BiMap]:
-    """(user, item, rating) COO triple + id maps from wire-format events."""
+    """(user, item, rating) COO triple + id maps from wire-format events:
+    the selected events, time-sorted, laid out as the event store's
+    columns and turned into the triple by the store read's own
+    ``ratings_matrix``."""
     names = None if event_names is None else set(event_names)
     sel = [e for e in events if names is None or e.get("event") in names]
-    sel.sort(key=lambda e: event_time_us(e.get("eventTime")))  # stable
-    entity = [_id(e["entityId"]) for e in sel]
-    target = [_id(e.get("targetEntityId")) for e in sel]
-    users = BiMap.string_int(entity)
-    items = BiMap.string_int(t for t in target if t is not None)
-    u = users.map_array(entity)
-    i = np.fromiter((items(t) if t is not None else -1 for t in target),
-                    dtype=np.int32, count=len(sel))
-    if rating_from_props:
-        defaults = event_default_ratings or {}
-
-        def rating(e) -> float:
-            props = e.get("properties") or {}
-            if "rating" in props:
-                return _coerce_rating(props["rating"], default_rating)
-            dflt = defaults.get(e.get("event"))
-            return _coerce_rating(default_rating if dflt is None else dflt,
-                                  default_rating)
-
-        r = np.fromiter((rating(e) for e in sel), dtype=np.float32,
-                        count=len(sel))
-    else:
-        r = np.full(len(sel), default_rating, dtype=np.float32)
-    keep = i >= 0
-    return u[keep], i[keep], r[keep], users, items
+    times = [event_time_us(e.get("eventTime")) for e in sel]
+    order = sorted(range(len(sel)), key=times.__getitem__)  # stable
+    sel = [sel[j] for j in order]
+    defaults = (event_default_ratings or {}) if rating_from_props else {}
+    props = []
+    for e in sel:
+        p = e.get("properties") or {}
+        dflt = defaults.get(e.get("event"))
+        if dflt is not None and "rating" not in p:
+            p = {**p, "rating": dflt}
+        props.append(p)
+    batch = EventBatch(
+        event=[e.get("event") for e in sel],
+        entity_type=[e.get("entityType") for e in sel],
+        entity_id=[_id(e["entityId"]) for e in sel],
+        target_entity_id=[_id(e.get("targetEntityId")) for e in sel],
+        properties=props,
+        event_time_us=np.asarray([times[j] for j in order], np.float64))
+    return ratings_matrix(batch, rating_from_props=rating_from_props,
+                          default_rating=default_rating)
 
 
 def aggregate_properties(events: Iterable[Mapping], entity_type: str,

@@ -1,0 +1,212 @@
+"""Storage registry — env-driven backend selection.
+
+The port's own copy of ``incubator_predictionio_tpu/data/storage/registry.py``
+with the embedded backends. It reads
+
+    PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_NAME
+    PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_SOURCE
+    PIO_STORAGE_SOURCES_<NAME>_TYPE
+    PIO_STORAGE_SOURCES_<NAME>_<PROP>   (backend-specific, e.g. PATH)
+
+instantiates one client per source and hands out typed DAOs per
+repository.
+
+Defaults (no env set): a single SQLITE source at
+``$PIO_FS_BASEDIR/pio.sqlite`` (else ``~/.pio_store/pio.sqlite``) serving
+all three repositories — the same file, tables and schema as the JAX
+package's default, so a store written by one package trains under the
+other.
+
+The reference's other types (JSONL, HTTP, S3, ELASTICSEARCH, PGSQL, MYSQL,
+HBASE, HDFS) are not ported yet: selecting one raises :class:`StorageError`
+naming the ROADMAP item; nothing falls back to SQLite.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Callable, Optional
+
+from . import base
+from .localfs import LocalFSClient
+from .memory import StorageClient as MemoryClient
+from .sqlite import SQLiteClient
+
+
+class StorageError(Exception):
+    pass
+
+
+_BACKENDS: dict[str, Callable[[base.StorageClientConfig], base.BaseStorageClient]] = {
+    "MEMORY": MemoryClient,
+    "SQLITE": SQLiteClient,
+    "LOCALFS": LocalFSClient,
+}
+
+#: the reference's backend types this package does not serve yet
+_NOT_PORTED = {
+    "JSONL": "the JSONL event log with its columnar fast path",
+    "HTTP": "the network storage backends",
+    "S3": "the network storage backends",
+    "ELASTICSEARCH": "the network storage backends",
+    "PGSQL": "the network storage backends",
+    "MYSQL": "the network storage backends",
+    "JDBC": "the network storage backends",
+    "HBASE": "the network storage backends",
+    "HDFS": "the network storage backends",
+}
+
+REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
+
+
+def base_dir() -> str:
+    """``$PIO_FS_BASEDIR``, else ``~/.pio_store`` (created if missing)."""
+    d = (os.environ.get("PIO_FS_BASEDIR", "").strip()
+         or os.path.expanduser("~/.pio_store"))
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+class Storage:
+    """Process-wide registry instance. ``Storage.instance()`` is the
+    singleton accessor; tests may build isolated instances from an env
+    dict."""
+
+    _singleton: Optional["Storage"] = None
+    _singleton_lock = threading.Lock()
+
+    def __init__(self, env: Optional[dict[str, str]] = None):
+        self._env = dict(os.environ if env is None else env)
+        self._clients: dict[str, base.BaseStorageClient] = {}
+        self._lock = threading.RLock()
+
+    @classmethod
+    def instance(cls) -> "Storage":
+        with cls._singleton_lock:
+            if cls._singleton is None:
+                cls._singleton = Storage()
+            return cls._singleton
+
+    @classmethod
+    def reset_instance(cls, env: Optional[dict[str, str]] = None) -> "Storage":
+        """Testing hook: swap the singleton (closing old clients)."""
+        with cls._singleton_lock:
+            if cls._singleton is not None:
+                cls._singleton.close()
+            cls._singleton = Storage(env)
+            return cls._singleton
+
+    # -- source resolution ------------------------------------------------
+    def _repo_source_name(self, repo: str) -> str:
+        return (self._env.get(f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE")
+                or "PIO_DEFAULT")
+
+    def repo_namespace(self, repo: str) -> str:
+        """The _NAME of a repository (table-name prefix upstream)."""
+        return self._env.get(
+            f"PIO_STORAGE_REPOSITORIES_{repo}_NAME", f"pio_{repo.lower()}"
+        )
+
+    def repo_source_type(self, repo: str) -> str:
+        """The configured TYPE of a repository's source (without
+        constructing the client). Default source is SQLITE."""
+        source = self._repo_source_name(repo)
+        if source == "PIO_DEFAULT":
+            return "SQLITE"
+        return self._env.get(
+            f"PIO_STORAGE_SOURCES_{source}_TYPE", ""
+        ).upper()
+
+    def _client_for_source(self, source_name: str) -> base.BaseStorageClient:
+        with self._lock:
+            if source_name in self._clients:
+                return self._clients[source_name]
+            if source_name == "PIO_DEFAULT":
+                stype = "SQLITE"
+                props = {"PATH": os.path.join(base_dir(), "pio.sqlite")}
+            else:
+                stype = self._env.get(f"PIO_STORAGE_SOURCES_{source_name}_TYPE", "")
+                if not stype:
+                    raise StorageError(
+                        f"PIO_STORAGE_SOURCES_{source_name}_TYPE is not set"
+                    )
+                stype = stype.upper()
+                prefix = f"PIO_STORAGE_SOURCES_{source_name}_"
+                props = {
+                    k[len(prefix):]: v
+                    for k, v in self._env.items()
+                    if k.startswith(prefix) and k != prefix + "TYPE"
+                }
+            if stype not in _BACKENDS:
+                if stype in _NOT_PORTED:
+                    raise StorageError(
+                        f"Storage type {stype} is not ported to this package "
+                        f"yet (ROADMAP.md Queue 1, item 3: "
+                        f"{_NOT_PORTED[stype]}); use SQLITE, MEMORY or "
+                        "LOCALFS")
+                raise StorageError(f"Unknown storage type {stype}")
+            client = _BACKENDS[stype](
+                base.StorageClientConfig(
+                    test=self._env.get("PIO_TEST", "") == "1", properties=props
+                )
+            )
+            self._clients[source_name] = client
+            return client
+
+    def _client(self, repo: str) -> base.BaseStorageClient:
+        return self._client_for_source(self._repo_source_name(repo))
+
+    # -- typed DAO accessors (reference: Storage.getMetaDataApps etc.) ----
+    # Each DAO is namespaced by the repository _NAME (table/keyspace prefix).
+    def get_meta_data_apps(self) -> base.Apps:
+        return self._client("METADATA").apps(self.repo_namespace("METADATA"))
+
+    def get_meta_data_access_keys(self) -> base.AccessKeys:
+        return self._client("METADATA").access_keys(self.repo_namespace("METADATA"))
+
+    def get_meta_data_channels(self) -> base.Channels:
+        return self._client("METADATA").channels(self.repo_namespace("METADATA"))
+
+    def get_meta_data_engine_instances(self) -> base.EngineInstances:
+        return self._client("METADATA").engine_instances(self.repo_namespace("METADATA"))
+
+    def get_meta_data_evaluation_instances(self) -> base.EvaluationInstances:
+        return self._client("METADATA").evaluation_instances(self.repo_namespace("METADATA"))
+
+    def get_model_data_models(self) -> base.Models:
+        return self._client("MODELDATA").models(self.repo_namespace("MODELDATA"))
+
+    def get_l_events(self) -> base.LEvents:
+        return self._client("EVENTDATA").l_events(self.repo_namespace("EVENTDATA"))
+
+    def get_p_events(self) -> base.PEvents:
+        return self._client("EVENTDATA").p_events(self.repo_namespace("EVENTDATA"))
+
+    def verify_all_data_objects(self) -> list[str]:
+        """`pio status` support: try constructing every DAO, return errors."""
+        errors = []
+        for fn in (
+            self.get_meta_data_apps,
+            self.get_meta_data_access_keys,
+            self.get_meta_data_channels,
+            self.get_meta_data_engine_instances,
+            self.get_meta_data_evaluation_instances,
+            self.get_model_data_models,
+            self.get_l_events,
+            self.get_p_events,
+        ):
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 — surfaced to operator
+                errors.append(f"{fn.__name__}: {e}")
+        return errors
+
+    def close(self) -> None:
+        with self._lock:
+            for c in self._clients.values():
+                try:
+                    c.close()
+                except Exception:
+                    pass
+            self._clients.clear()

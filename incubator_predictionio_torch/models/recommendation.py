@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -26,6 +27,7 @@ from ..controller import (
 )
 from ..data.bimap import BiMap, extend_bimap
 from ..data.events import find_ratings
+from ..data.store import PEventStore
 from ..device import resolve_device
 from ..ops.als import ALSFactors, ALSParams, fold_in_factors, train_als
 from ..ops.topk import batch_top_k, top_k_items
@@ -96,12 +98,24 @@ class RecommendationDataSource(DataSource):
     params_aliases = {"appName": "app_name", "eventNames": "event_names"}
 
     def read_training(self, ctx) -> TrainingData:
-        if ctx.events is None:
-            raise ValueError("the workflow context holds no events")
+        """The rate/buy events as a triple: from ``ctx.events`` when the
+        caller handed events over, else from the event store (the
+        reference's ``PEventStore.find_ratings`` read). "buy" events carry
+        no rating property, so the template assigns ``buy_rating``."""
         p: DataSourceParams = self.params
-        u, i, r, users, items = find_ratings(
-            ctx.events, event_names=list(p.event_names),
-            event_default_ratings={"buy": p.buy_rating})
+        t0 = time.perf_counter()
+        if ctx.events is not None:
+            u, i, r, users, items = find_ratings(
+                ctx.events, event_names=list(p.event_names),
+                event_default_ratings={"buy": p.buy_rating})
+        else:
+            u, i, r, users, items = PEventStore.find_ratings(
+                p.app_name or ctx.app_name,
+                event_names=list(p.event_names),
+                event_default_ratings={"buy": p.buy_rating},
+                storage=ctx.get_storage(),
+                channel_name=ctx.channel_name)
+        ctx.record_read(time.perf_counter() - t0, len(u))
         return TrainingData(u, i, r, users, items)
 
 

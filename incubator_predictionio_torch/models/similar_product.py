@@ -16,6 +16,7 @@ on the model's device once. Wire format (the template's)::
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -26,6 +27,7 @@ from ..controller import (
 )
 from ..data.bimap import BiMap
 from ..data.events import aggregate_properties, find_ratings
+from ..data.store import PEventStore
 from ..device import resolve_device
 from ..ops.als import ALSFactors, ALSParams, train_als
 from ..ops.topk import normalize_rows, similar_items
@@ -61,15 +63,29 @@ class SimilarProductDataSource(DataSource):
     params_aliases = {"appName": "app_name", "eventNames": "event_names"}
 
     def read_training(self, ctx) -> TrainingData:
-        if ctx.events is None:
-            raise ValueError("the workflow context holds no events")
+        """The view events as a triple and the item categories replayed
+        from the ``$set``/``$unset``/``$delete`` events: from ``ctx.events``
+        when the caller handed events over, else from the event store (the
+        reference's ``find_ratings`` + ``aggregate_properties`` read)."""
         p: DataSourceParams = self.params
-        u, i, r, users, items = find_ratings(
-            ctx.events, event_names=list(p.event_names),
-            rating_from_props=False)
-        cats = {item_id: set(c) for item_id, props in aggregate_properties(
-                    ctx.events, p.item_entity_type).items()
-                if (c := props.get("categories"))}
+        t0 = time.perf_counter()
+        if ctx.events is not None:
+            u, i, r, users, items = find_ratings(
+                ctx.events, event_names=list(p.event_names),
+                rating_from_props=False)
+            props = aggregate_properties(ctx.events, p.item_entity_type)
+        else:
+            app_name = p.app_name or ctx.app_name
+            storage = ctx.get_storage()
+            u, i, r, users, items = PEventStore.find_ratings(
+                app_name, event_names=list(p.event_names),
+                rating_from_props=False, storage=storage,
+                channel_name=ctx.channel_name)
+            props = PEventStore.aggregate_properties(
+                app_name, p.item_entity_type, storage=storage)
+        cats = {item_id: set(c) for item_id, pm in props.items()
+                if (c := pm.get("categories"))}
+        ctx.record_read(time.perf_counter() - t0, len(u))
         return TrainingData(u, i, r, users, items, cats)
 
 

@@ -58,6 +58,14 @@ def find_nvcc() -> str:
         "PATH): the CUDA kernels are built from source at first use")
 
 
+def library_path(name: str) -> Path:
+    """Where the build of ``csrc/<name>.cu`` (as it is now) lives: keyed by
+    a hash of the source and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"{name}-{digest}.so"
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
     with _lock:
@@ -65,11 +73,9 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cu"
-        text = src.read_bytes()
-        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out_dir = build_dir()
+        so = library_path(name)
+        out_dir = so.parent
         out_dir.mkdir(parents=True, exist_ok=True)
-        so = out_dir / f"{name}-{digest}.so"
         t0 = time.perf_counter()
         log = ""
         if not so.is_file():

@@ -1,0 +1,220 @@
+"""`pio build/train/deploy` (reference: tools/.../commands/Engine.scala +
+RunWorkflow/RunServer; the workflow runs in-process).
+
+The port's own copy of the single-process paths of
+``incubator_predictionio_tpu/tools/commands/engine.py`` (:19-182,
+:261-381). ``train`` and ``deploy`` run on the card unless ``--device cpu``
+is given. With ``--events``/``--model-out`` (train) or ``--model``
+(deploy) they take the file-based forms of ``tools/console.py`` instead of
+the stores. The reference's gang training (``--num-workers``, ``--feed``,
+``--window``), the serving fleet, ``undeploy`` and ``batchpredict`` are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import sys
+import time
+
+from ...data.storage.registry import Storage
+from ...workflow.json_extractor import engine_and_params_from_json, load_engine_json
+from ...workflow.workflow_params import WorkflowParams
+from . import verb
+
+
+def _engine_json(ns) -> dict:
+    path = ns.engine_json or os.path.join(ns.engine_dir, "engine.json")
+    return load_engine_json(path, ns.variant)
+
+
+def _load_engine(ns):
+    engine_json = _engine_json(ns)
+    engine, params, factory = engine_and_params_from_json(engine_json)
+    variant = engine_json.get("id", "default")
+    return engine, params, factory, variant, engine_json
+
+
+def _app_name(params) -> str:
+    dsp = dict(params.data_source_params)
+    return dsp.get("app_name") or dsp.get("appName", "")
+
+
+def _common_args(p: argparse.ArgumentParser):
+    p.add_argument("--engine-dir", default=".", help="template directory (with engine.json)")
+    p.add_argument("--engine-json", default=None,
+                   help="the engine.json file (default <engine-dir>/engine.json)")
+    p.add_argument("--variant", default=None, help="engine.json variant suffix")
+
+
+def _device_arg(p: argparse.ArgumentParser):
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where to train or serve: the card (default) or, "
+                        "only when asked, the CPU")
+
+
+def _launches() -> dict:
+    """The solve-kernel launches of this process, per kernel (0 on the
+    CPU, where the plain version runs)."""
+    from ...ops import spd_solve
+
+    return {"warp": spd_solve.gauss_jordan_warp_launches.count,
+            "wide": spd_solve.gauss_jordan_wide_launches.count}
+
+
+@verb("build", "validate the engine template (no compilation needed)")
+def build_cmd(args: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="pio build")
+    _common_args(p)
+    ns = p.parse_args(args)
+    try:
+        engine, params, factory, variant, _ = _load_engine(ns)
+    except Exception as e:  # noqa: BLE001
+        print(f"[error] engine build failed: {e}", file=sys.stderr)
+        return 1
+    n_algos = len(params.algorithm_params_list) or 1
+    print(f"[info] Engine {factory} (variant {variant}) is ready: "
+          f"{n_algos} algorithm(s) configured. No compilation needed "
+          "(the CUDA kernels build at their first launch).")
+    return 0
+
+
+@verb("train", "run the training workflow")
+def train_cmd(args: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="pio train")
+    _common_args(p)
+    _device_arg(p)
+    p.add_argument("--batch", default="")
+    p.add_argument("--skip-sanity-check", action="store_true")
+    p.add_argument("--stop-after-read", action="store_true")
+    p.add_argument("--stop-after-prepare", action="store_true")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="snapshot algorithm state every N iterations")
+    p.add_argument("--resume", action="store_true",
+                   help="continue the most recent interrupted run from its "
+                        "last snapshot")
+    p.add_argument("--nan-guard", action="store_true",
+                   help="fail with stage/iteration attribution when a stage "
+                        "produces NaN/Inf (iterative trainers run one "
+                        "iteration at a time)")
+    p.add_argument("--events", default=None,
+                   help="file form: a JSON-lines events file instead of the "
+                        "event store (needs --model-out)")
+    p.add_argument("--model-out", default=None,
+                   help="file form: write the model file here instead of "
+                        "the model store; snapshots go to "
+                        "<model-out>.checkpoints/")
+    ns = p.parse_args(args)
+    if (ns.events is None) != (ns.model_out is None):
+        p.error("--events and --model-out go together (the file form)")
+    wp = WorkflowParams(
+        batch=ns.batch,
+        skip_sanity_check=ns.skip_sanity_check,
+        stop_after_read=ns.stop_after_read,
+        stop_after_prepare=ns.stop_after_prepare,
+        checkpoint_every=ns.checkpoint_every,
+        resume=ns.resume,
+        nan_guard=ns.nan_guard,
+    )
+    if ns.events is not None:
+        return _train_file(ns, wp)
+
+    from ...workflow.context import WorkflowContext
+    from ...workflow.core_workflow import run_train
+
+    engine, params, factory, variant, _ = _load_engine(ns)
+    ctx = WorkflowContext(app_name=_app_name(params), storage=Storage.instance(),
+                          device=ns.device)
+    # the read's and the trainer's phase times, printed below
+    ctx.read_timings, ctx.bench_timings = {}, {}
+    t0 = time.perf_counter()
+    instance_id = run_train(engine, params, ctx, wp,
+                            engine_factory_name=factory, engine_variant=variant)
+    seconds = time.perf_counter() - t0
+    print(f"[info] Training completed in {seconds:.2f}s. "
+          f"Engine instance ID: {instance_id}")
+    print(json.dumps({"engineInstanceId": instance_id, "seconds": seconds,
+                      "device": ns.device, "kernel_launches": _launches(),
+                      "timings": {**ctx.read_timings, **ctx.bench_timings}}),
+          flush=True)
+    return 0
+
+
+def _train_file(ns, wp: WorkflowParams) -> int:
+    """The file form: events file in, model file out."""
+    from ...data.events import read_events
+    from .. import console
+
+    engine_json = _engine_json(ns)
+    events = read_events(ns.events)
+    seconds = console.train(engine_json, events, ns.model_out, ns.device, wp)
+    print(json.dumps({"trained": None if seconds is None else ns.model_out,
+                      "events": len(events), "seconds": seconds,
+                      "device": ns.device, "kernel_launches": _launches()}),
+          flush=True)
+    return 0
+
+
+def _raise_exit(signum, frame):
+    raise SystemExit(0)
+
+
+@verb("deploy", "serve the trained engine over HTTP")
+def deploy_cmd(args: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="pio deploy")
+    _common_args(p)
+    _device_arg(p)
+    p.add_argument("--ip", "--host", dest="ip", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--engine-instance-id", default=None,
+                   help="serve this instance (no walk-back) instead of the "
+                        "newest deployable COMPLETED one")
+    p.add_argument("--model", default=None,
+                   help="file form: serve this model file instead of an "
+                        "engine instance of the model store")
+    ns = p.parse_args(args)
+    from ...workflow.create_server import EngineServer
+
+    if ns.model is not None:
+        from .. import console
+
+        deployment, ctx = console.load_deployment(ns.model, ns.device)
+        info = {"model": ns.model, "device": str(ctx.device)}
+    else:
+        from ...workflow.context import WorkflowContext
+        from ...workflow.core_workflow import load_deployment
+
+        engine, params, factory, variant, _ = _load_engine(ns)
+        ctx = WorkflowContext(app_name=_app_name(params),
+                              storage=Storage.instance(), device=ns.device)
+        rejected: list[dict] = []
+
+        def on_reject(instance_id: str, kind: str) -> None:
+            rejected.append({"engineInstanceId": instance_id, "kind": kind})
+            print(f"[warn] engine instance {instance_id} is not deployable "
+                  f"({kind}); walking back", file=sys.stderr, flush=True)
+
+        deployment, instance, _ = load_deployment(
+            engine, ns.engine_instance_id, ctx, engine_factory_name=factory,
+            engine_variant=variant, on_reject=on_reject)
+        for model in deployment.models:
+            warm = getattr(model, "warm_up", None)
+            if warm is not None:
+                warm()
+        info = {"engineInstanceId": instance.id, "device": str(ctx.device),
+                "rejected": rejected}
+    server = EngineServer(deployment, ns.ip, ns.port, info=info)
+    signal.signal(signal.SIGTERM, _raise_exit)
+    host, port = server.address
+    print(f"[info] Engine is deployed and running. Listening on "
+          f"http://{host}:{port}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+    return 0

@@ -1,83 +1,59 @@
-"""``train`` and ``deploy`` for the port.
+"""The port's ``pio`` console: one verb per command.
 
-    python -m incubator_predictionio_torch.tools.console train \\
-        --engine-json engine.json --events events.jsonl --model-out model.npz \\
-        [--device cpu] [--checkpoint-every N] [--resume] [--nan-guard] \\
-        [--skip-sanity-check] [--stop-after-read] [--stop-after-prepare]
-    python -m incubator_predictionio_torch.tools.console deploy \\
-        --model model.npz --port 8000 [--host 127.0.0.1] [--device cpu]
+    python -m incubator_predictionio_torch.tools.console <verb> [args]
+    pio-torch <verb> [args]                     # the installed script
 
-``train`` reads a JSON-lines events file (the ``pio import`` format), trains
-the engine that engine.json names and writes the persisted models with the
-engine.json beside them, and prints one JSON line (seconds, device and the
-solve-kernel launches). Its flags are ``pio train``'s; snapshots live in
-``<model-out>.checkpoints/`` (deleted when the train completes, kept when
-it fails, for ``--resume``). ``deploy`` restores the models and serves
-``POST /queries.json`` until SIGTERM or Ctrl-C. Both run on the card unless
-``--device cpu`` is given. The metadata and event stores and the rest of
-the ``pio`` commands wait for a later slice.
+Verbs (``tools/commands/``), on the event store and metadata of
+``$PIO_FS_BASEDIR/pio.sqlite`` (or the ``PIO_STORAGE_*`` configuration):
+
+    app new|list|show|delete|channel-new|channel-delete|data-delete
+    accesskey new|list|delete
+    import --app-name A --input events.jsonl     export --app-name A --output F
+    eventserver [--ip H] [--port 7070]           status
+    build [--engine-dir D]
+    train [--engine-dir D | --engine-json J] [--device cpu] [--batch B]
+          [--checkpoint-every N] [--resume] [--nan-guard]
+          [--skip-sanity-check] [--stop-after-read] [--stop-after-prepare]
+    deploy [--engine-dir D | --engine-json J] [--engine-instance-id ID]
+           [--ip H] [--port 8000] [--device cpu]
+
+``train`` reads the app's events from the event store, trains the engine
+that engine.json names, writes an engine-instance row and a checksummed
+model blob, and prints one JSON line (instance id, seconds, device, the
+solve-kernel launches and the read/train phase times). ``deploy`` serves
+``POST /queries.json`` from the newest COMPLETED instance (walking back past
+a corrupt blob) until SIGTERM or Ctrl-C. Both run on the card unless
+``--device cpu`` is given.
+
+The file-based forms stay beside them: ``train --events F.jsonl --model-out
+M.npz`` reads a JSON-lines events file and writes the model file (snapshots
+in ``<model-out>.checkpoints/``), and ``deploy --model M.npz`` serves it.
 """
 
 from __future__ import annotations
 
-import argparse
-import dataclasses
-import importlib
-import json
-import logging
-import signal
 import sys
 import time
 from typing import Optional
 
 from ..controller import EngineParams
-from ..data.events import read_events
-from ..ops import spd_solve
-from ..workflow.checkpoint import CheckpointHook, CheckpointIncompatibleError
+from ..workflow import core_workflow, json_extractor
+from ..workflow.checkpoint import CheckpointHook
 from ..workflow.context import WorkflowContext
-from ..workflow.create_server import EngineServer
 from ..workflow.persist import load_models, save_models
 from ..workflow.workflow_params import WorkflowParams
-
-log = logging.getLogger("pio.torch.console")
-
-_PACKAGE = "incubator_predictionio_torch."
-_DEFAULT_FACTORY = _PACKAGE + "models.recommendation.RecommendationEngine"
 
 
 def engine_from_json(engine_json: dict):
     """The Engine that engine.json's ``engineFactory`` names (a factory of
     this package; the Recommendation engine when absent)."""
-    path = engine_json.get("engineFactory") or _DEFAULT_FACTORY
-    if not path.startswith(_PACKAGE):
-        raise ValueError(
-            f"engineFactory {path!r} is not a factory of this package "
-            f"(expected {_PACKAGE}...)")
-    module, _, name = path.rpartition(".")
-    factory = getattr(importlib.import_module(module), name)
-    return factory()()
+    return json_extractor.engine_and_params_from_json(engine_json)[0]
 
 
 def checkpoint_dir(model_out: str) -> str:
     """Where a train's snapshots live: ``<model-out>.checkpoints/``, the
     run being keyed by its output path."""
     return model_out + ".checkpoints"
-
-
-def _train_with_stale_checkpoint_fallback(engine, params, ctx,
-                                          wp: WorkflowParams):
-    """engine.train; on ``--resume``, a snapshot that cannot continue this
-    run (other data, rank or iterations) is discarded and the train starts
-    from scratch (the reference's core_workflow.py:67-102)."""
-    try:
-        return engine.train(ctx, params, wp)
-    except CheckpointIncompatibleError as e:
-        if ctx.checkpoint_hook is None or not wp.resume:
-            raise
-        log.warning("--resume: %s; discarding stale checkpoints and "
-                    "training from scratch", e)
-        ctx.checkpoint_hook.delete_all()
-        return engine.train(ctx, params, dataclasses.replace(wp, resume=False))
 
 
 def train(engine_json: dict, events: list[dict], model_out: str,
@@ -103,7 +79,8 @@ def train(engine_json: dict, events: list[dict], model_out: str,
     hook = ctx.checkpoint_hook
     try:
         t0 = time.perf_counter()
-        models = _train_with_stale_checkpoint_fallback(engine, params, ctx, wp)
+        models = core_workflow.train_with_stale_checkpoint_fallback(
+            engine, params, ctx, wp)
         seconds = time.perf_counter() - t0
         if wp.stop_after_read or wp.stop_after_prepare:
             return None
@@ -133,72 +110,19 @@ def load_deployment(model_path: str, device: str = "cuda"):
     return deployment, ctx
 
 
-def _raise_exit(signum, frame):
-    raise SystemExit(0)
-
-
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m incubator_predictionio_torch.tools.console")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    t = sub.add_parser("train", help="train an engine from an events file")
-    t.add_argument("--engine-json", required=True)
-    t.add_argument("--events", required=True, help="JSON-lines events file")
-    t.add_argument("--model-out", required=True)
-    t.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    t.add_argument("--skip-sanity-check", action="store_true")
-    t.add_argument("--stop-after-read", action="store_true")
-    t.add_argument("--stop-after-prepare", action="store_true")
-    t.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
-                   help="snapshot algorithm state every N iterations into "
-                        "<model-out>.checkpoints/")
-    t.add_argument("--resume", action="store_true",
-                   help="continue an interrupted train of the same "
-                        "--model-out from its last snapshot")
-    t.add_argument("--nan-guard", action="store_true",
-                   help="fail with stage/iteration attribution when a stage "
-                        "produces NaN/Inf (iterative trainers run one "
-                        "iteration at a time)")
-    d = sub.add_parser("deploy", help="serve a trained model over HTTP")
-    d.add_argument("--model", required=True)
-    d.add_argument("--host", default="127.0.0.1")
-    d.add_argument("--port", type=int, default=8000)
-    d.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    args = ap.parse_args(argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    from . import commands
 
-    if args.cmd == "train":
-        with open(args.engine_json, encoding="utf-8") as fh:
-            engine_json = json.load(fh)
-        events = read_events(args.events)
-        wp = WorkflowParams(
-            skip_sanity_check=args.skip_sanity_check,
-            stop_after_read=args.stop_after_read,
-            stop_after_prepare=args.stop_after_prepare,
-            checkpoint_every=args.checkpoint_every, resume=args.resume,
-            nan_guard=args.nan_guard)
-        seconds = train(engine_json, events, args.model_out, args.device, wp)
-        # the solve-kernel launches of this run, per kernel (0 on the CPU)
-        launches = {"warp": spd_solve.gauss_jordan_warp_launches.count,
-                    "wide": spd_solve.gauss_jordan_wide_launches.count}
-        print(json.dumps({"trained": None if seconds is None
-                          else args.model_out, "events": len(events),
-                          "seconds": seconds, "device": args.device,
-                          "kernel_launches": launches}),
-              flush=True)
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        print(commands.usage())
         return 0
+    if argv[0] == "version":
+        from .. import __version__
 
-    deployment, ctx = load_deployment(args.model, args.device)
-    server = EngineServer(deployment, args.host, args.port,
-                          info={"model": args.model, "device": str(ctx.device)})
-    signal.signal(signal.SIGTERM, _raise_exit)
-    host, port = server.address
-    print(f"listening on http://{host}:{port}", flush=True)
-    try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        server.close()
-    return 0
+        print(__version__)
+        return 0
+    return commands.dispatch(argv[0], argv[1:])
 
 
 if __name__ == "__main__":

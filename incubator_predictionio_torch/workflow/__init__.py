@@ -1,1 +1,2 @@
-"""Train/deploy plumbing: the workflow context and the engine server."""
+"""Train/deploy plumbing: the workflow context, the train/deploy workflow
+over the stores, model artifacts, checkpoints and the engine server."""

@@ -10,7 +10,10 @@ never unpickles.
 
 Where the snapshots live is the caller's choice: ``Engine.train`` gives
 each algorithm the subdirectory ``algo_<idx>_<name>`` of the root hook's
-directory, and the console keys a run by its ``--model-out`` path.
+directory; a train from the event store (``run_train``) keys a run by its
+engine-instance id under :func:`checkpoint_root`
+(``$PIO_FS_BASEDIR/checkpoints/<instance-id>/``, the reference's layout),
+and the file-based console by its ``--model-out`` path.
 """
 
 from __future__ import annotations
@@ -119,3 +122,63 @@ class CheckpointHook:
         """Drop every snapshot (after the trained model is persisted)."""
         self.close()
         shutil.rmtree(self.directory, ignore_errors=True)
+
+
+def checkpoint_root() -> str:
+    from ..data.storage.registry import base_dir
+
+    return os.path.join(base_dir(), "checkpoints")
+
+
+def instance_checkpoint_dir(instance_id: str) -> str:
+    return os.path.join(checkpoint_root(), instance_id)
+
+
+def _train_still_alive(env: dict) -> bool:
+    """True when a RUNNING instance may still have a live trainer process —
+    resuming it would have two processes fighting over one checkpoint dir.
+    On this host the recorded pid is probed directly (a SIGKILL'd train
+    shows up as RUNNING with a dead pid — exactly the case --resume is
+    for). A RUNNING row from another host cannot be probed, so it fails
+    closed. ABORTED rows are always resumable, from any host."""
+    import socket
+
+    if env.get("host") != socket.gethostname():
+        return True  # unprobeable foreign trainer: assume alive
+    try:
+        pid = int(env.get("pid", ""))
+    except ValueError:
+        return False
+    try:
+        os.kill(pid, 0)
+    except PermissionError:
+        return True  # pid exists but belongs to another user: alive
+    except OSError:
+        return False
+    return pid != os.getpid()
+
+
+def find_resumable_instance(storage, engine_id: str, engine_version: str = "1",
+                            engine_variant: str = "default",
+                            data_source_params: Optional[str] = None,
+                            preparator_params: Optional[str] = None):
+    """Most recent non-COMPLETED EngineInstance that left checkpoints behind
+    (the ``pio train --resume`` discovery path). When the params JSON
+    strings are given, only instances reading the same data source match —
+    several apps can share one engine template without ever seeing (or
+    deleting) each other's interrupted runs."""
+    instances = storage.get_meta_data_engine_instances()
+    candidates = [
+        i for i in instances.get_all()
+        if i.engine_id == engine_id
+        and i.engine_version == engine_version
+        and i.engine_variant == engine_variant
+        and (data_source_params is None or i.data_source_params == data_source_params)
+        and (preparator_params is None or i.preparator_params == preparator_params)
+        and i.status in ("RUNNING", "ABORTED")
+        and os.path.isdir(instance_checkpoint_dir(i.id))
+        and not (i.status == "RUNNING" and _train_still_alive(i.env or {}))
+    ]
+    if not candidates:
+        return None
+    return max(candidates, key=lambda i: i.start_time)

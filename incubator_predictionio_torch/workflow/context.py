@@ -13,25 +13,53 @@ from .workflow_params import WorkflowParams
 
 @dataclasses.dataclass
 class WorkflowContext:
-    """``events``: the wire-format events a data source reads (the port's
-    stand-in for the event store); ``device``: where models train and
-    serve — the card unless the caller asks for the CPU.
+    """``device``: where models train and serve — the card unless the
+    caller asks for the CPU.
+
+    Where the data sources read: with ``events`` (wire-format event dicts,
+    the file-based console's input) they read those; otherwise they read
+    the event store, ``storage`` (a :class:`..data.storage.Storage`, else
+    the process's ``Storage.instance()``), for the app ``app_name`` (the
+    data-source params' ``appName`` wins) and channel ``channel_name``.
 
     The rest has the reference context's names, so algorithms read them as
-    there: ``workflow_params`` (set by ``Engine.train``), ``checkpoint_hook``
-    (a :class:`..workflow.checkpoint.CheckpointHook` when snapshots are on;
-    ``Engine.train`` scopes it per algorithm), ``stage_label`` (the stage
-    the NaN guard names) and ``bench_timings`` (a dict a benchmark plants
-    to receive ``train_als``'s phase times; None in normal training).
+    there: ``engine_instance_id`` (set by ``run_train`` and
+    ``load_deployment``), ``workflow_params`` (set by ``Engine.train``),
+    ``checkpoint_hook`` (a :class:`..workflow.checkpoint.CheckpointHook`
+    when snapshots are on; ``Engine.train`` scopes it per algorithm),
+    ``stage_label`` (the stage the NaN guard names) and ``bench_timings``
+    (a dict a benchmark plants to receive ``train_als``'s phase times; None
+    in normal training). ``read_timings``: a dict a caller plants to
+    receive the data source's read (``read_seconds``, events → triple, and
+    ``ratings_read``); None in normal training.
     """
 
     events: Optional[Sequence[Mapping]] = None
     device: "str | torch.device" = "cuda"
+    app_name: str = ""
+    channel_name: Optional[str] = None
+    storage: Any = None
+    engine_instance_id: Optional[str] = None
     workflow_params: WorkflowParams = dataclasses.field(
         default_factory=WorkflowParams)
     checkpoint_hook: Any = None
     stage_label: str = "algorithm[als]"
     bench_timings: Optional[dict] = None
+    read_timings: Optional[dict] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+
+    def record_read(self, seconds: float, ratings: int) -> None:
+        """A data source's read (events → triple), into a planted
+        ``read_timings``."""
+        if self.read_timings is not None:
+            self.read_timings["read_seconds"] = seconds
+            self.read_timings["ratings_read"] = int(ratings)
+
+    def get_storage(self):
+        if self.storage is None:
+            from ..data.storage.registry import Storage
+
+            return Storage.instance()
+        return self.storage

@@ -1,0 +1,343 @@
+"""CoreWorkflow — run a training job against the stores and load one back.
+
+Port of ``incubator_predictionio_tpu/workflow/core_workflow.py`` (:34-104,
+:195-549; reference: core/.../workflow/{CoreWorkflow,CreateWorkflow}.scala):
+
+- :func:`run_train` stamps an EngineInstance row RUNNING, runs
+  ``Engine.train`` (read from the event store → prepare → train on the
+  card), writes the models as one checksummed artifact
+  (``workflow/model_artifact.py``) and stamps the row COMPLETED; a failure
+  stamps it ABORTED (never masking the original error) and keeps the
+  snapshots for ``--resume``, which finds the interrupted instance and
+  continues it under its own id and checkpoint directory.
+- :func:`load_deployment` picks the newest COMPLETED instance of the
+  engine and walks back past any whose artifact fails verification or does
+  not load; an explicit instance id never walks back.
+
+The payload is the ``.npz`` bytes of ``workflow/persist.py`` (never a
+pickle). Instances are keyed by the engine factory's dotted name, so the
+JAX package's instances in a shared store are never picked here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime as _dt
+import json
+import logging
+import os
+import socket
+from typing import Any, Optional
+
+from ..controller.engine import Engine, EngineParams
+from ..data.storage.base import EngineInstance
+from ..data.storage.event import new_event_id
+from . import model_artifact
+from .checkpoint import (
+    CheckpointHook, CheckpointIncompatibleError, find_resumable_instance,
+    instance_checkpoint_dir,
+)
+from .context import WorkflowContext
+from .persist import models_from_bytes, models_to_bytes
+from .workflow_params import WorkflowParams
+
+log = logging.getLogger("pio.torch.workflow")
+
+
+def _utcnow():
+    return _dt.datetime.now(_dt.timezone.utc)
+
+
+def engine_json_of(engine_params: EngineParams, factory: str,
+                   variant: str = "default") -> dict:
+    """The engine.json dict that selects ``engine_params``."""
+    def block(name, params):
+        out = {"params": dict(params)}
+        if name:
+            out["name"] = name
+        return out
+
+    return {
+        "id": variant, "engineFactory": factory,
+        "datasource": block(engine_params.data_source_name,
+                            engine_params.data_source_params),
+        "preparator": block(engine_params.preparator_name,
+                            engine_params.preparator_params),
+        "algorithms": [{"name": n, "params": dict(p)}
+                       for n, p in engine_params.algorithm_params_list],
+        "serving": block(engine_params.serving_name,
+                         engine_params.serving_params),
+    }
+
+
+def serialize_models(algo_list, models: list[Any], engine_json: dict) -> bytes:
+    """Trained models → the persisted dicts → ``.npz`` bytes."""
+    stored = [algo.prepare_model_for_persistence(model)
+              for (_, algo), model in zip(algo_list, models)]
+    return models_to_bytes(engine_json, stored)
+
+
+def deserialize_models(blob: bytes) -> list[dict]:
+    """``.npz`` bytes → the persisted dict of each algorithm (raises on
+    bytes that are not such an ``.npz``, a pickle included)."""
+    return models_from_bytes(blob)[1]
+
+
+def train_with_stale_checkpoint_fallback(engine, engine_params, ctx, wp):
+    """engine.train with the --resume stale-snapshot fallback: a
+    CheckpointIncompatibleError (data/rank changed) discards the
+    checkpoints and retrains from scratch — otherwise every future
+    --resume re-selects the same instance and fails the same way."""
+    try:
+        return engine.train(ctx, engine_params, wp)
+    except CheckpointIncompatibleError as e:
+        if ctx.checkpoint_hook is None or not wp.resume:
+            raise
+        log.warning(
+            "--resume: %s; discarding stale checkpoints and training "
+            "from scratch", e,
+        )
+        root = ctx.checkpoint_hook
+        root.delete_all()
+        ctx.checkpoint_hook = CheckpointHook(
+            root.directory, every_n=root.every_n,
+            max_to_keep=root.max_to_keep,
+        )
+        ctx.workflow_params = dataclasses.replace(wp, resume=False)
+        try:
+            return engine.train(ctx, engine_params, ctx.workflow_params)
+        finally:
+            ctx.workflow_params = wp
+
+
+def run_train(
+    engine: Engine,
+    engine_params: EngineParams,
+    ctx: Optional[WorkflowContext] = None,
+    workflow_params: Optional[WorkflowParams] = None,
+    engine_factory_name: str = "",
+    engine_variant: str = "default",
+) -> str:
+    """Run the training workflow; returns the engine-instance id."""
+    ctx = ctx or WorkflowContext()
+    wp = workflow_params or WorkflowParams()
+    ctx.workflow_params = wp
+    storage = ctx.get_storage()
+    instances = storage.get_meta_data_engine_instances()
+
+    instance = EngineInstance(
+        id=new_event_id(),
+        status="RUNNING",
+        start_time=_utcnow(),
+        end_time=None,
+        engine_id=engine_factory_name or "engine",
+        engine_version="1",
+        engine_variant=engine_variant,
+        engine_factory=engine_factory_name,
+        batch=wp.batch,
+        # pid/host let `--resume` distinguish a SIGKILL'd RUNNING row from a
+        # train that is genuinely still alive on this machine.
+        env={"appName": ctx.app_name, "pid": str(os.getpid()),
+             "host": socket.gethostname()},
+        data_source_params=json.dumps(dict(engine_params.data_source_params)),
+        preparator_params=json.dumps(dict(engine_params.preparator_params)),
+        algorithms_params=json.dumps(
+            [{"name": n, "params": dict(p)} for n, p in engine_params.algorithm_params_list]
+        ),
+        serving_params=json.dumps(dict(engine_params.serving_params)),
+    )
+    if wp.resume:
+        prior = find_resumable_instance(
+            storage, engine_factory_name or "engine", "1", engine_variant,
+            data_source_params=instance.data_source_params,
+            preparator_params=instance.preparator_params,
+        )
+        if prior is not None and prior.algorithms_params != instance.algorithms_params:
+            # Same data, changed hyperparameters — resuming would blend
+            # them. The superseded snapshots are useless under the new
+            # params: drop them and retire the row.
+            log.warning(
+                "--resume: interrupted instance %s has different algorithm "
+                "params than the current engine.json; discarding its "
+                "checkpoints and training from scratch",
+                prior.id,
+            )
+            CheckpointHook(instance_checkpoint_dir(prior.id)).delete_all()
+            if prior.status == "RUNNING":
+                instances.update(prior.with_status("ABORTED", _utcnow()))
+            prior = None
+        if prior is not None:
+            # Continue the interrupted run under its own instance id so the
+            # checkpoint directory and metadata row line up.
+            instance = EngineInstance(**{**instance.__dict__, "id": prior.id,
+                                         "start_time": prior.start_time})
+            instances.update(instance)
+            instance_id = prior.id
+            log.info("resuming interrupted EngineInstance %s", instance_id)
+        else:
+            log.info("--resume requested but no resumable instance found; "
+                     "training from scratch")
+            instance_id = instances.insert(instance)
+    else:
+        instance_id = instances.insert(instance)
+    ctx.engine_instance_id = instance_id
+    log.info("EngineInstance %s RUNNING", instance_id)
+
+    if wp.checkpoint_every > 0 or wp.resume:
+        ctx.checkpoint_hook = CheckpointHook(
+            instance_checkpoint_dir(instance_id), every_n=wp.checkpoint_every
+        )
+
+    try:
+        models = train_with_stale_checkpoint_fallback(
+            engine, engine_params, ctx, wp)
+        if wp.stop_after_read or wp.stop_after_prepare:
+            instances.update(instance.with_status("ABORTED", _utcnow()))
+            if ctx.checkpoint_hook is not None:
+                ctx.checkpoint_hook.close()
+                ctx.checkpoint_hook = None
+            return instance_id
+
+        _, _, algo_list, _ = engine.make_components(engine_params)
+        blob = serialize_models(
+            algo_list, models,
+            engine_json_of(engine_params, engine_factory_name, engine_variant))
+        # The Model row must land before the COMPLETED stamp below: a
+        # crash in between leaves a RUNNING row (never deployed) instead
+        # of a COMPLETED row without a model.
+        sha = model_artifact.write_model(storage, instance_id, blob)
+        log.info("models persisted: %d bytes (sha256 %s)", len(blob), sha[:12])
+        done = EngineInstance(
+            **{**instance.__dict__, "id": instance_id}
+        ).with_status("COMPLETED", _utcnow())
+        instances.update(done)
+        if ctx.checkpoint_hook is not None:
+            ctx.checkpoint_hook.delete_all()  # superseded by the model
+            ctx.checkpoint_hook = None
+        log.info("EngineInstance %s COMPLETED", instance_id)
+        return instance_id
+    except Exception:
+        # Best-effort ABORTED stamp: when the failure IS the storage
+        # backend, this second write fails too — it must never mask the
+        # original training error.
+        try:
+            instances.update(
+                EngineInstance(
+                    **{**instance.__dict__, "id": instance_id}
+                ).with_status("ABORTED", _utcnow())
+            )
+        except Exception:  # noqa: BLE001 - the original error wins
+            log.exception(
+                "could not stamp EngineInstance %s ABORTED (storage "
+                "unavailable?); surfacing the original failure", instance_id)
+        if ctx.checkpoint_hook is not None:
+            ctx.checkpoint_hook.close()  # keep snapshots for --resume
+            ctx.checkpoint_hook = None
+        raise
+
+
+def load_deployment(
+    engine: Engine,
+    instance_id: Optional[str],
+    ctx: Optional[WorkflowContext] = None,
+    engine_factory_name: str = "",
+    engine_variant: str = "default",
+    exclude_ids=(),
+    on_reject=None,
+    app_name: Optional[str] = None,
+):
+    """Load a trained instance for serving → (deployment, instance,
+    engine_params).
+
+    ``instance_id`` None → the newest *deployable* COMPLETED instance:
+    every candidate's stored model is verified, and a corrupt, missing or
+    unloadable artifact makes the loader walk back to the next-older
+    COMPLETED instance — the bad blob is counted and kept, never deleted.
+    ``exclude_ids`` skips instances the caller has pinned;
+    ``on_reject(instance_id, kind)`` is called per skipped instance. An
+    explicit ``instance_id`` never walks back: a failure surfaces as an
+    error. ``app_name`` confines the walk to one app's instances."""
+    ctx = ctx or WorkflowContext()
+    storage = ctx.get_storage()
+    instances = storage.get_meta_data_engine_instances()
+    excluded = set(exclude_ids or ())
+    if instance_id is None:
+        candidates = instances.get_completed(
+            engine_factory_name or "engine", "1", engine_variant
+        )
+        if app_name is not None:
+            candidates = [
+                c for c in candidates
+                if model_artifact.instance_app_name(c) == app_name]
+        if not candidates:
+            raise RuntimeError(
+                "No COMPLETED engine instance found"
+                + (f" for app {app_name!r}" if app_name else "")
+                + "; run `pio train` first"
+            )
+        candidates = [c for c in candidates if c.id not in excluded]
+        if not candidates:
+            raise RuntimeError(
+                "Every COMPLETED engine instance "
+                + (f"for app {app_name!r} " if app_name else "")
+                + "is excluded; train a fresh instance or deploy one "
+                "explicitly")
+    else:
+        instance = instances.get(instance_id)
+        if instance is None:
+            raise RuntimeError(f"Engine instance {instance_id} not found")
+        candidates = [instance]
+
+    rejected: list[str] = []
+    caller_app_name = ctx.app_name
+    for instance in candidates:
+        try:
+            payload = model_artifact.read_model(storage, instance.id)
+        except model_artifact.ModelIntegrityError as e:
+            if instance_id is not None:
+                raise
+            rejected.append(f"{instance.id} ({e.kind})")
+            if on_reject is not None:
+                on_reject(instance.id, e.kind)
+            log.warning("%s; walking back to an older COMPLETED instance",
+                        e)
+            continue
+        engine_params = EngineParams(
+            data_source_params=json.loads(instance.data_source_params),
+            preparator_params=json.loads(instance.preparator_params),
+            algorithm_params_list=[
+                (a["name"], a["params"])
+                for a in json.loads(instance.algorithms_params)
+            ],
+            serving_params=json.loads(instance.serving_params),
+        )
+        ctx.engine_instance_id = instance.id
+        # derive from THIS candidate, not whatever a previously rejected
+        # candidate left behind
+        if not caller_app_name:
+            ctx.app_name = instance.env.get("appName", "")
+        try:
+            models = deserialize_models(payload)
+        except Exception as e:  # noqa: BLE001 - checksummed yet unloadable
+            if instance_id is not None:
+                raise
+            ctx.app_name = caller_app_name
+            model_artifact.count_integrity_failure("deserialize")
+            rejected.append(f"{instance.id} (deserialize)")
+            if on_reject is not None:
+                on_reject(instance.id, "deserialize")
+            log.warning(
+                "model for engine instance %s verified but failed to "
+                "deserialize (%s); walking back to an older COMPLETED "
+                "instance", instance.id, e)
+            continue
+        deployment = engine.prepare_deployment(ctx, engine_params, models)
+        if rejected:
+            log.warning(
+                "deployed %s after skipping %d undeployable instance(s): "
+                "%s", instance.id, len(rejected), ", ".join(rejected))
+        return deployment, instance, engine_params
+    raise RuntimeError(
+        "No deployable COMPLETED engine instance: all candidates "
+        f"rejected ({', '.join(rejected)}); blobs kept for forensics — "
+        "`pio train` to replace")

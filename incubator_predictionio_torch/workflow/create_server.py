@@ -21,6 +21,10 @@ log = logging.getLogger("pio.torch.server")
 class _Handler(BaseHTTPRequestHandler):
     server: "_Server"
     protocol_version = "HTTP/1.1"
+    # buffered writes: a response's headers and body leave in one send at
+    # the end of the request (two small sends meet Nagle's algorithm and
+    # the client's delayed ACK, ~40 ms per keep-alive request)
+    wbufsize = -1
 
     def _reply(self, status: int, obj) -> None:
         body = json.dumps(obj).encode()

@@ -12,6 +12,8 @@ import dataclasses
 
 @dataclasses.dataclass
 class WorkflowParams:
+    # free-form label stamped on the engine-instance row (``pio train --batch``)
+    batch: str = ""
     skip_sanity_check: bool = False
     stop_after_read: bool = False
     stop_after_prepare: bool = False

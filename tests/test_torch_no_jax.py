@@ -5,7 +5,10 @@ Statically: no file of ``incubator_predictionio_torch`` and not
 ``incubator_predictionio_tpu``. At run time: a fresh interpreter trains
 (checkpointed and NaN-guarded), persists, deploys over HTTP and queries on
 the CPU, folds events in and trains the Similar-Product template, and
-neither ``jax``, ``orbax`` nor the JAX package is loaded after.
+neither ``jax``, ``orbax`` nor the JAX package is loaded after; and each
+``pio`` verb (``app``, ``import``, ``status``, ``train --device cpu``,
+``deploy --device cpu``, ``eventserver``) runs in a fresh interpreter of its
+own that loads none of them.
 (This pytest process has JAX loaded by tests/conftest.py, so the run-time
 check needs its own process.)
 """
@@ -48,7 +51,11 @@ def test_port_files_exist():
     names = {p.name for p in _port_files()}
     assert {"spd_solve.py", "als.py", "recommendation.py", "chip_smoke.py",
             "nan_guard.py", "checkpoint.py", "workflow_params.py",
-            "similar_product.py", "_filters.py"} <= names
+            "similar_product.py", "_filters.py", "datamap.py", "event.py",
+            "base.py", "memory.py", "sqlite.py", "localfs.py", "registry.py",
+            "p_event_store.py", "l_event_store.py", "model_artifact.py",
+            "json_extractor.py", "core_workflow.py", "app.py", "engine.py",
+            "management.py", "event_server.py", "console.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -117,6 +124,113 @@ def test_train_and_serve_in_a_process_without_jax(tmp_path):
     out = subprocess.run(
         [sys.executable, "-c", _SCRIPT, str(tmp_path / "model.npz")],
         capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    last = out.stdout.strip().splitlines()[-1]
+    assert '"loaded": []' in last, last
+
+
+#: runs one verb through the console; ``PROBE_PORT`` set: a thread waits for
+#: the verb's server to answer ``GET /`` and stops it with SIGTERM. The
+#: modules loaded are printed at exit.
+_VERB = r"""
+import atexit, http.client, json, os, signal, sys, threading, time
+from incubator_predictionio_torch.tools import console
+
+def report():
+    print(json.dumps({"loaded": sorted(
+        m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "orbax", "incubator_predictionio_tpu"))}),
+        flush=True)
+
+atexit.register(report)
+port = os.environ.get("PROBE_PORT")
+if port:
+    def probe():
+        for _ in range(600):
+            try:
+                c = http.client.HTTPConnection("127.0.0.1", int(port), timeout=5)
+                c.request("GET", "/")
+                c.getresponse().read()
+                break
+            except OSError:
+                time.sleep(0.1)
+        os.kill(os.getpid(), signal.SIGTERM)
+    threading.Thread(target=probe, daemon=True).start()
+sys.exit(console.main(sys.argv[1:]))
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def verb_store(tmp_path_factory):
+    """A default store ($PIO_FS_BASEDIR/pio.sqlite) holding the app "nojax"
+    with its events and one COMPLETED instance, an events file and an
+    engine.json: every verb below runs on its own against it."""
+    import json
+
+    from incubator_predictionio_torch.controller import EngineParams
+    from incubator_predictionio_torch.data.storage import App, Event, Storage
+    from incubator_predictionio_torch.models.recommendation import (
+        RecommendationEngine,
+    )
+    from incubator_predictionio_torch.workflow.context import WorkflowContext
+    from incubator_predictionio_torch.workflow.core_workflow import run_train
+
+    base = tmp_path_factory.mktemp("verbs")
+    wire = [{"event": "rate", "entityType": "user", "entityId": f"u{u}",
+             "targetEntityType": "item", "targetEntityId": f"i{(u * 7 + k) % 9}",
+             "properties": {"rating": float(1 + (u + k) % 5)}}
+            for u in range(12) for k in range(4)]
+    (base / "events.jsonl").write_text(
+        "\n".join(json.dumps(e) for e in wire) + "\n")
+    engine_json = {
+        "engineFactory": "incubator_predictionio_torch.models."
+                         "recommendation.RecommendationEngine",
+        "datasource": {"params": {"appName": "nojax"}},
+        "algorithms": [{"name": "als", "params": {"rank": 4,
+                                                  "numIterations": 2}}]}
+    (base / "engine.json").write_text(json.dumps(engine_json))
+    storage = Storage({
+        f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "S"
+        for r in ("METADATA", "EVENTDATA", "MODELDATA")} | {
+        "PIO_STORAGE_SOURCES_S_TYPE": "SQLITE",
+        "PIO_STORAGE_SOURCES_S_PATH": str(base / "base" / "pio.sqlite")})
+    app_id = storage.get_meta_data_apps().insert(App(0, "nojax"))
+    storage.get_l_events().insert_batch([Event.from_json(e) for e in wire],
+                                        app_id)
+    run_train(RecommendationEngine()(), EngineParams.from_json(engine_json),
+              WorkflowContext(app_name="nojax", storage=storage, device="cpu"),
+              engine_factory_name=engine_json["engineFactory"])
+    storage.close()
+    return base
+
+
+@pytest.mark.parametrize("verb", [
+    ["app", "new", "another"],
+    ["import", "--app-name", "nojax", "--input", "events.jsonl"],
+    ["status"],
+    ["train", "--device", "cpu"],
+    ["deploy", "--device", "cpu", "--port", "{port}"],
+    ["eventserver", "--ip", "127.0.0.1", "--port", "{port}"],
+], ids=lambda v: v[0])
+def test_verb_in_a_process_without_jax(verb, verb_store):
+    port = str(_free_port())
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PIO_STORAGE_")}
+    env.update(PYTHONPATH=str(ROOT), PIO_FS_BASEDIR=str(verb_store / "base"))
+    if "{port}" in verb:
+        env["PROBE_PORT"] = port
+    out = subprocess.run(
+        [sys.executable, "-c", _VERB] + [a.replace("{port}", port) for a in verb],
+        capture_output=True, text=True, env=env, cwd=str(verb_store),
         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     last = out.stdout.strip().splitlines()[-1]
