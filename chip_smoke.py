@@ -40,7 +40,28 @@ Phases (any failure exits non-zero; nothing is caught):
    items × 5,000,000 views, rank 32, 10 iterations, implicit) through the
    Similar-Product engine, 20 item categories from $set events; persist →
    restore → ≥ 50 filtered POST /queries.json held to a host cosine top-k.
-10. train_rank128: the same ratings at rank 128 through the same engine, 2
+10. pio_workflow: the pio verbs on an SQLite store at ML-1M (app new →
+   import → 2,000 live events through the event server → train → deploy
+   → queries → a corrupted blob walked back past).
+11. codec_vs_plain: the event codec (native/src/event_codec.cc, built with
+   g++ beside nvcc in phase 1) and its plain parser on the first 200,000
+   lines of the ML-20M log: every column and table equal; MB/s of both.
+12. pio_workflow_jsonl: the pio_workflow scenario with the events on a
+   JSONL log: two generations compacted, the live batches through the
+   codec's one-pass path, a train --window whose read skips generation 1
+   and equals a numpy filter of the generated events, the full train
+   (read count, first-seen id maps, warp launches = implied), deploy, 50
+   queries held to a host top-k; import, read, train and ingest/query
+   latencies beside the SQLite phase's.
+13. pio_workflow_jsonl_ml20m: the ML-20M log (20,000,263 events, byte for
+   byte insert_batch's lines) → eventlog compact → the read held exactly
+   to the generated arrays → train at rank 32, 10 iterations (warp
+   launches = implied) → deploy → 20 queries; the compaction, read and
+   train times and events/s end to end and steady. df and free -g first;
+   a host that cannot hold the log runs the first 10,000,000 events and
+   says so in ``reduced``.
+14. similar_product (phase 9 above, run here) and train_rank128: the same
+   ratings at rank 128 through the same engine, 2
    iterations: wide-kernel launches equal to the implied count and no
    warp-kernel launch, the RMSE check, steady seconds per iteration, one
    iteration profiled; one fold-in batch (2 wide launches, card vs CPU).
@@ -56,24 +77,34 @@ and power limit.
 from __future__ import annotations
 
 import calendar
+import datetime as _dt
 import http.client
+import io
 import json
 import os
 import resource
+import shutil
 import socket
 import sqlite3
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
+import zlib
 
 import numpy as np
 import torch
 
+from incubator_predictionio_torch import native
 from incubator_predictionio_torch.common.nan_guard import NaNGuardError
 from incubator_predictionio_torch.controller import Engine, EngineParams
 from incubator_predictionio_torch.data.bimap import IdentityBiMap
-from incubator_predictionio_torch.data.storage import Storage
+from incubator_predictionio_torch.data.api import event_log
+from incubator_predictionio_torch.data.storage import Event, Storage
+from incubator_predictionio_torch.data.storage.jsonl import JSONLEvents
+from incubator_predictionio_torch.data.store import PEventStore, p_event_store
 from incubator_predictionio_torch.data.events import (
     aggregate_properties, find_ratings, read_events,
 )
@@ -302,7 +333,15 @@ def phase_device() -> None:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
+    # the event codec (g++, host code) builds beside nvcc
+    codec: dict = {}
+    thread = threading.Thread(
+        target=lambda: codec.update(line=native.status(),
+                                    seconds=native.build_seconds))
+    thread.start()
     spd_solve.build_kernel()
+    thread.join()
+    check("line" in codec, "the event codec did not build")
     info = _build.build_info["gauss_jordan"]
     log = info["log"].splitlines()
     # "Compiling entry function '<mangled name>'" lines name each kernel;
@@ -310,7 +349,8 @@ def phase_build() -> None:
     emit("build", kernel="gauss_jordan", seconds=time.perf_counter() - t0,
          nvcc_seconds=info["seconds"],
          ptxas=[ln.strip() for ln in log if "Compiling entry" in ln
-                or "registers" in ln or "spill" in ln])
+                or "registers" in ln or "spill" in ln],
+         codec=codec["line"], codec_seconds=codec["seconds"])
 
 
 WIDE_KS = tuple(range(40, 129, 8))  # every K the wide kernel is built for
@@ -1366,6 +1406,8 @@ ML1M = (6_040, 3_706, 1_000_209)  # bench.py SCALES["ml1m"]
 #: the live events of the pio_workflow phase: single POSTs, batches of 50,
 #: new users (10 events each) and new items
 LIVE = (1_000, 20, 200, 50)
+#: events the SQLite pio_workflow phase imports (of ML-1M's 1,000,209)
+SQLITE_IMPORT = 100_000
 PIO_RANK, PIO_ITERS, PIO_LAMBDA = 32, 10, 0.01
 T0_MS = 1_704_067_200_000  # 2024-01-01T00:00:00Z
 
@@ -1400,13 +1442,15 @@ def _percentiles(ms: list) -> dict:
             "p99_ms": float(np.percentile(a, 99)), "n": len(ms)}
 
 
-def _write_ml1m_jsonl(path: str) -> tuple:
+def _write_ml1m_jsonl(path: str, limit=None) -> tuple:
     """ML-1M-shaped rate events (bench.py's synth_ratings at SCALES["ml1m"])
-    as a `pio import` file, each with a distinct eventTime, shuffled;
-    returns (users, items, ratings, event times in ms)."""
+    as a `pio import` file, each with a distinct eventTime, shuffled (the
+    first ``limit`` of them when given); returns (users, items, ratings,
+    event times in ms)."""
     n_users, n_items, nnz = ML1M
     u, i, r = synth_ratings(n_users, n_items, nnz, seed=21)
     times = T0_MS + np.random.default_rng(22).permutation(nnz)
+    u, i, r, times = (a[:limit] for a in (u, i, r, times))
     with open(path, "w", encoding="utf-8") as fh:
         for a, b, c, t in zip(u.tolist(), i.tolist(), r.tolist(),
                               times.tolist()):
@@ -1422,9 +1466,11 @@ def _expected_triple(imported: tuple, live: list) -> dict:
     themselves: every event in time order (all times are distinct), users
     and items indexed in first-seen order."""
     u, i, r, times = imported
-    ids = lambda key: np.array([int(e[key][1:]) for e in live])  # noqa: E731
+    ids = lambda key: np.array([int(e[key][1:]) for e in live],  # noqa: E731
+                               np.int64)
     order = np.argsort(np.concatenate(
-        [times, [_ms(e["eventTime"]) for e in live]]), kind="stable")
+        [times, np.array([_ms(e["eventTime"]) for e in live], np.int64)]),
+        kind="stable")
 
     def first_seen(seq: np.ndarray, prefix: str):
         seq = seq[order]
@@ -1465,42 +1511,11 @@ def _live_events() -> list:
     return out
 
 
-def phase_pio_workflow(workdir: str) -> None:
-    """The user's path through the port's verbs, each in its own process,
-    on one SQLite store ($PIO_FS_BASEDIR/pio.sqlite): app new → import of
-    an ML-1M-shaped file → 2,000 live events through the event server →
-    train (rank 32, 10 iterations, λ 0.01, the warp kernel) → deploy →
-    50 queries held to a host top-k → a second train whose blob is
-    corrupted in the SQLite file, and a deploy that walks back past it."""
-    n_users, n_items, nnz = ML1M
-    singles, batches, new_users, new_items = LIVE
-    base = os.path.join(workdir, "pio_base")
-    env = _pio_env(base)
-    out, _ = _verb(["app", "new", "ml1m"], env, workdir)
-    key = out.stdout.split("Access Key:")[1].split()[0]
-
-    # bulk import
-    events_path = os.path.join(workdir, "ml1m.jsonl")
-    t0 = time.perf_counter()
-    imported = _write_ml1m_jsonl(events_path)
-    write_s = time.perf_counter() - t0
-    cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
-    out, wall_s = _verb(["import", "--app-name", "ml1m", "--input",
-                         events_path], env, workdir)
-    cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
-    line = [ln for ln in out.stdout.splitlines() if "Imported" in ln][-1]
-    check(f"Imported {nnz} events (0 skipped)" in line, f"import: {line}")
-    import_s = float(line.rsplit(" in ", 1)[1].rstrip("s."))
-    emit("pio_workflow_import", events=nnz, file_write_seconds=write_s,
-         import_seconds=import_s, events_per_s=nnz / import_s,
-         verb_wall_seconds=wall_s, events_per_s_wall=nnz / wall_s,
-         verb_cpu_user_seconds=cpu1.ru_utime - cpu0.ru_utime,
-         verb_cpu_sys_seconds=cpu1.ru_stime - cpu0.ru_stime,
-         store_bytes=os.path.getsize(os.path.join(base, "pio.sqlite")))
-    os.unlink(events_path)
-
-    # live events through the event server: acknowledged = committed
-    live = _live_events()
+def _ingest_live(env: dict, workdir: str, key: str, live: list) -> tuple:
+    """The live events through ``pio eventserver``: the first LIVE[0] as
+    single POSTs, the rest as batches of 50, each acknowledged after its
+    commit. Returns (acknowledged ids, single ms, batch ms)."""
+    singles, batches = LIVE[0], LIVE[1]
     acked, single_ms, batch_ms = [], [], []
     with _Served(["eventserver", "--ip", "127.0.0.1"], env, workdir) as srv:
         conn = srv.connect()
@@ -1520,6 +1535,59 @@ def phase_pio_workflow(workdir: str) -> None:
             batch_ms.append(ms)
         conn.close()
     check(len(set(acked)) == len(live), "duplicate event ids")
+    return acked, single_ms, batch_ms
+
+
+def phase_pio_workflow(workdir: str) -> None:
+    """The user's path through the port's verbs, each in its own process,
+    on one SQLite store ($PIO_FS_BASEDIR/pio.sqlite): app new → import of
+    an ML-1M-shaped file → 2,000 live events through the event server →
+    train (rank 32, 10 iterations, λ 0.01, the warp kernel) → deploy →
+    50 queries held to a host top-k → a second train whose blob is
+    corrupted in the SQLite file, and a deploy that walks back past it.
+    Cut to the first SQLITE_IMPORT events of the ML-1M file so the JSONL
+    phases fit the script's 1,200 s: on an H100 host the whole script takes
+    679–791 s with the cut, the phase ≈ 74 s at 100,000 events against
+    ≈ 280 s at all 1,000,209, and the ML-20M phase alone varies by ≈ 100 s
+    from host to host, so the full import would leave under 100 s of
+    margin. The JSONL lines label the numbers they quote from this phase
+    with its store's size (``imported_events``)."""
+    n_users, n_items, _ = ML1M
+    nnz = SQLITE_IMPORT
+    new_users, new_items = LIVE[2:]
+    base = os.path.join(workdir, "pio_base")
+    env = _pio_env(base)
+    out, _ = _verb(["app", "new", "ml1m"], env, workdir)
+    key = out.stdout.split("Access Key:")[1].split()[0]
+
+    # bulk import
+    events_path = os.path.join(workdir, "ml1m.jsonl")
+    t0 = time.perf_counter()
+    imported = _write_ml1m_jsonl(events_path, nnz)
+    write_s = time.perf_counter() - t0
+    cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    out, wall_s = _verb(["import", "--app-name", "ml1m", "--input",
+                         events_path], env, workdir)
+    cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    line = [ln for ln in out.stdout.splitlines() if "Imported" in ln][-1]
+    check(f"Imported {nnz} events (0 skipped)" in line, f"import: {line}")
+    import_s = float(line.rsplit(" in ", 1)[1].rstrip("s."))
+    SQLITE_NUMBERS.update(events=nnz, import_events_per_s=nnz / import_s)
+    emit("pio_workflow_import", events=nnz, reduced=(
+        f"first {nnz} of the {ML1M[2]} ML-1M events (time budget)"),
+         file_write_seconds=write_s,
+         import_seconds=import_s, events_per_s=nnz / import_s,
+         verb_wall_seconds=wall_s, events_per_s_wall=nnz / wall_s,
+         verb_cpu_user_seconds=cpu1.ru_utime - cpu0.ru_utime,
+         verb_cpu_sys_seconds=cpu1.ru_stime - cpu0.ru_stime,
+         store_bytes=os.path.getsize(os.path.join(base, "pio.sqlite")))
+    os.unlink(events_path)
+
+    # live events through the event server: acknowledged = committed
+    live = _live_events()
+    acked, single_ms, batch_ms = _ingest_live(env, workdir, key, live)
+    SQLITE_NUMBERS["ingest"] = {"single": _percentiles(single_ms[1:]),
+                                "batch_of_50": _percentiles(batch_ms)}
     emit("pio_workflow_ingest", events=len(live), new_users=new_users,
          new_items=new_items, single=_percentiles(single_ms[1:]),
          batch_of_50=_percentiles(batch_ms))
@@ -1535,39 +1603,23 @@ def phase_pio_workflow(workdir: str) -> None:
     check(not missing, f"{len(missing)} acknowledged events not in the store")
     # what the train must read, from the generated events themselves
     ref = _expected_triple(imported, live)
-    u, i, r, users, items = ref["u"], ref["i"], ref["r"], ref["users"], ref["items"]
+    u, i, users, items = ref["u"], ref["i"], ref["users"], ref["items"]
     total = nnz + len(live)
-    check(len(u) == total and len(users) == n_users + new_users
-          and len(items) == n_items + new_items,
-          f"reference triple {len(u)}, {len(users)} users, {len(items)} items")
+    check(len(u) == total, f"reference triple {len(u)}")
 
     # train through the verb (the card, the warp kernel)
-    with open(os.path.join(workdir, "engine.json"), "w", encoding="utf-8") as fh:
-        json.dump({"id": "default",
-                   "engineFactory": "incubator_predictionio_torch.models."
-                                    "recommendation.RecommendationEngine",
-                   "datasource": {"params": {"appName": "ml1m"}},
-                   "algorithms": [{"name": "als", "params": {
-                       "rank": PIO_RANK, "numIterations": PIO_ITERS,
-                       "lambda": PIO_LAMBDA}}]}, fh)
-    als_params = ALSParams(rank=PIO_RANK, num_iterations=PIO_ITERS,
-                           reg=PIO_LAMBDA)
-    expected, calls_u, calls_i = implied_launches(
-        u, i, len(users), len(items), als_params, PIO_ITERS)
+    _write_engine_json(workdir, "ml1m")
+    _, calls_u, calls_i = implied_launches(
+        u, i, len(users), len(items),
+        ALSParams(rank=PIO_RANK, num_iterations=PIO_ITERS, reg=PIO_LAMBDA),
+        PIO_ITERS)
 
     def train(path: str) -> dict:
-        out, wall = _verb(["train"], env, workdir)
-        trained = json.loads(out.stdout.strip().splitlines()[-1])
-        record(path, trained["kernel_launches"])
-        got = trained["kernel_launches"]
-        check(got["warp"] == expected and got["wide"] == 0,
-              f"{path} launches {got} != implied {expected} warp")
-        check(trained["timings"]["ratings_read"] == total,
-              f"{path} read {trained['timings']['ratings_read']} ratings")
+        trained = _train_verb(env, workdir, path)
+        _hold_train(trained, ref, path)
         row = store.get_meta_data_engine_instances().get(
             trained["engineInstanceId"])
         check(row.status == "COMPLETED", f"{path} instance {row.status}")
-        trained["wall_seconds"] = wall
         return trained
 
     first = train("pio_workflow")
@@ -1581,21 +1633,16 @@ def phase_pio_workflow(workdir: str) -> None:
           and all(f"i{n_items + j}" in m_items for j in range(new_items)),
           "a live user or item is not in the model")
     uf, itf = stored["user_factors"], stored["item_factors"]
-    check(uf.shape == (n_users + new_users, PIO_RANK)
+    check(uf.shape == (len(users), PIO_RANK)
           and bool(np.isfinite(uf).all() and np.isfinite(itf).all()),
           f"bad factors {uf.shape}")
     tm = first["timings"]
     reads = [tm["read_seconds"]]
-    # the steady iteration on the card, on the same triple
-    trainer = ALSTrainer(u, i, r, len(users), len(items), als_params,
-                         device="cuda")
-    trainer.iterate(1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.iterate(PIO_ITERS)
-    torch.cuda.synchronize()
-    steady_ms = (time.perf_counter() - t0) / PIO_ITERS * 1e3
-    del trainer
+    steady_ms = _steady_ms(ref)
+    SQLITE_NUMBERS.update(
+        read_seconds=tm["read_seconds"],
+        train_seconds_end_to_end=first["wall_seconds"],
+        steady_iteration_ms=steady_ms)
     emit("pio_workflow_train", events=total, rank=PIO_RANK,
          iterations=PIO_ITERS, reg=PIO_LAMBDA,
          train_seconds_end_to_end=first["wall_seconds"],
@@ -1603,34 +1650,25 @@ def phase_pio_workflow(workdir: str) -> None:
          read_share_of_run_train=tm["read_seconds"] / first["seconds"],
          device_share_of_run_train=tm["device_train_seconds"] / first["seconds"],
          steady_iteration_ms=steady_ms, kernel_launches=first["kernel_launches"],
-         expected_launches=expected,
+         expected_launches=first["expected_launches"],
          solve_calls_per_iteration={"user": calls_u, "item": calls_i})
 
     # deploy the newest COMPLETED; 25 live users, 25 imported ones
     rng = np.random.default_rng(24)
     queried = ([f"u{n_users + j}" for j in range(0, new_users, new_users // 25)]
-               + [f"u{int(x)}" for x in rng.integers(0, n_users, 25)])
+               + [users[int(x)]
+                  for x in rng.integers(0, len(users) - new_users, 25)])
 
     def answer(res, user):
         check_user_answer(uf, itf, m_users[user], {"itemScores": [
             {"item": m_items[x["item"]], "score": x["score"]}
             for x in res["itemScores"]]})
 
-    query_ms = []
-    with _Served(["deploy"], env, workdir) as srv:
-        check(srv.info["engineInstanceId"] == first_id
-              and srv.info["rejected"] == [], f"deployed {srv.info}")
-        conn = srv.connect()
-        for user in queried:
-            status, res, ms = srv.request("POST", "/queries.json",
-                                          {"user": user, "num": 10}, conn)
-            check(status == 200, f"query {status}: {res}")
-            answer(res, user)
-            query_ms.append(ms)
-        conn.close()
+    SQLITE_NUMBERS["query"] = _serve_and_check(env, workdir, first_id,
+                                               stored, queried)
     emit("pio_workflow_serve", queries=len(queried),
          live_user_queries=sum(int(q[1:]) >= n_users for q in queried),
-         **_percentiles(query_ms[1:]))
+         **SQLITE_NUMBERS["query"])
 
     # a second train, its blob corrupted in the SQLite file before deploy
     second = train("pio_workflow_retrain")
@@ -1664,6 +1702,554 @@ def phase_pio_workflow(workdir: str) -> None:
          retrain_timings=second["timings"])
 
 
+# -- the JSONL event log: the pio workflow on TYPE=JSONL ---------------------
+
+#: the numbers of the SQLite pio_workflow phase, printed beside the JSONL ones
+SQLITE_NUMBERS: dict = {}
+
+
+def _sqlite_beside(numbers: dict | None) -> dict:
+    """The SQLite phase's numbers for a JSONL line, labelled with the
+    number of events that phase imported (SQLITE_IMPORT, not ML-1M's
+    1,000,209)."""
+    return {"imported_events": SQLITE_NUMBERS.get("events"),
+            **(numbers or {})}
+#: lines of the ML-20M log the codec_vs_plain phase parses both ways
+CODEC_SLICE = 200_000
+#: the ML-20M log's event times (a permutation of nnz milliseconds) and ids
+ML20M_TIME_SEED, ML20M_ID_SEED = 8, 7
+CREATED_ISO = "2024-06-01T00:00:00.000Z"
+#: the ML-20M phase needs this much free disk (log + snapshot + shadow file)
+ML20M_DISK_GB, ML20M_RAM_GB = 24, 32
+#: the cut when the host cannot hold the full log
+ML20M_REDUCED_EVENTS = 10_000_000
+ML20M_QUERIES = 20
+
+
+def _ml20m_times(nnz: int) -> np.ndarray:
+    return T0_MS + np.random.default_rng(ML20M_TIME_SEED).permutation(nnz)
+
+
+def _log_lines(u, i, r, times_ms, first: int) -> bytes:
+    """Rate events as JSONL lines, byte for byte what
+    ``JSONLEvents.insert_batch`` writes for them (``Event.to_json`` with
+    its ``eventId`` set, ``json.dumps``): event ids derived from the seed
+    and the row, one fixed creation time."""
+    iso = np.datetime_as_string(np.asarray(times_ms).astype("datetime64[ms]"),
+                                unit="ms").tolist()
+    rating = [json.dumps(k / 2) for k in range(11)]
+    halves = (np.asarray(r) * 2).astype(np.int64).tolist()
+    return "".join([
+        f'{{"eventId": "{ML20M_ID_SEED:08x}{first + k:024x}", "event": '
+        f'"rate", "entityType": "user", "entityId": "u{a}", '
+        f'"targetEntityType": "item", "targetEntityId": "i{b}", '
+        f'"properties": {{"rating": {rating[c]}}}, "eventTime": "{t}Z", '
+        f'"creationTime": "{CREATED_ISO}"}}\n'
+        for k, (a, b, c, t) in enumerate(zip(
+            np.asarray(u).tolist(), np.asarray(i).tolist(), halves, iso))
+    ]).encode()
+
+
+_LOG_ARRAYS: tuple = ()
+
+
+def _write_part(job: tuple) -> int:
+    lo, hi, path = job
+    u, i, r, t = _LOG_ARRAYS
+    with open(path, "wb") as fh:
+        for a in range(lo, hi, 1_000_000):
+            b = min(a + 1_000_000, hi)
+            fh.write(_log_lines(u[a:b], i[a:b], r[a:b], t[a:b], a))
+    return hi - lo
+
+
+def _write_log(path: str, u, i, r, times) -> None:
+    """The log in parts, one process per core, concatenated in order."""
+    global _LOG_ARRAYS
+    import multiprocessing
+
+    _LOG_ARRAYS = (u, i, r, times)
+    n, procs = len(u), os.cpu_count() or 1
+    step = -(-n // procs)
+    jobs = [(lo, min(lo + step, n), f"{path}.part{k}")
+            for k, lo in enumerate(range(0, n, step))]
+    with multiprocessing.get_context("fork").Pool(len(jobs)) as pool:
+        check(sum(pool.map(_write_part, jobs)) == n, "log parts short")
+    with open(path, "wb") as out:
+        for _, _, part in jobs:
+            with open(part, "rb") as fh:
+                shutil.copyfileobj(fh, out, 64 << 20)
+            os.unlink(part)
+    _LOG_ARRAYS = ()
+
+
+def _same_columns(a, b) -> None:
+    for f in ("event", "etype", "eid", "tetype", "teid", "event_id",
+              "time_us", "props", "span", "tombstone_pos"):
+        x, y = getattr(a, f), getattr(b, f)
+        check(x.dtype == y.dtype and np.array_equal(x, y),
+              f"codec column {f} differs from the plain parser's")
+    check(np.array_equal(a.rating, b.rating, equal_nan=True),
+          "codec ratings differ from the plain parser's")
+    check(a.tables == b.tables and a.tombstones == b.tombstones,
+          "codec tables differ from the plain parser's")
+
+
+def phase_codec_vs_plain(ratings) -> None:
+    """The event codec (native/src/event_codec.cc, g++) and its plain
+    Python parser on the first 200,000 lines of the ML-20M log: every
+    column and table equal; MB/s of both."""
+    u, i, r = (a[:CODEC_SLICE] for a in ratings)
+    buf = _log_lines(u, i, r, _ml20m_times(len(ratings[0]))[:CODEC_SLICE], 0)
+    t0 = time.perf_counter()
+    native.status()  # build (or load) the library outside the timing
+    load_s = time.perf_counter() - t0
+    codec_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = native.parse_events_jsonl(buf)
+        codec_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plain = native.parse_events_jsonl_py(buf)
+    plain_s = time.perf_counter() - t0
+    _same_columns(got, plain)
+    check(len(got) == CODEC_SLICE and got.table(got.TABLE_EID)[0]
+          == f"u{u[0]}", "codec parsed the wrong rows")
+    mb = len(buf) / 1e6
+    emit("codec_vs_plain", lines=CODEC_SLICE, bytes=len(buf),
+         codec_seconds=codec_s, plain_seconds=plain_s,
+         codec_mb_per_s=mb / min(codec_s), plain_mb_per_s=mb / plain_s,
+         speedup=plain_s / min(codec_s), build_or_load_seconds=load_s,
+         build=native.status(), host_cpus=os.cpu_count())
+
+
+def _jsonl_env(base: str) -> dict:
+    """The pio verbs' environment with the events on a JSONL log and the
+    metadata and models on SQLite (bench_ingest.py's split)."""
+    return _pio_env(base) | {
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG",
+        "PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+        "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(base, "pio.sqlite"),
+        "PIO_STORAGE_SOURCES_LOG_TYPE": "JSONL",
+        "PIO_STORAGE_SOURCES_LOG_PATH": os.path.join(base, "events")}
+
+
+def _storage_of(env: dict) -> Storage:
+    return Storage({k: v for k, v in env.items()
+                    if k.startswith("PIO_STORAGE_")})
+
+
+def _write_engine_json(workdir: str, app: str) -> None:
+    with open(os.path.join(workdir, "engine.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump({"id": "default",
+                   "engineFactory": "incubator_predictionio_torch.models."
+                                    "recommendation.RecommendationEngine",
+                   "datasource": {"params": {"appName": app}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": PIO_RANK, "numIterations": PIO_ITERS,
+                       "lambda": PIO_LAMBDA}}]}, fh)
+
+
+def _first_seen_filter(ref: dict, keep: np.ndarray) -> dict:
+    """The plain triple of the events ``keep`` selects (in time order):
+    users and items re-indexed in first-seen order."""
+    def dense(idx, names):
+        idx = idx[keep]
+        keys, first = np.unique(idx, return_index=True)
+        keys = keys[np.argsort(first)]
+        lut = np.empty(len(names), np.int64)
+        lut[keys] = np.arange(len(keys))
+        return [names[k] for k in keys], lut[idx].astype(np.int32)
+
+    users, u = dense(ref["u"], ref["users"])
+    items, i = dense(ref["i"], ref["items"])
+    return {"users": users, "items": items, "u": u, "i": i,
+            "r": ref["r"][keep]}
+
+
+def _hold_triple(got: tuple, want: dict, what: str) -> None:
+    u, i, r, users, items = got
+    check(np.array_equal(u, want["u"]) and np.array_equal(i, want["i"])
+          and np.array_equal(r, want["r"]),
+          f"{what}: the read's triple differs from the generated events")
+    check(list(users.keys()) == want["users"]
+          and list(items.keys()) == want["items"],
+          f"{what}: the id maps are not in first-seen order")
+
+
+def _train_verb(env: dict, workdir: str, path: str, extra=()) -> dict:
+    """``pio train`` in its own process (the card, the warp kernel); its
+    JSON line with ``wall_seconds``, its launches recorded under
+    ``path``."""
+    out, wall = _verb(["train", *extra], env, workdir, timeout=1200)
+    trained = json.loads(out.stdout.strip().splitlines()[-1])
+    record(path, trained["kernel_launches"])
+    trained["wall_seconds"] = wall
+    return trained
+
+
+def _hold_train(trained: dict, want: dict, path: str) -> None:
+    """The train read exactly ``want`` and launched the warp kernel the
+    number of times its layout implies."""
+    expected, _, _ = implied_launches(
+        want["u"], want["i"], len(want["users"]), len(want["items"]),
+        ALSParams(rank=PIO_RANK, num_iterations=PIO_ITERS, reg=PIO_LAMBDA),
+        PIO_ITERS)
+    got = trained["kernel_launches"]
+    check(got["warp"] == expected and got["wide"] == 0,
+          f"{path} launches {got} != implied {expected} warp")
+    check(trained["timings"]["ratings_read"] == len(want["u"]),
+          f"{path} read {trained['timings']['ratings_read']} ratings, "
+          f"want {len(want['u'])}")
+    trained["expected_launches"] = expected
+
+
+def _hold_model(store: Storage, trained: dict, want: dict, path: str) -> dict:
+    _, persisted = models_from_bytes(
+        model_artifact.read_model(store, trained["engineInstanceId"]))
+    stored = persisted[0]
+    check(list(stored["users"]) == want["users"]
+          and list(stored["items"]) == want["items"],
+          f"{path}: the model's id maps differ from the events' "
+          "first-seen order")
+    uf, itf = stored["user_factors"], stored["item_factors"]
+    check(uf.shape == (len(want["users"]), PIO_RANK)
+          and bool(np.isfinite(uf).all() and np.isfinite(itf).all()),
+          f"{path}: bad factors {uf.shape}")
+    return stored
+
+
+def _steady_ms(want: dict) -> float:
+    """Seconds per steady ALS iteration on the card, on the read's
+    triple (ms)."""
+    trainer = ALSTrainer(want["u"], want["i"], want["r"], len(want["users"]),
+                         len(want["items"]),
+                         ALSParams(rank=PIO_RANK, num_iterations=PIO_ITERS,
+                                   reg=PIO_LAMBDA), device="cuda")
+    trainer.iterate(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.iterate(PIO_ITERS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / PIO_ITERS * 1e3
+    del trainer
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _serve_and_check(env: dict, workdir: str, instance_id: str,
+                     stored: dict, queried: list) -> dict:
+    """``pio deploy`` of the newest instance; every query held to the
+    host's top-k over the persisted factors."""
+    m_users, m_items = stored["users"], stored["items"]
+    uf, itf = stored["user_factors"], stored["item_factors"]
+    query_ms = []
+    with _Served(["deploy"], env, workdir) as srv:
+        check(srv.info["engineInstanceId"] == instance_id
+              and srv.info["rejected"] == [], f"deployed {srv.info}")
+        conn = srv.connect()
+        for user in queried:
+            status, res, ms = srv.request("POST", "/queries.json",
+                                          {"user": user, "num": 10}, conn)
+            check(status == 200, f"query {status}: {res}")
+            check_user_answer(uf, itf, m_users[user], {"itemScores": [
+                {"item": m_items[x["item"]], "score": x["score"]}
+                for x in res["itemScores"]]})
+            query_ms.append(ms)
+        conn.close()
+    return _percentiles(query_ms[1:])
+
+
+def phase_pio_workflow_jsonl(workdir: str) -> None:
+    """The pio_workflow scenario with EVENTDATA on a JSONL log: app new →
+    import, split by event time into its older and newer half → eventlog
+    compact after the older half (generation 1) → 2,000 live events
+    through the event server (single POSTs, and batches of 50 through the
+    codec's one-pass path) → eventlog compact (generation 2) → train
+    --window leaving out the older half (generation 1 skipped by its
+    bounds) → train (rank 32, 10 iterations, λ 0.01, the warp kernel) →
+    deploy → 50 queries held to a host top-k."""
+    n_users, n_items, nnz = ML1M
+    new_users, new_items = LIVE[2:]
+    base = os.path.join(workdir, "pio_jsonl")
+    env = _jsonl_env(base)
+    out, _ = _verb(["app", "new", "ml1m"], env, workdir)
+    key = out.stdout.split("Access Key:")[1].split()[0]
+    events_path = os.path.join(workdir, "ml1m.jsonl")
+    imported = _write_ml1m_jsonl(events_path)
+    times = imported[3]
+    mid_ms = int(np.sort(times)[nnz // 2])
+    with open(events_path, "rb") as fh:
+        lines = fh.read().splitlines(keepends=True)
+    os.unlink(events_path)
+    halves = []
+    for k, sel in enumerate((times < mid_ms, times >= mid_ms)):
+        part = os.path.join(workdir, f"ml1m.{k}.jsonl")
+        with open(part, "wb") as fh:
+            fh.writelines(ln for ln, keep in zip(lines, sel.tolist()) if keep)
+        halves.append((part, int(sel.sum())))
+    del lines
+    log_path = os.path.join(base, "events", "pio_eventdata", "events_1.jsonl")
+    import_s, compact_s = [], []
+    for k, (part, count) in enumerate(halves):
+        out, _ = _verb(["import", "--app-name", "ml1m", "--input", part],
+                       env, workdir)
+        line = [ln for ln in out.stdout.splitlines() if "Imported" in ln][-1]
+        check(f"Imported {count} events (0 skipped)" in line,
+              f"import: {line}")
+        import_s.append(float(line.rsplit(" in ", 1)[1].rstrip("s.")))
+        os.unlink(part)
+        if k == 0:
+            out, wall = _verb(["eventlog", "compact"], env, workdir)
+            check("generation 1," in out.stdout, out.stdout)
+            compact_s.append(wall)
+    emit("pio_workflow_jsonl_import", events=nnz, import_seconds=import_s,
+         events_per_s=nnz / sum(import_s),
+         sqlite_events_per_s=SQLITE_NUMBERS.get("import_events_per_s"),
+         sqlite_import_events=SQLITE_NUMBERS.get("events"),
+         log_bytes=os.path.getsize(log_path))
+
+    live = _live_events()
+    acked, single_ms, batch_ms = _ingest_live(env, workdir, key, live)
+    out, wall = _verb(["eventlog", "compact"], env, workdir)
+    check("generation 2," in out.stdout, out.stdout)
+    compact_s.append(wall)
+    store = _storage_of(env)
+    missing = [eid for eid in acked
+               if store.get_l_events().get(eid, 1) is None]
+    check(not missing, f"{len(missing)} acknowledged events not in the log")
+    emit("pio_workflow_jsonl_ingest", events=len(live),
+         single=_percentiles(single_ms[1:]),
+         batch_of_50=_percentiles(batch_ms),
+         sqlite=_sqlite_beside(SQLITE_NUMBERS.get("ingest")),
+         compact_verb_seconds=compact_s)
+
+    ref = _expected_triple(imported, live)
+    total = nnz + len(live)
+    check(len(ref["u"]) == total and len(ref["users"]) == n_users + new_users
+          and len(ref["items"]) == n_items + new_items,
+          f"reference triple {len(ref['u'])}")
+    all_times = np.sort(np.concatenate(
+        [times, np.array([_ms(e["eventTime"]) for e in live], np.int64)]))
+    _write_engine_json(workdir, "ml1m")
+
+    # the windowed train: its bound leaves out the older half
+    dur_s = int(time.time() - mid_ms / 1000)
+    windowed = _train_verb(env, workdir, "pio_workflow_jsonl_window",
+                           ["--window", f"{dur_s}s"])
+    start_us = windowed["window"]["startUs"]
+    keep = all_times * 1000 >= start_us
+    want_w = _first_seen_filter(ref, keep)
+    _hold_train(windowed, want_w, "pio_workflow_jsonl_window")
+    chain = event_log.load_chain(log_path, start_us, None)
+    check(chain["skipped"] == 1 and chain["pieces"][0][0] == "skip",
+          f"windowed chain load skipped {chain['skipped']} generation(s)")
+    t0 = time.perf_counter()
+    got = PEventStore.find_ratings(
+        "ml1m", storage=_storage_of(env),
+        start_time=_dt.datetime.fromtimestamp(start_us / 1e6,
+                                              _dt.timezone.utc))
+    window_read_s = time.perf_counter() - t0
+    _hold_triple(got, want_w, "windowed read")
+    _hold_model(store, windowed, want_w, "pio_workflow_jsonl_window")
+
+    # the full train, deployed
+    first = _train_verb(env, workdir, "pio_workflow_jsonl")
+    _hold_train(first, ref, "pio_workflow_jsonl")
+    stored = _hold_model(store, first, ref, "pio_workflow_jsonl")
+    check(all(f"u{n_users + j}" in stored["users"] for j in range(new_users))
+          and all(f"i{n_items + j}" in stored["items"]
+                  for j in range(new_items)),
+          "a live user or item is not in the model")
+    steady_ms = _steady_ms(ref)
+    tm = first["timings"]
+    emit("pio_workflow_jsonl_train", events=total, rank=PIO_RANK,
+         iterations=PIO_ITERS, reg=PIO_LAMBDA,
+         train_seconds_end_to_end=first["wall_seconds"],
+         train_seconds_run_train=first["seconds"], timings=tm,
+         read_seconds=tm["read_seconds"],
+         read_share_of_run_train=tm["read_seconds"] / first["seconds"],
+         events_per_s_end_to_end=total / first["wall_seconds"],
+         steady_iteration_ms=steady_ms,
+         kernel_launches=first["kernel_launches"],
+         expected_launches=first["expected_launches"],
+         sqlite=_sqlite_beside({k: SQLITE_NUMBERS.get(k) for k in (
+             "read_seconds", "train_seconds_end_to_end",
+             "steady_iteration_ms")}),
+         window={"start_us": start_us, "events": int(keep.sum()),
+                 "skipped_generations": chain["skipped"],
+                 "decoded_bytes": chain["decodedBytes"],
+                 "train_seconds_end_to_end": windowed["wall_seconds"],
+                 "read_seconds": windowed["timings"]["read_seconds"],
+                 "in_process_read_seconds": window_read_s,
+                 "kernel_launches": windowed["kernel_launches"],
+                 "expected_launches": windowed["expected_launches"]})
+
+    rng = np.random.default_rng(24)
+    queried = ([f"u{n_users + j}" for j in range(0, new_users, new_users // 25)]
+               + [f"u{int(x)}" for x in rng.integers(0, n_users, 25)])
+    emit("pio_workflow_jsonl_serve", queries=len(queried),
+         **_serve_and_check(env, workdir, first["engineInstanceId"], stored,
+                            queried),
+         sqlite=_sqlite_beside(SQLITE_NUMBERS.get("query")))
+    store.close()
+
+
+def _ml20m_workdir(workdir: str) -> tuple:
+    """(directory, events): the work directory with the most free disk of
+    the temporary directory and the checkout's build directory, and the
+    events the host can hold (all of ML-20M, or the first 10,000,000)."""
+    candidates = [workdir, os.path.join(ROOT, "build")]
+    os.makedirs(candidates[1], exist_ok=True)
+    free = {d: shutil.disk_usage(d).free / 2**30 for d in candidates}
+    best = max(candidates, key=free.get)
+    with open("/proc/meminfo", encoding="ascii") as fh:
+        meminfo = dict(ln.split(":", 1) for ln in fh)
+    ram_gb = int(meminfo["MemAvailable"].split()[0]) / 2**20
+    df = subprocess.run(["df", "-h", *candidates], capture_output=True,
+                        text=True).stdout
+    mem = subprocess.run(["free", "-g"], capture_output=True, text=True).stdout
+    emit("pio_workflow_jsonl_ml20m_host", df=df, free_g=mem,
+         free_gb=free, available_ram_gb=ram_gb, workdir=best)
+    full = free[best] >= ML20M_DISK_GB and ram_gb >= ML20M_RAM_GB
+    return best, (ML20M[2] if full else ML20M_REDUCED_EVENTS)
+
+
+def _timed_read(read, parts: dict):
+    """Run ``read`` (a columnar find_ratings) with the snapshot load's
+    steps timed into ``parts``: the CRC checks, ``_deserialize_cols``
+    (and, measured again on the same blob after it, the ``raw`` member's
+    load and the eventId table's JSON decode alone, which the training
+    read never needs) and the numpy triple; ``other`` is the rest (file
+    reads, the live mask)."""
+    deserialize, crc32 = event_log._deserialize_cols, zlib.crc32
+    ratings = p_event_store._columnar_ratings
+    for k in ("crc32", "deserialize", "ratings"):
+        parts[k] = 0.0
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                parts[name] += time.perf_counter() - t0
+        return run
+
+    def deserialize_and_split(blob):
+        cols = timed("deserialize", deserialize)(blob)
+        with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+            t0 = time.perf_counter()
+            bytes(z["raw"])
+            parts["raw_member_alone"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            json.loads(bytes(z["table_5"]).decode("utf-8"))
+            parts["event_id_table_alone"] = time.perf_counter() - t0
+        return cols
+
+    event_log._deserialize_cols = deserialize_and_split
+    event_log.zlib = types.SimpleNamespace(crc32=timed("crc32", crc32))
+    p_event_store._columnar_ratings = timed("ratings", ratings)
+    t0 = time.perf_counter()
+    try:
+        return read()
+    finally:
+        total = time.perf_counter() - t0
+        event_log._deserialize_cols = deserialize
+        event_log.zlib = zlib
+        p_event_store._columnar_ratings = ratings
+        parts["other"] = total - sum(
+            parts[k] for k in ("crc32", "deserialize", "ratings",
+                               "raw_member_alone", "event_id_table_alone"))
+
+
+def phase_pio_workflow_jsonl_ml20m(workdir: str, ratings) -> None:
+    """The BASELINE metric's scale through the verbs: the ML-20M log
+    (bench.py SCALES["ml20m"], synth_ratings seed 7, distinct shuffled
+    event times) written as the JSONL store itself, byte for byte what
+    insert_batch writes (a 10,000-line sample checked) → eventlog compact
+    → the read held exactly to the generated arrays → train (rank 32, 10
+    iterations, the warp kernel) → deploy → 20 queries held to a host
+    top-k over the persisted factors."""
+    n_users, n_items, _ = ML20M
+    wdir, nnz = _ml20m_workdir(workdir)
+    reduced = None if nnz == ML20M[2] else (
+        f"first {nnz} of {ML20M[2]} events: the host has less than "
+        f"{ML20M_DISK_GB} GB of disk or {ML20M_RAM_GB} GB of free RAM")
+    cwd = tempfile.mkdtemp(dir=wdir)
+    base = os.path.join(cwd, "pio_ml20m")
+    env = _jsonl_env(base)
+    _verb(["app", "new", "ml20m"], env, cwd)
+    _write_engine_json(cwd, "ml20m")
+    log_path = os.path.join(base, "events", "pio_eventdata", "events_1.jsonl")
+    u, i, r = (a[:nnz] for a in ratings)
+    times = _ml20m_times(ML20M[2])[:nnz]
+    t0 = time.perf_counter()
+    _write_log(log_path, u, i, r, times)
+    write_s = time.perf_counter() - t0
+    log_bytes = os.path.getsize(log_path)
+
+    # a sample of lines, byte for byte what insert_batch writes
+    rows = np.sort(np.random.default_rng(25).choice(nnz, 10_000,
+                                                    replace=False))
+    sample = b"".join(_log_lines(u[k:k + 1], i[k:k + 1], r[k:k + 1],
+                                 times[k:k + 1], int(k)) for k in rows)
+    scratch = tempfile.mkdtemp(dir=wdir)
+    le = JSONLEvents(scratch)
+    le.insert_batch([Event.from_json(json.loads(ln))
+                     for ln in sample.splitlines()], 1)
+    with open(os.path.join(scratch, "events_1.jsonl"), "rb") as fh:
+        check(fh.read() == sample, "the log's lines differ from insert_batch's")
+    le.close()
+    shutil.rmtree(scratch)
+
+    out, compact_s = _verb(["eventlog", "compact"], env, cwd,
+                           timeout=1200)
+    check(f"generation 1, {nnz} event(s)" in out.stdout, out.stdout)
+    snap_bytes = os.path.getsize(log_path + ".g1.colseg")
+
+    want = _expected_triple((u, i, r, times), [])
+    read_parts: dict = {}
+    t0 = time.perf_counter()
+    got = _timed_read(lambda: PEventStore.find_ratings(
+        "ml20m", storage=_storage_of(env)), read_parts)
+    read_s = time.perf_counter() - t0
+    _hold_triple(got, want, "ML-20M read")
+    del got
+
+    trained = _train_verb(env, cwd, "pio_workflow_jsonl_ml20m")
+    _hold_train(trained, want, "pio_workflow_jsonl_ml20m")
+    store = _storage_of(env)
+    stored = _hold_model(store, trained, want, "pio_workflow_jsonl_ml20m")
+    steady_ms = _steady_ms(want)
+    tm = trained["timings"]
+    rng = np.random.default_rng(26)
+    queried = [want["users"][int(k)]
+               for k in rng.integers(0, len(want["users"]), ML20M_QUERIES)]
+    serve = _serve_and_check(env, cwd, trained["engineInstanceId"],
+                             stored, queried)
+    store.close()
+    emit("pio_workflow_jsonl_ml20m", events=nnz, reduced=reduced,
+         users=len(want["users"]), items=len(want["items"]),
+         rank=PIO_RANK, iterations=PIO_ITERS, reg=PIO_LAMBDA,
+         log_write_seconds=write_s, log_bytes=log_bytes,
+         snapshot_bytes=snap_bytes, compact_verb_seconds=compact_s,
+         in_process_read_seconds=read_s, in_process_read_parts=read_parts,
+         train_seconds_end_to_end=trained["wall_seconds"],
+         train_seconds_run_train=trained["seconds"],
+         read_seconds=tm["read_seconds"], timings=tm,
+         events_per_s_end_to_end=nnz / trained["wall_seconds"],
+         steady_iteration_ms=steady_ms,
+         events_per_s_steady=nnz / (steady_ms * PIO_ITERS / 1e3),
+         kernel_launches=trained["kernel_launches"],
+         expected_launches=trained["expected_launches"],
+         queries=serve)
+    shutil.rmtree(cwd)
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -1677,6 +2263,9 @@ def main() -> int:
         phase_console(workdir)
         phase_console_similar_product(workdir)
         phase_pio_workflow(workdir)
+        phase_codec_vs_plain(main_path["ratings"])
+        phase_pio_workflow_jsonl(workdir)
+        phase_pio_workflow_jsonl_ml20m(workdir, main_path["ratings"])
         phase_similar_product(workdir)
     ratings = main_path.pop("ratings")
     main_path.clear()

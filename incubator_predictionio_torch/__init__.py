@@ -10,7 +10,9 @@ runs only when the caller asks for it, and then every kernel runs its
 plain PyTorch version.
 
 What is ported so far: the storage layer (``data/storage``: SQLite, the
-default, with the reference's schema; memory; localfs), the event stores
+default, with the reference's schema; memory; localfs; the JSONL event
+log with its columnar compaction, generations and training windows, read
+through the C++ event codec of ``native/``), the event stores
 (``data/store``), the event server (``data/api``), the train/deploy
 workflow over engine-instance rows and checksummed model artifacts
 (``workflow``), the ``pio`` verbs (``tools/console.py``), and the

@@ -1,0 +1,57 @@
+"""One tolerant parser for ``PIO_*`` environment knobs.
+
+The port's own copy of the parts of
+``incubator_predictionio_tpu/common/envknobs.py`` that the port reads
+(``PIO_TRAIN_WINDOW*``, ``PIO_EVENT_RETENTION``, ``PIO_INGEST_FSYNC``),
+with the same semantics:
+
+- unset / empty         → ``default`` (always)
+- unparsable            → ``default`` (an operator typo must never crash
+  a deploy or a train); integer knobs take no float spelling, so
+  ``PIO_FOO=3.5`` falls back rather than silently truncating
+- ``lo``                → clamp the PARSED integer from below (clamping is
+  not an error)
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+__all__ = ["env_int", "env_flag", "env_str"]
+
+
+def env_int(name: str, default: int, *, lo: Optional[int] = None) -> int:
+    """Integer knob (see the module docstring)."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    try:
+        v = int(raw.strip())
+    except ValueError:
+        return default
+    if lo is not None:
+        v = max(lo, v)
+    return v
+
+
+def env_flag(name: str, default: bool) -> bool:
+    """Boolean knob: 1/true/yes/on vs 0/false/no/off (case-insensitive);
+    anything else → default."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    v = raw.strip().lower()
+    if v in ("1", "true", "yes", "on"):
+        return True
+    if v in ("0", "false", "no", "off"):
+        return False
+    return default
+
+
+def env_str(name: str, default: str) -> str:
+    """String knob, stripped and lower-cased."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    return raw.strip().lower()

@@ -22,6 +22,14 @@ commits its events in one store call before the response is sent. The
 SQLite connection is shared by the handler threads under the backend's
 lock.
 
+On an event store that takes pre-serialized lines (the JSONL log's
+``insert_canonical_lines``), a batch whose every item is valid, carries no
+client eventId and needs no allow-list check is validated and
+canonicalized by the event codec in one pass (``native.ingest_batch``, the
+reference's ``_try_native_batch``) and appended as one write; any other
+batch takes the Python path, which owns every error message. The codec is
+built when the server starts; a failed build stops the server.
+
 The reference's ingest buffer (group commit), write-ahead log,
 ``ack=enqueue``, webhooks, ``/stats.json``, ``/metrics``, load shedding
 and access-key cache are not ported yet (ROADMAP.md Queue 1, item 3).
@@ -37,8 +45,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, unquote, urlsplit
 
+from ... import native
 from ..storage.base import AccessKey
-from ..storage.event import Event, EventValidationError, parse_event_time
+from ..storage.event import (
+    Event, EventValidationError, _utcnow, format_event_time, parse_event_time,
+)
 from ..storage.registry import Storage
 
 log = logging.getLogger("pio.torch.eventserver")
@@ -137,6 +148,8 @@ class EventServer:
     def __init__(self, storage: Optional[Storage] = None,
                  host: str = "0.0.0.0", port: int = 7070):
         self.storage = storage or Storage.instance()
+        if self._native_store():
+            native.load()  # build the codec now, not inside a request
         self._httpd = _Server((host, port), self)
         self._thread: Optional[threading.Thread] = None
 
@@ -234,9 +247,35 @@ class EventServer:
             event, access_key.appid, channel_id)
         return 201, {"eventId": event_id}
 
+    def _native_store(self) -> bool:
+        return hasattr(self.storage.get_l_events(), "insert_canonical_lines")
+
+    def _try_native_batch(self, raw: bytes, access_key: AccessKey):
+        """(ids, canonical JSONL bytes) from the codec's one-pass
+        validation, or None when the Python path must run: a key with an
+        event allow-list, a store without ``insert_canonical_lines``, or a
+        batch the codec hands back (any invalid item, a client eventId,
+        more than MAX_BATCH_SIZE items, a syntax error)."""
+        if access_key.events or not self._native_store():
+            return None
+        return native.ingest_batch(raw, MAX_BATCH_SIZE,
+                                   format_event_time(_utcnow()))
+
     def handle_batch(self, handler, path, query, raw):
         access_key = self._authorize(handler, query)
         channel_id = self._channel_id(query, access_key)
+        fast = self._try_native_batch(raw, access_key)
+        if fast is not None:
+            ids, lines = fast
+            try:
+                self.storage.get_l_events().insert_canonical_lines(
+                    lines, access_key.appid, channel_id)
+            except Exception as e:  # noqa: BLE001 — storage fault, per item
+                # one append: every item failed together
+                return 200, [{"status": 500,
+                              "message": f"event store error: {e}"}
+                             for _ in ids]
+            return 200, [{"status": 201, "eventId": eid} for eid in ids]
         try:
             body = json.loads(raw)
         except (json.JSONDecodeError, UnicodeDecodeError):

@@ -1,7 +1,8 @@
 """Storage layer: the event, metadata and model repositories.
 
 The port's own copy of ``incubator_predictionio_tpu/data/storage`` with the
-embedded backends (SQLITE, the default; MEMORY; LOCALFS for models).
+embedded backends (SQLITE, the default; MEMORY; LOCALFS for models; JSONL
+for events).
 """
 
 from .base import (

@@ -15,10 +15,12 @@ Defaults (no env set): a single SQLITE source at
 ``$PIO_FS_BASEDIR/pio.sqlite`` (else ``~/.pio_store/pio.sqlite``) serving
 all three repositories — the same file, tables and schema as the JAX
 package's default, so a store written by one package trains under the
-other.
+other. A JSONL source (``data/storage/jsonl.py``; ``PATH``, default
+``$PIO_FS_BASEDIR/events``) serves the event repository from the same log
+files as the reference's.
 
-The reference's other types (JSONL, HTTP, S3, ELASTICSEARCH, PGSQL, MYSQL,
-HBASE, HDFS) are not ported yet: selecting one raises :class:`StorageError`
+The reference's other types (HTTP, S3, ELASTICSEARCH, PGSQL, MYSQL, HBASE,
+HDFS) are not ported yet: selecting one raises :class:`StorageError`
 naming the ROADMAP item; nothing falls back to SQLite.
 """
 
@@ -29,6 +31,7 @@ import threading
 from typing import Callable, Optional
 
 from . import base
+from .jsonl import JSONLClient
 from .localfs import LocalFSClient
 from .memory import StorageClient as MemoryClient
 from .sqlite import SQLiteClient
@@ -42,11 +45,11 @@ _BACKENDS: dict[str, Callable[[base.StorageClientConfig], base.BaseStorageClient
     "MEMORY": MemoryClient,
     "SQLITE": SQLiteClient,
     "LOCALFS": LocalFSClient,
+    "JSONL": JSONLClient,
 }
 
 #: the reference's backend types this package does not serve yet
 _NOT_PORTED = {
-    "JSONL": "the JSONL event log with its columnar fast path",
     "HTTP": "the network storage backends",
     "S3": "the network storage backends",
     "ELASTICSEARCH": "the network storage backends",
@@ -143,8 +146,8 @@ class Storage:
                     raise StorageError(
                         f"Storage type {stype} is not ported to this package "
                         f"yet (ROADMAP.md Queue 1, item 3: "
-                        f"{_NOT_PORTED[stype]}); use SQLITE, MEMORY or "
-                        "LOCALFS")
+                        f"{_NOT_PORTED[stype]}); use SQLITE, MEMORY, "
+                        "LOCALFS or JSONL")
                 raise StorageError(f"Unknown storage type {stype}")
             client = _BACKENDS[stype](
                 base.StorageClientConfig(

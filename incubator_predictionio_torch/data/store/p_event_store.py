@@ -1,14 +1,21 @@
 """PEventStore — bulk event reads for training DataSources.
 
-The port's own copy of the row path of ``incubator_predictionio_tpu/data/
-store/p_event_store.py`` (reference: data/.../data/store/PEventStore.scala,
-find/aggregateProperties returning RDDs). A scan is read time-sorted from
-the event backend, laid out as columns (:class:`EventBatch`) and turned
-into the (user, item, rating) COO triple plus id maps that the trainers
-upload (:func:`ratings_matrix`).
+The port's own copy of ``incubator_predictionio_tpu/data/store/
+p_event_store.py`` (reference: data/.../data/store/PEventStore.scala,
+find/aggregateProperties returning RDDs). Two paths give the (user, item,
+rating) COO triple plus id maps that the trainers upload, bit for bit
+alike:
 
-The reference's columnar fast path over the JSONL log and its training
-window are not ported yet (ROADMAP.md Queue 1, item 3).
+- the columnar path, on an event backend with ``scan_columnar`` (the JSONL
+  log, ``data/storage/jsonl.py``): the triple is assembled with numpy from
+  the codec's interned codes, with no Python object per event;
+- the row path (SQLite, memory): a scan is read time-sorted, laid out as
+  columns (:class:`EventBatch`) and turned into the triple
+  (:func:`ratings_matrix`).
+
+A training read that passes no time range takes the ambient training
+window (``pio train --window``, ``PIO_TRAIN_WINDOW``,
+``common/train_window.py``); explicit bounds win.
 """
 
 from __future__ import annotations
@@ -92,7 +99,16 @@ class PEventStore:
     ) -> Iterator[EventBatch]:
         """Chunked columnar scan: EventBatch slices of at most
         ``chunk_size`` events in scan (event-time) order; concatenating the
-        chunks gives :meth:`find_batch`."""
+        chunks gives :meth:`find_batch`.
+
+        A read that passes no time range fills it from the ambient
+        training window; explicit bounds are never overridden."""
+        from ...common import train_window
+
+        start, until = train_window.apply_window(
+            kwargs.get("start_time"), kwargs.get("until_time"))
+        if start is not None or until is not None:
+            kwargs = dict(kwargs, start_time=start, until_time=until)
         events = PEventStore.find(
             app_name, event_names=event_names, storage=storage, **kwargs
         )
@@ -162,12 +178,31 @@ class PEventStore:
         """(user, item, rating) COO triple + id maps — the shared prep for
         every recommendation-family template.
 
+        Columnar path: when the event backend exposes ``scan_columnar``
+        (the JSONL log decoded by the codec), the triple is assembled with
+        numpy on interned codes. Otherwise the row scan +
+        :func:`ratings_matrix`.
+
         ``event_default_ratings`` assigns a rating to events of a given
         name when properties carry none (e.g. the quickstart template's
         implicit "buy" → 4.0). Equal event times keep insertion order (the
         backends' tie rule), so the id maps' first-seen order is the
         reference's.
+
+        When neither ``start_time`` nor ``until_time`` is given the
+        ambient training window applies; explicit bounds win.
         """
+        from ...common import train_window
+
+        start_time, until_time = train_window.apply_window(
+            start_time, until_time)
+        s, app_id, channel_id = _resolve_app(app_name, storage, channel_name)
+        pe = s.get_p_events()
+        if hasattr(pe, "scan_columnar"):
+            cols, rows = pe.scan_columnar(
+                app_id, channel_id, event_names, start_time, until_time)
+            return _columnar_ratings(cols, rows, rating_from_props,
+                                     default_rating, event_default_ratings)
         batch = PEventStore.find_batch(
             app_name, event_names=event_names, storage=storage,
             channel_name=channel_name, start_time=start_time,
@@ -197,6 +232,58 @@ class PEventStore:
         return s.get_p_events().aggregate_properties(
             app_id, entity_type, channel_id, start_time, until_time, required
         )
+
+
+def _columnar_ratings(cols, rows: np.ndarray, rating_from_props: bool,
+                      default_rating: float,
+                      event_default_ratings: Optional[dict]):
+    """The triple and id maps from the selected rows of a columnar scan,
+    equal to :func:`ratings_matrix` over the row path's scan."""
+    rows = rows[cols.eid[rows] >= 0]  # malformed records: no entityId
+    # The row path iterates events time-sorted (LEvents.find semantics);
+    # order the selection the same way (stable: ties keep file order) so
+    # BiMap first-seen index assignment matches bit for bit.
+    rows = rows[np.argsort(cols.time_us[rows], kind="stable")]
+    # users cover ALL scanned events (even target-less ones), items only
+    # events with a target; both indexed in first-seen order.
+    keep_mask = cols.teid[rows] >= 0
+    keep = rows[keep_mask]
+    if rating_from_props:
+        r = cols.rating[keep].astype(np.float32, copy=True)
+        # Codec sentinels: NaN = "rating" key absent (the event default
+        # applies, like the row path injecting it into the properties),
+        # -inf = key present but not coercible (the row path's
+        # _coerce_rating → plain default_rating).
+        missing = np.isnan(r)
+        unusable = np.isneginf(r)
+        if unusable.any():
+            r[unusable] = np.float32(default_rating)
+        if missing.any():
+            fill = np.full(keep.shape, np.float32(default_rating))
+            if event_default_ratings:
+                ev_table = cols.table(cols.TABLE_EVENT)
+                ev = cols.event[keep]
+                for name, val in event_default_ratings.items():
+                    if name in ev_table:
+                        fill = np.where(ev == ev_table.index(name),
+                                        np.float32(val), fill)
+            r[missing] = fill[missing]
+    else:
+        r = np.full(keep.shape, default_rating, np.float32)
+
+    def densify(codes: np.ndarray, table: list[str]):
+        uniq, first_pos, inv = np.unique(
+            codes, return_index=True, return_inverse=True)
+        order = np.argsort(first_pos, kind="stable")
+        rank = np.empty(order.shape, np.int64)
+        rank[order] = np.arange(order.shape[0])
+        bimap = BiMap({table[c]: int(k) for k, c in enumerate(uniq[order])})
+        return rank[inv], bimap
+
+    u_all, users = densify(cols.eid[rows], cols.table(cols.TABLE_EID))
+    u = u_all[keep_mask]
+    i, items = densify(cols.teid[keep], cols.table(cols.TABLE_TEID))
+    return u.astype(np.int32), i.astype(np.int32), r, users, items
 
 
 def _coerce_rating(v, default_rating: float) -> float:

@@ -6,9 +6,11 @@ The port's own copy of the single-process paths of
 :261-381). ``train`` and ``deploy`` run on the card unless ``--device cpu``
 is given. With ``--events``/``--model-out`` (train) or ``--model``
 (deploy) they take the file-based forms of ``tools/console.py`` instead of
-the stores. The reference's gang training (``--num-workers``, ``--feed``,
-``--window``), the serving fleet, ``undeploy`` and ``batchpredict`` are
-not ported yet.
+the stores. ``train --window DUR`` trains on the events of the last DUR
+only: the bound is resolved once, here, to an absolute
+``PIO_TRAIN_WINDOW_START_US`` (reference :91-121). The reference's gang
+training (``--num-workers``, ``--feed``), the serving fleet, ``undeploy``
+and ``batchpredict`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -107,9 +109,30 @@ def train_cmd(args: list[str]) -> int:
                    help="file form: write the model file here instead of "
                         "the model store; snapshots go to "
                         "<model-out>.checkpoints/")
+    p.add_argument("--window", default=None, metavar="DUR",
+                   help="train on events from the last DUR only "
+                        "(90d/12h/30m/45s): windowed reads skip whole "
+                        "sealed log generations by their manifest "
+                        "event-time bounds without decoding them "
+                        "(default $PIO_TRAIN_WINDOW)")
     ns = p.parse_args(args)
     if (ns.events is None) != (ns.model_out is None):
         p.error("--events and --model-out go together (the file form)")
+    if ns.window and ns.events is not None:
+        p.error("--window cuts the event store's read, not an --events file")
+    from ...common import train_window
+
+    if ns.window:
+        dur = train_window.parse_duration_us(ns.window)
+        if dur is None:
+            print(f"[error] --window {ns.window!r}: expected a duration "
+                  "like 90d, 12h, 30m, or 45s", file=sys.stderr)
+            return 1
+        os.environ["PIO_TRAIN_WINDOW"] = ns.window
+        # resolved to an absolute bound once, so every read of this train
+        # cuts the log at the same microsecond
+        os.environ.setdefault("PIO_TRAIN_WINDOW_START_US",
+                              str(train_window.now_us() - dur))
     wp = WorkflowParams(
         batch=ns.batch,
         skip_sanity_check=ns.skip_sanity_check,
@@ -136,8 +159,10 @@ def train_cmd(args: list[str]) -> int:
     seconds = time.perf_counter() - t0
     print(f"[info] Training completed in {seconds:.2f}s. "
           f"Engine instance ID: {instance_id}")
+    start_us, until_us = train_window.resolve_us()
     print(json.dumps({"engineInstanceId": instance_id, "seconds": seconds,
                       "device": ns.device, "kernel_launches": _launches(),
+                      "window": {"startUs": start_us, "untilUs": until_us},
                       "timings": {**ctx.read_timings, **ctx.bench_timings}}),
           flush=True)
     return 0

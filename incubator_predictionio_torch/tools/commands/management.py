@@ -1,18 +1,23 @@
-"""`pio status/eventserver/export/import` (reference: tools/.../commands/
-{Management,Export,Import}.scala, tools/export/EventsToFile.scala,
+"""`pio status/eventserver/eventlog/export/import` (reference: tools/.../
+commands/{Management,Export,Import}.scala, tools/export/EventsToFile.scala,
 tools/imprt/FileToEvents.scala).
 
 The port's own copy of those verbs of ``incubator_predictionio_tpu/tools/
-commands/management.py`` (``status`` :18, ``eventserver`` :538, ``export``
-:1113, ``import`` :1155) for JSON-lines files. Parquet, the write-ahead
-log, the event log, the fleet, the storage server, the dashboard and the
-admin server are not ported yet.
+commands/management.py`` (``status`` :18, ``eventserver`` :538,
+``eventlog`` :687-1002, ``export`` :1113, ``import`` :1155) for JSON-lines
+files; ``import`` writes to whichever event store is configured (SQLite or
+the JSONL log). ``eventlog`` has ``compact``, ``scrub``, ``status``,
+``retire`` and ``tail``; ``fence``, ``archive`` and ``restore`` wait for
+the partition leases and the archive source. Parquet, the write-ahead log,
+the fleet, the storage server, the dashboard and the admin server are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import sys
 import time
@@ -27,9 +32,9 @@ IMPORT_BATCH = 20_000
 
 
 def _kernel_status() -> str:
-    """What the solve kernels would run on (in place of the reference's
-    native-codec line): the card and the nvcc that builds them, whether
-    the current source is already built, or why the card path is off."""
+    """What the solve kernels would run on: the card and the nvcc that
+    builds them, whether the current source is already built, or why the
+    card path is off."""
     import torch
 
     from ...ops import _build
@@ -64,6 +69,25 @@ def status_cmd(args: list[str]) -> int:
     apps = s.get_meta_data_apps().get_all()
     print(f"[info] {len(apps)} app(s) registered.")
     print(f"[info] Solve kernels: {_kernel_status()}")
+    from ... import native
+
+    log_dir = getattr(s.get_l_events(), "events_dir", None)
+    try:
+        print(f"[info] Event codec: {native.status()}")
+    except native.NativeUnavailable as e:
+        # a JSONL event store cannot be read without it
+        print(f"[{'error' if log_dir else 'warn'}] Event codec: {e}",
+              file=sys.stderr)
+        if log_dir:
+            return 1
+    if log_dir is not None and os.path.isdir(log_dir):
+        from ...data.api import event_log
+
+        health = event_log.partition_health(log_dir)
+        if health["logs"]:
+            print(f"[info] Event log: {len(health['logs'])} log file(s) "
+                  f"in {log_dir}")
+            _print_partition_health(health, log_dir)
     return 0
 
 
@@ -154,6 +178,246 @@ def import_cmd(args: list[str]) -> int:
     print(f"[info] Imported {imported} events ({skipped} skipped) in "
           f"{time.perf_counter() - t0:.3f}s.")
     return 0
+
+
+@verb("eventlog", "compact, scrub, retire or tail the JSONL event log")
+def eventlog_cmd(args: list[str]) -> int:
+    """Operator surface of the JSONL event log (data/api/event_log.py):
+    `compact` seals the newly appended bytes of every log into a columnar
+    snapshot generation (crash-safe: shadow file + atomic rename +
+    manifest commit), `scrub` CRC-verifies committed snapshots and
+    quarantines corrupt ones, `status` prints per-log health and the
+    generations' event-time bounds, `retire` moves fully expired
+    generations to the retired/ tier, and `tail` reads events past a
+    durable byte cursor."""
+    p = argparse.ArgumentParser(prog="pio eventlog")
+    sub = p.add_subparsers(dest="sub", required=True)
+    p_compact = sub.add_parser(
+        "compact", help="compact JSONL event logs into columnar "
+                        "snapshots (additive + crash-safe; scans load "
+                        "them instead of re-parsing JSON)")
+    p_compact.add_argument("--min-new-bytes", type=int, default=0,
+                           help="skip logs that grew less than this "
+                                "since the last snapshot")
+    sub.add_parser("scrub", help="verify snapshot CRCs; quarantine "
+                                 "corrupt ones (never deletes)")
+    sub.add_parser("status", help="per-log health: sizes, leases, "
+                                  "compaction, generations, quarantine")
+    p_retire = sub.add_parser(
+        "retire", help="move fully-expired generations (event-time "
+                       "TTL) to the retired/ tier; without --ttl or "
+                       "$PIO_EVENT_RETENTION only the convergence "
+                       "sweep runs (finishes a crashed earlier pass)")
+    p_retire.add_argument("--ttl", default=None, metavar="DUR",
+                          help="retention TTL (90d/12h/30m/45s); "
+                               "default $PIO_EVENT_RETENTION")
+    p_tail = sub.add_parser(
+        "tail", help="read events past a durable byte cursor: prints "
+                     "events as JSONL on stdout and the advanced cursor "
+                     "on stderr — feed it back via --from to resume")
+    p_tail.add_argument("--app", dest="app_name", default=None)
+    p_tail.add_argument("--appid", type=int, default=None)
+    p_tail.add_argument("--channel", default=None)
+    p_tail.add_argument("--from", dest="cursor", default=None,
+                        metavar="CURSOR",
+                        help="JSON cursor from a previous run (or "
+                             "'end' to position at the current log end "
+                             "and read nothing; default: read from the "
+                             "beginning)")
+    p_tail.add_argument("--limit", type=int, default=None,
+                        help="print at most N events (the cursor still "
+                             "advances past everything read)")
+    ns = p.parse_args(args)
+    from ...data.api import event_log
+
+    s = Storage.instance()
+    le = s.get_l_events()
+    log_dir = getattr(le, "events_dir", None)
+    if log_dir is None:
+        print("[error] the configured event store is not a JSONL event "
+              "log; `pio eventlog` applies to TYPE=JSONL", file=sys.stderr)
+        return 1
+    if ns.sub == "tail":
+        return _eventlog_tail(s, log_dir, ns)
+    if ns.sub == "compact":
+        n = 0
+        for name in sorted(os.listdir(log_dir)):
+            if name.endswith(".jsonl"):
+                m = event_log.compact_log(
+                    os.path.join(log_dir, name), ns.min_new_bytes)
+                if m is not None:
+                    print(f"[info] {name}: generation {m['generation']}, "
+                          f"{m['events']} event(s), {m['covered']} "
+                          "byte(s) covered")
+                    n += 1
+        print(f"[info] Compacted {n} log(s) in {log_dir}")
+        return 0
+    if ns.sub == "scrub":
+        report = event_log.scrub_log_dir(log_dir)
+        marker = "[warn]" if report["quarantined"] else "[info]"
+        print(f"{marker} Scrub: {report['checked']} snapshot(s) checked, "
+              f"{report['ok']} ok, {report['quarantined']} quarantined, "
+              f"{report['stale']} stale (discarded)")
+        return 1 if report["quarantined"] else 0
+    if ns.sub == "retire":
+        ttl_us = None
+        if ns.ttl:
+            from ...common import train_window
+
+            ttl_us = train_window.parse_duration_us(ns.ttl)
+            if ttl_us is None:
+                print(f"[error] --ttl {ns.ttl!r}: expected a duration "
+                      "like 90d, 12h, 30m, or 45s", file=sys.stderr)
+                return 1
+        elif event_log.retention_ttl_us() is None:
+            print("[info] No TTL (--ttl / $PIO_EVENT_RETENTION unset): "
+                  "running the convergence sweep only")
+        retired = swept = 0
+        for name in sorted(os.listdir(log_dir)):
+            if not name.endswith(".jsonl"):
+                continue
+            r = event_log.retire_expired(
+                os.path.join(log_dir, name), ttl_us=ttl_us)
+            if r is None:
+                continue
+            if r["retired"] or r["swept"]:
+                print(f"[info] {name}: {r['retired']} generation(s) "
+                      f"retired {r['generations']}, {r['swept']} "
+                      f"file(s) swept, parse floor {r['floor']}")
+            retired += r["retired"]
+            swept += r["swept"]
+        print(f"[info] Retired {retired} generation(s) ({swept} "
+              f"snapshot file(s) swept to retired/) in {log_dir}")
+        return 0
+    # status
+    health = event_log.partition_health(log_dir)
+    _print_partition_health(health, log_dir)
+    _print_generation_tiers(health)
+    return 0
+
+
+def _eventlog_tail(s: Storage, log_dir: str, ns) -> int:
+    """`pio eventlog tail`: one read_since() pass over an app's shards
+    — events to stdout (JSONL, pipeable), cursor + accounting to
+    stderr so redirecting stdout captures only data."""
+    from ...data.api.log_tail import LogCursor, LogTailer
+
+    if ns.appid is None and not ns.app_name:
+        # the shared resolver's message names --app-name, which this
+        # subcommand spells --app — say the flag that actually exists
+        print("[error] provide --app <name> or --appid <id>",
+              file=sys.stderr)
+        return 1
+    app_id = _resolve_app_id(s, ns.appid, ns.app_name)
+    channel_id = None
+    if ns.channel:
+        chans = [c for c in s.get_meta_data_channels().get_by_appid(app_id)
+                 if c.name == ns.channel]
+        if not chans:
+            print(f"Channel {ns.channel!r} not found.", file=sys.stderr)
+            return 1
+        channel_id = chans[0].id
+    tailer = LogTailer(log_dir, app_id, channel_id)
+    cursor = None
+    if ns.cursor == "end":
+        cursor = tailer.end_cursor()
+    elif ns.cursor:
+        try:
+            cursor = LogCursor.from_json(json.loads(ns.cursor))
+        except (ValueError, json.JSONDecodeError) as e:
+            print(f"[error] --from is not a cursor: {e}", file=sys.stderr)
+            return 1
+    if ns.limit is None:
+        batch = tailer.read_since(cursor)
+        events, total, bytes_read = batch.events, len(batch.events), \
+            batch.bytes_read
+        final, snapshot_seeded, resets = batch.cursor, \
+            batch.snapshot_seeded, batch.resets
+    else:
+        # bounded pagination: read in 1 MiB chunks until the limit is
+        # met (or the log runs dry) instead of decoding a multi-GB
+        # backlog into memory to slice N events off the front
+        limit = max(0, ns.limit)
+        events, total, bytes_read, resets = [], 0, 0, 0
+        snapshot_seeded = False
+        final = cursor
+        while True:
+            batch = tailer.read_since(final, max_bytes=1 << 20)
+            final = batch.cursor
+            total += len(batch.events)
+            bytes_read += batch.bytes_read
+            resets += batch.resets
+            snapshot_seeded |= batch.snapshot_seeded
+            if len(events) < limit:
+                events.extend(batch.events[:limit - len(events)])
+            if batch.bytes_read == 0 or total >= limit:
+                break
+    for doc in events:
+        print(json.dumps(doc))
+    if ns.limit is not None and total > len(events):
+        print(f"[info] {total - len(events)} further "
+              "event(s) read but not printed (--limit); the cursor "
+              "below covers them", file=sys.stderr)
+    print(f"[info] {total} event(s), {bytes_read} "
+          f"byte(s) read across {len(final.shards)} shard(s)"
+          + (", seeded from a columnar snapshot"
+             if snapshot_seeded else "")
+          + (f", {resets} shard reset(s)" if resets else ""),
+          file=sys.stderr)
+    print(f"[info] cursor: {json.dumps(final.to_json())}",
+          file=sys.stderr)
+    return 0
+
+
+def _print_partition_health(health: dict, log_dir: str) -> None:
+    if not health["logs"]:
+        print(f"[info] No event logs in {log_dir}")
+    for row in health["logs"]:
+        lease = row["lease"]
+        lease_s = ""
+        if lease is not None:
+            state = ("held" if lease["held"]
+                     else "STALE" if lease["stale"] else "free")
+            lease_s = (f", lease {state} (epoch {lease['epoch']}, "
+                       f"pid {lease['pid']})")
+        compact_s = (f", compacted {row['compactedEvents']} event(s) at "
+                     f"{row['lastCompaction']}"
+                     if row["lastCompaction"] else ", never compacted")
+        marker = "[warn]" if (lease and lease["stale"]) else "[info]"
+        print(f"{marker}   {row['log']}: {row['bytes']} bytes"
+              f"{lease_s}{compact_s}")
+    if health["quarantinedFiles"]:
+        print(f"[warn]   {health['quarantinedFiles']} quarantined "
+              f"file(s) in {os.path.join(log_dir, 'quarantine')} — "
+              "corrupt segments kept for forensics")
+
+
+def _print_generation_tiers(health: dict) -> None:
+    """`pio eventlog status` detail rows: one line per sealed
+    generation with its event-time bounds, tier, and size — the
+    operator's view of what a windowed read can skip and what
+    retention may retire next. Unbounded legacy (v1) entries are
+    warn-marked: they predate time-bounded manifests, so windowed
+    reads always decode them and retention never retires them."""
+    import datetime as _dt
+
+    def day(us):
+        return _dt.datetime.fromtimestamp(
+            us / 1e6, _dt.timezone.utc).strftime("%Y-%m-%d")
+
+    for row in health["logs"]:
+        for g in row["generations"]:
+            if g["legacy"]:
+                print(f"[warn]     {row['log']} g{g['generation']}: "
+                      "UNBOUNDED (legacy v1 manifest — recompact after "
+                      "new appends to seal time-bounded generations)")
+                continue
+            span = ("no timed rows" if g["minEventUs"] is None
+                    else f"{day(g['minEventUs'])} .. "
+                         f"{day(g['maxEventUs'])}")
+            print(f"[info]     {row['log']} g{g['generation']}: "
+                  f"[{span}] tier={g['tier']}, {g['bytes']} byte(s), "
+                  f"{g['events']} event(s)")
 
 
 def _raise_exit(signum, frame):

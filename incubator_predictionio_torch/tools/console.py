@@ -4,15 +4,19 @@
     pio-torch <verb> [args]                     # the installed script
 
 Verbs (``tools/commands/``), on the event store and metadata of
-``$PIO_FS_BASEDIR/pio.sqlite`` (or the ``PIO_STORAGE_*`` configuration):
+``$PIO_FS_BASEDIR/pio.sqlite`` (or the ``PIO_STORAGE_*`` configuration,
+e.g. the events on a JSONL log):
 
     app new|list|show|delete|channel-new|channel-delete|data-delete
     accesskey new|list|delete
     import --app-name A --input events.jsonl     export --app-name A --output F
     eventserver [--ip H] [--port 7070]           status
+    eventlog compact [--min-new-bytes N] | scrub | status | retire [--ttl D]
+             | tail [--app A | --appid N] [--channel C] [--from CURSOR]
+                    [--limit N]
     build [--engine-dir D]
     train [--engine-dir D | --engine-json J] [--device cpu] [--batch B]
-          [--checkpoint-every N] [--resume] [--nan-guard]
+          [--window DUR] [--checkpoint-every N] [--resume] [--nan-guard]
           [--skip-sanity-check] [--stop-after-read] [--stop-after-prepare]
     deploy [--engine-dir D | --engine-json J] [--engine-instance-id ID]
            [--ip H] [--port 8000] [--device cpu]
@@ -20,7 +24,8 @@ Verbs (``tools/commands/``), on the event store and metadata of
 ``train`` reads the app's events from the event store, trains the engine
 that engine.json names, writes an engine-instance row and a checksummed
 model blob, and prints one JSON line (instance id, seconds, device, the
-solve-kernel launches and the read/train phase times). ``deploy`` serves
+solve-kernel launches, the training window and the read/train phase
+times). ``deploy`` serves
 ``POST /queries.json`` from the newest COMPLETED instance (walking back past
 a corrupt blob) until SIGTERM or Ctrl-C. Both run on the card unless
 ``--device cpu`` is given.

@@ -10,6 +10,10 @@ Port of ``incubator_predictionio_tpu/workflow/core_workflow.py`` (:34-104,
   stamps it ABORTED (never masking the original error) and keeps the
   snapshots for ``--resume``, which finds the interrupted instance and
   continues it under its own id and checkpoint directory.
+- On a JSONL event store, :func:`run_train` also seeds the online fold-in
+  cursor row (``model_artifact.foldin_row_id``) with the log position it
+  read from, when no such row exists yet — the same row and cursor as the
+  reference's train, so a fold-in producer resumes from the right byte.
 - :func:`load_deployment` picks the newest COMPLETED instance of the
   engine and walks back past any whose artifact fails verification or does
   not load; an explicit instance id never walks back.
@@ -110,6 +114,62 @@ def train_with_stale_checkpoint_fallback(engine, engine_params, ctx, wp):
             ctx.workflow_params = wp
 
 
+def _capture_foldin_anchor(storage, ctx):
+    """(app_id, LogCursor) at the current event-log end, or None when
+    fold-in cannot apply (an event store that is not a JSONL log, no app).
+    Best-effort: training never fails over its online-learning
+    bookkeeping."""
+    try:
+        from ..data.api.log_tail import LogTailer
+
+        le = storage.get_l_events()
+        events_dir = getattr(le, "events_dir", None)
+        if not events_dir or not ctx.app_name:
+            return None
+        app = storage.get_meta_data_apps().get_by_name(ctx.app_name)
+        if app is None:
+            return None
+        return app.id, LogTailer(events_dir, app.id).end_cursor()
+    except Exception:  # noqa: BLE001 — bookkeeping only
+        return None
+
+
+def _persist_foldin_anchor(storage, anchor, ctx, engine_factory_name,
+                           engine_variant) -> None:
+    """Seed the fold-in cursor row from a completed train — only when none
+    exists yet: a live fold-in producer owns an existing row (single
+    writer), and rewinding it under a running tailer would re-fold
+    everything since its last tick."""
+    if anchor is None:
+        return
+    try:
+        import time as _time
+
+        app_id, cursor = anchor
+        group = model_artifact.fleet_group(engine_factory_name,
+                                           engine_variant)
+        row_id = model_artifact.foldin_row_id(group, app_id)
+        if model_artifact.read_fleet_doc(storage, row_id) is not None:
+            return
+        model_artifact.write_fleet_doc(storage, row_id, {
+            "cursor": cursor.to_json(),
+            "group": group,
+            "appId": app_id,
+            "app": ctx.app_name,
+            "intervalMs": 0.0,
+            "updatedAt": _time.time(),
+            "caughtUpAt": None,
+            "events": 0,
+            "publishes": 0,
+            "anchor": "train",
+        })
+        log.info("fold-in cursor anchored at this train's read position "
+                 "(LSN %d) for app %r", cursor.total(), ctx.app_name)
+    except Exception:  # noqa: BLE001 — bookkeeping only
+        log.debug("could not persist the fold-in train anchor",
+                  exc_info=True)
+
+
 def run_train(
     engine: Engine,
     engine_params: EngineParams,
@@ -182,6 +242,10 @@ def run_train(
         instance_id = instances.insert(instance)
     ctx.engine_instance_id = instance_id
     log.info("EngineInstance %s RUNNING", instance_id)
+    # The fold-in anchor is the log position BEFORE the training read, so
+    # an event racing the read may be both trained and folded (at least
+    # once), never dropped.
+    foldin_anchor = _capture_foldin_anchor(storage, ctx)
 
     if wp.checkpoint_every > 0 or wp.resume:
         ctx.checkpoint_hook = CheckpointHook(
@@ -214,6 +278,8 @@ def run_train(
         if ctx.checkpoint_hook is not None:
             ctx.checkpoint_hook.delete_all()  # superseded by the model
             ctx.checkpoint_hook = None
+        _persist_foldin_anchor(storage, foldin_anchor, ctx,
+                               engine_factory_name, engine_variant)
         log.info("EngineInstance %s COMPLETED", instance_id)
         return instance_id
     except Exception:

@@ -2,7 +2,9 @@
 Models DAO.
 
 The port's own copy of ``incubator_predictionio_tpu/workflow/
-model_artifact.py`` (:94-260). Every model blob written by ``run_train`` is
+model_artifact.py`` (:94-260, :270-399: the envelope, and the fleet and
+fold-in records ``fleet_group``, ``foldin_row_id``, ``read_fleet_doc`` and
+``write_fleet_doc``). Every model blob written by ``run_train`` is
 wrapped in a self-describing envelope (magic, header length, a sorted-key
 JSON header carrying sha256, payload size and format version) and every
 read re-verifies it, so a truncated, bit-flipped or half-written artifact is
@@ -230,3 +232,55 @@ def instance_app_name(instance) -> str:
     except Exception:  # noqa: BLE001 — unparseable row binds nowhere
         pass
     return ""
+
+
+# ---------------------------------------------------------------------------
+# Fleet and fold-in records: plain JSON rows beside the model artifacts
+# ---------------------------------------------------------------------------
+
+#: Reserved id prefix of the fleet records. Engine-instance ids are
+#: event-id hex strings, so a dunder prefix cannot collide.
+FLEET_ROW_PREFIX = "__pio_fleet__"
+
+#: Reserved id prefix of the streaming fold-in cursor records: one row per
+#: (fleet group, app), single writer (the fold-in producer).
+FOLDIN_ROW_PREFIX = "__pio_foldin__"
+
+
+def foldin_row_id(group: str, app_id: int) -> str:
+    """Storage row id of one fold-in cursor record: the durable byte
+    cursor (plus freshness bookkeeping) the online-learning tailer resumes
+    from after a restart."""
+    return f"{FOLDIN_ROW_PREFIX}{group}__a{int(app_id)}"
+
+
+def fleet_group(engine_factory_name: str, engine_variant: str,
+                app_name: Optional[str] = None) -> str:
+    """Canonical fleet group id — the one definition every writer and
+    reader of the fleet and fold-in rows derives its keys from (the
+    reference's, so both packages address the same rows). An app-scoped
+    group appends its app dimension."""
+    group = f"{engine_factory_name or 'engine'}::{engine_variant}"
+    return group if not app_name else f"{group}::app={app_name}"
+
+
+def read_fleet_doc(storage, row_id: str) -> Optional[dict]:
+    """Fetch one fleet or fold-in record. Any damage (unreadable row,
+    non-JSON bytes) degrades to None — the next write heals it."""
+    try:
+        row = storage.get_model_data_models().get(row_id)
+        if row is None:
+            return None
+        doc = json.loads(bytes(row.models).decode("utf-8"))
+        return doc if isinstance(doc, dict) else None
+    except Exception:  # noqa: BLE001 — degraded read, next write heals
+        log.warning("fleet record %s unreadable; treating as absent",
+                    row_id, exc_info=True)
+        return None
+
+
+def write_fleet_doc(storage, row_id: str, doc: dict) -> None:
+    """Persist one fleet or fold-in record (plain sorted-key JSON bytes —
+    coordination state, not a model artifact, so no envelope)."""
+    storage.get_model_data_models().insert(
+        Model(row_id, json.dumps(doc, sort_keys=True).encode("utf-8")))

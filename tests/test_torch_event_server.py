@@ -5,7 +5,9 @@ bodies (event ids and server-assigned creation times aside), for
 acknowledged writes read back by id and through ``find_ratings``, missing
 and invalid keys (401), an event outside the key's allow-list (403),
 invalid events and a batch of 51 (400), a mixed batch's per-event
-statuses, channels, finds and DELETE.
+statuses, channels, finds and DELETE. Every case runs on an SQLite store
+and on a JSONL event log (metadata on SQLite), where a valid batch takes
+the event codec's one-pass path in both servers.
 """
 
 import base64
@@ -33,11 +35,16 @@ from server_utils import ServerThread  # noqa: E402
 KEY, LIMITED = "key-all", "key-views"
 
 
-def _env(tmp_path, name):
-    return {f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "S"
-            for r in ("METADATA", "EVENTDATA", "MODELDATA")} | {
+def _env(tmp_path, name, backend="sqlite"):
+    env = {f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "S"
+           for r in ("METADATA", "EVENTDATA", "MODELDATA")} | {
         "PIO_STORAGE_SOURCES_S_TYPE": "SQLITE",
         "PIO_STORAGE_SOURCES_S_PATH": str(tmp_path / f"{name}.sqlite")}
+    if backend == "jsonl":
+        env |= {"PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG",
+                "PIO_STORAGE_SOURCES_LOG_TYPE": "JSONL",
+                "PIO_STORAGE_SOURCES_LOG_PATH": str(tmp_path / f"{name}-events")}
+    return env
 
 
 def _seed(pkg, storage):
@@ -52,17 +59,17 @@ def _seed(pkg, storage):
     return app_id
 
 
-@pytest.fixture()
-def servers(tmp_path, monkeypatch):
+@pytest.fixture(params=["sqlite", "jsonl"])
+def servers(request, tmp_path, monkeypatch):
     """(port base URL, port storage, reference base URL), each server on
-    its own SQLite store seeded alike."""
+    its own store (SQLite, or a JSONL log) seeded alike."""
     # the reference caches access-key verdicts; per-request lookups as here
     monkeypatch.setenv("PIO_ACCESSKEY_CACHE_SECS", "0")
-    port_storage = Storage(_env(tmp_path, "port"))
+    port_storage = Storage(_env(tmp_path, "port", request.param))
     _seed(port_pkg, port_storage)
     server = EventServer(port_storage, "127.0.0.1", 0)
     host, port = server.start()
-    ref = ref_storage.Storage(_env(tmp_path, "ref"))
+    ref = ref_storage.Storage(_env(tmp_path, "ref", request.param))
     _seed(ref_storage, ref)
     with ServerThread(RefEventServer(ref).app) as st:
         yield f"http://{host}:{port}", port_storage, st.base

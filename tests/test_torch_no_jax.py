@@ -7,8 +7,9 @@ Statically: no file of ``incubator_predictionio_torch`` and not
 the CPU, folds events in and trains the Similar-Product template, and
 neither ``jax``, ``orbax`` nor the JAX package is loaded after; and each
 ``pio`` verb (``app``, ``import``, ``status``, ``train --device cpu``,
-``deploy --device cpu``, ``eventserver``) runs in a fresh interpreter of its
-own that loads none of them.
+``deploy --device cpu``, ``eventserver``, and on a JSONL event log
+``import``, ``eventlog compact`` and ``train --window``) runs in a fresh
+interpreter of its own that loads none of them.
 (This pytest process has JAX loaded by tests/conftest.py, so the run-time
 check needs its own process.)
 """
@@ -55,7 +56,11 @@ def test_port_files_exist():
             "base.py", "memory.py", "sqlite.py", "localfs.py", "registry.py",
             "p_event_store.py", "l_event_store.py", "model_artifact.py",
             "json_extractor.py", "core_workflow.py", "app.py", "engine.py",
-            "management.py", "event_server.py", "console.py"} <= names
+            "management.py", "event_server.py", "console.py",
+            "envknobs.py", "faultinject.py", "train_window.py", "jsonl.py",
+            "event_log.py", "log_tail.py"} <= names
+    assert (ROOT / "incubator_predictionio_torch" / "native"
+            / "__init__.py").is_file()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -232,6 +237,56 @@ def test_verb_in_a_process_without_jax(verb, verb_store):
         [sys.executable, "-c", _VERB] + [a.replace("{port}", port) for a in verb],
         capture_output=True, text=True, env=env, cwd=str(verb_store),
         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    last = out.stdout.strip().splitlines()[-1]
+    assert '"loaded": []' in last, last
+
+
+@pytest.fixture(scope="module")
+def jsonl_verb_store(tmp_path_factory, verb_store):
+    """The same app and events file, with the events on a JSONL log
+    ($PIO_FS_BASEDIR/events) and the metadata and models on SQLite."""
+    import json
+
+    from incubator_predictionio_torch.data.storage import App, Event, Storage
+
+    base = tmp_path_factory.mktemp("jsonl_verbs")
+    for name in ("events.jsonl", "engine.json"):
+        (base / name).write_text((verb_store / name).read_text())
+    env = _jsonl_env(base)
+    storage = Storage(env)
+    app_id = storage.get_meta_data_apps().insert(App(0, "nojax"))
+    wire = [json.loads(line) for line in
+            (base / "events.jsonl").read_text().splitlines()]
+    storage.get_l_events().insert_batch(
+        [Event.from_json(e) for e in wire], app_id)
+    storage.close()
+    return base
+
+
+def _jsonl_env(base):
+    return {"PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG",
+            "PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+            "PIO_STORAGE_SOURCES_DB_PATH": str(base / "base" / "pio.sqlite"),
+            "PIO_STORAGE_SOURCES_LOG_TYPE": "JSONL",
+            "PIO_STORAGE_SOURCES_LOG_PATH": str(base / "base" / "events")}
+
+
+@pytest.mark.parametrize("verb", [
+    ["import", "--app-name", "nojax", "--input", "events.jsonl"],
+    ["eventlog", "compact"],
+    ["train", "--device", "cpu", "--window", "36500d"],
+], ids=lambda v: v[0])
+def test_jsonl_verb_in_a_process_without_jax(verb, jsonl_verb_store):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PIO_STORAGE_")}
+    env.update(_jsonl_env(jsonl_verb_store), PYTHONPATH=str(ROOT),
+               PIO_FS_BASEDIR=str(jsonl_verb_store / "base"))
+    out = subprocess.run([sys.executable, "-c", _VERB] + verb,
+                         capture_output=True, text=True, env=env,
+                         cwd=str(jsonl_verb_store), timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     last = out.stdout.strip().splitlines()[-1]
     assert '"loaded": []' in last, last

@@ -42,6 +42,11 @@ from incubator_predictionio_torch.workflow import model_artifact  # noqa: E402
 
 
 def _env(kind, tmp_path, name="S"):
+    if kind == "jsonl":  # metadata and models on SQLite, events on the log
+        return _env("sqlite", tmp_path, name) | {
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG",
+            "PIO_STORAGE_SOURCES_LOG_TYPE": "JSONL",
+            "PIO_STORAGE_SOURCES_LOG_PATH": str(tmp_path / "events")}
     if kind == "memory":
         return {
             f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": name
@@ -321,7 +326,7 @@ CONTRACT = [
 
 
 @pytest.mark.parametrize("case", CONTRACT, ids=lambda f: f.__name__[1:])
-@pytest.mark.parametrize("backend", ["memory", "sqlite"])
+@pytest.mark.parametrize("backend", ["memory", "sqlite", "jsonl"])
 def test_storage_contract(backend, case, tmp_path):
     storage = Storage(_env(backend, tmp_path))
     try:
@@ -350,7 +355,7 @@ def test_default_store_is_the_reference_sqlite_file(tmp_path, monkeypatch):
             if Storage({}).repo_source_type(r) != "SQLITE"] == []
 
 
-@pytest.mark.parametrize("stype", ["JSONL", "HTTP", "PGSQL", "ELASTICSEARCH",
+@pytest.mark.parametrize("stype", ["S3", "HTTP", "PGSQL", "ELASTICSEARCH",
                                    "BOGUS"])
 def test_unported_backend_raises(stype, tmp_path):
     env = _env("sqlite", tmp_path) | {"PIO_STORAGE_SOURCES_S_TYPE": stype}
