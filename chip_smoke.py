@@ -53,18 +53,35 @@ Phases (any failure exits non-zero; nothing is caught):
    (read count, first-seen id maps, warp launches = implied), deploy, 50
    queries held to a host top-k; import, read, train and ingest/query
    latencies beside the SQLite phase's.
-13. pio_workflow_jsonl_ml20m: the ML-20M log (20,000,263 events, byte for
-   byte insert_batch's lines) → eventlog compact → the read held exactly
-   to the generated arrays → train at rank 32, 10 iterations (warp
-   launches = implied) → deploy → 20 queries; the compaction, read and
-   train times and events/s end to end and steady. df and free -g first;
-   a host that cannot hold the log runs the first 10,000,000 events and
-   says so in ``reduced``.
-14. similar_product (phase 9 above, run here) and train_rank128: the same
-   ratings at rank 128 through the same engine, 2
-   iterations: wide-kernel launches equal to the implied count and no
-   warp-kernel launch, the RMSE check, steady seconds per iteration, one
-   iteration profiled; one fold-in batch (2 wide launches, card vs CPU).
+13. pio_workflow_jsonl_ml20m: the first 10,000,000 of the ML-20M ratings
+   as the log (byte for byte insert_batch's lines; cut from 20,000,263
+   for the script's time, ``reduced``) → eventlog compact → the read held
+   exactly to the generated arrays → train at rank 32, 10 iterations
+   (warp launches = implied) → deploy → 20 queries; the compaction, read
+   and train times and events/s end to end and steady. df and free -g
+   first.
+14. similar_product (phase 9 above, run here).
+15. ecommerce_jsonl: bench_templates.py's config 6 (100,000 users ×
+   20,000 items × 5,000,000 view/buy events, 10 % buys, 20 categories)
+   written as an uncompacted JSONL log → pio train with the E-Commerce
+   template's engine.json (rank 32, 10 iterations; warp launches =
+   implied) → pio eventserver + pio deploy → 60 queries → a $set of
+   constraint/unavailableItems through the event server → 12 queries;
+   every answer held to a host top-k with the seen and unavailable items
+   computed from the generated arrays; query latency split into the
+   LEventStore reads, the top-k and the rest.
+16. pio_eval: pio eval on the ML-100K shape as one JSONL app:
+   RecommendationEvaluation + ParamsList and ECommerceEvaluation +
+   ECommerceParamsList (4 candidates × 3 folds each) on the card (warp
+   launches = the folds' implied count), the E-Commerce sweep again on
+   the CPU (same candidates, scores within 0.02, same best where the top
+   two differ by more than 0.05); seconds per candidate and the K7
+   ranking_metrics calls and ms per call.
+17. train_rank128: the main path's ratings at rank 128 through the same
+   engine, 2 iterations: wide-kernel launches equal to the implied count
+   and no warp-kernel launch, the RMSE check, steady seconds per
+   iteration, one iteration profiled; one fold-in batch (2 wide launches,
+   card vs CPU).
 
 Each path runs with every launch counter at 0 just before it and is read
 just after; the kernels line sums the paths' launches per kernel.
@@ -1198,10 +1215,10 @@ class _Served:
     """A verb that serves (eventserver / deploy) in its own process, up
     once ``GET /`` answers; stopped with SIGTERM on exit."""
 
-    def __init__(self, args: list, env: dict, cwd: str):
+    def __init__(self, args: list, env: dict, cwd: str, console=None):
         self.port = _free_port()
         self.proc = subprocess.Popen(
-            CONSOLE + args + ["--port", str(self.port)],
+            (console or CONSOLE) + args + ["--port", str(self.port)],
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
             env=env, cwd=cwd)
 
@@ -1719,10 +1736,10 @@ CODEC_SLICE = 200_000
 #: the ML-20M log's event times (a permutation of nnz milliseconds) and ids
 ML20M_TIME_SEED, ML20M_ID_SEED = 8, 7
 CREATED_ISO = "2024-06-01T00:00:00.000Z"
-#: the ML-20M phase needs this much free disk (log + snapshot + shadow file)
-ML20M_DISK_GB, ML20M_RAM_GB = 24, 32
-#: the cut when the host cannot hold the full log
-ML20M_REDUCED_EVENTS = 10_000_000
+#: the events of the ML-20M log, cut from 20,000,263 for the script's
+#: time: a whole run took 1,288 s with the full log on one H100 host (the
+#: phase 449 s of it, 246 s of that the compaction)
+ML20M_LOG_EVENTS = 10_000_000
 ML20M_QUERIES = 20
 
 
@@ -1755,20 +1772,21 @@ _LOG_ARRAYS: tuple = ()
 
 def _write_part(job: tuple) -> int:
     lo, hi, path = job
-    u, i, r, t = _LOG_ARRAYS
+    lines, arrays = _LOG_ARRAYS
     with open(path, "wb") as fh:
         for a in range(lo, hi, 1_000_000):
             b = min(a + 1_000_000, hi)
-            fh.write(_log_lines(u[a:b], i[a:b], r[a:b], t[a:b], a))
+            fh.write(lines(*(x[a:b] for x in arrays), a))
     return hi - lo
 
 
-def _write_log(path: str, u, i, r, times) -> None:
-    """The log in parts, one process per core, concatenated in order."""
+def _write_log(path: str, u, i, r, times, lines=_log_lines) -> None:
+    """The log in parts, one process per core, concatenated in order:
+    ``lines(u, i, r, times, first row)`` gives each part's bytes."""
     global _LOG_ARRAYS
     import multiprocessing
 
-    _LOG_ARRAYS = (u, i, r, times)
+    _LOG_ARRAYS = (lines, (u, i, r, times))
     n, procs = len(u), os.cpu_count() or 1
     step = -(-n // procs)
     jobs = [(lo, min(lo + step, n), f"{path}.part{k}")
@@ -1922,13 +1940,12 @@ def _hold_model(store: Storage, trained: dict, want: dict, path: str) -> dict:
     return stored
 
 
-def _steady_ms(want: dict) -> float:
+def _steady_ms(want: dict, params: ALSParams = ALSParams(
+        rank=PIO_RANK, num_iterations=PIO_ITERS, reg=PIO_LAMBDA)) -> float:
     """Seconds per steady ALS iteration on the card, on the read's
     triple (ms)."""
     trainer = ALSTrainer(want["u"], want["i"], want["r"], len(want["users"]),
-                         len(want["items"]),
-                         ALSParams(rank=PIO_RANK, num_iterations=PIO_ITERS,
-                                   reg=PIO_LAMBDA), device="cuda")
+                         len(want["items"]), params, device="cuda")
     trainer.iterate(1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2098,10 +2115,9 @@ def phase_pio_workflow_jsonl(workdir: str) -> None:
     store.close()
 
 
-def _ml20m_workdir(workdir: str) -> tuple:
-    """(directory, events): the work directory with the most free disk of
-    the temporary directory and the checkout's build directory, and the
-    events the host can hold (all of ML-20M, or the first 10,000,000)."""
+def _ml20m_workdir(workdir: str) -> str:
+    """The work directory with the most free disk of the temporary
+    directory and the checkout's build directory."""
     candidates = [workdir, os.path.join(ROOT, "build")]
     os.makedirs(candidates[1], exist_ok=True)
     free = {d: shutil.disk_usage(d).free / 2**30 for d in candidates}
@@ -2114,8 +2130,7 @@ def _ml20m_workdir(workdir: str) -> tuple:
     mem = subprocess.run(["free", "-g"], capture_output=True, text=True).stdout
     emit("pio_workflow_jsonl_ml20m_host", df=df, free_g=mem,
          free_gb=free, available_ram_gb=ram_gb, workdir=best)
-    full = free[best] >= ML20M_DISK_GB and ram_gb >= ML20M_RAM_GB
-    return best, (ML20M[2] if full else ML20M_REDUCED_EVENTS)
+    return best
 
 
 def _timed_read(read, parts: dict):
@@ -2167,18 +2182,18 @@ def _timed_read(read, parts: dict):
 
 
 def phase_pio_workflow_jsonl_ml20m(workdir: str, ratings) -> None:
-    """The BASELINE metric's scale through the verbs: the ML-20M log
-    (bench.py SCALES["ml20m"], synth_ratings seed 7, distinct shuffled
-    event times) written as the JSONL store itself, byte for byte what
+    """The BASELINE metric's ratings through the verbs: the first
+    ML20M_LOG_EVENTS of the ML-20M ratings (bench.py SCALES["ml20m"],
+    synth_ratings seed 7, distinct shuffled event times) written as the
+    JSONL store itself, byte for byte what
     insert_batch writes (a 10,000-line sample checked) → eventlog compact
     → the read held exactly to the generated arrays → train (rank 32, 10
     iterations, the warp kernel) → deploy → 20 queries held to a host
     top-k over the persisted factors."""
     n_users, n_items, _ = ML20M
-    wdir, nnz = _ml20m_workdir(workdir)
-    reduced = None if nnz == ML20M[2] else (
-        f"first {nnz} of {ML20M[2]} events: the host has less than "
-        f"{ML20M_DISK_GB} GB of disk or {ML20M_RAM_GB} GB of free RAM")
+    wdir, nnz = _ml20m_workdir(workdir), ML20M_LOG_EVENTS
+    reduced = (f"first {nnz} of {ML20M[2]} events: the script's time "
+               "(1,200 s)")
     cwd = tempfile.mkdtemp(dir=wdir)
     base = os.path.join(cwd, "pio_ml20m")
     env = _jsonl_env(base)
@@ -2250,6 +2265,512 @@ def phase_pio_workflow_jsonl_ml20m(workdir: str, ratings) -> None:
     shutil.rmtree(cwd)
 
 
+# -- the E-Commerce template on the JSONL log ------------------------------
+
+#: bench_templates.py config 6 (bench_ecommerce): users, items, view/buy
+#: events, drawn with seed 6; rank 32 × 10 iterations
+ECOMMERCE = (100_000, 20_000, 5_000_000)
+ECOMMERCE_CATEGORIES = 20
+ECOMMERCE_BUY_SHARE = 0.1
+#: queries before and after the constraint/unavailableItems $set
+ECOMMERCE_QUERIES = (60, 12)
+ECOMMERCE_ID_SEED = 6
+ECOMMERCE_ENGINE = os.path.join(ROOT, "templates", "ecommerce", "engine.json")
+#: ``pio deploy`` with the E-Commerce model's serve-time reads and top-k
+#: timed per query; the records go to $PIO_QUERY_SPLIT_OUT at exit
+_TIMED_DEPLOY = r"""
+import atexit, json, os, sys, time
+from incubator_predictionio_torch.models import ecommerce
+from incubator_predictionio_torch.tools import console
+
+records = []
+
+def timed(fn, key):
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            if records:
+                records[-1][key] += time.perf_counter() - t0
+                records[-1][key + "_calls"] += 1
+    return run
+
+real_predict = ecommerce.ECommerceAlgorithm.predict
+
+def predict(self, model, query):
+    records.append({"store_s": 0.0, "store_s_calls": 0, "topk_s": 0.0,
+                    "topk_s_calls": 0})
+    t0 = time.perf_counter()
+    try:
+        return real_predict(self, model, query)
+    finally:
+        records[-1]["predict_s"] = time.perf_counter() - t0
+
+ecommerce.LEventStore.find_by_entity = staticmethod(
+    timed(ecommerce.LEventStore.find_by_entity, "store_s"))
+ecommerce.top_k_items = timed(ecommerce.top_k_items, "topk_s")
+ecommerce.ECommerceAlgorithm.predict = predict
+
+@atexit.register
+def dump():
+    with open(os.environ["PIO_QUERY_SPLIT_OUT"], "w") as fh:
+        json.dump(records, fh)
+
+sys.exit(console.main(sys.argv[1:]))
+"""
+
+
+def _ecommerce_events() -> tuple:
+    """bench_ecommerce's draws (seed 6: users uniform, items skewed to low
+    ids), a seed-derived 10 % of them buys and the rest views, distinct
+    shuffled event times, one of 20 categories per item."""
+    n_users, n_items, nnz = ECOMMERCE
+    rng = np.random.default_rng(6)
+    u = rng.integers(0, n_users, nnz).astype(np.int32)
+    i = np.minimum((n_items * rng.random(nnz) ** 2).astype(np.int32),
+                   n_items - 1)
+    buy = np.random.default_rng(61).random(nnz) < ECOMMERCE_BUY_SHARE
+    times = T0_MS + np.random.default_rng(62).permutation(nnz)
+    cats = np.random.default_rng(63).integers(0, ECOMMERCE_CATEGORIES, n_items)
+    return u, i, buy, times, cats
+
+
+def _ecommerce_lines(u, i, buy, times_ms, first: int) -> bytes:
+    """view / buy events (``buy`` True) as JSONL lines, byte for byte what
+    ``JSONLEvents.insert_batch`` writes for them."""
+    iso = np.datetime_as_string(np.asarray(times_ms).astype("datetime64[ms]"),
+                                unit="ms").tolist()
+    names = ("view", "buy")
+    return "".join([
+        f'{{"eventId": "{ECOMMERCE_ID_SEED:08x}{first + k:024x}", "event": '
+        f'"{names[b]}", "entityType": "user", "entityId": "u{a}", '
+        f'"targetEntityType": "item", "targetEntityId": "i{c}", '
+        f'"properties": {{}}, "eventTime": "{t}Z", '
+        f'"creationTime": "{CREATED_ISO}"}}\n'
+        for k, (a, c, b, t) in enumerate(zip(
+            np.asarray(u).tolist(), np.asarray(i).tolist(),
+            np.asarray(buy).tolist(), iso))
+    ]).encode()
+
+
+def _category_lines(cats, items) -> bytes:
+    """One ``$set`` of ``categories`` per item of ``items``, before every
+    view and buy."""
+    times = T0_MS - len(cats) + np.asarray(items)
+    iso = np.datetime_as_string(times.astype("datetime64[ms]"),
+                                unit="ms").tolist()
+    return "".join([
+        f'{{"eventId": "{ECOMMERCE_ID_SEED + 1:08x}{j:024x}", "event": '
+        f'"$set", "entityType": "item", "entityId": "i{j}", "properties": '
+        f'{{"categories": ["c{cats[j]}"]}}, "eventTime": "{t}Z", '
+        f'"creationTime": "{CREATED_ISO}"}}\n'
+        for j, t in zip(np.asarray(items).tolist(), iso)]).encode()
+
+
+def _hold_lines(sample: bytes, wdir: str) -> None:
+    """``sample`` is byte for byte what insert_batch writes for its
+    events."""
+    scratch = tempfile.mkdtemp(dir=wdir)
+    le = JSONLEvents(scratch)
+    le.insert_batch([Event.from_json(json.loads(ln))
+                     for ln in sample.splitlines()], 1)
+    with open(os.path.join(scratch, "events_1.jsonl"), "rb") as fh:
+        check(fh.read() == sample, "the log's lines differ from insert_batch's")
+    le.close()
+    shutil.rmtree(scratch)
+
+
+def _dense(x: np.ndarray) -> tuple:
+    """(dense labels, count): the ids of ``x`` relabelled 0..count-1 (the
+    per-row counts, and so the layout's solve calls, are those of the
+    read's first-seen labels)."""
+    keys, labels = np.unique(x, return_inverse=True)
+    return labels.astype(np.int32), len(keys)
+
+
+def _latest_items(u, i, times, users, limit=200) -> dict:
+    """user id → the items of its ``limit`` latest events (the serve-time
+    seen-items read, from the generated arrays)."""
+    out = {}
+    for a in users:
+        rows = np.flatnonzero(u == a)
+        rows = rows[np.argsort(times[rows])[::-1][:limit]]
+        out[int(a)] = set(i[rows].tolist())
+    return out
+
+
+def _ecommerce_queries(users, head: int) -> list:
+    """The query mix, one per user: default, categories, whiteList,
+    blackList, ``unseenOnly: false`` with and without categories."""
+    n_items = ECOMMERCE[1]
+    rng = np.random.default_rng(65)
+    out = []
+    for j, a in enumerate(users):
+        q = {"user": f"u{a}", "num": 20 if j % 5 == 0 else 10}
+        kind = j % 6
+        if kind in (1, 5):
+            q["categories"] = [f"c{int(c)}" for c in rng.choice(
+                ECOMMERCE_CATEGORIES, 1 + j % 2, replace=False)]
+        if kind == 2:
+            q["whiteList"] = [f"i{int(x)}" for x in
+                              rng.integers(0, n_items, 300)] + ["nope"]
+        if kind == 3:
+            q["blackList"] = [f"i{int(x)}" for x in
+                              rng.integers(0, head, 100)]
+        if kind in (4, 5):
+            q["unseenOnly"] = False
+        out.append(q)
+    return out
+
+
+def _ecommerce_check(stored: dict, cats, seen: dict):
+    """A host numpy top-k for an E-Commerce answer: the float64 scores of
+    the persisted factors; seen items (the user's 200 latest view/buy
+    events, from the generated arrays), the unavailable items and the
+    category / whiteList / blackList rules applied; order score
+    descending, index ascending. The card's float32 scores may order two
+    items whose scores tie to 1e-5 the other way; such swaps are counted,
+    anything else fails."""
+    users, items = stored["users"], stored["items"]
+    uf = np.asarray(stored["user_factors"], np.float64)
+    itf = np.asarray(stored["item_factors"], np.float64)
+    item_of = np.empty(len(items), np.int64)
+    item_of[list(items.values())] = [int(k[1:]) for k in items]
+    counts = {"exact": 0, "tie_swaps": 0}
+
+    def check_answer(q, res, unavailable):
+        a = int(q["user"][1:])
+        s = itf @ uf[users[q["user"]]]
+        allowed = np.ones(len(s), bool)
+        if q.get("categories"):
+            allowed &= np.isin(cats[item_of],
+                               [int(c[1:]) for c in q["categories"]])
+        if q.get("whiteList"):
+            allowed &= np.isin(item_of, [int(x[1:]) for x in q["whiteList"]
+                                         if x[1:].isdigit()])
+        excluded = set(unavailable) | {int(x[1:]) for x in
+                                       q.get("blackList", [])}
+        if q.get("unseenOnly", True):
+            excluded |= seen[a]
+        allowed &= ~np.isin(item_of, list(excluded))
+        cand = np.flatnonzero(allowed)
+        want = cand[np.lexsort((cand, -s[cand]))][:q["num"]]
+        got = np.array([items[e["item"]] for e in res["itemScores"]], np.int64)
+        check(len(got) == len(want), f"{len(got)} answers, want {len(want)}")
+        check(bool(allowed[got].all()), f"an excluded item was returned: {q}")
+        check(np.allclose([e["score"] for e in res["itemScores"]], s[got],
+                          rtol=1e-4, atol=1e-4),
+              "served scores differ from the host's")
+        if np.array_equal(got, want):
+            counts["exact"] += 1
+        else:
+            check(np.allclose(s[got], s[want], rtol=0, atol=1e-5),
+                  f"answer {got.tolist()} != host top-k {want.tolist()}")
+            counts["tie_swaps"] += 1
+
+    return check_answer, counts
+
+
+def _split(client_ms: list, records: list) -> dict:
+    """Query latency split: the LEventStore reads, the top-k and the rest
+    (HTTP, JSON, the exclude mask) per query, percentiles over the
+    queries."""
+    check(len(records) == len(client_ms),
+          f"{len(records)} timed predicts for {len(client_ms)} queries")
+    store = np.array([r["store_s"] for r in records]) * 1e3
+    topk = np.array([r["topk_s"] for r in records]) * 1e3
+    total = np.asarray(client_ms)
+    reads = sum(r["store_s_calls"] for r in records)
+    return {"total": _percentiles(total), "store_read": _percentiles(store),
+            "topk": _percentiles(topk),
+            "rest": _percentiles(total - store - topk),
+            "store_reads": reads,
+            "ms_per_store_read": float(store.sum() / max(reads, 1))}
+
+
+def phase_ecommerce_jsonl(workdir: str) -> None:
+    """bench_templates.py config 6 through the E-Commerce template and the
+    verbs, on a JSONL log: 5,000,000 view/buy events (100,000 users ×
+    20,000 items, 10 % buys) and one category $set per item written as
+    the log itself (not compacted: the train and the serve-time reads
+    parse it with the codec) → pio train (templates/ecommerce/engine.json,
+    factory rewritten to the port, rank 32 and 10 iterations as the bench
+    sets them; warp launches = implied) → pio eventserver + pio deploy →
+    60 queries (default, categories, whiteList, blackList, unseenOnly
+    false) → a $set of constraint/unavailableItems through the event
+    server → 12 more queries; every answer held to a host top-k with the
+    exclusions computed from the generated arrays. Query latency split
+    into the LEventStore reads, the top-k and the rest."""
+    n_users, n_items, nnz = ECOMMERCE
+    u, i, buy, times, cats = _ecommerce_events()
+    cwd = tempfile.mkdtemp(dir=workdir)
+    base = os.path.join(cwd, "pio_ecom")
+    env = _jsonl_env(base)
+    out, _ = _verb(["app", "new", "ecom"], env, cwd)
+    key = out.stdout.split("Access Key:")[1].split()[0]
+    with open(ECOMMERCE_ENGINE, encoding="utf-8") as fh:
+        engine_json = json.load(fh)
+    engine_json["engineFactory"] = ("incubator_predictionio_torch.models."
+                                    "ecommerce.ECommerceEngine")
+    engine_json["datasource"]["params"]["appName"] = "ecom"
+    algo = engine_json["algorithms"][0]["params"]
+    algo.update(appName="ecom", rank=RANK, numIterations=10)
+    with open(os.path.join(cwd, "engine.json"), "w", encoding="utf-8") as fh:
+        json.dump(engine_json, fh)
+
+    log_path = os.path.join(base, "events", "pio_eventdata", "events_1.jsonl")
+    t0 = time.perf_counter()
+    _write_log(log_path, u, i, buy, times, lines=_ecommerce_lines)
+    with open(log_path, "ab") as fh:
+        fh.write(_category_lines(cats, np.arange(n_items)))
+    write_s = time.perf_counter() - t0
+    rows = np.sort(np.random.default_rng(66).choice(nnz, 2_000, replace=False))
+    _hold_lines(b"".join(_ecommerce_lines(u[k:k + 1], i[k:k + 1],
+                                          buy[k:k + 1], times[k:k + 1], int(k))
+                         for k in rows)
+                + _category_lines(cats, np.arange(0, n_items, 97)), cwd)
+
+    ud, nu = _dense(u)
+    idn, ni = _dense(i)
+    params = ALSParams(rank=RANK, num_iterations=10, reg=algo["lambda"],
+                       implicit_prefs=True, alpha=1.0, seed=3)
+    expected, calls_u, calls_i = implied_launches(ud, idn, nu, ni, params, 10)
+    trained = _train_verb(env, cwd, "ecommerce_jsonl")
+    got = trained["kernel_launches"]
+    check(got["warp"] == expected and got["wide"] == 0,
+          f"E-Commerce launches {got} != implied {expected} warp")
+    tm = trained["timings"]
+    check(tm["ratings_read"] == nnz, f"read {tm['ratings_read']} events")
+    store = _storage_of(env)
+    _, persisted = models_from_bytes(
+        model_artifact.read_model(store, trained["engineInstanceId"]))
+    store.close()
+    stored = persisted[0]
+    check(stored["user_factors"].shape == (nu, RANK)
+          and stored["item_factors"].shape == (ni, RANK)
+          and bool(np.isfinite(stored["user_factors"]).all()
+                   and np.isfinite(stored["item_factors"]).all()),
+          "bad E-Commerce factors")
+    check(len(stored["item_categories"]) == n_items
+          and stored["app_name"] == "ecom"
+          and list(stored["seen_event_names"]) == ["view", "buy"],
+          "the persisted E-Commerce model lacks its serve-time state")
+    steady_ms = _steady_ms({"u": ud, "i": idn, "r": np.ones(nnz, np.float32),
+                            "users": range(nu), "items": range(ni)}, params)
+
+    n_before, n_after = ECOMMERCE_QUERIES
+    qusers = np.random.default_rng(64).choice(n_users, n_before + n_after,
+                                              replace=False)
+    seen = _latest_items(u, i, times, qusers)
+    head = 2_000
+    queries = _ecommerce_queries(qusers, head)
+    check_answer, counts = _ecommerce_check(stored, cats, seen)
+    split_out = os.path.join(cwd, "query_split.json")
+    unavailable: list = []
+    answered, client_ms = [], []
+    t0 = time.perf_counter()
+    # both servers start at once; the deploy's first store read parses
+    # the whole log
+    events = _Served(["eventserver", "--ip", "127.0.0.1"], env, cwd)
+    srv = _Served(["deploy"], env | {"PIO_QUERY_SPLIT_OUT": split_out}, cwd,
+                  console=[sys.executable, "-c", _TIMED_DEPLOY])
+    try:
+        with events, srv:
+            ready_s = time.perf_counter() - t0
+            check(srv.info["engineInstanceId"] == trained["engineInstanceId"],
+                  f"deployed {srv.info}")
+            conn = srv.connect()
+            for j, q in enumerate(queries):
+                if j == n_before:
+                    # the top answers of the default queries, and some head
+                    # items, made unavailable through the event server
+                    unavailable = sorted(
+                        {int(res["itemScores"][0]["item"][1:])
+                         for q0, res in answered if "unseenOnly" not in q0}
+                        | set(np.random.default_rng(67).integers(0, head, 20)
+                              .tolist()))
+                    status, res, _ = events.request(
+                        "POST", f"/events.json?accessKey={key}",
+                        {"event": "$set", "entityType": "constraint",
+                         "entityId": "unavailableItems",
+                         "properties": {"items": [f"i{x}"
+                                                  for x in unavailable]},
+                         "eventTime": _iso_ms(T0_MS + nnz + 1_000)})
+                    check(status == 201, f"$set POST {status}: {res}")
+                status, res, ms = srv.request("POST", "/queries.json", q,
+                                              conn)
+                check(status == 200, f"query {status}: {res}")
+                check_answer(q, res, unavailable)
+                answered.append((q, res))
+                client_ms.append(ms)
+            conn.close()
+    finally:  # a server whose start failed is stopped here
+        for proc in (events.proc, srv.proc):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(split_out, encoding="utf-8") as fh:
+        records = json.load(fh)
+    banned = {f"i{x}" for x in unavailable}
+    check(all(not banned & {e["item"] for e in res["itemScores"]}
+              for _, res in answered[n_before:]),
+          "an unavailable item was served after the $set")
+    # the first query opens the connection; its time is left out
+    split = _split(client_ms[1:], records[1:])
+    emit("ecommerce_jsonl", events=nnz, users=nu, items=ni,
+         buys=int(buy.sum()), categories=ECOMMERCE_CATEGORIES,
+         compacted=False, log_bytes=os.path.getsize(log_path),
+         log_write_seconds=write_s, rank=RANK, iterations=10,
+         reg=algo["lambda"], train_seconds_end_to_end=trained["wall_seconds"],
+         train_seconds_run_train=trained["seconds"],
+         read_seconds=tm["read_seconds"], timings=tm,
+         events_per_s_end_to_end=nnz / trained["wall_seconds"],
+         steady_iteration_ms=steady_ms,
+         events_per_s_steady=nnz / (steady_ms * 10 / 1e3),
+         kernel_launches=got, expected_launches=expected,
+         solve_calls_per_iteration={"user": calls_u, "item": calls_i},
+         deploy_ready_seconds=ready_s, queries_before_set=n_before,
+         queries_after_set=n_after, unavailable_items=len(unavailable),
+         answers=counts, query_ms=split)
+    shutil.rmtree(cwd)
+
+
+# -- pio eval ------------------------------------------------------------------
+
+ML100K_SEED = 11
+#: the E-Commerce sweep's events: view events of the first EVAL_VIEWS
+#: ML-100K pairs (see phase_pio_eval for the cut)
+EVAL_VIEWS = 2_000
+EVAL_MODULES = {
+    "recommendation": (
+        "incubator_predictionio_torch.models.recommendation_eval."
+        "RecommendationEvaluation",
+        "incubator_predictionio_torch.models.recommendation_eval.ParamsList"),
+    "ecommerce": (
+        "incubator_predictionio_torch.models.template_evals."
+        "ECommerceEvaluation",
+        "incubator_predictionio_torch.models.template_evals."
+        "ECommerceParamsList"),
+}
+#: the sweeps' candidates (ParamsList, ECommerceParamsList): rank × lambda,
+#: 10 iterations, 3 folds
+EVAL_GRID = [(r, lam) for r in (8, 16) for lam in (0.01, 0.1)]
+
+
+def _sweep_launches(u, i, implicit: bool) -> int:
+    """The warp launches of a sweep: per candidate and fold of
+    ``k_fold_indices(n, 3, seed 0)`` over the read's time-ordered rows,
+    the solve calls the fold's training layout implies."""
+    from incubator_predictionio_torch.e2 import k_fold_indices
+
+    ud, nu = _dense(u)
+    idn, ni = _dense(i)
+    total = 0
+    for rank, lam in EVAL_GRID:
+        params = ALSParams(rank=rank, num_iterations=10, reg=lam,
+                           implicit_prefs=implicit)
+        for train_sel, _ in k_fold_indices(len(u), 3, 0):
+            total += implied_launches(ud[train_sel], idn[train_sel], nu, ni,
+                                      params, 10)[0]
+    return total
+
+
+def _eval_verb(name: str, env: dict, cwd: str, device: str) -> dict:
+    """``pio eval`` of one sweep; its JSON line with the leaderboard text,
+    the wall seconds and the per-candidate and per-call times."""
+    evaluation, generator = EVAL_MODULES[name]
+    out, wall = _verb(["eval", evaluation, generator, "--app-name", "ml100k",
+                       "--device", device], env, cwd, timeout=900)
+    lines = out.stdout.strip().splitlines()
+    result = json.loads(lines[-1])
+    result["wall_seconds"] = wall
+    result["leaderboard"] = lines[:lines.index(
+        "[MetricEvaluator] best engine params:")]
+    check(result["candidates"] == len(EVAL_GRID),
+          f"{name} sweep ran {result['candidates']} candidates")
+    check(all(0.0 <= s <= 1.0 for s in result["scores"]),
+          f"{name} scores out of range: {result['scores']}")
+    rm = result["ranking_metrics"]
+    result["seconds_per_candidate"] = result["seconds"] / result["candidates"]
+    result["ranking_metrics_ms_per_call"] = (
+        rm["seconds"] / rm["calls"] * 1e3 if rm["calls"] else None)
+    return result
+
+
+def phase_pio_eval(workdir: str) -> None:
+    """pio eval on the ML-100K shape (bench.py SCALES["ml100k"],
+    synth_ratings seed 11) as one JSONL app: the 100,000 ratings as rate
+    events, and the first EVAL_VIEWS of the same (user, item) pairs as
+    view events. The Recommendation sweep (RecommendationEvaluation +
+    ParamsList: 4 candidates × 3 folds, HitRate@10) reads the rates, the
+    E-Commerce sweep (ECommerceEvaluation + ECommerceParamsList: 4 × 3,
+    NDCG@10 and @5 by one ranking_metrics call per query and metric) the
+    views, on the card; the E-Commerce sweep runs again with --device cpu
+    and must agree (the same candidates, scores within 0.02, the same
+    best where the top two differ by more than 0.05). Warp launches = the
+    folds' implied solve calls.
+
+    The E-Commerce sweep is cut to EVAL_VIEWS events: each of its queries
+    runs predict with a serve-time store read and two ranking_metrics
+    calls, one after another on the host, so all 100,000 events (400,000
+    queries per sweep) would take the phase's time many times over, on
+    the card and again on the CPU; ``reduced`` carries the measured time
+    per query."""
+    n_users, n_items, nnz = ML100K
+    u, i, r = synth_ratings(n_users, n_items, nnz, seed=ML100K_SEED)
+    t_rate = T0_MS + np.random.default_rng(12).permutation(nnz)
+    t_view = T0_MS + nnz + np.random.default_rng(13).permutation(EVAL_VIEWS)
+    cwd = tempfile.mkdtemp(dir=workdir)
+    base = os.path.join(cwd, "pio_eval")
+    env = _jsonl_env(base)
+    _verb(["app", "new", "ml100k"], env, cwd)
+    log_path = os.path.join(base, "events", "pio_eventdata", "events_1.jsonl")
+    with open(log_path, "wb") as fh:
+        fh.write(_log_lines(u, i, r, t_rate, 0))
+        fh.write(_ecommerce_lines(u[:EVAL_VIEWS], i[:EVAL_VIEWS],
+                                  np.zeros(EVAL_VIEWS, bool), t_view, nnz))
+
+    rate_order = np.argsort(t_rate, kind="stable")
+    view_order = np.argsort(t_view, kind="stable")
+    expected = {
+        "recommendation": _sweep_launches(u[rate_order], i[rate_order], False),
+        "ecommerce": _sweep_launches(u[:EVAL_VIEWS][view_order],
+                                     i[:EVAL_VIEWS][view_order], True)}
+    sweeps = {}
+    for name in ("recommendation", "ecommerce"):
+        res = sweeps[name] = _eval_verb(name, env, cwd, "cuda")
+        got = res["kernel_launches"]
+        check(got["warp"] == expected[name] and got["wide"] == 0,
+              f"{name} sweep launches {got} != implied {expected[name]} warp")
+        res["expected_launches"] = expected[name]
+    check(sweeps["ecommerce"]["ranking_metrics"]["calls"] > 0,
+          "the E-Commerce sweep made no ranking_metrics call")
+    record("pio_eval", {
+        "warp": sum(s["kernel_launches"]["warp"] for s in sweeps.values()),
+        "wide": 0})
+    cpu = sweeps["ecommerce_cpu"] = _eval_verb("ecommerce", env, cwd, "cpu")
+    card = sweeps["ecommerce"]
+    top = sorted(card["scores"], reverse=True)
+    check(cpu["candidates"] == card["candidates"],
+          "the card and CPU sweeps differ in their candidates")
+    check(all(abs(a - b) <= 0.02
+              for a, b in zip(card["scores"], cpu["scores"])),
+          f"card scores {card['scores']} vs CPU {cpu['scores']}")
+    check(top[0] - top[1] <= 0.05 or card["bestIndex"] == cpu["bestIndex"],
+          f"best candidate {card['bestIndex']} on the card, "
+          f"{cpu['bestIndex']} on the CPU")
+    ms_per_query = card["seconds"] * 1e3 / (len(EVAL_GRID) * EVAL_VIEWS)
+    emit("pio_eval", events=nnz, users=n_users, items=n_items,
+         ecommerce_events=EVAL_VIEWS, reduced=(
+             f"E-Commerce sweep on {EVAL_VIEWS} of the {nnz} events: "
+             f"{ms_per_query:.3f} ms per eval query on the card (predict "
+             "with a store read, two ranking_metrics calls) × "
+             f"{len(EVAL_GRID) * nnz} queries at the full count"),
+         ecommerce_ms_per_query=ms_per_query, sweeps=sweeps)
+    shutil.rmtree(cwd)
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -2267,6 +2788,8 @@ def main() -> int:
         phase_pio_workflow_jsonl(workdir)
         phase_pio_workflow_jsonl_ml20m(workdir, main_path["ratings"])
         phase_similar_product(workdir)
+        phase_ecommerce_jsonl(workdir)
+        phase_pio_eval(workdir)
     ratings = main_path.pop("ratings")
     main_path.clear()
     phase_train_rank128(ratings)

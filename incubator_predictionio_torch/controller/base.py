@@ -1,4 +1,4 @@
-"""Params, Doer instantiation, and the sanity-check contract.
+"""Params, Doer instantiation, and the cross-cutting controller contracts.
 
 Port of ``incubator_predictionio_tpu/controller/base.py``: a DASE component
 is built with keyword arguments extracted from engine.json (the Python
@@ -38,6 +38,17 @@ def params_from_dict(params_cls: Optional[Type], d: Mapping[str, Any]) -> Any:
     return params_cls(**{k: v for k, v in d.items() if k in sig.parameters})
 
 
+def params_to_dict(p: Any) -> dict[str, Any]:
+    """A Params instance (dataclass, mapping or plain object) → a dict."""
+    if p is None:
+        return {}
+    if dataclasses.is_dataclass(p):
+        return dataclasses.asdict(p)
+    if isinstance(p, Mapping):
+        return dict(p)
+    return {k: v for k, v in vars(p).items() if not k.startswith("_")}
+
+
 class AbstractDoer:
     """Base of all DASE components: holds the Params it was built with."""
 
@@ -69,3 +80,14 @@ class SanityCheck:
 
     def sanity_check(self) -> None:  # pragma: no cover - interface
         raise NotImplementedError
+
+
+class CustomQuerySerializer:
+    """Hook to override the query/result JSON codecs: components may
+    provide ``query_from_json`` / ``result_to_json``."""
+
+    def query_from_json(self, obj: Mapping[str, Any]) -> Any:
+        return obj
+
+    def result_to_json(self, result: Any) -> Any:
+        return result

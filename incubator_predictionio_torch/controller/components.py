@@ -1,21 +1,29 @@
 """The DASE component bases: DataSource, Preparator, Algorithm, Serving.
 
 Port of ``incubator_predictionio_tpu/controller/{datasource,preparator,
-algorithm,serving}.py``, trimmed to what the Recommendation template uses.
+algorithm,serving}.py``. The reference's P/L names (``PDataSource``,
+``P2LAlgorithm``, ...) say where a Spark component's data lives; here they
+are aliases of the one base class, so template code reads as upstream.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Iterable, Sequence, Tuple
 
 from .base import AbstractDoer
 
 
 class DataSource(AbstractDoer):
-    """``read_training(ctx)`` feeds training."""
+    """``read_training(ctx)`` feeds ``pio train``; ``read_eval(ctx)`` gives
+    the folds of ``pio eval``: [(training data, eval info, [(query,
+    actual), ...]), ...]."""
 
     def read_training(self, ctx) -> Any:
         raise NotImplementedError
+
+    def read_eval(self, ctx) -> Sequence[Tuple[Any, Any, Iterable]]:
+        """No eval folds unless the template defines them."""
+        return []
 
 
 class Preparator(AbstractDoer):
@@ -64,3 +72,17 @@ class FirstServing(Serving):
 
     def serve(self, query, predictions):
         return predictions[0]
+
+
+class AverageServing(Serving):
+    """Numeric mean of the algorithms' predictions."""
+
+    def serve(self, query, predictions):
+        return sum(predictions) / len(predictions)
+
+
+PDataSource = LDataSource = DataSource
+PPreparator = LPreparator = Preparator
+PIdentityPreparator = IdentityPreparator
+PAlgorithm = P2LAlgorithm = LAlgorithm = Algorithm
+LServing = Serving

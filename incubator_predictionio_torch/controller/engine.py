@@ -1,9 +1,10 @@
 """Engine — binds DASE component classes with their parameters.
 
 Port of ``incubator_predictionio_tpu/controller/engine.py`` (``EngineParams``,
-``Engine`` :110, ``Engine.train`` :169, ``Deployment``, ``EngineFactory``
-:377), with the workflow flags, the NaN guard and per-algorithm
-checkpoints, without telemetry, fault points or placement (one device).
+``Engine`` :110, ``Engine.train`` :169, ``Engine.eval`` :248,
+``Deployment``, ``SimpleEngine`` :364, ``EngineFactory`` :377), with the
+workflow flags, the NaN guard and per-algorithm checkpoints, without
+telemetry, fault points or placement (one device: ``ctx.device``).
 """
 
 from __future__ import annotations
@@ -67,6 +68,18 @@ class EngineParams:
             algorithm_params_list=algos, serving_params=s_params,
             data_source_name=ds_name, preparator_name=p_name,
             serving_name=s_name)
+
+    def to_json(self) -> dict[str, Any]:
+        return {
+            "datasource": {"name": self.data_source_name,
+                           "params": dict(self.data_source_params)},
+            "preparator": {"name": self.preparator_name,
+                           "params": dict(self.preparator_params)},
+            "algorithms": [{"name": n, "params": dict(p)}
+                           for n, p in self.algorithm_params_list],
+            "serving": {"name": self.serving_name,
+                        "params": dict(self.serving_params)},
+        }
 
 
 class Engine:
@@ -164,6 +177,32 @@ class Engine:
             models.append(model)
         return models
 
+    def eval(self, ctx, engine_params: EngineParams,
+             workflow_params: Optional[WorkflowParams] = None) -> list:
+        """Per fold of ``read_eval``: prepare, train every algorithm, then
+        ``supplement`` → ``batch_predict`` → ``serve`` over the fold's
+        queries. Returns [(eval_info, [(query, predicted, actual), ...])],
+        one entry per fold."""
+        if workflow_params is not None:
+            ctx.workflow_params = workflow_params
+        ds, prep, algo_list, serving = self.make_components(engine_params)
+        results = []
+        for fold_i, (td, eval_info, qa) in enumerate(ds.read_eval(ctx)):
+            pd = prep.prepare(ctx, td)
+            models = []
+            for name, algo in algo_list:
+                ctx.stage_label = f"algorithm[{name or 'default'}]"
+                models.append(algo.train(ctx, pd))
+            qa = list(qa)
+            queries = [serving.supplement(q) for q, _ in qa]
+            per_algo = [algo.batch_predict(model, queries)
+                        for (_, algo), model in zip(algo_list, models)]
+            qpa = [(q, serving.serve(q, [pred[j] for pred in per_algo]), a)
+                   for j, (q, a) in enumerate(qa)]
+            results.append((eval_info, qpa))
+            log.info("eval fold %d: %d query/actual pairs", fold_i, len(qpa))
+        return results
+
     def prepare_deployment(self, ctx, engine_params: EngineParams,
                            models: list[Any]) -> "Deployment":
         """Re-bind stored models to live algorithm instances for serving."""
@@ -197,6 +236,15 @@ class Deployment:
                     for (_, algo), model in zip(self.algo_list, self.models)]
         return [self.serving.serve(q, [pred[j] for pred in per_algo])
                 for j, q in enumerate(qs)]
+
+
+class SimpleEngine(Engine):
+    """One DataSource and one Algorithm, identity preparator, first
+    serving."""
+
+    def __init__(self, data_source_class, algorithm_class):
+        super().__init__(data_source_class, IdentityPreparator,
+                         {"": algorithm_class}, FirstServing)
 
 
 class EngineFactory:

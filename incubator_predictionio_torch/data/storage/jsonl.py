@@ -988,10 +988,10 @@ class JSONLEvents(base.LEvents):
             nonlocal mask
             if value is None:
                 return
-            table = cols.table(which)
-            try:
-                code = table.index(value)
-            except ValueError:
+            # the scan's string → code dict, not a list search: the entity
+            # table holds every user and item id
+            code = scan.table_index(which).get(value)
+            if code is None:
                 mask &= False
                 return
             mask = mask & (col == code)

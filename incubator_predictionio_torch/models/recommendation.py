@@ -29,6 +29,7 @@ from ..data.bimap import BiMap, extend_bimap
 from ..data.events import find_ratings
 from ..data.store import PEventStore
 from ..device import resolve_device
+from ..e2.cross_validation import k_fold_indices
 from ..ops.als import ALSFactors, ALSParams, fold_in_factors, train_als
 from ..ops.topk import batch_top_k, top_k_items
 
@@ -117,6 +118,26 @@ class RecommendationDataSource(DataSource):
                 channel_name=ctx.channel_name)
         ctx.record_read(time.perf_counter() - t0, len(u))
         return TrainingData(u, i, r, users, items)
+
+    def read_eval(self, ctx):
+        """Three folds for ``pio eval`` (the reference's ``read_eval``):
+        each held-out (user, item, rating) becomes a top-10 query whose
+        actual is that item and rating."""
+        td = self.read_training(ctx)
+        folds = []
+        for train_sel, test_sel in k_fold_indices(len(td.user_idx), k=3,
+                                                  seed=0):
+            train = TrainingData(
+                td.user_idx[train_sel], td.item_idx[train_sel],
+                td.rating[train_sel], td.users, td.items)
+            queries = [
+                ({"user": td.users.inverse(int(td.user_idx[j])), "num": 10},
+                 {"rating": float(td.rating[j]),
+                  "item": td.items.inverse(int(td.item_idx[j]))})
+                for j in np.nonzero(test_sel)[0]
+            ]
+            folds.append((train, None, queries))
+        return folds
 
 
 @dataclasses.dataclass(frozen=True)

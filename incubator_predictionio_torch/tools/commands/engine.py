@@ -35,7 +35,8 @@ def _engine_json(ns) -> dict:
 
 def _load_engine(ns):
     engine_json = _engine_json(ns)
-    engine, params, factory = engine_and_params_from_json(engine_json)
+    engine, params, factory = engine_and_params_from_json(engine_json,
+                                                          ns.engine_dir)
     variant = engine_json.get("id", "default")
     return engine, params, factory, variant, engine_json
 
@@ -46,7 +47,9 @@ def _app_name(params) -> str:
 
 
 def _common_args(p: argparse.ArgumentParser):
-    p.add_argument("--engine-dir", default=".", help="template directory (with engine.json)")
+    p.add_argument("--engine-dir", default=".",
+                   help="engine directory: holds engine.json and a user "
+                        "engine's modules (it goes first on sys.path)")
     p.add_argument("--engine-json", default=None,
                    help="the engine.json file (default <engine-dir>/engine.json)")
     p.add_argument("--variant", default=None, help="engine.json variant suffix")
@@ -175,7 +178,8 @@ def _train_file(ns, wp: WorkflowParams) -> int:
 
     engine_json = _engine_json(ns)
     events = read_events(ns.events)
-    seconds = console.train(engine_json, events, ns.model_out, ns.device, wp)
+    seconds = console.train(engine_json, events, ns.model_out, ns.device, wp,
+                            engine_dir=ns.engine_dir)
     print(json.dumps({"trained": None if seconds is None else ns.model_out,
                       "events": len(events), "seconds": seconds,
                       "device": ns.device, "kernel_launches": _launches()}),
@@ -206,7 +210,8 @@ def deploy_cmd(args: list[str]) -> int:
     if ns.model is not None:
         from .. import console
 
-        deployment, ctx = console.load_deployment(ns.model, ns.device)
+        deployment, ctx = console.load_deployment(ns.model, ns.device,
+                                                  ns.engine_dir)
         info = {"model": ns.model, "device": str(ctx.device)}
     else:
         from ...workflow.context import WorkflowContext

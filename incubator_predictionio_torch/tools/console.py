@@ -20,6 +20,9 @@ e.g. the events on a JSONL log):
           [--skip-sanity-check] [--stop-after-read] [--stop-after-prepare]
     deploy [--engine-dir D | --engine-json J] [--engine-instance-id ID]
            [--ip H] [--port 8000] [--device cpu]
+    eval EVALUATION [GENERATOR] [--engine-dir D] [--app-name A] [--batch B]
+         [--parallel-candidates N] [--device cpu]
+    dashboard [--ip H] [--port 9000]
 
 ``train`` reads the app's events from the event store, trains the engine
 that engine.json names, writes an engine-instance row and a checksummed
@@ -27,8 +30,11 @@ model blob, and prints one JSON line (instance id, seconds, device, the
 solve-kernel launches, the training window and the read/train phase
 times). ``deploy`` serves
 ``POST /queries.json`` from the newest COMPLETED instance (walking back past
-a corrupt blob) until SIGTERM or Ctrl-C. Both run on the card unless
-``--device cpu`` is given.
+a corrupt blob) until SIGTERM or Ctrl-C. ``eval`` evaluates the candidate
+parameters of an Evaluation and stores the leaderboard, which
+``dashboard`` serves. ``train``, ``deploy`` and ``eval`` run on the card
+unless ``--device cpu`` is given; ``--engine-dir`` names a user engine's
+directory, which goes first on ``sys.path``.
 
 The file-based forms stay beside them: ``train --events F.jsonl --model-out
 M.npz`` reads a JSON-lines events file and writes the model file (snapshots
@@ -49,10 +55,12 @@ from ..workflow.persist import load_models, save_models
 from ..workflow.workflow_params import WorkflowParams
 
 
-def engine_from_json(engine_json: dict):
+def engine_from_json(engine_json: dict, engine_dir: Optional[str] = None):
     """The Engine that engine.json's ``engineFactory`` names (a factory of
-    this package; the Recommendation engine when absent)."""
-    return json_extractor.engine_and_params_from_json(engine_json)[0]
+    this package or of a user engine in ``engine_dir``; the Recommendation
+    engine when absent)."""
+    return json_extractor.engine_and_params_from_json(engine_json,
+                                                      engine_dir)[0]
 
 
 def checkpoint_dir(model_out: str) -> str:
@@ -63,7 +71,8 @@ def checkpoint_dir(model_out: str) -> str:
 
 def train(engine_json: dict, events: list[dict], model_out: str,
           device: str = "cuda",
-          workflow_params: Optional[WorkflowParams] = None) -> Optional[float]:
+          workflow_params: Optional[WorkflowParams] = None,
+          engine_dir: Optional[str] = None) -> Optional[float]:
     """Train and persist; returns the training seconds, or None when
     ``stop_after_read`` / ``stop_after_prepare`` halted the run (nothing
     is persisted then).
@@ -73,7 +82,7 @@ def train(engine_json: dict, events: list[dict], model_out: str,
     them, a completed train deletes them, and a failed one keeps them for
     ``resume``."""
     wp = workflow_params or WorkflowParams()
-    engine = engine_from_json(engine_json)
+    engine = engine_from_json(engine_json, engine_dir)
     params = EngineParams.from_json(engine_json)
     ctx = WorkflowContext(events=events, device=device)
     if wp.checkpoint_every > 0 or wp.resume:
@@ -101,10 +110,11 @@ def train(engine_json: dict, events: list[dict], model_out: str,
     return seconds
 
 
-def load_deployment(model_path: str, device: str = "cuda"):
+def load_deployment(model_path: str, device: str = "cuda",
+                    engine_dir: Optional[str] = None):
     """Restore persisted models into a live Deployment on ``device``."""
     engine_json, stored = load_models(model_path)
-    engine = engine_from_json(engine_json)
+    engine = engine_from_json(engine_json, engine_dir)
     ctx = WorkflowContext(device=device)
     deployment = engine.prepare_deployment(
         ctx, EngineParams.from_json(engine_json), stored)

@@ -10,8 +10,10 @@ neither ``jax``, ``orbax`` nor the JAX package is loaded after; and each
 ``deploy --device cpu``, ``eventserver``, and on a JSONL event log
 ``import``, ``eventlog compact`` and ``train --window``) runs in a fresh
 interpreter of its own that loads none of them.
-(This pytest process has JAX loaded by tests/conftest.py, so the run-time
-check needs its own process.)
+The same holds for the E-Commerce template and the evaluations (the
+``eval`` and ``dashboard`` verbs, and the vanilla copy's evaluation from
+its engine directory). (This pytest process has JAX loaded by
+tests/conftest.py, so the run-time check needs its own process.)
 """
 
 import ast
@@ -58,7 +60,11 @@ def test_port_files_exist():
             "json_extractor.py", "core_workflow.py", "app.py", "engine.py",
             "management.py", "event_server.py", "console.py",
             "envknobs.py", "faultinject.py", "train_window.py", "jsonl.py",
-            "event_log.py", "log_tail.py"} <= names
+            "event_log.py", "log_tail.py", "ecommerce.py", "template_evals.py",
+            "recommendation_eval.py", "evaluation_workflow.py",
+            "dashboard.py", "metric.py", "metric_evaluator.py",
+            "evaluation.py", "cross_validation.py", "eval.py",
+            "vanilla_engine.py"} <= names
     assert (ROOT / "incubator_predictionio_torch" / "native"
             / "__init__.py").is_file()
 
@@ -128,6 +134,76 @@ def test_train_and_serve_in_a_process_without_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
         [sys.executable, "-c", _SCRIPT, str(tmp_path / "model.npz")],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    last = out.stdout.strip().splitlines()[-1]
+    assert '"loaded": []' in last, last
+
+
+_EVAL_SCRIPT = r"""
+import json, sys
+from incubator_predictionio_torch.controller import EngineParams
+from incubator_predictionio_torch.data.storage import App, Event, Storage
+from incubator_predictionio_torch.models import ecommerce, template_evals
+from incubator_predictionio_torch.workflow import core_workflow
+from incubator_predictionio_torch.workflow.context import WorkflowContext
+from incubator_predictionio_torch.workflow.evaluation_workflow import run_evaluation
+from incubator_predictionio_torch.workflow.json_extractor import resolve_engine_factory
+
+base, vanilla_dir = sys.argv[1], sys.argv[2]
+storage = Storage({"PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "S",
+                   "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "S",
+                   "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "S",
+                   "PIO_STORAGE_SOURCES_S_TYPE": "SQLITE",
+                   "PIO_STORAGE_SOURCES_S_PATH": base + "/pio.sqlite"})
+app_id = storage.get_meta_data_apps().insert(App(0, "ec"))
+storage.get_l_events().insert_batch(
+    [Event.from_json({"event": ["view", "buy"][(u + k) % 5 == 0],
+                      "entityType": "user", "entityId": f"u{u}",
+                      "targetEntityType": "item",
+                      "targetEntityId": f"i{(u * 3 + k) % 11}"})
+     for u in range(16) for k in range(5)]
+    + [Event.from_json({"event": "$set", "entityType": "constraint",
+                        "entityId": "unavailableItems",
+                        "properties": {"items": ["i1"]}})], app_id)
+factory = "incubator_predictionio_torch.models.ecommerce.ECommerceEngine"
+engine = ecommerce.ECommerceEngine()()
+iid = core_workflow.run_train(
+    engine, EngineParams.from_json({"algorithms": [{"name": "ecomm",
+        "params": {"rank": 4, "numIterations": 2}}]}),
+    WorkflowContext(app_name="ec", storage=storage, device="cpu"),
+    engine_factory_name=factory)
+deployment, _, _ = core_workflow.load_deployment(
+    engine, iid, WorkflowContext(storage=storage, device="cpu"),
+    engine_factory_name=factory)
+answer = [e["item"] for e in deployment.query({"user": "u2", "num": 4})["itemScores"]]
+assert len(answer) == 4 and "i1" not in answer, answer
+gen = template_evals.ECommerceParamsList("ec")
+gen.engine_params_list = gen.engine_params_list[:1]
+ctx = WorkflowContext(app_name="ec", storage=storage, device="cpu")
+result, _ = run_evaluation(template_evals.ECommerceEvaluation(device="cpu"),
+                           gen, ctx)
+assert result.metric_header == "NDCG@10"
+evaluation = resolve_engine_factory("vanilla_engine.VanillaEvaluation",
+                                    vanilla_dir)(device="cpu")
+result, _ = run_evaluation(evaluation, resolve_engine_factory(
+    "vanilla_engine.ParamsList", vanilla_dir)("ec"), ctx)
+assert len(result.all_results) == 3
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "orbax", "incubator_predictionio_tpu"))
+print(json.dumps({"loaded": loaded}))
+"""
+
+
+def test_ecommerce_and_eval_in_a_process_without_jax(tmp_path):
+    """E-Commerce train → deploy → query with an unavailable item, its
+    evaluation, and the vanilla copy's evaluation from its engine
+    directory."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    vanilla = ROOT / "incubator_predictionio_torch" / "templates" / "vanilla"
+    out = subprocess.run(
+        [sys.executable, "-c", _EVAL_SCRIPT, str(tmp_path), str(vanilla)],
         capture_output=True, text=True, env=env, cwd=str(tmp_path),
         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -225,6 +301,11 @@ def verb_store(tmp_path_factory):
     ["train", "--device", "cpu"],
     ["deploy", "--device", "cpu", "--port", "{port}"],
     ["eventserver", "--ip", "127.0.0.1", "--port", "{port}"],
+    ["eval", "--device", "cpu", "--app-name", "nojax",
+     "incubator_predictionio_torch.models.recommendation_eval."
+     "RecommendationEvaluation",
+     "incubator_predictionio_torch.models.recommendation_eval.ParamsList"],
+    ["dashboard", "--ip", "127.0.0.1", "--port", "{port}"],
 ], ids=lambda v: v[0])
 def test_verb_in_a_process_without_jax(verb, verb_store):
     port = str(_free_port())
