@@ -25,9 +25,10 @@ Phases (any failure exits non-zero; nothing is caught):
    with the uint16 column narrowing and without it, in turns; one steady
    iteration profiled.
 5. train_checkpointed / train_resumed: the same ratings with a snapshot
-   every iteration, then a crash after the step-2 snapshot and a resumed
-   train (launches equal to the implied counts, factors within 2e-4 of the
-   unchunked train), then a changed rating that must be refused.
+   every iteration (factors within 2e-4 of the main path's), then a crash
+   after the step-2 snapshot and a resumed train whose factors equal the
+   uninterrupted checkpointed train's bit for bit (launches equal to the
+   implied counts), then a changed rating that must be refused.
 6. train_nan_guard: the guarded train (one iteration at a time) and a
    small triple with a NaN rating that must fail naming the iteration.
 7. fold_in: a batch of 20,000 events (2,000 new users, 500 new items)
@@ -53,7 +54,7 @@ Phases (any failure exits non-zero; nothing is caught):
    (read count, first-seen id maps, warp launches = implied), deploy, 50
    queries held to a host top-k; import, read, train and ingest/query
    latencies beside the SQLite phase's.
-13. pio_workflow_jsonl_ml20m: the first 10,000,000 of the ML-20M ratings
+13. pio_workflow_jsonl_ml20m: the first 5,000,000 of the ML-20M ratings
    as the log (byte for byte insert_batch's lines; cut from 20,000,263
    for the script's time, ``reduced``) → eventlog compact → the read held
    exactly to the generated arrays → train at rank 32, 10 iterations
@@ -77,7 +78,23 @@ Phases (any failure exits non-zero; nothing is caught):
    the CPU (same candidates, scores within 0.02, same best where the top
    two differ by more than 0.05); seconds per candidate and the K7
    ranking_metrics calls and ms per call.
-17. train_rank128: the main path's ratings at rank 128 through the same
+17. classification_jsonl: bench_templates.py's config 2 (2,000,000
+   entities × 4 Poisson attributes × 3 classes) as $set events on a JSONL
+   log → pio train (the Classification template's values: naive, lambda
+   1.0) → the model equal to a host numpy NB of the generated arrays →
+   pio deploy → 60 queries held to it; in process, the NB statistics card
+   == CPU bit for bit, and LR (regParam 0.01, 100 iterations) card vs CPU: final loss
+   within 1e-5 relative, the same argmax wherever the top two logits
+   differ by more than 1e-3; iterations, loss evaluations and host syncs.
+18. text_classification_jsonl: bench_templates.py's config 4 (18,846
+   documents, 120-200 tokens over 3,000 words, 20 classes) as documents
+   events → pio train (numFeatures 4096, nb, lambda 1.0) → the model
+   equal to a host NB of the Python tokenizer's COO → pio deploy → 60 new
+   documents held to it; in process the codec's tokenize timed and equal
+   to the Python loop, the COO statistics card == CPU bit for bit, and
+   TextLRAlgorithm's L-BFGS card vs CPU under the rule of phase 17.
+   Neither template launches a solve kernel (their paths are read as 0).
+19. train_rank128: the main path's ratings at rank 128 through the same
    engine, 2 iterations: wide-kernel launches equal to the implied count
    and no warp-kernel launch, the RMSE check, steady seconds per
    iteration, one iteration profiled; one fold-in batch (2 wide launches,
@@ -220,10 +237,12 @@ def cuda_kernels(prof) -> list:
             and e.self_device_time_total > 0]
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, required: bool = True):
     """Device time per call: the card's kernel time summed over reps calls
     (torch.profiler), divided by reps. Host time between launches is left
-    out, so this is what the work itself costs the card."""
+    out, so this is what the work itself costs the card. When the
+    profiler sees no device time: fails, or, not ``required``, None (not
+    measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -233,7 +252,9 @@ def device_ms(fn, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     kernels = cuda_kernels(prof)
-    check(bool(kernels), "the profiler saw no device time")
+    if not kernels:
+        check(not required, "the profiler saw no device time")
+        return None
     return sum(e.self_device_time_total for e in kernels) / 1e3 / reps
 
 
@@ -681,9 +702,11 @@ class _CrashAfterStep2(CheckpointHook):
 
 def phase_train_checkpointed(workdir: str, main: dict) -> None:
     """A snapshot every iteration, then a crash and a resume, then data
-    that changed. On the card chunked and unchunked trains are not bit
-    identical (the heavy bucket's index_add_ uses atomics), so the factors
-    are held to 2e-4 and the largest gap reported."""
+    that changed. The checkpointed train is held to the main path's
+    factors at 2e-4 (the largest gap reported); the resumed train must
+    equal the uninterrupted checkpointed one bit for bit (the heavy
+    bucket's overflow rows merge in a fixed order, ops/als.py
+    overflow_merge_passes)."""
     n_users, n_items, _ = ML20M
     u, i, r = main["ratings"]
     params = main["als_params"]
@@ -737,15 +760,14 @@ def phase_train_checkpointed(workdir: str, main: dict) -> None:
     expected = (ITERS - 2) * per_iter
     err = max(max_err(resumed.user_factors, full.user_factors),
               max_err(resumed.item_factors, full.item_factors))
-    ok = (within(resumed.user_factors, full.user_factors)
-          and within(resumed.item_factors, full.item_factors))
     emit("train_resumed", resumed_from_step=2, iterations=ITERS,
          kernel_launches=got, expected_launches=expected,
          train_seconds=seconds, max_abs_err_vs_uninterrupted=err,
-         within_2e4=ok)
+         bit_identical=err == 0.0)
     check(got["warp"] == expected == got["total"],
           f"resumed launches {got} != implied {expected}")
-    check(ok, f"resumed factors differ from the uninterrupted: {err}")
+    check(err == 0.0,
+          f"resumed factors differ from the uninterrupted: max |d| {err}")
 
     changed = r.copy()
     changed[0] += 0.5
@@ -1738,8 +1760,10 @@ ML20M_TIME_SEED, ML20M_ID_SEED = 8, 7
 CREATED_ISO = "2024-06-01T00:00:00.000Z"
 #: the events of the ML-20M log, cut from 20,000,263 for the script's
 #: time: a whole run took 1,288 s with the full log on one H100 host (the
-#: phase 449 s of it, 246 s of that the compaction)
-ML20M_LOG_EVENTS = 10_000_000
+#: phase 449 s of it, 246 s of that the compaction); 216 s at 10,000,000,
+#: cut again to 5,000,000 for the two linear-template phases (≈ 116 s for
+#: classification_jsonl alone on one H100 host)
+ML20M_LOG_EVENTS = 5_000_000
 ML20M_QUERIES = 20
 
 
@@ -2771,6 +2795,426 @@ def phase_pio_eval(workdir: str) -> None:
     shutil.rmtree(cwd)
 
 
+# -- the Classification and Text-Classification templates ---------------------
+
+#: bench_templates.py:69 config 2: labeled entities × attributes × classes
+CLASSIFICATION = (2_000_000, 4, 3)
+CLASSIFICATION_ID_SEED = 9
+CLASSIFICATION_ENGINE = os.path.join(ROOT, "templates", "classification",
+                                     "engine.json")
+#: bench_templates.py:144 config 4: documents × classes × vocabulary
+TEXT = (18_846, 20, 3_000)
+TEXT_ID_SEED = 10
+TEXT_ENGINE = os.path.join(ROOT, "templates", "text-classification",
+                           "engine.json")
+#: LR as bench_templates.py:105 sets it (regParam 0.01, 100 iterations)
+LR_REG, LR_ITERS = 0.01, 100
+#: card vs CPU LR: the final loss within this relative gap, and the same
+#: argmax on every row whose top two logits differ by more than the margin
+LR_LOSS_RTOL, LR_MARGIN = 1e-5, 1e-3
+LINEAR_QUERIES = 60
+
+
+def _classification_data() -> tuple:
+    """bench_classification's draws: Poisson attributes around seeded
+    class centres (default_rng(1))."""
+    n, d, c = CLASSIFICATION
+    rng = np.random.default_rng(1)
+    centers = rng.random((c, d)) * 3 + 0.5
+    y = rng.integers(0, c, n).astype(np.int32)
+    x = rng.poisson(centers[y]).astype(np.float32)
+    return x, y
+
+
+def _classification_lines(x, y, times_ms, _unused, first: int) -> bytes:
+    """One ``$set`` of the attributes and the "plan" label per entity, byte
+    for byte what insert_batch writes (``_write_log``'s four arrays: x, y
+    and the times twice)."""
+    iso = np.datetime_as_string(np.asarray(times_ms).astype("datetime64[ms]"),
+                                unit="ms").tolist()
+    attrs = np.asarray(x).astype(np.int64).tolist()
+    return "".join([
+        f'{{"eventId": "{CLASSIFICATION_ID_SEED:08x}{first + k:024x}", '
+        f'"event": "$set", "entityType": "user", "entityId": "u{first + k}", '
+        f'"properties": {{'
+        + "".join(f'"attr{j}": {v}, ' for j, v in enumerate(a))
+        + f'"plan": {p}}}, "eventTime": "{t}Z", '
+        f'"creationTime": "{CREATED_ISO}"}}\n'
+        for k, (a, p, t) in enumerate(zip(attrs, np.asarray(y).tolist(), iso))
+    ]).encode()
+
+
+def _text_docs(n_docs: int, seed: int) -> tuple:
+    """bench_text's generator: 120-200 tokens per document over a 3,000
+    word vocabulary, skewed to low ids and shifted per class."""
+    _, n_classes, vocab = TEXT
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{j}" for j in range(vocab)])
+    y = rng.integers(0, n_classes, n_docs).astype(np.int32)
+    texts = []
+    for j in range(n_docs):
+        length = 120 + int(80 * rng.random())
+        base = (vocab * rng.random(length) ** 2).astype(np.int64)
+        shift = (y[j] * 131) % vocab
+        texts.append(" ".join(words[(base + shift) % vocab]))
+    return texts, y
+
+
+def _text_lines(texts, y, times_ms, first: int) -> bytes:
+    """One ``documents`` event per text, its label the class id as a
+    string, byte for byte what insert_batch writes."""
+    iso = np.datetime_as_string(np.asarray(times_ms).astype("datetime64[ms]"),
+                                unit="ms").tolist()
+    return "".join([
+        f'{{"eventId": "{TEXT_ID_SEED:08x}{first + k:024x}", "event": '
+        f'"documents", "entityType": "content", "entityId": "d{first + k}", '
+        f'"properties": {{"text": {json.dumps(t)}, "label": "{c}"}}, '
+        f'"eventTime": "{s}Z", "creationTime": "{CREATED_ISO}"}}\n'
+        for k, (t, c, s) in enumerate(zip(texts, np.asarray(y).tolist(), iso))
+    ]).encode()
+
+
+def _template_engine(path: str, factory: str, app: str, workdir: str,
+                     **datasource) -> dict:
+    """The template's engine.json with the port's factory and the app."""
+    with open(path, encoding="utf-8") as fh:
+        engine_json = json.load(fh)
+    engine_json["engineFactory"] = factory
+    engine_json["datasource"]["params"].update(appName=app, **datasource)
+    with open(os.path.join(workdir, "engine.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(engine_json, fh)
+    return engine_json
+
+
+def _linear_train_verb(env: dict, cwd: str, path: str) -> dict:
+    """``pio train`` of a linear template: its JSON line and wall seconds;
+    no solve kernel may launch."""
+    out, wall = _verb(["train"], env, cwd, timeout=1200)
+    trained = json.loads(out.stdout.strip().splitlines()[-1])
+    trained["wall_seconds"] = wall
+    check(trained["kernel_launches"] == {"warp": 0, "wide": 0},
+          f"{path}: pio train launched {trained['kernel_launches']}")
+    return trained
+
+
+def _persisted(env: dict, instance_id: str) -> dict:
+    store = _storage_of(env)
+    _, persisted = models_from_bytes(model_artifact.read_model(store,
+                                                               instance_id))
+    store.close()
+    return persisted[0]
+
+
+def _same_arrays(got: dict, want, names, what: str) -> None:
+    for name in names:
+        a, b = got.get(name), getattr(want, name)
+        check((a is None) == (b is None)
+              and (b is None or np.array_equal(a, b)),
+              f"{what}: the persisted {name} differs from the host's")
+
+
+def _timed(fn):
+    """(result, seconds) of fn() with the card synchronized around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _lr_card_vs_cpu(x, y, n_classes: int, what: str) -> dict:
+    """LR trained on the same data on the card and on the CPU: the final
+    loss (float64 on the host, the same function for both) within
+    LR_LOSS_RTOL, the same argmax wherever both models' top two logits
+    differ by more than LR_MARGIN; times, iterations, loss evaluations
+    and host syncs of both, and the card's device ms per iteration."""
+    from incubator_predictionio_torch.ops.linear import (
+        train_logistic_regression,
+    )
+
+    def fit(device, stats):
+        return train_logistic_regression(x, y, n_classes, reg=LR_REG,
+                                         max_iters=LR_ITERS, device=device,
+                                         stats=stats)
+
+    card_stats, cpu_stats = {}, {}
+    card, card_s = _timed(lambda: fit("cuda", card_stats))
+    t0 = time.perf_counter()
+    cpu = fit("cpu", cpu_stats)
+    cpu_s = time.perf_counter() - t0
+
+    def loss_and_logits(m):
+        z = x.astype(np.float64) @ m.weights + m.intercept
+        zs = z - z.max(axis=1, keepdims=True)
+        logp = zs - np.log(np.exp(zs).sum(axis=1, keepdims=True))
+        nll = -logp[np.arange(len(y)), y].mean()
+        return nll + 0.5 * LR_REG * float(
+            (m.weights.astype(np.float64) ** 2).sum()), z
+
+    loss_card, z_card = loss_and_logits(card)
+    loss_cpu, z_cpu = loss_and_logits(cpu)
+
+    def margin(z):
+        top2 = np.sort(z, axis=1)[:, -2:]
+        return top2[:, 1] - top2[:, 0]
+
+    held = (margin(z_card) > LR_MARGIN) & (margin(z_cpu) > LR_MARGIN)
+    same = z_card.argmax(axis=1) == z_cpu.argmax(axis=1)
+    rel = abs(loss_card - loss_cpu) / loss_cpu
+    check(rel <= LR_LOSS_RTOL,
+          f"{what}: LR loss {loss_card} on the card, {loss_cpu} on the CPU")
+    check(bool(same[held].all()),
+          f"{what}: {int((~same[held]).sum())} rows past the margin differ")
+    fit_ms = device_ms(lambda: fit("cuda", {}), 1, False)
+    per_iter = (None if fit_ms is None
+                else fit_ms / card_stats["iterations"])
+    return {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel_gap": rel,
+            "rows_held": int(held.sum()), "rows_total": len(y),
+            "rows_differing_within_margin": int((~same).sum()),
+            "card": card_stats, "cpu": cpu_stats, "card_seconds": card_s,
+            "cpu_seconds": cpu_s,
+            "card_ms_per_iteration": card_s * 1e3 / card_stats["iterations"],
+            "card_device_ms_per_iteration": per_iter,
+            "host_syncs_per_iteration":
+                card_stats["host_syncs"] / card_stats["iterations"],
+            "weight_rel_gap": float(np.linalg.norm(card.weights - cpu.weights)
+                                    / np.linalg.norm(cpu.weights))}
+
+
+def _op_times(fn, n_bytes: int) -> dict:
+    """A K6 op on the card: wall ms per call (CUDA events around 5 calls
+    after a warm-up, host work included), device ms per call (the
+    profiler: its kernels and copies; None where it saw none) and the
+    bytes bound."""
+    bw, _, _ = peak_rates()
+    return {"ms": loop_ms(fn, 5), "device_ms": device_ms(fn, 3, False),
+            "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes"}
+
+
+def phase_classification_jsonl(workdir: str) -> None:
+    """bench_templates.py config 2 through the Classification template and
+    the verbs, on a JSONL log: 2,000,000 ``$set`` events (user u<n>,
+    attr0..attr3 Poisson around seeded class centres, a "plan" label of 3
+    classes) → pio train (the template's values, naive, lambda 1.0; its
+    attributes widened to the config's four) → its model equal to a host
+    numpy NB of the generated arrays (its exact class statistics) → pio
+    deploy → 60 queries held to that host NB. In process, on the same
+    training data: the NB statistics on the card equal the CPU's bit for
+    bit, and LR (regParam 0.01, 100 iterations) on the card against the
+    CPU (_lr_card_vs_cpu). Neither solve kernel launches."""
+    from incubator_predictionio_torch.models import classification
+    from incubator_predictionio_torch.ops.linear import (
+        nb_model_from_counts, nb_stats,
+    )
+
+    n, d, c = CLASSIFICATION
+    x, y = _classification_data()
+    cwd = tempfile.mkdtemp(dir=workdir)
+    base = os.path.join(cwd, "pio_cls")
+    env = _jsonl_env(base)
+    _verb(["app", "new", "cls"], env, cwd)
+    attributes = [f"attr{j}" for j in range(d)]
+    engine_json = _template_engine(
+        CLASSIFICATION_ENGINE, "incubator_predictionio_torch.models."
+        "classification.ClassificationEngine", "cls", cwd,
+        attributes=attributes)
+    smoothing = engine_json["algorithms"][0]["params"]["lambda"]
+    times = T0_MS + np.arange(n)
+    log_path = os.path.join(base, "events", "pio_eventdata", "events_1.jsonl")
+    t0 = time.perf_counter()
+    _write_log(log_path, x, y, times, times, lines=_classification_lines)
+    write_s = time.perf_counter() - t0
+    rows = np.sort(np.random.default_rng(71).choice(n, 500, replace=False))
+    _hold_lines(b"".join(_classification_lines(x[k:k + 1], y[k:k + 1],
+                                               times[k:k + 1], None, int(k))
+                         for k in rows), cwd)
+
+    reset_launches()
+    trained = _linear_train_verb(env, cwd, "classification_jsonl")
+    tm = trained["timings"]
+    check(tm["ratings_read"] == n, f"read {tm['ratings_read']} entities")
+    feat = np.stack([x[y == k].sum(axis=0, dtype=np.float64)
+                     for k in range(c)]).astype(np.float32)
+    counts = np.bincount(y, minlength=c).astype(np.float32)
+    host = nb_model_from_counts(feat, counts, c, smoothing)
+    stored = _persisted(env, trained["engineInstanceId"])
+    _same_arrays(stored, host, ("log_prior", "log_likelihood", "feat_counts",
+                                "class_counts"), "classification")
+    check(stored["label_values"].tolist() == list(range(c)),
+          f"labels {stored['label_values']}")
+
+    # in process, on the training data the read gave (the generated
+    # arrays: the model above holds their exact statistics): the card's
+    # statistics against the CPU's, LR card vs CPU
+    td = classification.TrainingData(x, y, tuple(attributes),
+                                     stored["label_values"])
+    (f_card, c_card), nb_card_s = _timed(
+        lambda: nb_stats(td.features, td.labels, c, "cuda"))
+    f_cpu, c_cpu = nb_stats(td.features, td.labels, c, "cpu")
+    check(np.array_equal(f_card, f_cpu) and np.array_equal(c_card, c_cpu)
+          and np.array_equal(f_card, feat),
+          "classification NB statistics: the card's differ from the CPU's")
+    stats_op = _op_times(lambda: nb_stats(td.features, td.labels, c, "cuda"),
+                         td.features.nbytes + td.labels.nbytes * 2)
+    lr = _lr_card_vs_cpu(td.features, td.labels, c, "classification")
+    launched = launches()
+    check(launched["total"] == 0, f"classification launched {launched}")
+    PATH_LAUNCHES["classification_jsonl"] = {"warp": 0, "wide": 0}
+
+    qrows = np.random.default_rng(72).choice(n, LINEAR_QUERIES - 10,
+                                             replace=False)
+    queries = [dict(zip(attributes, x[k].tolist())) for k in qrows] + [
+        dict(zip(attributes, v)) for v in
+        np.random.default_rng(73).integers(0, 12, (10, d)).tolist()]
+    query_ms, correct = [], 0
+    with _Served(["deploy"], env, cwd) as srv:
+        check(srv.info["engineInstanceId"] == trained["engineInstanceId"],
+              f"deployed {srv.info}")
+        conn = srv.connect()
+        for j, q in enumerate(queries):
+            status, res, ms = srv.request("POST", "/queries.json", q, conn)
+            check(status == 200, f"query {status}: {res}")
+            xq = np.asarray([[float(q[a]) for a in attributes]], np.float32)
+            want = float(np.argmax(host.predict_log_joint(xq)[0]))
+            check(res == {"label": want}, f"answer {res}, host {want}")
+            correct += j < len(qrows) and want == y[qrows[j]]
+            query_ms.append(ms)
+        conn.close()
+    emit("classification_jsonl", entities=n, attributes=d, classes=c,
+         log_bytes=os.path.getsize(log_path), log_write_seconds=write_s,
+         train_seconds_end_to_end=trained["wall_seconds"],
+         train_seconds_run_train=trained["seconds"],
+         read_seconds=tm["read_seconds"],
+         nb_stats_card_seconds=nb_card_s, nb_stats_op=stats_op,
+         lr=lr, queries=len(queries), query_ms=_percentiles(query_ms[1:]),
+         host_nb_accuracy_on_training_rows=correct / len(qrows),
+         kernel_launches=launched)
+    shutil.rmtree(cwd)
+
+
+def phase_text_classification_jsonl(workdir: str) -> None:
+    """bench_templates.py config 4 through the Text-Classification template
+    and the verbs, on a JSONL log: 18,846 ``documents`` events (120-200
+    tokens over 3,000 words, 20 classes) → pio train (the template's
+    values: numFeatures 4096, nb, lambda 1.0) → its model equal to a host
+    NB of the Python tokenizer's COO (which equals the codec's) → pio
+    deploy → 60 new documents held to that host NB. In process: the
+    codec's tokenize timed, the COO statistics on the card equal the
+    CPU's bit for bit, and TextLRAlgorithm's fit (regParam 0.01, 100
+    iterations, dense TF-IDF 18,846 × 4,096) on the card against the CPU.
+    Neither solve kernel launches."""
+    from incubator_predictionio_torch.models import text_classification
+    from incubator_predictionio_torch.ops.linear import (
+        _nb_model_from_stats, nb_stats_coo,
+    )
+    from incubator_predictionio_torch.ops.tfidf import TfIdfVectorizer
+
+    n_docs, n_classes, _ = TEXT
+    texts, y = _text_docs(n_docs, 3)
+    cwd = tempfile.mkdtemp(dir=workdir)
+    base = os.path.join(cwd, "pio_text")
+    env = _jsonl_env(base)
+    _verb(["app", "new", "text"], env, cwd)
+    engine_json = _template_engine(
+        TEXT_ENGINE, "incubator_predictionio_torch.models."
+        "text_classification.TextClassificationEngine", "text", cwd)
+    n_features = engine_json["preparator"]["params"]["numFeatures"]
+    ngram = engine_json["preparator"]["params"]["nGram"]
+    smoothing = engine_json["algorithms"][0]["params"]["lambda"]
+    times = T0_MS + np.arange(n_docs)
+    log_path = os.path.join(base, "events", "pio_eventdata", "events_1.jsonl")
+    with open(log_path, "wb") as fh:
+        fh.write(_text_lines(texts, y, times, 0))
+    _hold_lines(_text_lines(texts[:300], y[:300], times[:300], 0), cwd)
+
+    # the host NB: the Python tokenizer's COO, float64 bincounts
+    label_values, yl = np.unique(np.asarray([str(v) for v in y]),
+                                 return_inverse=True)
+    host_vec = TfIdfVectorizer(n_features=n_features, ngram=ngram)
+    (doc_ptr, feat, cnt), py_tok_s = _timed(
+        lambda: host_vec.fit_tf_coo(texts, use_native=False))
+    cls = np.repeat(yl, np.diff(doc_ptr))
+    host_feat = np.bincount(cls * n_features + feat, weights=cnt,
+                            minlength=n_classes * n_features).reshape(
+        n_classes, n_features).astype(np.float32)
+    host = _nb_model_from_stats(host_feat, yl, n_classes, smoothing,
+                                host_vec.idf)
+
+    reset_launches()
+    trained = _linear_train_verb(env, cwd, "text_classification_jsonl")
+    tm = trained["timings"]
+    check(tm["ratings_read"] == n_docs, f"read {tm['ratings_read']} docs")
+    stored = _persisted(env, trained["engineInstanceId"])
+    _same_arrays(stored, host, ("log_prior", "log_likelihood"), "text")
+    check("feat_counts" not in stored, "a col-scaled NB kept its counts")
+    check(np.array_equal(stored["vectorizer_idf"], host_vec.idf)
+          and stored["label_values"].tolist() == label_values.tolist(),
+          "the persisted vectorizer or labels differ from the host's")
+
+    ctx = WorkflowContext(app_name="text", storage=_storage_of(env))
+    ds = text_classification.TextDataSource(
+        text_classification.DataSourceParams(app_name="text"))
+    td, read_s = _timed(lambda: ds.read_training(ctx))
+    ctx.storage.close()
+    check(td.texts == texts and np.array_equal(td.labels, yl),
+          "the read's documents differ from the generated ones")
+    vec = TfIdfVectorizer(n_features=n_features, ngram=ngram)
+    coo, tok_s = _timed(lambda: vec.fit_tf_coo(td.texts))
+    check(all(np.array_equal(a, b) for a, b in zip(coo, (doc_ptr, feat, cnt)))
+          and np.array_equal(vec.idf, host_vec.idf),
+          "the codec's tokenizer differs from the Python loop")
+    args = (cls, feat, cnt, n_classes, n_features)
+    s_card, stats_s = _timed(lambda: nb_stats_coo(*args, "cuda"))
+    s_cpu = nb_stats_coo(*args, "cpu")
+    check(np.array_equal(s_card, s_cpu) and np.array_equal(s_card, host_feat),
+          "text NB statistics: the card's differ from the CPU's")
+    stats_op = _op_times(lambda: nb_stats_coo(*args, "cuda"),
+                         cls.size * 4 * 2 + cnt.nbytes
+                         + n_classes * n_features * 4)
+    pd = text_classification.PreparedData(None, yl, label_values, vec,
+                                          features_are_tf=True, coo=coo)
+    dense = pd.dense_tf() * vec.idf
+    lr = _lr_card_vs_cpu(dense, yl.astype(np.int32), n_classes, "text")
+    del dense
+    launched = launches()
+    check(launched["total"] == 0, f"text classification launched {launched}")
+    PATH_LAUNCHES["text_classification_jsonl"] = {"warp": 0, "wide": 0}
+
+    q_texts, q_y = _text_docs(LINEAR_QUERIES, 33)
+    query_ms, correct = [], 0
+    with _Served(["deploy"], env, cwd) as srv:
+        check(srv.info["engineInstanceId"] == trained["engineInstanceId"],
+              f"deployed {srv.info}")
+        conn = srv.connect()
+        for text, truth in zip(q_texts, q_y):
+            status, res, ms = srv.request("POST", "/queries.json",
+                                          {"text": text}, conn)
+            check(status == 200, f"query {status}: {res}")
+            scores = host.predict_log_joint(host_vec.transform([text]))[0]
+            z = scores - scores.max()
+            probs = np.exp(z) / np.exp(z).sum()
+            k = int(np.argmax(probs))
+            want = {"category": str(label_values[k]),
+                    "confidence": float(probs[k])}
+            check(res == want, f"answer {res}, host {want}")
+            correct += want["category"] == str(truth)
+            query_ms.append(ms)
+        conn.close()
+    emit("text_classification_jsonl", documents=n_docs, classes=n_classes,
+         features=n_features, coo_entries=int(cnt.size),
+         tokens=int(cnt.sum()), log_bytes=os.path.getsize(log_path),
+         train_seconds_end_to_end=trained["wall_seconds"],
+         train_seconds_run_train=trained["seconds"],
+         read_seconds=tm["read_seconds"], in_process_read_seconds=read_s,
+         tokenize_seconds_native=tok_s, tokenize_seconds_python=py_tok_s,
+         nb_stats_card_seconds=stats_s, nb_stats_op=stats_op, lr=lr,
+         queries=len(q_texts), query_ms=_percentiles(query_ms[1:]),
+         host_nb_accuracy_on_new_documents=correct / len(q_texts),
+         kernel_launches=launched)
+    shutil.rmtree(cwd)
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -2790,6 +3234,8 @@ def main() -> int:
         phase_similar_product(workdir)
         phase_ecommerce_jsonl(workdir)
         phase_pio_eval(workdir)
+        phase_classification_jsonl(workdir)
+        phase_text_classification_jsonl(workdir)
     ratings = main_path.pop("ratings")
     main_path.clear()
     phase_train_rank128(ratings)

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Any, Iterable, Sequence, Tuple
 
 from .base import AbstractDoer
+from .persistent_model import PersistentModel
 
 
 class DataSource(AbstractDoer):
@@ -54,7 +55,11 @@ class Algorithm(AbstractDoer):
         raise NotImplementedError
 
     def restore_model(self, stored, ctx) -> Any:
-        """Inverse of prepare_model_for_persistence, onto ``ctx.device``."""
+        """Inverse of prepare_model_for_persistence, onto ``ctx.device``.
+        A self-persisted model (a PersistentModel its class loaded) is
+        served as loaded."""
+        if isinstance(stored, PersistentModel):
+            return stored
         raise NotImplementedError
 
 

@@ -12,7 +12,14 @@ onto a device, with no numeric change.
 
 from __future__ import annotations
 
-from .models import ecommerce, recommendation, similar_product
+import numpy as np
+
+from .models import (
+    classification, ecommerce, recommendation, similar_product,
+    text_classification,
+)
+from .ops.linear import LogisticRegressionModel, NaiveBayesModel
+from .ops.tfidf import TfIdfVectorizer
 
 _ALS_KEYS = {"user_factors", "item_factors", "users", "items"}
 _SIMILAR_KEYS = {"user_factors", "item_factors", "items", "item_categories"}
@@ -47,3 +54,43 @@ def to_jax_persisted(model) -> dict:
     if isinstance(model, similar_product.SimilarProductModel):
         return similar_product.model_to_persisted(model)
     return recommendation.model_to_persisted(model)
+
+
+def _linear_from_jax(inner):
+    """A reference NaiveBayesModel or LogisticRegressionModel (told apart
+    by their attributes) → the port's."""
+    if hasattr(inner, "log_likelihood"):
+        def opt(name):
+            v = getattr(inner, name, None)
+            return None if v is None else np.array(v, np.float32)
+
+        return NaiveBayesModel(
+            log_prior=np.array(inner.log_prior, np.float32),
+            log_likelihood=np.array(inner.log_likelihood, np.float32),
+            n_classes=int(inner.n_classes),
+            feat_counts=opt("feat_counts"),
+            class_counts=opt("class_counts"),
+            smoothing=float(getattr(inner, "smoothing", 1.0)))
+    return LogisticRegressionModel(
+        weights=np.array(inner.weights, np.float32),
+        intercept=np.array(inner.intercept, np.float32),
+        n_classes=int(inner.n_classes))
+
+
+def from_jax_classifier(obj) -> classification.ClassifierModel:
+    """A reference ``ClassifierModel`` → the port's."""
+    seen = getattr(obj, "foldin_seen", None)
+    return classification.ClassifierModel(
+        inner=_linear_from_jax(obj.inner),
+        attribute_names=tuple(obj.attribute_names),
+        label_values=np.array(obj.label_values),
+        foldin_seen=None if seen is None else dict(seen))
+
+
+def from_jax_text_model(obj) -> text_classification.TextModel:
+    """A reference ``TextModel`` → the port's (the vectorizer through its
+    ``to_arrays``)."""
+    return text_classification.TextModel(
+        inner=_linear_from_jax(obj.inner),
+        vectorizer=TfIdfVectorizer.from_arrays(obj.vectorizer.to_arrays()),
+        label_values=np.array(obj.label_values))

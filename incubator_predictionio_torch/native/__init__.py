@@ -1,12 +1,15 @@
 """The event-log codec: ctypes bindings over ``native/src/event_codec.cc``.
 
-The port's own copy of the event-log part of
-``incubator_predictionio_tpu/native/__init__.py`` (:271-392, :525-737).
-The C++ library is the scan path of the JSONL event store:
+The port's own copy of the event-log and tokenizer parts of
+``incubator_predictionio_tpu/native/__init__.py`` (:271-392, :453-523,
+:525-737). The C++ library is the scan path of the JSONL event store:
 :func:`parse_events_jsonl` decodes a JSONL buffer into
 :class:`ColumnarEvents` (interned id codes, timestamps and ratings as numpy
 arrays) without a Python object per event, and :func:`ingest_batch`
-validates and canonicalizes a ``/batch/events.json`` body in one pass.
+validates and canonicalizes a ``/batch/events.json`` body in one pass. It
+is also the Text-Classification template's tokenizer: :func:`tfidf_tf` and
+:func:`tfidf_tf_coo` hash a batch of documents into term counts in one
+pass, bit for bit as ``ops/tfidf.py``'s Python loop.
 
 Build: the library is compiled from the checkout's own source
 (``native/src/event_codec.cc``, which both packages share) with
@@ -124,6 +127,29 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
     lib.pio_ingest_free.restype = None
     lib.pio_ingest_free.argtypes = [ctypes.c_void_p]
+    lib.pio_tfidf_tf.restype = ctypes.c_int32
+    lib.pio_tfidf_tf.argtypes = [
+        ctypes.c_char_p,                  # concatenated utf-8 docs
+        ctypes.POINTER(ctypes.c_int64),   # offsets [n_docs + 1]
+        ctypes.c_int64,                   # n_docs
+        ctypes.c_int32,                   # n_features
+        ctypes.c_int32,                   # ngram
+        ctypes.POINTER(ctypes.c_float),   # out [n_docs, n_features]
+        ctypes.POINTER(ctypes.c_int64),   # df [n_features] or NULL
+    ]
+    lib.pio_tfidf_tf_coo.restype = ctypes.c_int64
+    lib.pio_tfidf_tf_coo.argtypes = [
+        ctypes.c_char_p,                  # concatenated utf-8 docs
+        ctypes.POINTER(ctypes.c_int64),   # offsets [n_docs + 1]
+        ctypes.c_int64,                   # n_docs
+        ctypes.c_int32,                   # n_features
+        ctypes.c_int32,                   # ngram
+        ctypes.c_int64,                   # cap
+        ctypes.POINTER(ctypes.c_int64),   # doc_ptr [n_docs + 1]
+        ctypes.POINTER(ctypes.c_int32),   # feat_out [cap]
+        ctypes.POINTER(ctypes.c_float),   # cnt_out [cap]
+        ctypes.POINTER(ctypes.c_int64),   # df [n_features] or NULL
+    ]
     return lib
 
 
@@ -520,3 +546,63 @@ def ingest_batch(raw: bytes, max_items: int, creation_iso: str):
         return ids, lines
     finally:
         lib.pio_ingest_free(h)
+
+
+def _doc_buffer(docs) -> tuple:
+    """The documents as one UTF-8 buffer and its [N + 1] offsets.
+    ``errors="replace"``: a lone surrogate (legal in a Python str) becomes
+    '?', which is no token byte, as the surrogate is none under the Python
+    tokenizer's ASCII class, so token boundaries are kept."""
+    enc = [d.encode(errors="replace") for d in docs]
+    offs = np.zeros(len(enc) + 1, np.int64)
+    np.cumsum([len(e) for e in enc], out=offs[1:])
+    return b"".join(enc), offs
+
+
+def _ptr(a: Optional[np.ndarray], ct):
+    return None if a is None else a.ctypes.data_as(ctypes.POINTER(ct))
+
+
+def tfidf_tf_coo(docs, n_features: int, ngram: int,
+                 want_df: bool = False):
+    """Per-document (feature, count) pairs in one codec pass:
+    ``(doc_ptr [N+1] int64, feat [nnz] int32, counts [nnz] float32)``
+    (+ ``df`` [D] int64 when asked), each document's entries in ascending
+    bucket id. The dense [N, D] matrix never exists. Raises
+    :class:`NativeUnavailable` when the codec cannot be built or loaded."""
+    lib = load()
+    buf, offs = _doc_buffer(docs)
+    n = len(offs) - 1
+    # nnz is bounded by the token occurrences: a token is at least one
+    # byte, and each extra n-gram order adds at most one per position
+    cap = (len(buf) // 2 + n + 1) * ngram + 1
+    doc_ptr = np.zeros(n + 1, np.int64)
+    feat = np.empty(cap, np.int32)
+    cnt = np.empty(cap, np.float32)
+    df = np.zeros(n_features, np.int64) if want_df else None
+    nnz = lib.pio_tfidf_tf_coo(
+        buf, _ptr(offs, ctypes.c_int64), n, n_features, ngram, cap,
+        _ptr(doc_ptr, ctypes.c_int64), _ptr(feat, ctypes.c_int32),
+        _ptr(cnt, ctypes.c_float), _ptr(df, ctypes.c_int64))
+    if nnz < 0:
+        raise ValueError(f"tfidf_tf_coo: native tokenizer error {nnz}")
+    out = (doc_ptr, feat[:nnz].copy(), cnt[:nnz].copy())
+    return out + (df,) if want_df else out
+
+
+def tfidf_tf(docs, n_features: int, ngram: int, want_df: bool = False):
+    """Dense term-frequency rows [N, D] float32 in one codec pass (with
+    ``want_df``: ``(tf, df)``, the per-bucket document frequency counted
+    in the same pass). Raises :class:`NativeUnavailable` when the codec
+    cannot be built or loaded."""
+    lib = load()
+    buf, offs = _doc_buffer(docs)
+    n = len(offs) - 1
+    out = np.zeros((n, n_features), np.float32)
+    df = np.zeros(n_features, np.int64) if want_df else None
+    rc = lib.pio_tfidf_tf(buf, _ptr(offs, ctypes.c_int64), n, n_features,
+                          ngram, _ptr(out, ctypes.c_float),
+                          _ptr(df, ctypes.c_int64))
+    if rc != 0:
+        raise ValueError(f"tfidf_tf: native tokenizer error {rc}")
+    return (out, df) if want_df else out

@@ -17,8 +17,11 @@ data layout are the reference's:
   cap bounds live memory as the reference's chunking does (at rank 128 a
   whole side's grams would be ~11 GB).
 - Rows longer than the overflow length (the heavy bucket) materialize their
-  grams, take the virtual rows' grams by ``index_add_`` and are solved in
-  one call.
+  grams, take the virtual rows' grams in a fixed order and are solved in
+  one call: pass j adds every parent's j-th virtual row
+  (:func:`overflow_merge_passes`), so each pass has distinct targets and
+  the sum is the same, bit for bit, on the card (where ``index_add_``
+  over repeated targets uses atomics) as on the CPU.
 
 - A side whose counterpart has at most 65,535 slots (its sentinel
   included) keeps its column slabs as 16-bit indices on the device and
@@ -262,11 +265,29 @@ class _Side:
         self.cols = [put_cols(c) for c in arrs.cols]
         self.vals = None if binary else [put(v) for v in arrs.vals]
         self.lam = put(lam)
-        self.v_cols = self.v_vals = self.v_parent = None
+        self.v_cols = self.v_vals = None
+        self.v_passes = []
         if plan.has_heavy_bucket:
             self.v_cols = put_cols(arrs.v_cols)
             self.v_vals = None if binary else put(arrs.v_vals)
-            self.v_parent = put(plan.v_parent.astype(np.int64))
+            self.v_passes = [(put(src), put(dst)) for src, dst
+                             in overflow_merge_passes(plan.v_parent)]
+
+
+def overflow_merge_passes(parent: np.ndarray) -> list:
+    """The merge of virtual rows into their parents as passes with
+    distinct targets: pass j is (positions, parents) of every parent's
+    j-th virtual row in position order. Adding the passes in turn adds each
+    parent's rows in the order ``index_add_`` takes on the CPU, so the
+    result equals it bit for bit and does not depend on thread timing."""
+    parent = np.asarray(parent, np.int64)
+    order = np.argsort(parent, kind="stable")
+    sorted_parent = parent[order]
+    starts = np.r_[0, np.flatnonzero(np.diff(sorted_parent)) + 1]
+    group_len = np.diff(np.r_[starts, len(parent)])
+    rank = np.arange(len(parent)) - np.repeat(starts, group_len)
+    return [(order[rank == j], sorted_parent[rank == j])
+            for j in range(int(rank.max()) + 1 if len(parent) else 0)]
 
 
 class ALSTrainer:
@@ -397,10 +418,10 @@ class ALSTrainer:
             a, b = slab_normal_eq(colb, valb)
             vg, vr = slab_normal_eq(side.v_cols, side.v_vals)
             # merge overflow chunks into their parent rows (all in this,
-            # the last, bucket: re-base the slots)
-            vp = side.v_parent - base
-            a.index_add_(0, vp, vg)
-            b.index_add_(0, vp, vr)
+            # the last, bucket: re-base the slots), one pass per chunk rank
+            for src, dst in side.v_passes:
+                a.index_add_(0, dst - base, vg.index_select(0, src))
+                b.index_add_(0, dst - base, vr.index_select(0, src))
             out[base:base + R_h] = _ridge_solve(
                 a, b, side.lam[base:base + R_h], yty)
 

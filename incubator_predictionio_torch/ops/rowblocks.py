@@ -9,8 +9,8 @@ and factors compare row for row:
   equations fall straight out of a batched [R_b, C_b, k] product with no
   segment reduction.
 - Rows longer than ``overflow_len`` split into full-width *virtual* rows
-  plus a ladder remainder; virtual grams merge into their parent row with
-  one small scatter-add (``index_add_``).
+  plus a ladder remainder; virtual grams merge into their parent row in a
+  fixed order (``ops/als.py`` ``overflow_merge_passes``).
 
 Storage order: solved-side factor rows live at *slots* laid out
 shard-major, bucket-major within a shard, ascending row id within a bucket

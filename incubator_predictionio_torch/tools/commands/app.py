@@ -1,8 +1,9 @@
 """`pio app ...` + `pio accesskey ...` (reference: tools/.../commands/
 {App,AccessKey}.scala driven from Console.scala).
 
-The port's own copy of ``incubator_predictionio_tpu/tools/commands/app.py``;
-``app data-delete --clean`` (the self-cleaning pass) is not ported yet.
+The port's own copy of ``incubator_predictionio_tpu/tools/commands/app.py``,
+``app data-delete --clean [--ttl-days D]`` (the self-cleaning pass of
+``controller/self_cleaning.py``) included.
 """
 
 from __future__ import annotations
@@ -43,6 +44,13 @@ def app_cmd(args: list[str]) -> int:
     p_dd.add_argument("name")
     p_dd.add_argument("--channel", default=None)
     p_dd.add_argument("-f", "--force", action="store_true")
+    p_dd.add_argument("--clean", action="store_true",
+                      help="self-cleaning pass instead of a full wipe: "
+                           "dedupe re-imported events + compact "
+                           "$set/$unset/$delete streams (default channel)")
+    p_dd.add_argument("--ttl-days", type=float, default=None, metavar="D",
+                      help="with --clean: also delete non-property events "
+                           "older than D days (requires -f)")
     ns = p.parse_args(args)
     s = _storage()
     apps = s.get_meta_data_apps()
@@ -123,6 +131,31 @@ def app_cmd(args: list[str]) -> int:
         return 0
 
     if ns.sub == "data-delete":
+        if ns.clean:
+            # compaction and dedupe keep what every query answers; only
+            # the TTL age-out loses data, so only it needs -f
+            if ns.channel:
+                print("--clean operates on the default channel only; "
+                      "it cannot be combined with --channel.",
+                      file=sys.stderr)
+                return 1
+            if ns.ttl_days is not None and not ns.force:
+                print("Pass -f to confirm TTL deletion.", file=sys.stderr)
+                return 1
+            import datetime as _dt
+
+            from ...controller.self_cleaning import SelfCleaningDataSource
+            from ...workflow.context import WorkflowContext
+
+            ds = SelfCleaningDataSource()
+            if ns.ttl_days is not None:
+                ds.event_window_duration = _dt.timedelta(days=ns.ttl_days)
+                ds.event_window_remove = True
+            # the pass reads and writes the store only: no device work
+            removed = ds.clean_persisted_data(
+                WorkflowContext(storage=s, device="cpu"), ns.name)
+            print(f"[info] Self-cleaning removed {removed} events.")
+            return 0
         if not ns.force:
             print("Pass -f to confirm deletion.", file=sys.stderr)
             return 1

@@ -19,8 +19,13 @@ Port of ``incubator_predictionio_tpu/workflow/core_workflow.py`` (:34-104,
   not load; an explicit instance id never walks back.
 
 The payload is the ``.npz`` bytes of ``workflow/persist.py`` (never a
-pickle). Instances are keyed by the engine factory's dotted name, so the
-JAX package's instances in a shared store are never picked here.
+pickle). A model that is a :class:`..controller.PersistentModel` saves
+itself (``model.save(instance_id, params)``) and leaves only a marker in
+the payload, its class's dotted path (``__persistent__``); the deploy
+resolves that class (a path into the JAX package is refused before any
+import) and calls its ``load(instance_id, ctx)``. Instances are keyed by
+the engine factory's dotted name, so the JAX package's instances in a
+shared store are never picked here.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import socket
 from typing import Any, Optional
 
 from ..controller.engine import Engine, EngineParams
+from ..controller.persistent_model import PersistentModel
 from ..data.storage.base import EngineInstance
 from ..data.storage.event import new_event_id
 from . import model_artifact
@@ -74,10 +80,20 @@ def engine_json_of(engine_params: EngineParams, factory: str,
     }
 
 
+#: the persisted dict's key that marks a self-persisted model
+PERSISTENT_MARKER = "__persistent__"
+
+
 def serialize_models(algo_list, models: list[Any], engine_json: dict) -> bytes:
-    """Trained models → the persisted dicts → ``.npz`` bytes."""
-    stored = [algo.prepare_model_for_persistence(model)
-              for (_, algo), model in zip(algo_list, models)]
+    """Trained models → the persisted dicts → ``.npz`` bytes. A
+    PersistentModel is stored as the marker naming its class (it saved
+    itself)."""
+    stored = [
+        {PERSISTENT_MARKER: type(model).__module__ + "."
+         + type(model).__qualname__}
+        if isinstance(model, PersistentModel)
+        else algo.prepare_model_for_persistence(model)
+        for (_, algo), model in zip(algo_list, models)]
     return models_to_bytes(engine_json, stored)
 
 
@@ -85,6 +101,18 @@ def deserialize_models(blob: bytes) -> list[dict]:
     """``.npz`` bytes → the persisted dict of each algorithm (raises on
     bytes that are not such an ``.npz``, a pickle included)."""
     return models_from_bytes(blob)[1]
+
+
+def load_persistent_models(stored: list, instance_id: str, ctx) -> list:
+    """Each marker of a self-persisted model replaced by its class's
+    ``load(instance_id, ctx)``; a class path into the JAX package raises
+    before anything is imported."""
+    from .json_extractor import resolve_engine_factory
+
+    return [resolve_engine_factory(item[PERSISTENT_MARKER]).load(
+                instance_id, ctx)
+            if isinstance(item, dict) and PERSISTENT_MARKER in item
+            else item for item in stored]
 
 
 def train_with_stale_checkpoint_fallback(engine, engine_params, ctx, wp):
@@ -263,6 +291,10 @@ def run_train(
             return instance_id
 
         _, _, algo_list, _ = engine.make_components(engine_params)
+        persistent = sum(
+            1 for (_, algo), model in zip(algo_list, models)
+            if isinstance(model, PersistentModel)
+            and model.save(instance_id, algo.params))
         blob = serialize_models(
             algo_list, models,
             engine_json_of(engine_params, engine_factory_name, engine_variant))
@@ -270,7 +302,8 @@ def run_train(
         # crash in between leaves a RUNNING row (never deployed) instead
         # of a COMPLETED row without a model.
         sha = model_artifact.write_model(storage, instance_id, blob)
-        log.info("models persisted: %d bytes (sha256 %s)", len(blob), sha[:12])
+        log.info("models persisted: %d bytes (sha256 %s), %d self-persisted",
+                 len(blob), sha[:12], persistent)
         done = EngineInstance(
             **{**instance.__dict__, "id": instance_id}
         ).with_status("COMPLETED", _utcnow())
@@ -383,7 +416,8 @@ def load_deployment(
         if not caller_app_name:
             ctx.app_name = instance.env.get("appName", "")
         try:
-            models = deserialize_models(payload)
+            models = load_persistent_models(
+                deserialize_models(payload), instance.id, ctx)
         except Exception as e:  # noqa: BLE001 - checksummed yet unloadable
             if instance_id is not None:
                 raise

@@ -310,3 +310,46 @@ def test_uint16_column_narrowing_is_bit_identical(implicit, heavy,
                                   <= narrow.plan_i.total_slots)
     assert edge.side_i.narrow == (narrow.plan_u.total_slots
                                   <= narrow.plan_i.total_slots)
+
+
+@pytest.mark.parametrize("parent", [
+    [5, 5, 5, 2, 2, 9],                     # contiguous groups (the layout)
+    [0, 3, 0, 1, 3, 3, 0, 7],               # interleaved repeats
+    list(range(6)),                         # one chunk per parent
+    [],
+])
+def test_overflow_merge_passes_equal_index_add_bit_for_bit(parent):
+    """Adding the passes in turn gives exactly ``index_add_`` over all
+    virtual rows at once (its CPU order), so the merge does not depend on
+    the card's atomics."""
+    rng = np.random.default_rng(len(parent))
+    parent = np.asarray(parent, np.int64)
+    src = torch.from_numpy(rng.standard_normal((len(parent), 4, 4))
+                           .astype(np.float32) * 1e3)
+    base = torch.from_numpy(rng.standard_normal((10, 4, 4))
+                            .astype(np.float32))
+    want = base.clone().index_add_(0, torch.from_numpy(parent), src)
+    got = base.clone()
+    passes = port_als.overflow_merge_passes(parent)
+    for pos, dst in passes:
+        assert len(np.unique(dst)) == len(dst)   # distinct targets
+        got.index_add_(0, torch.from_numpy(dst),
+                       src.index_select(0, torch.from_numpy(pos)))
+    assert torch.equal(got, want)
+    assert sum(len(p) for p, _ in passes) == len(parent)
+
+
+def test_heavy_rows_train_as_with_one_index_add(monkeypatch):
+    """A train whose heavy rows split into several virtual rows is bit
+    identical to one that merges them with a single ``index_add_``."""
+    u, i, r, nu, ni = _ratings(n_users=30, n_items=100, nnz=2000,
+                               heavy_user=9000)
+    plan = port_rowblocks.plan_layout(np.bincount(u, minlength=nu))
+    assert plan.v_rows_per_shard >= 4
+    params = port_als.ALSParams(rank=8, num_iterations=2, reg=1.0)
+    got = port_als.train_als(u, i, r, nu, ni, params, device="cpu")
+    monkeypatch.setattr(port_als, "overflow_merge_passes", lambda p: [
+        (np.arange(len(p)), np.asarray(p, np.int64))])
+    want = port_als.train_als(u, i, r, nu, ni, params, device="cpu")
+    assert np.array_equal(got.user_factors, want.user_factors)
+    assert np.array_equal(got.item_factors, want.item_factors)

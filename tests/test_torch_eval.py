@@ -161,8 +161,7 @@ def test_k_fold_indices_are_the_reference_folds(n, k, seed):
 
 def test_controller_exports_the_reference_api():
     missing = set(ref_controller.__all__) - set(port_controller.__all__)
-    assert missing == {"LocalFileSystemPersistentModel", "PersistentModel",
-                       "PersistentModelLoader"}
+    assert missing == set()
     for name in ("PDataSource", "LDataSource", "PAlgorithm", "P2LAlgorithm",
                  "LAlgorithm", "PPreparator", "LPreparator", "LServing"):
         assert getattr(port_controller, name).__name__ == \

@@ -12,7 +12,9 @@ neither ``jax``, ``orbax`` nor the JAX package is loaded after; and each
 interpreter of its own that loads none of them.
 The same holds for the E-Commerce template and the evaluations (the
 ``eval`` and ``dashboard`` verbs, and the vanilla copy's evaluation from
-its engine directory). (This pytest process has JAX loaded by
+its engine directory), and for the Classification and Text-Classification
+templates (Naive Bayes and L-BFGS LR, the codec's tokenizer) with the
+fake workflow, self-cleaning and a self-persisted model. (This pytest process has JAX loaded by
 tests/conftest.py, so the run-time check needs its own process.)
 """
 
@@ -27,7 +29,7 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "orbax", "incubator_predictionio_tpu")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "optax", "incubator_predictionio_tpu")
 
 
 def _port_files():
@@ -64,7 +66,12 @@ def test_port_files_exist():
             "recommendation_eval.py", "evaluation_workflow.py",
             "dashboard.py", "metric.py", "metric_evaluator.py",
             "evaluation.py", "cross_validation.py", "eval.py",
-            "vanilla_engine.py"} <= names
+            "vanilla_engine.py", "linear.py", "tfidf.py",
+            "classification.py", "text_classification.py",
+            "persistent_model.py", "self_cleaning.py", "fake_workflow.py"
+            } <= names
+    assert (ROOT / "incubator_predictionio_torch" / "e2"
+            / "engine.py").is_file()
     assert (ROOT / "incubator_predictionio_torch" / "native"
             / "__init__.py").is_file()
 
@@ -206,6 +213,75 @@ def test_ecommerce_and_eval_in_a_process_without_jax(tmp_path):
         [sys.executable, "-c", _EVAL_SCRIPT, str(tmp_path), str(vanilla)],
         capture_output=True, text=True, env=env, cwd=str(tmp_path),
         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    last = out.stdout.strip().splitlines()[-1]
+    assert '"loaded": []' in last, last
+
+
+_CLS_SCRIPT = r"""
+import json, sys
+import numpy as np
+from incubator_predictionio_torch import controller
+from incubator_predictionio_torch.controller import EngineParams
+from incubator_predictionio_torch.controller.self_cleaning import SelfCleaningDataSource
+from incubator_predictionio_torch.data.storage import App, Event, Storage
+from incubator_predictionio_torch.models import classification, text_classification
+from incubator_predictionio_torch.workflow import core_workflow, fake_workflow
+from incubator_predictionio_torch.workflow.context import WorkflowContext
+
+storage = Storage({"PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "M",
+                   "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "M",
+                   "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "M",
+                   "PIO_STORAGE_SOURCES_M_TYPE": "MEMORY"})
+app_id = storage.get_meta_data_apps().insert(App(0, "c"))
+rng = np.random.default_rng(0)
+wire = [{"event": "$set", "entityType": "user", "entityId": f"u{n}",
+         "properties": {"attr0": int(a), "attr1": int(b), "attr2": 1,
+                        "plan": int(a >= 2)}}
+        for n, (a, b) in enumerate(rng.integers(0, 4, (60, 2)))]
+wire += [{"event": "documents", "entityType": "content", "entityId": f"d{j}",
+          "properties": {"text": ["fast motor ride", "code cpu screen"][j % 2]
+                         + f" w{j % 7}", "label": ["moto", "comp"][j % 2]}}
+         for j in range(30)]
+storage.get_l_events().insert_batch([Event.from_json(e) for e in wire], app_id)
+ctx = WorkflowContext(app_name="c", storage=storage, device="cpu")
+answers = []
+for factory, algos, query in (
+        ("classification.ClassificationEngine", ("naive", "lr"),
+         {"attr0": 3, "attr1": 0, "attr2": 1}),
+        ("text_classification.TextClassificationEngine", ("nb", "lr"),
+         {"text": "a fast motor"})):
+    dotted = "incubator_predictionio_torch.models." + factory
+    module, cls = factory.split(".")
+    engine = getattr({"classification": classification,
+                      "text_classification": text_classification}[module], cls)()()
+    for algo in algos:
+        params = EngineParams.from_json({"algorithms": [{"name": algo, "params": {}}]})
+        iid = core_workflow.run_train(engine, params, ctx,
+                                      engine_factory_name=dotted + algo)
+        dep, _, _ = core_workflow.load_deployment(
+            engine, iid, WorkflowContext(storage=storage, device="cpu"),
+            engine_factory_name=dotted + algo)
+        answers.append(dep.query(query))
+assert [a.get("label", a.get("category")) for a in answers] == \
+    [1.0, 1.0, "moto", "moto"], answers
+assert fake_workflow.fake_run(WorkflowContext(storage=storage, device="cpu"))
+assert SelfCleaningDataSource().clean_persisted_data(ctx, "c") == 0
+assert "PersistentModel" in controller.__all__
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "orbax", "optax", "incubator_predictionio_tpu"))
+print(json.dumps({"loaded": loaded}))
+"""
+
+
+def test_classification_templates_in_a_process_without_jax(tmp_path):
+    """Both new templates train (NB and LR) and deploy, with the fake
+    workflow and the self-cleaning pass, and neither JAX, optax nor the
+    JAX package is loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _CLS_SCRIPT],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(tmp_path), timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     last = out.stdout.strip().splitlines()[-1]
     assert '"loaded": []' in last, last
