@@ -78,8 +78,9 @@ Phases (any failure exits non-zero; nothing is caught):
    the CPU (same candidates, scores within 0.02, same best where the top
    two differ by more than 0.05); seconds per candidate and the K7
    ranking_metrics calls and ms per call.
-17. classification_jsonl: bench_templates.py's config 2 (2,000,000
-   entities × 4 Poisson attributes × 3 classes) as $set events on a JSONL
+17. classification_jsonl: bench_templates.py's config 2 (4 Poisson
+   attributes × 3 classes; 500,000 of its 2,000,000 entities, cut for the
+   script's time) as $set events on a JSONL
    log → pio train (the Classification template's values: naive, lambda
    1.0) → the model equal to a host numpy NB of the generated arrays →
    pio deploy → 60 queries held to it; in process, the NB statistics card
@@ -94,7 +95,35 @@ Phases (any failure exits non-zero; nothing is caught):
    to the Python loop, the COO statistics card == CPU bit for bit, and
    TextLRAlgorithm's L-BFGS card vs CPU under the rule of phase 17.
    Neither template launches a solve kernel (their paths are read as 0).
-19. train_rank128: the main path's ratings at rank 128 through the same
+19. universal_recommender: bench_templates.py's config 5 (100,000 users ×
+   20,000 items, 2,000,000 buys + 8,000,000 views, seed 4) through the
+   Universal Recommender's URAlgorithm.train on the card (the fused CCO
+   path: buy → buy and buy → view, 50 correlators), twice; 64 items of
+   each pair whose count rows equal scipy's products of the deduped pairs
+   and whose indicators meet the top-k rule against a float64 G²
+   (tolerance 2e-6·N·ln N); the striped path bit-identical; the card
+   against the CPU at 10,000 × 2,000 × 1,000,000 events; the counts' TF32
+   route against int8 ``torch._int_mm``; dedupe, upload, counts and G² +
+   top-k times, and score_user's.
+20. universal_recommender_jsonl: config 5's first 200,000 buys and
+   800,000 views (10 % of its events) and one $set per item (20 categories, an
+   available/expire window on 5 % of the items) as a JSONL log → pio
+   train with templates/universal-recommender/engine.json (factory
+   rewritten) → pio eventserver + pio deploy → 60 queries (user-based,
+   item-based, user + item, category filter and boost, blacklistItems,
+   currentDate inside and before the window, cold users) held to a host
+   scorer of the persisted model; latency split into the history read,
+   the scoring and the rest.
+21. complementary_purchase: bench_templates.py's config 7 (200,000
+   shoppers × 10,000 items × 2,000,000 buys over 30 days, 1 h baskets, 20
+   correlators) in process on the card (basket count = the host's,
+   sampled count rows exact, the top-k rule); the first 200,000 buys
+   through pio train → pio deploy → 30 basket queries held to the host
+   scorer; pio eval of ComplementaryEvaluation + ComplementaryParamsList
+   on ≈ 1,000 basket buys on the card and on the CPU (scores within 0.02,
+   the same best where the top two differ by more than 0.05). Neither
+   template launches a solve kernel.
+22. train_rank128: the main path's ratings at rank 128 through the same
    engine, 2 iterations: wide-kernel launches equal to the implied count
    and no warp-kernel launch, the RMSE check, steady seconds per
    iteration, one iteration profiled; one fold-in batch (2 wide launches,
@@ -142,11 +171,13 @@ from incubator_predictionio_torch.data.store import PEventStore, p_event_store
 from incubator_predictionio_torch.data.events import (
     aggregate_properties, find_ratings, read_events,
 )
-from incubator_predictionio_torch.models import similar_product
+from incubator_predictionio_torch.models import (
+    complementary_purchase, similar_product, universal_recommender,
+)
 from incubator_predictionio_torch.models.recommendation import (
     ALSModel, RecommendationEngine, TrainingData,
 )
-from incubator_predictionio_torch.ops import _build, als, spd_solve
+from incubator_predictionio_torch.ops import _build, als, llr, spd_solve
 from incubator_predictionio_torch.ops.als import (
     ALSParams, ALSTrainer, predict_rmse, solve_calls_per_half_step, train_als,
 )
@@ -2300,13 +2331,17 @@ ECOMMERCE_BUY_SHARE = 0.1
 ECOMMERCE_QUERIES = (60, 12)
 ECOMMERCE_ID_SEED = 6
 ECOMMERCE_ENGINE = os.path.join(ROOT, "templates", "ecommerce", "engine.json")
-#: ``pio deploy`` with the E-Commerce model's serve-time reads and top-k
-#: timed per query; the records go to $PIO_QUERY_SPLIT_OUT at exit
+#: ``pio deploy`` with parts of a template's predict timed per query: the
+#: JSON in $PIO_QUERY_SPLIT_SPEC names the template module, its algorithm
+#: class and, per record key, the module attribute to time (a function, or
+#: a method or static method of a class in it); the records go to
+#: $PIO_QUERY_SPLIT_OUT at exit
 _TIMED_DEPLOY = r"""
-import atexit, json, os, sys, time
-from incubator_predictionio_torch.models import ecommerce
+import atexit, importlib, inspect, json, os, sys, time
 from incubator_predictionio_torch.tools import console
 
+spec = json.loads(os.environ["PIO_QUERY_SPLIT_SPEC"])
+module = importlib.import_module(spec["module"])
 records = []
 
 def timed(fn, key):
@@ -2320,21 +2355,28 @@ def timed(fn, key):
                 records[-1][key + "_calls"] += 1
     return run
 
-real_predict = ecommerce.ECommerceAlgorithm.predict
+for key, dotted in spec["timed"].items():
+    *path, name = dotted.split(".")
+    owner = module
+    for part in path:
+        owner = getattr(owner, part)
+    fn = timed(getattr(owner, name), key)
+    static = isinstance(inspect.getattr_static(owner, name), staticmethod)
+    setattr(owner, name, staticmethod(fn) if static else fn)
+
+algorithm = getattr(module, spec["algorithm"])
+real_predict = algorithm.predict
 
 def predict(self, model, query):
-    records.append({"store_s": 0.0, "store_s_calls": 0, "topk_s": 0.0,
-                    "topk_s_calls": 0})
+    records.append({k: 0 for key in spec["timed"]
+                    for k in (key, key + "_calls")})
     t0 = time.perf_counter()
     try:
         return real_predict(self, model, query)
     finally:
         records[-1]["predict_s"] = time.perf_counter() - t0
 
-ecommerce.LEventStore.find_by_entity = staticmethod(
-    timed(ecommerce.LEventStore.find_by_entity, "store_s"))
-ecommerce.top_k_items = timed(ecommerce.top_k_items, "topk_s")
-ecommerce.ECommerceAlgorithm.predict = predict
+algorithm.predict = predict
 
 @atexit.register
 def dump():
@@ -2343,6 +2385,16 @@ def dump():
 
 sys.exit(console.main(sys.argv[1:]))
 """
+
+
+def _timed_deploy(env: dict, cwd: str, out: str, module: str,
+                  algorithm: str, timed: dict) -> _Served:
+    """``pio deploy`` through _TIMED_DEPLOY, its records to ``out``."""
+    spec = json.dumps({"module": "incubator_predictionio_torch.models."
+                       + module, "algorithm": algorithm, "timed": timed})
+    return _Served(["deploy"], env | {"PIO_QUERY_SPLIT_OUT": out,
+                                      "PIO_QUERY_SPLIT_SPEC": spec}, cwd,
+                   console=[sys.executable, "-c", _TIMED_DEPLOY])
 
 
 def _ecommerce_events() -> tuple:
@@ -2496,21 +2548,23 @@ def _ecommerce_check(stored: dict, cats, seen: dict):
     return check_answer, counts
 
 
-def _split(client_ms: list, records: list) -> dict:
-    """Query latency split: the LEventStore reads, the top-k and the rest
-    (HTTP, JSON, the exclude mask) per query, percentiles over the
-    queries."""
+def _split(client_ms: list, records: list, parts: dict) -> dict:
+    """Query latency split per query, percentiles over the queries: each
+    timed part (name → its record key), and the rest (HTTP, JSON, the
+    masks); with each part's calls and ms per call."""
     check(len(records) == len(client_ms),
           f"{len(records)} timed predicts for {len(client_ms)} queries")
-    store = np.array([r["store_s"] for r in records]) * 1e3
-    topk = np.array([r["topk_s"] for r in records]) * 1e3
     total = np.asarray(client_ms)
-    reads = sum(r["store_s_calls"] for r in records)
-    return {"total": _percentiles(total), "store_read": _percentiles(store),
-            "topk": _percentiles(topk),
-            "rest": _percentiles(total - store - topk),
-            "store_reads": reads,
-            "ms_per_store_read": float(store.sum() / max(reads, 1))}
+    out, rest = {"total": _percentiles(total)}, total.copy()
+    for name, key in parts.items():
+        ms = np.array([r[key] for r in records]) * 1e3
+        calls = sum(r[key + "_calls"] for r in records)
+        out[name] = _percentiles(ms)
+        out[f"{name}_calls"] = calls
+        out[f"ms_per_{name}_call"] = float(ms.sum() / max(calls, 1))
+        rest = rest - ms
+    out["rest"] = _percentiles(rest)
+    return out
 
 
 def phase_ecommerce_jsonl(workdir: str) -> None:
@@ -2597,8 +2651,10 @@ def phase_ecommerce_jsonl(workdir: str) -> None:
     # both servers start at once; the deploy's first store read parses
     # the whole log
     events = _Served(["eventserver", "--ip", "127.0.0.1"], env, cwd)
-    srv = _Served(["deploy"], env | {"PIO_QUERY_SPLIT_OUT": split_out}, cwd,
-                  console=[sys.executable, "-c", _TIMED_DEPLOY])
+    srv = _timed_deploy(env, cwd, split_out, "ecommerce",
+                        "ECommerceAlgorithm",
+                        {"store_s": "LEventStore.find_by_entity",
+                         "topk_s": "top_k_items"})
     try:
         with events, srv:
             ready_s = time.perf_counter() - t0
@@ -2641,7 +2697,8 @@ def phase_ecommerce_jsonl(workdir: str) -> None:
               for _, res in answered[n_before:]),
           "an unavailable item was served after the $set")
     # the first query opens the connection; its time is left out
-    split = _split(client_ms[1:], records[1:])
+    split = _split(client_ms[1:], records[1:],
+                   {"store_read": "store_s", "topk": "topk_s"})
     emit("ecommerce_jsonl", events=nnz, users=nu, items=ni,
          buys=int(buy.sum()), categories=ECOMMERCE_CATEGORIES,
          compacted=False, log_bytes=os.path.getsize(log_path),
@@ -2676,9 +2733,14 @@ EVAL_MODULES = {
         "ECommerceEvaluation",
         "incubator_predictionio_torch.models.template_evals."
         "ECommerceParamsList"),
+    "complementary": (
+        "incubator_predictionio_torch.models.template_evals."
+        "ComplementaryEvaluation",
+        "incubator_predictionio_torch.models.template_evals."
+        "ComplementaryParamsList"),
 }
-#: the sweeps' candidates (ParamsList, ECommerceParamsList): rank × lambda,
-#: 10 iterations, 3 folds
+#: the ALS sweeps' candidates (ParamsList, ECommerceParamsList): rank ×
+#: lambda, 10 iterations, 3 folds (ComplementaryParamsList also has 4)
 EVAL_GRID = [(r, lam) for r in (8, 16) for lam in (0.01, 0.1)]
 
 
@@ -2700,11 +2762,12 @@ def _sweep_launches(u, i, implicit: bool) -> int:
     return total
 
 
-def _eval_verb(name: str, env: dict, cwd: str, device: str) -> dict:
+def _eval_verb(name: str, env: dict, cwd: str, device: str,
+               app: str = "ml100k") -> dict:
     """``pio eval`` of one sweep; its JSON line with the leaderboard text,
     the wall seconds and the per-candidate and per-call times."""
     evaluation, generator = EVAL_MODULES[name]
-    out, wall = _verb(["eval", evaluation, generator, "--app-name", "ml100k",
+    out, wall = _verb(["eval", evaluation, generator, "--app-name", app,
                        "--device", device], env, cwd, timeout=900)
     lines = out.stdout.strip().splitlines()
     result = json.loads(lines[-1])
@@ -2799,6 +2862,10 @@ def phase_pio_eval(workdir: str) -> None:
 
 #: bench_templates.py:69 config 2: labeled entities × attributes × classes
 CLASSIFICATION = (2_000_000, 4, 3)
+#: the entities classification_jsonl writes, cut from config 2's 2,000,000
+#: for the script's time: the whole script took 1,110 s on one H100 host
+#: with all of them, this phase 114 s
+CLASSIFICATION_ENTITIES = 500_000
 CLASSIFICATION_ID_SEED = 9
 CLASSIFICATION_ENGINE = os.path.join(ROOT, "templates", "classification",
                                      "engine.json")
@@ -2818,7 +2885,8 @@ LINEAR_QUERIES = 60
 def _classification_data() -> tuple:
     """bench_classification's draws: Poisson attributes around seeded
     class centres (default_rng(1))."""
-    n, d, c = CLASSIFICATION
+    _, d, c = CLASSIFICATION
+    n = CLASSIFICATION_ENTITIES
     rng = np.random.default_rng(1)
     centers = rng.random((c, d)) * 3 + 0.5
     y = rng.integers(0, c, n).astype(np.int32)
@@ -2888,8 +2956,9 @@ def _template_engine(path: str, factory: str, app: str, workdir: str,
 
 
 def _linear_train_verb(env: dict, cwd: str, path: str) -> dict:
-    """``pio train`` of a linear template: its JSON line and wall seconds;
-    no solve kernel may launch."""
+    """``pio train`` of a template that solves nothing (the linear and the
+    CCO templates): its JSON line and wall seconds; no solve kernel may
+    launch."""
     out, wall = _verb(["train"], env, cwd, timeout=1200)
     trained = json.loads(out.stdout.strip().splitlines()[-1])
     trained["wall_seconds"] = wall
@@ -2994,7 +3063,8 @@ def _op_times(fn, n_bytes: int) -> dict:
 
 def phase_classification_jsonl(workdir: str) -> None:
     """bench_templates.py config 2 through the Classification template and
-    the verbs, on a JSONL log: 2,000,000 ``$set`` events (user u<n>,
+    the verbs, on a JSONL log: CLASSIFICATION_ENTITIES ``$set`` events
+    (user u<n>,
     attr0..attr3 Poisson around seeded class centres, a "plan" label of 3
     classes) → pio train (the template's values, naive, lambda 1.0; its
     attributes widened to the config's four) → its model equal to a host
@@ -3008,7 +3078,8 @@ def phase_classification_jsonl(workdir: str) -> None:
         nb_model_from_counts, nb_stats,
     )
 
-    n, d, c = CLASSIFICATION
+    _, d, c = CLASSIFICATION
+    n = CLASSIFICATION_ENTITIES
     x, y = _classification_data()
     cwd = tempfile.mkdtemp(dir=workdir)
     base = os.path.join(cwd, "pio_cls")
@@ -3082,6 +3153,8 @@ def phase_classification_jsonl(workdir: str) -> None:
             query_ms.append(ms)
         conn.close()
     emit("classification_jsonl", entities=n, attributes=d, classes=c,
+         reduced=(f"{n} of config 2's {CLASSIFICATION[0]} entities, for "
+                  "the script's time"),
          log_bytes=os.path.getsize(log_path), log_write_seconds=write_s,
          train_seconds_end_to_end=trained["wall_seconds"],
          train_seconds_run_train=trained["seconds"],
@@ -3215,6 +3288,763 @@ def phase_text_classification_jsonl(workdir: str) -> None:
     shutil.rmtree(cwd)
 
 
+# -- the Universal Recommender and Complementary Purchase templates ----------
+
+#: bench_templates.py:184 config 5: users × items × buys × views
+UR = (100_000, 20_000, 2_000_000, 8_000_000)
+UR_ENGINE = os.path.join(ROOT, "templates", "universal-recommender",
+                         "engine.json")
+UR_FACTORY = ("incubator_predictionio_torch.models.universal_recommender."
+              "UniversalRecommenderEngine")
+#: the card-vs-CPU shape: users × items × events (a fifth of them buys)
+UR_SMALL = (10_000, 2_000, 1_000_000)
+#: the items of each pair whose count rows and indicators are held to
+#: scipy and a float64 G²
+CCO_SAMPLE = 64
+#: the verbs' buys and views (config 5's first ones, over the full id
+#: space; 10 % of its events), cut for the script's time: pio train reads
+#: the log through find_batch, a Python object per event (2,000,000 events
+#: took 66.9 s end to end on one H100 host, 55.3 s of it the read)
+UR_LOG = (200_000, 800_000)
+UR_CATEGORIES = 20
+#: the share of items with an availableDate / expireDate window (the
+#: window below; before it, after it and without a currentDate they are
+#: hidden)
+UR_DATED_SHARE = 0.05
+UR_AVAILABLE, UR_EXPIRE = "2024-06-01T00:00:00Z", "2024-09-01T00:00:00Z"
+UR_QUERIES = 56
+UR_ID_SEED = 12
+#: bench_templates.py:262 config 7: shoppers × items × buys over 30 days
+CP = (200_000, 10_000, 2_000_000)
+CP_ENGINE = os.path.join(ROOT, "templates", "complementary-purchase",
+                         "engine.json")
+CP_FACTORY = ("incubator_predictionio_torch.models.complementary_purchase."
+              "ComplementaryPurchaseEngine")
+#: the verbs' buys (the first of config 7's), and the basket queries
+CP_LOG_BUYS = 200_000
+CP_QUERIES = 30
+#: pio eval's shoppers: 4 buys each in one basket (≈ 1,000 buys)
+CP_EVAL_SHOPPERS = 250
+
+
+def tf32_peak() -> float:
+    """Dense TF32 tensor-core FLOP/s from the data sheets (half the
+    sparse rates): H100 SXM 494.7 T, PCIe 378 T, NVL 417.5 T."""
+    return {"H100 PCIe": 378e12, "H100 NVL": 417.5e12}.get(
+        peak_rates()[2], 494.7e12)
+
+
+def _ur_events() -> dict:
+    """bench_ur's draws (seed 4): users uniform, items skewed to low ids,
+    the buys first, then the views."""
+    n_users, n_items, n_buy, n_view = UR
+    rng = np.random.default_rng(4)
+
+    def synth(n):
+        uu = rng.integers(0, n_users, n).astype(np.int32)
+        ii = (n_items * rng.random(n) ** 2).astype(np.int32)
+        return uu, np.minimum(ii, n_items - 1)
+
+    return {"buy": synth(n_buy), "view": synth(n_view)}
+
+
+def _binary(u, i, n_rows: int, n_items: int):
+    """The 0/1 row × item matrix of (u, i) pairs (scipy CSR)."""
+    import scipy.sparse as sp
+
+    m = sp.csr_matrix((np.ones(len(u)), (u, i)), shape=(n_rows, n_items))
+    m.data[:] = 1.0  # duplicates were summed
+    return m
+
+
+def _host_g2(c: np.ndarray, n_i, n_j, n_total: int, rows) -> np.ndarray:
+    """Dunning's G² in float64 of count rows ``c`` [r, I] (``rows``: their
+    item ids), with the reference's masks: no score without counts, none
+    on the diagonal."""
+    def xlogx(x):
+        return np.where(x > 0, x * np.log(np.maximum(x, 1e-300)), 0.0)
+
+    def ent(a, b):
+        return xlogx(a + b) - xlogx(a) - xlogx(b)
+
+    k11 = c
+    k12 = np.maximum(np.asarray(n_i)[rows][:, None] - c, 0)
+    k21 = np.maximum(np.asarray(n_j)[None, :] - c, 0)
+    k22 = np.maximum(n_total - k11 - k12 - k21, 0)
+    g = 2 * (ent(k11 + k12, k21 + k22) + ent(k11 + k21, k12 + k22)
+             - (xlogx(k11 + k12 + k21 + k22) - xlogx(k11) - xlogx(k12)
+                - xlogx(k21) - xlogx(k22)))
+    g = np.where(c > 0, np.maximum(g, 0), 0.0)
+    g[np.arange(len(rows)), rows] = 0.0
+    return g
+
+
+def g2_tol(n: int) -> float:
+    """The G² tolerance of the CCO parity rule: 2e-6·N·ln N (the float32
+    G² of N users differs between two correct implementations by up to
+    ≈ 6.5e-7·N·ln N)."""
+    return 2e-6 * n * np.log(max(n, 2))
+
+
+def _topk_rule(idx, score, g: np.ndarray, tol: float, what: str) -> float:
+    """The top-k rule against host G² rows ``g`` (a -1 slot scores 0): the
+    sorted scores within ``tol`` of the host's top-k, and every kept index
+    scored by the host at least the host's k-th minus ``tol``. Returns the
+    largest sorted-score gap."""
+    k = idx.shape[1]
+    got = np.sort(np.where(idx >= 0, score, 0.0), axis=1)[:, ::-1]
+    want = -np.sort(-g, axis=1)[:, :k]
+    gap = float(np.abs(got - want).max())
+    check(gap <= tol, f"{what}: sorted scores {gap} from the host's > {tol}")
+    rows, slots = np.nonzero(idx >= 0)
+    check(bool((g[rows, idx[rows, slots]] >= want[rows, k - 1] - tol).all()),
+          f"{what}: a kept index scores below the host's k-th")
+    return gap
+
+
+def _sampled_counts(counts: torch.Tensor, primary, secondary, n_rows: int,
+                    n_items: int, rows, model_ind, what: str) -> dict:
+    """Count rows ``rows`` of the card's [I, I] ``counts`` against the
+    scipy product of the deduped pairs, exactly, and the model's
+    indicator rows against a float64 G² of those counts (top-k rule)."""
+    a = _binary(*primary, n_rows, n_items)
+    b = a if secondary is primary else _binary(*secondary, n_rows, n_items)
+    want = (a[:, rows].T @ b).toarray()
+    got = counts[torch.from_numpy(rows).to(counts.device)].cpu().numpy()
+    check(np.array_equal(got, want), f"{what}: sampled counts differ "
+          f"from scipy's by {float(np.abs(got - want).max())}")
+    g = _host_g2(want, np.asarray(a.sum(axis=0))[0],
+                 np.asarray(b.sum(axis=0))[0], n_rows, rows)
+    gap = _topk_rule(model_ind.idx[rows], model_ind.score[rows], g,
+                     g2_tol(n_rows), what)
+    return {"rows": len(rows), "max_count": float(want.max()),
+            "topk_score_gap": gap, "tol": g2_tol(n_rows)}
+
+
+def _counts_bound(timings: dict, n_items: int, u_chunk: int) -> dict:
+    """The counts' operations (one dense [u_chunk, I]ᵀ × [u_chunk, I] GEMM
+    per range and pair, as the port runs them), achieved rate and bound at
+    the dense TF32 peak."""
+    ops = 2.0 * n_items * n_items * u_chunk * timings["gemms"]
+    peak = tf32_peak()
+    return {"ops": ops, "ops_per_s": ops / (timings["counts_ms"] / 1e3),
+            "tf32_peak": peak,
+            "share_of_peak": ops / peak / (timings["counts_ms"] / 1e3),
+            "bound_ms": ops / peak * 1e3, "bound_by": "operations"}
+
+
+def _g2_bound(timings: dict, pairs: int, n_items: int, k: int) -> dict:
+    """G² + top-k bytes bound: each pair's [I, I] float32 counts and n_i,
+    n_j read once, the [I, K] scores and indices written once."""
+    bw = peak_rates()[0]
+    n_bytes = pairs * (n_items * n_items * 4 + 2 * n_items * 4
+                       + n_items * k * 8)
+    return {"bytes": n_bytes, "bound_ms": n_bytes / bw * 1e3,
+            "bound_by": "bytes",
+            "share_of_bound": n_bytes / bw * 1e3 / timings["g2_topk_ms"]}
+
+
+def _counts_route_ab(events: dict, n_users: int, n_items: int,
+                     dev=torch.device("cuda")) -> dict:
+    """One pair's counts (buy → view) by the port's route (float32 slabs,
+    TF32 GEMMs into the float32 accumulator) and by int8 slabs through
+    ``torch._int_mm`` into int32, one product per range added to an int32
+    accumulator: device ms of each, in turns (tf32, int8, int8, tf32), and
+    the two equal."""
+    prim, secs, _, _ = llr._fused_layout(
+        *events["buy"], {"view": events["view"]}, n_users, n_items, 2048,
+        dev, llr._Clock(dev, None))
+    p, s = prim[0], secs[0][0]
+
+    def tf32():
+        c = torch.zeros((n_items, n_items), device=dev)
+        llr._accumulate([c], p, [s], n_items)
+        return c
+
+    def int8():
+        c = torch.zeros((n_items, n_items), dtype=torch.int32, device=dev)
+        bp = torch.empty((p.rows + 1) * n_items, dtype=torch.int8,
+                         device=dev)
+        bs = torch.empty_like(bp)
+        for r in range(p.flat.shape[0]):
+            ap = llr._slab(bp, p.flat[r], p.rows, n_items)
+            a2 = llr._slab(bs, s.flat[r], s.rows, n_items)
+            c += torch._int_mm(ap.t().contiguous(), a2)
+        return c
+
+    times: dict = {"tf32": [], "int8": []}
+    got = {}
+    with torch.no_grad():
+        for route in ("tf32", "int8", "int8", "tf32"):
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            got[route] = (tf32 if route == "tf32" else int8)()
+            e1.record()
+            torch.cuda.synchronize()
+            times[route].append(e0.elapsed_time(e1))
+    check(torch.equal(got["tf32"], got["int8"].to(torch.float32)),
+          "the int8 and TF32 counts differ")
+    ops = 2.0 * n_items * n_items * p.rows * p.flat.shape[0]
+    return {"pair": "buy->view", "ms": times,
+            "tf32_ops_per_s": ops / (min(times["tf32"]) / 1e3),
+            "int8_ops_per_s": ops / (min(times["int8"]) / 1e3)}
+
+
+def _ur_train(events: dict, n_users: int, n_items: int) -> tuple:
+    """URAlgorithm.train at maxCorrelatorsPerItem 50 on the card (the
+    engine's own params parsing): (model, seconds, timings)."""
+    engine = universal_recommender.UniversalRecommenderEngine()()
+    _, _, algos, _ = engine.make_components(EngineParams.from_json(
+        {"algorithms": [{"name": "ur", "params": {
+            "appName": "bench", "maxCorrelatorsPerItem": 50}}]}))
+    td = universal_recommender.TrainingData(
+        events, IdentityBiMap(n_users), IdentityBiMap(n_items), {})
+    ctx = WorkflowContext(app_name="bench")
+    ctx.bench_timings = {}
+    model, seconds = _timed(lambda: algos[0][1].train(ctx, td))
+    return model, seconds, ctx.bench_timings
+
+
+def phase_universal_recommender() -> None:
+    """bench_templates.py config 5 through the Universal Recommender's
+    URAlgorithm.train on the card (the fused path: buy → buy, the
+    self-pair, and buy → view), twice: CCO_SAMPLE items of each pair whose
+    count rows equal scipy's products of the deduped pairs and whose
+    indicators meet the top-k rule against a float64 G²; the striped path
+    (PIO_UR_FULL_MATRIX_ELEMS below 20,000²) bit-identical; the card
+    against the CPU at UR_SMALL (equal counts, both under the top-k rule);
+    the counts' TF32 route against int8; score_user's time. No solve
+    kernel launches."""
+    n_users, n_items, n_buy, n_view = UR
+    events = _ur_events()
+    reset_launches()
+    model, cold_s, cold = _ur_train(events, n_users, n_items)
+    model, warm_s, tm = _ur_train(events, n_users, n_items)
+    launched = launches()
+    check(launched["total"] == 0, f"the UR train launched {launched}")
+    PATH_LAUNCHES["universal_recommender"] = {"warp": 0, "wide": 0}
+    check(tm["path"] == cold["path"] == "fused" and tm["heavy_users"] == 0,
+          f"the UR train took the {tm['path']} path")
+
+    secs = {"buy": events["buy"], "view": events["view"]}
+    counts = llr.cooccurrence_counts(*events["buy"], secs, n_users, n_items,
+                                     device="cuda")
+    rows = np.sort(np.random.default_rng(41).choice(n_items, CCO_SAMPLE,
+                                                    replace=False))
+    sampled = {name: _sampled_counts(counts[name], events["buy"],
+                                     events[name], n_users, n_items, rows,
+                                     model.indicators[name], f"UR {name}")
+               for name in secs}
+    del counts
+
+    os.environ["PIO_UR_FULL_MATRIX_ELEMS"] = str(n_items * n_items - 1)
+    striped_tm: dict = {}
+    striped, striped_s = _timed(lambda: llr.cco_indicators_multi(
+        *events["buy"], secs, n_users, n_items, 50, device="cuda",
+        timings=striped_tm))
+    del os.environ["PIO_UR_FULL_MATRIX_ELEMS"]
+    check(striped_tm["path"] == "per_pair_striped",
+          f"the capped UR train took {striped_tm['path']}")
+    for name in secs:
+        check(np.array_equal(striped[name].idx, model.indicators[name].idx)
+              and np.array_equal(striped[name].score,
+                                 model.indicators[name].score),
+              f"UR {name}: the striped path differs from the fused")
+
+    ab = _counts_route_ab(events, n_users, n_items)
+
+    # the card against the CPU at a reduced shape
+    su, si, sn = UR_SMALL
+    rng = np.random.default_rng(43)
+    u = rng.integers(0, su, sn).astype(np.int32)
+    i = np.minimum((si * rng.random(sn) ** 2).astype(np.int32), si - 1)
+    nb = sn // 5
+    small = {"buy": (u[:nb], i[:nb]), "view": (u[nb:], i[nb:])}
+    small_counts = {dev: llr.cooccurrence_counts(*small["buy"], small, su,
+                                                 si, device=dev)
+                    for dev in ("cuda", "cpu")}
+    small_ind = {dev: llr.cco_indicators_multi(*small["buy"], small, su, si,
+                                               50, device=dev)
+                 for dev in ("cuda", "cpu")}
+    all_rows = np.arange(si)
+    card_vs_cpu = {}
+    for name in small:
+        check(torch.equal(small_counts["cuda"][name].cpu(),
+                          small_counts["cpu"][name]),
+              f"UR {name}: the card's counts differ from the CPU's")
+        c = small_counts["cpu"][name].numpy().astype(np.float64)
+        a = _binary(*small["buy"], su, si)
+        b = _binary(*small[name], su, si)
+        g = _host_g2(c, np.asarray(a.sum(axis=0))[0],
+                     np.asarray(b.sum(axis=0))[0], su, all_rows)
+        gaps = {dev: _topk_rule(ind[name].idx, ind[name].score, g,
+                                g2_tol(su), f"UR small {name} {dev}")
+                for dev, ind in small_ind.items()}
+        card_vs_cpu[name] = {
+            "counts_equal": True, "topk_score_gap": gaps,
+            "same_indices": float((small_ind["cuda"][name].idx
+                                   == small_ind["cpu"][name].idx).mean()),
+            "max_score_diff": float(np.abs(small_ind["cuda"][name].score
+                                           - small_ind["cpu"][name].score)
+                                    .max())}
+    del small_counts
+
+    membership = {n: (np.random.default_rng(44).random(n_items) < 1e-3)
+                  .astype(np.float32) for n in secs}
+    boost = np.ones(n_items, np.float32)
+    exclude = np.zeros(n_items, bool)
+
+    def score():
+        return llr.score_user([(model.indicators[n], membership[n], 1.0)
+                               for n in secs], 20, exclude=exclude,
+                              item_boost=boost, device="cuda")
+
+    score_ms = loop_ms(score, 50)
+    n_events = n_buy + n_view
+    emit("universal_recommender", users=n_users, items=n_items, buys=n_buy,
+         views=n_view, max_correlators=50, pairs=list(secs),
+         train_seconds={"cold": cold_s, "warm": warm_s},
+         events_per_s=n_events / warm_s, timings={"cold": cold, "warm": tm},
+         counts=_counts_bound(tm, n_items, 2048),
+         g2_topk=_g2_bound(tm, len(secs), n_items, 50),
+         sampled=sampled, striped_bit_identical=True,
+         striped_seconds=striped_s, striped_timings=striped_tm,
+         counts_route_ab=ab, card_vs_cpu={"shape": UR_SMALL, **card_vs_cpu},
+         score_user_ms=score_ms,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         kernel_launches=launched)
+
+
+def _ur_item_lines(cats, dated) -> bytes:
+    """One ``$set`` per item id before every buy and view: its category,
+    and on the dated items the availableDate / expireDate window, byte for
+    byte what insert_batch writes."""
+    times = T0_MS - len(cats) + np.arange(len(cats))
+    iso = np.datetime_as_string(times.astype("datetime64[ms]"),
+                                unit="ms").tolist()
+    window = (f', "availableDate": "{UR_AVAILABLE}", '
+              f'"expireDate": "{UR_EXPIRE}"')
+    return "".join([
+        f'{{"eventId": "{UR_ID_SEED:08x}{j:024x}", "event": "$set", '
+        f'"entityType": "item", "entityId": "i{j}", "properties": '
+        f'{{"categories": ["c{c}"]{window if d else ""}}}, '
+        f'"eventTime": "{t}Z", "creationTime": "{CREATED_ISO}"}}\n'
+        for j, (c, d, t) in enumerate(zip(np.asarray(cats).tolist(),
+                                          np.asarray(dated).tolist(), iso))
+    ]).encode()
+
+
+def _epoch_s(iso: str) -> float:
+    return calendar.timegm(time.strptime(iso[:19], "%Y-%m-%dT%H:%M:%S"))
+
+
+def _host_served(inds: dict, memberships: dict, boost, exclude):
+    """The host scorer of a served answer: per event type the gather+dot
+    of the persisted indicators against the membership, float64, times
+    the boost, the excluded items at -inf."""
+    total = np.zeros(len(boost))
+    for name, (idx, score) in inds.items():
+        m = memberships[name].astype(np.float64)
+        total += (np.asarray(score, np.float64)
+                  * np.where(idx >= 0, m[np.maximum(idx, 0)], 0.0)).sum(1)
+    return np.where(exclude, -np.inf, total * boost)
+
+
+def _hold_served(res: dict, items: dict, total, num: int,
+                 counts: dict) -> None:
+    """An answer against the host's scores: the same count, each score
+    within 1e-5 relative of the host's for that item and for that rank,
+    and the host's order wherever its neighbouring scores differ by more
+    than 1e-5 relative (the answers at a near tie are counted)."""
+    order = np.lexsort((np.arange(len(total)), -total))[:num]
+    want = order[np.isfinite(total[order]) & (total[order] > 0)]
+    got = np.array([items[e["item"]] for e in res["itemScores"]], np.int64)
+    scores = np.array([e["score"] for e in res["itemScores"]])
+    check(len(got) == len(want), f"{len(got)} answers, the host {len(want)}")
+    if not len(want):
+        counts["empty"] += 1
+        return
+    check(np.allclose(scores, total[got], rtol=1e-5, atol=0)
+          and np.allclose(scores, total[want], rtol=1e-5, atol=0),
+          "served scores differ from the host's")
+    s = total[order][:len(want)]
+    close = np.isclose(s[1:], s[:-1], rtol=1e-5, atol=0)
+    distinct = np.ones(len(s), bool)
+    distinct[1:] &= ~close
+    distinct[:-1] &= ~close
+    check(np.array_equal(got[distinct], want[distinct]),
+          f"answer {got.tolist()} != host {want.tolist()}")
+    counts["exact" if np.array_equal(got, want) else "near_ties"] += 1
+
+
+def _ur_queries(users, head_items, cold: int) -> list:
+    """The query mix: user-based; item-based; user + item; a category
+    filter (bias -1) and a category boost (bias 2); blacklistItems; a
+    currentDate inside the dated items' window and one before it; and
+    cold users (the popularity backfill), one with a category filter."""
+    rng = np.random.default_rng(45)
+    out = []
+    for j, a in enumerate(users):
+        item = f"i{int(rng.choice(head_items))}"
+        cat = f"c{int(rng.integers(0, UR_CATEGORIES))}"
+        q = {"user": f"u{a}", "num": 20 if j % 4 == 0 else 10}
+        kind = j % 8
+        if kind == 1:
+            q = {"item": item, "num": 10}
+        if kind == 2:
+            q["item"] = item
+        if kind in (3, 4):
+            q["fields"] = [{"name": "categories", "values": [cat],
+                            "bias": -1 if kind == 3 else 2}]
+        if kind == 5:
+            q["blacklistItems"] = [f"i{int(x)}" for x in
+                                   rng.choice(head_items, 50)]
+        if kind == 6:
+            q["currentDate"] = "2024-07-01T00:00:00Z"
+        if kind == 7:
+            q["currentDate"] = "2024-03-01T00:00:00Z"
+        out.append(q)
+    for j in range(cold):
+        q = {"user": f"nobody{j}", "num": 10}
+        if j == 0:
+            q["fields"] = [{"name": "categories", "values": ["c3"],
+                            "bias": -1}]
+        out.append(q)
+    return out
+
+
+def _ur_check(stored: dict, history: dict, cats, dated):
+    """A host check of a UR answer on the persisted model: the user's
+    history from the generated arrays, the query items, the exclusions
+    (blacklistItems, the query items, the user's buys, the dated items
+    outside their window at currentDate or now), the category rules; the
+    popularity ranking (numpy's argsort, as the template) for a user with
+    neither."""
+    stored = universal_recommender.nest(stored)
+    items = stored["items"]
+    n = len(items)
+    item_of = np.empty(n, np.int64)
+    item_of[list(items.values())] = [int(k[1:]) for k in items]
+    cat_of, dated_of = np.asarray(cats)[item_of], np.asarray(dated)[item_of]
+    inds = {name: (v["idx"], v["score"])
+            for name, v in stored["indicators"].items()}
+    pop = np.asarray(stored["popularity"], np.float32)
+    counts = {"exact": 0, "near_ties": 0, "popularity": 0, "empty": 0}
+
+    def check_answer(q: dict, res: dict) -> None:
+        mem = {name: np.zeros(n, np.float32) for name in inds}
+        for name, its in history.get(q.get("user"), {}).items():
+            for x in its:
+                j = items.get(f"i{x}")
+                if j is not None:
+                    mem[name][j] = 1.0
+        q_items = [x for x in [q.get("item")] if x]
+        for x in q_items:
+            for name in mem:
+                if x in items:
+                    mem[name][items[x]] = 1.0
+        exclude = mem["buy"] > 0
+        for x in q_items + q.get("blacklistItems", []):
+            if x in items:
+                exclude[items[x]] = True
+        now = (_epoch_s(q["currentDate"]) if "currentDate" in q
+               else time.time())
+        exclude |= dated_of & ((now < _epoch_s(UR_AVAILABLE))
+                               | (now > _epoch_s(UR_EXPIRE)))
+        boost = np.ones(n, np.float32)
+        for f in q.get("fields", []):
+            match = np.isin(cat_of, [int(c[1:]) for c in f["values"]])
+            if f["bias"] < 0:
+                exclude |= ~match
+            else:
+                boost = np.where(match, boost * f["bias"], boost)
+        if not any(m.any() for m in mem.values()):
+            scores = np.where(exclude, -np.inf, pop * boost)
+            order = np.argsort(-scores)[:q["num"]]
+            want = [{"item": f"i{item_of[j]}", "score": float(scores[j])}
+                    for j in order
+                    if np.isfinite(scores[j]) and scores[j] > 0]
+            check(res["itemScores"] == want,
+                  f"cold answer {res} != host popularity {want}")
+            counts["popularity"] += 1
+            return
+        _hold_served(res, items, _host_served(inds, mem, boost, exclude),
+                     q["num"], counts)
+
+    return check_answer, counts
+
+
+def phase_universal_recommender_jsonl(workdir: str) -> None:
+    """UR_LOG of config 5's buys and views (its first ones, on the full
+    id space, distinct shuffled times) and one $set per item
+    (UR_CATEGORIES categories; an availableDate / expireDate window on
+    UR_DATED_SHARE of the items) written as a JSONL log → pio app new →
+    pio train with templates/universal-recommender/engine.json, its
+    factory rewritten to the port → pio eventserver + pio deploy →
+    UR_QUERIES queries and cold users, every answer held to a host scorer
+    on the persisted model with the history from the generated arrays;
+    query latency split into the history read, the scoring and the
+    rest."""
+    n_users, n_items, n_buy, n_view = UR
+    events = _ur_events()
+    nb, nv = UR_LOG
+    u = np.concatenate([events["buy"][0][:nb], events["view"][0][:nv]])
+    i = np.concatenate([events["buy"][1][:nb], events["view"][1][:nv]])
+    buy = np.arange(nb + nv) < nb
+    times = T0_MS + np.random.default_rng(46).permutation(nb + nv)
+    cats = np.random.default_rng(47).integers(0, UR_CATEGORIES, n_items)
+    dated = np.random.default_rng(48).random(n_items) < UR_DATED_SHARE
+    cwd = tempfile.mkdtemp(dir=workdir)
+    base = os.path.join(cwd, "pio_ur")
+    env = _jsonl_env(base)
+    _verb(["app", "new", "ur"], env, cwd)
+    engine_json = _template_engine(UR_ENGINE, UR_FACTORY, "ur", cwd)
+    engine_json["algorithms"][0]["params"]["appName"] = "ur"
+    with open(os.path.join(cwd, "engine.json"), "w", encoding="utf-8") as fh:
+        json.dump(engine_json, fh)
+    log_path = os.path.join(base, "events", "pio_eventdata", "events_1.jsonl")
+    t0 = time.perf_counter()
+    _write_log(log_path, u, i, buy, times, lines=_ecommerce_lines)
+    with open(log_path, "ab") as fh:
+        fh.write(_ur_item_lines(cats, dated))
+    write_s = time.perf_counter() - t0
+    rows = np.sort(np.random.default_rng(49).choice(nb + nv, 1_000,
+                                                    replace=False))
+    _hold_lines(b"".join(_ecommerce_lines(u[k:k + 1], i[k:k + 1],
+                                          buy[k:k + 1], times[k:k + 1],
+                                          int(k)) for k in rows)
+                + _ur_item_lines(cats[:300], dated[:300]), cwd)
+
+    reset_launches()
+    trained = _linear_train_verb(env, cwd, "universal_recommender_jsonl")
+    PATH_LAUNCHES["universal_recommender_jsonl"] = {"warp": 0, "wide": 0}
+    tm = trained["timings"]
+    check(tm["ratings_read"] == nb + nv and tm["path"] == "fused",
+          f"the UR train read {tm['ratings_read']} events ({tm['path']})")
+    stored = _persisted(env, trained["engineInstanceId"])
+    check(stored["indicator_names"] == ["buy", "view"]
+          and stored["indicators/0/idx"].shape == (
+              len(stored["items"]), 50)
+          and len(stored["item_dates"]) == int(dated.sum()),
+          "the persisted UR model lacks its indicators or dates")
+
+    qusers = np.random.default_rng(50).choice(np.unique(u), UR_QUERIES,
+                                              replace=False)
+    history = {}
+    for a in qusers:
+        sel = u == a
+        history[f"u{a}"] = {"buy": set(i[sel & buy].tolist()),
+                            "view": set(i[sel & ~buy].tolist())}
+    queries = _ur_queries(qusers, np.arange(n_items // 10), 4)
+    check_answer, counts = _ur_check(stored, history, cats, dated)
+    split_out = os.path.join(cwd, "query_split.json")
+    client_ms = []
+    t0 = time.perf_counter()
+    events_srv = _Served(["eventserver", "--ip", "127.0.0.1"], env, cwd)
+    srv = _timed_deploy(env, cwd, split_out, "universal_recommender",
+                        "URAlgorithm", {"history_s": "URModel._history",
+                                        "score_s": "score_user"})
+    try:
+        with events_srv, srv:
+            ready_s = time.perf_counter() - t0
+            check(srv.info["engineInstanceId"] == trained["engineInstanceId"],
+                  f"deployed {srv.info}")
+            conn = srv.connect()
+            for q in queries:
+                status, res, ms = srv.request("POST", "/queries.json", q,
+                                              conn)
+                check(status == 200, f"query {status}: {res}")
+                check_answer(q, res)
+                client_ms.append(ms)
+            conn.close()
+    finally:  # a server whose start failed is stopped here
+        for proc in (events_srv.proc, srv.proc):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(split_out, encoding="utf-8") as fh:
+        records = json.load(fh)
+    check(counts["popularity"] == 4 and counts["exact"] > 0,
+          f"UR answers {counts}")
+    emit("universal_recommender_jsonl", events=nb + nv, buys=nb, views=nv,
+         users=len(stored["users"]), items=len(stored["items"]),
+         categories=UR_CATEGORIES, dated_items=int(dated.sum()),
+         reduced=(f"the first {nb} buys and {nv} views of config 5's "
+                  f"{n_buy + n_view} events: pio train reads the log "
+                  "through find_batch, a Python object per event"),
+         log_bytes=os.path.getsize(log_path), log_write_seconds=write_s,
+         train_seconds_end_to_end=trained["wall_seconds"],
+         train_seconds_run_train=trained["seconds"],
+         read_seconds=tm["read_seconds"], timings=tm,
+         events_per_s_end_to_end=(nb + nv) / trained["wall_seconds"],
+         deploy_ready_seconds=ready_s, queries=len(queries), answers=counts,
+         query_ms=_split(client_ms[1:], records[1:],
+                         {"history_read": "history_s",
+                          "scoring": "score_s"}),
+         kernel_launches=trained["kernel_launches"])
+    shutil.rmtree(cwd)
+
+
+def _cp_events() -> tuple:
+    """bench_complementary's draws (seed 7): shoppers uniform, items skewed
+    to low ids, times uniform over 30 days (µs)."""
+    n_shoppers, n_items, nnz = CP
+    rng = np.random.default_rng(7)
+    u = rng.integers(0, n_shoppers, nnz).astype(np.int32)
+    i = np.minimum((n_items * rng.random(nnz) ** 2).astype(np.int32),
+                   n_items - 1)
+    t = rng.integers(0, 30 * 86_400 * 1_000_000, nnz, dtype=np.int64)
+    return u, i, t
+
+
+def _cp_eval_lines(first: int) -> tuple:
+    """pio eval's buys: CP_EVAL_SHOPPERS shoppers, each one basket of three
+    items of one of 25 groups and a noise item, a minute apart (as
+    tests/test_complementary_purchase.py's baskets)."""
+    rng = np.random.default_rng(51)
+    u, i, t = [], [], []
+    for s in range(CP_EVAL_SHOPPERS):
+        group = s % 25
+        basket = list(rng.choice(4, 3, replace=False) + 4 * group)
+        basket.append(100 + int(rng.integers(0, 200)))
+        for k, item in enumerate(basket):
+            u.append(s)
+            i.append(int(item))
+            t.append(T0_MS + s * 3_600_000 + k * 60_000)
+    u, i, t = (np.asarray(a) for a in (u, i, t))
+    return _ecommerce_lines(u, i, np.ones(len(u), bool), t, first), len(u)
+
+
+def phase_complementary_purchase(workdir: str) -> None:
+    """bench_templates.py config 7 through the Complementary Purchase
+    template: in process at full width (ComplementaryAlgorithm.train on
+    the card, basketWindowSecs 3600, 20 correlators): the basket count
+    equal to the host's form_baskets, CCO_SAMPLE count rows equal to
+    scipy's, their indicators under the top-k rule against a float64 G²;
+    then the first CP_LOG_BUYS buys as a JSONL log → pio train (the
+    template's engine.json, factory rewritten) → pio deploy → CP_QUERIES
+    basket queries held to a host scorer of the persisted indicators; then
+    pio eval of ComplementaryEvaluation / ComplementaryParamsList on
+    ≈ 1,000 basket buys on the card and on the CPU (scores within 0.02, the
+    same best where the top two differ by more than 0.05). No solve kernel
+    launches."""
+    n_shoppers, n_items, nnz = CP
+    u, i, t = _cp_events()
+    engine = complementary_purchase.ComplementaryPurchaseEngine()()
+    with open(CP_ENGINE, encoding="utf-8") as fh:
+        cp_params = json.load(fh)["algorithms"][0]
+    _, _, algos, _ = engine.make_components(EngineParams.from_json(
+        {"algorithms": [cp_params]}))
+    td = complementary_purchase.TrainingData(
+        u, i, t, IdentityBiMap(n_shoppers), IdentityBiMap(n_items))
+    reset_launches()
+    ctx = WorkflowContext(app_name="bench")
+    ctx.bench_timings = {}
+    model, train_s = _timed(lambda: algos[0][1].train(ctx, td))
+    tm = ctx.bench_timings
+    baskets, form_s = _timed(lambda: complementary_purchase.form_baskets(
+        u, t, cp_params["params"]["basketWindowSecs"] * 1_000_000))
+    n_baskets = int(baskets.max()) + 1
+    check(tm["baskets"] == n_baskets and tm["path"] == "full",
+          f"CP trained {tm['baskets']} baskets ({tm['path']}), the host "
+          f"formed {n_baskets}")
+    counts = llr.cooccurrence_counts(baskets, i, {"b": (baskets, i)},
+                                     n_baskets, n_items, device="cuda")["b"]
+    rows = np.sort(np.random.default_rng(52).choice(n_items, CCO_SAMPLE,
+                                                    replace=False))
+    pair = (baskets, i)
+    sampled = _sampled_counts(counts, pair, pair, n_baskets, n_items, rows,
+                              model.indicators, "CP")
+    del counts
+    k = model.indicators.max_correlators
+
+    # through the verbs
+    cwd = tempfile.mkdtemp(dir=workdir)
+    base = os.path.join(cwd, "pio_cp")
+    env = _jsonl_env(base)
+    _verb(["app", "new", "cp"], env, cwd)
+    _template_engine(CP_ENGINE, CP_FACTORY, "cp", cwd)
+    n_log = CP_LOG_BUYS
+    times = T0_MS + t[:n_log] // 1_000
+    log_path = os.path.join(base, "events", "pio_eventdata", "events_1.jsonl")
+    with open(log_path, "wb") as fh:
+        fh.write(_ecommerce_lines(u[:n_log], i[:n_log],
+                                  np.ones(n_log, bool), times, 0))
+    trained = _linear_train_verb(env, cwd, "complementary_purchase")
+    vt = trained["timings"]
+    check(vt["ratings_read"] == n_log and vt["path"] == "full",
+          f"the CP train read {vt['ratings_read']} buys ({vt['path']})")
+    stored = _persisted(env, trained["engineInstanceId"])
+    items = stored["items"]
+    inds = {"buy": (stored["idx"], stored["score"])}
+    log_baskets = complementary_purchase.form_baskets(
+        u[:n_log], times * 1_000, 3_600 * 1_000_000)
+    answered = {"exact": 0, "near_ties": 0, "empty": 0}
+    query_ms = []
+    multi = np.random.default_rng(53).choice(
+        np.flatnonzero(np.bincount(log_baskets) >= 2), CP_QUERIES,
+        replace=False)
+    with _Served(["deploy"], env, cwd) as srv:
+        check(srv.info["engineInstanceId"] == trained["engineInstanceId"],
+              f"deployed {srv.info}")
+        conn = srv.connect()
+        for b in multi:
+            basket = sorted({f"i{x}" for x in i[:n_log][log_baskets == b]})
+            q = {"items": basket[:-1], "num": 10}
+            status, res, ms = srv.request("POST", "/queries.json", q, conn)
+            check(status == 200, f"query {status}: {res}")
+            known = [items[x] for x in q["items"] if x in items]
+            member = np.zeros(len(items), np.float32)
+            member[known] = 1.0
+            _hold_served(res, items, _host_served(
+                inds, {"buy": member}, np.ones(len(items)), member > 0),
+                q["num"], answered)
+            query_ms.append(ms)
+        conn.close()
+    check(answered["exact"] > 0, f"CP answers {answered}")
+
+    # pio eval on the card and on the CPU
+    eval_base = os.path.join(cwd, "pio_cp_eval")
+    eval_env = _jsonl_env(eval_base)
+    _verb(["app", "new", "cpeval"], eval_env, cwd)
+    lines, n_eval = _cp_eval_lines(0)
+    with open(os.path.join(eval_base, "events", "pio_eventdata",
+                           "events_1.jsonl"), "wb") as fh:
+        fh.write(lines)
+    card = _eval_verb("complementary", eval_env, cwd, "cuda", "cpeval")
+    cpu = _eval_verb("complementary", eval_env, cwd, "cpu", "cpeval")
+    check(card["kernel_launches"] == {"warp": 0, "wide": 0}
+          and card["ranking_metrics"]["calls"] > 0,
+          f"the CP sweep launched {card['kernel_launches']}")
+    top = sorted(card["scores"], reverse=True)
+    check(all(abs(a - b) <= 0.02 for a, b in zip(card["scores"],
+                                                  cpu["scores"])),
+          f"CP eval card {card['scores']} vs CPU {cpu['scores']}")
+    check(top[0] - top[1] <= 0.05 or card["bestIndex"] == cpu["bestIndex"],
+          f"CP best candidate {card['bestIndex']} on the card, "
+          f"{cpu['bestIndex']} on the CPU")
+    launched = launches()
+    check(launched["total"] == 0, f"the CP phase launched {launched}")
+    PATH_LAUNCHES["complementary_purchase"] = {"warp": 0, "wide": 0}
+    emit("complementary_purchase", shoppers=n_shoppers, items=n_items,
+         buys=nnz, baskets=n_baskets, max_correlators=k,
+         train_seconds=train_s, form_baskets_seconds=form_s,
+         events_per_s=nnz / train_s, timings=tm,
+         counts=_counts_bound(tm, n_items, 2048),
+         g2_topk=_g2_bound(tm, 1, n_items, k), sampled=sampled,
+         verbs={"buys": n_log, "train_seconds_end_to_end":
+                trained["wall_seconds"], "read_seconds": vt["read_seconds"],
+                "timings": vt, "queries": len(multi), "answers": answered,
+                "query_ms": _percentiles(query_ms[1:])},
+         reduced=(f"the verbs on the first {n_log} of the {nnz} buys; pio "
+                  f"eval on {n_eval} basket buys"),
+         eval={"buys": n_eval, "card": card, "cpu": cpu},
+         kernel_launches=launched)
+    shutil.rmtree(cwd)
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -3236,6 +4066,9 @@ def main() -> int:
         phase_pio_eval(workdir)
         phase_classification_jsonl(workdir)
         phase_text_classification_jsonl(workdir)
+        phase_universal_recommender()
+        phase_universal_recommender_jsonl(workdir)
+        phase_complementary_purchase(workdir)
     ratings = main_path.pop("ratings")
     main_path.clear()
     phase_train_rank128(ratings)

@@ -2,13 +2,14 @@
 
 The port's own copy of the parts of
 ``incubator_predictionio_tpu/common/envknobs.py`` that the port reads
-(``PIO_TRAIN_WINDOW*``, ``PIO_EVENT_RETENTION``, ``PIO_INGEST_FSYNC``),
-with the same semantics:
+(``PIO_TRAIN_WINDOW*``, ``PIO_EVENT_RETENTION``, ``PIO_INGEST_FSYNC``,
+``PIO_UR_FULL_MATRIX_ELEMS``), with the same semantics:
 
 - unset / empty         → ``default`` (always)
 - unparsable            → ``default`` (an operator typo must never crash
   a deploy or a train); integer knobs take no float spelling, so
-  ``PIO_FOO=3.5`` falls back rather than silently truncating
+  ``PIO_FOO=3.5`` falls back rather than silently truncating, unless
+  ``float_ok=True`` (``"1e3"`` → 1000)
 - ``lo``                → clamp the PARSED integer from below (clamping is
   not an error)
 """
@@ -21,7 +22,8 @@ from typing import Optional
 __all__ = ["env_int", "env_flag", "env_str"]
 
 
-def env_int(name: str, default: int, *, lo: Optional[int] = None) -> int:
+def env_int(name: str, default: int, *, lo: Optional[int] = None,
+            float_ok: bool = False) -> int:
     """Integer knob (see the module docstring)."""
     raw = os.environ.get(name)
     if raw is None or raw.strip() == "":
@@ -29,7 +31,15 @@ def env_int(name: str, default: int, *, lo: Optional[int] = None) -> int:
     try:
         v = int(raw.strip())
     except ValueError:
-        return default
+        if not float_ok:
+            return default
+        try:
+            f = float(raw.strip())
+            if f != f or f in (float("inf"), float("-inf")):
+                return default
+            v = int(f)
+        except (ValueError, OverflowError):
+            return default
     if lo is not None:
         v = max(lo, v)
     return v

@@ -1,13 +1,16 @@
 """Weights carried across between the JAX package and the port.
 
-The reference's templates persist dicts of numpy factors plus persisted
+The reference's templates persist dicts of numpy arrays plus persisted
 BiMaps: the Recommendation template's ALSAlgorithm ``user_factors``,
 ``item_factors``, ``users``, ``items``; the Similar-Product template
 ``user_factors``, ``item_factors``, ``items``, ``item_categories``; the
 E-Commerce template ``user_factors``, ``item_factors``, ``users``,
-``items``, ``item_categories``, ``app_name``, ``seen_event_names``. The
-port persists exactly the same dicts, so the conversion is a re-binding
-onto a device, with no numeric change.
+``items``, ``item_categories``, ``app_name``, ``seen_event_names``; the
+Universal Recommender ``indicators`` (event name → ``idx`` / ``score``),
+``users``, ``items``, ``item_categories``, ``app_name``, ``event_names``,
+``popularity``, ``item_dates``; the Complementary Purchase template
+``idx``, ``score``, ``items``. The port's models hold the same values, so
+the conversion is a re-binding onto a device, with no numeric change.
 """
 
 from __future__ import annotations
@@ -15,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 
 from .models import (
-    classification, ecommerce, recommendation, similar_product,
-    text_classification,
+    classification, complementary_purchase, ecommerce, recommendation,
+    similar_product, text_classification, universal_recommender,
 )
 from .ops.linear import LogisticRegressionModel, NaiveBayesModel
 from .ops.tfidf import TfIdfVectorizer
@@ -25,14 +28,25 @@ _ALS_KEYS = {"user_factors", "item_factors", "users", "items"}
 _SIMILAR_KEYS = {"user_factors", "item_factors", "items", "item_categories"}
 _ECOMMERCE_KEYS = _ALS_KEYS | {"item_categories", "app_name",
                                "seen_event_names"}
+_UR_KEYS = {"indicators", "users", "items", "item_categories", "app_name",
+            "event_names"}
+_CP_KEYS = {"idx", "score", "items"}
 
 
 def from_jax_persisted(stored: dict, device="cuda", storage=None):
-    """A reference-persisted Recommendation, Similar-Product or E-Commerce
-    model dict → the port's model on ``device`` (told apart by their keys;
-    an E-Commerce model reads its serve-time exclusions from ``storage``,
-    the process's store when None)."""
-    if "seen_event_names" in stored:
+    """A reference-persisted Recommendation, Similar-Product, E-Commerce,
+    Universal Recommender or Complementary Purchase model dict → the port's
+    model on ``device`` (told apart by their keys; an E-Commerce or
+    Universal Recommender model reads its serve-time history from
+    ``storage``, the process's store when None)."""
+    if "indicators" in stored:
+        missing = _UR_KEYS - set(stored)
+        if not missing:
+            return universal_recommender.model_from_persisted(
+                stored, device, storage)
+    elif _CP_KEYS <= set(stored):
+        return complementary_purchase.model_from_persisted(stored, device)
+    elif "seen_event_names" in stored:
         missing = _ECOMMERCE_KEYS - set(stored)
         if not missing:
             return ecommerce.model_from_persisted(stored, device, storage)
@@ -44,11 +58,15 @@ def from_jax_persisted(stored: dict, device="cuda", storage=None):
         missing = _ALS_KEYS - set(stored)
         if not missing:
             return recommendation.model_from_persisted(stored, device)
-    raise ValueError(f"not a persisted ALS model: missing {sorted(missing)}")
+    raise ValueError(f"not a persisted model: missing {sorted(missing)}")
 
 
 def to_jax_persisted(model) -> dict:
     """The port's model → a dict the reference's ``restore_model`` loads."""
+    if isinstance(model, universal_recommender.URModel):
+        return universal_recommender.model_to_persisted(model)
+    if isinstance(model, complementary_purchase.ComplementaryModel):
+        return complementary_purchase.model_to_persisted(model)
     if isinstance(model, ecommerce.ECommerceModel):
         return ecommerce.model_to_persisted(model)
     if isinstance(model, similar_product.SimilarProductModel):

@@ -1,17 +1,16 @@
-"""Evaluation and parameter tuning for the E-Commerce template.
+"""Evaluation and parameter tuning for the E-Commerce and Complementary
+Purchase templates.
 
-Port of the E-Commerce part of ``incubator_predictionio_tpu/models/
-template_evals.py``: NDCG@k over the held-out (query, actual) folds of
-``ECommerceDataSource.read_eval``, computed by ``ops/eval.ranking_metrics``
-on the evaluation's device (one call per query), and a rank × lambda
-sweep::
+Port of ``incubator_predictionio_tpu/models/template_evals.py``: NDCG@k
+over the held-out (query, actual) folds of each template's ``read_eval``,
+computed by ``ops/eval.ranking_metrics`` on the evaluation's device (one
+call per query), and a sweep per template: rank × lambda for E-Commerce,
+correlator budget × LLR floor for Complementary Purchase::
 
     pio eval incubator_predictionio_torch.models.template_evals.ECommerceEvaluation \\
              incubator_predictionio_torch.models.template_evals.ECommerceParamsList
-
-The reference module also holds the Complementary-Purchase pair and
-imports that template at its top; both come to the port with the
-Complementary-Purchase template.
+    pio eval incubator_predictionio_torch.models.template_evals.ComplementaryEvaluation \\
+             incubator_predictionio_torch.models.template_evals.ComplementaryParamsList
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from ..controller import (
     EngineParams, EngineParamsGenerator, Evaluation, OptionAverageMetric,
 )
 from ..ops import eval as evalops
+from .complementary_purchase import ComplementaryPurchaseEngine
 from .ecommerce import ECommerceEngine
 
 
@@ -73,4 +73,32 @@ class ECommerceParamsList(EngineParamsGenerator):
             })
             for r in (8, 16)
             for lam in (0.01, 0.1)
+        ]
+
+
+class ComplementaryEvaluation(Evaluation):
+    """K-fold NDCG@k for basket completion: the held-out item of each
+    shopper's basket must surface from the basket's other items.
+    ``device``: where the metric runs (``pio eval --device``)."""
+
+    def __init__(self, device="cuda"):
+        self.engine = ComplementaryPurchaseEngine()()
+        self.metric = NDCGAtK(k=10, device=device)
+        self.metrics = (NDCGAtK(k=5, device=device),)
+
+
+class ComplementaryParamsList(EngineParamsGenerator):
+    """Correlator budget × LLR floor sweep: 4 candidates."""
+
+    def __init__(self, app_name: str = ""):
+        ds = {"params": ({"appName": app_name} if app_name else {})}
+        self.engine_params_list = [
+            EngineParams.from_json({
+                "datasource": ds,
+                "algorithms": [{"name": "cooccurrence", "params": {
+                    "maxCorrelatorsPerItem": mc, "minLLR": llr,
+                }}],
+            })
+            for mc in (10, 20)
+            for llr in (0.0, 1.0)
         ]

@@ -9,7 +9,10 @@ arrays) without a Python object per event, and :func:`ingest_batch`
 validates and canonicalizes a ``/batch/events.json`` body in one pass. It
 is also the Text-Classification template's tokenizer: :func:`tfidf_tf` and
 :func:`tfidf_tf_coo` hash a batch of documents into term counts in one
-pass, bit for bit as ``ops/tfidf.py``'s Python loop.
+pass, bit for bit as ``ops/tfidf.py``'s Python loop; and the CCO layout of
+the Universal Recommender and Complementary Purchase templates
+(``ops/llr.py``): :func:`pair_dedupe` and :func:`cco_partition` (:740-828
+of the reference module).
 
 Build: the library is compiled from the checkout's own source
 (``native/src/event_codec.cc``, which both packages share) with
@@ -137,6 +140,36 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_float),   # out [n_docs, n_features]
         ctypes.POINTER(ctypes.c_int64),   # df [n_features] or NULL
     ]
+    lib.pio_cco_partition.restype = ctypes.c_void_p
+    lib.pio_cco_partition.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int64,
+    ]
+    lib.pio_ccop_dim.restype = ctypes.c_int64
+    lib.pio_ccop_dim.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.pio_ccop_slab.restype = ctypes.POINTER(ctypes.c_uint16)
+    lib.pio_ccop_slab.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.pio_ccop_item_counts.restype = ctypes.POINTER(ctypes.c_int64)
+    lib.pio_ccop_item_counts.argtypes = [ctypes.c_void_p]
+    lib.pio_ccop_free.restype = None
+    lib.pio_ccop_free.argtypes = [ctypes.c_void_p]
+    lib.pio_pair_dedupe.restype = ctypes.c_void_p
+    lib.pio_pair_dedupe.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.pio_pdd_count.restype = ctypes.c_int64
+    lib.pio_pdd_count.argtypes = [ctypes.c_void_p]
+    for name in ("pio_pdd_users", "pio_pdd_items"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.POINTER(ctypes.c_int32)
+        fn.argtypes = [ctypes.c_void_p]
+    lib.pio_pdd_per_user.restype = ctypes.POINTER(ctypes.c_int64)
+    lib.pio_pdd_per_user.argtypes = [ctypes.c_void_p]
+    lib.pio_pdd_free.restype = None
+    lib.pio_pdd_free.argtypes = [ctypes.c_void_p]
     lib.pio_tfidf_tf_coo.restype = ctypes.c_int64
     lib.pio_tfidf_tf_coo.argtypes = [
         ctypes.c_char_p,                  # concatenated utf-8 docs
@@ -606,3 +639,97 @@ def tfidf_tf(docs, n_features: int, ngram: int, want_df: bool = False):
     if rc != 0:
         raise ValueError(f"tfidf_tf: native tokenizer error {rc}")
     return (out, df) if want_df else out
+
+
+def cco_partition(u: np.ndarray, i: np.ndarray, rank, n_users: int,
+                  u_chunk: int, n_ranges: int, n_items: int,
+                  h_chunk: int, h_ranges: int):
+    """One-pass partition of deduped, user-sorted (u, i) pairs into the CCO
+    slab layout of ``ops/llr.py``: ((light_eu, light_ei), (heavy_eu,
+    heavy_ei) or None, item_counts), the light layout [n_ranges, E] and the
+    heavy one [h_ranges, E'] as uint16. ``rank``: each user's heavy rank
+    (-1 for light users), or None. The layout is uint16 only: the caller
+    passes u_chunk, h_chunk < 0xFFFF and n_items <= 0xFFFF (ValueError
+    otherwise; the wider layout is ``llr._partition_by_user``'s int32 one).
+    Raises :class:`NativeUnavailable` when the codec cannot be built or
+    loaded."""
+    if u_chunk >= 0xFFFF or n_items > 0xFFFF or h_chunk >= 0xFFFF:
+        raise ValueError("cco_partition: ids exceed the uint16 layout")
+    lib = load()
+    u = np.ascontiguousarray(u, np.int32)
+    i = np.ascontiguousarray(i, np.int32)
+    if u.shape != i.shape or u.ndim != 1:
+        raise ValueError(f"cco_partition: users {u.shape}, items {i.shape}")
+    rank_ptr = None
+    if rank is not None:
+        rank = np.ascontiguousarray(rank, np.int32)
+        if rank.shape != (n_users,):
+            raise ValueError(f"cco_partition: rank {rank.shape} for "
+                             f"{n_users} users")
+        rank_ptr = _ptr(rank, ctypes.c_int32)
+    h = lib.pio_cco_partition(
+        _ptr(u, ctypes.c_int32), _ptr(i, ctypes.c_int32), u.size, rank_ptr,
+        n_users, u_chunk, n_ranges, n_items, h_chunk,
+        h_ranges if rank is not None else 0)
+    if not h:
+        raise NativeUnavailable("cco_partition failed")
+    try:
+        le = lib.pio_ccop_dim(h, 0)
+        light = tuple(
+            np.ctypeslib.as_array(lib.pio_ccop_slab(h, w),
+                                  shape=(n_ranges, le)).copy()
+            for w in (0, 1))
+        heavy = None
+        if rank is not None:
+            he = lib.pio_ccop_dim(h, 1)
+            heavy = tuple(
+                np.ctypeslib.as_array(lib.pio_ccop_slab(h, w),
+                                      shape=(h_ranges, he)).copy()
+                for w in (2, 3))
+        counts = np.ctypeslib.as_array(
+            lib.pio_ccop_item_counts(h), shape=(n_items,)).copy()
+        return light, heavy, counts
+    finally:
+        lib.pio_ccop_free(h)
+
+
+def pair_dedupe(u: np.ndarray, i: np.ndarray, n_users: int, n_items: int):
+    """Distinct (user, item) pairs sorted by (user, item), and the distinct
+    count per user: a counting sort by user and small per-user sorts (two
+    linear passes), in the order of a packed-key ``np.unique``. Ids outside
+    [0, n_users) × [0, n_items) are dropped. Raises
+    :class:`NativeUnavailable` when the codec cannot be built or loaded."""
+    lib = load()
+    u = np.asarray(u)
+    i = np.asarray(i)
+    if u.shape != i.shape or u.ndim != 1:
+        raise ValueError(f"pair_dedupe: users {u.shape}, items {i.shape}")
+    if u.dtype != np.int32 or i.dtype != np.int32:
+        # range-check in the wide dtype: a cast to int32 would wrap an
+        # out-of-range id into the valid range
+        u64 = u.astype(np.int64)
+        i64 = i.astype(np.int64)
+        valid = ((u64 >= 0) & (u64 < n_users)
+                 & (i64 >= 0) & (i64 < n_items))
+        u = u64[valid].astype(np.int32)
+        i = i64[valid].astype(np.int32)
+    u = np.ascontiguousarray(u, np.int32)
+    i = np.ascontiguousarray(i, np.int32)
+    h = lib.pio_pair_dedupe(_ptr(u, ctypes.c_int32), _ptr(i, ctypes.c_int32),
+                            u.size, n_users, n_items)
+    if not h:
+        raise NativeUnavailable("pair_dedupe failed")
+    try:
+        n = lib.pio_pdd_count(h)
+        if n:  # empty vectors hand back NULL data pointers
+            du = np.ctypeslib.as_array(lib.pio_pdd_users(h), shape=(n,)).copy()
+            di = np.ctypeslib.as_array(lib.pio_pdd_items(h), shape=(n,)).copy()
+        else:
+            du = np.zeros(0, np.int32)
+            di = np.zeros(0, np.int32)
+        per_user = (np.ctypeslib.as_array(
+            lib.pio_pdd_per_user(h), shape=(n_users,)).copy()
+            if n_users else np.zeros(0, np.int64))
+        return du, di, per_user
+    finally:
+        lib.pio_pdd_free(h)

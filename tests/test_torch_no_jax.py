@@ -14,7 +14,9 @@ The same holds for the E-Commerce template and the evaluations (the
 ``eval`` and ``dashboard`` verbs, and the vanilla copy's evaluation from
 its engine directory), and for the Classification and Text-Classification
 templates (Naive Bayes and L-BFGS LR, the codec's tokenizer) with the
-fake workflow, self-cleaning and a self-persisted model. (This pytest process has JAX loaded by
+fake workflow, self-cleaning and a self-persisted model, and for the
+Universal Recommender and Complementary Purchase templates (train → persist
+→ serve, with the codec's CCO layout). (This pytest process has JAX loaded by
 tests/conftest.py, so the run-time check needs its own process.)
 """
 
@@ -68,7 +70,8 @@ def test_port_files_exist():
             "evaluation.py", "cross_validation.py", "eval.py",
             "vanilla_engine.py", "linear.py", "tfidf.py",
             "classification.py", "text_classification.py",
-            "persistent_model.py", "self_cleaning.py", "fake_workflow.py"
+            "persistent_model.py", "self_cleaning.py", "fake_workflow.py",
+            "llr.py", "universal_recommender.py", "complementary_purchase.py",
             } <= names
     assert (ROOT / "incubator_predictionio_torch" / "e2"
             / "engine.py").is_file()
@@ -280,6 +283,75 @@ def test_classification_templates_in_a_process_without_jax(tmp_path):
     JAX package is loaded."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _CLS_SCRIPT],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(tmp_path), timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    last = out.stdout.strip().splitlines()[-1]
+    assert '"loaded": []' in last, last
+
+
+_CCO_SCRIPT = r"""
+import json, sys
+import numpy as np
+from incubator_predictionio_torch.controller import EngineParams
+from incubator_predictionio_torch.data.storage import App, Event, Storage
+from incubator_predictionio_torch.models import (
+    complementary_purchase, universal_recommender)
+from incubator_predictionio_torch.workflow import core_workflow
+from incubator_predictionio_torch.workflow.context import WorkflowContext
+
+storage = Storage({"PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "M",
+                   "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "M",
+                   "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "M",
+                   "PIO_STORAGE_SOURCES_M_TYPE": "MEMORY"})
+app_id = storage.get_meta_data_apps().insert(App(0, "shop"))
+rng = np.random.default_rng(0)
+wire = []
+for u in range(30):
+    group = ("a", "b", "c") if u % 2 else ("x", "y")
+    for k, item in enumerate(group + (f"n{rng.integers(0, 9)}",)):
+        wire.append({"event": "buy", "entityType": "user",
+                     "entityId": f"u{u}", "targetEntityType": "item",
+                     "targetEntityId": item,
+                     "eventTime": f"2024-01-{1 + u % 28:02d}T10:{k:02d}:00Z"})
+        wire.append({"event": "view", "entityType": "user",
+                     "entityId": f"u{u}", "targetEntityType": "item",
+                     "targetEntityId": group[(k + 1) % len(group)],
+                     "eventTime": f"2024-01-{1 + u % 28:02d}T11:{k:02d}:00Z"})
+wire.append({"event": "$set", "entityType": "item", "entityId": "b",
+             "properties": {"categories": ["cat"]}})
+storage.get_l_events().insert_batch([Event.from_json(e) for e in wire], app_id)
+ctx = WorkflowContext(app_name="shop", storage=storage, device="cpu")
+answers = []
+for module, cls, algo, query in (
+        (universal_recommender, "UniversalRecommenderEngine",
+         {"name": "ur", "params": {"appName": "shop"}},
+         {"item": "a", "num": 2}),
+        (complementary_purchase, "ComplementaryPurchaseEngine",
+         {"name": "cooccurrence", "params": {}}, {"items": ["a"], "num": 2})):
+    engine = getattr(module, cls)()()
+    params = EngineParams.from_json({
+        "datasource": {"params": {"appName": "shop"}}, "algorithms": [algo]})
+    iid = core_workflow.run_train(engine, params, ctx,
+                                  engine_factory_name=cls)
+    dep, _, _ = core_workflow.load_deployment(
+        engine, iid, WorkflowContext(storage=storage, device="cpu"),
+        engine_factory_name=cls)
+    answers.append(sorted(e["item"] for e in dep.query(query)["itemScores"]))
+assert answers == [["b", "c"], ["b", "c"]], answers
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "orbax", "optax", "incubator_predictionio_tpu"))
+print(json.dumps({"loaded": loaded}))
+"""
+
+
+def test_cco_templates_in_a_process_without_jax(tmp_path):
+    """The Universal Recommender and the Complementary Purchase template
+    train (the codec's dedupe and layout, the CCO counts and LLR
+    indicators), persist, deploy and answer, and neither JAX nor the JAX
+    package is loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _CCO_SCRIPT],
                          capture_output=True, text=True, env=env,
                          cwd=str(tmp_path), timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
