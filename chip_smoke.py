@@ -53,14 +53,29 @@ Phases (any failure exits non-zero; nothing is caught):
    and equals a numpy filter of the generated events, the full train
    (read count, first-seen id maps, warp launches = implied), deploy, 50
    queries held to a host top-k; import, read, train and ingest/query
-   latencies beside the SQLite phase's.
+   latencies beside the SQLite phase's. Then engine_server_lifecycle on
+   that store: pio deploy --model-refresh-ms 500 → a further pio train
+   (λ 0.05, 5 iterations; its warp launches recorded under this path) →
+   the refresh swap within 10 s with answers equal to the new instance's
+   host top-k → POST /rollback restores the old answers and pins the new
+   instance across ≥ 2 refresh polls → pio models list, verify, gc --keep
+   1 --engine-url (the deployed and pinned models kept) →
+   /reload?instance=<new> removes the pin.
 13. pio_workflow_jsonl_ml20m: the first 5,000,000 of the ML-20M ratings
    as the log (byte for byte insert_batch's lines; cut from 20,000,263
    for the script's time, ``reduced``) → eventlog compact → the read held
    exactly to the generated arrays → train at rank 32, 10 iterations
    (warp launches = implied) → deploy → 20 queries; the compaction, read
    and train times and events/s end to end and steady. df and free -g
-   first.
+   first. Then engine_server_load on that store: pio deploy
+   --probe-latency (the probe's split from /status), one keep-alive
+   client × 200 queries, 8 and 32 keep-alive clients without and with
+   micro-batching (--batch-window-ms 2 --max-batch 64), batched answers
+   against unbatched ones, X-Pio-Deadline-Ms 0.001 → 504, pio undeploy;
+   SIGTERM with 16 clients in flight (accepted queries 200, /readyz 503
+   in the drain, exit 0); --query-cache-size 10000 hits and misses; pio
+   batchpredict of 10,000 queries against the served answers. Every
+   answer is held to the host top-k over the persisted factors.
 14. similar_product (phase 9 above, run here).
 15. ecommerce_jsonl: bench_templates.py's config 6 (100,000 users ×
    20,000 items × 5,000,000 view/buy events, 10 % buys, 20 categories)
@@ -147,6 +162,7 @@ import json
 import os
 import resource
 import shutil
+import signal
 import socket
 import sqlite3
 import subprocess
@@ -563,7 +579,7 @@ def serve_checks(deployment, queries, check_answer) -> dict:
     one keep-alive connection, hold each answer to ``check_answer(query,
     result)``; returns the latency percentiles (the first query, which
     opens the connection, left out)."""
-    server = EngineServer(deployment, "127.0.0.1", 0)
+    server = EngineServer(deployment=deployment)
     host, port = server.start()
     conn = http.client.HTTPConnection(host, port, timeout=30)
     lat = []
@@ -1292,13 +1308,17 @@ class _Served:
         return http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
 
     def request(self, method, path, body=None, conn=None):
+        return self.request_h(method, path, body, {}, conn)
+
+    def request_h(self, method, path, body, headers: dict, conn=None):
         own = conn is None
         conn = conn or self.connect()
         try:
             t0 = time.perf_counter()
             conn.request(method, path, body=None if body is None
                          else json.dumps(body),
-                         headers={"Content-Type": "application/json"})
+                         headers={"Content-Type": "application/json",
+                                  **headers})
             resp = conn.getresponse()
             data = json.loads(resp.read())
             return resp.status, data, (time.perf_counter() - t0) * 1e3
@@ -1762,13 +1782,15 @@ def phase_pio_workflow(workdir: str) -> None:
                                      {"user": queried[0], "num": 10})
         check(status == 200, f"query after walk-back {status}: {res}")
         answer(res, queried[0])
-    check(info["engineInstanceId"] == first_id and info["rejected"] == [
-        {"engineInstanceId": second_id, "kind": "checksum"}],
-        f"walk-back: {info}")
-    check("checksum" in srv.stderr, "deploy did not report the integrity kind")
+    check(info["engineInstanceId"] == first_id
+          and info["lifecycle"]["integrityFailures"] == {"checksum": 1},
+          f"walk-back: {info}")
+    check(f"{second_id} is not deployable (checksum)" in srv.stderr,
+          "deploy did not report the walked-back instance and its kind")
     store.close()
     emit("pio_workflow_walk_back", corrupt=second_id, deployed=first_id,
-         rejected=info["rejected"], retrain_seconds_end_to_end=second["wall_seconds"],
+         integrity_failures=info["lifecycle"]["integrityFailures"],
+         retrain_seconds_end_to_end=second["wall_seconds"],
          retrain_timings=second["timings"])
 
 
@@ -2021,7 +2043,8 @@ def _serve_and_check(env: dict, workdir: str, instance_id: str,
     query_ms = []
     with _Served(["deploy"], env, workdir) as srv:
         check(srv.info["engineInstanceId"] == instance_id
-              and srv.info["rejected"] == [], f"deployed {srv.info}")
+              and not srv.info["lifecycle"]["integrityFailures"],
+              f"deployed {srv.info}")
         conn = srv.connect()
         for user in queried:
             status, res, ms = srv.request("POST", "/queries.json",
@@ -2168,6 +2191,7 @@ def phase_pio_workflow_jsonl(workdir: str) -> None:
                             queried),
          sqlite=_sqlite_beside(SQLITE_NUMBERS.get("query")))
     store.close()
+    phase_engine_server_lifecycle(workdir, env, first["engineInstanceId"])
 
 
 def _ml20m_workdir(workdir: str) -> str:
@@ -2317,7 +2341,379 @@ def phase_pio_workflow_jsonl_ml20m(workdir: str, ratings) -> None:
          kernel_launches=trained["kernel_launches"],
          expected_launches=trained["expected_launches"],
          queries=serve)
+    phase_engine_server_load(env, cwd, trained["engineInstanceId"], stored,
+                             want)
     shutil.rmtree(cwd)
+
+
+# -- the engine server: load and lifecycle ---------------------------------
+
+#: queries of engine_server_load: one client's, and per client at 8 and at
+#: 32 keep-alive clients; pio batchpredict's
+SERVE_QUERIES, CLIENT_QUERIES, BATCHPREDICT_QUERIES = 200, 100, 10_000
+#: clients in flight at the SIGTERM of engine_server_load
+DRAIN_CLIENTS = 16
+
+
+def _hold_als_answer(stored: dict, user: str, res: dict) -> list:
+    """One served answer held to the host top-k over the persisted
+    factors; returns its item names."""
+    check_user_answer(stored["user_factors"], stored["item_factors"],
+                      stored["users"][user], {"itemScores": [
+                          {"item": stored["items"][x["item"]],
+                           "score": x["score"]}
+                          for x in res["itemScores"]]})
+    return [x["item"] for x in res["itemScores"]]
+
+
+def _clients(srv: "_Served", users: list, n_clients: int, stored: dict,
+             headers=None) -> dict:
+    """``n_clients`` keep-alive clients, each POSTing its share of
+    ``users`` back to back after one warm-up query; every answer held to
+    the host top-k. Queries/s over the wall time, p50/p99 per query."""
+    shares = [users[c::n_clients] for c in range(n_clients)]
+    lat: list = []
+    answers: dict = {}
+    errors: list = []
+    lock = threading.Lock()
+    start = threading.Barrier(n_clients + 1)
+
+    def client(share):
+        conn = srv.connect()
+        try:
+            srv.request("POST", "/queries.json",
+                        {"user": share[0], "num": 10}, conn)
+            start.wait()
+            mine = []
+            for user in share:
+                status, res, ms = srv.request(
+                    "POST", "/queries.json", {"user": user, "num": 10}, conn)
+                check(status == 200, f"query {status}: {res}")
+                mine.append((user, res, ms))
+            with lock:
+                for user, res, ms in mine:
+                    lat.append(ms)
+                    answers[user] = res
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+            start.abort()
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(sh,)) for sh in shares]
+    for t in threads:
+        t.start()
+    try:
+        start.wait()
+    except threading.BrokenBarrierError:
+        pass  # a client failed before the start: its error is reported
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"{n_clients} clients: {errors[:3]}")
+    for user, res in answers.items():
+        _hold_als_answer(stored, user, res)
+    return {"clients": n_clients, "queries": len(lat),
+            "queries_per_s": len(lat) / wall, "wall_seconds": wall,
+            **_percentiles(lat), "answers": answers}
+
+
+def _load_runs(srv, users, stored) -> dict:
+    """8 and 32 keep-alive clients, CLIENT_QUERIES each."""
+    out = {}
+    for n in (8, 32):
+        out[n] = _clients(srv, users[:n * CLIENT_QUERIES], n, stored)
+    return out
+
+
+def _sigterm_drain(srv: "_Served") -> dict:
+    """SIGTERM while DRAIN_CLIENTS keep-alive clients query back to back:
+    every accepted query is answered 200, later ones shed 503 (each
+    client stops at its first 503), /readyz answers 503 during the drain
+    and the process exits 0."""
+    users = [f"u{k}" for k in range(DRAIN_CLIENTS)]
+    codes: list = []
+    lost: list = []
+    sent_sigterm = threading.Event()
+    lock = threading.Lock()
+
+    def client(user):
+        conn = srv.connect()
+        try:
+            while True:
+                try:
+                    status, _, _ = srv.request(
+                        "POST", "/queries.json", {"user": user, "num": 10},
+                        conn)
+                except (OSError, http.client.HTTPException) as e:
+                    with lock:
+                        lost.append((sent_sigterm.is_set(), repr(e)))
+                    return
+                with lock:
+                    codes.append((sent_sigterm.is_set(), status))
+                if status != 200:
+                    return
+        finally:
+            conn.close()
+
+    readyz = srv.connect()
+    check(srv.request("GET", "/readyz", conn=readyz)[0] == 200,
+          "not ready before the SIGTERM")
+    threads = [threading.Thread(target=client, args=(u,)) for u in users]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    sent_sigterm.set()
+    srv.proc.send_signal(signal.SIGTERM)
+    ready_codes = []
+    while time.perf_counter() - t0 < 10:
+        try:
+            ready_codes.append(srv.request("GET", "/readyz", conn=readyz)[0])
+        except (OSError, http.client.HTTPException):
+            break
+        if ready_codes[-1] == 503:
+            break
+    readyz.close()
+    for t in threads:
+        t.join(timeout=60)
+    rc = srv.proc.wait(timeout=60)
+    exit_s = time.perf_counter() - t0
+    statuses = {st for _, st in codes}
+    check(statuses <= {200, 503} and all(st == 200 for after, st in codes
+                                         if not after),
+          f"drain: statuses {sorted(statuses)}")
+    check(not [e for after, e in lost if not after],
+          f"drain: connections lost before the SIGTERM {lost[:3]}")
+    check(503 in ready_codes, f"/readyz during the drain: {ready_codes}")
+    check(rc == 0, f"deploy exited {rc} after SIGTERM")
+    return {"clients": DRAIN_CLIENTS,
+            "answered_200": sum(st == 200 for _, st in codes),
+            "answered_200_after_sigterm": sum(st == 200 for a, st in codes
+                                              if a),
+            "shed_503": sum(st == 503 for _, st in codes),
+            "connections_closed_after_sigterm": len(lost),
+            "readyz_after_sigterm": ready_codes, "exit_code": rc,
+            "sigterm_to_exit_seconds": exit_s}
+
+
+def _undeploy(srv: "_Served", env: dict, cwd: str) -> dict:
+    out, seconds = _verb(["undeploy", "--ip", "127.0.0.1", "--port",
+                          str(srv.port)], env, cwd)
+    check("Shutting down." in out.stdout, f"undeploy: {out.stdout}")
+    rc = srv.proc.wait(timeout=60)
+    check(rc == 0, f"deploy exited {rc} after pio undeploy")
+    return {"undeploy_seconds": seconds, "exit_code": rc}
+
+
+def _same_answers(a: dict, b: dict) -> dict:
+    """Two answers per user (each already held to the host top-k): how
+    many are index-identical, and the largest score gap at equal rank
+    (two float32 reductions of other orders may swap a near tie)."""
+    same = sum(_items(a[u]) == _items(b[u]) for u in a)
+    gap = max(abs(x["score"] - y["score"]) for u in a
+              for x, y in zip(a[u]["itemScores"], b[u]["itemScores"]))
+    check(gap <= 1e-4, f"answers differ by {gap} at equal rank")
+    return {"users": len(a), "index_identical": same, "max_score_gap": gap}
+
+
+def _items(res: dict) -> list:
+    return [x["item"] for x in res["itemScores"]]
+
+
+def phase_engine_server_load(env: dict, cwd: str, instance_id: str,
+                             stored: dict, want: dict) -> None:
+    """The engine server on the ML-20M-shaped store (pio_workflow_jsonl_ml20m's
+    5,000,000 events, rank 32): pio deploy --probe-latency (the probe's
+    split from /status), one keep-alive client × SERVE_QUERIES, then 8 and
+    32 clients without and with micro-batching (--batch-window-ms 2
+    --max-batch 64), the result cache (hits and misses), a 504 deadline,
+    pio batchpredict of BATCHPREDICT_QUERIES, SIGTERM with clients in
+    flight and pio undeploy. Every answer is held to the host top-k."""
+    rng = np.random.default_rng(27)
+    users = [want["users"][int(k)] for k in
+             rng.integers(0, len(want["users"]), BATCHPREDICT_QUERIES)]
+    load_users = [want["users"][int(k)] for k in
+                  rng.integers(0, len(want["users"]), 32 * CLIENT_QUERIES)]
+    reset_launches()
+    out: dict = {}
+    with _Served(["deploy", "--probe-latency"], env, cwd) as srv:
+        check(srv.info["engineInstanceId"] == instance_id,
+              f"deployed {srv.info}")
+        probe = None
+        t_end = time.time() + 120
+        while probe is None and time.time() < t_end:
+            probe = srv.request("GET", "/status")[1].get("probeLatency")
+            time.sleep(0.2)
+        check(probe is not None, "no probeLatency on /status")
+        single = _clients(srv, users[:SERVE_QUERIES], 1, stored)
+        plain = _load_runs(srv, load_users, stored)
+        status, res, _ = srv.request_h("POST", "/queries.json",
+                                       {"user": users[0], "num": 10},
+                                       {"X-Pio-Deadline-Ms": "0.001"})
+        check(status == 504, f"X-Pio-Deadline-Ms 0.001 gave {status}: {res}")
+        overload = srv.request("GET", "/status")[1]["overload"]
+        check(overload["deadlineExceeded"] == 1, f"overload {overload}")
+        out["undeploy"] = _undeploy(srv, env, cwd)
+    served = single.pop("answers")
+    out.update(probe=probe, single_client=single, deadline_504=True,
+               overload=overload,
+               unbatched={n: {k: v for k, v in r.items() if k != "answers"}
+                          for n, r in plain.items()})
+    with _Served(["deploy", "--batch-window-ms", "2", "--max-batch", "64"],
+                 env, cwd) as srv:
+        batched = _load_runs(srv, load_users, stored)
+        out["drain"] = _sigterm_drain(srv)
+    out["batched"] = {n: {k: v for k, v in r.items() if k != "answers"}
+                      for n, r in batched.items()}
+    out["batched_vs_unbatched"] = {
+        n: _same_answers(plain[n]["answers"], batched[n]["answers"])
+        for n in (8, 32)}
+    with _Served(["deploy", "--query-cache-size", "10000"], env, cwd) as srv:
+        miss = _clients(srv, users[:SERVE_QUERIES], 1, stored)
+        hit = _clients(srv, users[:SERVE_QUERIES], 1, stored)
+        cache = srv.request("GET", "/status")[1]["queryCache"]
+        check(cache["hits"] >= SERVE_QUERIES and cache["misses"] >= 1,
+              f"query cache {cache}")
+        check(_same_answers(miss["answers"], hit["answers"])[
+            "index_identical"] == len(hit["answers"]), "cache hits differ")
+        out["cache"] = {**cache, "miss_pass_p50_ms": miss["p50_ms"],
+                        "hit_pass_p50_ms": hit["p50_ms"],
+                        "hit_pass_p99_ms": hit["p99_ms"]}
+        out["cache"]["undeploy"] = _undeploy(srv, env, cwd)
+    qpath, opath = (os.path.join(cwd, n) for n in
+                    ("bp_queries.jsonl", "bp_out.jsonl"))
+    with open(qpath, "w", encoding="utf-8") as fh:
+        fh.writelines(json.dumps({"user": u, "num": 10}) + "\n"
+                      for u in users)
+    bp, bp_wall = _verb(["batchpredict", "--input", qpath, "--output",
+                         opath], env, cwd)
+    bp_s = float(bp.stdout.rsplit(" in ", 1)[1].split("s")[0])
+    with open(opath, encoding="utf-8") as fh:
+        lines = [json.loads(ln) for ln in fh]
+    check([ln["query"]["user"] for ln in lines] == users,
+          "batchpredict's queries differ from its input")
+    predicted = {}
+    for ln in lines:
+        _hold_als_answer(stored, ln["query"]["user"], ln["prediction"])
+        predicted[ln["query"]["user"]] = ln["prediction"]
+    out["batchpredict"] = {
+        "queries": len(lines), "verb_wall_seconds": bp_wall,
+        "predict_seconds": bp_s,
+        "us_per_query": bp_s / len(lines) * 1e6,
+        "vs_served": _same_answers(
+            served, {u: predicted[u] for u in served})}
+    PATH_LAUNCHES["engine_server_load"] = {"warp": 0, "wide": 0}
+    emit("engine_server_load", instance=instance_id,
+         users=len(want["users"]), items=len(want["items"]),
+         launches=launches(), **out)
+
+
+def phase_engine_server_lifecycle(workdir: str, env: dict,
+                                  deployed_id: str) -> None:
+    """The model lifecycle on the ML-1M log store that pio_workflow_jsonl
+    leaves: pio deploy --model-refresh-ms 500 → a further pio train (the
+    warp kernel; λ and iterations changed so the answers move) → the
+    refresh swap within 10 s, answers equal the new instance's host top-k
+    → POST /rollback brings the old answers back and pins the new
+    instance across ≥ 2 refresh polls → pio models list / verify / gc
+    --keep 1 --engine-url (the deployed and pinned instances kept) →
+    /reload?instance=<new> removes the pin → gc --dry-run keeps the
+    deployed and previous ones."""
+    store = _storage_of(env)
+    rng = np.random.default_rng(29)
+    old = _persisted(env, deployed_id)
+    users = [list(old["users"])[int(k)]
+             for k in rng.integers(0, len(old["users"]), 25)]
+    out: dict = {}
+    with _Served(["deploy", "--model-refresh-ms", "500"], env,
+                 workdir) as srv:
+        check(srv.info["engineInstanceId"] == deployed_id,
+              f"deployed {srv.info}")
+        conn = srv.connect()
+
+        def answers(model):
+            got = {}
+            for u in users:
+                status, res, _ = srv.request(
+                    "POST", "/queries.json", {"user": u, "num": 10}, conn)
+                check(status == 200, f"query {status}: {res}")
+                got[u] = _hold_als_answer(model, u, res)
+            return got
+
+        before = answers(old)
+        with open(os.path.join(workdir, "engine.json"), "w",
+                  encoding="utf-8") as fh:
+            json.dump({"id": "default",
+                       "engineFactory": "incubator_predictionio_torch."
+                                        "models.recommendation."
+                                        "RecommendationEngine",
+                       "datasource": {"params": {"appName": "ml1m"}},
+                       "algorithms": [{"name": "als", "params": {
+                           "rank": PIO_RANK, "numIterations": 5,
+                           "lambda": 0.05}}]}, fh)
+        trained = _train_verb(env, workdir, "engine_server_lifecycle")
+        _write_engine_json(workdir, "ml1m")
+        new_id = trained["engineInstanceId"]
+        t0 = time.perf_counter()
+        lc = {}
+        while time.perf_counter() - t0 < 10:
+            lc = srv.request("GET", "/status", conn=conn)[1]["lifecycle"]
+            if lc["refreshSwaps"] >= 1:
+                break
+            time.sleep(0.05)
+        swap_s = time.perf_counter() - t0
+        check(lc["refreshSwaps"] == 1 and lc["instance"] == new_id
+              and lc["previous"] == deployed_id,
+              f"no refresh swap within 10 s: {lc}")
+        new = _persisted(env, new_id)
+        after = answers(new)
+        moved = sum(before[u] != after[u] for u in users)
+        check(moved > 0, "the retrain changed no answer")
+        status, res, _ = srv.request("POST", "/rollback", conn=conn)
+        check(status == 200 and res["engineInstanceId"] == deployed_id,
+              f"/rollback {status}: {res}")
+        check(answers(old) == before, "rollback did not restore the answers")
+        time.sleep(1.2)  # ≥ 2 refresh polls at 500 ms
+        doc = srv.request("GET", "/status", conn=conn)[1]
+        lc = doc["lifecycle"]
+        check(doc["engineInstanceId"] == deployed_id
+              and lc["pinned"] == {new_id: "manual"}
+              and lc["refreshSwaps"] == 1, f"pin did not hold: {lc}")
+        check(answers(old) == before, "answers moved while pinned")
+        url = f"http://127.0.0.1:{srv.port}"
+        listed, _ = _verb(["models", "list"], env, workdir)
+        verified, _ = _verb(["models", "verify"], env, workdir)
+        gc, _ = _verb(["models", "gc", "--keep", "1", "--engine-url", url],
+                      env, workdir)
+        check("protected=2" in gc.stdout
+              and model_artifact.model_exists(store, deployed_id)
+              and model_artifact.model_exists(store, new_id),
+              f"gc removed a served model: {gc.stdout}")
+        status, res, _ = srv.request(
+            "GET", f"/reload?instance={new_id}", conn=conn)
+        check(status == 200 and res["engineInstanceId"] == new_id,
+              f"/reload?instance= {status}: {res}")
+        lc = srv.request("GET", "/status", conn=conn)[1]["lifecycle"]
+        check(lc["pinned"] == {} and lc["previous"] == deployed_id,
+              f"reload kept the pin: {lc}")
+        check(answers(new) == after, "reload did not restore the new answers")
+        dry, _ = _verb(["models", "gc", "--keep", "1", "--dry-run",
+                        "--engine-url", url], env, workdir)
+        check("would delete 0" in dry.stdout and "protected=2" in dry.stdout,
+              f"gc --dry-run: {dry.stdout}")
+        conn.close()
+        out.update(lifecycle=lc, swap_seconds_after_train=swap_s,
+                   answers_moved=moved, users=len(users),
+                   models_list=listed.stdout.strip().splitlines(),
+                   models_verify=verified.stdout.strip().splitlines()[-1],
+                   models_gc=gc.stdout.strip().splitlines())
+    check(srv.proc.returncode == 0, f"deploy exited {srv.proc.returncode}")
+    store.close()
+    emit("engine_server_lifecycle", deployed=deployed_id, retrained=new_id,
+         train_seconds_end_to_end=trained["wall_seconds"],
+         kernel_launches=trained["kernel_launches"], **out)
 
 
 # -- the E-Commerce template on the JSONL log ------------------------------

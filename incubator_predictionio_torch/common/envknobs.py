@@ -3,7 +3,10 @@
 The port's own copy of the parts of
 ``incubator_predictionio_tpu/common/envknobs.py`` that the port reads
 (``PIO_TRAIN_WINDOW*``, ``PIO_EVENT_RETENTION``, ``PIO_INGEST_FSYNC``,
-``PIO_UR_FULL_MATRIX_ELEMS``), with the same semantics:
+``PIO_UR_FULL_MATRIX_ELEMS`` and the engine server's ``PIO_QUERY_*``,
+``PIO_DRAIN_DEADLINE_MS``, ``PIO_SWAP_*``, ``PIO_MODEL_REFRESH_MS``,
+``PIO_QUERY_CACHE_*``, ``PIO_GOLDEN_QUERY`` and
+``PIO_ENGINE_SERVER_PLUGINS``), with the same semantics:
 
 - unset / empty         → ``default`` (always)
 - unparsable            → ``default`` (an operator typo must never crash
@@ -19,7 +22,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["env_int", "env_flag", "env_str"]
+__all__ = ["env_int", "env_float", "env_flag", "env_str"]
 
 
 def env_int(name: str, default: int, *, lo: Optional[int] = None,
@@ -45,6 +48,26 @@ def env_int(name: str, default: int, *, lo: Optional[int] = None,
     return v
 
 
+def env_float(name: str, default: float, *, lo: Optional[float] = None,
+              hi: Optional[float] = None) -> float:
+    """Float knob: nan/inf spellings count as malformed (→ default);
+    the parsed value is clamped to [lo, hi]."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    try:
+        v = float(raw.strip())
+    except (ValueError, OverflowError):
+        return default
+    if v != v or v in (float("inf"), float("-inf")):
+        return default
+    if lo is not None:
+        v = max(lo, v)
+    if hi is not None:
+        v = min(hi, v)
+    return v
+
+
 def env_flag(name: str, default: bool) -> bool:
     """Boolean knob: 1/true/yes/on vs 0/false/no/off (case-insensitive);
     anything else → default."""
@@ -59,9 +82,9 @@ def env_flag(name: str, default: bool) -> bool:
     return default
 
 
-def env_str(name: str, default: str) -> str:
-    """String knob, stripped and lower-cased."""
+def env_str(name: str, default: str, *, lower: bool = True) -> str:
+    """String knob, stripped and (unless ``lower=False``) lower-cased."""
     raw = os.environ.get(name)
     if raw is None or raw.strip() == "":
         return default
-    return raw.strip().lower()
+    return raw.strip().lower() if lower else raw.strip()

@@ -3,7 +3,9 @@
 The port's own copy of the ``fail`` mode of
 ``incubator_predictionio_tpu/common/faultinject.py``: the event log's
 fault points (``jsonl.append``, ``compact.write``, ``compact.rename``,
-``compact.manifest``, ``retire.rename``) consult it. The active plan
+``compact.manifest``, ``retire.rename``) and the engine server's
+(``query.featurize``, ``query.predict``, ``query.serve``,
+``query.batch_predict``, ``swap.validate``) consult it. The active plan
 comes from the ``PIO_FAULT_SPEC`` environment variable, so a scenario
 works the same in-process and across subprocesses:
 

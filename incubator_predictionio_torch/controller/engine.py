@@ -3,8 +3,9 @@
 Port of ``incubator_predictionio_tpu/controller/engine.py`` (``EngineParams``,
 ``Engine`` :110, ``Engine.train`` :169, ``Engine.eval`` :248,
 ``Deployment``, ``SimpleEngine`` :364, ``EngineFactory`` :377), with the
-workflow flags, the NaN guard and per-algorithm checkpoints, without
-telemetry, fault points or placement (one device: ``ctx.device``).
+workflow flags, the NaN guard and per-algorithm checkpoints, the serving
+stages' fault points and deadline spend-points, without telemetry or
+placement (one device: ``ctx.device``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import logging
 import os
 from typing import Any, Mapping, Optional, Sequence, Type
 
+from ..common import deadline, faultinject
 from ..common.nan_guard import check_finite
 from ..workflow.checkpoint import CheckpointHook
 from ..workflow.workflow_params import WorkflowParams
@@ -224,13 +226,29 @@ class Deployment:
         self.serving = serving
 
     def query(self, q) -> Any:
+        """supplement → predict per algorithm → serve. Each stage opens
+        with a fault point and, past the first, a deadline spend-point: a
+        worker past its request's budget (``common/deadline.py``) frees
+        itself at the next stage boundary."""
+        dl = deadline.current()
+        faultinject.fault_point("query.featurize")
         q = self.serving.supplement(q)
+        if dl is not None:
+            dl.check("query.predict")
+        faultinject.fault_point("query.predict")
         predictions = [algo.predict(model, q)
                        for (_, algo), model in zip(self.algo_list, self.models)]
+        if dl is not None:
+            dl.check("query.serve")
+        faultinject.fault_point("query.serve")
         return self.serving.serve(q, predictions)
 
     def batch_query(self, queries) -> list[Any]:
-        """One batched predict per algorithm for the whole list."""
+        """One batched predict per algorithm for the whole list (the
+        engine server's micro-batches and ``pio batchpredict``). No
+        deadline spend-point: a batch mixes requests with different
+        budgets, which the server enforces per request."""
+        faultinject.fault_point("query.batch_predict")
         qs = [self.serving.supplement(q) for q in queries]
         per_algo = [algo.batch_predict(model, qs)
                     for (_, algo), model in zip(self.algo_list, self.models)]

@@ -77,6 +77,13 @@ class ALSModel:
         if len(self.users):
             self.recommend_products(next(iter(self.users.keys())), num)
 
+    def example_query(self):
+        """A valid query for serving warm-ups (the engine server's batch
+        shapes, golden query and latency probe)."""
+        if not len(self.users):
+            return None
+        return {"user": next(iter(self.users.keys())), "num": 10}
+
     def recommend_products(self, user: str, num: int):
         uidx = self.users.get(user)
         if uidx is None:

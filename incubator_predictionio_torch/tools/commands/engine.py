@@ -1,16 +1,20 @@
-"""`pio build/train/deploy` (reference: tools/.../commands/Engine.scala +
-RunWorkflow/RunServer; the workflow runs in-process).
+"""`pio build/train/deploy/undeploy/batchpredict` (reference:
+tools/.../commands/Engine.scala + RunWorkflow/RunServer and
+BatchPredict.scala; the workflow runs in-process).
 
 The port's own copy of the single-process paths of
 ``incubator_predictionio_tpu/tools/commands/engine.py`` (:19-182,
-:261-381). ``train`` and ``deploy`` run on the card unless ``--device cpu``
-is given. With ``--events``/``--model-out`` (train) or ``--model``
-(deploy) they take the file-based forms of ``tools/console.py`` instead of
-the stores. ``train --window DUR`` trains on the events of the last DUR
-only: the bound is resolved once, here, to an absolute
-``PIO_TRAIN_WINDOW_START_US`` (reference :91-121). The reference's gang
-training (``--num-workers``, ``--feed``), the serving fleet, ``undeploy``
-and ``batchpredict`` are not ported yet.
+:261-377, :534-600). ``train``, ``deploy`` and ``batchpredict`` run on the
+card unless ``--device cpu`` is given. With ``--events``/``--model-out``
+(train) or ``--model`` (deploy) they take the file-based forms of
+``tools/console.py`` instead of the stores. ``train --window DUR`` trains
+on the events of the last DUR only: the bound is resolved once, here, to
+an absolute ``PIO_TRAIN_WINDOW_START_US`` (reference :91-121). ``deploy``
+runs the engine server of ``workflow/create_server.py`` (admission
+control, micro-batching, the result cache, the model lifecycle, drain on
+SIGTERM). The reference's gang training (``--num-workers``, ``--feed``),
+the serving fleet (``--replicas``), ``--online-foldin``,
+``--quality-eval`` and ``--multitenant`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +22,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import signal
 import sys
 import time
 
@@ -187,64 +190,172 @@ def _train_file(ns, wp: WorkflowParams) -> int:
     return 0
 
 
-def _raise_exit(signum, frame):
-    raise SystemExit(0)
-
-
 @verb("deploy", "serve the trained engine over HTTP")
 def deploy_cmd(args: list[str]) -> int:
     p = argparse.ArgumentParser(prog="pio deploy")
     _common_args(p)
     _device_arg(p)
-    p.add_argument("--ip", "--host", dest="ip", default="127.0.0.1")
+    p.add_argument("--ip", "--host", dest="ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--engine-instance-id", default=None,
                    help="serve this instance (no walk-back) instead of the "
                         "newest deployable COMPLETED one")
     p.add_argument("--model", default=None,
                    help="file form: serve this model file instead of an "
-                        "engine instance of the model store")
+                        "engine instance of the model store (no reload, "
+                        "rollback or refresh)")
+    p.add_argument("--feedback", action="store_true",
+                   help="self-log every answered query as a predict event "
+                        "of the engine's app")
+    p.add_argument("--batch-window-ms", type=float, default=0.0,
+                   help="coalesce queries arriving within this window into "
+                        "one vectorized dispatch (0 = off)")
+    p.add_argument("--max-batch", type=int, default=64,
+                   help="most queries per micro-batch (capped at 256)")
+    p.add_argument("--probe-latency", action="store_true",
+                   help="at startup, measure the full-path query p50/p99 "
+                        "split (HTTP / predict / device round trip / "
+                        "parse) and persist it to the instance row")
+    p.add_argument("--query-conc", type=int, default=None,
+                   help="bounded query executor width (default "
+                        "$PIO_QUERY_CONC, else cpu+4 capped at 32)")
+    p.add_argument("--query-max-pending", type=int, default=None,
+                   help="admission queue depth beyond --query-conc; excess "
+                        "load sheds 503 + jittered Retry-After (default "
+                        "$PIO_QUERY_MAX_PENDING, else 128)")
+    p.add_argument("--query-deadline-ms", type=float, default=None,
+                   help="per-query deadline budget; exceeded → 504 "
+                        "(X-Pio-Deadline-Ms overrides per request; 0 "
+                        "disables; default $PIO_QUERY_DEADLINE_MS, else "
+                        "30000)")
+    p.add_argument("--drain-deadline-ms", type=float, default=None,
+                   help="graceful-drain budget on SIGTERM or /stop "
+                        "(default $PIO_DRAIN_DEADLINE_MS, else 10000)")
+    p.add_argument("--model-refresh-ms", type=float, default=None,
+                   help="poll for newer COMPLETED instances and hot-swap "
+                        "them through the validated gate every N ms "
+                        "(default $PIO_MODEL_REFRESH_MS, else 0 = off)")
+    p.add_argument("--query-cache-size", type=int, default=None,
+                   help="served-result cache entries (default "
+                        "$PIO_QUERY_CACHE_SIZE, else 0 = off)")
+    p.add_argument("--rollback", action="store_true",
+                   help="don't deploy: tell the engine server already "
+                        "running at --ip/--port to roll back to its "
+                        "previous deployment, then exit")
     ns = p.parse_args(args)
+    if ns.rollback:
+        from .models import rollback_via_url
+
+        host = "127.0.0.1" if ns.ip in ("0.0.0.0", "::") else ns.ip
+        return rollback_via_url(f"http://{host}:{ns.port}")
+    from ...workflow.create_server import run_engine_server
+
+    server = _build_engine_server(ns)
+    print(f"[info] Engine is deployed and running. Listening on "
+          f"{ns.ip}:{ns.port}", flush=True)
+    run_engine_server(server, ns.ip, ns.port, probe_latency=ns.probe_latency)
+    return 0
+
+
+def _build_engine_server(ns):
+    """The EngineServer of a deploy: the newest deployable instance of
+    the model store (or ``--engine-instance-id``), or the ``--model``
+    file."""
     from ...workflow.create_server import EngineServer
 
+    knobs = dict(
+        batch_window_ms=ns.batch_window_ms, max_batch=ns.max_batch,
+        query_conc=ns.query_conc, query_max_pending=ns.query_max_pending,
+        query_deadline_ms=ns.query_deadline_ms,
+        drain_deadline_ms=ns.drain_deadline_ms,
+        model_refresh_ms=ns.model_refresh_ms,
+        query_cache_size=ns.query_cache_size, device=ns.device)
     if ns.model is not None:
         from .. import console
 
-        deployment, ctx = console.load_deployment(ns.model, ns.device,
-                                                  ns.engine_dir)
-        info = {"model": ns.model, "device": str(ctx.device)}
-    else:
-        from ...workflow.context import WorkflowContext
-        from ...workflow.core_workflow import load_deployment
+        deployment, _ = console.load_deployment(ns.model, ns.device,
+                                                ns.engine_dir)
+        return EngineServer(deployment=deployment, **knobs)
+    engine, params, factory, variant, _ = _load_engine(ns)
+    return EngineServer(
+        engine,
+        engine_factory_name=factory,
+        engine_variant=variant,
+        instance_id=ns.engine_instance_id,
+        feedback=ns.feedback,
+        feedback_app_name=_app_name(params),
+        **knobs)
 
-        engine, params, factory, variant, _ = _load_engine(ns)
-        ctx = WorkflowContext(app_name=_app_name(params),
-                              storage=Storage.instance(), device=ns.device)
-        rejected: list[dict] = []
 
-        def on_reject(instance_id: str, kind: str) -> None:
-            rejected.append({"engineInstanceId": instance_id, "kind": kind})
-            print(f"[warn] engine instance {instance_id} is not deployable "
-                  f"({kind}); walking back", file=sys.stderr, flush=True)
+@verb("undeploy", "stop a running engine server")
+def undeploy_cmd(args: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="pio undeploy")
+    p.add_argument("--ip", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    ns = p.parse_args(args)
+    import urllib.error
+    import urllib.request
 
-        deployment, instance, _ = load_deployment(
-            engine, ns.engine_instance_id, ctx, engine_factory_name=factory,
-            engine_variant=variant, on_reject=on_reject)
-        for model in deployment.models:
-            warm = getattr(model, "warm_up", None)
-            if warm is not None:
-                warm()
-        info = {"engineInstanceId": instance.id, "device": str(ctx.device),
-                "rejected": rejected}
-    server = EngineServer(deployment, ns.ip, ns.port, info=info)
-    signal.signal(signal.SIGTERM, _raise_exit)
-    host, port = server.address
-    print(f"[info] Engine is deployed and running. Listening on "
-          f"http://{host}:{port}", flush=True)
+    req = urllib.request.Request(f"http://{ns.ip}:{ns.port}/stop",
+                                 method="POST")
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        server.close()
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            msg = json.load(resp).get("message", resp.status)
+    except urllib.error.HTTPError as e:
+        try:
+            msg = json.load(e).get("message", e.code)
+        except ValueError:
+            msg = e.code
+        print(f"[error] {msg}", file=sys.stderr)
+        return 1
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        print(f"[error] {e}", file=sys.stderr)
+        return 1
+    print(f"[info] {msg}")
+    return 0
+
+
+@verb("batchpredict", "bulk scoring: queries JSONL in, predictions JSONL out")
+def batchpredict_cmd(args: list[str]) -> int:
+    """Reference: tools/.../commands/BatchPredict.scala (0.13+)."""
+    p = argparse.ArgumentParser(prog="pio batchpredict")
+    _common_args(p)
+    _device_arg(p)
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--engine-instance-id", default=None)
+    p.add_argument("--query-partitions", type=int, default=None,
+                   help="ignored (single process)")
+    ns = p.parse_args(args)
+    from ...workflow.context import WorkflowContext
+    from ...workflow.core_workflow import load_deployment
+
+    engine, params, factory, variant, _ = _load_engine(ns)
+    ctx = WorkflowContext(storage=Storage.instance(), device=ns.device)
+    deployment, _, _ = load_deployment(
+        engine, ns.engine_instance_id, ctx,
+        engine_factory_name=factory, engine_variant=variant)
+    queries = []
+    with open(ns.input) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                queries.append(json.loads(line))
+    t0 = time.perf_counter()
+    # one vectorized batch_predict when there is exactly one algorithm;
+    # otherwise per query through serving
+    if len(deployment.algo_list) == 1:
+        _, algo = deployment.algo_list[0]
+        supplemented = [deployment.serving.supplement(q) for q in queries]
+        preds = algo.batch_predict(deployment.models[0], supplemented)
+        results = [deployment.serving.serve(q, [pr])
+                   for q, pr in zip(supplemented, preds)]
+    else:
+        results = [deployment.query(q) for q in queries]
+    seconds = time.perf_counter() - t0
+    with open(ns.output, "w") as f:
+        for q, r in zip(queries, results):
+            f.write(json.dumps({"query": q, "prediction": r}) + "\n")
+    print(f"[info] Batch predict completed: {len(results)} predictions → "
+          f"{ns.output} in {seconds:.3f}s", flush=True)
     return 0

@@ -3,7 +3,8 @@ commands/{Management,Export,Import}.scala, tools/export/EventsToFile.scala,
 tools/imprt/FileToEvents.scala).
 
 The port's own copy of those verbs of ``incubator_predictionio_tpu/tools/
-commands/management.py`` (``status`` :18, ``eventserver`` :538,
+commands/management.py`` (``status`` :18 with ``--engine-url``'s
+``_print_engine_overload`` :160, ``eventserver`` :538,
 ``eventlog`` :687-1002, ``export`` :1113, ``import`` :1155) for JSON-lines
 files; ``import`` writes to whichever event store is configured (SQLite or
 the JSONL log). ``eventlog`` has ``compact``, ``scrub``, ``status``,
@@ -23,6 +24,7 @@ import sys
 import time
 from typing import Optional
 
+from ...common import envknobs
 from ...data.storage.event import Event
 from ...data.storage.registry import REPOSITORIES, Storage, base_dir
 from . import verb
@@ -55,7 +57,14 @@ def _kernel_status() -> str:
 @verb("status", "verify storage configuration and the kernel build")
 def status_cmd(args: list[str]) -> int:
     p = argparse.ArgumentParser(prog="pio status")
-    p.parse_args(args)
+    p.add_argument("--engine-url",
+                   default=envknobs.env_str(
+                       "PIO_ENGINE_URL", "", lower=False) or None,
+                   help="also query a running engine server's GET /status "
+                        "and report its overload counters (shed / "
+                        "deadline / drain) and model lifecycle (default "
+                        "$PIO_ENGINE_URL)")
+    ns = p.parse_args(args)
     s = Storage.instance()
     print("[info] Inspecting storage backend connections...")
     for repo in REPOSITORIES:
@@ -88,7 +97,71 @@ def status_cmd(args: list[str]) -> int:
             print(f"[info] Event log: {len(health['logs'])} log file(s) "
                   f"in {log_dir}")
             _print_partition_health(health, log_dir)
+    if ns.engine_url:
+        _print_engine_overload(ns.engine_url)
     return 0
+
+
+def _print_engine_overload(url: str) -> None:
+    """The operator's view of a live engine server: its /status overload
+    and lifecycle sections."""
+    from .models import engine_status
+
+    base = url if "://" in url else f"http://{url}"
+    try:
+        doc = engine_status(url)
+    except Exception as e:  # noqa: BLE001 - diagnostics, not a failure
+        print(f"[warn] engine server at {base} unreachable: {e}")
+        return
+    ov = doc.get("overload")
+    if not ov:
+        print(f"[warn] engine server at {base} predates the overload "
+              "surface (no `overload` on /status)")
+        return
+    marker = "[warn]" if (ov.get("draining") or ov.get("shed")
+                          or ov.get("deadlineExceeded")
+                          or ov.get("drainStragglers")) else "[info]"
+    print(f"[info] Engine server {base}: instance "
+          f"{doc.get('engineInstanceId')}, {doc.get('queryCount')} "
+          "queries served"
+          + (", DEGRADED" if doc.get("degraded") else ""))
+    print(f"{marker}   serving: pending {ov.get('pending')}"
+          f"/{ov.get('pendingLimit')} (peak {ov.get('peakPending')}, "
+          f"conc {ov.get('conc')}), shed={ov.get('shed')}, "
+          f"deadlineExceeded={ov.get('deadlineExceeded')}, "
+          f"orphaned={ov.get('orphaned')}, "
+          f"draining={ov.get('draining')}, "
+          f"drainStragglers={ov.get('drainStragglers')}")
+    lc = doc.get("lifecycle")
+    if lc:
+        rollbacks = sum((lc.get("rollbacks") or {}).values())
+        pinned = lc.get("pinned") or {}
+        integ = {k: v for k, v in
+                 (lc.get("integrityFailures") or {}).items() if v}
+        marker = "[warn]" if (rollbacks or pinned or integ
+                              or lc.get("validateFailures")) else "[info]"
+        pins = (", ".join(f"{i} ({r})" for i, r in sorted(pinned.items()))
+                or "none")
+        rms = lc.get("refreshMs")
+        if isinstance(rms, (int, float)) and rms:
+            refresh = (f"every {rms:.0f}ms "
+                       f"({lc.get('refreshSwaps')} swap(s))")
+        elif rms:
+            refresh = str(rms)  # e.g. "disabled(file)": the reason
+        else:
+            refresh = "off"
+        print(f"{marker}   lifecycle: previous {lc.get('previous')}, "
+              f"swaps={lc.get('swaps')}, rollbacks={rollbacks} "
+              f"{lc.get('rollbacks')}, "
+              f"validateFailures={lc.get('validateFailures')}, "
+              f"integrityFailures={integ or 0}, "
+              f"refresh {refresh}, pinned: {pins}")
+    cache = doc.get("queryCache")
+    if cache:
+        print(f"[info]   query cache: {cache.get('entries')}/"
+              f"{cache.get('maxEntries')} entries, hits={cache.get('hits')}, "
+              f"misses={cache.get('misses')}, "
+              f"invalidations={cache.get('invalidations')}")
 
 
 def _resolve_app_id(s: Storage, appid: Optional[int],

@@ -10,7 +10,7 @@ e.g. the events on a JSONL log):
     app new|list|show|delete|channel-new|channel-delete|data-delete
     accesskey new|list|delete
     import --app-name A --input events.jsonl     export --app-name A --output F
-    eventserver [--ip H] [--port 7070]           status
+    eventserver [--ip H] [--port 7070]
     eventlog compact [--min-new-bytes N] | scrub | status | retire [--ttl D]
              | tail [--app A | --appid N] [--channel C] [--from CURSOR]
                     [--limit N]
@@ -19,7 +19,17 @@ e.g. the events on a JSONL log):
           [--window DUR] [--checkpoint-every N] [--resume] [--nan-guard]
           [--skip-sanity-check] [--stop-after-read] [--stop-after-prepare]
     deploy [--engine-dir D | --engine-json J] [--engine-instance-id ID]
-           [--ip H] [--port 8000] [--device cpu]
+           [--ip H] [--port 8000] [--device cpu] [--feedback]
+           [--batch-window-ms MS] [--max-batch N] [--probe-latency]
+           [--query-conc N] [--query-max-pending N] [--query-deadline-ms MS]
+           [--drain-deadline-ms MS] [--model-refresh-ms MS]
+           [--query-cache-size N] [--rollback]
+    undeploy [--ip H] [--port 8000]
+    batchpredict --input Q.jsonl --output P.jsonl [--engine-dir D]
+                 [--engine-instance-id ID] [--device cpu]
+    models list | verify | rollback --engine-url URL
+           | gc [--keep N] [--engine-url URL] [--dry-run]
+    status [--engine-url URL]
     eval EVALUATION [GENERATOR] [--engine-dir D] [--app-name A] [--batch B]
          [--parallel-candidates N] [--device cpu]
     dashboard [--ip H] [--port 9000]
@@ -29,8 +39,12 @@ that engine.json names, writes an engine-instance row and a checksummed
 model blob, and prints one JSON line (instance id, seconds, device, the
 solve-kernel launches, the training window and the read/train phase
 times). ``deploy`` serves
-``POST /queries.json`` from the newest COMPLETED instance (walking back past
-a corrupt blob) until SIGTERM or Ctrl-C. ``eval`` evaluates the candidate
+``POST /queries.json`` from the newest deployable COMPLETED instance
+(walking back past a corrupt blob or one the validation gate refuses)
+through the engine server of ``workflow/create_server.py`` until
+SIGTERM, Ctrl-C or ``undeploy``, which drain it. ``batchpredict`` answers
+a JSON-lines file of queries in one batch; ``models`` lists, verifies,
+rolls back or garbage-collects the stored models. ``eval`` evaluates the candidate
 parameters of an Evaluation and stores the leaderboard, which
 ``dashboard`` serves. ``train``, ``deploy`` and ``eval`` run on the card
 unless ``--device cpu`` is given; ``--engine-dir`` names a user engine's

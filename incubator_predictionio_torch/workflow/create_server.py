@@ -1,90 +1,1576 @@
-"""Engine server: ``POST /queries.json`` and ``GET /`` over one deployment.
+"""Engine (deploy) server — serves a trained engine on :8000.
 
-Port of the query path of ``incubator_predictionio_tpu/workflow/
-create_server.py`` (``:363``) on the standard library's
-``http.server.ThreadingHTTPServer`` (one thread per connection). Status
-codes follow the reference: 400 for a body that is not JSON or a query that
-lacks a field, 500 for a failure inside the engine. Admission control,
-micro-batching, the fleet and the model lifecycle wait for a later slice.
+Port of ``incubator_predictionio_tpu/workflow/create_server.py`` on the
+standard library's ``http.server.ThreadingHTTPServer`` (one thread per
+connection) in place of aiohttp, with the reference's names, JSON keys and
+status codes:
+
+- ``POST /queries.json`` through plugins, the served-result cache and the
+  admission gate: a bounded executor of ``query_conc`` workers plus
+  ``query_max_pending`` waiting slots; excess load sheds 503 with a
+  jittered ``Retry-After``, a spent deadline answers 504. With
+  ``batch_window_ms`` > 0 one batcher thread coalesces the queries of a
+  window into one ``Deployment.batch_query``.
+- ``GET /`` and ``/status`` (overload, lifecycle, query cache, probe
+  latency), ``/healthz``, ``/readyz``, ``/plugins.json``.
+- The validated model lifecycle: every (re)load passes warm-up, the
+  NaN guard and a golden-query smoke predict before it goes live; one
+  previous deployment stays resident for an instant ``/rollback``; a
+  post-swap watch window hedges failing queries onto it and rolls back on
+  the error rate; ``/reload[?instance=]`` and the refresh loop
+  (``model_refresh_ms``) pin what they refuse.
+- ``/stop``, SIGTERM and SIGINT drain: ``/readyz`` answers 503 at once,
+  new queries shed 503, accepted ones finish (up to ``drain_deadline_ms``),
+  then the server stops.
+
+The deployment form (``EngineServer(deployment=...)``, the console's
+``deploy --model`` file) serves one fixed deployment: it has no model
+store, so ``/reload`` and ``/rollback`` answer 409 and refresh is off.
+
+Not ported here, each with its own ROADMAP item: ``/metrics`` and the
+telemetry registry, TLS and the storage breakers of ``/readyz`` (3.3,
+3.4: ``openBreakers`` is always empty), online fold-in (8.4), quality
+(8.5), tenants (8.6), the fleet and its heartbeat (8.7).
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import contextvars
+import copy
+import datetime as _dt
+import hmac
 import json
 import logging
+import math
+import os
+import queue
+import secrets
 import threading
+import time as _time
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, NamedTuple, Optional
 
-log = logging.getLogger("pio.torch.server")
+import torch
 
+from ..common import deadline, envknobs, faultinject
+from ..common.resilience import retry_after_jitter
+from ..data.storage.datamap import DataMap
+from ..data.storage.event import Event
+from ..data.storage.registry import Storage
+from ..device import resolve_device
+from .context import WorkflowContext
+from .core_workflow import load_deployment
+from .plugins import EngineServerPluginContext
 
-class _Handler(BaseHTTPRequestHandler):
-    server: "_Server"
-    protocol_version = "HTTP/1.1"
-    # buffered writes: a response's headers and body leave in one send at
-    # the end of the request (two small sends meet Nagle's algorithm and
-    # the client's delayed ACK, ~40 ms per keep-alive request)
-    wbufsize = -1
-
-    def _reply(self, status: int, obj) -> None:
-        body = json.dumps(obj).encode()
-        self.send_response(status)
-        self.send_header("Content-Type", "application/json; charset=UTF-8")
-        self.send_header("Content-Length", str(len(body)))
-        self.end_headers()
-        self.wfile.write(body)
-
-    def do_GET(self):  # noqa: N802 - http.server's naming
-        if self.path.split("?", 1)[0] != "/":
-            self._reply(404, {"message": f"no route {self.path}"})
-            return
-        self._reply(200, {"status": "alive", **self.server.info})
-
-    def do_POST(self):  # noqa: N802
-        if self.path.split("?", 1)[0] != "/queries.json":
-            self._reply(404, {"message": f"no route {self.path}"})
-            return
-        length = int(self.headers.get("Content-Length") or 0)
-        try:
-            query = json.loads(self.rfile.read(length) or b"null")
-        except (json.JSONDecodeError, UnicodeDecodeError):
-            self._reply(400, {"message": "invalid JSON body"})
-            return
-        if not isinstance(query, dict):
-            self._reply(400, {"message": "query must be a JSON object"})
-            return
-        try:
-            result = self.server.deployment.query(query)
-        except KeyError as e:
-            self._reply(400, {"message": f"missing query field {e.args[0]!r}"})
-            return
-        except Exception as e:  # noqa: BLE001 - the server must keep running
-            log.exception("query failed")
-            self._reply(500, {"message": str(e)})
-            return
-        self._reply(200, result)
-
-    def log_message(self, fmt, *args):  # quiet: one line per request is noise
-        log.debug("%s - " + fmt, self.address_string(), *args)
+log = logging.getLogger("pio.torch.engineserver")
 
 
-class _Server(ThreadingHTTPServer):
-    daemon_threads = True
+def _env_int(name: str, default: int) -> int:
+    """Tolerant integer knob: unset/unparsable degrades to the default;
+    float spellings like ``"1e3"`` are accepted."""
+    return envknobs.env_int(name, default, float_ok=True)
 
-    def __init__(self, addr, deployment, info):
-        super().__init__(addr, _Handler)
-        self.deployment = deployment
-        self.info = info
+
+class QueryResultCache:
+    """Per-user served-result cache (``PIO_QUERY_CACHE_SIZE`` > 0 arms
+    it). Keyed on (user, canonical query fingerprint, app): a
+    byte-identical repeat of a query within the TTL is answered without
+    touching the model.
+
+    Freshness: a fold-in increment naming the users it touched evicts
+    exactly those users; any other swap and every rollback flush
+    everything; the TTL bounds staleness that no swap observes. The
+    ``generation`` guard drops an insert whose dispatch began before an
+    invalidation, so a result computed by the old model never lands after
+    a swap.
+
+    Entries store a deep copy and hits return a deep copy: results flow
+    through after_query plugins that may mutate them. Thread-safe (its own
+    lock)."""
+
+    def __init__(self, max_entries: int, ttl_s: float):
+        self.max_entries = int(max_entries)
+        self.ttl_s = float(ttl_s)
+        self._lock = threading.Lock()
+        # key → (expires_monotonic, result); insertion order is LRU order
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.invalidated_entries = 0
+        self.invalidations = 0
+        self.generation = 0
+
+    @staticmethod
+    def key_for(query, app: Optional[str] = None) -> tuple:
+        """(user-or-None, canonical JSON fingerprint, app-or-None), on the
+        post-``before_query`` form of the query."""
+        user = query.get("user") if isinstance(query, dict) else None
+        fp = json.dumps(query, sort_keys=True, separators=(",", ":"),
+                        default=str)
+        return (None if user is None else str(user), fp,
+                None if app is None else str(app))
+
+    def get(self, key: tuple):
+        now = _time.monotonic()
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is not None and ent[0] > now:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return copy.deepcopy(ent[1])
+            if ent is not None:
+                del self._entries[key]  # expired
+            self.misses += 1
+        return None
+
+    def put(self, key: tuple, result, generation: Optional[int] = None
+            ) -> None:
+        entry = (_time.monotonic() + self.ttl_s, copy.deepcopy(result))
+        with self._lock:
+            if generation is not None and generation != self.generation:
+                return  # an invalidation ran mid-dispatch: result stale
+            self._entries[key] = entry
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+
+    def _drop(self, doomed: list) -> int:
+        """Delete ``doomed`` keys as one invalidation (lock held)."""
+        for k in doomed:
+            del self._entries[k]
+        self.invalidated_entries += len(doomed)
+        self.invalidations += 1
+        self.generation += 1
+        return len(doomed)
+
+    def invalidate_users(self, users, app: Optional[str] = None) -> int:
+        """Drop every entry keyed to one of ``users`` (of ``app`` only,
+        when given); userless entries survive."""
+        users = {str(u) for u in users}
+        app = None if app is None else str(app)
+        with self._lock:
+            return self._drop([k for k in self._entries
+                               if k[0] in users
+                               and (app is None or k[2] == app)])
+
+    def flush_app(self, app: str, reason: str) -> int:
+        """Drop every entry of one app."""
+        app = str(app)
+        with self._lock:
+            return self._drop([k for k in self._entries if k[2] == app])
+
+    def flush(self, reason: str) -> int:
+        with self._lock:
+            return self._drop(list(self._entries))
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "entries": len(self._entries),
+                "maxEntries": self.max_entries,
+                "ttlMs": round(self.ttl_s * 1e3, 3),
+                "hits": self.hits,
+                "misses": self.misses,
+                "evictions": self.evictions,
+                "invalidations": self.invalidations,
+                "invalidatedEntries": self.invalidated_entries,
+            }
+
+
+class AdmissionShed(Exception):
+    """The admission gate refused this query (queue full or server
+    draining). Maps to HTTP 503 + jittered ``Retry-After``: the query
+    never started, so a retry elsewhere or later is safe."""
+
+    def __init__(self, message: str, retry_after_base: float, reason: str):
+        super().__init__(message)
+        self.retry_after_base = retry_after_base
+        self.reason = reason
+
+
+class SwapValidationError(RuntimeError):
+    """The validation gate refused to put a (re)loaded model live
+    (NaN guard hit, warm-up failed, or the golden-query smoke predict
+    raised). The last-good deployment keeps serving; the reload/refresh
+    caller decides whether to pin the refused instance."""
+
+    def __init__(self, instance_id: str, reason: str):
+        super().__init__(
+            f"engine instance {instance_id} failed swap validation: "
+            f"{reason}")
+        self.instance_id = instance_id
+        self.reason = reason
+
+
+class Request(NamedTuple):
+    """What a route handler sees of one HTTP request."""
+
+    headers: Any
+    params: dict
+    body: bytes
+
+
+#: a route handler's answer: (status, JSON body, extra headers)
+Reply = tuple
+
+
+def _json(status: int, obj, headers: Optional[dict] = None) -> Reply:
+    return status, obj, headers or {}
+
+
+def _missing_field(e: KeyError) -> Reply:
+    return _json(400, {"message": f"missing query field {e.args[0]!r}"})
+
+
+def _shed_reply(e: AdmissionShed) -> Reply:
+    return _json(503, {"message": f"query shed: {e}"},
+                 {"Retry-After": str(retry_after_jitter(e.retry_after_base))})
+
+
+#: deadline stages that are queueing, not the model's compute: an overrun
+#: there is overload, never evidence against a freshly swapped model
+_QUEUE_STAGES = ("admission", "executor pickup", "batch queue", "queued")
 
 
 class EngineServer:
-    """Serves ``deployment`` on ``host:port`` (port 0 picks a free one).
-    ``info`` is echoed by ``GET /``."""
+    """The engine server of one engine (``engine`` + the model store's
+    instances) or of one fixed ``deployment`` (the file form). Serving
+    starts with :meth:`start` (a background thread) or
+    :func:`run_engine_server` (blocking, with the signal handlers)."""
 
-    def __init__(self, deployment, host: str = "127.0.0.1", port: int = 8000,
-                 info: dict | None = None):
-        self._httpd = _Server((host, port), deployment, dict(info or {}))
-        self._thread: threading.Thread | None = None
+    def __init__(
+        self,
+        engine=None,
+        engine_factory_name: str = "",
+        engine_variant: str = "default",
+        instance_id: Optional[str] = None,
+        storage: Optional[Storage] = None,
+        feedback: bool = False,
+        feedback_app_name: Optional[str] = None,
+        plugins: Optional[EngineServerPluginContext] = None,
+        batch_window_ms: float = 0.0,
+        max_batch: int = 64,
+        query_conc: Optional[int] = None,
+        query_max_pending: Optional[int] = None,
+        query_deadline_ms: Optional[float] = None,
+        drain_deadline_ms: Optional[float] = None,
+        swap_validate: Optional[bool] = None,
+        swap_watch_ms: Optional[float] = None,
+        swap_max_error_rate: Optional[float] = None,
+        model_refresh_ms: Optional[float] = None,
+        query_cache_size: Optional[int] = None,
+        query_cache_ttl_ms: Optional[float] = None,
+        device: "str | torch.device" = "cuda",
+        deployment=None,
+    ):
+        if (engine is None) == (deployment is None):
+            raise ValueError("EngineServer serves an engine (with its model "
+                             "store) or one deployment: pass exactly one")
+        self.engine = engine
+        self.engine_factory_name = engine_factory_name
+        self.engine_variant = engine_variant
+        self.device = resolve_device(device)
+        # the file form needs no store unless feedback asks for one
+        self.storage = (storage if deployment is not None
+                        else storage or Storage.instance())
+        self.feedback = feedback
+        self.feedback_app_name = feedback_app_name
+        self.plugins = plugins or EngineServerPluginContext()
+        # Micro-batching window (0 = off): queries arriving within
+        # batch_window_ms are coalesced into ONE Deployment.batch_query.
+        self.batch_window_ms = float(batch_window_ms)
+        # ops.topk pads batches to a power of two only up to 256
+        self.max_batch = min(int(max_batch), 256)
+        self.start_time = _dt.datetime.now(_dt.timezone.utc)
+        self._lock = threading.Lock()
+        self._query_count = 0
+        self._init_overload_state(query_conc, query_max_pending,
+                                  query_deadline_ms, drain_deadline_ms,
+                                  swap_validate, swap_watch_ms,
+                                  swap_max_error_rate, model_refresh_ms,
+                                  query_cache_size, query_cache_ttl_ms)
+        # synthetic probe traffic is excluded from queryCount/feedback; the
+        # marker must carry this per-process token, never exposed, so an
+        # external "X-Pio-Probe: 1" cannot bypass the accounting
+        self._probe_token = secrets.token_hex(16)
+        # degraded mode: serving goes on with the last-good model after a
+        # failed reload; /status and /readyz surface it
+        self._degraded_reason: Optional[str] = None
+        self._dropped_feedback = 0
+        self._feedback_executor = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="pio-feedback")
+        self.deployment = None
+        self.instance = None
+        self._httpd: Optional[_HTTPServer] = None
+        self._serve_thread: Optional[threading.Thread] = None
+        self._batch_queue: Optional[queue.Queue] = None
+        self._batch_thread: Optional[threading.Thread] = None
+        self._refresh_stop = threading.Event()
+        self._refresh_thread: Optional[threading.Thread] = None
+        if deployment is not None:
+            self._prepare(deployment, "deployment", None)
+            self.deployment = deployment
+        else:
+            self._load(instance_id)
+
+    @property
+    def file_form(self) -> bool:
+        """Serving one fixed deployment, with no model store behind it."""
+        return self.engine is None
+
+    def _init_overload_state(self, query_conc=None, query_max_pending=None,
+                             query_deadline_ms=None, drain_deadline_ms=None,
+                             swap_validate=None, swap_watch_ms=None,
+                             swap_max_error_rate=None, model_refresh_ms=None,
+                             query_cache_size=None,
+                             query_cache_ttl_ms=None) -> None:
+        """Admission control, deadlines, drain, the model lifecycle and the
+        result cache. Arguments override the ``PIO_*`` knobs."""
+        self.query_conc = max(1, int(
+            query_conc if query_conc is not None
+            else _env_int("PIO_QUERY_CONC",
+                          min(32, (os.cpu_count() or 4) + 4))))
+        self.query_max_pending = max(0, int(
+            query_max_pending if query_max_pending is not None
+            else _env_int("PIO_QUERY_MAX_PENDING", 128)))
+        # per-query budget (0 = unbounded); X-Pio-Deadline-Ms overrides it
+        # per request, up to the ceiling below
+        self.query_deadline_ms = float(
+            query_deadline_ms if query_deadline_ms is not None
+            else _env_int("PIO_QUERY_DEADLINE_MS", 30_000))
+        # what a client header may loosen the budget TO (0 = uncapped): a
+        # client must not park unkillable workers on a hung model
+        self.query_deadline_max_ms = max(0.0, float(
+            _env_int("PIO_QUERY_DEADLINE_MAX_MS", 600_000)))
+        self.drain_deadline_ms = max(0.0, float(
+            drain_deadline_ms if drain_deadline_ms is not None
+            else _env_int("PIO_DRAIN_DEADLINE_MS", 10_000)))
+        self._query_executor = concurrent.futures.ThreadPoolExecutor(
+            max_workers=self.query_conc, thread_name_prefix="pio-query")
+        self._adm_lock = threading.Lock()
+        self._adm_pending = 0
+        self._adm_peak = 0
+        self._shed_count = 0
+        self._deadline_count = 0
+        self._orphaned = 0
+        self._draining = False
+        self._drain_stragglers = 0
+        # admitted queries whose answer is not written yet (the slot frees
+        # when compute finishes, before the handler writes): a drain waits
+        # for both; _tls.admitted counts the admissions of this handler's
+        # request
+        self._unanswered = 0
+        self._tls = threading.local()
+        self._reload_lock = threading.Lock()
+        self._reload_conflicts = 0
+        # validation gate: NaN guard, warm-up success and the golden query
+        # before any (re)loaded model goes live
+        self.swap_validate = (
+            bool(swap_validate) if swap_validate is not None
+            else envknobs.env_flag("PIO_SWAP_VALIDATE", True))
+        # post-swap watch: failures count against the NEW model (and are
+        # hedged onto the previous one); past the rate it is rolled back
+        self.swap_watch_ms = max(0.0, float(
+            swap_watch_ms if swap_watch_ms is not None
+            else _env_int("PIO_SWAP_WATCH_MS", 60_000)))
+        self.swap_max_error_rate = float(
+            swap_max_error_rate if swap_max_error_rate is not None
+            else envknobs.env_float("PIO_SWAP_MAX_ERROR_RATE", 0.5,
+                                    lo=0.0, hi=1.0))
+        # continuous refresh: poll for newer COMPLETED instances (0 = off)
+        self.model_refresh_ms = max(0.0, float(
+            model_refresh_ms if model_refresh_ms is not None
+            else _env_int("PIO_MODEL_REFRESH_MS", 0)))
+        self._refresh_disabled: Optional[str] = None
+        if self.file_form and self.model_refresh_ms > 0:
+            log.warning("refresh every %.0f ms refused: a deployment "
+                        "served from a model file has no model store to "
+                        "poll; /status reports refreshMs: disabled(file)",
+                        self.model_refresh_ms)
+            self._refresh_disabled = "file"
+            self.model_refresh_ms = 0.0
+        self.query_cache_size = max(0, int(
+            query_cache_size if query_cache_size is not None
+            else _env_int("PIO_QUERY_CACHE_SIZE", 0)))
+        self.query_cache_ttl_ms = max(0.0, float(
+            query_cache_ttl_ms if query_cache_ttl_ms is not None
+            else _env_int("PIO_QUERY_CACHE_TTL_MS", 10_000)))
+        self._query_cache = (
+            QueryResultCache(self.query_cache_size,
+                             self.query_cache_ttl_ms / 1e3)
+            if self.query_cache_size > 0 and self.query_cache_ttl_ms > 0
+            else None)
+        self._previous = None            # (deployment, instance) resident
+        self._pinned: dict[str, str] = {}  # instance id → pin reason
+        self._watch = None               # active post-swap watch window
+        self._rollbacks: dict[str, int] = {}   # reason → count
+        self._swap_count = 0
+        self._validate_failures = 0
+        self._refresh_swaps = 0
+
+    # -- lifecycle --------------------------------------------------------
+    def _load(self, instance_id: Optional[str],
+              skip_if_current: bool = False, on_reject=None) -> bool:
+        """(Re)load a deployment; True when one was published, False when
+        ``skip_if_current`` short-circuited.
+
+        At the initial deploy (nothing serving yet) a validation-refused
+        newest instance is pinned and the walk retries older COMPLETED
+        instances. Once something IS serving, a validation failure raises
+        so the caller keeps the last-good deployment."""
+        while True:
+            try:
+                return self._load_once(instance_id, skip_if_current,
+                                       on_reject)
+            except SwapValidationError as e:
+                with self._lock:
+                    has_current = self.deployment is not None
+                if instance_id is not None or has_current:
+                    raise
+                with self._lock:
+                    self._validate_failures += 1
+                    self._pinned[e.instance_id] = "validate"
+                log.warning(
+                    "initial deploy: %s; pinning it and walking back to "
+                    "an older COMPLETED instance", e)
+
+    def _load_once(self, instance_id: Optional[str],
+                   skip_if_current: bool = False, on_reject=None) -> bool:
+        ctx = WorkflowContext(storage=self.storage, device=self.device)
+        with self._lock:
+            pinned = tuple(self._pinned) if instance_id is None else ()
+        deployment, instance, _ = load_deployment(
+            self.engine, instance_id, ctx,
+            engine_factory_name=self.engine_factory_name,
+            engine_variant=self.engine_variant,
+            # latest-completed mode never re-picks a pinned instance; an
+            # explicit id is the operator overriding the pin on purpose
+            exclude_ids=pinned,
+            on_reject=on_reject,
+        )
+        with self._lock:
+            current = self.instance
+        if (skip_if_current and current is not None
+                and instance.id == current.id):
+            log.info("refresh: no newer deployable instance than %s",
+                     current.id)
+            return False
+        self._prepare(deployment, instance.id, instance)
+        with self._lock:
+            prev_dep, prev_inst = self.deployment, self.instance
+            swapped = (prev_inst is not None
+                       and prev_inst.id != instance.id)
+            if swapped:
+                # ONE previous deployment stays resident (its tensors on
+                # the card intact) for an instant /rollback and the hedge
+                self._previous = (prev_dep, prev_inst)
+                self._swap_count += 1
+            self.deployment = deployment
+            self.instance = instance
+            if swapped and self.swap_watch_ms > 0:
+                self._watch = {
+                    "until": _time.monotonic() + self.swap_watch_ms / 1e3,
+                    "total": 0, "errors": 0, "instance": instance.id,
+                }
+        if swapped and self._query_cache is not None:
+            users = self._foldin_footprint(instance, prev_inst)
+            if users is None:
+                n = self._query_cache.flush("swap")
+                log.info("query cache: flushed %d entrie(s) on swap "
+                         "to %s", n, instance.id)
+            else:
+                n = self._query_cache.invalidate_users(users)
+                log.info("query cache: fold-in %s evicted %d entrie(s) "
+                         "for %d touched user(s)", instance.id, n,
+                         len(users))
+        log.info("deployed engine instance %s", instance.id)
+        return True
+
+    def _prepare(self, deployment, label: str, instance) -> None:
+        """Warm every model up (its catalog resident on the card), run
+        each pow2 batch shape the micro-batcher can produce once, then the
+        validation gate. Raises :class:`SwapValidationError`."""
+        warmup_errors: list[str] = []
+        for (algo_name, _algo), model in zip(deployment.algo_list,
+                                             deployment.models):
+            warm = getattr(model, "warm_up", None)
+            if callable(warm):
+                try:
+                    warm()
+                except Exception as e:  # noqa: BLE001 - gate decides below
+                    log.exception("model warm-up failed")
+                    warmup_errors.append(
+                        f"{algo_name or type(model).__name__}: {e}")
+        if self.batch_window_ms > 0:
+            example = self._find_example_query(deployment)
+            if example is not None:
+                # up to the next pow2 ≥ max_batch: a full window pads there
+                top = 1 << max(self.max_batch - 1, 0).bit_length()
+                b = 1
+                while b <= top:
+                    try:
+                        deployment.batch_query([dict(example)] * b)
+                    except Exception as e:  # noqa: BLE001 - gate below
+                        log.exception("batch warm-up failed at size %d", b)
+                        warmup_errors.append(f"batch[{b}]: {e}")
+                        break
+                    b *= 2
+        if self.swap_validate and warmup_errors:
+            raise SwapValidationError(
+                label, "warm-up failed: " + "; ".join(warmup_errors))
+        self._validate_swap(deployment, label, instance)
+
+    @staticmethod
+    def _foldin_footprint(instance, prev_inst) -> Optional[list]:
+        """The incoming instance's targeted-invalidation user list, or
+        None when only a full flush is safe: both halves of a fold-in
+        marker (``users``, and ``bases`` naming the instance being
+        served) are needed."""
+        try:
+            raw = (instance.runtime_conf or {}).get("foldin")
+            if not raw or prev_inst is None:
+                return None
+            doc = json.loads(raw) if isinstance(raw, str) else raw
+            users = doc.get("users")
+            bases = doc.get("bases")
+            if not isinstance(users, list):
+                return None
+            if not isinstance(bases, list) or prev_inst.id not in bases:
+                return None
+            return users
+        except Exception:  # noqa: BLE001 — on any doubt, full flush
+            return None
+
+    def _validate_swap(self, deployment, label: str, instance) -> None:
+        """The swap gate (``PIO_SWAP_VALIDATE``, default on): the NaN
+        guard over every model plus a smoke predict of the golden query,
+        after the ``swap.validate`` fault point. Any failure raises
+        :class:`SwapValidationError`; the model never goes live."""
+        if not self.swap_validate:
+            return
+        from ..common.nan_guard import check_finite
+
+        try:
+            faultinject.fault_point("swap.validate")
+            for (algo_name, _algo), model in zip(deployment.algo_list,
+                                                 deployment.models):
+                check_finite(
+                    model, f"swap.validate[{algo_name or 'default'}]")
+            golden = self._golden_query(instance, deployment)
+            if golden is not None:
+                # the DASE stages directly, not Deployment.query: gate
+                # traffic must not consume the query.* fault points
+                q = deployment.serving.supplement(dict(golden))
+                predictions = [
+                    algo.predict(model, q)
+                    for (_n, algo), model in zip(deployment.algo_list,
+                                                 deployment.models)
+                ]
+                deployment.serving.serve(q, predictions)
+            else:
+                log.debug("swap validation: no golden query available; "
+                          "skipping smoke predict")
+        except Exception as e:  # noqa: BLE001 - any failure refuses it
+            raise SwapValidationError(label, str(e)) from e
+
+    def _golden_query(self, instance, deployment) -> Optional[dict]:
+        """The smoke-predict query: the instance row's
+        ``runtime_conf["golden_query"]``, ``$PIO_GOLDEN_QUERY``, or the
+        models' ``example_query()``."""
+        raw = ((instance.runtime_conf or {}).get("golden_query")
+               if instance is not None else None) or envknobs.env_str(
+                   "PIO_GOLDEN_QUERY", "", lower=False)
+        if raw:
+            try:
+                doc = json.loads(raw)
+                if isinstance(doc, dict):
+                    return doc
+                log.warning("golden_query is not a JSON object; "
+                            "falling back to example_query")
+            except json.JSONDecodeError:
+                log.warning("golden_query is not valid JSON; falling "
+                            "back to example_query")
+        return self._find_example_query(deployment)
+
+    @staticmethod
+    def _find_example_query(deployment) -> Optional[dict]:
+        """The first model offering a non-None ``example_query()``."""
+        for model in deployment.models:
+            ex = getattr(model, "example_query", None)
+            if callable(ex):
+                example = ex()
+                if example is not None:
+                    return example
+        return None
+
+    # -- status endpoints --------------------------------------------------
+    def handle_status(self, request: Request) -> Reply:
+        with self._lock:
+            instance = self.instance
+            query_count = self._query_count
+        out = {
+            "status": "alive",
+            "engineInstanceId": instance.id if instance else None,
+            "engineFactory": self.engine_factory_name,
+            "engineVariant": self.engine_variant,
+            "startTime": self.start_time.isoformat(),
+            "queryCount": query_count,
+            "plugins": self.plugins.plugin_names(),
+            "degraded": self._degraded_reason is not None,
+            "degradedReason": self._degraded_reason,
+            "droppedFeedback": self._dropped_feedback,
+            "overload": self.overload_snapshot(),
+            "lifecycle": self.lifecycle_snapshot(),
+        }
+        if self._query_cache is not None:
+            out["queryCache"] = self._query_cache.snapshot()
+        # the serving-latency split, when a probe ran (deploy
+        # --probe-latency persists it to the instance row)
+        probe = (instance.runtime_conf.get("probe_latency")
+                 if instance is not None else None)
+        if probe:
+            try:
+                out["probeLatency"] = json.loads(probe)
+            except (TypeError, json.JSONDecodeError):
+                pass
+        return _json(200, out)
+
+    def handle_healthz(self, request: Request) -> Reply:
+        """Liveness: the process serves HTTP."""
+        return _json(200, {"status": "alive"})
+
+    def handle_readyz(self, request: Request) -> Reply:
+        """Readiness: a model is loaded and the server is not draining;
+        503 otherwise, so load balancers rotate it out. The degraded flag
+        is telemetry, not a rotation signal. ``openBreakers`` is always
+        empty: the storage breakers come with the network backends."""
+        with self._lock:
+            loaded = self.deployment is not None
+        with self._adm_lock:
+            draining = self._draining
+        ready = loaded and not draining
+        return _json(200 if ready else 503, {
+            "ready": ready,
+            "modelLoaded": loaded,
+            "degraded": self._degraded_reason is not None,
+            "draining": draining,
+            "openBreakers": [],
+        })
+
+    def handle_plugins(self, request: Request) -> Reply:
+        return _json(200, {"plugins": self.plugins.plugin_names()})
+
+    # -- admission control / deadlines / drain ----------------------------
+    def overload_snapshot(self) -> dict:
+        """Shed/deadline/drain counters for /status and `pio status`."""
+        with self._adm_lock:
+            pending, peak = self._adm_pending, self._adm_peak
+            shed, deadline_exceeded = self._shed_count, self._deadline_count
+            orphaned, draining = self._orphaned, self._draining
+            stragglers = self._drain_stragglers
+            conflicts = self._reload_conflicts
+        return {
+            "conc": self.query_conc,
+            "pending": pending,
+            "pendingLimit": self.query_conc + self.query_max_pending,
+            "peakPending": peak,
+            "shed": shed,
+            "deadlineExceeded": deadline_exceeded,
+            "orphaned": orphaned,
+            "deadlineMsDefault": self.query_deadline_ms,
+            "draining": draining,
+            "drainDeadlineMs": self.drain_deadline_ms,
+            "drainStragglers": stragglers,
+            "reloadConflicts": conflicts,
+        }
+
+    def _request_deadline(self, request: Request
+                          ) -> Optional[deadline.Deadline]:
+        """Per-request budget: the X-Pio-Deadline-Ms header, else the
+        server default (0 = unbounded). A malformed, non-positive or
+        non-finite header falls back to the default, and a header may
+        loosen only up to PIO_QUERY_DEADLINE_MAX_MS."""
+        budget_ms = self.query_deadline_ms
+        raw = request.headers.get("X-Pio-Deadline-Ms")
+        if raw:
+            try:
+                hdr = float(raw)
+            except ValueError:
+                hdr = float("nan")
+            if math.isfinite(hdr) and hdr > 0:
+                budget_ms = hdr
+                if self.query_deadline_max_ms > 0:
+                    budget_ms = min(budget_ms, self.query_deadline_max_ms)
+        if budget_ms <= 0:
+            return None
+        return deadline.Deadline(budget_ms)
+
+    def _admit(self) -> None:
+        """Take one admission slot or refuse. A slot covers the query
+        from acceptance until its compute FINISHES — an orphaned worker
+        (past its deadline; threads can't be killed) keeps its slot."""
+        with self._adm_lock:
+            if self._draining:
+                raise AdmissionShed(
+                    "server is draining for shutdown", 1.0, "draining")
+            cap = self.query_conc + self.query_max_pending
+            if self._adm_pending >= cap:
+                raise AdmissionShed(
+                    f"query admission queue full ({self._adm_pending}"
+                    f"/{cap})", 1.0, "full")
+            self._adm_pending += 1
+            if self._adm_pending > self._adm_peak:
+                self._adm_peak = self._adm_pending
+            self._unanswered += 1
+        self._tls.admitted = getattr(self._tls, "admitted", 0) + 1
+
+    def _release_slot(self, fut=None) -> None:
+        """Admission-slot release, also a future's done-callback; reads
+        the future's exception so an orphan failing after its 504 is
+        accounted."""
+        if fut is not None and not fut.cancelled():
+            exc = fut.exception()
+            if exc is not None and not isinstance(
+                    exc, deadline.DeadlineExceeded):
+                log.debug("orphaned/abandoned query failed: %s", exc)
+        with self._adm_lock:
+            self._adm_pending -= 1
+
+    def _run_admitted_query(self, deployment, query):
+        """Executor-thread entry: a query that spent its whole deadline
+        waiting in the queue frees the worker at once."""
+        dl = deadline.current()
+        if dl is not None:
+            dl.check("executor pickup")
+        return deployment.query(query)
+
+    def _dispatch_query(self, deployment, query, dl, direct: bool = False):
+        """The admission gate — the only way a handler hands a query to
+        compute. ``direct=True`` skips the micro-batch queue (whose
+        worker always uses the LIVE deployment): the watch window's hedge
+        must run on the retained previous one.
+
+        Raises :class:`AdmissionShed` (→ 503) or
+        :class:`deadline.DeadlineExceeded` (→ 504)."""
+        if dl is not None:
+            dl.check("admission")
+        self._admit()
+        slot_owned_by_future = False
+        try:
+            timeout = dl.remaining() if dl is not None else None
+            bq = self._batch_queue
+            if bq is not None and not direct:
+                fut: concurrent.futures.Future = concurrent.futures.Future()
+                fut.add_done_callback(self._release_slot)
+                slot_owned_by_future = True
+                bq.put((query, fut))
+                try:
+                    return fut.result(timeout)
+                except concurrent.futures.TimeoutError:
+                    # still queued: the batcher drops it; already in a
+                    # batch: its slot frees when the batch finishes
+                    fut.cancel()
+                    raise deadline.DeadlineExceeded(
+                        dl.budget_ms, dl.overrun_ms(),
+                        "batch queue") from None
+            # the deadline rides a copied context into the worker thread
+            with deadline.running(dl):
+                ctx = contextvars.copy_context()
+            cfut = self._query_executor.submit(
+                ctx.run, self._run_admitted_query, deployment, query)
+            cfut.add_done_callback(self._release_slot)
+            slot_owned_by_future = True
+            try:
+                return cfut.result(timeout)
+            except concurrent.futures.TimeoutError:
+                if cfut.cancel():
+                    # still queued: the model never saw this query, which
+                    # the post-swap watch must not blame on the canary
+                    stage = "queued"
+                else:
+                    # running: the thread frees itself at its next
+                    # deadline spend-point and releases its slot then
+                    with self._adm_lock:
+                        self._orphaned += 1
+                    stage = "await"
+                raise deadline.DeadlineExceeded(
+                    dl.budget_ms, dl.overrun_ms(), stage) from None
+        finally:
+            if not slot_owned_by_future:
+                self._release_slot()
+
+    # -- micro-batching ---------------------------------------------------
+    def _start_batcher(self) -> None:
+        self._batch_queue = queue.Queue()
+        self._batch_thread = threading.Thread(
+            target=self._batch_worker, args=(self._batch_queue,),
+            name="pio-batcher", daemon=True)
+        self._batch_thread.start()
+
+    def _stop_batcher(self) -> None:
+        """Stop accepting, let the worker finish its batch, and fail the
+        queries still queued instead of leaving their handlers waiting."""
+        bq, self._batch_queue = self._batch_queue, None
+        if bq is None:
+            return
+        bq.put(None)
+        if self._batch_thread is not None:
+            self._batch_thread.join(timeout=10)
+        while True:
+            try:
+                item = bq.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                _settle(item[1], exc=RuntimeError(
+                    "engine server shutting down"))
+
+    def _batch_worker(self, bq: queue.Queue) -> None:
+        """Coalesce queued queries: wait for the first, gather more until
+        the window closes (or max_batch), one vectorized dispatch. A
+        ``None`` item stops the worker."""
+        window = self.batch_window_ms / 1000.0
+        while True:
+            first = bq.get()
+            if first is None:
+                return
+            batch = [first]
+            stop = False
+            end = _time.monotonic() + window
+            while len(batch) < self.max_batch:
+                timeout = end - _time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    item = bq.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if item is None:
+                    stop = True
+                    break
+                batch.append(item)
+            # claim each future; one whose deadline cancelled it while
+            # queued is dropped instead of burning a batch slot
+            batch = [(q, f) for q, f in batch
+                     if f.set_running_or_notify_cancel()]
+            if batch:
+                self._run_batch(batch)
+            if stop:
+                return
+
+    def _run_batch(self, batch: list) -> None:
+        with self._lock:
+            deployment = self.deployment
+        queries = [q for q, _ in batch]
+        try:
+            results = deployment.batch_query(queries)
+        except Exception:  # noqa: BLE001
+            # one bad query (a missing field) must not poison its
+            # batchmates: each gets ITS OWN result or error, exactly as
+            # on the unbatched path
+            for q, fut in batch:
+                try:
+                    fut.set_result(deployment.query(q))
+                except Exception as qe:  # noqa: BLE001
+                    fut.set_exception(qe)
+            return
+        for (_, fut), res in zip(batch, results):
+            fut.set_result(res)
+
+    # -- queries -----------------------------------------------------------
+    def handle_query(self, request: Request) -> Reply:
+        try:
+            query = json.loads(request.body)
+        except (json.JSONDecodeError, UnicodeDecodeError):
+            return _json(400, {"message": "invalid JSON body"})
+        with self._lock:
+            deployment = self.deployment
+        if deployment is None:
+            return _json(503, {"message": "no model deployed"},
+                         {"Retry-After": str(retry_after_jitter(2.0))})
+        dl = self._request_deadline(request)
+        # plugin hooks run OUTSIDE the watch accounting: a plugin raising
+        # on client input is no evidence against a freshly swapped model
+        try:
+            query = self.plugins.before_query(query)
+        except KeyError as e:
+            return _missing_field(e)
+        except Exception as e:  # noqa: BLE001
+            log.exception("before_query plugin failed")
+            return _json(500, {"message": str(e)})
+        cache = self._query_cache
+        ckey = None
+        cgen = 0
+        if cache is not None and "X-Pio-Probe" not in request.headers:
+            # probe traffic bypasses the cache both ways: the probe must
+            # measure the real dispatch and not pollute hit/miss counts
+            ckey = QueryResultCache.key_for(query)
+            cgen = cache.generation
+            cached = cache.get(ckey)
+            if cached is not None:
+                return self._finish_query(request, query, cached)
+        try:
+            result = self._dispatch_query(deployment, query, dl)
+            if self._watch is not None and self._is_live(deployment):
+                self._note_watch(ok=True)
+            if ckey is not None:
+                # only clean dispatch results are cached (never a hedged
+                # answer); the generation guard drops a stale insert
+                cache.put(ckey, result, cgen)
+        except AdmissionShed as e:
+            with self._adm_lock:
+                self._shed_count += 1
+            return _shed_reply(e)
+        except deadline.DeadlineExceeded as e:
+            # accepted but out of time: 504, not 503 — work started
+            with self._adm_lock:
+                self._deadline_count += 1
+            # a pathologically SLOW new model trips the watch too (compute
+            # stages only; queueing is overload, not the model)
+            if (self._watch is not None
+                    and e.stage not in _QUEUE_STAGES
+                    and self._is_live(deployment)
+                    and self._note_watch(ok=False)):
+                self._rollback_to_previous("error-rate")
+            return _json(504, {"message": str(e)})
+        except KeyError as e:
+            return _missing_field(e)
+        except Exception as e:  # noqa: BLE001 - surfaced as HTTP 500
+            log.exception("query failed")
+            # inside a post-swap watch: count the failure against the new
+            # model and hedge this query onto the retained last-good one;
+            # the hedge's own overload/deadline outcomes keep 503/504
+            try:
+                hedged = self._watched_failure(deployment, query, dl)
+            except AdmissionShed as e2:
+                with self._adm_lock:
+                    self._shed_count += 1
+                return _shed_reply(e2)
+            except deadline.DeadlineExceeded as e2:
+                with self._adm_lock:
+                    self._deadline_count += 1
+                return _json(504, {"message": str(e2)})
+            if hedged is None:
+                return _json(500, {"message": str(e)})
+            result = hedged
+        return self._finish_query(request, query, result)
+
+    def _finish_query(self, request: Request, query, result) -> Reply:
+        """The response tail of dispatched AND cache-hit results:
+        after_query plugins, the probe-marker bypass, the query count and
+        the feedback self-log."""
+        try:
+            result = self.plugins.after_query(query, result)
+        except KeyError as e:
+            return _missing_field(e)
+        except Exception as e:  # noqa: BLE001
+            log.exception("after_query plugin failed")
+            return _json(500, {"message": str(e)})
+        probe = request.headers.get("X-Pio-Probe")
+        # bytes comparison: compare_digest raises TypeError on non-ASCII
+        # str, which a hostile header could use to 500 an answered query
+        if probe and hmac.compare_digest(
+                probe.encode("utf-8", "surrogateescape"),
+                self._probe_token.encode()):
+            return _json(200, result)
+        with self._lock:
+            self._query_count += 1
+        if self.feedback:
+            # not fire-and-forget: a failing event store is logged and
+            # counted (droppedFeedback on /status)
+            fut = self._feedback_executor.submit(self._log_feedback, query,
+                                                 result)
+            fut.add_done_callback(self._feedback_done)
+        return _json(200, result)
+
+    def _feedback_done(self, fut: concurrent.futures.Future) -> None:
+        if fut.cancelled() or fut.exception() is not None:
+            with self._lock:
+                self._dropped_feedback += 1
+                dropped = self._dropped_feedback
+            if not fut.cancelled():
+                log.error("feedback logging failed (dropped=%d): %s",
+                          dropped, fut.exception())
+
+    def _log_feedback(self, query: Any, result: Any) -> None:
+        """Self-log the prediction as a "predict" event (reference:
+        CreateServer's feedback loop). Raises on failure; the
+        done-callback owns logging and the dropped counter."""
+        app_name = self.feedback_app_name
+        if not app_name or self.storage is None:
+            return
+        app = self.storage.get_meta_data_apps().get_by_name(app_name)
+        if app is None:
+            return
+        self.storage.get_l_events().insert(
+            Event(
+                event="predict",
+                entity_type="pio_pr",  # server-generated: prefix allowed
+                entity_id=(str(query.get("user", ""))
+                           if isinstance(query, dict) else ""),
+                properties=DataMap({"query": query, "result": result}),
+            ),
+            app.id,
+        )
+
+    # -- startup latency probe --------------------------------------------
+    def probe_and_record(self, base_url: str, n: int = 60) -> Optional[dict]:
+        """Measure the full-path query latency split against the LIVE
+        server (real HTTP over loopback, one keep-alive connection) and
+        persist it to the instance row (``runtime_conf["probe_latency"]``):
+        http_full (wire to wire), predict (``Deployment.query``: host
+        gather, top-k on the device, the read back), the bare device
+        round trip (a one-element op and its read back) and the JSON
+        parse. http − predict = the server's HTTP and queueing overhead;
+        predict − rtt ≈ the top-k's device work and transfer."""
+        import http.client
+        import time
+
+        with self._lock:
+            deployment, instance = self.deployment, self.instance
+        example = self._find_example_query(deployment)
+        if example is None:
+            log.warning("probe-latency: no deployed model provides "
+                        "example_query(); skipping")
+            return None
+        body = json.dumps(example).encode()
+        parsed = urllib.parse.urlsplit(base_url)
+        conn_box: list = [None]
+
+        def post():
+            for attempt in (0, 1):
+                if conn_box[0] is None:
+                    conn_box[0] = http.client.HTTPConnection(
+                        parsed.hostname, parsed.port, timeout=60)
+                conn = conn_box[0]
+                try:
+                    conn.request(
+                        "POST", "/queries.json", body=body,
+                        headers={"Content-Type": "application/json",
+                                 "X-Pio-Probe": self._probe_token})
+                    conn.getresponse().read()
+                    return
+                except (http.client.HTTPException, OSError):
+                    # the server dropped the idle connection: reconnect
+                    # and retry the sample once
+                    conn.close()
+                    conn_box[0] = None
+                    if attempt:
+                        raise
+
+        def pct(a, p):
+            a = sorted(a)
+            return a[min(len(a) - 1, round(p / 100 * (len(a) - 1)))]
+
+        for _ in range(5):  # warm the connection and the device path
+            post()
+        http_ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            post()
+            http_ms.append((time.perf_counter() - t0) * 1e3)
+        if conn_box[0] is not None:
+            conn_box[0].close()
+        parse_ms, predict_ms = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            q = json.loads(body)
+            parse_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            deployment.query(q)
+            predict_ms.append((time.perf_counter() - t0) * 1e3)
+        rtt_ms = []
+        x = torch.zeros(8, device=self.device)
+        (x + 1).cpu()
+        for _ in range(n):
+            t0 = time.perf_counter()
+            (x + 1).cpu()
+            rtt_ms.append((time.perf_counter() - t0) * 1e3)
+
+        result = {
+            "n": n,
+            "attachment": _device_attachment(self.device),
+            "http_p50_ms": round(pct(http_ms, 50), 3),
+            "http_p99_ms": round(pct(http_ms, 99), 3),
+            "predict_p50_ms": round(pct(predict_ms, 50), 3),
+            "predict_p99_ms": round(pct(predict_ms, 99), 3),
+            "dispatch_rtt_p50_ms": round(pct(rtt_ms, 50), 3),
+            "parse_p50_ms": round(pct(parse_ms, 50), 4),
+        }
+        result["overhead_p50_ms"] = round(
+            max(result["http_p50_ms"] - result["predict_p50_ms"], 0.0), 3)
+        result["onchip_plus_transfer_p50_ms"] = round(
+            max(result["predict_p50_ms"] - result["dispatch_rtt_p50_ms"],
+                0.0), 3)
+        print(f"[probe] full-path p50={result['http_p50_ms']}ms "
+              f"p99={result['http_p99_ms']}ms over {n} queries "
+              f"({result['attachment']})")
+        print(f"[probe]   predict (gather+top-k+read back) "
+              f"p50={result['predict_p50_ms']}ms")
+        print(f"[probe]   bare device round trip "
+              f"p50={result['dispatch_rtt_p50_ms']}ms → on-device+transfer "
+              f"≈ {result['onchip_plus_transfer_p50_ms']}ms")
+        print(f"[probe]   http+queue overhead p50="
+              f"{result['overhead_p50_ms']}ms, json parse "
+              f"p50={result['parse_p50_ms']}ms", flush=True)
+        if instance is None:
+            return result  # the file form has no instance row
+        try:
+            import dataclasses as _dc
+
+            instances = self.storage.get_meta_data_engine_instances()
+            fresh = instances.get(instance.id) or instance
+            updated = _dc.replace(
+                fresh,
+                runtime_conf={**fresh.runtime_conf,
+                              "probe_latency": json.dumps(result)})
+            instances.update(updated)
+            with self._lock:
+                # keep the live status page in sync with the stored row
+                if (self.instance is not None
+                        and self.instance.id == updated.id):
+                    self.instance = updated
+        except Exception:  # noqa: BLE001 - persistence is best-effort
+            log.exception("probe-latency: persisting to instance row failed")
+        return result
+
+    # -- post-swap watch + rollback ---------------------------------------
+    def lifecycle_snapshot(self) -> dict:
+        """Model-lifecycle state for /status and `pio status
+        --engine-url`."""
+        from . import model_artifact
+
+        with self._lock:
+            cur, prev = self.instance, self._previous
+            pinned = dict(self._pinned)
+            rollbacks = dict(self._rollbacks)
+            swaps = self._swap_count
+            validate_failures = self._validate_failures
+            refresh_swaps = self._refresh_swaps
+            w = self._watch
+            watch = ({"total": w["total"], "errors": w["errors"]}
+                     if w is not None else None)
+        return {
+            "instance": cur.id if cur else None,
+            "previous": prev[1].id if prev else None,
+            # process-wide: every blob the verifying loader refused here
+            "integrityFailures": model_artifact.integrity_failure_counts(),
+            "pinned": pinned,
+            "rollbacks": rollbacks,
+            "swaps": swaps,
+            "validateFailures": validate_failures,
+            "validate": self.swap_validate,
+            "refreshMs": (f"disabled({self._refresh_disabled})"
+                          if self._refresh_disabled
+                          else self.model_refresh_ms),
+            "refreshSwaps": refresh_swaps,
+            "watchMs": self.swap_watch_ms,
+            "maxErrorRate": self.swap_max_error_rate,
+            "watch": watch,
+        }
+
+    def _is_live(self, deployment) -> bool:
+        """Whether ``deployment`` is the one published: outcomes of
+        queries dispatched to a pre-swap deployment don't count."""
+        with self._lock:
+            return self.deployment is deployment
+
+    def _close_stale_watch(self, w) -> bool:
+        """Lock held: clear watch ``w`` when a newer swap or rollback
+        superseded it or its window closed; True when it was cleared."""
+        cur = self.instance
+        if cur is None or w["instance"] != cur.id:
+            if self._watch is w:
+                self._watch = None
+            return True
+        if _time.monotonic() > w["until"]:
+            log.info("post-swap watch for %s closed clean (%d queries, "
+                     "%d errors)", w["instance"], w["total"], w["errors"])
+            if self._watch is w:
+                self._watch = None
+            return True
+        return False
+
+    def _note_watch(self, ok: bool) -> bool:
+        """Record one query outcome against the post-swap watch. True
+        when the error rate tripped the rollback threshold: at least 2
+        failures AND a failure fraction above PIO_SWAP_MAX_ERROR_RATE, so
+        one flaky query can't roll back a healthy model."""
+        with self._lock:
+            w = self._watch
+            if w is None or self._close_stale_watch(w):
+                return False
+            w["total"] += 1
+            if ok:
+                return False
+            w["errors"] += 1
+            return (w["errors"] >= 2
+                    and w["errors"] / w["total"] > self.swap_max_error_rate)
+
+    def _rollback_to_previous(self, reason: str) -> Optional[str]:
+        """Instant swap back to the resident previous deployment (no
+        store round trip: it stayed warm on the card). The bad instance
+        is PINNED so neither the latest-completed walk nor the refresh
+        loop re-picks it; its blob is never deleted. Returns the restored
+        instance id, or None when no previous deployment is resident."""
+        with self._lock:
+            if self._previous is None:
+                return None
+            bad_inst = self.instance
+            self.deployment, self.instance = self._previous
+            self._previous = None
+            restored = self.instance
+            self._watch = None
+            self._pinned.setdefault(bad_inst.id, reason)
+            self._rollbacks[reason] = self._rollbacks.get(reason, 0) + 1
+        if self._query_cache is not None:
+            # every cached result came from the model rolled away from
+            n = self._query_cache.flush("rollback")
+            log.info("query cache: flushed %d entrie(s) on rollback", n)
+        self._degraded_reason = (
+            f"rolled back from {bad_inst.id} to {restored.id} ({reason}) "
+            f"at {_dt.datetime.now(_dt.timezone.utc).isoformat()}; "
+            f"{bad_inst.id} pinned until an operator reloads it "
+            "explicitly")
+        log.warning("automatic rollback (%s): %s → %s; %s pinned",
+                    reason, bad_inst.id, restored.id, bad_inst.id)
+        return restored.id
+
+    def _watched_failure(self, deployment, query, dl):
+        """A query failed on ``deployment``: inside its post-swap watch,
+        hedge it onto the last-good deployment and — only when last-good
+        SUCCEEDS (a query failing on both is the query's problem) — count
+        the failure against the new model, rolling back past the error
+        rate. Returns the hedged result, or None (the caller answers the
+        original error). The hedge's own AdmissionShed /
+        DeadlineExceeded propagate: they are the server's state, 503/504,
+        and never count against the watch."""
+        with self._lock:
+            w = self._watch
+            live_dep = self.deployment
+            prev = self._previous
+            stale = w is not None and self._close_stale_watch(w)
+        if w is None:
+            # no watch, but the failed deployment is no longer live: a
+            # rollback or swap landed mid-flight, and the client deserves
+            # the live model's answer, not the retired model's 500
+            if live_dep is not None and live_dep is not deployment:
+                try:
+                    return self._dispatch_query(live_dep, query, dl,
+                                                direct=True)
+                except (AdmissionShed, deadline.DeadlineExceeded):
+                    raise
+                except Exception:  # noqa: BLE001 - original error stands
+                    log.exception("retry on live model failed")
+            return None
+        if stale:
+            # outside the watch the client gets the live model's error
+            return None
+        if live_dep is not deployment:
+            # a concurrent query already rolled back: serve the restored
+            try:
+                return self._dispatch_query(live_dep, query, dl,
+                                            direct=True)
+            except (AdmissionShed, deadline.DeadlineExceeded):
+                raise
+            except Exception:  # noqa: BLE001 - original error stands
+                log.exception("retry on restored model failed")
+                return None
+        if prev is None:
+            return None
+        try:
+            # direct: the micro-batch queue would use the live canary
+            result = self._dispatch_query(prev[0], query, dl, direct=True)
+        except (AdmissionShed, deadline.DeadlineExceeded):
+            raise
+        except Exception:  # noqa: BLE001 - fails on BOTH models
+            log.exception("hedged retry on last-good model failed too; "
+                          "not counting against the new model")
+            return None
+        if self._note_watch(ok=False):
+            self._rollback_to_previous("error-rate")
+        return result
+
+    def _note_reload_conflict(self) -> None:
+        with self._adm_lock:
+            self._reload_conflicts += 1
+
+    def _no_store(self, what: str) -> Reply:
+        return _json(409, {
+            "message": f"{what} needs the model store: this server serves "
+                       "one deployment from a model file (deploy --model) "
+                       "and has no engine instances to swap between",
+            "engineInstanceId": None})
+
+    def handle_rollback(self, request: Request) -> Reply:
+        """Operator rollback to the retained previous deployment (`pio
+        models rollback`, `pio deploy --rollback`): instant, and pins the
+        rolled-back instance."""
+        if self.file_form:
+            return self._no_store("rollback")
+        if not self._reload_lock.acquire(blocking=False):
+            self._note_reload_conflict()
+            return _json(409, {"message": "reload in progress; retry "
+                                          "shortly"})
+        try:
+            restored = self._rollback_to_previous("manual")
+        finally:
+            self._reload_lock.release()
+        if restored is None:
+            return _json(409, {"message": "no previous deployment resident "
+                                          "to roll back to"})
+        return _json(200, {"message": "Rolled back",
+                           "engineInstanceId": restored})
+
+    # -- continuous refresh ------------------------------------------------
+    def _start_refresher(self) -> None:
+        if self.model_refresh_ms <= 0:
+            return
+        self._refresh_stop.clear()
+        self._refresh_thread = threading.Thread(
+            target=self._refresh_loop, name="pio-refresh", daemon=True)
+        self._refresh_thread.start()
+
+    def _stop_refresher(self) -> None:
+        self._refresh_stop.set()
+        if self._refresh_thread is not None:
+            self._refresh_thread.join(timeout=30)
+            self._refresh_thread = None
+
+    def _refresh_loop(self) -> None:
+        """Poll for a newer COMPLETED instance and hot-swap it through the
+        SAME validated gate as /reload. A poll or storage error is logged
+        and retried next tick: the loop never dies."""
+        log.info("model refresh loop armed (every %.0f ms)",
+                 self.model_refresh_ms)
+        while not self._refresh_stop.wait(self.model_refresh_ms / 1000.0):
+            try:
+                self._refresh_once()
+            except Exception:  # noqa: BLE001 - poll errors never kill it
+                log.exception("model refresh poll failed; retrying next "
+                              "tick")
+
+    def _refresh_once(self) -> None:
+        candidate = self._newer_candidate()
+        if candidate is None:
+            return
+        log.info("refresh: newer COMPLETED instance %s; validating "
+                 "hot swap", candidate.id)
+        if self._publish_once("refresh") == "swapped":
+            with self._lock:
+                self._refresh_swaps += 1
+
+    def _publish_once(self, source: str) -> str:
+        """THE publish-through-gate entry point outside an operator
+        /reload (the refresh loop; the online fold-in will share it):
+        validated load of the newest deployable instance (skip-if-
+        current), gate refusal pinned with degraded mode, integrity
+        rejections pinned, the post-swap watch armed by the swap itself.
+        Returns "swapped" | "current" | "busy" | "refused" | "error"."""
+        if not self._reload_lock.acquire(blocking=False):
+            return "busy"
+        try:
+            rejected: list[tuple[str, str]] = []
+            result = "current"
+            try:
+                swapped = self._load(
+                    None, True,
+                    lambda iid, kind: rejected.append((iid, kind)))
+            except SwapValidationError as e:
+                with self._lock:
+                    self._validate_failures += 1
+                    self._pinned[e.instance_id] = "validate"
+                self._degraded_reason = (
+                    f"{source}: {e}; serving last-good model "
+                    f"({e.instance_id} pinned)")
+                log.warning("%s swap refused: %s", source, e)
+                result = "refused"
+            except Exception as e:  # noqa: BLE001 - stay on last-good
+                self._degraded_reason = (
+                    f"{source} reload failed at "
+                    f"{_dt.datetime.now(_dt.timezone.utc).isoformat()}: "
+                    f"{e}; serving last-good model")
+                log.exception("%s reload failed; continuing on "
+                              "last-good model", source)
+                result = "error"
+            else:
+                if swapped:
+                    result = "swapped"
+                # the load succeeded: an earlier degraded reason no longer
+                # describes reality
+                self._degraded_reason = None
+            # a corrupt blob won't heal: pin it so every poll does not
+            # re-walk (and re-count) it
+            for iid, kind in rejected:
+                with self._lock:
+                    self._pinned.setdefault(iid, f"integrity:{kind}")
+                log.warning("%s: pinned undeployable instance %s "
+                            "(%s)", source, iid, kind)
+            return result
+        finally:
+            self._reload_lock.release()
+
+    def _newer_candidate(self):
+        """The newest non-pinned COMPLETED instance strictly newer than
+        the live one, or None when up to date."""
+        from . import model_artifact
+
+        with self._lock:
+            cur = self.instance
+            pinned = set(self._pinned)
+        return model_artifact.newer_completed_instance(
+            self.storage.get_meta_data_engine_instances(),
+            self.engine_factory_name, self.engine_variant, cur,
+            exclude=pinned)
+
+    def handle_reload(self, request: Request) -> Reply:
+        """Hot-swap to the latest completed instance (reference: /reload →
+        MasterActor ! ReloadServer) or, with ``?instance=<id>``, to that
+        instance (verified and validated like any swap, and un-pinned on
+        success). A failed reload never takes serving down: the last-good
+        model stays live in degraded mode. Two concurrent reloads: the
+        loser gets 409."""
+        if self.file_form:
+            return self._no_store("reload")
+        target = (request.params.get("instance") or [None])[0] or None
+        if not self._reload_lock.acquire(blocking=False):
+            self._note_reload_conflict()
+            with self._lock:
+                inst = self.instance
+            return _json(409, {"message": "reload already in progress",
+                               "engineInstanceId": inst.id if inst else None})
+        try:
+            try:
+                self._load(target)
+            except Exception as e:  # noqa: BLE001
+                if isinstance(e, SwapValidationError):
+                    with self._lock:
+                        self._validate_failures += 1
+                self._degraded_reason = (
+                    f"reload failed at "
+                    f"{_dt.datetime.now(_dt.timezone.utc).isoformat()}: {e}; "
+                    "serving last-good model")
+                log.exception("reload failed; continuing on last-good model")
+                with self._lock:
+                    inst = self.instance
+                return _json(500, {"message": str(e), "degraded": True,
+                                   "engineInstanceId":
+                                       inst.id if inst else None})
+            if target:
+                # the operator chose (and the gate passed) this version:
+                # a standing pin no longer applies
+                with self._lock:
+                    self._pinned.pop(target, None)
+        finally:
+            self._reload_lock.release()
+        self._degraded_reason = None
+        with self._lock:
+            inst = self.instance
+        return _json(200, {"message": "Reloaded",
+                           "engineInstanceId": inst.id})
+
+    # -- graceful drain ----------------------------------------------------
+    def drain_then_stop(self, stopper=None) -> None:
+        """The SIGTERM / /stop sequence: flip /readyz to 503 FIRST (new
+        queries shed 503 at admission), wait until every ACCEPTED query is
+        computed and its answer written, up to PIO_DRAIN_DEADLINE_MS, then
+        stop serving. Runs on a thread of its own, never on the one in
+        ``serve_forever`` (whose shutdown it waits for)."""
+        with self._adm_lock:
+            if self._draining:
+                return      # second SIGTERM / /stop: the first drain owns it
+            self._draining = True
+        log.info("draining: readyz → 503, waiting for in-flight queries "
+                 "(budget %.0f ms)", self.drain_deadline_ms)
+        _time.sleep(0.05)   # let the triggering response flush
+        t_end = _time.monotonic() + self.drain_deadline_ms / 1000.0
+        while _time.monotonic() < t_end:
+            with self._adm_lock:
+                busy = self._adm_pending + self._unanswered
+            if busy == 0:
+                break
+            _time.sleep(0.02)
+        with self._adm_lock:
+            stragglers = self._adm_pending
+            if stragglers:
+                self._drain_stragglers = stragglers
+        if stragglers:
+            log.warning("drain deadline (%.0f ms) expired with %d "
+                        "query(ies) unfinished; failing them",
+                        self.drain_deadline_ms, stragglers)
+        else:
+            log.info("drain complete: all accepted queries answered")
+        (stopper or self._shutdown_httpd)()
+
+    def _start_drain(self) -> None:
+        threading.Thread(target=self.drain_then_stop, name="pio-drain",
+                         daemon=True).start()
+
+    def finalize_shutdown(self, grace: float = 2.0) -> None:
+        """After serving stopped. Worker threads can't be killed: cancel
+        what is still queued, give running orphans a short grace, then
+        hard-exit rather than let a hung model call block interpreter
+        shutdown forever."""
+        self.close()
+        t_end = _time.monotonic() + grace
+        while _time.monotonic() < t_end:
+            with self._adm_lock:
+                if self._adm_pending <= 0:
+                    return
+            _time.sleep(0.02)
+        with self._adm_lock:
+            left = self._adm_pending
+        log.warning("%d query worker(s) still running after shutdown "
+                    "grace; exiting anyway", left)
+        os._exit(0)
+
+    def handle_stop(self, request: Request) -> Reply:
+        log.info("stop requested")
+        with self._adm_lock:
+            draining = self._draining
+        if draining:
+            return _json(200, {"message": "Already draining."})
+        self._start_drain()
+        return _json(200, {"message": "Shutting down."})
+
+    # -- HTTP --------------------------------------------------------------
+    def routes(self) -> dict:
+        """(method, path) → handler."""
+        out = {}
+        for path, handler in (("/", self.handle_status),
+                              ("/status", self.handle_status),
+                              ("/healthz", self.handle_healthz),
+                              ("/readyz", self.handle_readyz),
+                              ("/plugins.json", self.handle_plugins)):
+            out[("GET", path)] = handler
+        out[("POST", "/queries.json")] = self.handle_query
+        for path, handler in (("/reload", self.handle_reload),
+                              ("/rollback", self.handle_rollback),
+                              ("/stop", self.handle_stop)):
+            out[("GET", path)] = out[("POST", path)] = handler
+        return out
+
+    def _answered(self) -> None:
+        """The handler wrote its answer: its admissions are answered."""
+        n, self._tls.admitted = getattr(self._tls, "admitted", 0), 0
+        if n:
+            with self._adm_lock:
+                self._unanswered -= n
+
+    def bind(self, host: str = "127.0.0.1", port: int = 0
+             ) -> tuple[str, int]:
+        """Open the listening socket (port 0 picks a free one) and start
+        the batcher and the refresh loop; returns (host, port)."""
+        self._httpd = _HTTPServer((host, port), self)
+        if self.batch_window_ms > 0:
+            self._start_batcher()
+        self._start_refresher()
+        return self.address
 
     @property
     def address(self) -> tuple[str, int]:
@@ -92,23 +1578,149 @@ class EngineServer:
         return str(host), int(port)
 
     def serve_forever(self) -> None:
-        """Serve on the calling thread until :meth:`stop`."""
+        """Serve on the calling thread until the server is stopped."""
         self._httpd.serve_forever()
 
-    def start(self) -> tuple[str, int]:
-        """Serve on a background thread; returns (host, port)."""
-        self._thread = threading.Thread(target=self.serve_forever,
-                                        name="pio-engine-server", daemon=True)
-        self._thread.start()
-        return self.address
+    def start(self, host: str = "127.0.0.1", port: int = 0
+              ) -> tuple[str, int]:
+        """Bind and serve on a background thread; returns (host, port)."""
+        addr = self.bind(host, port)
+        self._serve_thread = threading.Thread(
+            target=self.serve_forever, name="pio-engine-server", daemon=True)
+        self._serve_thread.start()
+        return addr
+
+    def _shutdown_httpd(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
 
     def close(self) -> None:
-        """Release the listening socket (after serving has stopped)."""
-        self._httpd.server_close()
+        """Release what serving holds (after serving has stopped): the
+        batcher (stranded queries fail), the refresh loop, the socket and
+        the executors' idle workers."""
+        self._stop_refresher()
+        self._stop_batcher()
+        if self._httpd is not None:
+            self._httpd.server_close()
+        self._query_executor.shutdown(wait=False, cancel_futures=True)
+        self._feedback_executor.shutdown(wait=False)
 
     def stop(self) -> None:
         """Stop a server started with :meth:`start`."""
-        self._httpd.shutdown()
+        self._shutdown_httpd()
+        if self._serve_thread is not None:
+            self._serve_thread.join(timeout=10)
         self.close()
-        if self._thread is not None:
-            self._thread.join(timeout=10)
+
+
+def _settle(fut: concurrent.futures.Future, exc: BaseException) -> None:
+    """Fail ``fut`` unless it already settled (cancelled by its
+    deadline)."""
+    try:
+        fut.set_exception(exc)
+    except concurrent.futures.InvalidStateError:
+        pass
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server: "_HTTPServer"
+    protocol_version = "HTTP/1.1"
+    # buffered writes: a response's headers and body leave in one send
+    # (two small sends meet Nagle's algorithm and the client's delayed
+    # ACK, ~40 ms per keep-alive request)
+    wbufsize = -1
+
+    def _route(self, method: str) -> None:
+        es = self.server.engine_server
+        path, _, qs = self.path.partition("?")
+        try:
+            length = max(0, int(self.headers.get("Content-Length") or 0))
+        except ValueError:
+            self.send_error(400, "bad Content-Length")
+            return
+        body = self.rfile.read(length) if length else b""
+        table = self.server.routes
+        handler = table.get((method, path))
+        try:
+            if handler is not None:
+                status, obj, headers = handler(Request(
+                    self.headers, urllib.parse.parse_qs(qs), body))
+            elif any(p == path for _, p in table):
+                status, obj, headers = _json(
+                    405, {"message": f"{method} not allowed on {path}"})
+            else:
+                status, obj, headers = _json(
+                    404, {"message": f"no route {path}"})
+            data = json.dumps(obj).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json; charset=utf-8")
+            self.send_header("Content-Length", str(len(data)))
+            for k, v in headers.items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(data)
+            self.wfile.flush()
+        finally:
+            es._answered()
+
+    def do_GET(self):  # noqa: N802 - http.server's naming
+        self._route("GET")
+
+    def do_POST(self):  # noqa: N802
+        self._route("POST")
+
+    def log_message(self, fmt, *args):  # one line per request is noise
+        log.debug("%s - " + fmt, self.address_string(), *args)
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+    # the listen backlog: a burst of new keep-alive clients must not meet
+    # dropped SYNs (the default 5 costs a 1 s retransmit each)
+    request_queue_size = 128
+
+    def __init__(self, addr, engine_server: EngineServer):
+        self.engine_server = engine_server
+        self.routes = engine_server.routes()
+        super().__init__(addr, _Handler)
+
+
+def _device_attachment(device: torch.device) -> str:
+    """Where the served models live (probe output)."""
+    if device.type == "cuda":
+        return f"cuda:{torch.cuda.get_device_name(device)}"
+    return "cpu"
+
+
+def run_engine_server(server: EngineServer, host: str = "0.0.0.0",
+                      port: int = 8000, probe_latency: bool = False) -> None:
+    """Blocking entry point (reference: CreateServer.main). SIGTERM and
+    SIGINT start a graceful drain; the process's own thread keeps
+    serving until the drain stops it."""
+    import signal as _signal
+
+    server.bind(host, port)
+    bound_host, bound_port = server.address
+    log.info("Engine Server listening on %s:%d", bound_host, bound_port)
+
+    def _on_term(signum, frame):
+        # signal handlers run on the main thread, which is inside
+        # serve_forever: only mark and hand the drain to a thread
+        log.info("%s received: graceful drain",
+                 _signal.Signals(signum).name)
+        server._start_drain()
+
+    for signame in ("SIGTERM", "SIGINT"):
+        _signal.signal(getattr(_signal, signame), _on_term)
+    if probe_latency:
+        def probe():
+            try:
+                server.probe_and_record(f"http://127.0.0.1:{bound_port}")
+            except Exception:  # noqa: BLE001 - diagnostics never kill serving
+                log.exception("startup latency probe failed; serving anyway")
+
+        threading.Thread(target=probe, name="pio-probe", daemon=True).start()
+    try:
+        server.serve_forever()
+    finally:
+        server.finalize_shutdown()

@@ -2,8 +2,10 @@
 Models DAO.
 
 The port's own copy of ``incubator_predictionio_tpu/workflow/
-model_artifact.py`` (:94-260, :270-399: the envelope, and the fleet and
-fold-in records ``fleet_group``, ``foldin_row_id``, ``read_fleet_doc`` and
+model_artifact.py`` (:94-260, :270-399: the envelope, the inspection
+helpers ``get_model_row`` and ``model_exists`` of ``pio models``, the
+refresh poll's ``newer_completed_instance``, and the fleet and fold-in
+records ``fleet_group``, ``foldin_row_id``, ``read_fleet_doc`` and
 ``write_fleet_doc``). Every model blob written by ``run_train`` is
 wrapped in a self-describing envelope (magic, header length, a sorted-key
 JSON header carrying sha256, payload size and format version) and every
@@ -212,9 +214,21 @@ def read_model(storage, instance_id: str) -> bytes:
     return unwrap_verified(row.models, instance_id)
 
 
+def get_model_row(storage, instance_id: str) -> Optional[Model]:
+    """Raw row fetch for inspection tooling (``pio models``): no
+    verification, no counters."""
+    return storage.get_model_data_models().get(instance_id)
+
+
+def model_exists(storage, instance_id: str) -> bool:
+    """Row-existence probe — ``pio models gc`` ranks with this instead of
+    reading every artifact."""
+    return storage.get_model_data_models().exists(instance_id)
+
+
 def delete_model(storage, instance_id: str) -> None:
-    """Deliberately called by no failure path — corrupt blobs are kept for
-    forensics."""
+    """The GC chokepoint (``pio models gc``). Deliberately called by no
+    failure path — corrupt blobs are kept for forensics."""
     storage.get_model_data_models().delete(instance_id)
 
 
@@ -232,6 +246,31 @@ def instance_app_name(instance) -> str:
     except Exception:  # noqa: BLE001 — unparseable row binds nowhere
         pass
     return ""
+
+
+def newer_completed_instance(instances, engine_factory_name: str,
+                             engine_variant: str, current,
+                             exclude=(), app_name: Optional[str] = None):
+    """Newest COMPLETED instance not in ``exclude`` and strictly newer
+    than ``current`` (an instance row, an instance id, or None), else
+    None: the one definition of "a newer deployable candidate" of the
+    engine server's refresh poll. With ``app_name`` the walk is confined
+    to that app's instances."""
+    done = instances.get_completed(
+        engine_factory_name or "engine", "1", engine_variant)
+    cur_row = (instances.get(current) if isinstance(current, str)
+               else current)
+    for c in done:
+        if app_name is not None and instance_app_name(c) != app_name:
+            continue
+        if c.id in exclude:
+            continue
+        if cur_row is not None and (
+                c.id == cur_row.id
+                or c.start_time <= cur_row.start_time):
+            return None
+        return c
+    return None
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ the CPU, folds events in and trains the Similar-Product template, and
 neither ``jax``, ``orbax`` nor the JAX package is loaded after; and each
 ``pio`` verb (``app``, ``import``, ``status``, ``train --device cpu``,
 ``deploy --device cpu``, ``eventserver``, and on a JSONL event log
-``import``, ``eventlog compact`` and ``train --window``) runs in a fresh
-interpreter of its own that loads none of them.
+``import``, ``eventlog compact`` and ``train --window``, ``batchpredict``,
+``models list``, and ``deploy`` with micro-batching, the result cache and
+the refresh loop armed) runs in a fresh interpreter of its own that loads
+none of them.
 The same holds for the E-Commerce template and the evaluations (the
 ``eval`` and ``dashboard`` verbs, and the vanilla copy's evaluation from
 its engine directory), and for the Classification and Text-Classification
@@ -72,6 +74,8 @@ def test_port_files_exist():
             "classification.py", "text_classification.py",
             "persistent_model.py", "self_cleaning.py", "fake_workflow.py",
             "llr.py", "universal_recommender.py", "complementary_purchase.py",
+            "deadline.py", "resilience.py", "plugins.py", "create_server.py",
+            "models.py",
             } <= names
     assert (ROOT / "incubator_predictionio_torch" / "e2"
             / "engine.py").is_file()
@@ -110,7 +114,7 @@ console.train(engine_json, events, path, device="cpu",
               workflow_params=WorkflowParams(checkpoint_every=1,
                                              nan_guard=True))
 deployment, _ = console.load_deployment(path, device="cpu")
-server = EngineServer(deployment, "127.0.0.1", 0)
+server = EngineServer(deployment=deployment, device="cpu")
 _, port = server.start()
 conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
 conn.request("POST", "/queries.json", body=json.dumps({"user": "u1", "num": 3}))
@@ -427,6 +431,9 @@ def verb_store(tmp_path_factory):
         "algorithms": [{"name": "als", "params": {"rank": 4,
                                                   "numIterations": 2}}]}
     (base / "engine.json").write_text(json.dumps(engine_json))
+    (base / "queries.jsonl").write_text(
+        "".join(json.dumps({"user": f"u{u}", "num": 3}) + "\n"
+                for u in range(5)))
     storage = Storage({
         f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "S"
         for r in ("METADATA", "EVENTDATA", "MODELDATA")} | {
@@ -454,6 +461,9 @@ def verb_store(tmp_path_factory):
      "RecommendationEvaluation",
      "incubator_predictionio_torch.models.recommendation_eval.ParamsList"],
     ["dashboard", "--ip", "127.0.0.1", "--port", "{port}"],
+    ["batchpredict", "--device", "cpu", "--input", "queries.jsonl",
+     "--output", "predictions.jsonl"],
+    ["models", "list"],
 ], ids=lambda v: v[0])
 def test_verb_in_a_process_without_jax(verb, verb_store):
     port = str(_free_port())
@@ -464,6 +474,26 @@ def test_verb_in_a_process_without_jax(verb, verb_store):
         env["PROBE_PORT"] = port
     out = subprocess.run(
         [sys.executable, "-c", _VERB] + [a.replace("{port}", port) for a in verb],
+        capture_output=True, text=True, env=env, cwd=str(verb_store),
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    last = out.stdout.strip().splitlines()[-1]
+    assert '"loaded": []' in last, last
+
+
+def test_armed_deploy_in_a_process_without_jax(verb_store):
+    """``deploy --device cpu`` with micro-batching, the result cache and
+    the refresh loop armed serves, drains on SIGTERM and exits 0 without
+    loading JAX or the JAX package."""
+    port = str(_free_port())
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PIO_STORAGE_")}
+    env.update(PYTHONPATH=str(ROOT), PIO_FS_BASEDIR=str(verb_store / "base"),
+               PROBE_PORT=port)
+    out = subprocess.run(
+        [sys.executable, "-c", _VERB, "deploy", "--device", "cpu",
+         "--port", port, "--batch-window-ms", "2", "--max-batch", "8",
+         "--query-cache-size", "100", "--model-refresh-ms", "200"],
         capture_output=True, text=True, env=env, cwd=str(verb_store),
         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]

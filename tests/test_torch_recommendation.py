@@ -284,7 +284,7 @@ def test_console_train_deploy_query(tmp_path, seeded):
                          str(model_path), "--device", "cpu"]) == 0
     deployment, _ = console.load_deployment(str(model_path), device="cpu")
     model, direct = _port_trained(wire)
-    server = EngineServer(deployment, "127.0.0.1", 0, info={"device": "cpu"})
+    server = EngineServer(deployment=deployment, device="cpu")
     _, port = server.start()
     try:
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)

@@ -490,7 +490,8 @@ def test_cli_app_import_train_deploy_in_subprocesses(tmp_path):
             except OSError:
                 assert time.time() < deadline
                 time.sleep(0.2)
-        assert info["engineInstanceId"] == iid and info["rejected"] == []
+        assert info["engineInstanceId"] == iid
+        assert info["lifecycle"]["integrityFailures"] == {}
         conn.request("POST", "/queries.json",
                      body=json.dumps({"user": "u1", "num": 3}))
         answer = json.loads(conn.getresponse().read())
