@@ -75,10 +75,29 @@ Phases (any failure exits non-zero; nothing is caught):
    SIGTERM with 16 clients in flight (accepted queries 200, /readyz 503
    in the drain, exit 0); --query-cache-size 10000 hits and misses; pio
    batchpredict of 10,000 queries against the served answers. Every
-   answer is held to the host top-k over the persisted factors.
-14. similar_product (phase 9 above, run here).
-15. ecommerce_jsonl: bench_templates.py's config 6 (100,000 users ×
-   20,000 items × 5,000,000 view/buy events, 10 % buys, 20 categories)
+   answer is held to the host top-k over the persisted factors. Then
+   engine_server_online on that store: pio deploy --online-foldin
+   --quality-eval with a keep-alive client throughout; the fold-in
+   batch of phase 7 appended to the log, the seconds until its new users
+   are served, the increments against the CPU fold-in of the same log
+   bytes and their answers against the host top-k, exactly 2 warp
+   launches per increment (counted in the deploy process); a NaN batch
+   refused by the gate and pinned, a clean batch served after it; an
+   instance with negated item factors rolled back by the quality watch
+   (reason quality) with every client query 200; pio status and status
+   --engine-url; SIGTERM, exit 0, no fold-in thread left.
+14. engine_server_tenants: 8 apps on one JSONL store, each an
+   ML-100K-shaped log trained in process on the card (rank 10, 5
+   iterations), served by one pio deploy --multitenant --online-foldin
+   (4 resident, a budget of 2 per tenant): one client per app over the
+   four routing keys, every answer its own app's host top-k, evictions
+   and no query lost; a hot app shedding 503 while two others answer 200;
+   a poisoned tenant rolled back alone; one tenant's fold-in increment
+   evicting only its own cached results.
+15. similar_product (phase 9 above, run here).
+16. ecommerce_jsonl: bench_templates.py's config 6 (100,000 users ×
+   20,000 items × 5,000,000 view/buy events, 10 % buys, 20 categories;
+   its first 2,500,000 events, cut for the script's time)
    written as an uncompacted JSONL log → pio train with the E-Commerce
    template's engine.json (rank 32, 10 iterations; warp launches =
    implied) → pio eventserver + pio deploy → 60 queries → a $set of
@@ -86,14 +105,14 @@ Phases (any failure exits non-zero; nothing is caught):
    every answer held to a host top-k with the seen and unavailable items
    computed from the generated arrays; query latency split into the
    LEventStore reads, the top-k and the rest.
-16. pio_eval: pio eval on the ML-100K shape as one JSONL app:
+17. pio_eval: pio eval on the ML-100K shape as one JSONL app:
    RecommendationEvaluation + ParamsList and ECommerceEvaluation +
    ECommerceParamsList (4 candidates × 3 folds each) on the card (warp
    launches = the folds' implied count), the E-Commerce sweep again on
    the CPU (same candidates, scores within 0.02, same best where the top
    two differ by more than 0.05); seconds per candidate and the K7
    ranking_metrics calls and ms per call.
-17. classification_jsonl: bench_templates.py's config 2 (4 Poisson
+18. classification_jsonl: bench_templates.py's config 2 (4 Poisson
    attributes × 3 classes; 500,000 of its 2,000,000 entities, cut for the
    script's time) as $set events on a JSONL
    log → pio train (the Classification template's values: naive, lambda
@@ -102,15 +121,15 @@ Phases (any failure exits non-zero; nothing is caught):
    == CPU bit for bit, and LR (regParam 0.01, 100 iterations) card vs CPU: final loss
    within 1e-5 relative, the same argmax wherever the top two logits
    differ by more than 1e-3; iterations, loss evaluations and host syncs.
-18. text_classification_jsonl: bench_templates.py's config 4 (18,846
+19. text_classification_jsonl: bench_templates.py's config 4 (18,846
    documents, 120-200 tokens over 3,000 words, 20 classes) as documents
    events → pio train (numFeatures 4096, nb, lambda 1.0) → the model
    equal to a host NB of the Python tokenizer's COO → pio deploy → 60 new
    documents held to it; in process the codec's tokenize timed and equal
    to the Python loop, the COO statistics card == CPU bit for bit, and
-   TextLRAlgorithm's L-BFGS card vs CPU under the rule of phase 17.
+   TextLRAlgorithm's L-BFGS card vs CPU under the rule of phase 18.
    Neither template launches a solve kernel (their paths are read as 0).
-19. universal_recommender: bench_templates.py's config 5 (100,000 users ×
+20. universal_recommender: bench_templates.py's config 5 (100,000 users ×
    20,000 items, 2,000,000 buys + 8,000,000 views, seed 4) through the
    Universal Recommender's URAlgorithm.train on the card (the fused CCO
    path: buy → buy and buy → view, 50 correlators), twice; 64 items of
@@ -120,7 +139,7 @@ Phases (any failure exits non-zero; nothing is caught):
    against the CPU at 10,000 × 2,000 × 1,000,000 events; the counts' TF32
    route against int8 ``torch._int_mm``; dedupe, upload, counts and G² +
    top-k times, and score_user's.
-20. universal_recommender_jsonl: config 5's first 200,000 buys and
+21. universal_recommender_jsonl: config 5's first 200,000 buys and
    800,000 views (10 % of its events) and one $set per item (20 categories, an
    available/expire window on 5 % of the items) as a JSONL log → pio
    train with templates/universal-recommender/engine.json (factory
@@ -129,7 +148,7 @@ Phases (any failure exits non-zero; nothing is caught):
    currentDate inside and before the window, cold users) held to a host
    scorer of the persisted model; latency split into the history read,
    the scoring and the rest.
-21. complementary_purchase: bench_templates.py's config 7 (200,000
+22. complementary_purchase: bench_templates.py's config 7 (200,000
    shoppers × 10,000 items × 2,000,000 buys over 30 days, 1 h baskets, 20
    correlators) in process on the card (basket count = the host's,
    sampled count rows exact, the top-k rule); the first 200,000 buys
@@ -138,7 +157,7 @@ Phases (any failure exits non-zero; nothing is caught):
    on ≈ 1,000 basket buys on the card and on the CPU (scores within 0.02,
    the same best where the top two differ by more than 0.05). Neither
    template launches a solve kernel.
-22. train_rank128: the main path's ratings at rank 128 through the same
+23. train_rank128: the main path's ratings at rank 128 through the same
    engine, 2 iterations: wide-kernel launches equal to the implied count
    and no warp-kernel launch, the RMSE check, steady seconds per
    iteration, one iteration profiled; one fold-in batch (2 wide launches,
@@ -2343,6 +2362,8 @@ def phase_pio_workflow_jsonl_ml20m(workdir: str, ratings) -> None:
          queries=serve)
     phase_engine_server_load(env, cwd, trained["engineInstanceId"], stored,
                              want)
+    phase_engine_server_online(env, cwd, trained["engineInstanceId"], stored,
+                               want)
     shutil.rmtree(cwd)
 
 
@@ -2716,11 +2737,729 @@ def phase_engine_server_lifecycle(workdir: str, env: dict,
          kernel_launches=trained["kernel_launches"], **out)
 
 
+# -- the engine server online: fold-in, the quality watch, tenants ----------
+
+#: ``pio deploy`` with the fold-in runner's kernel launches counted per fold
+#: (the warp and wide counters' deltas across each ``_fold_and_commit``),
+#: the process's totals and the threads still alive at exit, written as
+#: JSON to $PIO_COUNTS_OUT
+_COUNTED_DEPLOY = r"""
+import atexit, json, os, sys, threading
+from incubator_predictionio_torch.ops import spd_solve
+from incubator_predictionio_torch.tools import console
+from incubator_predictionio_torch.workflow import online
+
+calls = []
+real = online.FoldInRunner._fold_and_commit
+
+def counted(self, *a, **kw):
+    warp = spd_solve.gauss_jordan_warp_launches.count
+    wide = spd_solve.gauss_jordan_wide_launches.count
+    iid = real(self, *a, **kw)
+    calls.append({"instance": iid, "app": self._app_name,
+                  "warp": spd_solve.gauss_jordan_warp_launches.count - warp,
+                  "wide": spd_solve.gauss_jordan_wide_launches.count - wide})
+    return iid
+
+online.FoldInRunner._fold_and_commit = counted
+
+@atexit.register
+def dump():
+    with open(os.environ["PIO_COUNTS_OUT"], "w") as fh:
+        json.dump({"calls": calls,
+                   "warp": spd_solve.gauss_jordan_warp_launches.count,
+                   "wide": spd_solve.gauss_jordan_wide_launches.count,
+                   "threads": sorted(t.name for t in threading.enumerate()
+                                     if t.is_alive())}, fh)
+
+sys.exit(console.main(sys.argv[1:]))
+"""
+#: the knobs of engine_server_online: a fold-in tick every 250 ms, every
+#: answered query sampled, samples resolved after 300 ms, a breach after 20
+#: graded samples, a quality watch open for the whole phase
+ONLINE_ENV = {"PIO_FOLDIN_MS": "250", "PIO_QUALITY_SAMPLE": "1.0",
+              "PIO_QUALITY_RESOLVE_MS": "300", "PIO_QUALITY_MS": "200",
+              "PIO_QUALITY_MIN_SAMPLES": "20",
+              "PIO_QUALITY_WATCH_MS": "300000"}
+#: new users of the cold-start batch whose first answers are waited for;
+#: users graded by the quality step; new users of the gate's clean batch
+COLD_USERS, QUALITY_USERS, CLEAN_USERS = 20, 40, 50
+#: engine_server_tenants: apps, each an ML-100K-shaped log trained in
+#: process at rank 10 × 5 iterations; resident deployments; one tenant's
+#: budget; queries per client
+TENANTS, TENANT_RANK, TENANT_ITERS = 8, 10, 5
+TENANT_RESIDENT, TENANT_PENDING, TENANT_QUERIES = 4, 2, 60
+FACTORY = ("incubator_predictionio_torch.models.recommendation."
+           "RecommendationEngine")
+
+
+def _prefixed(events: list) -> list:
+    """fold_in_events' ids in the ML-20M log's spelling (u<n>, i<n>)."""
+    return [{**e, "entityId": "u" + e["entityId"],
+             "targetEntityId": "i" + e["targetEntityId"]} for e in events]
+
+
+def _counted_serve(args: list, env: dict, cwd: str, counts: str) -> _Served:
+    return _Served(args, env | {"PIO_COUNTS_OUT": counts}, cwd,
+                   console=[sys.executable, "-c", _COUNTED_DEPLOY])
+
+
+def _counted(counts: str, path: str, extra_warp: int = 0) -> dict:
+    """The deploy process's launch counts after its exit: every fold that
+    committed an increment launched the warp kernel exactly twice and the
+    wide kernel never, a fold that committed nothing launched nothing, and
+    no fold-in or quality thread outlived the drain. Recorded under
+    ``path`` (with ``extra_warp`` launches of the phase's own process)."""
+    with open(counts, encoding="utf-8") as fh:
+        doc = json.load(fh)
+    for c in doc["calls"]:
+        want = (2, 0) if c["instance"] else (0, 0)
+        check((c["warp"], c["wide"]) == want,
+              f"fold-in {c}: launches are not {want}")
+    committed = sum(1 for c in doc["calls"] if c["instance"])
+    check(doc["warp"] == 2 * committed and doc["wide"] == 0,
+          f"the deploy launched {doc['warp']} warp / {doc['wide']} wide "
+          f"kernels for {committed} increment(s)")
+    check(not {"pio-foldin", "pio-quality"} & set(doc["threads"]),
+          f"threads left at exit: {doc['threads']}")
+    record(path, {"warp": doc["warp"] + extra_warp, "wide": doc["wide"]})
+    return {"increments": committed, "folds": len(doc["calls"]),
+            "warp": doc["warp"], "wide": doc["wide"],
+            "threads_at_exit": doc["threads"]}
+
+
+class _Pump(threading.Thread):
+    """One keep-alive client querying ``users`` back to back until
+    ``finish``: (time, status, ms) per query."""
+
+    def __init__(self, srv: _Served, users: list, headers=None):
+        super().__init__(daemon=True)
+        self.srv, self.users, self.headers = srv, users, headers or {}
+        self.halt = threading.Event()
+        self.log: list = []
+        self.errors: list = []
+
+    def run(self):
+        conn = self.srv.connect()
+        k = 0
+        try:
+            while not self.halt.is_set():
+                user = self.users[k % len(self.users)]
+                k += 1
+                try:
+                    status, _, ms = self.srv.request_h(
+                        "POST", "/queries.json", {"user": user, "num": 10},
+                        self.headers, conn)
+                except (OSError, http.client.HTTPException) as e:
+                    self.errors.append(repr(e))
+                    return
+                self.log.append((time.perf_counter(), status, ms))
+        finally:
+            conn.close()
+
+    def window(self, t0: float, t1: float) -> dict:
+        ms = [m for t, _, m in self.log if t0 <= t <= t1]
+        return _percentiles(ms) if ms else {"n": 0}
+
+    def finish(self) -> dict:
+        self.halt.set()
+        self.join(60)
+        codes = sorted({s for _, s, _ in self.log})
+        check(not self.errors and codes == [200],
+              f"keep-alive client: statuses {codes}, errors {self.errors[:3]}")
+        return {"queries": len(self.log), "statuses": codes}
+
+
+def _wait_status(srv: _Served, what: str, pred, timeout: float = 120.0):
+    """Poll /status until ``pred(doc)`` is truthy; its value."""
+    t_end = time.perf_counter() + timeout
+    doc: dict = {}
+    while time.perf_counter() < t_end:
+        doc = srv.request("GET", "/status")[1]
+        got = pred(doc)
+        if got:
+            return got
+        time.sleep(0.05)
+    raise AssertionError(f"{what} within {timeout:.0f} s: {doc}")
+
+
+def _increments(store: Storage, base_id: str) -> list:
+    """The fold-in increments committed since ``base_id``, in log order:
+    [(instance id, marker)]."""
+    rows = store.get_meta_data_engine_instances().get_completed(
+        FACTORY, "1", "default")
+    base = next(r for r in rows if r.id == base_id)
+    out = [(r.id, json.loads(r.runtime_conf["foldin"])) for r in rows
+           if r.start_time > base.start_time
+           and (r.runtime_conf or {}).get("foldin")]
+    return sorted(out, key=lambda x: x[1]["lsn"])
+
+
+def _log_events(log_path: str, lo: int, hi: int) -> list:
+    with open(log_path, "rb") as fh:
+        fh.seek(lo)
+        return [json.loads(ln) for ln in fh.read(hi - lo).splitlines()]
+
+
+def _cpu_fold_chain(stored: dict, log_path: str, start: int, incs: list):
+    """The CPU fold-in (plain solve) of every increment's log bytes, one
+    after the other, from the persisted base ``stored``."""
+    from incubator_predictionio_torch.models.recommendation import (
+        model_from_persisted,
+    )
+
+    algo = als_engine(PIO_RANK, PIO_ITERS, PIO_LAMBDA)[2]
+    model = model_from_persisted(stored, "cpu")
+    lo = start
+    for _, marker in incs:
+        out = algo.fold_in(model, _log_events(log_path, lo, marker["lsn"]))
+        model = out if out is not None else model
+        lo = marker["lsn"]
+    return model
+
+
+def _known_answer(srv: _Served, conn, user: str):
+    status, res, _ = srv.request("POST", "/queries.json",
+                                 {"user": user, "num": 10}, conn)
+    check(status == 200, f"query {user}: {status} {res}")
+    return res if res["itemScores"] else None
+
+
+def _wait_known(srv: _Served, users: list, timeout: float = 120.0) -> dict:
+    """Query ``users`` until each gets a non-empty answer; their answers."""
+    conn = srv.connect()
+    answers: dict = {}
+    t_end = time.perf_counter() + timeout
+    try:
+        while len(answers) < len(users) and time.perf_counter() < t_end:
+            for u in users:
+                if u not in answers:
+                    res = _known_answer(srv, conn, u)
+                    if res is not None:
+                        answers[u] = res
+            if len(answers) < len(users):
+                time.sleep(0.05)
+    finally:
+        conn.close()
+    check(len(answers) == len(users),
+          f"{len(users) - len(answers)} new user(s) never served")
+    return answers
+
+
+def _commit_instance(store: Storage, like_id: str, stored: dict) -> str:
+    """A COMPLETED instance like ``like_id`` (its params and app, no
+    fold-in marker) whose model is ``stored``, committed as a train
+    commits: row RUNNING → artifact → COMPLETED."""
+    import dataclasses
+
+    from incubator_predictionio_torch.data.storage.event import new_event_id
+    from incubator_predictionio_torch.workflow.persist import (
+        engine_json_from_bytes, models_to_bytes,
+    )
+
+    instances = store.get_meta_data_engine_instances()
+    like = instances.get(like_id)
+    now = _dt.datetime.now(_dt.timezone.utc)
+    conf = {k: v for k, v in (like.runtime_conf or {}).items()
+            if k != "foldin"}
+    row = dataclasses.replace(like, id=new_event_id(), status="RUNNING",
+                              start_time=now, end_time=None,
+                              runtime_conf=conf)
+    instances.insert(row)
+    engine_json = engine_json_from_bytes(model_artifact.read_model(store,
+                                                                   like_id))
+    model_artifact.write_model(store, row.id,
+                               models_to_bytes(engine_json, [stored]))
+    instances.update(row.with_status(
+        "COMPLETED", _dt.datetime.now(_dt.timezone.utc)))
+    return row.id
+
+
+def phase_engine_server_online(env: dict, cwd: str, instance_id: str,
+                               stored: dict, want: dict) -> None:
+    """pio deploy --online-foldin --quality-eval on the ML-20M-shaped store
+    (pio_workflow_jsonl_ml20m's instance, no retrain), one keep-alive
+    client querying known users throughout:
+
+    1. cold start: the FOLD_IN batch (2,000 new users × 5, 500 new items ×
+       4, 20,000 events, seed 8) appended through the event storage; the
+       seconds until COLD_USERS sampled new users are served; the served
+       increments' factors against the CPU fold-in of the same log bytes
+       (relative norm 1e-2 at λ 0.01, as phase_fold_in); their answers held
+       to the host top-k of the persisted increment; the client's p50/p99
+       while the increments land;
+    2. the gate: a batch with a NaN rating is folded, refused by the gate
+       and pinned while the last-good serves, then a clean batch is folded
+       into the last-good and served;
+    3. quality: a hand-committed instance with negated item factors
+       (reversed rankings, no error) is loaded through /reload; the users'
+       next events are their good top-1 items; the quality watch rolls it
+       back with reason quality, every client query answered 200;
+    4. pio status (the cursor row, the freshness lag) and status
+       --engine-url (the fold-in and quality lines);
+    5. SIGTERM: exit 0, no fold-in or quality thread left, exactly 2 warp
+       launches per committed increment."""
+    n_users, n_items, _ = ML20M
+    new_users, new_items, n_events = FOLD_IN
+    counts = os.path.join(cwd, "online_counts.json")
+    store = _storage_of(env)
+    app = store.get_meta_data_apps().get_by_name("ml20m")
+    le = store.get_l_events()
+    log_path = os.path.join(le.events_dir, f"events_{app.id}.jsonl")
+    rng = np.random.default_rng(31)
+    known = [want["users"][int(k)]
+             for k in rng.integers(0, len(want["users"]), 200)]
+    batch = _prefixed(fold_in_events(
+        n_users, n_items, new_users, new_items,
+        n_events - 5 * new_users - 4 * new_items, seed=8))
+    cold = [f"u{n_users + j}"
+            for j in range(0, new_users, new_users // COLD_USERS)]
+    reset_launches()
+    out: dict = {}
+    with _counted_serve(["deploy", "--online-foldin", "--quality-eval"],
+                        env | ONLINE_ENV, cwd, counts) as srv:
+        check(srv.info["engineInstanceId"] == instance_id,
+              f"deployed {srv.info}")
+        pump = _Pump(srv, known)
+        pump.start()
+        time.sleep(2.0)  # the client's baseline, no increment landing
+
+        # 1. cold start
+        size0 = os.path.getsize(log_path)
+        t_in = time.perf_counter()
+        le.insert_batch([Event.from_json(e) for e in batch], app.id)
+        t_written = time.perf_counter()
+        size1 = os.path.getsize(log_path)
+        _wait_known(srv, cold)
+        t_known = time.perf_counter()
+        incs = _wait_status(srv, "the batch's last increment published",
+                            lambda d: (lambda i: i if i and i[-1][1]["lsn"]
+                                       == size1 and d["engineInstanceId"]
+                                       == i[-1][0] else None)(
+                                _increments(store, instance_id)))
+        t_published = time.perf_counter()
+        last_id = incs[-1][0]
+        inc = _persisted(env, last_id)
+        cpu = _cpu_fold_chain(stored, log_path, size0, incs)
+        check(list(inc["users"]) == list(cpu.users.keys())
+              and list(inc["items"]) == list(cpu.items.keys()),
+              "the increment's id maps differ from the CPU fold-in's")
+        pairs = [(inc["user_factors"], cpu.factors.user_factors),
+                 (inc["item_factors"], cpu.factors.item_factors)]
+        rel = max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                  for a, b in pairs)
+        check(rel < 1e-2, f"served increment vs CPU fold-in: relative "
+                          f"norm {rel}")
+        conn = srv.connect()
+        held = 0
+        for u in cold + known[:20]:
+            res = _known_answer(srv, conn, u)
+            check(res is not None, f"{u} got no answer")
+            _hold_als_answer(inc, u, res)
+            held += 1
+        out["cold_start"] = {
+            "events": len(batch), "new_users": new_users,
+            "new_items": new_items, "sampled_new_users": len(cold),
+            "insert_seconds": t_written - t_in,
+            "freshness_seconds": t_known - t_in,
+            "published_seconds": t_published - t_in,
+            "increments": len(incs),
+            "events_per_increment": [m["events"] for _, m in incs],
+            "max_abs_err_vs_cpu": {"user": max_err(*pairs[0]),
+                                   "item": max_err(*pairs[1])},
+            "rel_norm_err_vs_cpu": rel, "answers_held": held,
+            "client_before": pump.window(t_in - 2.0, t_in),
+            "client_while_landing": pump.window(t_in, t_published)}
+
+        # 2. the gate: a NaN increment refused and pinned, then a clean one
+        nan_users = known[:10]
+        le.insert_batch([Event.from_json({
+            "event": "rate", "entityType": "user", "entityId": u,
+            "targetEntityType": "item",
+            "targetEntityId": want["items"][k % len(want["items"])],
+            "properties": {"rating": "nan"}})
+            for k, u in enumerate(nan_users)], app.id)
+        lc = _wait_status(srv, "the NaN increment pinned",
+                          lambda d: d["lifecycle"] if "validate" in
+                          d["lifecycle"]["pinned"].values() else None)
+        nan_id = next(i for i, r in lc["pinned"].items() if r == "validate")
+        check(lc["instance"] == last_id, f"the NaN increment went live: {lc}")
+        for u in nan_users:
+            _hold_als_answer(inc, u, _known_answer(srv, conn, u))
+        fresh = [f"u{n_users + new_users + j}" for j in range(CLEAN_USERS)]
+        clean = [{"event": "rate", "entityType": "user", "entityId": u,
+                  "targetEntityType": "item",
+                  "targetEntityId":
+                      want["items"][(7 * j + k) % len(want["items"])],
+                  "properties": {"rating": float(1 + (j + k) % 5)}}
+                 for j, u in enumerate(fresh) for k in range(5)]
+        le.insert_batch([Event.from_json(e) for e in clean], app.id)
+        _wait_known(srv, fresh)
+        clean_id = _wait_status(srv, "the clean increment published",
+                                lambda d: d["engineInstanceId"]
+                                if d["engineInstanceId"] != last_id
+                                else None)
+        marker = dict(_increments(store, instance_id))[clean_id]
+        check(marker["of"] == last_id and nan_id not in marker["bases"],
+              f"the clean increment folded through the pinned one: {marker}")
+        healed = _persisted(env, clean_id)
+        for u in fresh[:10]:
+            _hold_als_answer(healed, u, _known_answer(srv, conn, u))
+        out["gate"] = {"nan_instance": nan_id, "pinned": lc["pinned"],
+                       "validate_failures": lc["validateFailures"],
+                       "clean_instance": clean_id,
+                       "clean_new_users": len(fresh)}
+
+        # 3. quality: a reversed-rank instance rolled back by the watch
+        bad = dict(healed, item_factors=-healed["item_factors"])
+        bad_id = _commit_instance(store, clean_id, bad)
+        status, res, _ = srv.request("POST", "/reload", conn=conn)
+        check(status == 200 and res["engineInstanceId"] == bad_id,
+              f"/reload {status}: {res}")
+        graded = known[20:20 + QUALITY_USERS]
+        uf, itf = healed["user_factors"], healed["item_factors"]
+        t_q = time.perf_counter()
+        for u in graded:
+            _known_answer(srv, conn, u)
+        names = list(healed["items"])
+        top1 = [names[int(np.argmax(itf @ uf[healed["users"][u]]))]
+                for u in graded]
+        le.insert_batch([Event.from_json({
+            "event": "view", "entityType": "user", "entityId": u,
+            "targetEntityType": "item", "targetEntityId": it})
+            for u, it in zip(graded, top1)], app.id)
+        lc = _wait_status(srv, "the quality rollback",
+                          lambda d: d["lifecycle"] if d["lifecycle"][
+                              "rollbacks"].get("quality") else None)
+        rollback_s = time.perf_counter() - t_q
+        check(lc["instance"] == clean_id
+              and lc["pinned"].get(bad_id) == "quality",
+              f"quality rollback: {lc}")
+        doc = srv.request("GET", "/status", conn=conn)[1]
+        q, fold = doc["quality"], doc["foldin"]
+        check(q["breaches"] >= 1 and q["live"]["ndcg"] < q["shadow"]["ndcg"],
+              f"quality view {q}")
+        check(fold["lastError"] is None and fold["tickErrors"] == 0
+              and fold["publishes"] >= len(incs) + 2,
+              f"fold-in view {fold}")
+        conn.close()
+        client = pump.finish()
+        out["quality"] = {"bad_instance": bad_id,
+                          "seconds_to_rollback": rollback_s,
+                          "graded_users": len(graded), "view": q}
+        out["foldin"] = fold
+        out["client"] = client
+
+        # 4. pio status
+        url = f"http://127.0.0.1:{srv.port}"
+        st, _ = _verb(["status", "--engine-url", url], env, cwd)
+        lines = st.stdout.splitlines()
+        cursor_line = [ln for ln in lines if "Online fold-in: app 'ml20m'"
+                       in ln]
+        check(cursor_line and "freshness lag" in cursor_line[0],
+              f"pio status has no cursor row: {st.stdout[-2000:]}")
+        for needle in ("fold-in: every 250ms", "quality: sampling 100.0%"):
+            check(any(needle in ln for ln in lines),
+                  f"status --engine-url lacks {needle!r}")
+        out["pio_status"] = [ln for ln in lines
+                             if "fold-in" in ln or "quality" in ln]
+
+        # 5. SIGTERM
+        srv.proc.send_signal(signal.SIGTERM)
+        rc = srv.proc.wait(timeout=120)
+        check(rc == 0, f"deploy exited {rc} after SIGTERM")
+    store.close()
+    out["launches"] = _counted(counts, "engine_server_online")
+    emit("engine_server_online", instance=instance_id,
+         users=len(want["users"]), items=len(want["items"]),
+         knobs=ONLINE_ENV, **out)
+
+
+def _tenant_route(a: int, name: str) -> tuple:
+    """Tenant ``a``'s routing key, one of the four in turn: (path,
+    headers)."""
+    return [("/queries.json", {"X-Pio-App": name}),
+            (f"/queries.json?app={name}", {}),
+            (f"/queries.json?accessKey=KEY-{name}", {}),
+            ("/queries.json", {"X-Pio-Access-Key": f"KEY-{name}"})][a % 4]
+
+
+def _tenant_client(srv: _Served, route: tuple, users: list, stored: dict,
+                   codes: list, lock: threading.Lock) -> None:
+    """One keep-alive client of one tenant: every 200 answer held to that
+    app's host top-k; its statuses (or its error) appended to ``codes``."""
+    path, headers = route
+    conn = srv.connect()
+    try:
+        for user in users:
+            status, res, _ = srv.request_h(
+                "POST", path, {"user": user, "num": 10}, headers, conn)
+            with lock:
+                codes.append(status)
+            if status == 200:
+                _hold_als_answer(stored, user, res)
+    except BaseException as e:  # noqa: BLE001 - the caller checks codes
+        with lock:
+            codes.append(repr(e))
+    finally:
+        conn.close()
+
+
+def _tenant_rows(srv: _Served) -> dict:
+    return {r["app"]: r for r in
+            srv.request("GET", "/status")[1]["tenants"]["tenants"]}
+
+
+def phase_engine_server_tenants(workdir: str) -> None:
+    """pio deploy --multitenant --online-foldin on TENANTS apps, each an
+    ML-100K-shaped log (bench.py SCALES["ml100k"], synth_ratings seed 40 +
+    app) trained in process on the card at rank 10 × 5 iterations, with
+    PIO_TENANT_MAX_RESIDENT 4 and a per-tenant budget of 2:
+
+    1. one keep-alive client per app, each routing by one of the four keys
+       in turn (X-Pio-App, app, accessKey, X-Pio-Access-Key): every answer
+       equals its own app's host top-k, evictions happen, no query fails;
+    2. 16 clients on one hot app: it sheds 503 past its budget while two
+       other apps' clients get 200 only;
+    3. a poisoned instance of an evicted tenant (its user factors cut to
+       one row: the golden query passes, every other user fails) rolls
+       back alone on the tenant's watch; every other tenant keeps its
+       instance;
+    4. one tenant's fold-in increment (2 warp launches) is published and
+       evicts only that tenant's touched users from the result cache."""
+    from incubator_predictionio_torch.data.storage import AccessKey, App
+    from incubator_predictionio_torch.workflow.core_workflow import run_train
+
+    n_users, n_items, nnz = ML100K
+    cwd = tempfile.mkdtemp(dir=workdir)
+    base = os.path.join(cwd, "pio_tenants")
+    env = _jsonl_env(base) | {
+        "PIO_TENANT_MAX_RESIDENT": str(TENANT_RESIDENT),
+        "PIO_TENANT_MAX_PENDING": str(TENANT_PENDING),
+        "PIO_FOLDIN_MS": "250"}
+    os.makedirs(base, exist_ok=True)
+    names = [f"tenant{a}" for a in range(TENANTS)]
+    store = _storage_of(env)
+    for name in names:
+        app_id = store.get_meta_data_apps().insert(App(0, name))
+        store.get_meta_data_access_keys().insert(
+            AccessKey(f"KEY-{name}", app_id))
+    events_dir = store.get_l_events().events_dir
+    app_ids = {n: store.get_meta_data_apps().get_by_name(n).id for n in names}
+    store.close()
+    t0 = time.perf_counter()
+    for a, name in enumerate(names):
+        u, i, r = synth_ratings(n_users, n_items, nnz, seed=40 + a)
+        _write_log(os.path.join(events_dir, f"events_{app_ids[name]}.jsonl"),
+                   u, i, r, T0_MS + np.arange(nnz))
+    write_s = time.perf_counter() - t0
+    store = _storage_of(env)
+    reset_launches()
+    t0 = time.perf_counter()
+    iids, stored = {}, {}
+    for name in names:
+        ej = {"id": "default", "engineFactory": FACTORY,
+              "datasource": {"params": {"appName": name}},
+              "algorithms": [{"name": "als", "params": {
+                  "rank": TENANT_RANK, "numIterations": TENANT_ITERS,
+                  "lambda": 0.1}}]}
+        iids[name] = run_train(
+            RecommendationEngine()(), EngineParams.from_json(ej),
+            WorkflowContext(app_name=name, storage=store, device="cuda"),
+            engine_factory_name=FACTORY)
+        stored[name] = _persisted(env, iids[name])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trained = launches()
+    check(trained["warp"] > 0 and trained["wide"] == 0,
+          f"the tenants' trains launched {trained}")
+    default = names[-1]   # the newest instance: the process's default
+    with open(os.path.join(cwd, "engine.json"), "w", encoding="utf-8") as fh:
+        json.dump(ej, fh)
+    counts = os.path.join(cwd, "tenant_counts.json")
+    out: dict = {"log_write_seconds": write_s,
+                 "train_seconds_in_process": train_s,
+                 "train_launches": trained}
+    rng = np.random.default_rng(33)
+    lock = threading.Lock()
+    with _counted_serve(["deploy", "--multitenant", "--online-foldin",
+                         "--query-cache-size", "10000"], env, cwd,
+                        counts) as srv:
+        check(srv.info["engineInstanceId"] == iids[default],
+              f"deployed {srv.info}")
+
+        # 1. one client per app, four routing keys
+        users = {n: [list(stored[n]["users"])[int(k)] for k in rng.integers(
+            0, len(stored[n]["users"]), TENANT_QUERIES)] for n in names}
+        codes: list = []
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=_tenant_client, args=(
+            srv, _tenant_route(a, n), users[n], stored[n], codes, lock))
+            for a, n in enumerate(names)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        check(codes == [200] * len(codes) and len(codes) == len(names)
+              * TENANT_QUERIES, f"tenant clients: {sorted(set(codes))}")
+        t = srv.request("GET", "/status")[1]["tenants"]
+        check(t["evictions"] > 0 and t["resident"] <= TENANT_RESIDENT,
+              f"tenants {t}")
+        # one query of an evicted tenant (a cold load inside) and one of a
+        # resident tenant, each for a user no cache holds
+        rows = _tenant_rows(srv)
+        timed = {}
+        for label, want_resident in (("cold", False), ("warm", True)):
+            n = next(x for x in names[:-1]
+                     if rows[x]["resident"] == want_resident)
+            user = [u for u in stored[n]["users"] if u not in users[n]][-1]
+            path, headers = _tenant_route(0, n)
+            status, res, ms = srv.request_h("POST", path,
+                                            {"user": user, "num": 10},
+                                            headers)
+            check(status == 200, f"{label} tenant query {status}: {res}")
+            _hold_als_answer(stored[n], user, res)
+            timed[label + "_query_ms"] = ms
+        out["routing"] = {"queries": len(codes), "wall_seconds": wall,
+                          "evictions": t["evictions"],
+                          "cold_loads": t["coldLoads"],
+                          "loads": t["loads"], "resident": t["resident"],
+                          **timed}
+
+        # 2. a hot app sheds past its budget, the others serve
+        hot, calm = names[1], names[2:4]
+        hot_codes: list = []
+        calm_codes: list = []
+        hot_users = list(stored[hot]["users"])
+        for _ in range(5):   # rounds until the budget is exceeded
+            threads = [threading.Thread(target=_tenant_client, args=(
+                srv, _tenant_route(0, hot), [hot_users[int(k)] for k in
+                                             rng.integers(0, len(hot_users),
+                                                          TENANT_QUERIES)],
+                stored[hot], hot_codes, lock)) for _ in range(16)]
+            threads += [threading.Thread(target=_tenant_client, args=(
+                srv, _tenant_route(0, n), users[n], stored[n], calm_codes,
+                lock)) for n in calm]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            if 503 in hot_codes:
+                break
+        shed = hot_codes.count(503)
+        check(shed > 0 and set(hot_codes) <= {200, 503},
+              f"hot tenant: {sorted(set(hot_codes))}, {shed} shed")
+        check(calm_codes == [200] * len(calm_codes),
+              f"calm tenants: {sorted(set(calm_codes))}")
+        row = _tenant_rows(srv)[hot]
+        check(row["shed"] == shed, f"hot tenant row {row}")
+        out["shed"] = {"hot_queries": len(hot_codes), "hot_503": shed,
+                       "calm_queries": len(calm_codes)}
+
+        # 3. a poisoned tenant rolls back alone
+        rows = _tenant_rows(srv)
+        victim = next(n for n in names[1:-1]
+                      if not rows[n]["resident"] and n not in (hot, *calm))
+        before = {n: r["instance"] for n, r in rows.items()}
+        poison = dict(stored[victim],
+                      user_factors=stored[victim]["user_factors"][:1])
+        poison_id = _commit_instance(store, iids[victim], poison)
+        path, headers = _tenant_route(0, victim)
+        # users not queried before: a cached answer would not reach the model
+        vusers = [u for u in stored[victim]["users"]
+                  if stored[victim]["users"][u] != 0
+                  and u not in users[victim]][:2]
+        first = srv.request_h("POST", path, {"user": vusers[0], "num": 10},
+                              headers)
+        second = srv.request_h("POST", path, {"user": vusers[1], "num": 10},
+                               headers)
+        check(first[0] == 500 and second[0] == 200,
+              f"poisoned tenant: {first[:2]}, {second[:2]}")
+        _hold_als_answer(stored[victim], vusers[1], second[1])
+        rows = _tenant_rows(srv)
+        check(rows[victim]["pinned"] == {poison_id: "error-rate"}
+              and rows[victim]["rollbacks"] == {"error-rate": 1}
+              and rows[victim]["instance"] == iids[victim],
+              f"victim row {rows[victim]}")
+        for n, r in rows.items():
+            if n != victim:
+                check(not r["pinned"] and not r["rollbacks"]
+                      and r["instance"] in (before.get(n), None),
+                      f"tenant {n} changed with the victim: {r}")
+        out["poison"] = {"tenant": victim, "instance": poison_id,
+                         "row": rows[victim]}
+
+        # 4. one tenant's increment evicts only its own cached results
+        t1, t2 = calm
+        for _ in range(2):
+            for n in (t1, t2):
+                _tenant_client(srv, _tenant_route(0, n), users[n][:20],
+                               stored[n], codes, lock)
+        cache0 = srv.request("GET", "/status")[1]["queryCache"]
+        touched = users[t1][:10]
+        new = [f"new{j}" for j in range(5)]
+        items = list(stored[t1]["items"])
+        fold = [{"event": "rate", "entityType": "user", "entityId": u,
+                 "targetEntityType": "item",
+                 "targetEntityId": items[(11 * j + k) % len(items)],
+                 "properties": {"rating": float(1 + (j + k) % 5)}}
+                for j, u in enumerate(touched + new) for k in range(3)]
+        le = store.get_l_events()
+        le.insert_batch([Event.from_json(e) for e in fold], app_ids[t1])
+        row = _wait_status(srv, f"{t1}'s increment published",
+                           lambda d: (lambda r: r if r["foldinPublishes"]
+                                      and r["instance"] != iids[t1]
+                                      else None)(
+                               {x["app"]: x for x in
+                                d["tenants"]["tenants"]}[t1]), 60)
+        inc = _persisted(env, row["instance"])
+        cache1 = srv.request("GET", "/status")[1]["queryCache"]
+        _tenant_client(srv, _tenant_route(0, t2), users[t2][:20], stored[t2],
+                       codes, lock)
+        cache2 = srv.request("GET", "/status")[1]["queryCache"]
+        _tenant_client(srv, _tenant_route(0, t1), touched + new, inc, codes,
+                       lock)
+        cache3 = srv.request("GET", "/status")[1]["queryCache"]
+        t2_distinct = len(set(users[t2][:20]))
+        check(cache2["hits"] - cache1["hits"] == 20
+              and cache2["misses"] == cache1["misses"],
+              f"{t2}'s cache entries did not survive: {cache1} → {cache2}")
+        check(cache1["invalidatedEntries"] - cache0["invalidatedEntries"]
+              == len(set(touched)),
+              f"{t1}'s increment invalidated {cache0} → {cache1}")
+        check(cache3["misses"] - cache2["misses"] == len(set(touched + new)),
+              f"{t1}'s touched users were not recomputed: {cache3}")
+        rows = _tenant_rows(srv)
+        check(rows[t2]["foldinPublishes"] == 0
+              and rows[t2]["instance"] == iids[t2], f"{t2} moved: {rows[t2]}")
+        out["foldin"] = {"tenant": t1, "increment": row["instance"],
+                         "events": len(fold), "row": row,
+                         "other_distinct_users": t2_distinct,
+                         "cache_before": cache0, "cache_after": cache3}
+        out["tenants"] = srv.request("GET", "/status")[1]["tenants"]
+        srv.proc.send_signal(signal.SIGTERM)
+        rc = srv.proc.wait(timeout=120)
+        check(rc == 0, f"deploy exited {rc} after SIGTERM")
+    store.close()
+    out["launches"] = _counted(counts, "engine_server_tenants",
+                               trained["warp"])
+    check(out["launches"]["increments"] >= 1,
+          "no tenant fold-in increment was committed")
+    shutil.rmtree(cwd)
+    emit("engine_server_tenants", apps=TENANTS, shape=list(ML100K),
+         rank=TENANT_RANK, iterations=TENANT_ITERS,
+         max_resident=TENANT_RESIDENT, max_pending=TENANT_PENDING, **out)
+
+
 # -- the E-Commerce template on the JSONL log ------------------------------
 
 #: bench_templates.py config 6 (bench_ecommerce): users, items, view/buy
 #: events, drawn with seed 6; rank 32 × 10 iterations
 ECOMMERCE = (100_000, 20_000, 5_000_000)
+#: the first events of config 6 the phase writes: cut from 5,000,000 for
+#: the script's time
+ECOMMERCE_LOG_EVENTS = 2_500_000
 ECOMMERCE_CATEGORIES = 20
 ECOMMERCE_BUY_SHARE = 0.1
 #: queries before and after the constraint/unavailableItems $set
@@ -2796,7 +3535,8 @@ def _timed_deploy(env: dict, cwd: str, out: str, module: str,
 def _ecommerce_events() -> tuple:
     """bench_ecommerce's draws (seed 6: users uniform, items skewed to low
     ids), a seed-derived 10 % of them buys and the rest views, distinct
-    shuffled event times, one of 20 categories per item."""
+    shuffled event times, one of 20 categories per item; the first
+    ECOMMERCE_LOG_EVENTS of them."""
     n_users, n_items, nnz = ECOMMERCE
     rng = np.random.default_rng(6)
     u = rng.integers(0, n_users, nnz).astype(np.int32)
@@ -2805,7 +3545,8 @@ def _ecommerce_events() -> tuple:
     buy = np.random.default_rng(61).random(nnz) < ECOMMERCE_BUY_SHARE
     times = T0_MS + np.random.default_rng(62).permutation(nnz)
     cats = np.random.default_rng(63).integers(0, ECOMMERCE_CATEGORIES, n_items)
-    return u, i, buy, times, cats
+    n = ECOMMERCE_LOG_EVENTS
+    return u[:n], i[:n], buy[:n], times[:n], cats
 
 
 def _ecommerce_lines(u, i, buy, times_ms, first: int) -> bytes:
@@ -2965,8 +3706,9 @@ def _split(client_ms: list, records: list, parts: dict) -> dict:
 
 def phase_ecommerce_jsonl(workdir: str) -> None:
     """bench_templates.py config 6 through the E-Commerce template and the
-    verbs, on a JSONL log: 5,000,000 view/buy events (100,000 users ×
-    20,000 items, 10 % buys) and one category $set per item written as
+    verbs, on a JSONL log: the first ECOMMERCE_LOG_EVENTS (2,500,000 of
+    5,000,000) view/buy events (100,000 users × 20,000 items, 10 % buys)
+    and one category $set per item written as
     the log itself (not compacted: the train and the serve-time reads
     parse it with the codec) → pio train (templates/ecommerce/engine.json,
     factory rewritten to the port, rank 32 and 10 iterations as the bench
@@ -2976,7 +3718,8 @@ def phase_ecommerce_jsonl(workdir: str) -> None:
     server → 12 more queries; every answer held to a host top-k with the
     exclusions computed from the generated arrays. Query latency split
     into the LEventStore reads, the top-k and the rest."""
-    n_users, n_items, nnz = ECOMMERCE
+    n_users, n_items, _ = ECOMMERCE
+    nnz = ECOMMERCE_LOG_EVENTS
     u, i, buy, times, cats = _ecommerce_events()
     cwd = tempfile.mkdtemp(dir=workdir)
     base = os.path.join(cwd, "pio_ecom")
@@ -3096,6 +3839,8 @@ def phase_ecommerce_jsonl(workdir: str) -> None:
     split = _split(client_ms[1:], records[1:],
                    {"store_read": "store_s", "topk": "topk_s"})
     emit("ecommerce_jsonl", events=nnz, users=nu, items=ni,
+         reduced=(f"first {nnz} of config 6's {ECOMMERCE[2]} events: the "
+                  "script's time (1,200 s)"),
          buys=int(buy.sum()), categories=ECOMMERCE_CATEGORIES,
          compacted=False, log_bytes=os.path.getsize(log_path),
          log_write_seconds=write_s, rank=RANK, iterations=10,
@@ -4457,6 +5202,7 @@ def main() -> int:
         phase_codec_vs_plain(main_path["ratings"])
         phase_pio_workflow_jsonl(workdir)
         phase_pio_workflow_jsonl_ml20m(workdir, main_path["ratings"])
+        phase_engine_server_tenants(workdir)
         phase_similar_product(workdir)
         phase_ecommerce_jsonl(workdir)
         phase_pio_eval(workdir)

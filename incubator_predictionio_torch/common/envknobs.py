@@ -5,8 +5,12 @@ The port's own copy of the parts of
 (``PIO_TRAIN_WINDOW*``, ``PIO_EVENT_RETENTION``, ``PIO_INGEST_FSYNC``,
 ``PIO_UR_FULL_MATRIX_ELEMS`` and the engine server's ``PIO_QUERY_*``,
 ``PIO_DRAIN_DEADLINE_MS``, ``PIO_SWAP_*``, ``PIO_MODEL_REFRESH_MS``,
-``PIO_QUERY_CACHE_*``, ``PIO_GOLDEN_QUERY`` and
-``PIO_ENGINE_SERVER_PLUGINS``), with the same semantics:
+``PIO_QUERY_CACHE_*``, ``PIO_GOLDEN_QUERY``,
+``PIO_ENGINE_SERVER_PLUGINS``, the online fold-in's ``PIO_FOLDIN_MS``, the
+quality watch's ``PIO_QUALITY_{SAMPLE,K,MIN_SAMPLES,MAX_DROP,WATCH_MS,
+RESOLVE_MS,MS}`` and the tenant mux's
+``PIO_TENANT_{MAX_RESIDENT,MAX_PENDING,KEY_TTL_MS}``), with the same
+semantics:
 
 - unset / empty         → ``default`` (always)
 - unparsable            → ``default`` (an operator typo must never crash

@@ -1,25 +1,28 @@
 """Deterministic fault injection at named fault points.
 
-The port's own copy of the ``fail`` mode of
+The port's own copy of the ``fail`` and ``crash`` modes of
 ``incubator_predictionio_tpu/common/faultinject.py``: the event log's
 fault points (``jsonl.append``, ``compact.write``, ``compact.rename``,
-``compact.manifest``, ``retire.rename``) and the engine server's
+``compact.manifest``, ``retire.rename``), the engine server's
 (``query.featurize``, ``query.predict``, ``query.serve``,
-``query.batch_predict``, ``swap.validate``) consult it. The active plan
+``query.batch_predict``, ``swap.validate``) and the online fold-in's
+(``foldin.read``, ``foldin.apply``, ``foldin.publish``) consult it. The active plan
 comes from the ``PIO_FAULT_SPEC`` environment variable, so a scenario
 works the same in-process and across subprocesses:
 
     PIO_FAULT_SPEC="rule[;rule...]"
-    rule = <point-pattern>:fail:<count>
+    rule = <point-pattern>:<fail|crash>:<count>
 
 - ``point-pattern`` — fnmatch pattern against the fault-point name
   (``compact.write``, ``compact.*``, ``*``).
 - ``fail:N`` — the first N matching calls raise :class:`InjectedFault`
   (a ``ConnectionError``).
+- ``crash:N`` — the N-th matching call kills the process: SIGKILL to
+  itself, no Python cleanup (a deterministic ``kill -9``).
 
-The reference's other modes (``latency``, ``drop``, ``crash``,
-``oserr``, ``at``) belong to transports and servers the port does not
-have yet; a spec naming one raises ``ValueError``.
+The reference's other modes (``latency``, ``drop``, ``oserr``, ``at``)
+belong to transports the port does not have yet; a spec naming one raises
+``ValueError``.
 
 Counts are per-rule and deterministic: "fail first 2 calls" means
 exactly the first two matching calls in this process fail, then the
@@ -46,10 +49,11 @@ class InjectedFault(ConnectionError):
 
 
 class _Rule:
-    __slots__ = ("pattern", "remaining")
+    __slots__ = ("pattern", "mode", "remaining")
 
-    def __init__(self, pattern: str, count: int):
+    def __init__(self, pattern: str, mode: str, count: int):
         self.pattern = pattern
+        self.mode = mode
         self.remaining = count
 
 
@@ -63,16 +67,16 @@ def _parse(spec: str) -> list[_Rule]:
         if len(parts) < 3:
             raise ValueError(
                 f"{ENV_VAR}: malformed rule {raw!r} "
-                "(want point:fail:count)")
+                "(want point:mode:count)")
         pattern, mode, count = parts[0], parts[1].lower(), parts[2]
-        if mode != "fail":
+        if mode not in ("fail", "crash"):
             raise ValueError(f"{ENV_VAR}: unknown fault mode {mode!r} "
-                             "(only 'fail' is supported)")
+                             "(only 'fail' and 'crash' are supported)")
         try:
             n = int(count)
         except ValueError as e:
             raise ValueError(f"{ENV_VAR}: bad count in {raw!r}") from e
-        rules.append(_Rule(pattern, n))
+        rules.append(_Rule(pattern, mode, n))
     return rules
 
 
@@ -100,14 +104,30 @@ def reset() -> None:
         _rules = []
 
 
+def _crash() -> None:  # pragma: no cover - the process dies
+    """``kill -9`` of this process: no Python-level cleanup runs."""
+    import signal
+
+    try:
+        os.kill(os.getpid(), signal.SIGKILL)
+    except (OSError, AttributeError, ValueError):
+        pass
+    os._exit(137)
+
+
 def fault_point(name: str) -> None:
     """Raise :class:`InjectedFault` if a ``fail`` rule matching ``name``
-    has calls left; a no-op (one dict lookup) when the spec is unset."""
+    has calls left, or die on the N-th match of a ``crash`` rule; a no-op
+    (one dict lookup) when the spec is unset."""
     if not os.environ.get(ENV_VAR):
         return
     with _lock:
         for rule in _active_rules():
             if rule.remaining > 0 and fnmatch.fnmatch(name, rule.pattern):
                 rule.remaining -= 1
-                raise InjectedFault(
-                    f"injected fault at {name!r} ({ENV_VAR})")
+                if rule.mode == "fail":
+                    raise InjectedFault(
+                        f"injected fault at {name!r} ({ENV_VAR})")
+                if rule.remaining <= 0:
+                    # the count selects WHICH call crashes
+                    _crash()

@@ -25,6 +25,7 @@ batch with identity systems for its 512- and 128-wide slabs).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -41,7 +42,13 @@ class LaunchCounter:
         self.count = 0
 
     def reset(self) -> None:
-        self.count = 0
+        with _count_lock:
+            self.count = 0
+
+
+#: the counters are ticked from every thread that solves (the engine
+#: server's fold-in thread among them) while others read or reset them
+_count_lock = threading.Lock()
 
 
 #: one tick per launch of either Gauss-Jordan CUDA kernel, and nowhere else
@@ -163,12 +170,19 @@ def _launch(lib, a, b, x, index: int) -> torch.Tensor:
                                      n, k, stream)
     if err != 0:
         raise RuntimeError(f"gauss_jordan kernel launch failed: CUDA error {err}")
-    gauss_jordan_launches.count += 1
-    if k <= MAX_WARP_K:
-        gauss_jordan_warp_launches.count += 1
-    else:
-        gauss_jordan_wide_launches.count += 1
+    count_launch(k)
     return x
+
+
+def count_launch(k: int) -> None:
+    """One launch of a Gauss-Jordan kernel for width ``k``: the total and
+    that kernel's own counter tick together, under one lock."""
+    with _count_lock:
+        gauss_jordan_launches.count += 1
+        if k <= MAX_WARP_K:
+            gauss_jordan_warp_launches.count += 1
+        else:
+            gauss_jordan_wide_launches.count += 1
 
 
 def batched_spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -12,9 +12,11 @@ on the events of the last DUR only: the bound is resolved once, here, to
 an absolute ``PIO_TRAIN_WINDOW_START_US`` (reference :91-121). ``deploy``
 runs the engine server of ``workflow/create_server.py`` (admission
 control, micro-batching, the result cache, the model lifecycle, drain on
-SIGTERM). The reference's gang training (``--num-workers``, ``--feed``),
-the serving fleet (``--replicas``), ``--online-foldin``,
-``--quality-eval`` and ``--multitenant`` are not ported yet.
+SIGTERM), with ``--online-foldin`` (reference :298-306),
+``--quality-eval`` (:307-315) and ``--multitenant`` (:322-330) arming
+its fold-in loop, quality watch and tenant mux. The reference's gang
+training (``--num-workers``, ``--feed``) and the serving fleet
+(``--replicas``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -238,11 +240,37 @@ def deploy_cmd(args: list[str]) -> int:
     p.add_argument("--query-cache-size", type=int, default=None,
                    help="served-result cache entries (default "
                         "$PIO_QUERY_CACHE_SIZE, else 0 = off)")
+    p.add_argument("--online-foldin", action="store_true",
+                   help="streaming online learning: tail the app's event "
+                        "log and fold new events into the served model, "
+                        "publishing each increment through the same "
+                        "validation gate and watch window as a retrain "
+                        "(interval $PIO_FOLDIN_MS, default 1000)")
+    p.add_argument("--quality-eval", action="store_true",
+                   help="continuous quality evaluation: shadow-score a "
+                        "sampled slice of live queries against the users' "
+                        "next events in the app's log and roll a ranking "
+                        "regression back like an error-rate breach "
+                        "(sample rate $PIO_QUALITY_SAMPLE, default 0.01 "
+                        "with this flag; thresholds via PIO_QUALITY_*)")
+    p.add_argument("--multitenant", action="store_true",
+                   help="serve every registered app from this process: "
+                        "queries route by app name (X-Pio-App header, app "
+                        "parameter) or access key (accessKey parameter, "
+                        "X-Pio-Access-Key header) to an LRU of "
+                        "$PIO_TENANT_MAX_RESIDENT (default 8) resident "
+                        "deployments, each with its own gate, watch, "
+                        "rollback, fold-in cursor and admission budget "
+                        "($PIO_TENANT_MAX_PENDING)")
     p.add_argument("--rollback", action="store_true",
                    help="don't deploy: tell the engine server already "
                         "running at --ip/--port to roll back to its "
                         "previous deployment, then exit")
     ns = p.parse_args(args)
+    if ns.model is not None and (ns.online_foldin or ns.quality_eval
+                                 or ns.multitenant):
+        p.error("--online-foldin, --quality-eval and --multitenant need the "
+                "model store and the event log: not with --model")
     if ns.rollback:
         from .models import rollback_via_url
 
@@ -261,8 +289,20 @@ def _build_engine_server(ns):
     """The EngineServer of a deploy: the newest deployable instance of
     the model store (or ``--engine-instance-id``), or the ``--model``
     file."""
+    from ...common import envknobs
     from ...workflow.create_server import EngineServer
 
+    # each flag arms its loop at its knob's value (or the flag's default);
+    # without the flag the knob alone can still arm it
+    online = dict(
+        foldin_ms=(float(envknobs.env_int("PIO_FOLDIN_MS", 1000, lo=1))
+                   if ns.online_foldin else None),
+        quality_sample=(envknobs.env_float("PIO_QUALITY_SAMPLE", 0.01,
+                                           lo=0.0, hi=1.0)
+                        if ns.quality_eval else None),
+        tenant_max_resident=(
+            envknobs.env_int("PIO_TENANT_MAX_RESIDENT", 8, lo=1)
+            if ns.multitenant else None))
     knobs = dict(
         batch_window_ms=ns.batch_window_ms, max_batch=ns.max_batch,
         query_conc=ns.query_conc, query_max_pending=ns.query_max_pending,
@@ -284,6 +324,7 @@ def _build_engine_server(ns):
         instance_id=ns.engine_instance_id,
         feedback=ns.feedback,
         feedback_app_name=_app_name(params),
+        **online,
         **knobs)
 
 

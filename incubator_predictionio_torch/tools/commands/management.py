@@ -3,8 +3,10 @@ commands/{Management,Export,Import}.scala, tools/export/EventsToFile.scala,
 tools/imprt/FileToEvents.scala).
 
 The port's own copy of those verbs of ``incubator_predictionio_tpu/tools/
-commands/management.py`` (``status`` :18 with ``--engine-url``'s
-``_print_engine_overload`` :160, ``eventserver`` :538,
+commands/management.py`` (``status`` :18 with its fold-in cursor rows
+``_print_foldin_cursors`` :921, ``--engine-url``'s
+``_print_engine_overload`` :160 with its fold-in, quality (``_print_quality``
+:330) and tenant (``_print_tenants`` :291) lines, ``eventserver`` :538,
 ``eventlog`` :687-1002, ``export`` :1113, ``import`` :1155) for JSON-lines
 files; ``import`` writes to whichever event store is configured (SQLite or
 the JSONL log). ``eventlog`` has ``compact``, ``scrub``, ``status``,
@@ -97,6 +99,9 @@ def status_cmd(args: list[str]) -> int:
             print(f"[info] Event log: {len(health['logs'])} log file(s) "
                   f"in {log_dir}")
             _print_partition_health(health, log_dir)
+    # where each app's online fold-in tailer stands, with the freshness-lag
+    # warn-marker
+    _print_foldin_cursors(s)
     if ns.engine_url:
         _print_engine_overload(ns.engine_url)
     return 0
@@ -162,6 +167,129 @@ def _print_engine_overload(url: str) -> None:
               f"{cache.get('maxEntries')} entries, hits={cache.get('hits')}, "
               f"misses={cache.get('misses')}, "
               f"invalidations={cache.get('invalidations')}")
+    fi = doc.get("foldin")
+    if fi:
+        _print_foldin(fi)
+    q = doc.get("quality")
+    if q:
+        _print_quality(q)
+    tenants = doc.get("tenants")
+    if tenants:
+        _print_tenants(tenants)
+
+
+def _print_foldin(fi: dict) -> None:
+    """The fold-in line off /status: cursor, events folded, increments
+    published and the freshness lag, warn-marked past 2x the interval."""
+    if not fi.get("enabled", True):
+        print(f"[warn]   fold-in: disabled — {fi.get('disabledReason')}")
+        return
+    lag = fi.get("lagSeconds")
+    interval_s = float(fi.get("ms") or 0) / 1000.0
+    stale = lag is not None and interval_s > 0 and lag > 2 * interval_s
+    rollbacks = fi.get("rollbacks") or {}
+    marker = "[warn]" if (stale or rollbacks or fi.get("lastError")) \
+        else "[info]"
+    print(f"{marker}   fold-in: every {float(fi.get('ms') or 0):.0f}ms, "
+          f"app {fi.get('app')!r}, cursor {fi.get('cursorBytes')} byte(s), "
+          f"{fi.get('events', 0)} event(s) folded, "
+          f"{fi.get('publishes', 0)} increment(s) published, "
+          f"rollbacks {rollbacks or 0}, freshness lag "
+          + (f"{lag:.1f}s" if lag is not None else "n/a")
+          + (" — STALE (> 2x the fold-in interval; loop failing?)"
+             if stale else "")
+          + (f"; last error: {fi['lastError']}" if fi.get("lastError")
+             else ""))
+
+
+def _print_tenants(t: dict) -> None:
+    """The per-tenant table off /status: residency, cursor lag, pins, shed
+    rate, one row per app, warn-marked when a tenant is pinned, degraded or
+    rolled back."""
+    print(f"[info]   tenants: {t.get('resident')}/{t.get('maxResident')}"
+          f" resident of {t.get('known')} known, "
+          f"{t.get('evictions')} eviction(s), "
+          f"{t.get('coldLoads')} cold load(s), per-tenant budget "
+          f"{t.get('maxPending')}")
+    for row in t.get("tenants") or []:
+        pinned = row.get("pinned") or {}
+        flags = []
+        if pinned:
+            flags.append("pinned=" + ",".join(
+                f"{i} ({r})" for i, r in sorted(pinned.items())))
+        if row.get("degraded"):
+            flags.append(f"DEGRADED: {row['degraded']}")
+        if row.get("watch"):
+            flags.append("watching")
+        queries = int(row.get("queries") or 0)
+        shed = int(row.get("shed") or 0)
+        offered = queries + shed
+        shed_pct = (100.0 * shed / offered) if offered else 0.0
+        lag = row.get("cursorLagS")
+        rollbacks = sum((row.get("rollbacks") or {}).values())
+        marker = ("[warn]" if (pinned or row.get("degraded") or rollbacks)
+                  else "[info]")
+        print(f"{marker}     {row.get('app')}: "
+              + ("resident" if row.get("resident") else "evicted")
+              + f", instance {row.get('instance')}, "
+              f"{queries} query(ies), shed {shed} ({shed_pct:.1f}%), "
+              f"rollbacks={rollbacks}, cursor lag "
+              + (f"{lag:.1f}s" if isinstance(lag, (int, float)) else "n/a")
+              + (f" [{'; '.join(flags)}]" if flags else ""))
+
+
+def _print_quality(q: dict) -> None:
+    """The quality line off /status: sampling rate, graded samples, the
+    live NDCG@k and the last-good delta, and the open watch."""
+    if not q.get("enabled", True):
+        print(f"[warn]   quality: disabled — {q.get('disabledReason')}")
+        return
+    live = q.get("live") or {}
+    deltas = q.get("deltas") or {}
+    watch = q.get("watch")
+    breached = bool(q.get("breached"))
+    marker = "[warn]" if breached else "[info]"
+    watching = (f", watching {watch.get('instance')} "
+                f"({watch.get('remainingMs', 0):.0f}ms left)"
+                if watch else "")
+    print(f"{marker}   quality: sampling {q.get('sample', 0) * 100:.1f}% "
+          f"(k={q.get('k')}), {q.get('sampled', 0)} sampled / "
+          f"{q.get('scored', 0)} graded / {q.get('expired', 0)} expired, "
+          f"ndcg {live.get('ndcg', 0):.3f} over {live.get('n', 0)} "
+          f"sample(s), last-good delta {deltas.get('ndcg', 0):+.3f}"
+          f"{watching}"
+          + (" — BREACHED (quality rollback armed/fired)"
+             if breached else ""))
+
+
+def _print_foldin_cursors(s: Storage) -> None:
+    """``pio status`` rows of the online fold-in cursors: LSN, events
+    folded and the freshness lag, warn-marked past 2x the fold-in interval
+    (the loop is down, wedged or falling behind)."""
+    try:
+        from ...workflow import online
+
+        rows = online.cursor_docs(s)
+    except Exception:  # noqa: BLE001 — diagnostics only
+        return
+    now = time.time()
+    for r in rows:
+        cursor = r.get("cursor") or {}
+        total = sum((cursor.get("shards") or {}).values())
+        interval_s = float(r.get("intervalMs") or 0) / 1000.0
+        anchor = r.get("caughtUpAt") or r.get("updatedAt") or now
+        lag = max(0.0, now - float(anchor))
+        stale = interval_s > 0 and lag > 2 * interval_s
+        marker = "[warn]" if stale else "[info]"
+        print(f"{marker} Online fold-in: app {r.get('app')!r} "
+              f"(group {r.get('group')}): cursor at {total} byte(s) "
+              f"across {len(cursor.get('shards') or {})} shard(s), "
+              f"{r.get('events', 0)} event(s) folded, "
+              f"{r.get('publishes', 0)} increment(s) published, "
+              f"freshness lag {lag:.1f}s"
+              + (f" — STALE (> 2x the {interval_s * 1000:.0f}ms "
+                 "fold-in interval; loop down or wedged?)"
+                 if stale else ""))
 
 
 def _resolve_app_id(s: Storage, appid: Optional[int],

@@ -22,15 +22,30 @@ status codes:
 - ``/stop``, SIGTERM and SIGINT drain: ``/readyz`` answers 503 at once,
   new queries shed 503, accepted ones finish (up to ``drain_deadline_ms``),
   then the server stops.
+- Online fold-in (``foldin_ms`` > 0, ``workflow/online.py``): a thread
+  tails the app's event log, folds new events into a copy of the served
+  models, commits each increment as a COMPLETED instance and publishes it
+  through ``_publish_once``, the refresh loop's gate.
+- Continuous quality evaluation (``quality_sample`` > 0,
+  ``workflow/quality.py``): a sampled slice of answered queries is replayed
+  on the retained last-good deployment and both are graded against the
+  users' next events; a breach inside the quality watch of a swap rolls it
+  back with reason ``quality``.
+- Multi-tenant serving (``tenant_max_resident`` > 0,
+  ``workflow/multitenant.py``): queries that name another app (by
+  ``X-Pio-App``, ``app``, ``accessKey`` or ``X-Pio-Access-Key``) are served
+  from that app's own resident deployment, lifecycle, admission budget and
+  fold-in runner.
 
 The deployment form (``EngineServer(deployment=...)``, the console's
 ``deploy --model`` file) serves one fixed deployment: it has no model
-store, so ``/reload`` and ``/rollback`` answer 409 and refresh is off.
+store, so ``/reload`` and ``/rollback`` answer 409, and refresh, fold-in,
+quality and tenants are off.
 
 Not ported here, each with its own ROADMAP item: ``/metrics`` and the
-telemetry registry, TLS and the storage breakers of ``/readyz`` (3.3,
-3.4: ``openBreakers`` is always empty), online fold-in (8.4), quality
-(8.5), tenants (8.6), the fleet and its heartbeat (8.7).
+telemetry registry (3.3: the counts of fold-in, quality and tenants ride
+``/status`` instead), TLS and the storage breakers of ``/readyz`` (3.3,
+3.4: ``openBreakers`` is always empty), the fleet and its heartbeat (8.7).
 """
 
 from __future__ import annotations
@@ -265,6 +280,10 @@ class EngineServer:
         model_refresh_ms: Optional[float] = None,
         query_cache_size: Optional[int] = None,
         query_cache_ttl_ms: Optional[float] = None,
+        foldin_ms: Optional[float] = None,
+        quality_sample: Optional[float] = None,
+        tenant_max_resident: Optional[int] = None,
+        tenant_max_pending: Optional[int] = None,
         device: "str | torch.device" = "cuda",
         deployment=None,
     ):
@@ -294,6 +313,8 @@ class EngineServer:
                                   swap_validate, swap_watch_ms,
                                   swap_max_error_rate, model_refresh_ms,
                                   query_cache_size, query_cache_ttl_ms)
+        self._init_online_state(foldin_ms, quality_sample,
+                                tenant_max_resident, tenant_max_pending)
         # synthetic probe traffic is excluded from queryCount/feedback; the
         # marker must carry this per-process token, never exposed, so an
         # external "X-Pio-Probe: 1" cannot bypass the accounting
@@ -317,6 +338,11 @@ class EngineServer:
             self.deployment = deployment
         else:
             self._load(instance_id)
+        if self.tenant_max_resident > 0:
+            from . import multitenant
+
+            self._tenants = multitenant.TenantMux(
+                self, self.tenant_max_resident, self.tenant_max_pending)
 
     @property
     def file_form(self) -> bool:
@@ -413,6 +439,64 @@ class EngineServer:
         self._validate_failures = 0
         self._refresh_swaps = 0
 
+    def _init_online_state(self, foldin_ms=None, quality_sample=None,
+                           tenant_max_resident=None,
+                           tenant_max_pending=None) -> None:
+        """Online fold-in, the quality watch and the tenant mux; arguments
+        override the ``PIO_FOLDIN_MS``, ``PIO_QUALITY_*`` and
+        ``PIO_TENANT_*`` knobs. The file form has no model store and no
+        event log to tail: all three are off there."""
+        # tail the app's event log and fold new events into the served
+        # model every foldin_ms, through the refresh loop's gate (0 = off)
+        self.foldin_ms = max(0.0, float(
+            foldin_ms if foldin_ms is not None
+            else _env_int("PIO_FOLDIN_MS", 0)))
+        self._foldin_stop = threading.Event()
+        self._foldin_thread: Optional[threading.Thread] = None
+        self._foldin_runner = None
+        self._foldin_view: Optional[dict] = None
+        self._foldin_tick_errors = 0
+        # shadow-score a slice of the answered queries on the retained
+        # last-good deployment; a breach inside a swap's quality watch
+        # rolls it back with reason "quality" (0 = off)
+        self.quality_sample = min(1.0, max(0.0, float(
+            quality_sample if quality_sample is not None
+            else envknobs.env_float("PIO_QUALITY_SAMPLE", 0.0,
+                                    lo=0.0, hi=1.0))))
+        self.quality_k = max(1, _env_int("PIO_QUALITY_K", 10))
+        self.quality_min_samples = max(1, _env_int(
+            "PIO_QUALITY_MIN_SAMPLES", 20))
+        self.quality_max_drop = envknobs.env_float(
+            "PIO_QUALITY_MAX_DROP", 0.2, lo=0.0)
+        # labels are the user's NEXT events, so the quality watch usually
+        # outlives the error watch; 0 = the error watch's window
+        self.quality_watch_ms = max(0.0, float(
+            _env_int("PIO_QUALITY_WATCH_MS", 0))) or self.swap_watch_ms
+        self.quality_resolve_ms = max(0.0, float(
+            _env_int("PIO_QUALITY_RESOLVE_MS", 2000)))
+        self.quality_ms = max(50.0, float(_env_int("PIO_QUALITY_MS", 500)))
+        self._quality_stop = threading.Event()
+        self._quality_thread: Optional[threading.Thread] = None
+        self._quality_runner = None
+        self._quality_view: Optional[dict] = None
+        self._quality_watch = None       # active post-swap quality watch
+        # > 0 arms the tenant mux: that many per-app deployments resident
+        self.tenant_max_resident = max(0, int(
+            tenant_max_resident if tenant_max_resident is not None
+            else _env_int("PIO_TENANT_MAX_RESIDENT", 0)))
+        # one tenant's admitted queries, below the process cap
+        self.tenant_max_pending = max(1, int(
+            tenant_max_pending if tenant_max_pending is not None
+            else _env_int("PIO_TENANT_MAX_PENDING", 32)))
+        self._tenants = None
+        if self.file_form and (self.foldin_ms > 0 or self.quality_sample > 0
+                               or self.tenant_max_resident > 0):
+            log.warning("fold-in, quality evaluation and tenants refused: a "
+                        "deployment served from a model file has no model "
+                        "store or event log")
+            self.foldin_ms = self.quality_sample = 0.0
+            self.tenant_max_resident = 0
+
     # -- lifecycle --------------------------------------------------------
     def _load(self, instance_id: Optional[str],
               skip_if_current: bool = False, on_reject=None) -> bool:
@@ -444,6 +528,9 @@ class EngineServer:
         ctx = WorkflowContext(storage=self.storage, device=self.device)
         with self._lock:
             pinned = tuple(self._pinned) if instance_id is None else ()
+        # with the tenant mux armed the default deployment stays within its
+        # own app: a tenant's increment is newer, never the default model
+        capp = self._cache_app() if instance_id is None else None
         deployment, instance, _ = load_deployment(
             self.engine, instance_id, ctx,
             engine_factory_name=self.engine_factory_name,
@@ -452,6 +539,7 @@ class EngineServer:
             # explicit id is the operator overriding the pin on purpose
             exclude_ids=pinned,
             on_reject=on_reject,
+            app_name=capp,
         )
         with self._lock:
             current = self.instance
@@ -477,14 +565,26 @@ class EngineServer:
                     "until": _time.monotonic() + self.swap_watch_ms / 1e3,
                     "total": 0, "errors": 0, "instance": instance.id,
                 }
+            if (swapped and self.quality_sample > 0
+                    and self.quality_watch_ms > 0):
+                # the quality watch rides every swap beside the error watch
+                self._quality_watch = {
+                    "until": (_time.monotonic()
+                              + self.quality_watch_ms / 1e3),
+                    "instance": instance.id,
+                }
         if swapped and self._query_cache is not None:
             users = self._foldin_footprint(instance, prev_inst)
+            capp = self._cache_app()
             if users is None:
-                n = self._query_cache.flush("swap")
+                # with the mux armed, only the default app's entries: the
+                # other tenants' lifecycles invalidate theirs
+                n = (self._query_cache.flush("swap") if capp is None
+                     else self._query_cache.flush_app(capp, "swap"))
                 log.info("query cache: flushed %d entrie(s) on swap "
                          "to %s", n, instance.id)
             else:
-                n = self._query_cache.invalidate_users(users)
+                n = self._query_cache.invalidate_users(users, app=capp)
                 log.info("query cache: fold-in %s evicted %d entrie(s) "
                          "for %d touched user(s)", instance.id, n,
                          len(users))
@@ -627,8 +727,14 @@ class EngineServer:
             "overload": self.overload_snapshot(),
             "lifecycle": self.lifecycle_snapshot(),
         }
+        if self.foldin_ms > 0:
+            out["foldin"] = self.foldin_snapshot()
         if self._query_cache is not None:
             out["queryCache"] = self._query_cache.snapshot()
+        if self._tenants is not None:
+            out["tenants"] = self._tenants.snapshot()
+        if self.quality_sample > 0:
+            out["quality"] = self.quality_snapshot()
         # the serving-latency split, when a probe ran (deploy
         # --probe-latency persists it to the instance row)
         probe = (instance.runtime_conf.get("probe_latency")
@@ -729,6 +835,18 @@ class EngineServer:
             self._unanswered += 1
         self._tls.admitted = getattr(self._tls, "admitted", 0) + 1
 
+    def _shed(self, e: AdmissionShed) -> Reply:
+        """Count one shed query; its 503."""
+        with self._adm_lock:
+            self._shed_count += 1
+        return _shed_reply(e)
+
+    def _expired(self, e: deadline.DeadlineExceeded) -> Reply:
+        """Count one query past its deadline; its 504."""
+        with self._adm_lock:
+            self._deadline_count += 1
+        return _json(504, {"message": str(e)})
+
     def _release_slot(self, fut=None) -> None:
         """Admission-slot release, also a future's done-callback; reads
         the future's exception so an orphan failing after its 504 is
@@ -749,11 +867,14 @@ class EngineServer:
             dl.check("executor pickup")
         return deployment.query(query)
 
-    def _dispatch_query(self, deployment, query, dl, direct: bool = False):
+    def _dispatch_query(self, deployment, query, dl, direct: bool = False,
+                        on_done: Optional["_Once"] = None):
         """The admission gate — the only way a handler hands a query to
         compute. ``direct=True`` skips the micro-batch queue (whose
         worker always uses the LIVE deployment): the watch window's hedge
-        must run on the retained previous one.
+        and a tenant's query must run on a deployment of their own.
+        ``on_done`` (a tenant's budget) is released with the admission
+        slot: when the compute finishes, even after a 504.
 
         Raises :class:`AdmissionShed` (→ 503) or
         :class:`deadline.DeadlineExceeded` (→ 504)."""
@@ -784,6 +905,9 @@ class EngineServer:
             cfut = self._query_executor.submit(
                 ctx.run, self._run_admitted_query, deployment, query)
             cfut.add_done_callback(self._release_slot)
+            if on_done is not None:
+                on_done.owned = True
+                cfut.add_done_callback(lambda _f: on_done())
             slot_owned_by_future = True
             try:
                 return cfut.result(timeout)
@@ -888,6 +1012,10 @@ class EngineServer:
             query = json.loads(request.body)
         except (json.JSONDecodeError, UnicodeDecodeError):
             return _json(400, {"message": "invalid JSON body"})
+        if self._tenants is not None:
+            routed = self._route_tenant_query(request, query)
+            if routed is not None:
+                return routed
         with self._lock:
             deployment = self.deployment
         if deployment is None:
@@ -909,7 +1037,7 @@ class EngineServer:
         if cache is not None and "X-Pio-Probe" not in request.headers:
             # probe traffic bypasses the cache both ways: the probe must
             # measure the real dispatch and not pollute hit/miss counts
-            ckey = QueryResultCache.key_for(query)
+            ckey = QueryResultCache.key_for(query, self._cache_app())
             cgen = cache.generation
             cached = cache.get(ckey)
             if cached is not None:
@@ -918,18 +1046,19 @@ class EngineServer:
             result = self._dispatch_query(deployment, query, dl)
             if self._watch is not None and self._is_live(deployment):
                 self._note_watch(ok=True)
+            quality = self._quality_runner
+            if quality is not None and self._is_live(deployment):
+                # one RNG draw here; the scoring runs on its own thread
+                quality.offer(query, result)
             if ckey is not None:
                 # only clean dispatch results are cached (never a hedged
                 # answer); the generation guard drops a stale insert
                 cache.put(ckey, result, cgen)
         except AdmissionShed as e:
-            with self._adm_lock:
-                self._shed_count += 1
-            return _shed_reply(e)
+            return self._shed(e)
         except deadline.DeadlineExceeded as e:
             # accepted but out of time: 504, not 503 — work started
-            with self._adm_lock:
-                self._deadline_count += 1
+            reply = self._expired(e)
             # a pathologically SLOW new model trips the watch too (compute
             # stages only; queueing is overload, not the model)
             if (self._watch is not None
@@ -937,7 +1066,7 @@ class EngineServer:
                     and self._is_live(deployment)
                     and self._note_watch(ok=False)):
                 self._rollback_to_previous("error-rate")
-            return _json(504, {"message": str(e)})
+            return reply
         except KeyError as e:
             return _missing_field(e)
         except Exception as e:  # noqa: BLE001 - surfaced as HTTP 500
@@ -948,16 +1077,144 @@ class EngineServer:
             try:
                 hedged = self._watched_failure(deployment, query, dl)
             except AdmissionShed as e2:
-                with self._adm_lock:
-                    self._shed_count += 1
-                return _shed_reply(e2)
+                return self._shed(e2)
             except deadline.DeadlineExceeded as e2:
-                with self._adm_lock:
-                    self._deadline_count += 1
-                return _json(504, {"message": str(e2)})
+                return self._expired(e2)
             if hedged is None:
                 return _json(500, {"message": str(e)})
             result = hedged
+        return self._finish_query(request, query, result)
+
+    # -- multi-tenant routing (the mux is workflow/multitenant.py) --------
+    def _default_app_name(self) -> str:
+        """The app of the process's default deployment: anonymous queries
+        and this app's named ones take the single-tenant path."""
+        from . import model_artifact
+
+        with self._lock:
+            inst = self.instance
+        name = (model_artifact.instance_app_name(inst)
+                if inst is not None else "")
+        return name or (self.feedback_app_name or "")
+
+    def _cache_app(self) -> Optional[str]:
+        """The cache-key app of the DEFAULT query path: None while
+        single-tenant, the default app once the mux is armed (the default
+        tenant's entries are app-scoped like everyone else's)."""
+        if self._tenants is None:
+            return None
+        return self._default_app_name() or None
+
+    def _tenant_cache_invalidate(self, app: str, users=None) -> None:
+        """Invalidate ONE tenant's cached results: by the fold-in footprint
+        when there is one, else all of that tenant's; never a neighbor's."""
+        cache = self._query_cache
+        if cache is None:
+            return
+        n = (cache.invalidate_users(users, app=app) if users
+             else cache.flush_app(app, "tenant"))
+        if n:
+            log.info("tenant %r: invalidated %d cached result(s)", app, n)
+
+    def _route_tenant_query(self, request: Request, query) -> Optional[Reply]:
+        """Route a query to its tenant, or None for the default path (an
+        anonymous query, or one naming the default app). A bad credential
+        is 401 and an unknown app 404, never a fallthrough to the default
+        app's model."""
+        from . import multitenant
+
+        mux = self._tenants
+        try:
+            app = mux.resolve_app(request)
+        except multitenant.UnknownTenant as e:
+            return _json(401, {"message": str(e)})
+        if app is None or app == self._default_app_name():
+            return None
+        dl = self._request_deadline(request)
+        # plugin hooks run OUTSIDE the tenant's watch accounting
+        try:
+            query = self.plugins.before_query(query)
+        except KeyError as e:
+            return _missing_field(e)
+        except Exception as e:  # noqa: BLE001
+            log.exception("before_query plugin failed")
+            return _json(500, {"message": str(e)})
+        try:
+            state = mux.admit(app)
+        except multitenant.UnknownTenant as e:
+            return _json(404, {"message": str(e)})
+        except AdmissionShed as e:
+            # the TENANT's budget refused; the process gate still guards
+            # the dispatch below
+            return _shed_reply(e)
+        release = _Once(lambda: mux.release(state))
+        try:
+            return self._tenant_query(request, state, query, dl, release)
+        finally:
+            # a dispatched query's budget frees with its compute (an
+            # orphan past its deadline keeps it until it finishes)
+            if not release.owned:
+                release()
+
+    def _tenant_query(self, request: Request, state, query, dl,
+                      release: "_Once") -> Reply:
+        """One admitted tenant query: lazy load, the app-scoped cache, the
+        process admission gate, and the tenant's watch with the
+        rollback-and-answer hedge."""
+        mux = self._tenants
+        try:
+            mux.ensure_loaded(state)
+        except Exception as e:  # noqa: BLE001 — nothing deployable for
+            # THIS app: the tenant is unavailable, the process is healthy
+            log.warning("tenant %r load failed: %s", state.name, e)
+            return _json(503, {"message": f"tenant {state.name!r}: {e}"},
+                         {"Retry-After": str(retry_after_jitter(2.0))})
+        cache = self._query_cache
+        ckey = None
+        cgen = 0
+        if cache is not None and "X-Pio-Probe" not in request.headers:
+            ckey = QueryResultCache.key_for(query, state.name)
+            cgen = cache.generation
+            cached = cache.get(ckey)
+            if cached is not None:
+                return self._finish_query(request, query, cached)
+        deployment = state.deployment
+        try:
+            # direct: the micro-batch worker serves the default deployment
+            result = self._dispatch_query(deployment, query, dl,
+                                          direct=True, on_done=release)
+            mux.note_result(state, ok=True)
+            if ckey is not None:
+                cache.put(ckey, result, cgen)
+        except AdmissionShed as e:
+            return self._shed(e)
+        except deadline.DeadlineExceeded as e:
+            reply = self._expired(e)
+            # compute-stage overruns count against the tenant's OWN watch
+            if (e.stage not in _QUEUE_STAGES
+                    and mux.note_result(state, ok=False)):
+                mux.rollback_tenant(state, "error-rate")
+            return reply
+        except KeyError as e:
+            return _missing_field(e)
+        except Exception as e:  # noqa: BLE001 — the tenant's watch + hedge
+            log.exception("tenant %r query failed", state.name)
+            restored = None
+            if mux.note_result(state, ok=False):
+                # watch breach: pin and roll back THIS tenant alone
+                restored = mux.rollback_tenant(state, "error-rate")
+            if restored is None:
+                return _json(500, {"message": str(e)})
+            # answer the triggering query on the restored deployment
+            try:
+                result = self._dispatch_query(restored, query, dl,
+                                              direct=True)
+            except AdmissionShed as e2:
+                return self._shed(e2)
+            except deadline.DeadlineExceeded as e2:
+                return self._expired(e2)
+            except Exception:  # noqa: BLE001 — the original verdict
+                return _json(500, {"message": str(e)})
         return self._finish_query(request, query, result)
 
     def _finish_query(self, request: Request, query, result) -> Reply:
@@ -1226,6 +1483,9 @@ class EngineServer:
             self._previous = None
             restored = self.instance
             self._watch = None
+            # the bad instance's quality watch dies with it: the restored
+            # model is the last-good baseline, not a canary
+            self._quality_watch = None
             self._pinned.setdefault(bad_inst.id, reason)
             self._rollbacks[reason] = self._rollbacks.get(reason, 0) + 1
         if self._query_cache is not None:
@@ -1237,6 +1497,11 @@ class EngineServer:
             f"at {_dt.datetime.now(_dt.timezone.utc).isoformat()}; "
             f"{bad_inst.id} pinned until an operator reloads it "
             "explicitly")
+        from . import online
+
+        if online.is_foldin_instance(bad_inst):
+            # a poisoned increment counts on the fold-in family too
+            online.note_rollback(reason)
         log.warning("automatic rollback (%s): %s → %s; %s pinned",
                     reason, bad_inst.id, restored.id, bad_inst.id)
         return restored.id
@@ -1389,6 +1654,9 @@ class EngineServer:
                     f"{source}: {e}; serving last-good model "
                     f"({e.instance_id} pinned)")
                 log.warning("%s swap refused: %s", source, e)
+                # a refused fold-in increment counts on its family whichever
+                # loop's gate caught it
+                self._count_foldin_refusal(e.instance_id)
                 result = "refused"
             except Exception as e:  # noqa: BLE001 - stay on last-good
                 self._degraded_reason = (
@@ -1415,9 +1683,25 @@ class EngineServer:
         finally:
             self._reload_lock.release()
 
+    def _count_foldin_refusal(self, instance_id: str) -> None:
+        """A gate-refused instance that carries the fold-in marker counts
+        one ``validate`` fold-in rollback. Best-effort accounting."""
+        from . import online
+
+        try:
+            row = self.storage.get_meta_data_engine_instances().get(
+                instance_id)
+        except Exception:  # noqa: BLE001 — accounting only
+            log.debug("fold-in refusal classification failed",
+                      exc_info=True)
+            return
+        if row is not None and online.is_foldin_instance(row):
+            online.note_rollback("validate")
+
     def _newer_candidate(self):
         """The newest non-pinned COMPLETED instance strictly newer than
-        the live one, or None when up to date."""
+        the live one (of the default app, with the tenant mux armed), or
+        None when up to date."""
         from . import model_artifact
 
         with self._lock:
@@ -1426,7 +1710,181 @@ class EngineServer:
         return model_artifact.newer_completed_instance(
             self.storage.get_meta_data_engine_instances(),
             self.engine_factory_name, self.engine_variant, cur,
-            exclude=pinned)
+            exclude=pinned, app_name=self._cache_app())
+
+    # -- streaming online fold-in -------------------------------------------
+    def foldin_snapshot(self) -> dict:
+        """The /status "foldin" section: the runner's last view (the cursor,
+        events, publishes) with the freshness lag recomputed at read time
+        (a wedged tick freezes the view), the fold-in refusals and
+        rollbacks by reason, and the loop's failed ticks."""
+        from . import online
+
+        fv = self._foldin_view
+        if fv and fv.get("caughtUpAt"):
+            fv = {**fv, "lagSeconds": round(
+                max(0.0, _time.time() - fv["caughtUpAt"]), 3)}
+        return {**(fv or {"enabled": True, "ms": self.foldin_ms,
+                          "events": 0, "publishes": 0,
+                          "lagSeconds": None}),
+                "producer": True, "rollbacks": online.rollback_counts(),
+                "tickErrors": self._foldin_tick_errors}
+
+    def _start_foldin(self) -> None:
+        if self.foldin_ms <= 0:
+            return
+        from . import online
+
+        runner = self._foldin_runner = online.FoldInRunner(
+            self.storage, self.engine_factory_name, self.engine_variant,
+            interval_ms=self.foldin_ms, device=self.device)
+        with self._lock:
+            instance = self.instance
+        if instance is not None:
+            # arm BEFORE the port opens: a cursor anchored on the first
+            # tick would skip the events of the start → first-tick window
+            try:
+                runner.arm(instance)
+            except Exception:  # noqa: BLE001 — the first tick retries
+                log.exception("fold-in arm failed; the first tick retries")
+        self._foldin_view = runner.view()
+        self._foldin_stop.clear()
+        self._foldin_thread = threading.Thread(
+            target=self._foldin_loop, name="pio-foldin", daemon=True)
+        self._foldin_thread.start()
+
+    def _stop_foldin(self) -> None:
+        self._foldin_stop.set()
+        if self._foldin_thread is not None:
+            # a tick in flight finishes its increment first
+            self._foldin_thread.join(timeout=120)
+            self._foldin_thread = None
+
+    def _foldin_loop(self) -> None:
+        """Every ``foldin_ms``: fold the app's new events into a copy of
+        the served models, commit the increment and publish it through the
+        refresh loop's gate. A failed tick is logged, counted and retried;
+        the freshness lag grows until a tick lands."""
+        log.info("online fold-in loop armed (every %.0f ms)", self.foldin_ms)
+        while not self._foldin_stop.wait(self.foldin_ms / 1000.0):
+            try:
+                self._foldin_once()
+            except Exception:  # noqa: BLE001 - tick errors never kill it
+                self._foldin_tick_errors += 1
+                log.exception("fold-in tick failed; retrying next tick")
+
+    def _foldin_once(self) -> None:
+        if self._tenants is not None:
+            # each resident tenant's runner reads its own cursor row and
+            # publishes through that tenant's gate and watch
+            self._tenants.foldin_tick()
+        with self._lock:
+            deployment, instance = self.deployment, self.instance
+            pinned = tuple(self._pinned)
+        runner = self._foldin_runner
+        if deployment is None or instance is None or runner is None:
+            return
+        try:
+            view = runner.run_once(deployment, instance, pinned)
+        finally:
+            self._foldin_view = runner.view()
+        # produced this tick OR still pending from an earlier one (a busy
+        # gate must not strand a committed increment until the next event)
+        if not view.get("instance") and not view.get("pendingInstance"):
+            return
+        self._publish_once("foldin")
+        self._foldin_view = runner.view()
+
+    # -- continuous quality evaluation --------------------------------------
+    def quality_snapshot(self) -> dict:
+        """The /status "quality" section: the scorer's last view and the
+        open quality watch."""
+        qw = self._quality_watch
+        return {
+            **(self._quality_view or {"enabled": True,
+                                      "sample": self.quality_sample,
+                                      "sampled": 0, "scored": 0}),
+            "watchMs": self.quality_watch_ms,
+            "watch": ({"instance": qw["instance"],
+                       "remainingMs": round(max(
+                           0.0, (qw["until"] - _time.monotonic()) * 1e3),
+                           1)}
+                      if qw is not None else None),
+        }
+
+    def _start_quality(self) -> None:
+        if self.quality_sample <= 0:
+            return
+        from . import quality
+
+        self._quality_runner = quality.QualityShadow(
+            self.storage, sample=self.quality_sample, k=self.quality_k,
+            min_samples=self.quality_min_samples,
+            max_drop=self.quality_max_drop,
+            resolve_ms=self.quality_resolve_ms, device=self.device)
+        self._quality_view = self._quality_runner.view()
+        self._quality_stop.clear()
+        self._quality_thread = threading.Thread(
+            target=self._quality_loop, name="pio-quality", daemon=True)
+        self._quality_thread.start()
+
+    def _stop_quality(self) -> None:
+        self._quality_stop.set()
+        if self._quality_thread is not None:
+            self._quality_thread.join(timeout=60)
+            self._quality_thread = None
+
+    def _quality_loop(self) -> None:
+        """Every ``quality_ms``: shadow-score the sampled queries and roll
+        a quality-watch breach back through the error-rate rollback path
+        (reason "quality"). A failed tick is logged and retried."""
+        log.info("quality shadow loop armed (sample %.3f, every %.0f ms, "
+                 "watch %.0f ms, min %d samples, max ndcg drop %.3f)",
+                 self.quality_sample, self.quality_ms,
+                 self.quality_watch_ms, self.quality_min_samples,
+                 self.quality_max_drop)
+        while not self._quality_stop.wait(self.quality_ms / 1000.0):
+            try:
+                self._quality_once()
+            except Exception:  # noqa: BLE001 - tick errors never kill it
+                log.exception("quality tick failed; retrying next tick")
+
+    def _quality_once(self) -> None:
+        runner = self._quality_runner
+        with self._lock:
+            deployment, instance = self.deployment, self.instance
+            prev = self._previous
+            qw = self._quality_watch
+            if qw is not None and (instance is None
+                                   or instance.id != qw["instance"]
+                                   or _time.monotonic() > qw["until"]):
+                # superseded by a newer swap or rollback, or closed clean
+                if instance is not None and instance.id == qw["instance"]:
+                    log.info("quality watch for %s closed clean",
+                             qw["instance"])
+                self._quality_watch = qw = None
+        if runner is None or deployment is None or instance is None:
+            return
+        try:
+            view = runner.run_once(deployment, instance,
+                                   prev[0] if prev is not None else None)
+        finally:
+            self._quality_view = runner.view()
+        if not view.get("breach") or qw is None:
+            return
+        with self._lock:
+            live = self.instance
+            armed = (self._quality_watch is qw and live is not None
+                     and live.id == qw["instance"])
+        if not armed:
+            return
+        restored = self._rollback_to_previous("quality")
+        if restored:
+            log.warning("quality watch breach on %s (ndcg drop %.4f > %.4f "
+                        "over %d graded samples): rolled back to %s",
+                        qw["instance"], view["deltas"].get("ndcg", 0.0),
+                        self.quality_max_drop,
+                        view.get("live", {}).get("n", 0), restored)
 
     def handle_reload(self, request: Request) -> Reply:
         """Hot-swap to the latest completed instance (reference: /reload →
@@ -1564,12 +2022,15 @@ class EngineServer:
 
     def bind(self, host: str = "127.0.0.1", port: int = 0
              ) -> tuple[str, int]:
-        """Open the listening socket (port 0 picks a free one) and start
-        the batcher and the refresh loop; returns (host, port)."""
+        """Arm the fold-in cursor, open the listening socket (port 0 picks
+        a free one) and start the batcher and the refresh, fold-in and
+        quality loops; returns (host, port)."""
+        self._start_foldin()
         self._httpd = _HTTPServer((host, port), self)
         if self.batch_window_ms > 0:
             self._start_batcher()
         self._start_refresher()
+        self._start_quality()
         return self.address
 
     @property
@@ -1596,9 +2057,11 @@ class EngineServer:
 
     def close(self) -> None:
         """Release what serving holds (after serving has stopped): the
-        batcher (stranded queries fail), the refresh loop, the socket and
-        the executors' idle workers."""
+        batcher (stranded queries fail), the refresh, fold-in and quality
+        loops, the socket and the executors' idle workers."""
         self._stop_refresher()
+        self._stop_foldin()
+        self._stop_quality()
         self._stop_batcher()
         if self._httpd is not None:
             self._httpd.server_close()
@@ -1611,6 +2074,23 @@ class EngineServer:
         if self._serve_thread is not None:
             self._serve_thread.join(timeout=10)
         self.close()
+
+
+class _Once:
+    """A release that runs once, whoever calls it first: a tenant's budget
+    frees with its query's compute when that was dispatched (``owned``),
+    else when the handler is done."""
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._lock = threading.Lock()
+        self.owned = False
+
+    def __call__(self) -> None:
+        with self._lock:
+            fn, self._fn = self._fn, None
+        if fn is not None:
+            fn()
 
 
 def _settle(fut: concurrent.futures.Future, exc: BaseException) -> None:

@@ -53,6 +53,13 @@ def models_from_bytes(payload: bytes) -> tuple[dict, list[dict]]:
     return engine_json, [stored[i] for i in sorted(stored)]
 
 
+def engine_json_from_bytes(payload: bytes) -> dict:
+    """The engine.json of persisted ``.npz`` bytes, without loading the
+    model arrays."""
+    with np.load(io.BytesIO(payload), allow_pickle=False) as z:
+        return json.loads(str(z[_ENGINE_KEY]))
+
+
 def save_models(path: "str | Path", engine_json: dict, stored: list[dict]) -> None:
     path = Path(path)
     tmp = path.with_name(path.name + ".tmp")

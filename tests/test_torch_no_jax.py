@@ -9,9 +9,10 @@ neither ``jax``, ``orbax`` nor the JAX package is loaded after; and each
 ``pio`` verb (``app``, ``import``, ``status``, ``train --device cpu``,
 ``deploy --device cpu``, ``eventserver``, and on a JSONL event log
 ``import``, ``eventlog compact`` and ``train --window``, ``batchpredict``,
-``models list``, and ``deploy`` with micro-batching, the result cache and
-the refresh loop armed) runs in a fresh interpreter of its own that loads
-none of them.
+``models list``, ``deploy`` with micro-batching, the result cache and
+the refresh loop armed, and on a JSONL log ``deploy --online-foldin
+--quality-eval --multitenant``) runs in a fresh interpreter of its own that
+loads none of them.
 The same holds for the E-Commerce template and the evaluations (the
 ``eval`` and ``dashboard`` verbs, and the vanilla copy's evaluation from
 its engine directory), and for the Classification and Text-Classification
@@ -75,7 +76,8 @@ def test_port_files_exist():
             "persistent_model.py", "self_cleaning.py", "fake_workflow.py",
             "llr.py", "universal_recommender.py", "complementary_purchase.py",
             "deadline.py", "resilience.py", "plugins.py", "create_server.py",
-            "models.py",
+            "models.py", "online.py", "quality.py", "multitenant.py",
+            "holdout.py",
             } <= names
     assert (ROOT / "incubator_predictionio_torch" / "e2"
             / "engine.py").is_file()
@@ -549,3 +551,53 @@ def test_jsonl_verb_in_a_process_without_jax(verb, jsonl_verb_store):
     assert out.returncode == 0, out.stderr[-3000:]
     last = out.stdout.strip().splitlines()[-1]
     assert '"loaded": []' in last, last
+
+
+def test_online_deploy_in_a_process_without_jax(jsonl_verb_store):
+    """``deploy --device cpu --online-foldin --quality-eval --multitenant``
+    on the JSONL store arms the fold-in, quality and tenant loops (their
+    modules imported), serves, drains on SIGTERM and exits 0 without
+    loading JAX or the JAX package."""
+    import json
+
+    from incubator_predictionio_torch.controller import EngineParams
+    from incubator_predictionio_torch.data.storage import Storage
+    from incubator_predictionio_torch.models.recommendation import (
+        RecommendationEngine,
+    )
+    from incubator_predictionio_torch.workflow.context import WorkflowContext
+    from incubator_predictionio_torch.workflow.core_workflow import run_train
+
+    engine_json = json.loads((jsonl_verb_store / "engine.json").read_text())
+    storage = Storage(_jsonl_env(jsonl_verb_store))
+    run_train(RecommendationEngine()(), EngineParams.from_json(engine_json),
+              WorkflowContext(app_name="nojax", storage=storage, device="cpu"),
+              engine_factory_name=engine_json["engineFactory"])
+    storage.close()
+    port = str(_free_port())
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PIO_STORAGE_")}
+    env.update(_jsonl_env(jsonl_verb_store), PYTHONPATH=str(ROOT),
+               PIO_FS_BASEDIR=str(jsonl_verb_store / "base"), PROBE_PORT=port,
+               PIO_FOLDIN_MS="100", PIO_QUALITY_MS="100")
+    script = _VERB.replace("atexit.register(report)", """atexit.register(report)
+def armed():
+    print(json.dumps({"armed": sorted(
+        m for m in sys.modules if m.endswith(
+            ("workflow.online", "workflow.quality", "workflow.multitenant",
+             "api.holdout")))}), flush=True)
+atexit.register(armed)""")
+    out = subprocess.run(
+        [sys.executable, "-c", script, "deploy", "--device", "cpu",
+         "--port", port, "--online-foldin", "--quality-eval",
+         "--multitenant"],
+        capture_output=True, text=True, env=env, cwd=str(jsonl_verb_store),
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert '"loaded": []' in lines[-1], lines[-1]
+    assert json.loads(lines[-2])["armed"] == [
+        "incubator_predictionio_torch.data.api.holdout",
+        "incubator_predictionio_torch.workflow.multitenant",
+        "incubator_predictionio_torch.workflow.online",
+        "incubator_predictionio_torch.workflow.quality"], lines[-2]

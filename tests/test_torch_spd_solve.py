@@ -107,6 +107,32 @@ def test_cpu_path_launches_no_kernel():
     assert spd_solve.gauss_jordan_launches.count == before
 
 
+def test_launch_counters_are_exact_across_threads():
+    """The fold-in thread launches while serving threads read: the three
+    counters tick together under one lock, with no lost update."""
+    import sys
+    import threading
+
+    counters = (spd_solve.gauss_jordan_launches,
+                spd_solve.gauss_jordan_warp_launches,
+                spd_solve.gauss_jordan_wide_launches)
+    before = [c.count for c in counters]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # preempt as often as the interpreter can
+    try:
+        threads = [threading.Thread(target=lambda k=k: [
+            spd_solve.count_launch(k) for _ in range(5_000)])
+            for k in (8, 16, 32, 40, 64, 128, 32, 128)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    got = [c.count - b for c, b in zip(counters, before)]
+    assert got == [40_000, 20_000, 20_000]
+
+
 def test_cuda_request_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
