@@ -2360,10 +2360,12 @@ def phase_pio_workflow_jsonl_ml20m(workdir: str, ratings) -> None:
          kernel_launches=trained["kernel_launches"],
          expected_launches=trained["expected_launches"],
          queries=serve)
-    phase_engine_server_load(env, cwd, trained["engineInstanceId"], stored,
-                             want)
+    single = phase_engine_server_load(env, cwd, trained["engineInstanceId"],
+                                      stored, want)
     phase_engine_server_online(env, cwd, trained["engineInstanceId"], stored,
                                want)
+    phase_engine_server_fleet(env, cwd, trained["engineInstanceId"], stored,
+                              want, single)
     shutil.rmtree(cwd)
 
 
@@ -2544,7 +2546,7 @@ def _items(res: dict) -> list:
 
 
 def phase_engine_server_load(env: dict, cwd: str, instance_id: str,
-                             stored: dict, want: dict) -> None:
+                             stored: dict, want: dict) -> dict:
     """The engine server on the ML-20M-shaped store (pio_workflow_jsonl_ml20m's
     5,000,000 events, rank 32): pio deploy --probe-latency (the probe's
     split from /status), one keep-alive client × SERVE_QUERIES, then 8 and
@@ -2629,6 +2631,7 @@ def phase_engine_server_load(env: dict, cwd: str, instance_id: str,
     emit("engine_server_load", instance=instance_id,
          users=len(want["users"]), items=len(want["items"]),
          launches=launches(), **out)
+    return out["unbatched"]
 
 
 def phase_engine_server_lifecycle(workdir: str, env: dict,
@@ -3173,6 +3176,531 @@ def phase_engine_server_online(env: dict, cwd: str, instance_id: str,
     emit("engine_server_online", instance=instance_id,
          users=len(want["users"]), items=len(want["items"]),
          knobs=ONLINE_ENV, **out)
+
+
+# -- the serving fleet ------------------------------------------------------
+
+#: the fleet's knobs in engine_server_fleet: the directive and status rows
+#: every 250 ms, readiness probes every 200 ms, a 1 s post-swap watch (the
+#: canary's window), a fold-in tick every 250 ms
+FLEET_ENV = {"PIO_FLEET_SYNC_MS": "250", "PIO_FLEET_READY_MS": "200",
+             "PIO_SWAP_WATCH_MS": "1000", "PIO_FOLDIN_MS": "250"}
+#: clients of the SIGKILL flood, each query on a fresh connection
+FLOOD_CLIENTS = 4
+
+
+class _Fleet(_Served):
+    """``pio deploy --replicas N`` (the front) in its own process, its output
+    in a file; up once the front's own /healthz counts N ready replicas."""
+
+    def __init__(self, replicas: int, extra: list, env: dict, cwd: str):
+        self.replicas = replicas
+        self.port = _free_port()
+        self.log_path = os.path.join(cwd, f"fleet_front_{self.port}.log")
+        self._log = open(self.log_path, "wb")
+        self.t_start = time.perf_counter()
+        self.proc = subprocess.Popen(
+            CONSOLE + ["deploy", "--replicas", str(replicas), *extra,
+                       "--ip", "127.0.0.1", "--port", str(self.port)],
+            stdout=self._log, stderr=subprocess.STDOUT, env=env, cwd=cwd)
+
+    def tail(self) -> str:
+        with open(self.log_path, "rb") as fh:
+            return fh.read()[-3000:].decode(errors="replace")
+
+    def healthz(self) -> dict:
+        return self.request("GET", "/healthz")[1]
+
+    def view(self) -> dict:
+        """The fleet view of whichever replica answers /status."""
+        return self.request("GET", "/status")[1].get("fleet") or {}
+
+    def __enter__(self):
+        deadline = time.time() + 300
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"fleet front exited: {self.tail()}")
+            try:
+                doc = self.healthz()
+                if doc.get("readyReplicas") == self.replicas and all(
+                        b["alive"] for b in doc["backends"]):
+                    self.up_seconds = time.perf_counter() - self.t_start
+                    return self
+            except (OSError, http.client.HTTPException, ValueError):
+                pass
+            check(time.time() < deadline,
+                  f"the fleet never came up: {self.tail()}")
+            time.sleep(0.25)
+
+    def replicas_at(self) -> list:
+        """One endpoint per live replica (queried directly, not spliced)."""
+        return [_Endpoint(b["port"]) for b in self.healthz()["backends"]]
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:   # a failed phase: drain what is left
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._log.close()
+
+
+class _Endpoint(_Served):
+    """One replica's own port."""
+
+    def __init__(self, port: int):
+        self.port = port
+
+
+class _Busy:
+    """The card's busy share over a window: nvidia-smi's utilization.gpu
+    (the share of each 100 ms sample in which a kernel ran), sampled by one
+    nvidia-smi process for the window."""
+
+    def __enter__(self):
+        self.samples: list = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        return self
+
+    def _read(self):
+        for line in self.proc.stdout:
+            if line.strip().isdigit():
+                self.samples.append(int(line.strip()))
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        self.proc.wait(timeout=30)
+        self.reader.join(timeout=30)
+
+    def share(self):
+        return (float(np.mean(self.samples)) / 100.0 if self.samples
+                else None)
+
+
+def _cpu_seconds(pid: int) -> float:
+    """User + system CPU seconds of a process (/proc/<pid>/stat)."""
+    with open(f"/proc/{pid}/stat", encoding="utf-8") as fh:
+        fields = fh.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _cuda_contexts(fleet: "_Fleet", pids: list) -> dict:
+    """The processes nvidia-smi lists as holding a CUDA context, against
+    the fleet's: the replicas and this script hold one each, the front
+    none. (Where nvidia-smi lists every process as pid 1, a container's
+    pid namespace, the count is the evidence.)"""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    apps = [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+    check(fleet.proc.pid not in apps and len(apps) <= len(pids) + 1,
+          f"{len(apps)} CUDA contexts for {len(pids)} replicas and this "
+          "script: the fleet front holds one")
+    return {"contexts": len(apps), "replicas": len(pids),
+            "pids_listed": apps, "front_pid": fleet.proc.pid,
+            "replica_pids": pids}
+
+
+def _fleet_load(fleet: _Fleet, users: list, served: dict) -> dict:
+    """8 and 32 keep-alive clients through the front (each connection stays
+    on one replica), every answer held to the host top-k of ``served``;
+    the card's busy share and the front's CPU seconds beside each run."""
+    out = {}
+    for n in (8, 32):
+        cpu0 = _cpu_seconds(fleet.proc.pid)
+        with _Busy() as busy:
+            run = _clients(fleet, users[:n * CLIENT_QUERIES], n, served)
+        run.pop("answers")
+        out[n] = {**run, "busy_share": busy.share(),
+                  "busy_samples": len(busy.samples),
+                  "front_cpu_seconds": _cpu_seconds(fleet.proc.pid) - cpu0}
+    return out
+
+
+def _fleet_holds(fleet: _Fleet, users: list, served: dict) -> int:
+    """Every replica, queried on its own port, answers ``users`` with the
+    host top-k of ``served``; the answers held."""
+    held = 0
+    for ep in fleet.replicas_at():
+        conn = ep.connect()
+        try:
+            for u in users:
+                status, res, _ = ep.request("POST", "/queries.json",
+                                            {"user": u, "num": 10}, conn)
+                check(status == 200, f"replica {ep.port}: {status} {res}")
+                _hold_als_answer(served, u, res)
+                held += 1
+        finally:
+            conn.close()
+    return held
+
+
+def _wait_fleet(fleet: _Fleet, what: str, pred, timeout: float = 120.0):
+    """Poll the fleet view until ``pred(view)`` is truthy; (value, s)."""
+    t0 = time.perf_counter()
+    view: dict = {}
+    while time.perf_counter() - t0 < timeout:
+        try:
+            view = fleet.view()
+        except (OSError, http.client.HTTPException):
+            view = {}
+        got = pred(view)
+        if got:
+            return got, time.perf_counter() - t0
+        time.sleep(0.05)
+    raise AssertionError(f"{what} within {timeout:.0f} s: {view}")
+
+
+def _all_on(instance: str, n: int):
+    """A fleet-view predicate: steady on ``instance``, n peers serving it."""
+    def pred(v):
+        d = v.get("directive") or {}
+        peers = v.get("peers") or []
+        return (d.get("state") == "steady" and d.get("instance") == instance
+                and len(peers) == n
+                and all(p.get("instance") == instance for p in peers)
+                and not v.get("divergence")) and v
+    return pred
+
+
+class _FleetPump(_Pump):
+    """A keep-alive client through the front that first asks /status on its
+    own connection which replica it landed on."""
+
+    def run(self):
+        conn = self.srv.connect()
+        k = 0
+        try:
+            self.replica = self.srv.request(
+                "GET", "/status", conn=conn)[1]["fleet"]["replica"]
+            while not self.halt.is_set():
+                user = self.users[k % len(self.users)]
+                k += 1
+                try:
+                    status, _, ms = self.srv.request(
+                        "POST", "/queries.json", {"user": user, "num": 10},
+                        conn)
+                except (OSError, http.client.HTTPException) as e:
+                    self.errors.append(repr(e))
+                    return
+                self.log.append((time.perf_counter(), status, ms))
+        finally:
+            conn.close()
+
+
+def _flood(fleet: _Fleet, users: list, halt: threading.Event) -> dict:
+    """FLOOD_CLIENTS clients, a fresh connection per query, until ``halt``:
+    HTTP statuses and connection errors."""
+    codes: list = []
+    errors: list = []
+
+    def client(k):
+        j = k
+        while not halt.is_set():
+            try:
+                codes.append(fleet.request("POST", "/queries.json", {
+                    "user": users[j % len(users)], "num": 10})[0])
+            except (OSError, http.client.HTTPException) as e:
+                errors.append(repr(e))
+            j += FLOOD_CLIENTS
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(FLOOD_CLIENTS)]
+    for t in threads:
+        t.start()
+    return {"codes": codes, "errors": errors, "threads": threads}
+
+
+def _shifted(events: list, n_users: int, n_items: int, du: int,
+             di: int) -> list:
+    """New users and items of a FOLD_IN batch moved past ``du`` / ``di``
+    (a second batch of the same shape whose users are all new)."""
+    def move(x: str, n: int, d: int) -> str:
+        return x[0] + str(int(x[1:]) + d) if int(x[1:]) >= n else x
+    return [{**e, "entityId": move(e["entityId"], n_users, du),
+             "targetEntityId": move(e["targetEntityId"], n_items, di)}
+            for e in events]
+
+
+def _exit_records(run_dir: str) -> dict:
+    """Replica i → the exit records (kernel launches) its processes wrote
+    into the supervisor's worker_<i>.log; a SIGKILLed process writes none."""
+    out: dict = {}
+    for name in sorted(os.listdir(run_dir)):
+        if name.startswith("worker_") and name.endswith(".log"):
+            with open(os.path.join(run_dir, name), encoding="utf-8",
+                      errors="replace") as fh:
+                out[int(name[7:-4])] = [json.loads(ln) for ln in fh
+                                        if ln.startswith('{"kernel_launches"')]
+    return out
+
+
+def _sigterm_fleet(fleet: _Fleet, pids: list) -> dict:
+    """SIGTERM the front: every replica drains and exits, the front exits
+    0 and no replica pid survives."""
+    t0 = time.perf_counter()
+    fleet.proc.send_signal(signal.SIGTERM)
+    rc = fleet.proc.wait(timeout=120)
+    seconds = time.perf_counter() - t0
+    survivors = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            survivors.append(pid)
+        except OSError:
+            pass
+    check(rc == 0, f"fleet front exited {rc}: {fleet.tail()}")
+    check(not survivors, f"replica pid(s) {survivors} survived the front")
+    return {"exit_code": rc, "sigterm_to_exit_seconds": seconds,
+            "replica_pids": pids, "survivors": survivors}
+
+
+def phase_engine_server_fleet(env: dict, cwd: str, instance_id: str,
+                              stored: dict, want: dict,
+                              single: dict) -> None:
+    """pio deploy --replicas on the ML-20M-shaped store (no retrain): each
+    replica a `pio deploy --replica-worker` process with its own CUDA
+    context on the one card, the front a process that never touches it.
+
+    The served base is a COMPLETED copy of the trained instance committed
+    here (the online phase left newer instances in the store). Fleet A,
+    `--replicas 2 --online-foldin`: (1) 8 and 32 keep-alive clients, every
+    answer held to the host top-k, beside ``single`` (this run's
+    engine_server_load unbatched rows), the card's busy share and the
+    front's CPU seconds; (2) a valid instance (user factors × 2) staged on
+    the canary, promoted, both replicas serving it, then a NaN instance
+    refused by the canary's gate with the fleet on last-good; (3) POST
+    /rollback on one replica rolls the whole fleet back; (4) replica 1
+    SIGKILLed under a fresh-connection flood and relaunched; (5) two
+    FOLD_IN-shaped batches appended, with 1 and then 8 keep-alive clients
+    querying: the freshness until both replicas serve every sampled new
+    user, replica 0 alone producing (2 warp launches per increment,
+    replica 1 none), the clients' p50 / p99 while each lands; (6) pio
+    undeploy refused (409) and SIGTERM: every replica drains, no pid
+    survives. Fleet B, `--replicas 4`: the load of (1), and which pids
+    hold a CUDA context."""
+    n_users, n_items, _ = ML20M
+    new_users, new_items, n_events = FOLD_IN
+    store = _storage_of(env)
+    app = store.get_meta_data_apps().get_by_name("ml20m")
+    le = store.get_l_events()
+    log_path = os.path.join(le.events_dir, f"events_{app.id}.jsonl")
+    rng = np.random.default_rng(27)
+    rng.integers(0, len(want["users"]), BATCHPREDICT_QUERIES)
+    load_users = [want["users"][int(k)] for k in
+                  rng.integers(0, len(want["users"]), 32 * CLIENT_QUERIES)]
+    known = load_users[:200]
+    fenv = env | FLEET_ENV
+    reset_launches()
+    out: dict = {"knobs": FLEET_ENV, "single_process": single}
+    base_id = _commit_instance(store, instance_id, stored)
+    with _Fleet(2, ["--online-foldin"], fenv, cwd) as fleet:
+        _, adopt_s = _wait_fleet(fleet, "bootstrap adoption",
+                                 _all_on(base_id, 2))
+        pids = [b["pid"] for b in fleet.healthz()["backends"]]
+        out["cuda_contexts_2"] = _cuda_contexts(fleet, pids)
+        out["fleet_2"] = {"up_seconds": fleet.up_seconds,
+                          "adopt_seconds": adopt_s,
+                          **_fleet_load(fleet, load_users, stored)}
+        check(_increments(store, base_id) == [],
+              "an increment was staged before any batch was appended")
+
+        # 2. the staged canary, then a poisoned instance
+        pumps = [_FleetPump(fleet, known) for _ in range(2)]
+        for p in pumps:
+            p.start()
+        t0 = time.perf_counter()
+        doubled = dict(stored, user_factors=stored["user_factors"] * 2)
+        good_id = _commit_instance(store, base_id, doubled)
+        commit_s = time.perf_counter() - t0
+        canary, _ = _wait_fleet(fleet, "the canary staged", lambda v: (
+            v if (v.get("directive") or {}).get("target") == good_id
+            else None))
+        staged = canary["directive"]
+        _wait_fleet(fleet, "the canary promoted", _all_on(good_id, 2))
+        t_promoted = time.perf_counter()
+        held = _fleet_holds(fleet, known[:10], doubled)
+        nan_id = _commit_instance(
+            store, base_id, dict(stored, user_factors=np.full_like(
+                stored["user_factors"], np.nan)))
+        refused, refuse_s = _wait_fleet(fleet, "the NaN canary refused",
+                                        lambda v: v if (
+            (v.get("directive") or {}).get("pinned", {}).get(nan_id)
+            == "validate" and _all_on(good_id, 2)(v)) else None)
+        held += _fleet_holds(fleet, known[10:20], doubled)
+        out["canary"] = {
+            "good_instance": good_id, "commit_seconds": commit_s,
+            "canary_replica": staged["canaryReplica"],
+            "commit_to_promoted_seconds": t_promoted - t0,
+            "nan_instance": nan_id, "nan_refused_seconds": refuse_s,
+            "pinned": refused["directive"]["pinned"], "answers_held": held}
+
+        # 3. a fleet-wide rollback through one replica
+        t0 = time.perf_counter()
+        status, res, _ = fleet.request("POST", "/rollback")
+        check(status == 200 and res.get("fleet") is True
+              and res["engineInstanceId"] == base_id,
+              f"/rollback {status}: {res}")
+        back, converge_s = _wait_fleet(fleet, "the fleet rolled back",
+                                       _all_on(base_id, 2))
+        out["rollback"] = {
+            "seconds_to_all_replicas": time.perf_counter() - t0,
+            "poll_seconds": converge_s,
+            "fleet_fresh_s": model_artifact.fleet_fresh_s(
+                float(FLEET_ENV["PIO_FLEET_SYNC_MS"])),
+            "pinned": back["directive"]["pinned"],
+            "answers_held": _fleet_holds(fleet, known[20:30], stored)}
+        out["client_through_canary"] = [
+            {**p.finish(), "replica": p.replica} for p in pumps]
+
+        # 4. replica 1 SIGKILLed mid-flood, relaunched by the supervisor
+        halt = threading.Event()
+        flood = _flood(fleet, known, halt)
+        time.sleep(1.0)
+        victim = next(b for b in fleet.healthz()["backends"]
+                      if b["replica"] == 1)
+        t0 = time.perf_counter()
+        os.kill(victim["pid"], signal.SIGKILL)
+        while True:
+            h = fleet.healthz()
+            if (h["readyReplicas"] == 2
+                    and all(b["alive"] for b in h["backends"])
+                    and any(b["restarts"] >= 1 for b in h["backends"])):
+                break
+            check(time.perf_counter() - t0 < 180, f"no relaunch: {h}")
+            time.sleep(0.1)
+        relaunch_s = time.perf_counter() - t0
+        time.sleep(1.0)
+        halt.set()
+        for t in flood["threads"]:
+            t.join(60)
+        codes = flood["codes"]
+        check(set(codes) == {200}, f"flood statuses {sorted(set(codes))}")
+        check(len(flood["errors"]) <= 12,
+              f"flood connection errors {flood['errors'][:3]}")
+        _, rejoin_s = _wait_fleet(fleet, "the relaunched replica rejoined",
+                                  _all_on(base_id, 2))
+        out["sigkill"] = {"victim_pid": victim["pid"],
+                          "relaunch_seconds": relaunch_s,
+                          "rejoin_poll_seconds": rejoin_s,
+                          "flood_answered_200": len(codes),
+                          "flood_connection_errors": len(flood["errors"]),
+                          "restarts": {b["replica"]: b["restarts"] for b in
+                                       fleet.healthz()["backends"]}}
+
+        # 5. online fold-in: replica 0 produces, the canary stages
+        first = _prefixed(fold_in_events(
+            n_users, n_items, new_users, new_items,
+            n_events - 5 * new_users - 4 * new_items, seed=8))
+        second = _shifted(first, n_users, n_items, 3 * new_users,
+                          2 * new_items)
+        served, landed = stored, []
+        for clients, batch, shift in ((1, first, 0),
+                                      (8, second, 3 * new_users)):
+            cold = [f"u{n_users + shift + j}"
+                    for j in range(0, new_users, new_users // COLD_USERS)]
+            pumps = [_FleetPump(fleet, known) for _ in range(clients)]
+            for p in pumps:
+                p.start()
+            time.sleep(1.0)   # the clients' baseline
+            t_in = time.perf_counter()
+            le.insert_batch([Event.from_json(e) for e in batch], app.id)
+            size1 = os.path.getsize(log_path)
+            eps = fleet.replicas_at()
+            conns = [ep.connect() for ep in eps]
+            pending = [(ep, c, u) for ep, c in zip(eps, conns) for u in cold]
+            while pending:
+                check(time.perf_counter() - t_in < 180,
+                      f"{len(pending)} (replica, new user) pairs unserved")
+                pending = [(ep, c, u) for ep, c, u in pending
+                           if _known_answer(ep, c, u) is None]
+                if pending:
+                    time.sleep(0.05)
+            t_known = time.perf_counter()
+            while True:
+                incs = _increments(store, base_id)
+                if incs and incs[-1][1]["lsn"] == size1:
+                    break
+                check(time.perf_counter() - t_in < 180,
+                      "no increment reaches the batch's end")
+                time.sleep(0.05)
+            last = incs[-1][0]
+            _wait_fleet(fleet, "the increment promoted", _all_on(last, 2))
+            t_published = time.perf_counter()
+            served = _persisted(env, last)
+            held = 0
+            for ep, c in zip(eps, conns):
+                for u in cold + known[:10]:
+                    _hold_als_answer(served, u, _known_answer(ep, c, u))
+                    held += 1
+                c.close()
+            landed.append({
+                "clients": clients, "events": len(batch),
+                "sampled_new_users": len(cold),
+                "freshness_seconds": t_known - t_in,
+                "published_seconds": t_published - t_in,
+                "increments_so_far": len(incs), "answers_held": held,
+                "client_replicas": [p.replica for p in pumps],
+                "client_before": [p.window(t_in - 1.0, t_in)
+                                  for p in pumps],
+                "client_while_landing": [p.window(t_in, t_published)
+                                         for p in pumps],
+                "clients_total": [p.finish() for p in pumps]})
+        out["foldin"] = landed
+        increments = len(_increments(store, base_id))
+
+        # 6. pio undeploy is refused by a replica; SIGTERM stops the fleet
+        und = subprocess.run(
+            CONSOLE + ["undeploy", "--ip", "127.0.0.1", "--port",
+                       str(fleet.port)], capture_output=True, text=True,
+            env=env, cwd=cwd, timeout=300)
+        check(und.returncode == 1 and "shrink the fleet" in und.stderr,
+              f"pio undeploy against the fleet: {und.returncode} "
+              f"{und.stderr[-500:]}")
+        run_dir = fleet.healthz()["runDir"]
+        pids_now = [b["pid"] for b in fleet.healthz()["backends"]]
+        out["undeploy"] = {"exit_code": und.returncode, "refused": True}
+        out["shutdown"] = _sigterm_fleet(fleet, pids_now)
+    records = _exit_records(run_dir)
+    r0 = records.get(0, [])
+    r1 = records.get(1, [])
+    check(len(r0) == 1 and r0[0]["kernel_launches"] == {
+        "warp": 2 * increments, "wide": 0},
+          f"replica 0's launches {r0} for {increments} increment(s)")
+    check(r1 and all(r["kernel_launches"] == {"warp": 0, "wide": 0}
+                     for r in r1), f"replica 1's launches {r1}")
+    record("engine_server_fleet", {
+        "warp": sum(r["kernel_launches"]["warp"] for r in r0 + r1),
+        "wide": sum(r["kernel_launches"]["wide"] for r in r0 + r1)})
+    out["launches"] = {"increments": increments,
+                       "replica_0": [r["kernel_launches"] for r in r0],
+                       "replica_1": [r["kernel_launches"] for r in r1],
+                       "replica_1_processes": 2,
+                       "counted": "replicas that exited cleanly; the "
+                                  "SIGKILLed replica 1 wrote none"}
+
+    # fleet B: 4 replicas on the fleet's last instance
+    with _Fleet(4, [], fenv, cwd) as fleet:
+        pids = [b["pid"] for b in fleet.healthz()["backends"]]
+        view, _ = _wait_fleet(fleet, "four replicas on one instance",
+                              lambda v: v if len(v.get("peers") or []) == 4
+                              and not v.get("divergence") else None)
+        on = view["directive"]["instance"]
+        served = _persisted(env, on)
+        out["cuda_contexts_4"] = _cuda_contexts(fleet, pids)
+        out["fleet_4"] = {"up_seconds": fleet.up_seconds, "instance": on,
+                          **_fleet_load(fleet, load_users, served)}
+        out["shutdown_4"] = _sigterm_fleet(fleet, pids)
+    store.close()
+    emit("engine_server_fleet", instance=instance_id, base=base_id,
+         users=len(want["users"]), items=len(want["items"]), **out)
 
 
 def _tenant_route(a: int, name: str) -> tuple:
@@ -3863,7 +4391,7 @@ def phase_ecommerce_jsonl(workdir: str) -> None:
 ML100K_SEED = 11
 #: the E-Commerce sweep's events: view events of the first EVAL_VIEWS
 #: ML-100K pairs (see phase_pio_eval for the cut)
-EVAL_VIEWS = 2_000
+EVAL_VIEWS = 500
 EVAL_MODULES = {
     "recommendation": (
         "incubator_predictionio_torch.models.recommendation_eval."
@@ -4443,10 +4971,10 @@ UR_SMALL = (10_000, 2_000, 1_000_000)
 #: scipy and a float64 G²
 CCO_SAMPLE = 64
 #: the verbs' buys and views (config 5's first ones, over the full id
-#: space; 10 % of its events), cut for the script's time: pio train reads
+#: space; 2.5 % of its events), cut for the script's time: pio train reads
 #: the log through find_batch, a Python object per event (2,000,000 events
 #: took 66.9 s end to end on one H100 host, 55.3 s of it the read)
-UR_LOG = (200_000, 800_000)
+UR_LOG = (50_000, 200_000)
 UR_CATEGORIES = 20
 #: the share of items with an availableDate / expireDate window (the
 #: window below; before it, after it and without a currentDate they are

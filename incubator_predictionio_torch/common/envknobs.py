@@ -9,7 +9,12 @@ The port's own copy of the parts of
 ``PIO_ENGINE_SERVER_PLUGINS``, the online fold-in's ``PIO_FOLDIN_MS``, the
 quality watch's ``PIO_QUALITY_{SAMPLE,K,MIN_SAMPLES,MAX_DROP,WATCH_MS,
 RESOLVE_MS,MS}`` and the tenant mux's
-``PIO_TENANT_{MAX_RESIDENT,MAX_PENDING,KEY_TTL_MS}``), with the same
+``PIO_TENANT_{MAX_RESIDENT,MAX_PENDING,KEY_TTL_MS}``, the serving fleet's
+``PIO_QUERY_REPLICAS``, ``PIO_FLEET_{SYNC,READY,CONNECT_RETRY}_MS``,
+``PIO_FLEET_{MIN,MAX}_REPLICAS``, ``PIO_FLEET_APP``,
+``PIO_FLEET_WORKER_FAULT_SPEC[_<i>]`` and ``PIO_SCALE_*``, and the
+supervisor's ``PIO_WORKER_*``, ``PIO_TRAIN_MAX_RESTARTS``,
+``PIO_TRAIN_DRAIN_MS`` and ``PIO_SUPERVISOR_POLL_MS``), with the same
 semantics:
 
 - unset / empty         → ``default`` (always)
@@ -26,7 +31,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["env_int", "env_float", "env_flag", "env_str"]
+__all__ = ["env_int", "env_float", "env_ms", "env_flag", "env_str"]
 
 
 def env_int(name: str, default: int, *, lo: Optional[int] = None,
@@ -70,6 +75,12 @@ def env_float(name: str, default: float, *, lo: Optional[float] = None,
     if hi is not None:
         v = min(hi, v)
     return v
+
+
+def env_ms(name: str, default_ms: float, *, lo_ms: float = 0.0) -> float:
+    """Millisecond knob returned in SECONDS (what time.monotonic math
+    wants); malformed/non-finite → default, clamped at ``lo_ms``."""
+    return env_float(name, default_ms, lo=lo_ms) / 1000.0
 
 
 def env_flag(name: str, default: bool) -> bool:

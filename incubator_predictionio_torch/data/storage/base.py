@@ -39,6 +39,18 @@ class AccessKey:
     events: Sequence[str] = ()  # empty = all events allowed
 
 
+def new_access_key() -> str:
+    """A fresh random access key that never starts with ``-``: such a key
+    reads as an option on the ``pio accesskey`` command line (one
+    ``secrets.token_urlsafe`` key in 64 does)."""
+    import secrets
+
+    while True:
+        key = secrets.token_urlsafe(48)
+        if not key.startswith("-"):
+            return key
+
+
 @dataclass(frozen=True)
 class Channel:
     id: int

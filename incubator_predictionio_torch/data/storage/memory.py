@@ -211,9 +211,7 @@ class MemoryAccessKeys(base.AccessKeys):
         self._lock = threading.RLock()
 
     def insert(self, k: base.AccessKey) -> Optional[str]:
-        import secrets
-
-        key = k.key or secrets.token_urlsafe(48)
+        key = k.key or base.new_access_key()
         with self._lock:
             if key in self._by_key:
                 return None

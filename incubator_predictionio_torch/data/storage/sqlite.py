@@ -213,9 +213,7 @@ class SQLiteAccessKeys(base.AccessKeys, _Dao):
         )
 
     def insert(self, k: base.AccessKey) -> Optional[str]:
-        import secrets
-
-        key = k.key or secrets.token_urlsafe(48)
+        key = k.key or base.new_access_key()
         with self._lock, self._conn:
             try:
                 self._conn.execute(

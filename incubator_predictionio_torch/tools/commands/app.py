@@ -185,6 +185,10 @@ def accesskey_cmd(args: list[str]) -> int:
     p_list.add_argument("app_name", nargs="?")
     p_del = sub.add_parser("delete")
     p_del.add_argument("key")
+    if (len(args) == 2 and args[0] == "delete" and args[1].startswith("-")
+            and args[1] not in ("-h", "--help", "--")):
+        # a key that starts with "-" is a key here, not an option
+        args = ["delete", "--", args[1]]
     ns = p.parse_args(args)
     s = _storage()
     keys = s.get_meta_data_access_keys()

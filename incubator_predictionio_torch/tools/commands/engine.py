@@ -14,9 +14,12 @@ runs the engine server of ``workflow/create_server.py`` (admission
 control, micro-batching, the result cache, the model lifecycle, drain on
 SIGTERM), with ``--online-foldin`` (reference :298-306),
 ``--quality-eval`` (:307-315) and ``--multitenant`` (:322-330) arming
-its fold-in loop, quality watch and tenant mux. The reference's gang
-training (``--num-workers``, ``--feed``) and the serving fleet
-(``--replicas``) are not ported yet.
+its fold-in loop, quality watch and tenant mux. ``deploy --replicas
+N|auto`` (reference :331-371, :432-530) serves as a fleet: the front of
+``workflow/fleet.py`` supervising N ``deploy --replica-worker`` copies of
+the same command line (``--device`` included), each serving on the card in
+its own process. The reference's gang training (``--num-workers``,
+``--feed``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,17 +31,24 @@ import sys
 import time
 
 from ...data.storage.registry import Storage
-from ...workflow.json_extractor import engine_and_params_from_json, load_engine_json
 from ...workflow.workflow_params import WorkflowParams
 from . import verb
 
+# json_extractor (the controller API, torch) is imported where an engine is
+# loaded, never at module import: `undeploy` and every verb of the other
+# command modules start without torch
+
 
 def _engine_json(ns) -> dict:
+    from ...workflow.json_extractor import load_engine_json
+
     path = ns.engine_json or os.path.join(ns.engine_dir, "engine.json")
     return load_engine_json(path, ns.variant)
 
 
 def _load_engine(ns):
+    from ...workflow.json_extractor import engine_and_params_from_json
+
     engine_json = _engine_json(ns)
     engine, params, factory = engine_and_params_from_json(engine_json,
                                                           ns.engine_dir)
@@ -265,7 +275,17 @@ def deploy_cmd(args: list[str]) -> int:
     p.add_argument("--rollback", action="store_true",
                    help="don't deploy: tell the engine server already "
                         "running at --ip/--port to roll back to its "
-                        "previous deployment, then exit")
+                        "previous deployment, then exit (against a fleet "
+                        "front this is a FLEET rollback)")
+    p.add_argument("--replicas", default=None, metavar="N|auto",
+                   help="serve as a fleet of N supervised engine-server "
+                        "processes behind an L4 splice front with a staged "
+                        "canary rollout (default $PIO_QUERY_REPLICAS, else "
+                        "0 = single process); 'auto' arms elastic mode "
+                        "within [$PIO_FLEET_MIN_REPLICAS, "
+                        "$PIO_FLEET_MAX_REPLICAS]")
+    p.add_argument("--replica-worker", action="store_true",
+                   help=argparse.SUPPRESS)  # internal: one fleet replica
     ns = p.parse_args(args)
     if ns.model is not None and (ns.online_foldin or ns.quality_eval
                                  or ns.multitenant):
@@ -276,13 +296,46 @@ def deploy_cmd(args: list[str]) -> int:
 
         host = "127.0.0.1" if ns.ip in ("0.0.0.0", "::") else ns.ip
         return rollback_via_url(f"http://{host}:{ns.port}")
+    if ns.replica_worker:
+        return _deploy_replica_worker(ns)
+    from ...common import envknobs
+
+    raw = (str(ns.replicas) if ns.replicas is not None
+           else envknobs.env_str("PIO_QUERY_REPLICAS", "0"))
+    elastic = raw.strip().lower() == "auto"
+    if elastic:
+        replicas = 0  # run_fleet starts at the operator floor
+    else:
+        try:
+            replicas = max(0, int(raw))
+        except ValueError:
+            print(f"[error] --replicas expects an integer or 'auto', "
+                  f"got {raw!r}", file=sys.stderr)
+            return 1
+    if replicas >= 1 or elastic:
+        if ns.model is not None:
+            p.error("--replicas needs the model store: not with --model")
+        return _deploy_fleet(args, ns, replicas, elastic)
     from ...workflow.create_server import run_engine_server
 
     server = _build_engine_server(ns)
     print(f"[info] Engine is deployed and running. Listening on "
           f"{ns.ip}:{ns.port}", flush=True)
     run_engine_server(server, ns.ip, ns.port, probe_latency=ns.probe_latency)
+    _print_served_launches()
     return 0
+
+
+def _print_served_launches() -> None:
+    """After serving stopped: this process's solve-kernel launches (the
+    online fold-in's, in a fleet replica 0's alone) as one JSON line, the
+    counterpart of train's ``kernel_launches``."""
+    from ...common import envknobs
+
+    replica = envknobs.env_int("PIO_FLEET_REPLICA", -1)
+    print(json.dumps({"kernel_launches": _launches(),
+                      "fleetReplica": replica if replica >= 0 else None,
+                      "pid": os.getpid()}), flush=True)
 
 
 def _build_engine_server(ns):
@@ -326,6 +379,101 @@ def _build_engine_server(ns):
         feedback_app_name=_app_name(params),
         **online,
         **knobs)
+
+
+def _strip_replicas(args: list[str]) -> list[str]:
+    """A replica's argv: the deploy argv minus the fleet flag (a replica
+    that spawned a fleet of its own would fork without end)."""
+    out, skip = [], False
+    for tok in args:
+        if skip:
+            skip = False
+            continue
+        if tok == "--replicas":
+            skip = True
+            continue
+        if tok.startswith("--replicas="):
+            continue
+        out.append(tok)
+    return out
+
+
+def _tls_requested() -> bool:
+    """The reference's TLS knobs (both set) are in the environment."""
+    return bool(os.environ.get("PIO_SSL_CERTFILE")
+                and os.environ.get("PIO_SSL_KEYFILE"))
+
+
+def _deploy_fleet(args: list[str], ns, replicas: int,
+                  elastic: bool = False) -> int:
+    """`pio deploy --replicas N` front: the fleet coordinator and splice
+    front (``workflow/fleet.py``) supervising N ``--replica-worker``
+    copies of this command line. The front reads engine.json for the
+    factory and variant names and never loads the engine or touches the
+    card: the replicas carry the models."""
+    from ...workflow import multitenant
+    from ...workflow.fleet import run_fleet
+
+    if _tls_requested():
+        # the splice front and its readiness probes are plaintext L4: TLS
+        # replicas would never probe ready, and the /healthz peek cannot
+        # see inside a ClientHello
+        print("[error] --replicas does not support PIO_SSL_CERTFILE/"
+              "PIO_SSL_KEYFILE: the splice front and its readiness probes "
+              "are plaintext L4. Terminate TLS at a proxy in front of the "
+              "fleet and unset the PIO_SSL_* knobs here.", file=sys.stderr)
+        return 1
+    engine_json = _engine_json(ns)
+    factory = engine_json.get("engineFactory", "engine")
+    variant = engine_json.get("id", "default")
+    worker_argv = [sys.executable, "-m",
+                   "incubator_predictionio_torch.tools.console", "deploy",
+                   "--replica-worker", *_strip_replicas(args)]
+    if ns.probe_latency:
+        print("[warn] --probe-latency is ignored with --replicas: the probe "
+              "measures ONE process's hot path and would race N replicas "
+              "writing the same instance row; probe a single-process "
+              "deploy instead", file=sys.stderr)
+    if ns.engine_instance_id:
+        print("[warn] --engine-instance-id only seeds the replicas' FIRST "
+              "load with --replicas: the fleet coordinator owns rollout and "
+              "will stage (and, if healthy, promote) the newest COMPLETED "
+              "instance on its next tick. To hold the fleet on an older "
+              "version, roll back to it (`pio models rollback --engine-url "
+              "<front>`) so the newer instance is pinned", file=sys.stderr)
+    if elastic:
+        print(f"[info] Engine fleet: elastic replicas behind "
+              f"{ns.ip}:{ns.port} (autoscaler armed; bounds from "
+              "PIO_FLEET_MIN/MAX_REPLICAS, staged canary rollout, front "
+              "/healthz aggregates liveness + scaler state)", flush=True)
+    else:
+        print(f"[info] Engine fleet: {replicas} replica(s) behind "
+              f"{ns.ip}:{ns.port} (staged canary rollout; front /healthz "
+              "aggregates liveness)", flush=True)
+    from ...common import envknobs
+
+    armed = (ns.multitenant
+             or envknobs.env_int("PIO_TENANT_MAX_RESIDENT", 0, lo=0) > 0)
+    return run_fleet(worker_argv, replicas, ns.ip, ns.port,
+                     engine_factory_name=factory, engine_variant=variant,
+                     app_name=multitenant.fleet_app(engine_json, armed),
+                     elastic=elastic)
+
+
+def _deploy_replica_worker(ns) -> int:
+    """One supervised fleet replica: its identity and port arrive in the
+    supervisor's environment (the front owns --ip/--port). The
+    ``fleet.spawn`` fault point fires BEFORE the engine loads."""
+    from ...workflow.create_server import run_engine_server
+    from ...workflow.fleet import replica_worker_entry
+
+    port = replica_worker_entry()
+    if port <= 0:
+        return 1
+    server = _build_engine_server(ns)
+    run_engine_server(server, "127.0.0.1", port)
+    _print_served_launches()
+    return 0
 
 
 @verb("undeploy", "stop a running engine server")

@@ -12,8 +12,10 @@ files; ``import`` writes to whichever event store is configured (SQLite or
 the JSONL log). ``eventlog`` has ``compact``, ``scrub``, ``status``,
 ``retire`` and ``tail``; ``fence``, ``archive`` and ``restore`` wait for
 the partition leases and the archive source. Parquet, the write-ahead log,
-the fleet, the storage server, the dashboard and the admin server are not
-ported yet.
+the storage server, the dashboard and the admin server are not ported
+yet. ``fleet plan`` (:582) and the fleet and autoscaler lines of
+``status --engine-url`` (``_print_fleet`` :355, ``_print_autoscaler``
+:262) read a serving fleet's front.
 """
 
 from __future__ import annotations
@@ -176,6 +178,90 @@ def _print_engine_overload(url: str) -> None:
     tenants = doc.get("tenants")
     if tenants:
         _print_tenants(tenants)
+    fleet = doc.get("fleet")
+    if fleet:
+        _print_fleet(fleet)
+    _print_autoscaler(base)
+
+
+def _fetch_json(url: str, timeout: float = 5.0) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read().decode("utf-8"))
+
+
+def _print_autoscaler(base: str) -> None:
+    """The elastic-fleet line off the FRONT's /healthz (a single server or
+    a fixed fleet has no ``elastic`` section and prints nothing):
+    current/target/min/max, the last acted decision with its reason and
+    age, and what the loop says right now."""
+    try:
+        doc = _fetch_json(f"{base}/healthz", timeout=3.0)
+    except Exception:  # noqa: BLE001 — no front: nothing to print
+        return
+    el = (doc or {}).get("elastic")
+    if not el:
+        return
+    acted = el.get("decisions") or []
+    last = acted[-1] if acted else None
+    if last:
+        age = max(0.0, time.time() - float(last.get("at") or 0))
+        last_s = (f"last decision {last.get('direction')} "
+                  f"({last.get('reason')}) {age:.1f}s ago")
+    else:
+        last_s = "no scale actions yet"
+    now_d = el.get("lastDecision") or {}
+    gates = now_d.get("gates") or []
+    print(f"[info]   autoscaler: {el.get('actual')} active / target "
+          f"{el.get('target')} (min {el.get('min')}, max "
+          f"{el.get('max')}), {last_s}; now "
+          f"{now_d.get('direction', 'hold')}"
+          + (f" ({now_d.get('reason')})" if now_d.get("reason") else "")
+          + (f" gated by {','.join(gates)}" if gates else ""))
+
+
+def _print_fleet(fleet: dict) -> None:
+    """The per-replica fleet view (the answering replica's store-fed
+    aggregation): rollout state, every peer's instance, pins and watch,
+    and a warn-marker on divergence or a stale row."""
+    from ...workflow import model_artifact
+
+    d = fleet.get("directive") or {}
+    peers = fleet.get("peers") or []
+    diverged = bool(fleet.get("divergence"))
+    marker = "[warn]" if diverged else "[info]"
+    canary = (f", canary replica {d.get('canaryReplica')} -> "
+              f"{d.get('target')}" if d.get("state") == "canary" else "")
+    print(f"{marker}   fleet {fleet.get('group')}: "
+          f"{len(peers)}/{fleet.get('replicas')} replica(s) reporting, "
+          f"state {d.get('state') or 'bootstrapping'}, instance "
+          f"{d.get('instance')}{canary} (epoch {d.get('epoch')}, "
+          f"answered by replica {fleet.get('replica')})"
+          + (" — REPLICAS DIVERGE" if diverged else ""))
+    now = time.time()
+    # staleness tracks the fleet's own sync cadence (the coordinator's rule)
+    stale_after = model_artifact.fleet_fresh_s(
+        float(fleet.get("syncMs") or 1000))
+    for peer in sorted(peers, key=lambda x: x.get("replica", -1)):
+        age = now - float(peer.get("updatedAt") or now)
+        flags = []
+        if (d.get("state") == "canary"
+                and peer.get("replica") == d.get("canaryReplica")):
+            flags.append("canary" + ("" if peer.get("watchDone")
+                                     else " (watching)"))
+        if peer.get("pinned"):
+            flags.append(f"pinned={peer['pinned']}")
+        if peer.get("draining"):
+            flags.append("draining")
+        stale = age > stale_after
+        pmarker = "[warn]" if (stale or peer.get("pinned")
+                               or peer.get("draining")) else "[info]"
+        print(f"{pmarker}     r{peer.get('replica')}: instance "
+              f"{peer.get('instance')}"
+              + (f" [{', '.join(flags)}]" if flags else "")
+              + f", updated {age:.1f}s ago"
+              + (" — STALE (wedged or dead?)" if stale else ""))
 
 
 def _print_foldin(fi: dict) -> None:
@@ -619,6 +705,103 @@ def _print_generation_tiers(health: dict) -> None:
             print(f"[info]     {row['log']} g{g['generation']}: "
                   f"[{span}] tier={g['tier']}, {g['bytes']} byte(s), "
                   f"{g['events']} event(s)")
+
+
+@verb("fleet", "inspect the elastic serving fleet (plan = dry-run)")
+def fleet_cmd(args: list[str]) -> int:
+    """`pio fleet plan --engine-url URL`: what would the autoscaler do right
+    now? Nothing is changed. Against an elastic front it replays the
+    front's own last scrape through the decision function the live loop
+    uses; against a fixed fleet it scrapes each backend's /status and
+    evaluates $PIO_SCALE_* / $PIO_FLEET_*_REPLICAS from this environment."""
+    p = argparse.ArgumentParser(prog="pio fleet")
+    sub = p.add_subparsers(dest="sub", required=True)
+    p_plan = sub.add_parser(
+        "plan", help="print the scaling decision the current telemetry "
+                     "implies — dry run, nothing is changed")
+    p_plan.add_argument("--engine-url",
+                        default=envknobs.env_str(
+                            "PIO_ENGINE_URL", "", lower=False) or None,
+                        help="fleet front base URL (defaults to "
+                             "$PIO_ENGINE_URL)")
+    ns = p.parse_args(args)
+    if not ns.engine_url:
+        print("[error] pio fleet plan needs --engine-url (or "
+              "$PIO_ENGINE_URL)", file=sys.stderr)
+        return 1
+    return _fleet_plan(ns.engine_url)
+
+
+def _fleet_plan(url: str) -> int:
+    from ...workflow import elastic as el
+
+    base = (url if "://" in url else f"http://{url}").rstrip("/")
+    try:
+        doc = _fetch_json(f"{base}/healthz", timeout=5.0)
+    except Exception as e:  # noqa: BLE001 - operator-facing error path
+        print(f"[error] could not fetch {base}/healthz: {e}",
+              file=sys.stderr)
+        return 1
+    eld = (doc or {}).get("elastic")
+    backends = (doc or {}).get("backends") or []
+    sample_fields = ("slot", "alive", "ready", "draining", "pending",
+                     "pending_limit", "shed_delta")
+    if eld and eld.get("samples"):
+        # elastic front: replay its own last scrape and live config
+        cfgd = eld.get("config") or {}
+        cfg = el.ElasticConfig(**{
+            k: cfgd[k] for k in (
+                "min_replicas", "max_replicas", "up_threshold",
+                "down_threshold", "hysteresis_ticks", "cooldown_ms",
+                "tick_ms") if k in cfgd})
+        samples = [el.ReplicaSample(**{k: s[k] for k in sample_fields
+                                       if k in s})
+                   for s in eld["samples"]]
+        source = "front's last telemetry scrape"
+    else:
+        # a fixed fleet (or a plain server): scrape each backend here
+        cfg = el.ElasticConfig.from_env(
+            default_min=1, default_max=max(1, len(backends)))
+        samples = []
+        for b in backends:
+            smp = el.ReplicaSample(
+                slot=int(b.get("replica") or 0), alive=bool(b.get("alive")),
+                ready=bool(b.get("ready")), draining=bool(b.get("draining")))
+            if b.get("port"):
+                try:
+                    ov = _fetch_json(f"http://127.0.0.1:{b['port']}/status",
+                                     timeout=2.0).get("overload") or {}
+                    smp.pending = int(ov.get("pending") or 0)
+                    smp.pending_limit = int(ov.get("pendingLimit") or 0)
+                except Exception:  # noqa: BLE001 - a backend may be down
+                    pass
+            samples.append(smp)
+        source = "local backend /status scrape + this environment"
+    if not samples:
+        print(f"[error] {base}/healthz reported no fleet backends — is "
+              "this a fleet front?", file=sys.stderr)
+        return 1
+    d = el.plan(samples, cfg)
+    print(f"[info] fleet plan @ {base} ({source}):")
+    print(f"[info]   replicas: {d.actual} active, bounds "
+          f"[{cfg.min_replicas}, {cfg.max_replicas}]; utilization "
+          f"{d.utilization:.2f} (up >= {cfg.up_threshold:.2f}, down <= "
+          f"{cfg.down_threshold:.2f}), shed +{d.shed_delta}")
+    if d.direction == "up":
+        print(f"[info]   would scale UP ({d.reason}) -> {d.target} "
+              "replica(s)")
+    elif d.direction == "down":
+        print(f"[info]   would drain replica {d.slot} ({d.reason}) -> "
+              f"{d.target} replica(s)")
+    else:
+        print(f"[info]   would hold ({d.reason})")
+    if eld:
+        gates = (eld.get("lastDecision") or {}).get("gates") or []
+        if gates:
+            print(f"[info]   live loop currently gated by "
+                  f"{','.join(gates)} — a raw signal may act later")
+    print("[info]   dry run only — nothing was changed")
+    return 0
 
 
 def _raise_exit(signum, frame):

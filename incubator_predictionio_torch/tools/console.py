@@ -61,18 +61,21 @@ import sys
 import time
 from typing import Optional
 
-from ..controller import EngineParams
-from ..workflow import core_workflow, json_extractor
-from ..workflow.checkpoint import CheckpointHook
-from ..workflow.context import WorkflowContext
 from ..workflow.persist import load_models, save_models
 from ..workflow.workflow_params import WorkflowParams
+
+# the controller API and the workflow (torch) are imported by the helpers
+# that train or load, never at module import: a verb that needs neither
+# (app, import, eventlog, status, models, undeploy, ...) starts without
+# torch, seconds sooner on a card host
 
 
 def engine_from_json(engine_json: dict, engine_dir: Optional[str] = None):
     """The Engine that engine.json's ``engineFactory`` names (a factory of
     this package or of a user engine in ``engine_dir``; the Recommendation
     engine when absent)."""
+    from ..workflow import json_extractor
+
     return json_extractor.engine_and_params_from_json(engine_json,
                                                       engine_dir)[0]
 
@@ -95,6 +98,11 @@ def train(engine_json: dict, events: list[dict], model_out: str,
     :func:`checkpoint_dir`: a fresh (not resumed) train starts by clearing
     them, a completed train deletes them, and a failed one keeps them for
     ``resume``."""
+    from ..controller import EngineParams
+    from ..workflow import core_workflow
+    from ..workflow.checkpoint import CheckpointHook
+    from ..workflow.context import WorkflowContext
+
     wp = workflow_params or WorkflowParams()
     engine = engine_from_json(engine_json, engine_dir)
     params = EngineParams.from_json(engine_json)
@@ -127,6 +135,9 @@ def train(engine_json: dict, events: list[dict], model_out: str,
 def load_deployment(model_path: str, device: str = "cuda",
                     engine_dir: Optional[str] = None):
     """Restore persisted models into a live Deployment on ``device``."""
+    from ..controller import EngineParams
+    from ..workflow.context import WorkflowContext
+
     engine_json, stored = load_models(model_path)
     engine = engine_from_json(engine_json, engine_dir)
     ctx = WorkflowContext(device=device)

@@ -36,6 +36,14 @@ status codes:
   ``X-Pio-App``, ``app``, ``accessKey`` or ``X-Pio-Access-Key``) are served
   from that app's own resident deployment, lifecycle, admission budget and
   fold-in runner.
+- A fleet replica (``fleet_replica`` ≥ 0, ``PIO_FLEET_REPLICA``, set by the
+  fleet supervisor of ``workflow/fleet.py``): the initial load honours the
+  fleet's directive record, a sync thread applies the coordinator's
+  directives through this replica's own gate and publishes its status
+  row every ``PIO_FLEET_SYNC_MS``, ``/rollback`` pins fleet-wide,
+  ``/reload`` and ``/stop`` answer 409, the refresh knob is refused, only
+  replica 0 produces fold-in increments (and never publishes them itself),
+  and a heartbeat thread touches the supervisor's heartbeat file.
 
 The deployment form (``EngineServer(deployment=...)``, the console's
 ``deploy --model`` file) serves one fixed deployment: it has no model
@@ -43,9 +51,9 @@ store, so ``/reload`` and ``/rollback`` answer 409, and refresh, fold-in,
 quality and tenants are off.
 
 Not ported here, each with its own ROADMAP item: ``/metrics`` and the
-telemetry registry (3.3: the counts of fold-in, quality and tenants ride
-``/status`` instead), TLS and the storage breakers of ``/readyz`` (3.3,
-3.4: ``openBreakers`` is always empty), the fleet and its heartbeat (8.7).
+telemetry registry (3.3: the counts of fold-in, quality, tenants and the
+fleet's divergence ride ``/status`` instead), TLS and the storage breakers
+of ``/readyz`` (3.3, 3.4: ``openBreakers`` is always empty).
 """
 
 from __future__ import annotations
@@ -284,6 +292,9 @@ class EngineServer:
         quality_sample: Optional[float] = None,
         tenant_max_resident: Optional[int] = None,
         tenant_max_pending: Optional[int] = None,
+        fleet_replica: Optional[int] = None,
+        fleet_replicas: Optional[int] = None,
+        fleet_sync_ms: Optional[float] = None,
         device: "str | torch.device" = "cuda",
         deployment=None,
     ):
@@ -315,6 +326,7 @@ class EngineServer:
                                   query_cache_size, query_cache_ttl_ms)
         self._init_online_state(foldin_ms, quality_sample,
                                 tenant_max_resident, tenant_max_pending)
+        self._init_fleet_state(fleet_replica, fleet_replicas, fleet_sync_ms)
         # synthetic probe traffic is excluded from queryCount/feedback; the
         # marker must carry this per-process token, never exposed, so an
         # external "X-Pio-Probe: 1" cannot bypass the accounting
@@ -336,6 +348,8 @@ class EngineServer:
         if deployment is not None:
             self._prepare(deployment, "deployment", None)
             self.deployment = deployment
+        elif self.fleet_mode and instance_id is None:
+            self._fleet_bootstrap_load()
         else:
             self._load(instance_id)
         if self.tenant_max_resident > 0:
@@ -496,6 +510,63 @@ class EngineServer:
                         "store or event log")
             self.foldin_ms = self.quality_sample = 0.0
             self.tenant_max_resident = 0
+
+    def _init_fleet_state(self, fleet_replica=None, fleet_replicas=None,
+                          fleet_sync_ms=None) -> None:
+        """Replica-fleet wiring; arguments override ``PIO_FLEET_REPLICA``,
+        ``PIO_FLEET_REPLICAS`` and ``PIO_FLEET_SYNC_MS``.
+
+        A fleet replica does not chase the newest COMPLETED instance on
+        its own: the fleet coordinator (``workflow/fleet.py``) stages
+        rollouts through a store-mediated directive record, and this
+        replica's sync thread applies directives (each swap through this
+        replica's OWN validation gate) and publishes the status row the
+        coordinator and `pio status --engine-url` aggregate. The file
+        form has no store: it is never a fleet replica."""
+        self.fleet_replica = int(
+            fleet_replica if fleet_replica is not None
+            else envknobs.env_int("PIO_FLEET_REPLICA", -1))
+        if self.file_form:
+            self.fleet_replica = -1
+        self.fleet_replicas = max(0, int(
+            fleet_replicas if fleet_replicas is not None
+            else envknobs.env_int("PIO_FLEET_REPLICAS", 0, lo=0)))
+        self.fleet_sync_ms = max(50.0, float(
+            fleet_sync_ms if fleet_sync_ms is not None
+            else _env_int("PIO_FLEET_SYNC_MS", 1000)))
+        self.fleet_mode = self.fleet_replica >= 0
+        # the sync thread's last directive + peer view: /status reads the
+        # reference atomically, never the store
+        self._fleet_view: Optional[dict] = None
+        self._fleet_diverged = False
+        # pins mid-application (a store-walk rollback in flight): honored by
+        # this replica's own walks but NOT published to the fleet, because
+        # the coordinator merges pins irreversibly
+        self._pins_provisional: set = set()
+        self._fleet_stop = threading.Event()
+        # /rollback pokes the sync thread so the pin propagates at once
+        self._fleet_poke = threading.Event()
+        self._fleet_thread: Optional[threading.Thread] = None
+        self._hb_stop = threading.Event()
+        self._hb_thread: Optional[threading.Thread] = None
+        if self.fleet_mode and self.model_refresh_ms > 0:
+            # a replica chasing the newest instance on its own would race
+            # the coordinator's staged canary
+            log.warning(
+                "fleet mode: PIO_MODEL_REFRESH_MS=%.0f refused — the fleet "
+                "coordinator owns refresh (staged canary); /status reports "
+                "refreshMs: disabled(fleet)", self.model_refresh_ms)
+            self._refresh_disabled = "fleet"
+            self.model_refresh_ms = 0.0
+
+    def _fleet_group(self) -> str:
+        """This replica's directive group: the coordinator's, including the
+        app a tenant-aware fleet is scoped to (``PIO_FLEET_APP``)."""
+        from . import model_artifact, multitenant
+
+        return model_artifact.fleet_group(self.engine_factory_name,
+                                          self.engine_variant,
+                                          multitenant.replica_fleet_app())
 
     # -- lifecycle --------------------------------------------------------
     def _load(self, instance_id: Optional[str],
@@ -735,6 +806,17 @@ class EngineServer:
             out["tenants"] = self._tenants.snapshot()
         if self.quality_sample > 0:
             out["quality"] = self.quality_snapshot()
+        if self.fleet_mode:
+            # the sync thread's cached aggregation (no store I/O here): the
+            # directive, every peer's status row and the divergence flag,
+            # so `pio status --engine-url <front>` sees the whole fleet
+            # from whichever replica answers
+            out["fleet"] = self._fleet_view or {
+                "group": self._fleet_group(),
+                "replica": self.fleet_replica,
+                "replicas": self.fleet_replicas,
+                "directive": None, "peers": [], "divergence": False,
+            }
         # the serving-latency split, when a probe ran (deploy
         # --probe-latency persists it to the instance row)
         probe = (instance.runtime_conf.get("probe_latency")
@@ -1584,13 +1666,21 @@ class EngineServer:
                                           "shortly"})
         try:
             restored = self._rollback_to_previous("manual")
+            if restored is None and self.fleet_mode:
+                restored = self._fleet_rollback_via_store()
         finally:
             self._reload_lock.release()
         if restored is None:
             return _json(409, {"message": "no previous deployment resident "
                                           "to roll back to"})
+        if self.fleet_mode:
+            # propagate now instead of at the next tick: the pin lands in
+            # this replica's status row, the coordinator merges it and the
+            # whole fleet converges on last-good
+            self._fleet_poke.set()
         return _json(200, {"message": "Rolled back",
-                           "engineInstanceId": restored})
+                           "engineInstanceId": restored,
+                           **({"fleet": True} if self.fleet_mode else {})})
 
     # -- continuous refresh ------------------------------------------------
     def _start_refresher(self) -> None:
@@ -1727,11 +1817,24 @@ class EngineServer:
         return {**(fv or {"enabled": True, "ms": self.foldin_ms,
                           "events": 0, "publishes": 0,
                           "lagSeconds": None}),
-                "producer": True, "rollbacks": online.rollback_counts(),
+                "producer": self._foldin_producer,
+                "rollbacks": online.rollback_counts(),
                 "tickErrors": self._foldin_tick_errors}
+
+    @property
+    def _foldin_producer(self) -> bool:
+        """One producer per fleet: replica 0 (any single server)."""
+        return not self.fleet_mode or self.fleet_replica == 0
 
     def _start_foldin(self) -> None:
         if self.foldin_ms <= 0:
+            return
+        if not self._foldin_producer:
+            # replica 0 commits the increments and the coordinator canaries
+            # them to everyone: N replicas folding the same events would
+            # race N duplicate instance rows into the store
+            log.info("fold-in: replica %d stands by — replica 0 is the "
+                     "fleet's fold-in producer", self.fleet_replica)
             return
         from . import online
 
@@ -1788,6 +1891,15 @@ class EngineServer:
             view = runner.run_once(deployment, instance, pinned)
         finally:
             self._foldin_view = runner.view()
+        if self.fleet_mode:
+            if view.get("instance"):
+                # the coordinator finds the new COMPLETED row on its next
+                # tick and stages it as a canary; publishing here would
+                # bypass the staged rollout
+                log.info("fold-in: instance %s committed; awaiting the "
+                         "fleet coordinator's canary staging",
+                         view["instance"])
+            return
         # produced this tick OR still pending from an earlier one (a busy
         # gate must not strand a committed increment until the next event)
         if not view.get("instance") and not view.get("pendingInstance"):
@@ -1895,6 +2007,16 @@ class EngineServer:
         loser gets 409."""
         if self.file_form:
             return self._no_store("reload")
+        if self.fleet_mode:
+            # through the front a reload lands on ONE replica and the next
+            # directive sync reverts it: rollouts are the coordinator's
+            with self._lock:
+                inst = self.instance
+            return _json(409, {
+                "message": "fleet mode: model rollout is coordinator-driven "
+                           "— retrain to stage a canary, POST /rollback for "
+                           "a fleet rollback",
+                "engineInstanceId": inst.id if inst else None})
         target = (request.params.get("instance") or [None])[0] or None
         if not self._reload_lock.acquire(blocking=False):
             self._note_reload_conflict()
@@ -1931,6 +2053,286 @@ class EngineServer:
             inst = self.instance
         return _json(200, {"message": "Reloaded",
                            "engineInstanceId": inst.id})
+
+    # -- replica fleet (store-mediated staged rollout) ---------------------
+    def _fleet_bootstrap_load(self) -> None:
+        """Initial load of a fleet replica: honour the fleet record BEFORE
+        the instance walk, so a replica relaunched after a fleet rollback
+        comes up on the directed last-good instance with the fleet's pins
+        applied, not on the newest COMPLETED row (which may be exactly the
+        poisoned artifact the fleet just rolled back)."""
+        from . import model_artifact
+
+        row_id = model_artifact.fleet_row_id(self._fleet_group())
+        directive = model_artifact.read_fleet_doc(self.storage, row_id)
+        if directive is None:
+            # one short retry separates "no directive yet" from a read that
+            # lands in a backend's delete-then-insert gap
+            _time.sleep(0.05)
+            directive = model_artifact.read_fleet_doc(self.storage, row_id)
+        directive = directive or {}
+        with self._lock:
+            for iid, reason in (directive.get("pinned") or {}).items():
+                self._pinned.setdefault(iid, reason)
+            pinned = set(self._pinned)
+        want = directive.get("instance")
+        if want and want not in pinned:
+            try:
+                self._load(want)
+                return
+            except Exception:  # noqa: BLE001 - degrade to the walk
+                log.warning("fleet directive instance %s not deployable at "
+                            "startup; walking back to latest", want,
+                            exc_info=True)
+        self._load(None)
+
+    def _start_fleet(self) -> None:
+        if not self.fleet_mode:
+            return
+        self._fleet_stop.clear()
+        self._fleet_thread = threading.Thread(
+            target=self._fleet_loop, name="pio-fleet-sync", daemon=True)
+        self._fleet_thread.start()
+
+    def _stop_fleet(self) -> None:
+        self._fleet_stop.set()
+        self._fleet_poke.set()
+        if self._fleet_thread is not None:
+            self._fleet_thread.join(timeout=60)
+            self._fleet_thread = None
+
+    def _fleet_loop(self) -> None:
+        """Every ``PIO_FLEET_SYNC_MS`` (or at once when ``/rollback`` pokes
+        it): apply the coordinator's directive and publish this replica's
+        status row. Single-flight (only this thread syncs); a storage error
+        is logged and retried next tick."""
+        log.info("fleet sync loop armed (replica %d, every %.0f ms)",
+                 self.fleet_replica, self.fleet_sync_ms)
+        while not self._fleet_stop.is_set():
+            try:
+                self._fleet_sync()
+            except Exception:  # noqa: BLE001 - poll errors never kill it
+                log.exception("fleet sync failed; retrying next tick")
+            self._fleet_poke.wait(self.fleet_sync_ms / 1000.0)
+            self._fleet_poke.clear()
+
+    def _fleet_sync(self) -> None:
+        from . import model_artifact
+
+        directive = model_artifact.read_fleet_doc(
+            self.storage,
+            model_artifact.fleet_row_id(self._fleet_group())) or {}
+        with self._lock:
+            # fleet pins propagate to every replica: no walk here may ever
+            # re-pick an instance a peer rolled back
+            for iid, reason in (directive.get("pinned") or {}).items():
+                self._pinned.setdefault(iid, reason)
+            pinned = set(self._pinned)
+            cur = self.instance
+        want = directive.get("instance")
+        if (directive.get("state") == "canary"
+                and directive.get("canaryReplica") == self.fleet_replica
+                and directive.get("target")):
+            # staged rollout: ONLY the canary swaps to the target; the rest
+            # hold the directed instance until a clean window promotes
+            want = directive.get("target")
+        if (want and want not in pinned and (cur is None or want != cur.id)
+                and self._reload_lock.acquire(blocking=False)):
+            try:
+                with self._lock:
+                    cur = self.instance
+                if cur is None or want != cur.id:
+                    self._fleet_apply(want)
+            finally:
+                self._reload_lock.release()
+        self._fleet_publish(directive)
+
+    def _fleet_apply(self, want: str) -> None:
+        """Apply one directive target through this replica's own gate
+        (caller holds the reload lock). A directed rollback to the still
+        resident previous deployment swaps back at once; other targets take
+        the full verified and validated load. A refusal pins (validate,
+        integrity) and a transient failure degrades: the coordinator sees
+        the pin in the next status row and propagates it."""
+        from . import model_artifact
+
+        with self._lock:
+            prev = self._previous
+        if prev is not None and prev[1].id == want:
+            self._rollback_to_previous("fleet")
+            return
+        try:
+            self._load(want)
+        except SwapValidationError as e:
+            with self._lock:
+                self._validate_failures += 1
+                self._pinned.setdefault(e.instance_id, "validate")
+            self._degraded_reason = (
+                f"fleet: {e}; serving last-good model "
+                f"({e.instance_id} pinned)")
+            log.warning("fleet swap refused by gate: %s", e)
+            self._count_foldin_refusal(e.instance_id)
+        except model_artifact.ModelIntegrityError as e:
+            with self._lock:
+                self._pinned.setdefault(e.instance_id,
+                                        f"integrity:{e.kind}")
+            self._degraded_reason = (
+                f"fleet: directed instance {e.instance_id} failed "
+                f"integrity ({e.kind}); serving last-good model")
+            log.warning("fleet swap refused by integrity: %s", e)
+        except Exception as e:  # noqa: BLE001 - transient: retry next tick
+            self._degraded_reason = (
+                f"fleet reload failed at "
+                f"{_dt.datetime.now(_dt.timezone.utc).isoformat()}: {e}; "
+                "serving last-good model")
+            log.exception("fleet swap failed; continuing on last-good")
+        else:
+            self._degraded_reason = None
+
+    def _fleet_publish(self, directive: dict) -> None:
+        """Write this replica's status row (single writer: us) and refresh
+        the cached peer view /status reads."""
+        from . import model_artifact
+
+        with self._lock:
+            cur, prev = self.instance, self._previous
+            pinned = {i: r for i, r in self._pinned.items()
+                      if i not in self._pins_provisional}
+            rollbacks = dict(self._rollbacks)
+        with self._adm_lock:
+            draining = self._draining
+        w = self._watch
+        qw = self._quality_watch
+        now = _time.monotonic()
+        # a canary promotes only once BOTH its error watch and its quality
+        # watch closed clean
+        watch_done = ((w is None or cur is None
+                       or w.get("instance") != cur.id or now > w["until"])
+                      and (qw is None or cur is None
+                           or qw.get("instance") != cur.id
+                           or now > qw["until"]))
+        group = self._fleet_group()
+        status = {
+            "replica": self.fleet_replica,
+            "pid": os.getpid(),
+            "instance": cur.id if cur else None,
+            "previous": prev[1].id if prev else None,
+            "pinned": pinned,
+            "rollbacks": rollbacks,
+            "draining": draining,
+            "watchDone": watch_done,
+            "epochSeen": directive.get("epoch", 0),
+            "updatedAt": _time.time(),
+        }
+        model_artifact.write_fleet_doc(
+            self.storage, model_artifact.fleet_row_id(
+                group, self.fleet_replica), status)
+        peers = directive.get("peers")
+        if peers is None:
+            # no coordinator snapshot yet: read each peer row directly
+            peers = []
+            for i in range(max(self.fleet_replicas,
+                               self.fleet_replica + 1)):
+                doc = model_artifact.read_fleet_doc(
+                    self.storage, model_artifact.fleet_row_id(group, i))
+                if doc is not None:
+                    peers.append(doc)
+        else:
+            # the coordinator ships every status row inside the directive
+            # (one store read per tick); our own just-written row replaces
+            # its copy so this replica's view never lags itself
+            peers = [p for p in peers
+                     if p.get("replica") != self.fleet_replica]
+            peers.append(status)
+            peers.sort(key=lambda p: p.get("replica") or 0)
+        serving = {p.get("instance") for p in peers if p.get("instance")}
+        diverged = len(serving) > 1
+        if diverged != self._fleet_diverged:
+            # the reference's pio_fleet_divergence gauge, as a log line
+            (log.warning if diverged else log.info)(
+                "fleet %s: replicas %s serving %s", group,
+                "now diverge," if diverged else "converged again,",
+                sorted(serving))
+            self._fleet_diverged = diverged
+        self._fleet_view = {
+            "group": group,
+            "replica": self.fleet_replica,
+            "replicas": self.fleet_replicas,
+            "syncMs": self.fleet_sync_ms,
+            "directive": {k: directive.get(k) for k in
+                          ("state", "instance", "target", "canaryReplica",
+                           "lastGood", "epoch", "pinned")},
+            "peers": peers,
+            "divergence": diverged,
+        }
+
+    def _fleet_rollback_via_store(self) -> Optional[str]:
+        """Fleet rollback on a replica with NO resident previous deployment
+        (relaunched, booted straight onto the current instance): pin the
+        current instance and walk back through the store, so `pio models
+        rollback --engine-url <front>` works whichever replica answers.
+        Caller holds the reload lock. The restored instance id, or None
+        (the pin reverted) when nothing older is deployable."""
+        with self._lock:
+            cur = self.instance
+            if cur is None:
+                return None
+            # provisional until the walk lands: a publish during the walk
+            # must not ship this pin (pins merge irreversibly). Only a pin
+            # inserted HERE is provisional and poppable
+            inserted = cur.id not in self._pinned
+            if inserted:
+                self._pinned[cur.id] = "manual"
+                self._pins_provisional.add(cur.id)
+        try:
+            self._load(None)
+        except Exception:  # noqa: BLE001 - nothing older deployable
+            if inserted:
+                with self._lock:
+                    self._pinned.pop(cur.id, None)
+                    self._pins_provisional.discard(cur.id)
+            log.exception("fleet rollback: no older deployable instance; "
+                          "keeping %s live", cur.id)
+            return None
+        # the reload retained the PINNED instance as "previous" and opened a
+        # watch on the restored one: both wrong for a rollback
+        with self._lock:
+            self._pins_provisional.discard(cur.id)
+            self._previous = None
+            self._rollbacks["manual"] = self._rollbacks.get("manual", 0) + 1
+            restored = self.instance
+            self._watch = None
+        log.warning("fleet rollback via store: %s pinned, restored %s",
+                    cur.id, restored.id)
+        return restored.id
+
+    def _start_heartbeat(self) -> None:
+        if not envknobs.env_str("PIO_WORKER_HEARTBEAT_FILE", "",
+                                lower=False):
+            return
+        self._hb_stop.clear()
+        self._hb_thread = threading.Thread(
+            target=self._heartbeat_loop, name="pio-heartbeat", daemon=True)
+        self._hb_thread.start()
+
+    def _stop_heartbeat(self) -> None:
+        self._hb_stop.set()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=10)
+            self._hb_thread = None
+
+    def _heartbeat_loop(self) -> None:
+        """Supervised-replica liveness: touch the heartbeat file, so a
+        process that stops running Python (not only a dead one) is
+        detected and relaunched."""
+        from ..parallel import supervisor
+
+        interval = max(0.05, envknobs.env_ms(
+            "PIO_WORKER_HEARTBEAT_MS", 1000.0, lo_ms=20.0) / 2.0)
+        while True:
+            supervisor.beat()
+            if self._hb_stop.wait(interval):
+                return
 
     # -- graceful drain ----------------------------------------------------
     def drain_then_stop(self, stopper=None) -> None:
@@ -1988,6 +2390,14 @@ class EngineServer:
         os._exit(0)
 
     def handle_stop(self, request: Request) -> Reply:
+        if self.fleet_mode:
+            # through the front this drains ONE replica, which the
+            # supervisor then relaunches: the fleet stops as a unit
+            return _json(409, {
+                "message": "fleet mode: a single-replica stop would silently "
+                           "shrink the fleet — stop the whole fleet by "
+                           "terminating the `pio deploy --replicas` front "
+                           "process (SIGTERM)"})
         log.info("stop requested")
         with self._adm_lock:
             draining = self._draining
@@ -2023,14 +2433,17 @@ class EngineServer:
     def bind(self, host: str = "127.0.0.1", port: int = 0
              ) -> tuple[str, int]:
         """Arm the fold-in cursor, open the listening socket (port 0 picks
-        a free one) and start the batcher and the refresh, fold-in and
-        quality loops; returns (host, port)."""
+        a free one) and start the batcher, the refresh, fold-in and quality
+        loops and, in a fleet replica, the sync and heartbeat threads;
+        returns (host, port)."""
         self._start_foldin()
         self._httpd = _HTTPServer((host, port), self)
         if self.batch_window_ms > 0:
             self._start_batcher()
         self._start_refresher()
         self._start_quality()
+        self._start_fleet()
+        self._start_heartbeat()
         return self.address
 
     @property
@@ -2058,7 +2471,10 @@ class EngineServer:
     def close(self) -> None:
         """Release what serving holds (after serving has stopped): the
         batcher (stranded queries fail), the refresh, fold-in and quality
-        loops, the socket and the executors' idle workers."""
+        loops, the fleet sync and heartbeat threads, the socket and the
+        executors' idle workers."""
+        self._stop_heartbeat()
+        self._stop_fleet()
         self._stop_refresher()
         self._stop_foldin()
         self._stop_quality()

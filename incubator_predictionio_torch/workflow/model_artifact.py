@@ -5,8 +5,8 @@ The port's own copy of ``incubator_predictionio_tpu/workflow/
 model_artifact.py`` (:94-260, :270-399: the envelope, the inspection
 helpers ``get_model_row`` and ``model_exists`` of ``pio models``, the
 refresh poll's ``newer_completed_instance``, and the fleet and fold-in
-records ``fleet_group``, ``foldin_row_id``, ``read_fleet_doc`` and
-``write_fleet_doc``). Every model blob written by ``run_train`` is
+records ``fleet_group``, ``fleet_row_id``, ``fleet_fresh_s``,
+``foldin_row_id``, ``read_fleet_doc`` and ``write_fleet_doc``). Every model blob written by ``run_train`` is
 wrapped in a self-describing envelope (magic, header length, a sorted-key
 JSON header carrying sha256, payload size and format version) and every
 read re-verifies it, so a truncated, bit-flipped or half-written artifact is
@@ -39,6 +39,7 @@ import struct
 import threading
 from typing import Optional
 
+from ..common import faultinject
 from ..data.storage.base import Model
 
 log = logging.getLogger("pio.torch.model_artifact")
@@ -293,6 +294,14 @@ def foldin_row_id(group: str, app_id: int) -> str:
     return f"{FOLDIN_ROW_PREFIX}{group}__a{int(app_id)}"
 
 
+def fleet_fresh_s(sync_ms: float) -> float:
+    """Staleness horizon for a replica status row: rows older than this
+    are a dead or wedged replica's. The one definition the coordinator's
+    promote and adoption votes and `pio status`'s STALE marker share (5
+    sync ticks, floored at 10 s)."""
+    return max(10.0, float(sync_ms) / 1000.0 * 5)
+
+
 def fleet_group(engine_factory_name: str, engine_variant: str,
                 app_name: Optional[str] = None) -> str:
     """Canonical fleet group id — the one definition every writer and
@@ -301,6 +310,14 @@ def fleet_group(engine_factory_name: str, engine_variant: str,
     group appends its app dimension."""
     group = f"{engine_factory_name or 'engine'}::{engine_variant}"
     return group if not app_name else f"{group}::app={app_name}"
+
+
+def fleet_row_id(group: str, replica: Optional[int] = None) -> str:
+    """Storage row id of a fleet record: the group's directive record
+    (``replica=None``, written only by the coordinator) or one replica's
+    status row (written only by that replica)."""
+    base = f"{FLEET_ROW_PREFIX}{group}"
+    return base if replica is None else f"{base}__r{int(replica)}"
 
 
 def read_fleet_doc(storage, row_id: str) -> Optional[dict]:
@@ -318,8 +335,13 @@ def read_fleet_doc(storage, row_id: str) -> Optional[dict]:
         return None
 
 
-def write_fleet_doc(storage, row_id: str, doc: dict) -> None:
+def write_fleet_doc(storage, row_id: str, doc: dict,
+                    fault: bool = False) -> None:
     """Persist one fleet or fold-in record (plain sorted-key JSON bytes —
-    coordination state, not a model artifact, so no envelope)."""
+    coordination state, not a model artifact, so no envelope).
+    ``fault=True`` (the coordinator's directive writes) arms the
+    ``fleet.record`` fault point; replica status writes skip it."""
+    if fault:
+        faultinject.fault_point("fleet.record")
     storage.get_model_data_models().insert(
         Model(row_id, json.dumps(doc, sort_keys=True).encode("utf-8")))

@@ -35,7 +35,9 @@ The resident-cache internals (``_resident_lru``, ``_evict_victim``) are
 touched only by this module; the engine server, the status verb and the
 tests use the public surface: ``resolve_app`` / ``admit`` /
 ``ensure_loaded`` / ``note_result`` / ``rollback_tenant`` / ``release`` /
-``foldin_tick`` / ``snapshot``. The reference's ``pio_tenant_*`` telemetry
+``foldin_tick`` / ``snapshot``. In a replica fleet the coordinator and
+every replica scope their directive group to the default app
+(:func:`fleet_app`, :func:`replica_fleet_app`). The reference's ``pio_tenant_*`` telemetry
 waits for the port's metrics registry; the same counts ride
 :meth:`TenantMux.snapshot`, which ``/status`` reports.
 """
@@ -55,7 +57,30 @@ from .core_workflow import load_deployment
 
 log = logging.getLogger("pio.torch.multitenant")
 
-__all__ = ["TenantMux", "TenantState", "UnknownTenant"]
+__all__ = ["TenantMux", "TenantState", "UnknownTenant", "fleet_app",
+           "replica_fleet_app"]
+
+#: the app a tenant-aware fleet is scoped to: the front sets it on every
+#: replica so both sides derive the same directive group
+FLEET_APP_ENV = "PIO_FLEET_APP"
+
+
+def fleet_app(engine_json: dict, armed: bool) -> str:
+    """The app a fleet front's coordinator stages rollouts for: with the
+    tenant mux armed, every replica serves N apps but the coordinator stages
+    the DEFAULT app (engine.json's datasource ``appName``) only, since an
+    unconfined candidate walk would promote some tenant's fold-in increment
+    fleet-wide as the default deployment. "" when the mux is off."""
+    if not armed:
+        return ""
+    ds = (engine_json.get("datasource") or {}).get("params") or {}
+    return str(ds.get("appName") or ds.get("app_name") or "")
+
+
+def replica_fleet_app() -> Optional[str]:
+    """The replica side of :func:`fleet_app`: the app the front scoped this
+    fleet to (``PIO_FLEET_APP``), or None for an unscoped fleet."""
+    return envknobs.env_str(FLEET_APP_ENV, "", lower=False) or None
 
 
 class UnknownTenant(Exception):

@@ -19,12 +19,16 @@ either package reads the other's rows:
    ``users``), whose ``bases`` and ``users`` let the serving cache evict
    only the touched users.
 4. **Publish through the same gate as a retrain**: the engine server's
-   ``_publish_once`` (validate → swap → watch → rollback and pin).
+   ``_publish_once`` (validate → swap → watch → rollback and pin). In a
+   serving fleet only replica 0 runs a runner; it commits the increment
+   row and never publishes it: the fleet coordinator finds it as a newer
+   COMPLETED instance and stages it through its canary
+   (``workflow/fleet.py``), while the other replicas stand by.
 
 Delivery is at-least-once: the cursor commits after the increment's
 instance row, so a crash in between re-folds the same events on restart.
-While an increment's publication is deferred (a busy gate), the next one
-chains onto it instead of the served model; a chain through a pinned link
+While an increment's publication is deferred (fleet canary staging, a
+busy gate), the next one chains onto it instead of the served model; a chain through a pinned link
 is dropped whole.
 
 Fault points: ``foldin.read`` (before the tail read), ``foldin.apply``
@@ -32,10 +36,6 @@ Fault points: ``foldin.read`` (before the tail read), ``foldin.apply``
 the COMPLETED stamp). The reference's ``pio_foldin_*`` telemetry waits for
 the port's metrics registry: the same counts ride ``view()`` and
 :func:`rollback_counts`, which the engine server's ``/status`` reports.
-
-The serving fleet's producer, standby and coordinator branches are not
-ported: a runner in a fleet replica (``PIO_FLEET_REPLICA`` ≥ 0) refuses
-to start.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ import threading
 import time
 from typing import Optional
 
-from ..common import envknobs, faultinject
+from ..common import faultinject
 from ..data.api.log_tail import LogCursor, LogTailer
 from ..data.storage.event import new_event_id
 from . import model_artifact
@@ -123,13 +123,6 @@ class FoldInRunner:
     def __init__(self, storage, engine_factory_name: str,
                  engine_variant: str, interval_ms: float = 0.0,
                  app_name: str = "", device="cuda"):
-        replica = envknobs.env_int("PIO_FLEET_REPLICA", -1)
-        if replica >= 0:
-            raise RuntimeError(
-                f"online fold-in in a serving fleet (PIO_FLEET_REPLICA="
-                f"{replica}) is not ported: the fleet's producer, standby "
-                "and coordinator come with the fleet itself; unset "
-                "PIO_FLEET_REPLICA to fold in on this single server")
         self.storage = storage
         self.engine_factory_name = engine_factory_name
         self.engine_variant = engine_variant

@@ -125,10 +125,12 @@ def test_fold_in_solves_in_one_call(monkeypatch):
 
     monkeypatch.setattr(port_als, "batched_spd_solve", counting)
     y, idx, val, anchor, mu = _batch(rows=40)
+    before = spd_solve.gauss_jordan_launches.count
     port_als.fold_in_factors(y, idx, val, reg=0.1, anchor=anchor,
                              anchor_weight=mu, device="cpu")
     assert calls == [(40, K, K)]
-    assert spd_solve.gauss_jordan_launches.count == 0  # no kernel on the CPU
+    # no kernel on the CPU (a delta: the counter is process-wide)
+    assert spd_solve.gauss_jordan_launches.count == before
 
 
 def _models(implicit=False):

@@ -12,7 +12,9 @@ neither ``jax``, ``orbax`` nor the JAX package is loaded after; and each
 ``models list``, ``deploy`` with micro-batching, the result cache and
 the refresh loop armed, and on a JSONL log ``deploy --online-foldin
 --quality-eval --multitenant``) runs in a fresh interpreter of its own that
-loads none of them.
+loads none of them; so do the front and both replicas of ``deploy --replicas
+2`` (each process reports its modules at exit through a ``sitecustomize``),
+whose answers equal a single server's on the same persisted model.
 The same holds for the E-Commerce template and the evaluations (the
 ``eval`` and ``dashboard`` verbs, and the vanilla copy's evaluation from
 its engine directory), and for the Classification and Text-Classification
@@ -77,7 +79,8 @@ def test_port_files_exist():
             "llr.py", "universal_recommender.py", "complementary_purchase.py",
             "deadline.py", "resilience.py", "plugins.py", "create_server.py",
             "models.py", "online.py", "quality.py", "multitenant.py",
-            "holdout.py",
+            "holdout.py", "splice.py", "supervisor.py", "fleet.py",
+            "elastic.py",
             } <= names
     assert (ROOT / "incubator_predictionio_torch" / "e2"
             / "engine.py").is_file()
@@ -601,3 +604,138 @@ atexit.register(armed)""")
         "incubator_predictionio_torch.workflow.multitenant",
         "incubator_predictionio_torch.workflow.online",
         "incubator_predictionio_torch.workflow.quality"], lines[-2]
+
+
+_SITECUSTOMIZE = r"""
+import atexit, json, os, sys
+
+def _report():
+    out = os.environ.get("PIO_TEST_MODULES_DIR")
+    if not out:
+        return
+    with open(os.path.join(out, f"{os.getpid()}.json"), "w") as fh:
+        json.dump({"argv": sys.argv,
+                   "replica": os.environ.get("PIO_FLEET_REPLICA"),
+                   "loaded": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in (
+                                        "jax", "jaxlib", "orbax",
+                                        "incubator_predictionio_tpu"))}, fh)
+
+atexit.register(_report)
+"""
+
+
+def test_fleet_deploy_in_processes_without_jax(verb_store, tmp_path):
+    """``deploy --device cpu --replicas 2``: the front and both replicas
+    load no JAX; every answer through the front is index-identical to an
+    in-process single server's on the same persisted model; SIGTERM to the
+    front drains every replica (each writes its kernel-launch record) and
+    exits 0."""
+    import http.client
+    import json
+    import shutil
+    import signal
+    import time
+
+    from incubator_predictionio_torch.data.storage import Storage
+    from incubator_predictionio_torch.models.recommendation import (
+        RecommendationEngine,
+    )
+    from incubator_predictionio_torch.workflow.create_server import EngineServer
+
+    store = tmp_path / "store"
+    shutil.copytree(verb_store, store)
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    reports = tmp_path / "modules"
+    reports.mkdir()
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PIO_STORAGE_", "PIO_FLEET", "PIO_FAULT"))}
+    env.update(PYTHONPATH=os.pathsep.join([str(site), str(ROOT)]),
+               PIO_FS_BASEDIR=str(store / "base"),
+               PIO_TEST_MODULES_DIR=str(reports), PIO_FLEET_SYNC_MS="200",
+               PIO_FLEET_READY_MS="150")
+    front = subprocess.Popen(
+        [sys.executable, "-m", "incubator_predictionio_torch.tools.console",
+         "deploy", "--device", "cpu", "--replicas", "2", "--ip",
+         "127.0.0.1", "--port", str(port)],
+        env=env, cwd=str(store), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+    def get(path):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        try:
+            conn.request("GET", path)
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    def post(body):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        try:
+            conn.request("POST", "/queries.json", body=json.dumps(body))
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    try:
+        deadline = time.monotonic() + 180
+        health = {}
+        while time.monotonic() < deadline:
+            assert front.poll() is None, front.stdout.read()[-3000:]
+            try:
+                health = get("/healthz")[1]
+                if health.get("readyReplicas") == 2:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        assert health.get("readyReplicas") == 2, health
+        fleet_answers = {}
+        for u in range(12):
+            status, body = post({"user": f"u{u}", "num": 3})
+            assert status == 200, body
+            fleet_answers[f"u{u}"] = body
+        served_by = set()
+        for _ in range(4):   # fresh connections round-robin the replicas
+            served_by.add(get("/status")[1]["fleet"]["replica"])
+        assert served_by == {0, 1}
+    finally:
+        if front.poll() is None:
+            front.send_signal(signal.SIGTERM)
+        try:
+            rc = front.wait(timeout=90)
+        except subprocess.TimeoutExpired:
+            front.kill()
+            raise
+    out = front.stdout.read()
+    assert rc == 0, out[-3000:]
+    storage = Storage({
+        f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "S"
+        for r in ("METADATA", "EVENTDATA", "MODELDATA")} | {
+        "PIO_STORAGE_SOURCES_S_TYPE": "SQLITE",
+        "PIO_STORAGE_SOURCES_S_PATH": str(store / "base" / "pio.sqlite")})
+    engine_json = json.loads((store / "engine.json").read_text())
+    single = EngineServer(RecommendationEngine()(),
+                          engine_factory_name=engine_json["engineFactory"],
+                          storage=storage, device="cpu")
+    for user, body in fleet_answers.items():
+        want = single.deployment.query({"user": user, "num": 3})
+        assert [x["item"] for x in body["itemScores"]] == \
+            [x["item"] for x in want["itemScores"]], user
+    single.close()
+    storage.close()
+    docs = [json.loads(p.read_text()) for p in reports.glob("*.json")]
+    fronts = [d for d in docs if "--replicas" in d["argv"]]
+    replicas = sorted(d["replica"] for d in docs if d["replica"] is not None)
+    assert len(fronts) == 1 and replicas == ["0", "1"], docs
+    assert all(d["loaded"] == [] for d in docs), docs
+    logs = list((store / "base" / "gang").rglob("worker_*.log"))
+    assert len(logs) == 2
+    for log in logs:
+        assert '"kernel_launches": {"warp": 0, "wide": 0}' in \
+            log.read_text(), log.read_text()[-2000:]

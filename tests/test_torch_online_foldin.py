@@ -15,8 +15,9 @@ loop) on the CPU.
   ``pio deploy --online-foldin`` process), and the ``pio status`` lines.
   The fold-in counts are read from ``/status`` (the port has no
   ``/metrics`` yet).
-- A runner in a serving-fleet replica refuses to start (the fleet is not
-  ported).
+- In a serving fleet only replica 0 runs a runner; a standby replica
+  reports ``producer: false`` (the fleet cases are in
+  tests/test_torch_fleet_foldin.py).
 """
 
 import json
@@ -375,10 +376,25 @@ def test_runner_naive_bayes_counts_equal_the_reference(tmp_path):
 
 
 def test_runner_refuses_a_fleet_replica(tmp_path, monkeypatch):
+    """One producer per fleet: a standby replica (PIO_FLEET_REPLICA 1)
+    runs no fold-in runner and reports ``producer: false``, while replica
+    0's runner arms (tests/test_torch_fleet_foldin.py has the rest)."""
+    storage = Storage(_mixed_env(tmp_path))
+    app_id = _mk_app(storage)
+    _rate(storage.get_l_events(), app_id, "u0")
+    _train(storage)
     monkeypatch.setenv("PIO_FLEET_REPLICA", "1")
-    with pytest.raises(RuntimeError, match="PIO_FLEET_REPLICA"):
-        online.FoldInRunner(Storage(_mixed_env(tmp_path)), FACTORY,
-                            "default", device="cpu")
+    standby = _server(storage)
+    standby._start_foldin()
+    assert standby._foldin_runner is None and standby._foldin_thread is None
+    assert standby.foldin_snapshot()["producer"] is False
+    standby.close()
+    monkeypatch.setenv("PIO_FLEET_REPLICA", "0")
+    producer = _server(storage)
+    producer._start_foldin()
+    assert producer._foldin_runner is not None
+    assert producer.foldin_snapshot()["producer"] is True
+    producer.close()
 
 
 # -- the engine server's fold-in loop -----------------------------------------

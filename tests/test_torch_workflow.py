@@ -369,6 +369,49 @@ def _verb(args, capsys):
     return rc, out.out, out.err
 
 
+_NO_TORCH_PROBE = """
+import sys
+from incubator_predictionio_torch.tools import console
+console.main(sys.argv[1:])
+print("torch loaded:", "torch" in sys.modules)
+"""
+
+
+@pytest.mark.parametrize("verb", [
+    ["app", "list"], ["accesskey", "list"], ["eventlog", "status"],
+    ["models", "list"], ["undeploy", "--port", "1"],
+], ids=lambda v: v[0])
+def test_store_verbs_start_without_torch(verb, tmp_path):
+    """The verbs that touch only the store or the network never import
+    torch (on a card host that import is most of a verb's start-up)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PIO_STORAGE_")}
+    env.update(PYTHONPATH=str(ROOT),
+               PIO_FS_BASEDIR=str(tmp_path / "base"))
+    out = subprocess.run([sys.executable, "-c", _NO_TORCH_PROBE, *verb],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(tmp_path), timeout=120)
+    assert out.stdout.strip().splitlines()[-1] == "torch loaded: False", \
+        out.stdout + out.stderr[-2000:]
+
+
+def test_accesskey_delete_of_a_key_starting_with_dash(basedir, capsys):
+    """An access key that starts with "-" is deleted by `accesskey delete`
+    (argparse would read it as an option), and a generated key never
+    starts with "-"."""
+    from incubator_predictionio_torch.data.storage.base import new_access_key
+
+    key = "-fixedKeyThatLooksLikeAnOption_0123456789"
+    rc, out, _ = _verb(["app", "new", "dashapp", f"--access-key={key}"],
+                       capsys)
+    assert rc == 0 and f"Access Key: {key}" in out
+    assert key in _verb(["accesskey", "list", "dashapp"], capsys)[1]
+    rc, out, err = _verb(["accesskey", "delete", key], capsys)
+    assert rc == 0 and "Access key deleted." in out, err
+    assert key not in _verb(["accesskey", "list", "dashapp"], capsys)[1]
+    assert not any(new_access_key().startswith("-") for _ in range(2000))
+
+
 def test_app_and_accesskey_verbs(basedir, capsys, tmp_path):
     rc, out, _ = _verb(["app", "new", "myapp", "--description", "d"], capsys)
     assert rc == 0 and "Access Key:" in out
