@@ -34,6 +34,16 @@ Phases (any failure exits non-zero; nothing is caught):
 7. fold_in: a batch of 20,000 events (2,000 new users, 500 new items)
    folded into the main path's model: 2 warp launches, card vs CPU at
    2e-4, seconds per fold-in, the folded model served over HTTP.
+7a. serving_sharded_catalog / _fold_in / _always: host-sharded serving
+   (PIO_SERVE_SHARD_ITEMS) against the flat catalog — bench_query.py's
+   million-item bracket (10,000, 100,000 and 1,000,000 items × rank 32,
+   500 users, 8 shards) deployed over HTTP once flat and once sharded,
+   120 queries each, every sharded answer index- and score-identical to
+   the flat one, a batch of 64 index-identical with its peak memory; the
+   main path's model with 7 shards held to flat, the fold-in batch folded
+   into it (2 warp launches) and the rebuilt catalog held to the host
+   top-k; an engine.json with "shardedServing": "always" trained at the
+   ML-100K shape and served.
 8. console: train → deploy → query; a checkpointed console train that
    crashes and its ``--resume``; the Similar-Product template's own
    engine.json values through train → deploy → query.
@@ -48,7 +58,8 @@ Phases (any failure exits non-zero; nothing is caught):
    g++ beside nvcc in phase 1) and its plain parser on the first 200,000
    lines of the ML-20M log: every column and table equal; MB/s of both.
 12. pio_workflow_jsonl: the pio_workflow scenario with the events on a
-   JSONL log: two generations compacted, the live batches through the
+   JSONL log (the first 300,000 ML-1M events, cut from 1,000,209 for the
+   script's time): two generations compacted, the live batches through the
    codec's one-pass path, a train --window whose read skips generation 1
    and equals a numpy filter of the generated events, the full train
    (read count, first-seen id maps, warp launches = implied), deploy, 50
@@ -61,7 +72,18 @@ Phases (any failure exits non-zero; nothing is caught):
    instance across ≥ 2 refresh polls → pio models list, verify, gc --keep
    1 --engine-url (the deployed and pinned models kept) →
    /reload?instance=<new> removes the pin.
-13. pio_workflow_jsonl_ml20m: the first 5,000,000 of the ML-20M ratings
+12a. eventserver_partitioned: pio eventserver --workers 2 (and --workers 1
+   beside it, the rounds interleaved as bench_ingest.py's bracket) on
+   JSONL stores: the first 100,000 ML-1M events in batches of 50 from 16
+   clients, both .p<i> shards non-empty, the merged read equal to the
+   acknowledged events as a multiset; worker 1 SIGKILLed mid-flood
+   (20,000 more events), relaunched, no acknowledged event lost; pio
+   eventlog fence --partition 0 (the live worker's next write 503, its
+   shard unchanged), worker 0 relaunched with a fresh epoch; pio
+   eventserver scale 3, then scale 2 (partition 2's lease parked on the
+   front, epoch bumped); pio train off the merged log (warp launches =
+   implied, factors within 2e-4 of train_als on the triple read back).
+13. pio_workflow_jsonl_ml20m: the first 2,500,000 of the ML-20M ratings
    as the log (byte for byte insert_batch's lines; cut from 20,000,263
    for the script's time, ``reduced``) → eventlog compact → the read held
    exactly to the generated arrays → train at rank 32, 10 iterations
@@ -138,7 +160,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (tolerance 2e-6·N·ln N); the striped path bit-identical; the card
    against the CPU at 10,000 × 2,000 × 1,000,000 events; the counts' TF32
    route against int8 ``torch._int_mm``; dedupe, upload, counts and G² +
-   top-k times, and score_user's.
+   top-k times, and score_user's; the indicators served host-sharded
+   (4,096 rows a shard: 5 shards) for 200 users with history, every
+   answer bit-identical to the flat score_user's.
 21. universal_recommender_jsonl: config 5's first 200,000 buys and
    800,000 views (10 % of its events) and one $set per item (20 categories, an
    available/expire window on 5 % of the items) as a JSONL log → pio
@@ -151,7 +175,7 @@ Phases (any failure exits non-zero; nothing is caught):
 22. complementary_purchase: bench_templates.py's config 7 (200,000
    shoppers × 10,000 items × 2,000,000 buys over 30 days, 1 h baskets, 20
    correlators) in process on the card (basket count = the host's,
-   sampled count rows exact, the top-k rule); the first 200,000 buys
+   sampled count rows exact, the top-k rule); the first 100,000 buys
    through pio train → pio deploy → 30 basket queries held to the host
    scorer; pio eval of ComplementaryEvaluation + ComplementaryParamsList
    on ≈ 1,000 basket buys on the card and on the CPU (scores within 0.02,
@@ -203,6 +227,7 @@ from incubator_predictionio_torch.data.api import event_log
 from incubator_predictionio_torch.data.storage import Event, Storage
 from incubator_predictionio_torch.data.storage.jsonl import JSONLEvents
 from incubator_predictionio_torch.data.store import PEventStore, p_event_store
+from incubator_predictionio_torch.device import resolve_device
 from incubator_predictionio_torch.data.events import (
     aggregate_properties, find_ratings, read_events,
 )
@@ -210,11 +235,12 @@ from incubator_predictionio_torch.models import (
     complementary_purchase, similar_product, universal_recommender,
 )
 from incubator_predictionio_torch.models.recommendation import (
-    ALSModel, RecommendationEngine, TrainingData,
+    ALSModel, RecommendationEngine, TrainingData, model_to_persisted,
 )
 from incubator_predictionio_torch.ops import _build, als, llr, spd_solve
 from incubator_predictionio_torch.ops.als import (
-    ALSParams, ALSTrainer, predict_rmse, solve_calls_per_half_step, train_als,
+    ALSFactors, ALSParams, ALSTrainer, predict_rmse,
+    solve_calls_per_half_step, train_als,
 )
 from incubator_predictionio_torch.ops.rowblocks import plan_layout
 from incubator_predictionio_torch.workflow import model_artifact
@@ -956,7 +982,7 @@ def phase_fold_in(phase: str, algo, model, events, kernel: str,
     check(len(folded.users) == n_users + new_users
           and len(folded.items) == n_items + new_items,
           f"folded maps {len(folded.users)} users, {len(folded.items)} items")
-    check(folded.device.type == "cuda" and folded._dev_items is None,
+    check(folded.device.type == "cuda" and folded._sharded_cat is None,
           "the folded model is not a cold model on the card")
     check(bool(np.isfinite(folded.factors.user_factors).all()
                and np.isfinite(folded.factors.item_factors).all()),
@@ -1517,6 +1543,9 @@ ML1M = (6_040, 3_706, 1_000_209)  # bench.py SCALES["ml1m"]
 LIVE = (1_000, 20, 200, 50)
 #: events the SQLite pio_workflow phase imports (of ML-1M's 1,000,209)
 SQLITE_IMPORT = 100_000
+#: events the JSONL pio_workflow phase imports (of ML-1M's 1,000,209; all
+#: of them until the partitioned event server's phase needed the time)
+JSONL_IMPORT = 300_000
 PIO_RANK, PIO_ITERS, PIO_LAMBDA = 32, 10, 0.01
 T0_MS = 1_704_067_200_000  # 2024-01-01T00:00:00Z
 
@@ -1834,8 +1863,10 @@ CREATED_ISO = "2024-06-01T00:00:00.000Z"
 #: time: a whole run took 1,288 s with the full log on one H100 host (the
 #: phase 449 s of it, 246 s of that the compaction); 216 s at 10,000,000,
 #: cut again to 5,000,000 for the two linear-template phases (≈ 116 s for
-#: classification_jsonl alone on one H100 host)
-ML20M_LOG_EVENTS = 5_000_000
+#: classification_jsonl alone on one H100 host), and to 2,500,000 when the
+#: host-sharded and partitioned-ingest phases took the script to 1,177 s
+#: on a slow host (the phase 111 s there, 44 s of it the compaction)
+ML20M_LOG_EVENTS = 2_500_000
 ML20M_QUERIES = 20
 
 
@@ -2086,14 +2117,15 @@ def phase_pio_workflow_jsonl(workdir: str) -> None:
     --window leaving out the older half (generation 1 skipped by its
     bounds) → train (rank 32, 10 iterations, λ 0.01, the warp kernel) →
     deploy → 50 queries held to a host top-k."""
-    n_users, n_items, nnz = ML1M
+    n_users, n_items, _ = ML1M
+    nnz = JSONL_IMPORT
     new_users, new_items = LIVE[2:]
     base = os.path.join(workdir, "pio_jsonl")
     env = _jsonl_env(base)
     out, _ = _verb(["app", "new", "ml1m"], env, workdir)
     key = out.stdout.split("Access Key:")[1].split()[0]
     events_path = os.path.join(workdir, "ml1m.jsonl")
-    imported = _write_ml1m_jsonl(events_path)
+    imported = _write_ml1m_jsonl(events_path, nnz)
     times = imported[3]
     mid_ms = int(np.sort(times)[nnz // 2])
     with open(events_path, "rb") as fh:
@@ -2143,8 +2175,11 @@ def phase_pio_workflow_jsonl(workdir: str) -> None:
 
     ref = _expected_triple(imported, live)
     total = nnz + len(live)
-    check(len(ref["u"]) == total and len(ref["users"]) == n_users + new_users
-          and len(ref["items"]) == n_items + new_items,
+    seen = [len(set(imported[k].tolist())
+                | {int(e[key][1:]) for e in live})
+            for k, key in ((0, "entityId"), (1, "targetEntityId"))]
+    check(len(ref["u"]) == total and len(ref["users"]) == seen[0]
+          and len(ref["items"]) == seen[1],
           f"reference triple {len(ref['u'])}")
     all_times = np.sort(np.concatenate(
         [times, np.array([_ms(e["eventTime"]) for e in live], np.int64)]))
@@ -2204,7 +2239,7 @@ def phase_pio_workflow_jsonl(workdir: str) -> None:
 
     rng = np.random.default_rng(24)
     queried = ([f"u{n_users + j}" for j in range(0, new_users, new_users // 25)]
-               + [f"u{int(x)}" for x in rng.integers(0, n_users, 25)])
+               + [f"u{int(x)}" for x in rng.choice(imported[0], 25)])
     emit("pio_workflow_jsonl_serve", queries=len(queried),
          **_serve_and_check(env, workdir, first["engineInstanceId"], stored,
                             queried),
@@ -2548,7 +2583,7 @@ def _items(res: dict) -> list:
 def phase_engine_server_load(env: dict, cwd: str, instance_id: str,
                              stored: dict, want: dict) -> dict:
     """The engine server on the ML-20M-shaped store (pio_workflow_jsonl_ml20m's
-    5,000,000 events, rank 32): pio deploy --probe-latency (the probe's
+    2,500,000 events, rank 32): pio deploy --probe-latency (the probe's
     split from /status), one keep-alive client × SERVE_QUERIES, then 8 and
     32 clients without and with micro-batching (--batch-window-ms 2
     --max-batch 64), the result cache (hits and misses), a 504 deadline,
@@ -4019,8 +4054,10 @@ def timed(fn, key):
     return run
 
 for key, dotted in spec["timed"].items():
+    # "Owner.attr" in the template's module, or "pkg.module:Owner.attr"
+    where, _, dotted = dotted.rpartition(":")
     *path, name = dotted.split(".")
-    owner = module
+    owner = importlib.import_module(where) if where else module
     for part in path:
         owner = getattr(owner, part)
     fn = timed(getattr(owner, name), key)
@@ -4321,7 +4358,8 @@ def phase_ecommerce_jsonl(workdir: str) -> None:
     srv = _timed_deploy(env, cwd, split_out, "ecommerce",
                         "ECommerceAlgorithm",
                         {"store_s": "LEventStore.find_by_entity",
-                         "topk_s": "top_k_items"})
+                         "topk_s": "incubator_predictionio_torch.models."
+                                   "_sharded_serving:ShardedCatalog.top_k"})
     try:
         with events, srv:
             ready_s = time.perf_counter() - t0
@@ -4989,8 +5027,9 @@ CP_ENGINE = os.path.join(ROOT, "templates", "complementary-purchase",
                          "engine.json")
 CP_FACTORY = ("incubator_predictionio_torch.models.complementary_purchase."
               "ComplementaryPurchaseEngine")
-#: the verbs' buys (the first of config 7's), and the basket queries
-CP_LOG_BUYS = 200_000
+#: the verbs' buys (the first of config 7's; 200,000 before the script's
+#: time needed a cut), and the basket queries
+CP_LOG_BUYS = 100_000
 CP_QUERIES = 30
 #: pio eval's shoppers: 4 buys each in one basket (≈ 1,000 buys)
 CP_EVAL_SHOPPERS = 250
@@ -5271,6 +5310,7 @@ def phase_universal_recommender() -> None:
                               item_boost=boost, device="cuda")
 
     score_ms = loop_ms(score, 50)
+    sharded = _ur_sharded_check(model, events, n_items)
     n_events = n_buy + n_view
     emit("universal_recommender", users=n_users, items=n_items, buys=n_buy,
          views=n_view, max_correlators=50, pairs=list(secs),
@@ -5281,9 +5321,54 @@ def phase_universal_recommender() -> None:
          sampled=sampled, striped_bit_identical=True,
          striped_seconds=striped_s, striped_timings=striped_tm,
          counts_route_ab=ab, card_vs_cpu={"shape": UR_SMALL, **card_vs_cpu},
-         score_user_ms=score_ms,
+         score_user_ms=score_ms, serving_sharded=sharded,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          kernel_launches=launched)
+
+
+def _ur_sharded_check(model, events: dict, n_items: int) -> dict:
+    """Config 5's indicators served host-sharded (UR_SHARD_ROWS rows per
+    shard) for UR_SHARDED_USERS users with history: every answer
+    bit-identical to the flat score_user's, under the query rules (the
+    user's buys excluded, a boost on a fifth of the items)."""
+    from incubator_predictionio_torch.models._sharded_serving import (
+        ShardedIndicators,
+    )
+
+    _shard_rows(UR_SHARD_ROWS)
+    try:
+        si = ShardedIndicators(model.indicators, n_items, model.device)
+    finally:
+        _shard_rows(None)
+    check(si.layout == "host", "UR: not host-sharded")
+    n_shards = next(iter(si._sharded.values())).n_shards
+    rng = np.random.default_rng(64)
+    buyers = np.unique(events["buy"][0])
+    users = rng.choice(buyers, UR_SHARDED_USERS, replace=False)
+    boost = np.where(rng.random(n_items) < 0.2, 2.0, 1.0).astype(np.float32)
+    host_ms, flat_ms = [], []
+    for user in users:
+        member = {}
+        for name, (uu, ii) in events.items():
+            m = np.zeros(n_items, np.float32)
+            m[ii[uu == user]] = 1.0
+            member[name] = m
+        exclude = member["buy"] > 0
+        entries = [(n, member[n], 1.0) for n in ("buy", "view")]
+        t0 = time.perf_counter()
+        want = llr.score_user([(model.indicators[n], m, b)
+                               for n, m, b in entries], 20, exclude=exclude,
+                              item_boost=boost, device="cuda")
+        flat_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        got = si.score_user(entries, 20, exclude, boost)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(got[1], want[1])
+              and np.array_equal(got[0], want[0]),
+              f"UR user {user}: the host-sharded answer differs from flat")
+    return {"users": len(users), "shards": n_shards,
+            "rows_per_shard": UR_SHARD_ROWS, "bit_identical": len(users),
+            "flat_ms": _percentiles(flat_ms), "host_ms": _percentiles(host_ms)}
 
 
 def _ur_item_lines(cats, dated) -> bytes:
@@ -5514,7 +5599,9 @@ def phase_universal_recommender_jsonl(workdir: str) -> None:
     events_srv = _Served(["eventserver", "--ip", "127.0.0.1"], env, cwd)
     srv = _timed_deploy(env, cwd, split_out, "universal_recommender",
                         "URAlgorithm", {"history_s": "URModel._history",
-                                        "score_s": "score_user"})
+                                        "score_s": "incubator_predictionio_"
+                                        "torch.models._sharded_serving:"
+                                        "ShardedIndicators.score_user"})
     try:
         with events_srv, srv:
             ready_s = time.perf_counter() - t0
@@ -5714,6 +5801,592 @@ def phase_complementary_purchase(workdir: str) -> None:
     shutil.rmtree(cwd)
 
 
+# -- host-sharded serving (ROADMAP item 4) -----------------------------------
+
+#: the reference's million-item bracket (bench_query.py:461-497): catalog
+#: sizes at rank 32, users and queries per point
+SHARDED_SIZES = (10_000, 100_000, 1_000_000)
+SHARDED_USERS, SHARDED_QUERIES = 500, 120
+#: PIO_SERVE_SHARD_ITEMS = min(SHARD_ROWS_MAX, n_items // 8): 8 shards
+SHARD_ROWS_MAX = 131_072
+SHARDED_BATCH = 64
+#: rows per shard for the ML-20M fold-in (7 shards) and config 5's UR
+#: indicators (5 shards)
+FOLD_IN_SHARD_ROWS = 4_096
+UR_SHARD_ROWS = 4_096
+UR_SHARDED_USERS = 200
+
+
+def _shard_rows(rows) -> None:
+    if rows:
+        os.environ["PIO_SERVE_SHARD_ITEMS"] = str(rows)
+    else:
+        os.environ.pop("PIO_SERVE_SHARD_ITEMS", None)
+
+
+def _als_deployment(uf: np.ndarray, itf: np.ndarray, rows, mode="auto"):
+    """A Recommendation deployment of these factors on the card, its
+    catalog made resident under PIO_SERVE_SHARD_ITEMS=rows (None: flat)."""
+    engine, engine_json, _ = als_engine(RANK, ITERS, 0.01)
+    engine_json["algorithms"][0]["params"]["shardedServing"] = mode
+    model = ALSModel(ALSFactors(uf, itf, uf.shape[0], itf.shape[0]),
+                     IdentityBiMap(uf.shape[0]), IdentityBiMap(itf.shape[0]),
+                     device=resolve_device("cuda"))
+    _shard_rows(rows)
+    try:
+        deployment = engine.prepare_deployment(
+            WorkflowContext(device="cuda"), EngineParams.from_json(
+                engine_json), [model_to_persisted(model)])
+        deployment.models[0].warm_up()
+    finally:
+        _shard_rows(None)
+    return deployment
+
+
+def _http_answers(deployment, queries) -> tuple:
+    """Every query over HTTP on one keep-alive connection: (answers,
+    latencies ms without the first)."""
+    server = EngineServer(deployment=deployment)
+    host, port = server.start()
+    conn = http.client.HTTPConnection(host, port, timeout=60)
+    answers, lat = [], []
+    try:
+        for q in queries:
+            status, res, ms = _post(conn, q)
+            check(status == 200, f"query status {status}: {res}")
+            answers.append(res)
+            lat.append(ms)
+    finally:
+        conn.close()
+        server.stop()
+    return answers, lat[1:]
+
+
+def _batch_peak(cat, uvs: np.ndarray, k: int):
+    """(scores, indices, peak bytes above what was allocated before) of
+    one batched call."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s, i = cat.batch_top_k(uvs, k)
+    torch.cuda.synchronize()
+    return s, i, torch.cuda.max_memory_allocated() - base
+
+
+def phase_serving_sharded_catalog(main: dict) -> None:
+    """Host-sharded serving (PIO_SERVE_SHARD_ITEMS) against the flat
+    catalog on the card: the reference's million-item bracket (10,000,
+    100,000 and 1,000,000 items × rank 32, 500 users, 8 shards each)
+    deployed through the engine server over HTTP once flat and once
+    host-sharded, every host answer index- and score-identical to the flat
+    one, the batch of 64 index-identical with its peak memory; then the
+    main path's ML-20M model served with 7 shards, held to flat, the
+    FOLD_IN batch folded into it (2 warp launches) and the rebuilt host
+    catalog's answers held to the host top-k over the new factors; then
+    an engine.json with "shardedServing": "always" trained and served."""
+    rng = np.random.default_rng(61)
+    points = []
+    for n_items in SHARDED_SIZES:
+        rows = min(SHARD_ROWS_MAX, n_items // 8)
+        uf = rng.normal(size=(SHARDED_USERS, RANK)).astype(np.float32)
+        itf = rng.normal(size=(n_items, RANK)).astype(np.float32)
+        users = rng.integers(0, SHARDED_USERS, SHARDED_QUERIES)
+        queries = [{"user": str(int(u)), "num": 10} for u in users]
+        flat_dep = _als_deployment(uf, itf, None)
+        host_dep = _als_deployment(uf, itf, rows)
+        flat_cat = flat_dep.models[0].catalog()
+        host_cat = host_dep.models[0].catalog()
+        check(flat_cat.layout == "flat" and host_cat.layout == "host"
+              and host_cat.n_shards == 8,
+              f"layouts {flat_cat.layout} / {host_cat.layout} "
+              f"({host_cat.n_shards} shards)")
+        flat_ans, flat_ms = _http_answers(flat_dep, queries)
+        host_ans, host_ms = _http_answers(host_dep, queries)
+        check(host_ans == flat_ans,
+              f"{n_items} items: a host-sharded answer differs from flat")
+        for q, res in list(zip(queries, flat_ans))[:5]:
+            check_user_answer(uf, itf, int(q["user"]), res)
+        uv = uf[0]
+        dev = {name: device_ms(lambda c=cat: c.top_k(uv, 10), 20)
+               for name, cat in (("flat", flat_cat), ("host", host_cat))}
+        loop = {name: loop_ms(lambda c=cat: c.top_k(uv, 10), 50)
+                for name, cat in (("flat", flat_cat), ("host", host_cat))}
+        uvs = uf[rng.integers(0, SHARDED_USERS, SHARDED_BATCH)]
+        _, fi, flat_peak = _batch_peak(flat_cat, uvs, 10)
+        _, hi, host_peak = _batch_peak(host_cat, uvs, 10)
+        check(np.array_equal(fi, hi),
+              f"{n_items} items: batched indices differ between layouts")
+        points.append({
+            "items": n_items, "rank": RANK, "shards": host_cat.n_shards,
+            "rows_per_shard": rows, "queries": len(queries),
+            "identical_answers": len(queries),
+            "flat": {**_percentiles(flat_ms), "device_ms": dev["flat"],
+                     "call_ms": loop["flat"],
+                     "batch64_peak_bytes": flat_peak},
+            "host": {**_percentiles(host_ms), "device_ms": dev["host"],
+                     "call_ms": loop["host"],
+                     "batch64_peak_bytes": host_peak}})
+        del flat_dep, host_dep, flat_cat, host_cat
+        torch.cuda.empty_cache()
+    # NaN under the host layout at 10^6 items: NaN ranks above every
+    # number, as in the flat sort (one shard with more NaN rows than k, a
+    # NaN user vector); a pick past a shard's end would be a device-side
+    # assert here
+    from incubator_predictionio_torch.models._sharded_serving import (
+        ShardedCatalog,
+    )
+
+    nan_rng = np.random.default_rng(62)
+    n_items = SHARDED_SIZES[-1]
+    itf = nan_rng.normal(size=(n_items, RANK)).astype(np.float32)
+    itf[1000:1100] = np.nan
+    itf[[7, n_items - 3]] = np.nan
+    uvs = nan_rng.normal(size=(4, RANK)).astype(np.float32)
+    uvs[1] = np.nan
+    card = resolve_device("cuda")
+    flat_cat = ShardedCatalog(itf, card)
+    _shard_rows(min(SHARD_ROWS_MAX, n_items // 8))
+    try:
+        host_cat = ShardedCatalog(itf, card)
+    finally:
+        _shard_rows(None)
+    check(host_cat.layout == "host", "the NaN catalog is not host-sharded")
+    for uv in uvs:
+        (hs, hi), (fs, fi) = host_cat.top_k(uv, 10), flat_cat.top_k(uv, 10)
+        check(np.array_equal(hi, fi) and np.array_equal(hs, fs,
+                                                        equal_nan=True),
+              f"NaN scores: host {hi} {hs} vs flat {fi} {fs}")
+    check(np.array_equal(host_cat.batch_top_k(uvs, 10)[1],
+                         flat_cat.batch_top_k(uvs, 10)[1]),
+          "NaN scores: batched indices differ between layouts")
+    torch.cuda.synchronize()
+    del flat_cat, host_cat
+    torch.cuda.empty_cache()
+    emit("serving_sharded_catalog", points=points,
+         nan_rows={"items": n_items, "nan_rows": 102, "nan_users": 1,
+                   "identical": True},
+         source="bench_query.py:461-497 (10^4-10^6 items x rank 32, "
+                "random factors, seed 61)")
+
+    # the main path's ML-20M model, 7 shards, then a fold-in into it
+    n_users, n_items, _ = ML20M
+    model, algo = main["model"], main["algo"]
+    flat = ALSModel(model.factors, model.users, model.items,
+                    device=model.device)
+    _shard_rows(FOLD_IN_SHARD_ROWS)
+    try:
+        host = ALSModel(model.factors, model.users, model.items,
+                        device=model.device)
+        shards = -(-n_items // FOLD_IN_SHARD_ROWS)  # 7 at ML-20M
+        check(host.catalog().layout == "host"
+              and host.catalog().n_shards == shards,
+              f"ML-20M: {host.catalog().n_shards} shards")
+        sample = np.random.default_rng(62).integers(0, n_users, 200)
+        for u in sample:
+            check(host.recommend_products(str(u), 10)
+                  == flat.recommend_products(str(u), 10),
+                  f"ML-20M user {u}: host answer differs from flat")
+        new_users, new_items, n_events = FOLD_IN
+        events = fold_in_events(n_users, n_items, new_users, new_items,
+                                n_events - 5 * new_users - 4 * new_items,
+                                seed=8)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        folded = algo.fold_in(host, events)
+        torch.cuda.synchronize()
+        fold_s = time.perf_counter() - t0
+        got = launches()
+        record("fold_in_sharded", got)
+        check(got["warp"] == 2 == got["total"],
+              f"sharded fold-in launches {got}")
+        check(folded._sharded_cat is None, "the folded model kept a catalog")
+        t0 = time.perf_counter()
+        cat = folded.catalog()
+        rebuild_s = time.perf_counter() - t0
+        check(cat.layout == "host" and cat.n_items == n_items + new_items
+              and cat.n_shards == -(-(n_items + new_items)
+                                    // FOLD_IN_SHARD_ROWS),
+              f"rebuilt catalog {cat.layout}, {cat.n_items} items, "
+              f"{cat.n_shards} shards")
+    finally:
+        _shard_rows(None)
+    uf, itf = folded.factors.user_factors, folded.factors.item_factors
+    held = 0
+    for user in ([n_users + j for j in range(0, new_users, 100)]
+                 + [int(x) for x in sample[:20]]):
+        res = {"itemScores": [{"item": it, "score": sc} for it, sc in
+                              folded.recommend_products(str(user), 10)]}
+        check_user_answer(uf, itf, user, res)
+        held += 1
+    new_item_hits = sum(
+        int(it) >= n_items for j in range(0, new_users, 100)
+        for it, _ in folded.recommend_products(str(n_users + j), 10))
+    emit("serving_sharded_fold_in", items=n_items, shards=shards,
+         rows_per_shard=FOLD_IN_SHARD_ROWS, users_held_to_flat=len(sample),
+         fold_in_events=len(events), kernel_launches=got,
+         fold_in_seconds=fold_s, catalog_rebuild_seconds=rebuild_s,
+         items_after=cat.n_items, shards_after=cat.n_shards,
+         answers_held_to_host_topk=held, new_items_in_answers=new_item_hits)
+
+    # "shardedServing": "always" at ML-100K: train → serve
+    n_u, n_i, nnz = ML100K
+    u, i, r = synth_ratings(n_u, n_i, nnz, seed=63)
+    engine, engine_json, _ = als_engine(RANK, ITERS, 0.1, "nratings")
+    engine_json["algorithms"][0]["params"]["shardedServing"] = "always"
+    params = EngineParams.from_json(engine_json)
+    _, _, algos, _ = engine.make_components(params)
+    always = algos[0][1]
+    check(always.params.sharded_serving == "always", "shardedServing parse")
+    expected, _, _ = implied_launches(u, i, n_u, n_i,
+                                      always.als_params(always.params), ITERS)
+    reset_launches()
+    trained = always.train(WorkflowContext(device="cuda"), TrainingData(
+        u, i, r, IdentityBiMap(n_u), IdentityBiMap(n_i)))
+    got = launches()
+    record("sharded_always", got)
+    check(got["warp"] == expected, f"always: launches {got} != {expected}")
+    dep = _als_deployment(trained.factors.user_factors,
+                          trained.factors.item_factors, 256, mode="always")
+    check(dep.models[0].catalog().layout == "host", "always: layout")
+    queries = [{"user": str(x), "num": 10} for x in range(0, n_u, 19)]
+    answers, ms = _http_answers(dep, queries)
+    for q, res in zip(queries, answers):
+        check_user_answer(trained.factors.user_factors,
+                          trained.factors.item_factors, int(q["user"]), res)
+    emit("serving_sharded_always", ratings=nnz, kernel_launches=got,
+         expected_launches=expected, shards=dep.models[0].catalog().n_shards,
+         queries=len(queries), **_percentiles(ms))
+
+
+# -- the partitioned event log's write side (ROADMAP item 3.1.1) ------------
+
+#: ML-1M events through `pio eventserver --workers 2`, then the ones the
+#: SIGKILL flood sends; bench_ingest.py's bracket: 16 clients, 3,000
+#: events a round, the topologies interleaved round by round
+PART_EVENTS, PART_KILL_EVENTS = 100_000, 20_000
+PART_CLIENTS, PART_ROUND, PART_ROUNDS, PART_BATCH = 16, 3_000, 5, 50
+
+
+class _Front(_Served):
+    """``pio eventserver --workers N`` in its own process; ready once the
+    front's /healthz counts every worker ready."""
+
+    def __init__(self, env: dict, cwd: str, workers: int):
+        self.workers = workers
+        super().__init__(["eventserver", "--workers", str(workers), "--ip",
+                          "127.0.0.1"], env, cwd)
+
+    def __enter__(self):
+        self.wait_health(f"{self.workers} ready workers", lambda h: (
+            h["readyWorkers"] == self.workers
+            and len(h["workers"]) == self.workers))
+        return self
+
+    def health(self) -> dict:
+        return self.request("GET", "/healthz")[1]
+
+    def wait_health(self, what: str, pred, timeout: float = 120.0) -> dict:
+        deadline = time.time() + timeout
+        last = None
+        while time.time() < deadline:
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"front exited: {self.proc.stderr.read()[-2000:]}")
+            try:
+                last = self.health()
+                if pred(last):
+                    return last
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.1)
+        raise AssertionError(f"front: {what} not reached: {last}")
+
+    def pid_of(self, worker: int):
+        return next(b["pid"] for b in self.health()["backends"]
+                    if b["worker"] == worker)
+
+    def port_of(self, worker: int):
+        return next(b["port"] for b in self.health()["backends"]
+                    if b["worker"] == worker)
+
+
+def _drive(port: int, key: str, bodies: list, on_acked=None) -> tuple:
+    """POST every pre-encoded batch body to /batch/events.json from
+    PART_CLIENTS keep-alive connections; a batch whose connection fails is
+    sent again on a new connection (not acknowledged, so nothing is lost).
+    Returns (acknowledged ids, seconds, batches sent again)."""
+    import queue
+
+    work: queue.Queue = queue.Queue()
+    for b in bodies:
+        work.put(b)
+    acked, retries, errors = [], [0], []
+    lock = threading.Lock()
+    path = f"/batch/events.json?accessKey={key}"
+
+    def client():
+        conn = None
+        try:
+            while True:
+                try:
+                    body = work.get_nowait()
+                except queue.Empty:
+                    return
+                for attempt in range(20):
+                    try:
+                        if conn is None:
+                            conn = http.client.HTTPConnection(
+                                "127.0.0.1", port, timeout=60)
+                        conn.request("POST", path, body=body, headers={
+                            "Content-Type": "application/json"})
+                        resp = conn.getresponse()
+                        res = json.loads(resp.read())
+                        check(resp.status == 200, f"batch {resp.status}")
+                        check(all(x["status"] == 201 for x in res),
+                              f"batch items {res[:2]}")
+                        break
+                    except (OSError, http.client.HTTPException,
+                            ValueError):
+                        if conn is not None:
+                            conn.close()
+                        conn = None
+                        with lock:
+                            retries[0] += 1
+                        time.sleep(0.05 * (attempt + 1))
+                else:
+                    raise AssertionError("a batch failed 20 times")
+                with lock:
+                    acked.extend(x["eventId"] for x in res)
+                    n = len(acked)
+                if on_acked is not None:
+                    on_acked(n)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+        finally:
+            if conn is not None:
+                conn.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client) for _ in range(PART_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.perf_counter() - t0
+    check(not errors, f"ingest clients failed: {errors[:1]}")
+    return acked, seconds, retries[0]
+
+
+def _bodies(events: list) -> list:
+    return [json.dumps(events[j:j + PART_BATCH]).encode()
+            for j in range(0, len(events), PART_BATCH)]
+
+
+def _event_key(e: dict) -> tuple:
+    return (e["entityId"], e["targetEntityId"],
+            float(e["properties"]["rating"]), _ms(e["eventTime"]))
+
+
+def _log_view(env: dict, app: str = "part") -> tuple:
+    """(eventId → count, content multiset) of the merged read."""
+    import collections
+
+    store = _storage_of(env)
+    app_id = store.get_meta_data_apps().get_by_name(app).id
+    ids, content = collections.Counter(), collections.Counter()
+    for e in store.get_l_events().find(app_id, limit=None):
+        ids[e.event_id] += 1
+        content[(e.entity_id, e.target_entity_id,
+                 float(e.properties.get_or_else("rating", "nan")),
+                 int(e.event_time.timestamp() * 1000 + 0.5))] += 1
+    store.close()
+    return ids, content
+
+
+def phase_eventserver_partitioned(workdir: str) -> None:
+    """`pio eventserver --workers 2` (and `--workers 1` beside it, for the
+    bracket) on JSONL stores: the first PART_EVENTS ML-1M events in
+    batches of 50 from 16 clients, the two topologies interleaved for
+    PART_ROUNDS rounds of 3,000 events (bench_ingest.py:354-380); both
+    .p<i> shards non-empty and the merged read equal to the acknowledged
+    events as a multiset; a SIGKILL of worker 1 mid-flood (PART_KILL_EVENTS
+    more), relaunched, no acknowledged event lost; `pio eventlog fence
+    --partition 0` on the live worker 0 (its next write 503, the shard's
+    size unchanged), worker 0 killed and relaunched with a fresh epoch;
+    `pio eventserver scale 3` then `scale 2` (partition 2's lease parked
+    on the front, epoch bumped); then `pio train` off the merged log:
+    warp launches = implied, factors within 2e-4 of train_als on the
+    triple read back."""
+    cwd = tempfile.mkdtemp(dir=workdir)
+    envs, keys = {}, {}
+    for w in (1, 2):
+        envs[w] = _jsonl_env(os.path.join(cwd, f"pio_w{w}")) | {
+            "PIO_SUPERVISOR_POLL_MS": "50"}
+        out, _ = _verb(["app", "new", "part"], envs[w], cwd)
+        keys[w] = out.stdout.split("Access Key:")[1].split()[0]
+    path = os.path.join(cwd, "ml1m.jsonl")
+    _write_ml1m_jsonl(path, PART_EVENTS + PART_KILL_EVENTS)
+    with open(path, encoding="utf-8") as fh:
+        events = [json.loads(line) for line in fh]
+    os.unlink(path)
+    main_ev, flood_ev = events[:PART_EVENTS], events[PART_EVENTS:]
+    ev_dir = os.path.join(cwd, "pio_w2", "events", "pio_eventdata")
+    t0 = time.perf_counter()
+    one, two = _Front(envs[1], cwd, 1), _Front(envs[2], cwd, 2)
+    with one, two:
+        up_s = time.perf_counter() - t0
+        rates = {1: [], 2: []}
+        acked = []
+        for r in range(PART_ROUNDS):
+            chunk = _bodies(main_ev[r * PART_ROUND:(r + 1) * PART_ROUND])
+            for w, front in ((1, one), (2, two)):
+                ids, sec, _ = _drive(front.port, keys[w], chunk)
+                rates[w].append(PART_ROUND / sec)
+                if w == 2:
+                    acked += ids
+        rest = main_ev[PART_ROUNDS * PART_ROUND:]
+        ids, rest_s, _ = _drive(two.port, keys[2], _bodies(rest))
+        acked += ids
+        shards = {n: os.path.getsize(os.path.join(ev_dir, n))
+                  for n in os.listdir(ev_dir) if n.endswith(".jsonl")}
+        check(shards.get("events_1.p0.jsonl", 0) > 0
+              and shards.get("events_1.p1.jsonl", 0) > 0,
+              f"shards {shards}")
+        read_ids, read_content = _log_view(envs[2])
+        import collections
+
+        check(read_ids == collections.Counter(acked)
+              and len(acked) == PART_EVENTS,
+              f"merged read {sum(read_ids.values())} events, "
+              f"{len(acked)} acknowledged")
+        check(read_content == collections.Counter(
+            _event_key(e) for e in main_ev),
+              "the merged read's events differ from the posted ones")
+        emit("eventserver_partitioned_ingest", events=PART_EVENTS,
+             clients=PART_CLIENTS, batch=PART_BATCH, round_events=PART_ROUND,
+             events_per_s_rounds={f"workers_{w}": v
+                                  for w, v in rates.items()},
+             events_per_s_median={f"workers_{w}": float(np.median(v))
+                                  for w, v in rates.items()},
+             rest_events=len(rest), rest_events_per_s=len(rest) / rest_s,
+             shard_bytes=shards, fronts_up_seconds=up_s)
+
+        # SIGKILL of worker 1 mid-flood
+        pid1 = two.pid_of(1)
+        killed = threading.Event()
+        bodies = _bodies(flood_ev)
+
+        def kill_at(n):
+            if n >= len(flood_ev) // 3 and not killed.is_set():
+                killed.set()
+                os.kill(pid1, signal.SIGKILL)
+
+        t0 = time.perf_counter()
+        flood_ids, flood_s, retried = _drive(two.port, keys[2], bodies,
+                                             on_acked=kill_at)
+        check(killed.is_set(), "worker 1 was not killed")
+        health = two.wait_health("worker 1 relaunched", lambda h: any(
+            b["worker"] == 1 and b["ready"] and b["pid"] not in (None, pid1)
+            for b in h["backends"]))
+        back_s = time.perf_counter() - t0
+        restarts = {b["worker"]: b["restarts"] for b in health["backends"]}
+        acked += flood_ids
+        read_ids, _ = _log_view(envs[2])
+        lost = [eid for eid in flood_ids if eid not in read_ids]
+        check(not lost, f"{len(lost)} acknowledged events lost")
+        check(restarts[1] == 1, f"restarts {restarts}")
+        emit("eventserver_partitioned_sigkill", events=len(flood_ev),
+             acknowledged=len(flood_ids), lost=0, batches_sent_again=retried,
+             landed_unacknowledged=sum(read_ids.values()) - len(acked),
+             seconds_until_relaunched_ready=back_s, flood_seconds=flood_s,
+             restarts=restarts)
+
+        # fence partition 0 under its live worker
+        p0 = os.path.join(ev_dir, "events_1.p0.jsonl")
+        epoch0 = event_log.lease_info(ev_dir, 0)["epoch"]
+        out, _ = _verb(["eventlog", "fence", "--partition", "0"], envs[2],
+                       cwd)
+        check(f"new epoch {epoch0 + 1} (FORCED" in out.stdout, out.stdout)
+        size = os.path.getsize(p0)
+        w0 = _Endpoint(two.port_of(0))
+        status, res, _ = w0.request(
+            "POST", f"/batch/events.json?accessKey={keys[2]}",
+            flood_ev[:PART_BATCH])
+        check(status == 503 and "fenced" in res["message"],
+              f"fenced worker answered {status}: {res}")
+        check(os.path.getsize(p0) == size, "the fenced worker wrote")
+        pid0 = two.pid_of(0)
+        os.kill(pid0, signal.SIGKILL)
+        two.wait_health("worker 0 relaunched", lambda h: any(
+            b["worker"] == 0 and b["ready"] and b["pid"] not in (None, pid0)
+            for b in h["backends"]))
+        epoch_back = event_log.lease_info(ev_dir, 0)["epoch"]
+        check(epoch_back == epoch0 + 2, f"worker 0 epoch {epoch_back}")
+        w0 = _Endpoint(two.port_of(0))
+        status, res, _ = w0.request(
+            "POST", f"/batch/events.json?accessKey={keys[2]}",
+            flood_ev[:PART_BATCH])
+        check(status == 200 and all(x["status"] == 201 for x in res),
+              f"relaunched worker 0 answered {status}")
+        acked += [x["eventId"] for x in res]
+
+        # scale 3 → scale 2: partition 2's lease parked on the front
+        t0 = time.perf_counter()
+        _verb(["eventserver", "scale", "3"], envs[2], cwd)
+        two.wait_health("3 ready workers", lambda h: (
+            h["readyWorkers"] == 3 and len(h["workers"]) == 3))
+        up3_s = time.perf_counter() - t0
+        owned = event_log.lease_info(ev_dir, 2)
+        t0 = time.perf_counter()
+        _verb(["eventserver", "scale", "2"], envs[2], cwd)
+        two.wait_health("partition 2 parked", lambda h: (
+            h["parkedPartitions"] == [2] and h["workers"] == [0, 1]))
+        down_s = time.perf_counter() - t0
+        parked = event_log.lease_info(ev_dir, 2)
+        check(parked["held"] and parked["pid"] == two.proc.pid
+              and parked["epoch"] == owned["epoch"] + 1,
+              f"partition 2: owned {owned}, parked {parked}")
+        emit("eventserver_partitioned_fence_scale", fence_epoch=epoch0 + 1,
+             fenced_status=503, shard_bytes_unchanged=True,
+             relaunch_epoch=epoch_back, scale_up_seconds=up3_s,
+             scale_down_seconds=down_s, parked={
+                 "partition": 2, "epoch_owned": owned["epoch"],
+                 "epoch_parked": parked["epoch"]})
+    check(one.proc.returncode == 0 and two.proc.returncode == 0,
+          f"fronts exited {one.proc.returncode}, {two.proc.returncode}")
+
+    # pio train off the merged log
+    _write_engine_json(cwd, "part")
+    trained = _train_verb(envs[2], cwd, "eventserver_partitioned")
+    store = _storage_of(envs[2])
+    u, i, r, users, items = PEventStore.find_ratings("part", storage=store)
+    want = {"u": u, "i": i, "r": r, "users": list(users.keys()),
+            "items": list(items.keys())}
+    final_ids, _ = _log_view(envs[2])
+    check(len(u) == sum(final_ids.values()) and set(acked) <= set(final_ids),
+          f"read {len(u)} ratings; the log holds {sum(final_ids.values())}, "
+          f"{len(acked)} acknowledged")
+    _hold_train(trained, want, "eventserver_partitioned")
+    stored = _hold_model(store, trained, want, "eventserver_partitioned")
+    store.close()
+    algo = als_engine(PIO_RANK, PIO_ITERS, PIO_LAMBDA)[2]
+    ref = train_als(u, i, r, n_users=len(users), n_items=len(items),
+                    params=algo.als_params(algo.params), device="cuda")
+    err = {"user": max_err(stored["user_factors"], ref.user_factors),
+           "item": max_err(stored["item_factors"], ref.item_factors)}
+    check(within(stored["user_factors"], ref.user_factors)
+          and within(stored["item_factors"], ref.item_factors),
+          f"pio train vs train_als: {err}")
+    emit("eventserver_partitioned_train", ratings=len(u),
+         kernel_launches=trained["kernel_launches"],
+         expected_launches=trained["expected_launches"],
+         train_seconds_end_to_end=trained["wall_seconds"],
+         read_seconds=trained["timings"]["read_seconds"],
+         max_abs_err_vs_train_als=err)
+    shutil.rmtree(cwd)
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -5724,11 +6397,13 @@ def main() -> int:
         phase_train_checkpointed(workdir, main_path)
         phase_train_nan_guard(main_path)
         phase_fold_in_main(workdir, main_path)
+        phase_serving_sharded_catalog(main_path)
         phase_console(workdir)
         phase_console_similar_product(workdir)
         phase_pio_workflow(workdir)
         phase_codec_vs_plain(main_path["ratings"])
         phase_pio_workflow_jsonl(workdir)
+        phase_eventserver_partitioned(workdir)
         phase_pio_workflow_jsonl_ml20m(workdir, main_path["ratings"])
         phase_engine_server_tenants(workdir)
         phase_similar_product(workdir)

@@ -7,7 +7,8 @@ connections and splices each to ONE backend worker, chosen round-robin
 among the backends that accept a connect, so no HTTP parsing sits on the
 hot path: keep-alive clients spread across workers connection by
 connection, and a worker mid-restart is skipped. The engine replica
-fleet (``workflow/fleet.py``) rides it.
+fleet (``workflow/fleet.py``) and the partitioned event server
+(``data/api/event_log.py``) ride it.
 
 - **Readiness-aware routing.** ``FrontProxy.set_ready(i, bool)`` marks a
   backend not-ready; new connections prefer ready backends and fall back
@@ -60,19 +61,20 @@ async def pipe(reader: asyncio.StreamReader,
             pass
 
 
-async def probe_ready(host: str, port: int, timeout: float = 2.0) -> bool:
-    """Minimal readiness probe: ``GET /readyz`` against one backend,
-    True iff it answers 200. Hand-rolled over asyncio streams so the
-    front needs no HTTP client stack; any connect/read failure is
-    simply not-ready."""
+async def probe_ready(host: str, port: int, timeout: float = 2.0,
+                      path: str = "/readyz") -> bool:
+    """Minimal readiness probe: ``GET <path>`` (``/readyz`` by default;
+    the event-server front probes ``/``) against one backend, True iff it
+    answers 200. Hand-rolled over asyncio streams so the front needs no
+    HTTP client stack; any connect/read failure is simply not-ready."""
     try:
         r, w = await asyncio.wait_for(
             asyncio.open_connection(host, port), timeout)
     except (OSError, asyncio.TimeoutError):
         return False
     try:
-        w.write(b"GET /readyz HTTP/1.1\r\nHost: front\r\n"
-                b"Connection: close\r\n\r\n")
+        w.write(b"GET " + path.encode("ascii") + b" HTTP/1.1\r\n"
+                b"Host: front\r\nConnection: close\r\n\r\n")
         await w.drain()
         line = await asyncio.wait_for(r.readline(), timeout)
         return b" 200" in line

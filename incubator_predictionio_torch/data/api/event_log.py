@@ -1,10 +1,31 @@
-"""The event log's columnar compaction, generations, retention and health.
+"""The partitioned event log: fenced ownership, columnar compaction,
+generations, retention, health and the multi-worker event server.
 
-The port's own copy of the single-process part of
-``incubator_predictionio_tpu/data/api/event_log.py``: the same snapshot
-files (``<log>.g<N>.colseg``, the same npz keys and ``SNAPSHOT_VERSION``),
-the same manifest (schema v2, ``<log>.manifest``) and the same commit
-protocol, so a directory compacted by either package is read by the other.
+The port's own copy of ``incubator_predictionio_tpu/data/api/event_log.py``:
+the same lease files (``.p<i>.lease``, the same JSON body), the same
+snapshot files (``<log>.g<N>.colseg``, the same npz keys and
+``SNAPSHOT_VERSION``), the same manifest (schema v2, ``<log>.manifest``)
+and the same commit protocol, so a directory written by either package is
+read, compacted and claimed by the other.
+
+- **Fenced ownership** (:func:`claim_partition`). Every partition (a
+  worker's shard ``events_<app>[_<chan>].p<i>.jsonl``) is claimed through
+  a lease file: an exclusive ``flock`` held for the owner's lifetime plus
+  a monotonically bumped epoch in the file body. A rival claimant on a
+  held partition fails at claim time (:class:`PartitionHeldError`); the
+  owner re-reads the epoch before every write (:meth:`Lease.verify`), and
+  a stale epoch raises :class:`PartitionFencedError`, which the event
+  server answers as the reference's 503 shed — a write that verifies
+  after the epoch bump lands no byte. The fence takes effect from the next
+  verify: a request whose verify passed just before the bump still lands,
+  as in the reference, whose verify-then-append has the same window.
+  ``force=True`` (``pio eventlog fence``) bumps the epoch past a held
+  flock.
+- **Multi-worker serving** (:func:`run_partitioned_event_server`, ``pio
+  eventserver --workers N``): N supervised worker processes
+  (``parallel/supervisor.py``, per-worker restart), each owning one
+  partition, behind the splice front (``common/splice.py``), with the
+  runtime rescale through the scale file and SIGHUP.
 
 - **Crash-safe compaction** (:func:`compact_log`). Each pass rewrites the
   newly committed bytes of a log into a columnar snapshot generation —
@@ -26,21 +47,25 @@ protocol, so a directory compacted by either package is read by the other.
   ``quarantine/``, never deleted) and the log keeps serving from its JSONL
   bytes.
 
-Not ported yet (ROADMAP.md Queue 1): claiming and fencing partition
-leases and the partitioned multi-worker event server (only the read-only
-:func:`lease_info` view is here), archiving generations to a cold source
-and restoring them (an archived generation is read back from the log's
-bytes, or named in :class:`ArchivedGenerationError`), and the telemetry
-counters.
+Not ported yet (ROADMAP.md Queue 1, item 3): the write-ahead log under
+the workers (``PIO_WAL`` with ``--workers`` is refused) with its replay on
+a scale-down, the ingest buffer, the workers' background compaction and
+``/stats.json``, archiving generations to a cold source and restoring them
+(an archived generation is read back from the log's bytes, or named in
+:class:`ArchivedGenerationError`), and the telemetry counters.
 """
 
 from __future__ import annotations
 
+import asyncio
 import datetime as _dt
 import io
 import json
 import logging
 import os
+import socket
+import sys
+import threading
 import zlib
 from typing import Optional
 
@@ -52,9 +77,11 @@ from ...common.faultinject import fault_point
 log = logging.getLogger("pio.torch.eventlog")
 
 __all__ = [
-    "ArchivedGenerationError", "compact_log", "lease_info", "load_chain",
+    "ArchivedGenerationError", "IngestOverloadError", "Lease",
+    "PartitionFencedError", "PartitionHeldError", "claim_partition",
+    "compact_log", "front_info_path", "lease_info", "load_chain",
     "load_snapshot", "parse_floor", "partition_health", "retire_expired",
-    "scrub_log_dir",
+    "run_partitioned_event_server", "scrub_log_dir", "worker_env",
 ]
 
 SNAPSHOT_VERSION = 1
@@ -92,11 +119,104 @@ def quarantine_path(path: str, kind: str) -> Optional[str]:
 
 
 # ---------------------------------------------------------------------------
-# partition leases: the read-only view
+# partition leases (fenced ownership)
 # ---------------------------------------------------------------------------
+
+class IngestOverloadError(RuntimeError):
+    """A write the event server sheds with 503 + a jittered
+    ``Retry-After`` (the reference's ``ingest_buffer.IngestOverloadError``,
+    the base of its shed contract)."""
+
+    def __init__(self, message: str, retry_after: float = 1.0):
+        super().__init__(message)
+        self.retry_after = retry_after
+
+
+class PartitionHeldError(RuntimeError):
+    """A live process holds this partition's lease (flock): a second
+    claimant must not come up — two writers on one shard would
+    interleave appends."""
+
+
+class PartitionFencedError(IngestOverloadError):
+    """This worker's lease epoch is no longer the partition's current
+    epoch: another claimant took ownership. Every later write is refused
+    (verified BEFORE any store append) and the event server answers it
+    with a 503 so clients retry against the new owner. Restarting the
+    fenced worker re-claims with a fresh epoch."""
+
+    def __init__(self, message: str):
+        super().__init__(message, retry_after=5.0)
+
 
 def _lease_path(dirpath: str, partition: int) -> str:
     return os.path.join(dirpath, f".p{partition}.lease")
+
+
+class Lease:
+    """A held partition lease: an exclusive flock (released by the kernel
+    on ANY process death, SIGKILL included) plus the epoch this holder
+    wrote. ``verify()`` re-reads the on-disk epoch; callers run it before
+    every write."""
+
+    __slots__ = ("path", "partition", "epoch", "_fd", "_fd_lock", "forced")
+
+    def __init__(self, path: str, partition: int, epoch: int, fd: int,
+                 forced: bool = False):
+        self.path = path
+        self.partition = partition
+        self.epoch = epoch
+        self._fd = fd
+        # verify() runs on request threads while shutdown's release()
+        # closes the fd: without the lock a straggler verify could pread a
+        # closed (or reused) descriptor
+        self._fd_lock = threading.Lock()
+        self.forced = forced
+
+    def verify(self) -> None:
+        """Raise :class:`PartitionFencedError` unless the on-disk epoch is
+        still ours. An unreadable or garbled body — or a lease this process
+        already released — also fences: the safe direction is refusing
+        the write."""
+        try:
+            with self._fd_lock:
+                if self._fd is None:
+                    raise OSError("lease released")
+                body = os.pread(self._fd, 4096, 0)
+            current = json.loads(body.decode("utf-8"))["epoch"]
+        except (OSError, ValueError, KeyError, UnicodeDecodeError):
+            raise PartitionFencedError(
+                f"partition {self.partition} lease unreadable; refusing "
+                "writes (possible ownership change in progress)") from None
+        if current != self.epoch:
+            raise PartitionFencedError(
+                f"partition {self.partition} fenced: lease epoch "
+                f"{current} has overtaken ours ({self.epoch}); another "
+                "worker owns this partition now")
+
+    def release(self) -> None:
+        with self._fd_lock:
+            if self._fd is not None:
+                try:
+                    os.close(self._fd)  # closing drops the flock
+                except OSError:  # pragma: no cover — already closed
+                    pass
+                self._fd = None
+
+    def to_json(self) -> dict:
+        return {"partition": self.partition, "epoch": self.epoch,
+                "forced": self.forced}
+
+
+def _write_lease_body(fd: int, epoch: int) -> None:
+    body = json.dumps({
+        "epoch": epoch, "pid": os.getpid(),
+        "host": socket.gethostname(),
+        "claimedAt": _dt.datetime.now(_dt.timezone.utc).isoformat(),
+    }).encode("utf-8")
+    os.ftruncate(fd, 0)
+    os.pwrite(fd, body, 0)
+    os.fsync(fd)
 
 
 def _read_lease_body(fd: int) -> dict:
@@ -104,6 +224,44 @@ def _read_lease_body(fd: int) -> dict:
         return json.loads(os.pread(fd, 4096, 0).decode("utf-8"))
     except (OSError, ValueError, UnicodeDecodeError):
         return {}
+
+
+def claim_partition(dirpath: str, partition: int,
+                    force: bool = False) -> Lease:
+    """Claim a partition: exclusive flock on its lease file, then bump and
+    persist the epoch. A held lease raises :class:`PartitionHeldError`
+    unless ``force`` — the operator's split-brain resolver (``pio eventlog
+    fence``): it bumps the epoch WITHOUT the flock, so a wedged-but-alive
+    previous owner is fenced out on its next write. With ``force`` the
+    caller asserts there is at most one live claimant."""
+    os.makedirs(dirpath, exist_ok=True)
+    path = _lease_path(dirpath, partition)
+    fd = os.open(path, os.O_CREAT | os.O_RDWR, 0o644)
+    forced = False
+    try:
+        try:
+            import fcntl
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except ImportError:  # pragma: no cover — non-POSIX
+            pass
+        except OSError:
+            if not force:
+                holder = _read_lease_body(fd)
+                raise PartitionHeldError(
+                    f"partition {partition} of {dirpath!r} is held by a "
+                    f"live process (pid {holder.get('pid')}, epoch "
+                    f"{holder.get('epoch')}); a second writer would "
+                    "corrupt the shard") from None
+            forced = True
+        epoch = int(_read_lease_body(fd).get("epoch", 0)) + 1
+        _write_lease_body(fd, epoch)
+    except Exception:
+        os.close(fd)
+        raise
+    lease = Lease(path, partition, epoch, fd, forced=forced)
+    log.info("claimed partition %d of %s (epoch %d%s)", partition,
+             dirpath, epoch, ", FORCED past a held flock" if forced else "")
+    return lease
 
 
 def lease_info(dirpath: str, partition: int) -> Optional[dict]:
@@ -942,3 +1100,316 @@ def partition_health(events_dir: str) -> dict:
         if g["tier"] == "archived")
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# multi-worker event serving (front listener + supervised workers)
+# ---------------------------------------------------------------------------
+
+#: what ``--workers`` with the write-ahead log waits for
+WAL_ITEM = "ROADMAP.md Queue 1, item 3.2"
+
+
+def worker_env(idx: int, port: int) -> dict:
+    """Env overrides one event worker runs under: its partition identity
+    and its private listen port."""
+    return {"PIO_EVENT_PARTITION": str(idx),
+            "PIO_EVENT_WORKER_PORT": str(port)}
+
+
+def front_info_path() -> str:
+    """Where a running partitioned front advertises itself (pid, ports,
+    live workers, scale-target file) for ``pio eventserver scale`` and
+    ``pio status``."""
+    from ..storage.registry import base_dir
+
+    return os.path.join(base_dir(), "eventserver_front.json")
+
+
+def run_partitioned_event_server(host: str, port: int, workers: int) -> int:
+    """Blocking entry for ``pio eventserver --workers N``: spawn N
+    supervised worker processes (disjoint partitions, per-worker restart)
+    and splice client connections to them.
+
+    The front answers ``GET /healthz`` itself: the live workers, each
+    one's pid, port and readiness (its ``GET /`` answering 200, probed
+    every 200 ms) and ``readyWorkers``; every other request is spliced to
+    a worker, ready ones first.
+
+    Chaos hook: ``PIO_EVENT_WORKER_FAULT_SPEC`` (or
+    ``PIO_EVENT_WORKER_FAULT_SPEC_<i>`` for worker i) becomes a worker's
+    ``PIO_FAULT_SPEC`` on its FIRST launch only — a relaunched worker
+    comes up clean, so an injected crash cannot relaunch-loop.
+
+    **Runtime rescale**: ``pio eventserver scale N`` writes the target
+    into the front's scale file and SIGHUPs it (a bare SIGHUP re-reads the
+    file too). Scale-up adds workers at the lowest free partition indices.
+    Scale-down retires the HIGHEST indices so partitions stay dense: the
+    front stops routing new connections to the departing worker, the
+    worker's SIGTERM path finishes its requests and releases its lease,
+    and the front then claims the orphaned lease with an epoch bump
+    (fencing any wedged straggler writer) and PARKS it until a scale-up
+    hands it — released, for a fresh claim — to the newcomer. The
+    orphaned shard stays readable through the merged view."""
+    from ...common import envknobs
+    from ...common.splice import FrontProxy, probe_ready
+    from ...parallel.supervisor import Supervisor
+
+    if envknobs.env_flag("PIO_WAL", False):
+        raise NotImplementedError(
+            "PIO_WAL with `eventserver --workers`: the write-ahead log "
+            f"under the partitioned workers is not ported yet: {WAL_ITEM}")
+    workers = max(1, int(workers))
+    ports: list = [Supervisor._free_port() for _ in range(workers)]
+    base_env = dict(os.environ)
+    chaos = base_env.pop("PIO_EVENT_WORKER_FAULT_SPEC", None)
+    per_worker_chaos = {
+        i: base_env.pop(f"PIO_EVENT_WORKER_FAULT_SPEC_{i}")
+        for i in range(workers)
+        if f"PIO_EVENT_WORKER_FAULT_SPEC_{i}" in base_env}
+    base_env.pop("PIO_EVENT_WORKERS", None)
+    base_env.pop("PIO_EVENT_PARTITION", None)
+
+    def env_for(attempt: int, idx: int) -> dict:
+        if attempt > 0:
+            # the original port pick is a TOCTOU (the probe socket closed
+            # before the worker binds): each respawn re-picks, and the
+            # front routes off the live list
+            ports[idx] = Supervisor._free_port()
+        env = worker_env(idx, ports[idx])
+        spec = per_worker_chaos.get(idx, chaos)
+        if spec and attempt == 0:
+            env["PIO_FAULT_SPEC"] = spec
+        return env
+
+    argv = [sys.executable, "-m", "incubator_predictionio_torch.tools.console",
+            "eventserver", "--worker"]
+    proxy_ref: dict = {"proxy": None}
+    sup = Supervisor(argv, workers, env=base_env, per_worker_env=env_for,
+                     restart_scope="worker")
+    sup_done = threading.Event()
+    outcome: dict = {}
+
+    def run_sup():
+        try:
+            outcome["state"] = sup.run()
+        except BaseException:  # noqa: BLE001 — a crashed supervisor is a
+            # failed service, not a clean drain
+            log.exception("event-server supervisor crashed")
+            outcome["state"] = "error"
+        finally:
+            sup_done.set()
+
+    t = threading.Thread(target=run_sup, daemon=True)
+    t.start()
+    log.info("partitioned event server: front on %s:%d, %d worker(s) on "
+             "ports %s (run dir %s)", host, port, workers, ports,
+             sup.run_dir)
+
+    # runtime-rescale state (mutated on the front's event loop only): live
+    # partition indices, indices mid-retirement, and the orphaned leases
+    # the front holds parked after a scale-down
+    live: set = set(range(workers))
+    retiring: set = set()
+    parked: dict = {}
+    scale_path = os.path.join(sup.run_dir, "scale_target")
+    info_path = front_info_path()
+    le_dir = None
+    try:
+        from ..storage.registry import Storage
+
+        le_dir = getattr(Storage.instance().get_l_events(), "events_dir",
+                         None)
+    except Exception:  # noqa: BLE001 — a store without a log dir: no leases
+        log.debug("event store has no JSONL dir; lease handoff off",
+                  exc_info=True)
+
+    def publish_info() -> None:
+        doc = {"pid": os.getpid(), "host": host, "port": port,
+               "workers": sorted(live), "retiring": sorted(retiring),
+               "parkedPartitions": sorted(parked),
+               "scaleFile": scale_path, "runDir": sup.run_dir}
+        tmp = info_path + ".tmp"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(doc, f, indent=1)
+            os.replace(tmp, info_path)
+        except OSError:  # pragma: no cover — basedir ripped out
+            log.debug("could not publish front info", exc_info=True)
+
+    def read_scale_target() -> Optional[int]:
+        try:
+            with open(scale_path) as f:
+                return max(1, int(f.read().strip()))
+        except (OSError, ValueError):
+            return None
+
+    def adopt_partition(idx: int) -> None:
+        """After a retirement: claim the orphan's lease (the epoch bump
+        fences any straggler) and keep it parked on the front."""
+        if le_dir is None or idx in parked:
+            return
+        try:
+            parked[idx] = claim_partition(le_dir, idx)
+        except PartitionHeldError:
+            # the drained worker's flock went with it; a HELD flock here
+            # is a wedged straggler — fence past it
+            parked[idx] = claim_partition(le_dir, idx, force=True)
+
+    #: the worker pid each positive readiness probe answered for: a
+    #: relaunched worker is not ready on the strength of its predecessor's
+    #: last probe
+    ready_pid: dict = {}
+
+    def healthz() -> dict:
+        proxy = proxy_ref["proxy"]
+        backends = []
+        for idx in sorted(live):
+            pid = sup.worker_pid(idx)
+            backends.append({
+                "worker": idx, "pid": pid,
+                "port": ports[idx] if idx < len(ports) else None,
+                "ready": bool(proxy is not None and proxy.is_ready(idx)
+                              and pid is not None
+                              and ready_pid.get(idx) == pid),
+                "retiring": idx in retiring,
+                "restarts": (sup.worker_restarts[idx]
+                             if idx < len(sup.worker_restarts) else 0)})
+        return {"status": "alive", "workers": sorted(live),
+                "readyWorkers": sum(1 for b in backends
+                                    if b["ready"] and not b["retiring"]),
+                "retiring": sorted(retiring),
+                "parkedPartitions": sorted(parked), "backends": backends,
+                "supervisor": sup.state}
+
+    async def front_main() -> None:
+        import signal as _signal
+
+        proxy = FrontProxy(ports, healthz_provider=healthz,
+                           connect_retry_s=envknobs.env_ms(
+                               "PIO_EVENT_CONNECT_RETRY_MS", 0.0))
+        for idx in range(workers):
+            proxy.set_ready(idx, False)  # probed before it is preferred
+        proxy_ref["proxy"] = proxy
+        await proxy.start(host, port)
+        stop = asyncio.Event()
+        rescale = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (_signal.SIGTERM, _signal.SIGINT):
+            try:
+                loop.add_signal_handler(sig, stop.set)
+            except (NotImplementedError, RuntimeError):  # pragma: no cover
+                pass
+        try:
+            loop.add_signal_handler(_signal.SIGHUP, rescale.set)
+        except (NotImplementedError, RuntimeError,
+                AttributeError):  # pragma: no cover — non-POSIX
+            pass
+        await asyncio.to_thread(publish_info)
+
+        async def ready_loop() -> None:
+            while True:
+                for idx in sorted(live):
+                    p = ports[idx] if idx < len(ports) else None
+                    pid = sup.worker_pid(idx)
+                    ok = (p is not None and pid is not None
+                          and await probe_ready("127.0.0.1", p, 1.0,
+                                                path="/")
+                          and sup.worker_pid(idx) == pid)
+                    ready_pid[idx] = pid if ok else None
+                    proxy.set_ready(idx, ok)
+                await asyncio.sleep(0.2)
+
+        def apply_target(target: int) -> None:
+            # dense partitions: grow at the lowest free index, shrink from
+            # the top — writes land in each worker's OWN shard, so
+            # membership is purely "which indices are live"
+            current = sorted(live)
+            while len(live) - len(retiring) < target:
+                idx = 0
+                while idx in live:
+                    idx += 1
+                lease = parked.pop(idx, None)
+                if lease is not None:
+                    # hand the parked lease to the newcomer: release, and
+                    # its start-up claim bumps the epoch again
+                    lease.release()
+                while len(ports) <= idx:
+                    ports.append(None)
+                ports[idx] = Supervisor._free_port()
+                proxy.set_backend(idx, ports[idx])
+                proxy.set_ready(idx, False)
+                live.add(idx)
+                sup.add_worker(idx)
+                log.info("rescale: worker %d spawning (target %d)", idx,
+                         target)
+            victims = [i for i in current if i not in retiring]
+            while len(live) - len(retiring) > target and victims:
+                idx = victims.pop()  # the highest live index
+                proxy.set_draining(idx, True)
+                retiring.add(idx)
+                sup.retire_worker(idx)
+                log.info("rescale: worker %d draining (target %d)", idx,
+                         target)
+
+        async def rescale_loop() -> None:
+            while True:
+                if retiring:
+                    await asyncio.sleep(0.1)
+                else:
+                    await rescale.wait()
+                rescale.clear()
+                for idx in sorted(retiring, reverse=True):
+                    if sup.worker_pid(idx) is None \
+                            and not sup.is_retiring(idx):
+                        # booked out: finished, lease released — adopt it
+                        await asyncio.to_thread(adopt_partition, idx)
+                        proxy.set_backend(idx, None)
+                        ports[idx] = None
+                        retiring.discard(idx)
+                        live.discard(idx)
+                        log.info("rescale: worker %d retired; partition "
+                                 "lease parked on the front", idx)
+                        await asyncio.to_thread(publish_info)
+                target = await asyncio.to_thread(read_scale_target)
+                if target is not None \
+                        and target != len(live) - len(retiring):
+                    apply_target(target)
+                    await asyncio.to_thread(publish_info)
+
+        tasks = [loop.create_task(rescale_loop()),
+                 loop.create_task(ready_loop())]
+        # the front lives exactly as long as its workers: a supervisor
+        # that gave up takes the front down
+        while not stop.is_set() and not sup_done.is_set():
+            try:
+                await asyncio.wait_for(stop.wait(), timeout=0.25)
+            except asyncio.TimeoutError:
+                pass
+        for task in tasks:
+            task.cancel()
+        for task in tasks:
+            try:
+                await task
+            except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                pass
+        await proxy.stop()
+        sup.request_stop()
+
+    try:
+        asyncio.run(front_main())
+    finally:
+        # the crash path too (e.g. the front's port taken): the supervisor
+        # started first, so its workers must be drained either way
+        sup.request_stop()
+        sup_done.wait(timeout=60)
+        t.join(timeout=5)
+        for lease in parked.values():
+            lease.release()
+        try:
+            os.unlink(info_path)
+        except OSError:
+            pass
+    state = outcome.get("state", "wedged")
+    log.info("partitioned event server stopped (%s)", state)
+    return 0 if state in ("drained", "completed") else 1

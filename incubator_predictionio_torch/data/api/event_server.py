@@ -30,9 +30,21 @@ reference's ``_try_native_batch``) and appended as one write; any other
 batch takes the Python path, which owns every error message. The codec is
 built when the server starts; a failed build stops the server.
 
+A worker of the multi-worker event server (``PIO_EVENT_PARTITION=i``,
+``data/api/event_log.py``) claims its partition lease before it serves,
+verifies the lease's epoch before every store write — the request is the
+commit unit here, so a request that verifies after a fence lands no byte
+and answers 503 with a jittered ``Retry-After``, the reference's shed —
+reports ``partition`` on ``GET /`` and releases the lease when it stops.
+The fence takes effect from the next verify: the check and the append are
+two steps with no lock across processes, so a request whose verify passed
+just before the epoch bump still lands (the reference's verify-then-append
+has the same window).
+
 The reference's ingest buffer (group commit), write-ahead log,
-``ack=enqueue``, webhooks, ``/stats.json``, ``/metrics``, load shedding
-and access-key cache are not ported yet (ROADMAP.md Queue 1, item 3).
+``ack=enqueue``, webhooks, ``/stats.json``, ``/metrics``, the other load
+shedding and the access-key cache are not ported yet (ROADMAP.md Queue 1,
+item 3).
 """
 
 from __future__ import annotations
@@ -46,11 +58,14 @@ from typing import Optional
 from urllib.parse import parse_qs, unquote, urlsplit
 
 from ... import native
+from ...common import envknobs
+from ...common.resilience import retry_after_jitter
 from ..storage.base import AccessKey
 from ..storage.event import (
     Event, EventValidationError, _utcnow, format_event_time, parse_event_time,
 )
 from ..storage.registry import Storage
+from .event_log import IngestOverloadError, Lease, claim_partition
 
 log = logging.getLogger("pio.torch.eventserver")
 
@@ -95,11 +110,13 @@ class _Handler(BaseHTTPRequestHandler):
     wbufsize = -1
 
     # -- plumbing ----------------------------------------------------------
-    def _reply(self, status: int, obj) -> None:
+    def _reply(self, status: int, obj, headers=()) -> None:
         body = json.dumps(obj).encode()
         self.send_response(status)
         self.send_header("Content-Type", "application/json; charset=utf-8")
         self.send_header("Content-Length", str(len(body)))
+        for name, value in headers:
+            self.send_header(name, value)
         self.end_headers()
         self.wfile.write(body)
 
@@ -116,17 +133,48 @@ class _Handler(BaseHTTPRequestHandler):
         # the body is read before routing so a keep-alive connection never
         # carries an unread body into its next request
         raw = self._body()
+        app = self.server.app
+        with app._inflight_cv:
+            draining = app._draining
+            if not draining:
+                app._inflight += 1
+        if draining:
+            # the server is stopping: refuse before any write, so a client
+            # that retries never duplicates an event
+            self.close_connection = True
+            self._reply(503, {"message": "event server is shutting down"},
+                        (("Retry-After", str(retry_after_jitter(1.0))),))
+            return
         try:
-            handler = self.server.app.route(method, path)
+            status, obj, headers = self._answer(app, method, path, query,
+                                                raw)
+            # written and flushed before the request stops counting as in
+            # flight: drain() returns only after every answer has left
+            self._reply(status, obj, headers)
+            self.wfile.flush()
+        finally:
+            with app._inflight_cv:
+                app._inflight -= 1
+                app._inflight_cv.notify_all()
+
+    def _answer(self, app, method, path, query, raw):
+        """(status, JSON body, extra headers) of one request."""
+        try:
+            handler = app.route(method, path)
             if handler is None:
                 raise _HTTPError(404, f"no route {method} {path}")
-            status, obj = handler(self, path, query, raw)
+            return (*handler(self, path, query, raw), ())
         except _HTTPError as e:
-            status, obj = e.status, {"message": e.message}
+            return e.status, {"message": e.message}, ()
+        except IngestOverloadError as e:
+            # a fenced partition (or a later shed): 503 + jittered
+            # Retry-After, the reference's shed contract
+            app.shed_count += 1
+            return 503, {"message": str(e)}, (("Retry-After", str(
+                retry_after_jitter(e.retry_after))),)
         except Exception as e:  # noqa: BLE001 - the server must keep running
             log.exception("event server request failed")
-            status, obj = 500, {"message": f"event store error: {e}"}
-        self._reply(status, obj)
+            return 500, {"message": f"event store error: {e}"}, ()
 
     def do_GET(self):  # noqa: N802 - http.server's naming
         self._dispatch("GET")
@@ -148,6 +196,27 @@ class EventServer:
     def __init__(self, storage: Optional[Storage] = None,
                  host: str = "0.0.0.0", port: int = 7070):
         self.storage = storage or Storage.instance()
+        # partitioned event log: a worker of a multi-worker deployment gets
+        # PIO_EVENT_PARTITION=i and claims the partition lease FIRST, before
+        # serving, so everything it ever writes runs under fenced
+        # ownership. A held lease raises and the worker exits: the
+        # supervisor's backoff retries until the previous owner is gone.
+        self.lease: Optional[Lease] = None
+        part = envknobs.env_str("PIO_EVENT_PARTITION", "")
+        if part.isdigit():
+            log_dir = getattr(self.storage.get_l_events(), "events_dir",
+                              None)
+            if log_dir is not None:
+                self.lease = claim_partition(log_dir, int(part))
+            else:
+                log.warning(
+                    "PIO_EVENT_PARTITION=%s but the event store is not a "
+                    "JSONL log; partition fencing disabled", part)
+        #: requests refused with 503 (reported on GET /)
+        self.shed_count = 0
+        self._inflight = 0
+        self._draining = False
+        self._inflight_cv = threading.Condition()
         if self._native_store():
             native.load()  # build the codec now, not inside a request
         self._httpd = _Server((host, port), self)
@@ -170,13 +239,38 @@ class EventServer:
         return self.address
 
     def close(self) -> None:
+        """Close the listener and release the partition lease."""
         self._httpd.server_close()
+        if self.lease is not None:
+            self.lease.release()
 
     def stop(self) -> None:
         self._httpd.shutdown()
         self.close()
         if self._thread is not None:
             self._thread.join(timeout=10)
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """After the accept loop stopped: refuse new requests (503, before
+        any write), wait until no request is in flight (every answer
+        written and flushed), then close the store's append handles. False
+        when ``timeout`` passed first."""
+        with self._inflight_cv:
+            self._draining = True
+            done = self._inflight_cv.wait_for(lambda: self._inflight == 0,
+                                              timeout)
+        close = getattr(self.storage.get_l_events(), "close", None)
+        if close is not None:
+            close()
+        return done
+
+    def _verify_lease(self) -> None:
+        """Fenced ownership: the lease's epoch is re-read before every
+        store write (the request is the commit unit). A fence that comes
+        between this check and the append stops the next request, not
+        this one."""
+        if self.lease is not None:
+            self.lease.verify()
 
     def route(self, method: str, path: str):
         if method == "GET" and path == "/":
@@ -231,7 +325,12 @@ class EventServer:
 
     # -- handlers ------------------------------------------------------------
     def handle_root(self, handler, path, query, raw):
-        return 200, {"status": "alive"}
+        out = {"status": "alive"}
+        if self.lease is not None:
+            out["partition"] = self.lease.partition
+        if self.shed_count:
+            out["shedRequests"] = self.shed_count
+        return 200, out
 
     def handle_create(self, handler, path, query, raw):
         access_key = self._authorize(handler, query)
@@ -243,6 +342,7 @@ class EventServer:
         except ForbiddenEventError as e:
             return 403, {"message": str(e)}
         # committed before the 201 leaves (ack=commit)
+        self._verify_lease()
         event_id = self.storage.get_l_events().insert(
             event, access_key.appid, channel_id)
         return 201, {"eventId": event_id}
@@ -267,6 +367,7 @@ class EventServer:
         fast = self._try_native_batch(raw, access_key)
         if fast is not None:
             ids, lines = fast
+            self._verify_lease()
             try:
                 self.storage.get_l_events().insert_canonical_lines(
                     lines, access_key.appid, channel_id)
@@ -303,6 +404,7 @@ class EventServer:
                 continue
             valid.append((pos, event))
         if valid:
+            self._verify_lease()
             try:
                 ids = self.storage.get_l_events().insert_batch(
                     [e for _, e in valid], access_key.appid, channel_id)
@@ -327,6 +429,7 @@ class EventServer:
     def handle_delete(self, handler, path, query, raw):
         access_key = self._authorize(handler, query)
         channel_id = self._channel_id(query, access_key)
+        self._verify_lease()  # a tombstone is a write too
         found = self.storage.get_l_events().delete(
             self._event_id(path), access_key.appid, channel_id)
         if not found:
@@ -370,6 +473,10 @@ class EventServer:
 
 class _Server(ThreadingHTTPServer):
     daemon_threads = True
+    # the listen backlog (socketserver's default is 5): a burst of client
+    # connects — a front splicing 16 clients to one worker — would
+    # overflow it, and a dropped SYN costs the client a 1 s retransmit
+    request_queue_size = 128
 
     def __init__(self, addr, app: EventServer):
         super().__init__(addr, _Handler)

@@ -13,9 +13,12 @@ the JSON parse of the prefix it covers, and a windowed read skips whole
 generations by their event-time bounds.
 
 Scans are cached per file and extended incrementally: the parser re-reads
-only the bytes appended since the previous scan. A directory holding
-``.p<i>`` shards (written by the reference's multi-worker event server) is
-read as one merged view with id-global deletes.
+only the bytes appended since the previous scan. Under
+``PIO_EVENT_PARTITION=i`` (a worker of the multi-worker event server,
+``data/api/event_log.py``) every write lands in the worker's own shard
+``events_<app>[_<chan>].p<i>.jsonl``; a directory holding ``.p<i>`` shards
+(written by either package) is read as one merged view — base log first,
+then the partitions in index order — with id-global deletes.
 
 `aggregate_properties` ($set/$unset/$delete folding) and point lookups
 reconstruct full events lazily from the cached record spans.
@@ -31,6 +34,7 @@ from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from ...common import envknobs
 from ...common.faultinject import fault_point
 from ...native import ColumnarEvents, parse_events
 from . import base
@@ -542,8 +546,13 @@ class JSONLEvents(base.LEvents):
         self._meta = threading.Lock()
         self._tables: dict[str, _TableState] = {}
         self._scans: dict[str, _LogScan] = {}
-        # Appends always go to the base log; reads merge every shard on
-        # disk (``.p<i>`` logs written by a partitioned server).
+        # partitioned event log (data/api/event_log.py): a multi-worker
+        # event server gives each worker PIO_EVENT_PARTITION=i — its
+        # appends land in its OWN shard (events_<app>[_<chan>].p<i>) while
+        # reads merge every shard, so any worker answers any query.
+        # Without the env var, every file is the single-log layout's.
+        part = envknobs.env_str("PIO_EVENT_PARTITION", "")
+        self._partition = int(part) if part.isdigit() else None
         # merged-view cache: (app, chan) -> ((paths, sizes), _LogScan)
         self._merged: dict = {}
         # one-shot windowed views: (app, chan) -> (cache key, _LogScan).
@@ -556,6 +565,13 @@ class JSONLEvents(base.LEvents):
     def _base_path(self, app_id: int, channel_id: Optional[int]) -> str:
         suffix = f"_{channel_id}" if channel_id is not None else ""
         return os.path.join(self._dir, f"events_{app_id}{suffix}.jsonl")
+
+    def _path(self, app_id: int, channel_id: Optional[int]) -> str:
+        """The WRITE path: this process's own shard."""
+        base = self._base_path(app_id, channel_id)
+        if self._partition is None:
+            return base
+        return f"{base[:-6]}.p{self._partition}.jsonl"
 
     @property
     def events_dir(self) -> str:
@@ -580,7 +596,7 @@ class JSONLEvents(base.LEvents):
 
     def _scan(self, app_id: int, channel_id: Optional[int],
               window: Optional[tuple] = None) -> _LogScan:
-        path = self._base_path(app_id, channel_id)
+        path = self._path(app_id, channel_id)
         read_paths = self._read_paths(app_id, channel_id)
         if read_paths and read_paths != [path]:
             # other shards exist (multi-worker layout, or an operator
@@ -789,7 +805,7 @@ class JSONLEvents(base.LEvents):
 
     # -- LEvents contract -------------------------------------------------
     def init(self, app_id: int, channel_id: Optional[int] = None) -> bool:
-        path = self._base_path(app_id, channel_id)
+        path = self._path(app_id, channel_id)
         state = self._state(path)
         with state.lock:
             if not os.path.exists(path):
@@ -810,7 +826,7 @@ class JSONLEvents(base.LEvents):
             pass
 
     def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
-        path = self._base_path(app_id, channel_id)
+        path = self._path(app_id, channel_id)
         state = self._state(path)
         with state.lock:
             state.close()
@@ -863,7 +879,7 @@ class JSONLEvents(base.LEvents):
 
         eid = event.event_id or new_event_id()
         stored = event.with_event_id(eid)
-        self._append(self._base_path(app_id, channel_id),
+        self._append(self._path(app_id, channel_id),
                      [json.dumps(stored.to_json()) + "\n"])
         return eid
 
@@ -882,7 +898,7 @@ class JSONLEvents(base.LEvents):
             d = event.to_json()
             d["eventId"] = eid
             lines.append(json.dumps(d) + "\n")
-        self._append(self._base_path(app_id, channel_id), lines)
+        self._append(self._path(app_id, channel_id), lines)
         return ids
 
     def insert_canonical_lines(
@@ -893,7 +909,7 @@ class JSONLEvents(base.LEvents):
         line; re-parsing into Event objects here would throw that work
         away). The buffer must be newline-terminated canonical records.
         One write (+ optional fsync, PIO_INGEST_FSYNC) per call."""
-        path = self._base_path(app_id, channel_id)
+        path = self._path(app_id, channel_id)
         state = self._state(path)
         with state.lock:
             state.append(path, lines)
@@ -929,7 +945,7 @@ class JSONLEvents(base.LEvents):
         import json
 
         event_ids = list(event_ids)
-        state = self._state(self._base_path(app_id, channel_id))
+        state = self._state(self._path(app_id, channel_id))
         with state.lock:
             scan = self._scan(app_id, channel_id)
             if scan.cols is None:
@@ -956,7 +972,7 @@ class JSONLEvents(base.LEvents):
             if lines:
                 # Append BEFORE mutating scan state: if the write fails the
                 # cached view must keep matching the file.
-                self._append(self._base_path(app_id, channel_id), lines)
+                self._append(self._path(app_id, channel_id), lines)
                 for event_id in new_dead:
                     scan.tombstones[event_id] = n
         return deleted
@@ -1124,7 +1140,7 @@ class JSONLEvents(base.LEvents):
         """Rewrite the log without tombstoned records; returns live count
         (the reference's SelfCleaningDataSource writes a compacted stream
         back — core/.../core/SelfCleaningDataSource.scala)."""
-        path = self._base_path(app_id, channel_id)
+        path = self._path(app_id, channel_id)
         state = self._state(path)
         with state.lock:
             scan = self._scan(app_id, channel_id)

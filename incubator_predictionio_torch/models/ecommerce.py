@@ -4,8 +4,10 @@ with serve-time exclusions.
 Port of ``incubator_predictionio_tpu/models/ecommerce.py``: the view and
 buy events train implicit ALS (``train_als`` with ``implicit_prefs``, the
 warp kernel at rank ≤ 32), item categories come from the items' ``$set``
-events, and a query is answered from the flat catalog, resident on the
-model's device, by ``ops/topk.top_k_items`` with an exclude mask. At serve
+events, and a query is answered from the serving catalog, resident on the
+model's device flat or host-sharded (``PIO_SERVE_SHARD_ITEMS``,
+``models/_sharded_serving.py``), with an exclude mask applied per shard
+before the partial top-k. At serve
 time the mask takes, besides the category / whiteList / blackList rules,
 the items of the user's 200 latest ``seenEvents`` events (unless
 ``unseenOnly`` is false) and the items of the latest ``$set`` of the
@@ -37,8 +39,10 @@ from ..data.store import LEventStore
 from ..device import resolve_device
 from ..e2.cross_validation import k_fold_indices
 from ..ops.als import ALSFactors, ALSParams, train_als
-from ..ops.topk import top_k_items
 from ._filters import CategoryIndex, build_exclude_mask
+from ._sharded_serving import (
+    ShardedCatalogServing, validate_serving_mode,
+)
 from .similar_product import (
     DataSourceParams as SPDataSourceParams, SimilarProductDataSource,
     TrainingData,
@@ -77,7 +81,7 @@ class ECommerceDataSource(SimilarProductDataSource):
 
 
 @dataclasses.dataclass
-class ECommerceModel:
+class ECommerceModel(ShardedCatalogServing):
     factors: ALSFactors
     users: BiMap
     items: BiMap
@@ -88,17 +92,11 @@ class ECommerceModel:
     #: the event store the serve-time reads go to (None: the process's
     #: ``Storage.instance()``)
     storage: Any = dataclasses.field(default=None, repr=False, compare=False)
-    _dev_items: Optional[torch.Tensor] = dataclasses.field(
+    # catalog caching + layout selection: ShardedCatalogServing
+    _sharded_cat: object = dataclasses.field(
         default=None, repr=False, compare=False)
     _cat_index: Optional[CategoryIndex] = dataclasses.field(
         default=None, repr=False, compare=False)
-
-    def catalog(self) -> torch.Tensor:
-        """The item factors resident on the model's device (made once)."""
-        if self._dev_items is None:
-            self._dev_items = torch.from_numpy(np.ascontiguousarray(
-                self.factors.item_factors, np.float32)).to(self.device)
-        return self._dev_items
 
     def category_index(self) -> CategoryIndex:
         if self._cat_index is None:
@@ -107,7 +105,7 @@ class ECommerceModel:
 
     def warm_up(self, num: int = 10):
         """Make the catalog resident and answer one query (deploy time)."""
-        self.catalog()
+        self.warm_catalog()
         if len(self.users):
             self.recommend(next(iter(self.users.keys())), num)
 
@@ -149,8 +147,9 @@ class ECommerceModel:
         exclude = build_exclude_mask(
             self.items, self.category_index(), categories, white_list,
             black_list, extra_excluded_items=extra)
-        scores, idx = top_k_items(self.factors.user_factors[uidx],
-                                  self.catalog(), num, exclude=exclude)
+        # the exclude mask is applied per shard before the partial top-k
+        scores, idx = self.catalog().top_k(self.factors.user_factors[uidx],
+                                           num, exclude=exclude)
         return [(self.items.inverse(int(j)), float(s))
                 for s, j in zip(scores, idx) if np.isfinite(s)]
 
@@ -167,8 +166,7 @@ class ECommerceAlgoParams(Params):
     # "auto" → float32; only float32 is ported
     compute_dtype: str = "auto"
     chunk_tiles: int = -1
-    # engine.json "shardedServing": the flat catalog is what "auto" and
-    # "never" choose at this size; "always" is refused
+    # engine.json "shardedServing": auto|always|never (ops/sharded_topk)
     sharded_serving: str = "auto"
 
 
@@ -181,16 +179,9 @@ class ECommerceAlgorithm(Algorithm):
         "shardedServing": "sharded_serving",
     }
 
-    def __init__(self, params=None):
-        super().__init__(params)
-        mode = getattr(self.params, "sharded_serving", "auto")
-        if mode not in ("auto", "never"):
-            raise ValueError(
-                f"shardedServing={mode!r}: only the flat catalog is served "
-                "here ('auto' or 'never')")
-
     def train(self, ctx, pd: TrainingData) -> ECommerceModel:
         p = self.params
+        validate_serving_mode(p.sharded_serving)  # before the run
         factors = train_als(
             pd.user_idx, pd.item_idx, pd.rating, n_users=len(pd.users),
             n_items=len(pd.items),

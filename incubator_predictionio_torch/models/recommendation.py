@@ -1,9 +1,10 @@
 """Recommendation template (ALS) — train, persist, serve.
 
-Port of ``incubator_predictionio_tpu/models/recommendation.py`` with the flat
-serving catalog of ``models/_sharded_serving.py``: the item factors are
-made resident on the device once and cached on the model. Wire format
-(the quickstart's)::
+Port of ``incubator_predictionio_tpu/models/recommendation.py``. Queries
+score through the serving catalog of ``models/_sharded_serving.py``: the
+item factors are made resident on the device once and cached on the model,
+flat or host-sharded (``PIO_SERVE_SHARD_ITEMS``). Wire format (the
+quickstart's)::
 
   query  {"user": "1", "num": 4}
   result {"itemScores": [{"item": "32", "score": 6.17}, ...]}
@@ -31,7 +32,9 @@ from ..data.store import PEventStore
 from ..device import resolve_device
 from ..e2.cross_validation import k_fold_indices
 from ..ops.als import ALSFactors, ALSParams, fold_in_factors, train_als
-from ..ops.topk import batch_top_k, top_k_items
+from ._sharded_serving import (
+    ShardedCatalogServing, validate_serving_mode,
+)
 
 log = logging.getLogger("pio.torch.recommendation")
 
@@ -55,25 +58,18 @@ PreparedData = TrainingData  # identity preparation (quickstart parity)
 
 
 @dataclasses.dataclass
-class ALSModel:
+class ALSModel(ShardedCatalogServing):
     factors: ALSFactors
     users: BiMap
     items: BiMap
     device: torch.device
-    _dev_items: Optional[torch.Tensor] = dataclasses.field(
+    # catalog caching + layout selection: ShardedCatalogServing
+    _sharded_cat: object = dataclasses.field(
         default=None, repr=False, compare=False)
-
-    def catalog(self) -> torch.Tensor:
-        """The item factors resident on the model's device (made once:
-        serving then uploads only the rank-float query vector)."""
-        if self._dev_items is None:
-            self._dev_items = torch.from_numpy(np.ascontiguousarray(
-                self.factors.item_factors, np.float32)).to(self.device)
-        return self._dev_items
 
     def warm_up(self, num: int = 10):
         """Make the catalog resident and answer one query (deploy time)."""
-        self.catalog()
+        self.warm_catalog()
         if len(self.users):
             self.recommend_products(next(iter(self.users.keys())), num)
 
@@ -88,8 +84,9 @@ class ALSModel:
         uidx = self.users.get(user)
         if uidx is None:
             return []
-        scores, idx = top_k_items(self.factors.user_factors[uidx],
-                                  self.catalog(), num)
+        # one call whatever the layout: the facade owns the dispatch
+        scores, idx = self.catalog().top_k(self.factors.user_factors[uidx],
+                                           num)
         return [(self.items.inverse(int(i)), float(s))
                 for s, i in zip(scores, idx) if np.isfinite(s)]
 
@@ -160,8 +157,7 @@ class AlgorithmParams(Params):
     compute_dtype: str = "auto"
     chunk_tiles: int = -1
     binary_ratings: Optional[bool] = None
-    # engine.json "shardedServing": the port serves the flat catalog, which
-    # is what "auto" and "never" choose at this size; "always" is refused
+    # engine.json "shardedServing": auto|always|never (ops/sharded_topk)
     sharded_serving: str = "auto"
 
 
@@ -181,14 +177,6 @@ class ALSAlgorithm(Algorithm):
         "shardedServing": "sharded_serving",
     }
 
-    def __init__(self, params=None):
-        super().__init__(params)
-        mode = getattr(self.params, "sharded_serving", "auto")
-        if mode not in ("auto", "never"):
-            raise ValueError(
-                f"shardedServing={mode!r}: only the flat catalog is served "
-                "here ('auto' or 'never')")
-
     @staticmethod
     def als_params(p: AlgorithmParams) -> ALSParams:
         return ALSParams(
@@ -199,6 +187,7 @@ class ALSAlgorithm(Algorithm):
             chunk_tiles=p.chunk_tiles, binary_ratings=p.binary_ratings)
 
     def train(self, ctx, pd: PreparedData) -> ALSModel:
+        validate_serving_mode(self.params.sharded_serving)  # before the run
         factors = train_als(
             pd.user_idx, pd.item_idx, pd.rating, n_users=len(pd.users),
             n_items=len(pd.items), params=self.als_params(self.params),
@@ -263,7 +252,8 @@ class ALSAlgorithm(Algorithm):
                 model.factors.user_factors[u] if u is not None
                 else np.zeros(k, np.float32) for u in uids])
             num = max(int(q.get("num", 10)) for q in qs)
-            scores, idx = batch_top_k(uvecs, model.catalog(), num)
+            # one call for the whole window, whatever the layout
+            scores, idx = model.catalog().batch_top_k(uvecs, num)
             for t, (j, q, u) in enumerate(zip(rest, qs, uids)):
                 if u is None:
                     out[j] = {"itemScores": []}
@@ -367,6 +357,8 @@ class ALSAlgorithm(Algorithm):
         u_rows, u_idx, u_val = touched(0)
         uf[u_rows] = fold_in_factors(itf, u_idx, u_val, anchor=uf[u_rows],
                                      anchor_weight=mu_for(u_rows, n_u0), **kw)
+        # the same device as the live model; the catalog cache starts
+        # empty and is rebuilt from the new factors when it warms up
         return ALSModel(factors=ALSFactors(uf, itf, len(users), len(items)),
                         users=users, items=items, device=model.device)
 

@@ -6,7 +6,8 @@ categories come from the items' ``$set`` events, and a query returns the
 catalog items whose summed cosine similarity to the query items is
 highest, under the category / whiteList / blackList rules; the query items
 themselves are never returned. The row-normalized catalog is made resident
-on the model's device once. Wire format (the template's)::
+on the model's device once, flat or host-sharded (``PIO_SERVE_SHARD_ITEMS``,
+``models/_sharded_serving.py``). Wire format (the template's)::
 
   query  {"items": ["i1"], "num": 4, "categories": ["c"],
           "whiteList": [...], "blackList": [...]}
@@ -30,8 +31,11 @@ from ..data.events import aggregate_properties, find_ratings
 from ..data.store import PEventStore
 from ..device import resolve_device
 from ..ops.als import ALSFactors, ALSParams, train_als
-from ..ops.topk import normalize_rows, similar_items
+from ..ops.topk import normalize_rows
 from ._filters import CategoryIndex, build_exclude_mask
+from ._sharded_serving import (
+    ShardedCatalogServing, validate_serving_mode,
+)
 
 
 @dataclasses.dataclass
@@ -90,23 +94,21 @@ class SimilarProductDataSource(DataSource):
 
 
 @dataclasses.dataclass
-class SimilarProductModel:
+class SimilarProductModel(ShardedCatalogServing):
     factors: ALSFactors
     items: BiMap
     item_categories: dict[str, set[str]]
     device: torch.device
-    _dev_items: Optional[torch.Tensor] = dataclasses.field(
+    # catalog caching + layout selection: ShardedCatalogServing
+    _sharded_cat: object = dataclasses.field(
         default=None, repr=False, compare=False)
     _cat_index: Optional[CategoryIndex] = dataclasses.field(
         default=None, repr=False, compare=False)
 
-    def catalog(self) -> torch.Tensor:
-        """The row-normalized item factors, resident on the model's device
-        (normalized on the host once, at deploy time)."""
-        if self._dev_items is None:
-            self._dev_items = torch.from_numpy(
-                normalize_rows(self.factors.item_factors)).to(self.device)
-        return self._dev_items
+    def _host_catalog(self):
+        """The served catalog holds row-normalized factors (normalized on
+        the host once, at deploy time)."""
+        return normalize_rows(self.factors.item_factors)
 
     def category_index(self) -> CategoryIndex:
         if self._cat_index is None:
@@ -115,7 +117,7 @@ class SimilarProductModel:
 
     def warm_up(self, num: int = 10):
         """Make the catalog resident and answer one query (deploy time)."""
-        self.catalog()
+        self.warm_catalog()
         if len(self.items):
             self.similar([next(iter(self.items.keys()))], num)
 
@@ -130,8 +132,8 @@ class SimilarProductModel:
         exclude = build_exclude_mask(self.items, self.category_index(),
                                      categories, white_list, black_list)
         exclude[idxs] = True  # never return the query items themselves
-        scores, idx = similar_items(self.factors.item_factors[idxs],
-                                    self.catalog(), num, exclude=exclude)
+        scores, idx = self.catalog().similar(self.factors.item_factors[idxs],
+                                             num, exclude=exclude)
         return [(self.items.inverse(int(j)), float(s))
                 for s, j in zip(scores, idx) if np.isfinite(s)]
 
@@ -146,8 +148,7 @@ class SimilarProductAlgoParams(Params):
     # "auto" → float32; only float32 is ported
     compute_dtype: str = "auto"
     chunk_tiles: int = -1
-    # engine.json "shardedServing": the flat catalog is what "auto" and
-    # "never" choose at this size; "always" is refused
+    # engine.json "shardedServing": auto|always|never (ops/sharded_topk)
     sharded_serving: str = "auto"
 
 
@@ -159,16 +160,9 @@ class SimilarProductAlgorithm(Algorithm):
         "shardedServing": "sharded_serving",
     }
 
-    def __init__(self, params=None):
-        super().__init__(params)
-        mode = getattr(self.params, "sharded_serving", "auto")
-        if mode not in ("auto", "never"):
-            raise ValueError(
-                f"shardedServing={mode!r}: only the flat catalog is served "
-                "here ('auto' or 'never')")
-
     def train(self, ctx, pd: PreparedData) -> SimilarProductModel:
         p = self.params
+        validate_serving_mode(p.sharded_serving)  # before the run
         als_params = ALSParams(
             rank=p.rank, num_iterations=p.num_iterations, reg=p.reg,
             implicit_prefs=True, alpha=p.alpha,

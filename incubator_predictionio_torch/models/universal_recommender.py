@@ -8,7 +8,9 @@ items' ``categories`` and date properties; the algorithm builds every
 (``ops/llr.cco_indicators_multi``, on the context's device) and the
 primary-event popularity of every item. A query scores the user's history
 (read from the event store at serve time) against the indicators, resident
-on the model's device (``ops/llr.score_user``), under the business rules:
+on the model's device flat or host-sharded (``PIO_SERVE_SHARD_ITEMS``:
+``models/_sharded_serving.ShardedIndicators``, bit-identical to the flat
+``ops/llr.score_user``), under the business rules:
 category filters (bias < 0) and boosts (bias > 0), blackList, the item's
 available / expire dates at ``currentDate`` and a ``dateRange`` on its
 ``date``. A user with no history and no query items gets the popularity
@@ -20,12 +22,9 @@ ranking through the same rules, on the host. Wire format (the template's)::
           "dateRange": {"after": ISO, "before": ISO}}
   result {"itemScores": [{"item": ..., "score": ...}]}
 
-Two deliberate differences from the reference: the serve-time history read
+One deliberate difference from the reference: the serve-time history read
 catches only the storage's own error (``StorageError``), where the
-reference serves an empty history on any exception; and the indicators are
-served from one flat layout (the reference's host-sharded
-``ShardedIndicators`` above ``PIO_SERVE_SHARD_ITEMS`` rows is not ported).
-The model persists as arrays and JSON (:func:`flatten` / :func:`nest`).
+reference serves an empty history on any exception. The model persists as arrays and JSON (:func:`flatten` / :func:`nest`).
 """
 
 from __future__ import annotations
@@ -45,8 +44,9 @@ from ..data.storage.event import parse_event_time
 from ..data.storage.registry import StorageError
 from ..data.store import LEventStore, PEventStore
 from ..device import resolve_device
-from ..ops.llr import Indicators, cco_indicators_multi, score_user
+from ..ops.llr import Indicators, cco_indicators_multi
 from ._filters import CategoryIndex, build_exclude_mask
+from ._sharded_serving import ShardedIndicators
 
 
 @dataclasses.dataclass
@@ -148,12 +148,16 @@ class URModel:
         default=None, repr=False, compare=False)
     _date_arrays: Optional[tuple] = dataclasses.field(
         default=None, repr=False, compare=False)
+    _ind_catalog: Optional[ShardedIndicators] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
-    def indicator_catalog(self) -> dict[str, Indicators]:
-        """The indicators, each made resident on the model's device (once)."""
-        for ind in self.indicators.values():
-            ind.on(self.device)
-        return self.indicators
+    def indicator_catalog(self) -> ShardedIndicators:
+        """The serve-side indicator layout on the model's device
+        (host-sharded beyond PIO_SERVE_SHARD_ITEMS rows), made once."""
+        if self._ind_catalog is None:
+            self._ind_catalog = ShardedIndicators(
+                self.indicators, len(self.items), self.device)
+        return self._ind_catalog
 
     def category_index(self) -> CategoryIndex:
         if self._cat_index is None:
@@ -290,11 +294,10 @@ class URModel:
                     for j in order
                     if np.isfinite(scores[j]) and scores[j] > 0]
 
-        catalog = self.indicator_catalog()
-        entries = [(catalog[name], history[name], 1.0)
-                   for name in self.event_names if name in catalog]
-        scores, idx = score_user(entries, num, exclude=exclude,
-                                 item_boost=boost_vec, device=self.device)
+        entries = [(name, history[name], 1.0)
+                   for name in self.event_names if name in self.indicators]
+        scores, idx = self.indicator_catalog().score_user(
+            entries, num, exclude=exclude, item_boost=boost_vec)
         return [(self.items.inverse(int(j)), float(s))
                 for s, j in zip(scores, idx) if np.isfinite(s) and s > 0]
 

@@ -6,7 +6,8 @@ The port's own copy of the service half of
 with ``restart_scope="worker"`` (services whose workers share nothing at
 run time, such as the engine replica fleet of ``workflow/fleet.py``), its
 dynamic membership (:meth:`Supervisor.add_worker`,
-:meth:`Supervisor.retire_worker`), and the worker-side :func:`beat`.
+:meth:`Supervisor.retire_worker`), and the worker-side :func:`beat` and
+:func:`die_with_parent`.
 
 - The supervisor spawns N worker processes with their heartbeat file in
   the environment (``PIO_WORKER_HEARTBEAT_FILE``; the caller's
@@ -95,6 +96,50 @@ def beat() -> None:
         os.utime(path, None)
     except OSError:  # heartbeat dir vanished: the supervisor is gone
         log.debug("heartbeat touch failed for %s", path, exc_info=True)
+
+
+def die_with_parent(front: str) -> None:
+    """A service worker whose front dies WITHOUT draining (SIGKILL, OOM
+    kill) must not serve forever on a port nothing routes to. Two layers:
+    Linux ``PR_SET_PDEATHSIG`` has the kernel deliver SIGTERM (the normal
+    drain path) the instant the supervising parent goes, and a 1 s-cadence
+    watchdog thread catches kernels that fail to deliver it (observed on
+    gVisor container kernels) by watching for reparenting to init.
+    Pdeathsig fires on the death of the spawning THREAD, which here is the
+    supervisor thread — alive exactly as long as supervision is. ``front``
+    names the parent in the watchdog's log line."""
+    try:
+        import ctypes
+
+        libc = ctypes.CDLL(None, use_errno=True)
+        libc.prctl(1, signal.SIGTERM, 0, 0, 0)  # PR_SET_PDEATHSIG
+        # NO getppid()==1 "already orphaned" recheck here: container
+        # kernels (gVisor) intermittently report ppid 1 for a freshly
+        # spawned child whose parent is alive, and the misfire exits
+        # the worker before its first-launch chaos/serving ever runs —
+        # worse than the microsecond fork→prctl window it would close
+    except (OSError, AttributeError):  # pragma: no cover - non-Linux
+        pass
+
+    # polling suspenders for the prctl belt: the same container kernels
+    # intermittently fail to DELIVER pdeathsig at all, so a daemon thread
+    # also watches for reparenting to init. Several consecutive
+    # observations are required before acting — a single getppid()==1
+    # reading can be the spurious-at-spawn transient — then SIGTERM
+    # ourselves, which is the worker's normal drain path
+    def _watch() -> None:
+        strikes = 0
+        while True:
+            time.sleep(1.0)
+            strikes = strikes + 1 if os.getppid() == 1 else 0
+            if strikes >= 3:
+                log.warning("%s is gone (reparented to init); draining "
+                            "this worker", front)
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+
+    threading.Thread(target=_watch, daemon=True,
+                     name="orphan-watchdog").start()
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,13 @@ commands/management.py`` (``status`` :18 with its fold-in cursor rows
 ``_print_foldin_cursors`` :921, ``--engine-url``'s
 ``_print_engine_overload`` :160 with its fold-in, quality (``_print_quality``
 :330) and tenant (``_print_tenants`` :291) lines, ``eventserver`` :538,
-``eventlog`` :687-1002, ``export`` :1113, ``import`` :1155) for JSON-lines
-files; ``import`` writes to whichever event store is configured (SQLite or
-the JSONL log). ``eventlog`` has ``compact``, ``scrub``, ``status``,
-``retire`` and ``tail``; ``fence``, ``archive`` and ``restore`` wait for
-the partition leases and the archive source. Parquet, the write-ahead log,
+``eventserver --workers N`` / ``--worker`` :540-578 and ``eventserver
+scale N`` :489-537, ``eventlog`` :687-1002, ``export`` :1113, ``import``
+:1155) for JSON-lines files; ``import`` writes to whichever event store is
+configured (SQLite or the JSONL log). ``eventlog`` has ``compact``,
+``scrub``, ``status``, ``fence``, ``retire`` and ``tail``; ``archive`` and
+``restore`` wait for the archive source. ``status`` also names a running
+partitioned event-server front. Parquet, the write-ahead log,
 the storage server, the dashboard and the admin server are not ported
 yet. ``fleet plan`` (:582) and the fleet and autoscaler lines of
 ``status --engine-url`` (``_print_fleet`` :355, ``_print_autoscaler``
@@ -101,12 +103,36 @@ def status_cmd(args: list[str]) -> int:
             print(f"[info] Event log: {len(health['logs'])} log file(s) "
                   f"in {log_dir}")
             _print_partition_health(health, log_dir)
+    _print_event_front()
     # where each app's online fold-in tailer stands, with the freshness-lag
     # warn-marker
     _print_foldin_cursors(s)
     if ns.engine_url:
         _print_engine_overload(ns.engine_url)
     return 0
+
+
+def _print_event_front() -> None:
+    """The partitioned event-server front's entry, from the info file it
+    publishes while it runs (``pio eventserver --workers N``)."""
+    from ...data.api.event_log import front_info_path
+
+    try:
+        with open(front_info_path(), encoding="utf-8") as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return
+    alive = True
+    try:
+        os.kill(int(doc["pid"]), 0)
+    except (OSError, KeyError, TypeError, ValueError):
+        alive = False
+    marker = "[info]" if alive else "[warn]"
+    print(f"{marker} Event-server front: pid {doc.get('pid')}"
+          f"{'' if alive else ' (not running: stale info file)'} on "
+          f"{doc.get('host')}:{doc.get('port')}, workers "
+          f"{doc.get('workers')}, retiring {doc.get('retiring')}, parked "
+          f"partitions {doc.get('parkedPartitions')}")
 
 
 def _print_engine_overload(url: str) -> None:
@@ -467,14 +493,16 @@ def import_cmd(args: list[str]) -> int:
     return 0
 
 
-@verb("eventlog", "compact, scrub, retire or tail the JSONL event log")
+@verb("eventlog", "compact, scrub, fence, retire or tail the JSONL event log")
 def eventlog_cmd(args: list[str]) -> int:
     """Operator surface of the JSONL event log (data/api/event_log.py):
     `compact` seals the newly appended bytes of every log into a columnar
     snapshot generation (crash-safe: shadow file + atomic rename +
     manifest commit), `scrub` CRC-verifies committed snapshots and
     quarantines corrupt ones, `status` prints per-log health and the
-    generations' event-time bounds, `retire` moves fully expired
+    generations' event-time bounds, `fence` force-claims a partition
+    lease (split-brain last resort: bumps the epoch so a wedged previous
+    owner is refused on its next write), `retire` moves fully expired
     generations to the retired/ tier, and `tail` reads events past a
     durable byte cursor."""
     p = argparse.ArgumentParser(prog="pio eventlog")
@@ -490,6 +518,10 @@ def eventlog_cmd(args: list[str]) -> int:
                                  "corrupt ones (never deletes)")
     sub.add_parser("status", help="per-log health: sizes, leases, "
                                   "compaction, generations, quarantine")
+    p_fence = sub.add_parser(
+        "fence", help="force-claim a partition lease past a held flock "
+                      "(ONLY when the owner is wedged/unreachable)")
+    p_fence.add_argument("--partition", type=int, required=True)
     p_retire = sub.add_parser(
         "retire", help="move fully-expired generations (event-time "
                        "TTL) to the retired/ tier; without --ttl or "
@@ -546,6 +578,14 @@ def eventlog_cmd(args: list[str]) -> int:
               f"{report['ok']} ok, {report['quarantined']} quarantined, "
               f"{report['stale']} stale (discarded)")
         return 1 if report["quarantined"] else 0
+    if ns.sub == "fence":
+        lease = event_log.claim_partition(log_dir, ns.partition, force=True)
+        print(f"[info] Partition {ns.partition} fenced: new epoch "
+              f"{lease.epoch}"
+              + (" (FORCED past a held flock — the previous owner will "
+                 "be refused on its next write)" if lease.forced else ""))
+        lease.release()
+        return 0
     if ns.sub == "retire":
         ttl_us = None
         if ns.ttl:
@@ -808,22 +848,128 @@ def _raise_exit(signum, frame):
     raise SystemExit(0)
 
 
+def _eventserver_scale(args: list[str]) -> int:
+    """`pio eventserver scale N` — retarget a RUNNING partitioned
+    event-server front to N workers: write the scale-target file the
+    front advertised at start-up (atomic replace) and SIGHUP it; the
+    front rebalances partition ownership through the lease/epoch protocol
+    (retire + release on the way down, claim with an epoch bump on the
+    way up)."""
+    p = argparse.ArgumentParser(prog="pio eventserver scale")
+    p.add_argument("workers", type=int,
+                   help="new worker count (>= 1); partitions above the "
+                        "target retire and park on the front, scale-up "
+                        "hands them back to fresh workers")
+    ns = p.parse_args(args)
+    from ...data.api.event_log import front_info_path
+
+    info = front_info_path()
+    try:
+        with open(info, encoding="utf-8") as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        print(f"[error] no running partitioned event-server front found "
+              f"({info} missing) — start one with "
+              f"`pio eventserver --workers N`", file=sys.stderr)
+        return 1
+    target = max(1, ns.workers)
+    scale_file = doc.get("scaleFile")
+    if not scale_file:
+        print("[error] front info file has no scaleFile entry",
+              file=sys.stderr)
+        return 1
+    tmp = scale_file + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        f.write(str(target))
+    os.replace(tmp, scale_file)
+    try:
+        os.kill(int(doc["pid"]), signal.SIGHUP)
+    except (OSError, KeyError, TypeError, ValueError) as e:
+        print(f"[error] could not signal the front "
+              f"(pid {doc.get('pid')}): {e}", file=sys.stderr)
+        return 1
+    print(f"[info] scale target {target} written; front "
+          f"(pid {doc['pid']}) signaled — workers now "
+          f"{sorted(doc.get('workers') or [])}, rebalance in progress "
+          f"(watch `pio eventlog status` for lease movement)")
+    return 0
+
+
+def _worker_heartbeat(stop) -> None:
+    """A supervised worker's liveness: touch the heartbeat file at half
+    the configured period until ``stop`` is set."""
+    from ...parallel import supervisor
+
+    interval = max(0.05, envknobs.env_ms(
+        "PIO_WORKER_HEARTBEAT_MS", 1000.0, lo_ms=20.0) / 2.0)
+    while not stop.wait(interval):
+        supervisor.beat()
+
+
 @verb("eventserver", "start the Event Server (REST ingestion, :7070)")
 def eventserver_cmd(args: list[str]) -> int:
+    if args and args[0] == "scale":
+        return _eventserver_scale(args[1:])
     p = argparse.ArgumentParser(prog="pio eventserver")
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=7070)
+    p.add_argument("--workers", type=int,
+                   default=envknobs.env_int("PIO_EVENT_WORKERS", 0, lo=0),
+                   help="run N supervised worker processes owning "
+                        "disjoint event-log partitions behind a front "
+                        "listener (defaults to $PIO_EVENT_WORKERS; N=1 is "
+                        "still supervised + lease-fenced; 0 = plain single "
+                        "process, no partitioning)")
+    p.add_argument("--worker", action="store_true",
+                   help=argparse.SUPPRESS)  # internal: supervised worker
     ns = p.parse_args(args)
+    if ns.worker:
+        # spawned by the partitioned front (event_log.py): the partition
+        # identity and the port arrive through the environment
+        port = envknobs.env_int("PIO_EVENT_WORKER_PORT", 0, lo=0)
+        if port <= 0:
+            print("[error] --worker requires PIO_EVENT_WORKER_PORT "
+                  "(set by the supervisor — this flag is internal)",
+                  file=sys.stderr)
+            return 1
+        from ...parallel.supervisor import die_with_parent
+
+        die_with_parent("event-server front")
+        return _serve_events("127.0.0.1", port, worker=True)
+    if ns.workers >= 1:
+        from ...data.api.event_log import run_partitioned_event_server
+
+        return run_partitioned_event_server(ns.ip, ns.port, ns.workers)
+    return _serve_events(ns.ip, ns.port)
+
+
+def _serve_events(ip: str, port: int, worker: bool = False) -> int:
+    """One event-server process until SIGTERM: the accept loop stops, the
+    requests in flight finish (every acknowledged write answered), then
+    the store's handles close and the partition lease is released."""
+    import threading
+
     from ...data.api.event_server import EventServer
 
-    server = EventServer(Storage.instance(), ns.ip, ns.port)
+    server = EventServer(Storage.instance(), ip, port)
+    stop = threading.Event()
+    beats = None
+    if worker:
+        beats = threading.Thread(target=_worker_heartbeat, args=(stop,),
+                                 daemon=True, name="pio-worker-heartbeat")
+        beats.start()
     signal.signal(signal.SIGTERM, _raise_exit)
     host, port = server.address
-    print(f"[info] Event Server listening on http://{host}:{port}", flush=True)
+    print(f"[info] Event Server listening on http://{host}:{port}"
+          + (f" (partition {server.lease.partition})"
+             if server.lease is not None else ""), flush=True)
     try:
         server.serve_forever()
-    except KeyboardInterrupt:
+    except (KeyboardInterrupt, SystemExit):
         pass
     finally:
+        stop.set()
+        server.drain(timeout=envknobs.env_ms(
+            "PIO_DRAIN_DEADLINE_MS", 30_000.0, lo_ms=0.0))
         server.close()
     return 0

@@ -733,52 +733,6 @@ def run_fleet(worker_argv: Sequence[str], replicas: int, host: str,
     return 0 if state in ("drained", "completed") else 1
 
 
-def _die_with_parent() -> None:
-    """A front that dies WITHOUT draining (SIGKILL, OOM kill) must not
-    orphan N replicas serving forever on ports nothing routes to. Two
-    layers: Linux ``PR_SET_PDEATHSIG`` has the kernel deliver SIGTERM
-    (the normal drain path) the instant the supervising parent goes,
-    and a 1 s-cadence watchdog thread catches kernels that fail to
-    deliver it (observed on gVisor container kernels) by watching for
-    reparenting to init. Pdeathsig fires on the death of the spawning
-    THREAD, which here is the supervisor thread — alive exactly as
-    long as supervision is."""
-    import signal as _signal
-
-    try:
-        import ctypes
-
-        libc = ctypes.CDLL(None, use_errno=True)
-        libc.prctl(1, _signal.SIGTERM, 0, 0, 0)  # PR_SET_PDEATHSIG
-        # NO getppid()==1 "already orphaned" recheck here: container
-        # kernels (gVisor) intermittently report ppid 1 for a freshly
-        # spawned child whose parent is alive, and the misfire exits
-        # the replica before its first-launch chaos/serving ever runs —
-        # worse than the microsecond fork→prctl window it would close
-    except (OSError, AttributeError):  # pragma: no cover - non-Linux
-        pass
-
-    # polling suspenders for the prctl belt: the same container
-    # kernels intermittently fail to DELIVER pdeathsig at all, so a
-    # daemon thread also watches for reparenting to init. Several
-    # consecutive observations are required before acting — a single
-    # getppid()==1 reading can be the spurious-at-spawn transient —
-    # then SIGTERM ourselves, which is the replica's normal drain path
-    def _watch() -> None:
-        strikes = 0
-        while True:
-            time.sleep(1.0)
-            strikes = strikes + 1 if os.getppid() == 1 else 0
-            if strikes >= 3:
-                log.warning("fleet front is gone (reparented to "
-                            "init); draining this replica")
-                os.kill(os.getpid(), _signal.SIGTERM)
-                return
-
-    threading.Thread(target=_watch, daemon=True,
-                     name="fleet-orphan-watchdog").start()
-
-
 def replica_worker_entry() -> int:
     """Entry body of one fleet replica process (`pio deploy
     --replica-worker` and the test harness land here after loading
@@ -787,7 +741,9 @@ def replica_worker_entry() -> int:
     here — first-launch chaos (``PIO_FLEET_WORKER_FAULT_SPEC``) proves
     a replica crashing at spawn is relaunched by the supervisor without
     client impact."""
-    _die_with_parent()
+    from ..parallel.supervisor import die_with_parent
+
+    die_with_parent("fleet front")
     faultinject.fault_point("fleet.spawn")
     port = envknobs.env_int("PIO_QUERY_REPLICA_PORT", 0, lo=0)
     if port <= 0:

@@ -121,3 +121,104 @@ def test_implicit_als_card_matches_cpu(card, binary):
                                rtol=TOL, atol=TOL)
     np.testing.assert_allclose(f_card.item_factors, f_cpu.item_factors,
                                rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("n_items", [10_003, 1_000_000])
+def test_host_sharded_single_query_bit_identical_on_the_card(card, n_items):
+    """Host-sharded serving on the card: single-query answers
+    bit-identical to the flat catalog's, batched answers index-identical
+    (8 shards, rank 32)."""
+    import numpy as np
+
+    from incubator_predictionio_torch.ops import sharded_topk, topk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(n_items)
+    items = rng.normal(size=(n_items, 32)).astype(np.float32)
+    flat = torch.from_numpy(items).to(card)
+    cat = sharded_topk.put_host_sharded_catalog(items, -(-n_items // 8),
+                                                card)
+    assert cat.n_shards == 8
+    for j in range(10):
+        uv = rng.normal(size=32).astype(np.float32)
+        exclude = rng.random(n_items) < 0.3 if j % 2 else None
+        s0, i0 = topk.top_k_items(uv, flat, 50, exclude=exclude)
+        s1, i1 = sharded_topk.host_sharded_top_k_items(uv, cat, 50,
+                                                       exclude=exclude)
+        np.testing.assert_array_equal(i0, i1)
+        np.testing.assert_array_equal(s0, s1)
+    uvs = rng.normal(size=(64, 32)).astype(np.float32)
+    np.testing.assert_array_equal(
+        topk.batch_top_k(uvs, flat, 10)[1],
+        sharded_topk.host_sharded_batch_top_k(uvs, cat, 10)[1])
+
+
+@pytest.mark.parametrize("where", ["item_rows", "user_vector"])
+def test_host_sharded_nan_on_the_card(card, monkeypatch, where):
+    """NaN under the host layout on the card: NaN item rows (more than
+    ``k`` in one shard) and a NaN user vector give the flat answer, and a
+    NaN Recommendation model deployed host-sharded is refused by the swap
+    gate for its non-finite values. No device-side assert: the card keeps
+    answering afterwards."""
+    import numpy as np
+
+    from incubator_predictionio_torch.controller import EngineParams
+    from incubator_predictionio_torch.controller.engine import Deployment
+    from incubator_predictionio_torch.data.bimap import BiMap
+    from incubator_predictionio_torch.models import recommendation as rec
+    from incubator_predictionio_torch.ops import sharded_topk, topk
+    from incubator_predictionio_torch.workflow.context import (
+        WorkflowContext,
+    )
+    from incubator_predictionio_torch.workflow.create_server import (
+        EngineServer, SwapValidationError,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_items, rank = 10_003, 32
+    rng = np.random.default_rng(5)
+    items = rng.normal(size=(n_items, rank)).astype(np.float32)
+    users = rng.normal(size=(6, rank)).astype(np.float32)
+    if where == "item_rows":
+        items[1200:1260] = np.nan  # a NaN threshold in shard 0
+        items[[3, 7000]] = np.nan
+    else:
+        users[0] = np.nan
+    cat = sharded_topk.put_host_sharded_catalog(items, -(-n_items // 8),
+                                                card)
+    flat = torch.from_numpy(items).to(card)
+    for uv in users:
+        for exclude in (None, rng.random(n_items) < 0.3):
+            got = sharded_topk.host_sharded_top_k_items(uv, cat, 50,
+                                                        exclude=exclude)
+            want = topk.top_k_items(uv, flat, 50, exclude=exclude)
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(
+        sharded_topk.host_sharded_batch_top_k(users, cat, 10)[1],
+        topk.batch_top_k(users, flat, 10)[1])
+
+    monkeypatch.setenv("PIO_SERVE_SHARD_ITEMS", str(-(-n_items // 8)))
+    stored = {"user_factors": users, "item_factors": items,
+              "users": BiMap({f"u{j}": j for j in range(6)}).to_persisted(),
+              "items": BiMap({f"i{j}": j
+                              for j in range(n_items)}).to_persisted()}
+    good = dict(stored, user_factors=np.nan_to_num(users),
+                item_factors=np.nan_to_num(items))
+    _, _, algos, serving = rec.RecommendationEngine()().make_components(
+        EngineParams.from_json({"datasource": {"params": {
+            "app_name": "app"}}, "algorithms": [{"name": "als", "params": {
+                "rank": rank, "numIterations": 1, "lambda": 0.01}}]}))
+    algo = algos[0][1]
+    ctx = WorkflowContext(device=str(card))
+    live = algo.restore_model(good, ctx)
+    server = EngineServer(deployment=Deployment(algos, [live], serving),
+                          device=str(card))
+    nan_dep = Deployment(algos, [algo.restore_model(stored, ctx)], serving)
+    with pytest.raises(SwapValidationError) as refused:
+        server._prepare(nan_dep, "nan-instance", None)
+    assert "non-finite" in refused.value.reason
+    assert "warm-up failed" not in refused.value.reason
+    assert nan_dep.models[0].catalog().layout == "host"
+    torch.cuda.synchronize()
+    assert algo.predict(live, {"user": "u1", "num": 5})["itemScores"]

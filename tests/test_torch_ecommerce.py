@@ -341,9 +341,11 @@ def test_serve_time_reads_catch_only_the_storage_error(stores):
 
 
 def test_params_and_the_device_rule(monkeypatch):
-    with pytest.raises(ValueError, match="flat catalog"):
-        port_ec.ECommerceAlgorithm(
-            port_ec.ECommerceAlgoParams(sharded_serving="always"))
+    port_ec.ECommerceAlgorithm(  # F5: "always" serves on one device
+        port_ec.ECommerceAlgoParams(sharded_serving="always"))
+    with pytest.raises(ValueError, match="auto.always.never"):
+        port_ec.ECommerceAlgorithm(port_ec.ECommerceAlgoParams(
+            sharded_serving="bogus")).train(None, None)
     _, _, algo_list, _ = port_ec.ECommerceEngine()().make_components(
         EngineParams.from_json({"algorithms": [{"name": "ecomm", "params": {
             "computeDtype": "float32", "chunkTiles": 4,

@@ -201,7 +201,7 @@ def test_template_fold_in_matches_reference(implicit):
     np.testing.assert_array_equal(model.factors.user_factors, before[0])
     np.testing.assert_array_equal(model.factors.item_factors, before[1])
     assert len(model.users) == 5 and len(model.items) == 7
-    assert out.device == model.device and out._dev_items is None
+    assert out.device == model.device and out._sharded_cat is None
     assert [u for u, _ in out.recommend_products("new2", 3)] == [
         u for u, _ in ref_out.recommend_products("new2", 3)]
 

@@ -15,7 +15,8 @@ against the JAX package's on the same directories.
   equal when both compact the same log at the same zip clock.
 - A directory of ``.p<i>`` shards written by the reference (deletes that
   cross shards), compacted and not, reads in the port as in the
-  reference; the port itself writes only the base log.
+  reference; under ``PIO_EVENT_PARTITION=i`` the port writes the same
+  ``.p<i>`` shard the reference does, and the base log without it.
 - A windowed scan skips generations by their manifest bounds and equals
   the row filter of the full scan.
 - A failure at each ``compact.*`` / ``retire.rename`` fault point leaves
@@ -341,12 +342,29 @@ def test_reference_shards_read_as_one_merged_log(tmp_path, monkeypatch,
 
 def test_port_writes_the_base_log_whatever_the_partition_knob(
         tmp_path, monkeypatch):
-    monkeypatch.setenv("PIO_EVENT_PARTITION", "1")
-    s = Storage(_env("jsonl", tmp_path))
+    """Without the knob every write lands in the base log; under
+    ``PIO_EVENT_PARTITION=1`` (a worker of the partitioned event server)
+    every write lands in the worker's own shard, the files the reference
+    writes for the same operations, and the merged read is the same."""
+    s = Storage(_env("jsonl", tmp_path / "plain"))
     _populate(port_storage, s, None)
     s.close()
-    d = os.path.dirname(_log_path(tmp_path))
-    assert sorted(os.listdir(d)) == ["events_1.jsonl"]
+    assert sorted(os.listdir(os.path.dirname(
+        _log_path(tmp_path / "plain")))) == ["events_1.jsonl"]
+    monkeypatch.setenv("PIO_EVENT_PARTITION", "1")
+    listings, found = [], []
+    for pkg, store in ((port_storage, Storage), (ref_storage,
+                                                 ref_storage.Storage)):
+        root = tmp_path / pkg.__name__.split(".")[0]
+        s = store(_env("jsonl", root))
+        app_id = _populate(pkg, s, None)
+        found.append(sorted(
+            (e.event, e.entity_id, str(e.target_entity_id), e.event_time)
+            for e in s.get_l_events().find(app_id)))
+        s.close()
+        listings.append(sorted(os.listdir(os.path.dirname(_log_path(root)))))
+    assert listings[0] == listings[1] == ["events_1.p1.jsonl"]
+    assert found[0] == found[1]
 
 
 def test_windowed_scan_skips_generations_and_equals_the_row_filter(logs):

@@ -14,7 +14,10 @@ the refresh loop armed, and on a JSONL log ``deploy --online-foldin
 --quality-eval --multitenant``) runs in a fresh interpreter of its own that
 loads none of them; so do the front and both replicas of ``deploy --replicas
 2`` (each process reports its modules at exit through a ``sitecustomize``),
-whose answers equal a single server's on the same persisted model.
+whose answers equal a single server's on the same persisted model; so do
+host-sharded serving (``PIO_SERVE_SHARD_ITEMS``: the ALS catalog and the
+UR's indicators) and the front and both workers of ``eventserver
+--workers 2``.
 The same holds for the E-Commerce template and the evaluations (the
 ``eval`` and ``dashboard`` verbs, and the vanilla copy's evaluation from
 its engine directory), and for the Classification and Text-Classification
@@ -80,7 +83,7 @@ def test_port_files_exist():
             "deadline.py", "resilience.py", "plugins.py", "create_server.py",
             "models.py", "online.py", "quality.py", "multitenant.py",
             "holdout.py", "splice.py", "supervisor.py", "fleet.py",
-            "elastic.py",
+            "elastic.py", "sharded_topk.py", "_sharded_serving.py",
             } <= names
     assert (ROOT / "incubator_predictionio_torch" / "e2"
             / "engine.py").is_file()
@@ -739,3 +742,122 @@ def test_fleet_deploy_in_processes_without_jax(verb_store, tmp_path):
     for log in logs:
         assert '"kernel_launches": {"warp": 0, "wide": 0}' in \
             log.read_text(), log.read_text()[-2000:]
+
+
+_SHARDED_SCRIPT = r"""
+import json, os, sys
+import numpy as np
+os.environ["PIO_SERVE_SHARD_ITEMS"] = "3"
+from incubator_predictionio_torch.models import _sharded_serving
+from incubator_predictionio_torch.ops import llr
+from incubator_predictionio_torch.tools import console
+
+rng = np.random.default_rng(0)
+events = [{"event": "rate", "entityType": "user", "entityId": f"u{u}",
+           "targetEntityType": "item", "targetEntityId": f"i{i}",
+           "properties": {"rating": float(rng.integers(1, 6))},
+           "eventTime": "2024-01-01T00:00:00.000Z"}
+          for u in range(12) for i in range(9) if rng.random() < 0.5]
+engine_json = {"algorithms": [{"name": "als", "params": {
+    "rank": 4, "numIterations": 3, "lambda": 0.1,
+    "shardedServing": "always"}}]}
+path = sys.argv[1]
+console.train(engine_json, events, path, device="cpu")
+deployment, _ = console.load_deployment(path, device="cpu")
+model = deployment.models[0]
+assert model.catalog().layout == "host" and model.catalog().n_shards == 3
+assert len(deployment.query({"user": "u1", "num": 3})["itemScores"]) == 3
+inds = {"buy": llr.Indicators(idx=rng.integers(-1, 9, (9, 4)).astype(
+    np.int32), score=rng.random((9, 4)).astype(np.float32))}
+si = _sharded_serving.ShardedIndicators(inds, 9, "cpu")
+assert si.layout == "host"
+s, i = si.score_user([("buy", np.ones(9, np.float32), 1.0)], 4, None, None)
+assert len(i) == 4
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "orbax", "incubator_predictionio_tpu"))
+print(json.dumps({"loaded": loaded}))
+"""
+
+
+def test_host_sharded_serving_in_a_process_without_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _SHARDED_SCRIPT,
+                          str(tmp_path / "m.npz")],
+                         capture_output=True, text=True, cwd=str(ROOT),
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert '"loaded": []' in out.stdout.strip().splitlines()[-1]
+
+
+def test_partitioned_event_server_in_processes_without_jax(tmp_path):
+    """``eventserver --workers 2`` on a JSONL log: the front and both
+    workers load no JAX (each reports its modules at exit), every worker
+    ready on the front's /healthz, SIGTERM drains with exit 0."""
+    import json
+    import signal
+    import time
+
+    import requests
+
+    from incubator_predictionio_torch.data.storage import (
+        AccessKey, App, Storage,
+    )
+
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    reports = tmp_path / "modules"
+    reports.mkdir()
+    store_env = {
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "EV",
+        "PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+        "PIO_STORAGE_SOURCES_DB_PATH": str(tmp_path / "meta.sqlite"),
+        "PIO_STORAGE_SOURCES_EV_TYPE": "JSONL",
+        "PIO_STORAGE_SOURCES_EV_PATH": str(tmp_path / "events")}
+    storage = Storage(store_env)
+    app_id = storage.get_meta_data_apps().insert(App(0, "nojax"))
+    storage.get_meta_data_access_keys().insert(AccessKey("k", app_id, ()))
+    storage.close()
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PIO_STORAGE_", "PIO_EVENT", "PIO_FAULT"))}
+    env.update(store_env, PYTHONPATH=os.pathsep.join([str(site), str(ROOT)]),
+               PIO_FS_BASEDIR=str(tmp_path / "base"),
+               PIO_TEST_MODULES_DIR=str(reports))
+    front = subprocess.Popen(
+        [sys.executable, "-m", "incubator_predictionio_torch.tools.console",
+         "eventserver", "--workers", "2", "--ip", "127.0.0.1", "--port",
+         str(port)], env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 120
+        health = {}
+        while time.monotonic() < deadline and health.get(
+                "readyWorkers") != 2:
+            assert front.poll() is None, front.stdout.read()[-3000:]
+            try:
+                health = requests.get(base + "/healthz", timeout=5).json()
+            except (requests.RequestException, ValueError):
+                pass
+            time.sleep(0.1)
+        assert health.get("readyWorkers") == 2, health
+        r = requests.post(f"{base}/events.json?accessKey=k", json={
+            "event": "view", "entityType": "user", "entityId": "u",
+            "targetEntityType": "item", "targetEntityId": "i"}, timeout=30)
+        assert r.status_code == 201, r.text
+    finally:
+        if front.poll() is None:
+            front.send_signal(signal.SIGTERM)
+        try:
+            rc = front.wait(timeout=90)
+        except subprocess.TimeoutExpired:
+            front.kill()
+            raise
+    assert rc == 0, front.stdout.read()[-3000:]
+    docs = [json.loads(p.read_text()) for p in reports.glob("*.json")]
+    assert sum("--workers" in d["argv"] for d in docs) == 1, docs
+    assert sum("--worker" in d["argv"] for d in docs) == 2, docs
+    assert all(d["loaded"] == [] for d in docs), docs

@@ -221,7 +221,7 @@ def test_runner_als_increment_matches_reference(tmp_path, monkeypatch,
     served.catalog()   # a warm served model
     before = (served.factors.user_factors.copy(),
               served.factors.item_factors.copy(),
-              served.catalog().clone())
+              served.catalog().resident.clone())
 
     # the reference: memory metadata, the same event log, the same base
     ref = ref_storage.Storage({
@@ -279,7 +279,7 @@ def test_runner_als_increment_matches_reference(tmp_path, monkeypatch,
     # the served model (and its catalog on the device) is untouched
     np.testing.assert_array_equal(served.factors.user_factors, before[0])
     np.testing.assert_array_equal(served.factors.item_factors, before[1])
-    assert torch.equal(served.catalog(), before[2])
+    assert torch.equal(served.catalog().resident, before[2])
     assert out.factors.user_factors is not served.factors.user_factors
 
     # the marker and the cursor documents are the reference's

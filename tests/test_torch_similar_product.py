@@ -264,9 +264,14 @@ def test_similar_items_matches_reference():
 
 
 def test_sharded_serving_always_is_refused():
-    with pytest.raises(ValueError, match="flat catalog"):
-        port_sp.SimilarProductAlgorithm(
-            port_sp.SimilarProductAlgoParams(sharded_serving="always"))
+    """Refused only where the mesh layout would be picked: one device
+    serves ``always`` (F5); a bad value is refused before the train."""
+    port_sp.SimilarProductAlgorithm(
+        port_sp.SimilarProductAlgoParams(sharded_serving="always"))
+    algo = port_sp.SimilarProductAlgorithm(
+        port_sp.SimilarProductAlgoParams(sharded_serving="bogus"))
+    with pytest.raises(ValueError, match="auto.always.never"):
+        algo.train(WorkflowContext(events=[], device="cpu"), None)
 
 
 def test_no_view_events_is_a_clear_error():
