@@ -83,6 +83,16 @@ Phases (any failure exits non-zero; nothing is caught):
    eventserver scale 3, then scale 2 (partition 2's lease parked on the
    front, epoch bumped); pio train off the merged log (warp launches =
    implied, factors within 2e-4 of train_als on the triple read back).
+12b. gang_train (inside 12a, on its store): pio train --num-workers 2
+   --checkpoint-every 2, two ranks of a gloo process group on the card,
+   each reading only its own shards (disjoint, covering the log), the
+   grams all-reduced, each rank's row block solved by the warp kernel
+   (launches = implied; factors within 2e-4 of train_als on the union
+   triple in the gang's indices); a worker crash after the first snapshot
+   (one gang restart, the factors equal the uninterrupted gang's); a
+   SIGTERM drain at a sweep boundary, then --resume on the same instance;
+   a Similar-Product gang (categories as $set events) served through
+   pio deploy.
 13. pio_workflow_jsonl_ml20m: the first 2,500,000 of the ML-20M ratings
    as the log (byte for byte insert_batch's lines; cut from 20,000,263
    for the script's time, ``reduced``) → eventlog compact → the read held
@@ -119,7 +129,7 @@ Phases (any failure exits non-zero; nothing is caught):
 15. similar_product (phase 9 above, run here).
 16. ecommerce_jsonl: bench_templates.py's config 6 (100,000 users ×
    20,000 items × 5,000,000 view/buy events, 10 % buys, 20 categories;
-   its first 2,500,000 events, cut for the script's time)
+   its first 1,250,000 events, cut for the script's time)
    written as an uncompacted JSONL log → pio train with the E-Commerce
    template's engine.json (rank 32, 10 iterations; warp launches =
    implied) → pio eventserver + pio deploy → 60 queries → a $set of
@@ -127,7 +137,8 @@ Phases (any failure exits non-zero; nothing is caught):
    every answer held to a host top-k with the seen and unavailable items
    computed from the generated arrays; query latency split into the
    LEventStore reads, the top-k and the rest.
-17. pio_eval: pio eval on the ML-100K shape as one JSONL app:
+17. pio_eval: pio eval on the ML-100K shape as one JSONL app (the first
+   50,000 of its ratings and 250 views, cut for the script's time):
    RecommendationEvaluation + ParamsList and ECommerceEvaluation +
    ECommerceParamsList (4 candidates × 3 folds each) on the card (warp
    launches = the folds' implied count), the E-Commerce sweep again on
@@ -222,10 +233,14 @@ import torch
 from incubator_predictionio_torch import native
 from incubator_predictionio_torch.common.nan_guard import NaNGuardError
 from incubator_predictionio_torch.controller import Engine, EngineParams
-from incubator_predictionio_torch.data.bimap import IdentityBiMap
+from incubator_predictionio_torch.data.bimap import BiMap, IdentityBiMap
 from incubator_predictionio_torch.data.api import event_log
 from incubator_predictionio_torch.data.storage import Event, Storage
+from incubator_predictionio_torch.data.storage.event import new_event_id
 from incubator_predictionio_torch.data.storage.jsonl import JSONLEvents
+from incubator_predictionio_torch.data.storage.jsonl import (
+    shard_paths as jsonl_shard_paths,
+)
 from incubator_predictionio_torch.data.store import PEventStore, p_event_store
 from incubator_predictionio_torch.device import resolve_device
 from incubator_predictionio_torch.data.events import (
@@ -2990,7 +3005,6 @@ def _commit_instance(store: Storage, like_id: str, stored: dict) -> str:
     commits: row RUNNING → artifact → COMPLETED."""
     import dataclasses
 
-    from incubator_predictionio_torch.data.storage.event import new_event_id
     from incubator_predictionio_torch.workflow.persist import (
         engine_json_from_bytes, models_to_bytes,
     )
@@ -4021,8 +4035,8 @@ def phase_engine_server_tenants(workdir: str) -> None:
 #: events, drawn with seed 6; rank 32 × 10 iterations
 ECOMMERCE = (100_000, 20_000, 5_000_000)
 #: the first events of config 6 the phase writes: cut from 5,000,000 for
-#: the script's time
-ECOMMERCE_LOG_EVENTS = 2_500_000
+#: the script's time, to 2,500,000, then (with the gang phases) 1,250,000
+ECOMMERCE_LOG_EVENTS = 1_250_000
 ECOMMERCE_CATEGORIES = 20
 ECOMMERCE_BUY_SHARE = 0.1
 #: queries before and after the constraint/unavailableItems $set
@@ -4271,7 +4285,7 @@ def _split(client_ms: list, records: list, parts: dict) -> dict:
 
 def phase_ecommerce_jsonl(workdir: str) -> None:
     """bench_templates.py config 6 through the E-Commerce template and the
-    verbs, on a JSONL log: the first ECOMMERCE_LOG_EVENTS (2,500,000 of
+    verbs, on a JSONL log: the first ECOMMERCE_LOG_EVENTS (1,250,000 of
     5,000,000) view/buy events (100,000 users × 20,000 items, 10 % buys)
     and one category $set per item written as
     the log itself (not compacted: the train and the serve-time reads
@@ -4427,9 +4441,13 @@ def phase_ecommerce_jsonl(workdir: str) -> None:
 # -- pio eval ------------------------------------------------------------------
 
 ML100K_SEED = 11
+#: the Recommendation sweep's rate events: the first EVAL_RATES of
+#: ML-100K's ratings (all 100,000 until the gang phases needed the time)
+EVAL_RATES = 50_000
 #: the E-Commerce sweep's events: view events of the first EVAL_VIEWS
-#: ML-100K pairs (see phase_pio_eval for the cut)
-EVAL_VIEWS = 500
+#: ML-100K pairs (see phase_pio_eval for the cut; 500 until the gang
+#: phases needed the time)
+EVAL_VIEWS = 250
 EVAL_MODULES = {
     "recommendation": (
         "incubator_predictionio_torch.models.recommendation_eval."
@@ -4494,8 +4512,9 @@ def _eval_verb(name: str, env: dict, cwd: str, device: str,
 
 def phase_pio_eval(workdir: str) -> None:
     """pio eval on the ML-100K shape (bench.py SCALES["ml100k"],
-    synth_ratings seed 11) as one JSONL app: the 100,000 ratings as rate
-    events, and the first EVAL_VIEWS of the same (user, item) pairs as
+    synth_ratings seed 11) as one JSONL app: the first EVAL_RATES of its
+    100,000 ratings as rate events, and the first EVAL_VIEWS of the same
+    (user, item) pairs as
     view events. The Recommendation sweep (RecommendationEvaluation +
     ParamsList: 4 candidates × 3 folds, HitRate@10) reads the rates, the
     E-Commerce sweep (ECommerceEvaluation + ECommerceParamsList: 4 × 3,
@@ -4511,8 +4530,10 @@ def phase_pio_eval(workdir: str) -> None:
     queries per sweep) would take the phase's time many times over, on
     the card and again on the CPU; ``reduced`` carries the measured time
     per query."""
-    n_users, n_items, nnz = ML100K
-    u, i, r = synth_ratings(n_users, n_items, nnz, seed=ML100K_SEED)
+    n_users, n_items, full = ML100K
+    u, i, r = (a[:EVAL_RATES] for a in synth_ratings(
+        n_users, n_items, full, seed=ML100K_SEED))
+    nnz = EVAL_RATES
     t_rate = T0_MS + np.random.default_rng(12).permutation(nnz)
     t_view = T0_MS + nnz + np.random.default_rng(13).permutation(EVAL_VIEWS)
     cwd = tempfile.mkdtemp(dir=workdir)
@@ -4557,10 +4578,11 @@ def phase_pio_eval(workdir: str) -> None:
     ms_per_query = card["seconds"] * 1e3 / (len(EVAL_GRID) * EVAL_VIEWS)
     emit("pio_eval", events=nnz, users=n_users, items=n_items,
          ecommerce_events=EVAL_VIEWS, reduced=(
-             f"E-Commerce sweep on {EVAL_VIEWS} of the {nnz} events: "
-             f"{ms_per_query:.3f} ms per eval query on the card (predict "
-             "with a store read, two ranking_metrics calls) × "
-             f"{len(EVAL_GRID) * nnz} queries at the full count"),
+             f"the Recommendation sweep on the first {nnz} of ML-100K's "
+             f"{full} ratings; the E-Commerce sweep on {EVAL_VIEWS} of "
+             f"them: {ms_per_query:.3f} ms per eval query on the card "
+             "(predict with a store read, two ranking_metrics calls) × "
+             f"{len(EVAL_GRID) * full} queries at the full count"),
          ecommerce_ms_per_query=ms_per_query, sweeps=sweeps)
     shutil.rmtree(cwd)
 
@@ -6384,7 +6406,360 @@ def phase_eventserver_partitioned(workdir: str) -> None:
          train_seconds_end_to_end=trained["wall_seconds"],
          read_seconds=trained["timings"]["read_seconds"],
          max_abs_err_vs_train_als=err)
+    phase_gang_train(cwd, envs[2], trained["wall_seconds"])
     shutil.rmtree(cwd)
+
+
+#: the gang's size: two ranks of a gloo process group on the one card
+GANG_WORKERS = 2
+#: the Similar-Product gang's category count ($set events on the items)
+GANG_CATEGORIES = 20
+#: λ of the gang's engines (× n_ratings for Recommendation; Spark ALS's
+#: default regParam): at PIO_LAMBDA = 0.01 the per-user systems of this
+#: log are conditioned so poorly that the float32 summation order alone
+#: (a per-event scatter-add against per-row bmm) moves the factors past
+#: TOL
+GANG_LAMBDA = 0.1
+GANG_KNOBS = {"PIO_SUPERVISOR_POLL_MS": "50", "PIO_WORKER_HEARTBEAT_MS": "200",
+              "PIO_TRAIN_FEED": "partition"}
+
+
+def _gang_engine(gdir: str, factory: str, app: str, extra_ds=None,
+                 extra_algo=None) -> None:
+    os.makedirs(gdir, exist_ok=True)
+    with open(os.path.join(gdir, "engine.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump({"id": "default", "engineFactory": factory,
+                   "datasource": {"params": {"appName": app,
+                                             **(extra_ds or {})}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": PIO_RANK, "numIterations": PIO_ITERS,
+                       "lambda": GANG_LAMBDA, **(extra_algo or {})}}]}, fh)
+
+
+def _gang_verb(env: dict, gdir: str, extra=(), timeout: int = 300) -> dict:
+    """``pio train --num-workers 2 --checkpoint-every 2`` (the card, gloo);
+    its last JSON line with ``wall_seconds``."""
+    out, wall = _verb(["train", "--num-workers", str(GANG_WORKERS),
+                       "--checkpoint-every", "2", *extra], env, gdir,
+                      timeout=timeout)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    got["wall_seconds"] = wall
+    return got
+
+
+def _gang_launches(got: dict) -> dict:
+    """The warp and wide launches every worker of a gang that completed
+    without a restart reported (each counted from 0 in its own
+    process)."""
+    check(got["state"] == "completed" and all(got["workers"])
+          and got["restarts"] == 0,
+          f"gang ended {got['state']} after {got['restarts']} restart(s): "
+          f"{got.get('runDir')}")
+    return {kind: sum(w["kernel_launches"][kind] for w in got["workers"])
+            for kind in ("warp", "wide")}
+
+
+def _gang_factors(store: Storage, iid: str) -> dict:
+    _, persisted = models_from_bytes(model_artifact.read_model(store, iid))
+    return persisted[0]
+
+
+def _hold_gang(got: dict, store: Storage, app: str, names: list,
+               implicit: bool, path: str, users=None) -> tuple:
+    """A completed gang on the card: the workers' shards disjoint and
+    covering the log, every rating read once, the warp launches those the
+    row blocks and the solve buffer imply, and the factors within TOL of
+    the port's train_als (device="cuda") on the union triple mapped into
+    the gang's indices. Returns (stored model, launches, max |err|)."""
+    launches = _gang_launches(got)
+    app_id = store.get_meta_data_apps().get_by_name(app).id
+    canonical = jsonl_shard_paths(store.get_l_events().events_dir, app_id)
+    shards = [w["timings"]["shards"] for w in got["workers"]]
+    check(shards == [canonical[w::GANG_WORKERS]
+                     for w in range(GANG_WORKERS)],
+          f"{path}: shards {shards}, canonical {canonical}")
+    stored = _gang_factors(store, got["engineInstanceId"])
+    u, i, r, m_users, m_items = PEventStore.find_ratings(
+        app, event_names=names, rating_from_props=not implicit,
+        storage=store)
+    check(sum(w["timings"]["local_ratings"] for w in got["workers"])
+          == len(u), f"{path}: the workers read {len(u)} ratings between "
+          "them?")
+    g_items = BiMap.from_persisted(stored["items"])
+    g_users = BiMap.from_persisted(users if users is not None
+                                   else stored["users"])
+    check(sorted(g_items.keys()) == sorted(m_items.keys())
+          and len(g_users) == len(m_users), f"{path}: id maps differ")
+    iu = np.asarray([g_users(x) for x in
+                     (m_users.inverse(int(v)) for v in u)], np.int32)
+    ii = np.asarray([g_items(x) for x in
+                     (m_items.inverse(int(v)) for v in i)], np.int32)
+    params = ALSParams(rank=PIO_RANK, num_iterations=PIO_ITERS,
+                       reg=GANG_LAMBDA, implicit_prefs=implicit,
+                       lambda_scaling="plain" if implicit else "nratings")
+    t0 = time.perf_counter()
+    ref = train_als(iu, ii, r, len(g_users), len(g_items), params,
+                    device="cuda")
+    train_als_s = time.perf_counter() - t0
+    # the same data-parallel trainer as one rank alone in this process
+    # (one CUDA context on the card): what the gang's two contexts cost
+    alone: dict = {}
+    t0 = time.perf_counter()
+    als.train_als_partition_local(iu, ii, r, len(g_users), len(g_items),
+                                  params, device="cuda", force_dp=True,
+                                  timings=alone)
+    alone = {"seconds": time.perf_counter() - t0,
+             "train_als_seconds": train_als_s,
+             **{k: alone[k] for k in (
+                 "device_train_seconds", "gram_seconds_per_half_step",
+                 "solve_seconds_per_half_step")}}
+    err = max(max_err(stored["user_factors"], ref.user_factors),
+              max_err(stored["item_factors"], ref.item_factors))
+    check(within(stored["user_factors"], ref.user_factors)
+          and within(stored["item_factors"], ref.item_factors),
+          f"{path}: gang vs train_als max |err| {err}")
+    per_rank = (als.dp_solve_calls_per_half_step(
+        -(-len(g_users) // GANG_WORKERS), PIO_RANK)
+        + als.dp_solve_calls_per_half_step(
+            -(-len(g_items) // GANG_WORKERS), PIO_RANK))
+    expected = GANG_WORKERS * PIO_ITERS * per_rank
+    check(launches == {"warp": expected, "wide": 0},
+          f"{path}: launches {launches} != implied {expected} warp")
+    check(all(w["timings"]["solve_calls_per_iteration"] == per_rank
+              for w in got["workers"]), f"{path}: solve calls per rank")
+    record(path, launches)
+    return stored, launches, err, expected, alone
+
+
+def _gang_numbers(got: dict) -> dict:
+    return {"seconds_end_to_end": got["wall_seconds"],
+            "restarts": got["restarts"],
+            "workers": [{
+                "rank": w["timings"]["rank"],
+                "shards": [os.path.basename(p) for p in w["timings"]["shards"]],
+                "local_ratings": w["timings"]["local_ratings"],
+                "read_seconds": w["timings"]["read_seconds"],
+                "device_train_seconds": w["timings"]["device_train_seconds"],
+                "train_seconds": w["seconds"],
+                "half_steps": w["timings"]["half_steps"],
+                "gram_seconds_per_half_step":
+                    w["timings"]["gram_seconds_per_half_step"],
+                "solve_seconds_per_half_step":
+                    w["timings"]["solve_seconds_per_half_step"],
+                "checkpoint_save_seconds":
+                    w["timings"]["checkpoint_save_seconds"],
+                "allreduce_bytes_per_half_step":
+                    w["timings"]["allreduce_bytes_per_half_step"],
+                "allreduce_seconds_per_half_step":
+                    w["timings"]["allreduce_seconds_per_half_step"],
+                "kernel_launches": w["kernel_launches"]}
+                for w in got["workers"]]}
+
+
+def _gang_crash_restart(env: dict, gdir: str) -> dict:
+    """The gang under the port's supervisor with worker 1 armed to die
+    (``train.sweep:crash:2``: after the step-2 snapshot) on the first
+    attempt only; the seconds from the failure to the relaunched gang's
+    first heartbeats are watched while it runs."""
+    from incubator_predictionio_torch.parallel.supervisor import (
+        GangConfig, Supervisor,
+    )
+
+    gang_id = new_event_id()
+    run_dir = os.path.join(env["PIO_FS_BASEDIR"], "gang", gang_id)
+    sup = Supervisor(
+        CONSOLE + ["train", "--engine-dir", gdir, "--checkpoint-every", "2"],
+        GANG_WORKERS,
+        env=env, per_worker_env=lambda a, i: (
+            {"PIO_FAULT_SPEC": "train.sweep:crash:2"} if a == 0 and i == 1
+            else {}),
+        config=GangConfig(num_workers=GANG_WORKERS, heartbeat_ms=200.0,
+                          poll_ms=50.0, max_restarts=1),
+        run_dir=run_dir, gang_instance_id=gang_id)
+    box: dict = {}
+    t = threading.Thread(target=lambda: box.update(outcome=sup.run()),
+                         daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    failed_at = back_at = None
+    while t.is_alive() and time.perf_counter() - t0 < 300:
+        if failed_at is None and any(e["type"] == "failure"
+                                     for e in list(sup.events)):
+            failed_at = time.perf_counter()
+        if failed_at is not None and back_at is None and any(
+                e["type"] == "gangStart" and e["attempt"] == 1
+                for e in list(sup.events)) and all(
+                os.path.exists(os.path.join(run_dir, f"worker_{w}.hb"))
+                for w in range(GANG_WORKERS)):
+            back_at = time.perf_counter()
+        time.sleep(0.02)
+    t.join(30)
+    check(not t.is_alive() and box.get("outcome") == "completed",
+          f"crashed gang ended {box} {sup.events[-3:]}")
+    failures = [e for e in sup.events if e["type"] == "failure"]
+    check(sup.restarts == 1 and [(f["reason"], f["worker"])
+                                 for f in failures] == [("exit", 1)],
+          f"restarts {sup.restarts}, failures {failures}")
+    check(back_at is not None, "the relaunched gang never beat")
+    backoff = next(e["backoff_s"] for e in sup.events
+                   if e["type"] == "restart")
+    return {"gang_id": gang_id, "seconds": time.perf_counter() - t0,
+            "restarts": sup.restarts, "failure": failures[0],
+            "seconds_crash_to_back_at_work": back_at - failed_at,
+            "restart_backoff_s": backoff}
+
+
+def _gang_drain_resume(env: dict, gdir: str) -> dict:
+    """SIGTERM to ``pio train --num-workers 2`` mid-train (every sweep
+    slowed by 0.5 s so the signal lands with sweeps ahead): the gang drains
+    at a sweep boundary with a snapshot, exit 0 and ``supervisor.json``
+    ``drained`` as in the reference; then ``--resume`` completes the same
+    instance."""
+    slow = env | {"PIO_FAULT_SPEC": "train.sweep:latency:100:0.5"}
+    proc = subprocess.Popen(
+        CONSOLE + ["train", "--num-workers", str(GANG_WORKERS),
+                   "--checkpoint-every", "2"], env=slow, cwd=gdir,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        first = proc.stdout.readline()
+        check("Gang training:" in first, f"gang start line {first!r}")
+        gang_id = first.split("instance ")[1].split(",")[0]
+        run_dir = first.split("run dir ")[1].strip()
+        hb = os.path.join(run_dir, "worker_0.hb")
+        deadline = time.time() + 240
+        while not os.path.exists(hb):
+            if proc.poll() is not None or time.time() > deadline:
+                raise AssertionError(
+                    f"gang never beat: {proc.stderr.read()[-2000:]}")
+            time.sleep(0.02)
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+        drain_s = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"drained gang exited {proc.returncode}: "
+          f"{err[-2000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    with open(os.path.join(run_dir, "supervisor.json"),
+              encoding="utf-8") as fh:
+        doc = json.load(fh)
+    done = [e for e in doc["events"] if e["type"] == "drainDone"]
+    check(got["state"] == "drained" and doc["state"] == "drained"
+          and done and not done[0]["stragglers"]
+          and set(done[0]["rcs"].values()) == {3},
+          f"drain: {got['state']}, {doc['state']}, {done}, events "
+          f"{[e['type'] for e in doc['events']]}, SIGTERM {drain_s:.2f} s "
+          f"before the exit; stdout {out[-1500:]}")
+    ckpt = os.path.join(env["PIO_FS_BASEDIR"], "checkpoints", gang_id,
+                        "algo_0_als")
+    steps = sorted(int(n.split(".")[0]) for n in os.listdir(ckpt)
+                   if n.endswith(".npz"))
+    check(steps and steps[-1] < PIO_ITERS, f"drain snapshots {steps}")
+    resumed = _gang_verb(env, gdir, ["--resume"])
+    check(resumed["engineInstanceId"] == gang_id,
+          f"--resume trained {resumed['engineInstanceId']}, not {gang_id}")
+    return {"gang_id": gang_id, "seconds_sigterm_to_exit": drain_s,
+            "snapshot_steps": steps, "resume": resumed}
+
+
+def phase_gang_train(cwd: str, env: dict, single_train_s: float) -> None:
+    """``pio train --num-workers 2`` on the card off the partitioned ML-1M
+    log of ``eventserver_partitioned`` (rank 32, GANG_LAMBDA·n_ratings):
+    two ranks of
+    a gloo process group share the card, each reads only its own shards,
+    the grams are all-reduced and each rank solves its row block with the
+    warp kernel. Then a worker crash (one gang restart from the snapshot),
+    a SIGTERM drain and ``--resume``, and a Similar-Product gang whose
+    model serves through ``deploy``."""
+    env = env | GANG_KNOBS
+    store = _storage_of(env)
+    factory = ("incubator_predictionio_torch.models.recommendation."
+               "RecommendationEngine")
+    gdir = os.path.join(cwd, "gang_rec")
+    _gang_engine(gdir, factory, "part",
+                 extra_algo={"lambdaScaling": "nratings"})
+    got = _gang_verb(env, gdir)
+    stored, launches, err, expected, alone = _hold_gang(
+        got, store, "part", ["rate", "buy"], False, "gang_train")
+    emit("gang_train", **_gang_numbers(got),
+         single_process_train_seconds_end_to_end=single_train_s,
+         one_rank_alone_in_process=alone,
+         kernel_launches=launches, expected_launches=expected,
+         max_abs_err_vs_train_als=err)
+
+    crash = _gang_crash_restart(env, gdir)
+    crashed = _gang_factors(store, crash.pop("gang_id"))
+    delta = max(max_err(crashed["user_factors"], stored["user_factors"]),
+                max_err(crashed["item_factors"], stored["item_factors"]))
+    check(within(crashed["user_factors"], stored["user_factors"])
+          and within(crashed["item_factors"], stored["item_factors"]),
+          f"restarted gang vs uninterrupted: {delta}")
+    emit("gang_train_crash_restart", **crash,
+         max_abs_delta_vs_uninterrupted=delta)
+
+    drain = _gang_drain_resume(env, gdir)
+    resumed = drain.pop("resume")
+    final = _gang_factors(store, drain.pop("gang_id"))
+    delta = max(max_err(final["user_factors"], stored["user_factors"]),
+                max_err(final["item_factors"], stored["item_factors"]))
+    check(within(final["user_factors"], stored["user_factors"])
+          and within(final["item_factors"], stored["item_factors"]),
+          f"drained and resumed gang vs uninterrupted: {delta}")
+    emit("gang_train_drain_resume", **drain,
+         resume_seconds_end_to_end=resumed["wall_seconds"],
+         max_abs_delta_vs_uninterrupted=delta)
+
+    # Similar-Product: implicit ALS on the same rate events, the item
+    # categories as $set events in the base log (canonical position 0)
+    _, _, _, _, m_items = PEventStore.find_ratings("part", storage=store)
+    cats = {item: f"c{j % GANG_CATEGORIES}"
+            for j, item in enumerate(m_items.keys())}
+    store.get_l_events().insert_batch([Event.from_json({
+        "event": "$set", "entityType": "item", "entityId": item,
+        "properties": {"categories": [c]}, "eventTime": CREATED_ISO})
+        for item, c in cats.items()],
+        store.get_meta_data_apps().get_by_name("part").id)
+    sdir = os.path.join(cwd, "gang_sp")
+    _gang_engine(sdir, "incubator_predictionio_torch.models.similar_product."
+                 "SimilarProductEngine", "part",
+                 extra_ds={"eventNames": ["rate"]})
+    sp = _gang_verb(env, sdir)
+    sp_stored, sp_launches, sp_err, sp_expected, sp_alone = _hold_gang(
+        sp, store, "part", ["rate"], True, "gang_train_similar_product",
+        users=stored["users"])
+    check({k: set(v) for k, v in sp_stored["item_categories"].items()}
+          == {k: {v} for k, v in cats.items()}, "gang categories differ")
+    store.close()
+    itf = sp_stored["item_factors"]
+    normed = itf / (np.linalg.norm(itf, axis=1, keepdims=True) + 1e-9)
+    items = BiMap.from_persisted(sp_stored["items"])
+    first = next(iter(cats))
+    with _Served(["deploy"], env, sdir) as srv:
+        check(srv.info["engineInstanceId"] == sp["engineInstanceId"],
+              f"deployed {srv.info}")
+        q = {"items": [first], "num": 4, "categories": [cats[first]]}
+        status, res, query_ms = srv.request("POST", "/queries.json", q)
+    check(status == 200, f"similar-product query {status}: {res}")
+    allowed = np.asarray([cats[items.inverse(j)] == cats[first]
+                          for j in range(len(items))])
+    allowed[items(first)] = False
+    host = normed @ normed[items(first)]
+    want = [items.inverse(int(j)) for j in
+            np.argsort(-np.where(allowed, host, -np.inf), kind="stable")[:4]]
+    got_items = [x["item"] for x in res["itemScores"]]
+    check(got_items == want and np.allclose(
+        [x["score"] for x in res["itemScores"]],
+        [host[items(x)] for x in want], rtol=1e-4, atol=1e-4),
+          f"similar-product answer {got_items} != host {want}")
+    emit("gang_train_similar_product", **_gang_numbers(sp),
+         one_rank_alone_in_process=sp_alone,
+         kernel_launches=sp_launches, expected_launches=sp_expected,
+         max_abs_err_vs_train_als=sp_err, query=q, answer=got_items,
+         query_ms=query_ms)
 
 
 def main() -> int:

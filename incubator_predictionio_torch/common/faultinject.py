@@ -1,17 +1,19 @@
 """Deterministic fault injection at named fault points.
 
-The port's own copy of the ``fail`` and ``crash`` modes of
+The port's own copy of the ``fail``, ``crash`` and ``latency`` modes of
 ``incubator_predictionio_tpu/common/faultinject.py``: the event log's
 fault points (``jsonl.append``, ``compact.write``, ``compact.rename``,
 ``compact.manifest``, ``retire.rename``), the engine server's
 (``query.featurize``, ``query.predict``, ``query.serve``,
 ``query.batch_predict``, ``swap.validate``) and the online fold-in's
-(``foldin.read``, ``foldin.apply``, ``foldin.publish``) consult it. The active plan
+(``foldin.read``, ``foldin.apply``, ``foldin.publish``) and the ALS trainers'
+(``train.sweep``, before each dispatch of iterations: the gang
+supervisor's chaos point) consult it. The active plan
 comes from the ``PIO_FAULT_SPEC`` environment variable, so a scenario
 works the same in-process and across subprocesses:
 
     PIO_FAULT_SPEC="rule[;rule...]"
-    rule = <point-pattern>:<fail|crash>:<count>
+    rule = <point-pattern>:<fail|crash|latency>:<count>[:<seconds>]
 
 - ``point-pattern`` — fnmatch pattern against the fault-point name
   (``compact.write``, ``compact.*``, ``*``).
@@ -19,9 +21,11 @@ works the same in-process and across subprocesses:
   (a ``ConnectionError``).
 - ``crash:N`` — the N-th matching call kills the process: SIGKILL to
   itself, no Python cleanup (a deterministic ``kill -9``).
+- ``latency:N:SECONDS`` — the first N matching calls sleep SECONDS before
+  going on (a slow sweep, so a stop can land mid-train).
 
-The reference's other modes (``latency``, ``drop``, ``oserr``, ``at``)
-belong to transports the port does not have yet; a spec naming one raises
+The reference's other modes (``drop``, ``oserr``, ``at``) belong to
+transports the port does not have yet; a spec naming one raises
 ``ValueError``.
 
 Counts are per-rule and deterministic: "fail first 2 calls" means
@@ -37,6 +41,7 @@ from __future__ import annotations
 import fnmatch
 import os
 import threading
+import time
 from typing import Optional
 
 __all__ = ["InjectedFault", "fault_point", "reset"]
@@ -49,12 +54,14 @@ class InjectedFault(ConnectionError):
 
 
 class _Rule:
-    __slots__ = ("pattern", "mode", "remaining")
+    __slots__ = ("pattern", "mode", "remaining", "param")
 
-    def __init__(self, pattern: str, mode: str, count: int):
+    def __init__(self, pattern: str, mode: str, count: int,
+                 param: float = 0.0):
         self.pattern = pattern
         self.mode = mode
         self.remaining = count
+        self.param = param
 
 
 def _parse(spec: str) -> list[_Rule]:
@@ -69,14 +76,17 @@ def _parse(spec: str) -> list[_Rule]:
                 f"{ENV_VAR}: malformed rule {raw!r} "
                 "(want point:mode:count)")
         pattern, mode, count = parts[0], parts[1].lower(), parts[2]
-        if mode not in ("fail", "crash"):
+        if mode not in ("fail", "crash", "latency"):
             raise ValueError(f"{ENV_VAR}: unknown fault mode {mode!r} "
-                             "(only 'fail' and 'crash' are supported)")
+                             "(only 'fail', 'crash' and 'latency' are "
+                             "supported)")
         try:
             n = int(count)
-        except ValueError as e:
-            raise ValueError(f"{ENV_VAR}: bad count in {raw!r}") from e
-        rules.append(_Rule(pattern, mode, n))
+            param = float(parts[3]) if mode == "latency" else 0.0
+        except (ValueError, IndexError) as e:
+            raise ValueError(f"{ENV_VAR}: bad count or seconds in "
+                             f"{raw!r}") from e
+        rules.append(_Rule(pattern, mode, n, param))
     return rules
 
 
@@ -117,10 +127,12 @@ def _crash() -> None:  # pragma: no cover - the process dies
 
 def fault_point(name: str) -> None:
     """Raise :class:`InjectedFault` if a ``fail`` rule matching ``name``
-    has calls left, or die on the N-th match of a ``crash`` rule; a no-op
-    (one dict lookup) when the spec is unset."""
+    has calls left, sleep for a ``latency`` rule, or die on the N-th match
+    of a ``crash`` rule; a no-op (one dict lookup) when the spec is
+    unset."""
     if not os.environ.get(ENV_VAR):
         return
+    delay = 0.0
     with _lock:
         for rule in _active_rules():
             if rule.remaining > 0 and fnmatch.fnmatch(name, rule.pattern):
@@ -128,6 +140,10 @@ def fault_point(name: str) -> None:
                 if rule.mode == "fail":
                     raise InjectedFault(
                         f"injected fault at {name!r} ({ENV_VAR})")
-                if rule.remaining <= 0:
+                if rule.mode == "latency":
+                    delay += rule.param
+                elif rule.remaining <= 0:
                     # the count selects WHICH call crashes
                     _crash()
+    if delay > 0:
+        time.sleep(delay)  # outside the lock: other points stay live

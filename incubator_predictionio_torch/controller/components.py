@@ -17,7 +17,12 @@ from .persistent_model import PersistentModel
 class DataSource(AbstractDoer):
     """``read_training(ctx)`` feeds ``pio train``; ``read_eval(ctx)`` gives
     the folds of ``pio eval``: [(training data, eval info, [(query,
-    actual), ...]), ...]."""
+    actual), ...]), ...]. ``partition_feed``: the source reads a gang
+    worker's event-log partitions (``workflow/train_feed.py``) and its
+    algorithm trains data-parallel, so ``pio train --num-workers N`` may
+    run it."""
+
+    partition_feed = False
 
     def read_training(self, ctx) -> Any:
         raise NotImplementedError

@@ -15,7 +15,7 @@ answered (only this module touches ``ops/sharded_topk``):
 Both layouts answer bit-identically on the single-query and similarity
 paths, and with identical indices on the batched path. The reference's
 third layout, ``mesh``, splits the catalog over several cards and is not
-ported (ROADMAP.md Queue 1, item 7): a model here serves from its one
+ported (ROADMAP.md Queue 1, item 7.4): a model here serves from its one
 torch device, where the policy never picks it.
 
 Each template model keeps one dataclass field (``_sharded_cat``) and mixes

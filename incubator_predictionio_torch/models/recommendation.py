@@ -11,6 +11,10 @@ quickstart's)::
 
 Ranking mode: a query with ``"items"`` ranks the given candidates instead
 of searching the catalog.
+
+In a training gang (``pio train --num-workers N``) the data source reads
+only this worker's event-log partitions (``workflow/train_feed.py``) and
+the algorithm trains data-parallel (``ops.als.train_als_partition_local``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,11 @@ from ..data.events import find_ratings
 from ..data.store import PEventStore
 from ..device import resolve_device
 from ..e2.cross_validation import k_fold_indices
-from ..ops.als import ALSFactors, ALSParams, fold_in_factors, train_als
+from ..ops.als import (
+    ALSFactors, ALSParams, fold_in_factors, train_als,
+    train_als_partition_local,
+)
+from ..workflow import train_feed
 from ._sharded_serving import (
     ShardedCatalogServing, validate_serving_mode,
 )
@@ -46,9 +54,13 @@ class TrainingData(SanityCheck):
     rating: np.ndarray
     users: BiMap
     items: BiMap
+    #: True when the triple holds only THIS gang worker's event-log
+    #: partitions while users/items are the all-gathered GLOBAL maps: the
+    #: trainer must then all-reduce (a worker's own triple may be empty)
+    partition_local: bool = False
 
     def sanity_check(self):
-        if len(self.user_idx) == 0:
+        if len(self.users if self.partition_local else self.user_idx) == 0:
             raise ValueError("no rating events found")
         if not len(self.user_idx) == len(self.item_idx) == len(self.rating):
             raise ValueError("user, item and rating arrays differ in length")
@@ -101,18 +113,29 @@ class DataSourceParams(Params):
 class RecommendationDataSource(DataSource):
     params_cls = DataSourceParams
     params_aliases = {"appName": "app_name", "eventNames": "event_names"}
+    partition_feed = True
 
     def read_training(self, ctx) -> TrainingData:
         """The rate/buy events as a triple: from ``ctx.events`` when the
         caller handed events over, else from the event store (the
-        reference's ``PEventStore.find_ratings`` read). "buy" events carry
-        no rating property, so the template assigns ``buy_rating``."""
+        reference's ``PEventStore.find_ratings`` read), or — with the
+        partition feed armed — from this gang worker's partitions only.
+        "buy" events carry no rating property, so the template assigns
+        ``buy_rating``."""
         p: DataSourceParams = self.params
         t0 = time.perf_counter()
         if ctx.events is not None:
             u, i, r, users, items = find_ratings(
                 ctx.events, event_names=list(p.event_names),
                 event_default_ratings={"buy": p.buy_rating})
+        elif train_feed.partition_feed_active(ctx.get_storage()):
+            u, i, r, users, items = train_feed.partition_ratings(
+                p.app_name or ctx.app_name, event_names=list(p.event_names),
+                event_default_ratings={"buy": p.buy_rating},
+                storage=ctx.get_storage(), channel_name=ctx.channel_name,
+                report=ctx.read_timings)
+            ctx.record_read(time.perf_counter() - t0, len(u))
+            return TrainingData(u, i, r, users, items, partition_local=True)
         else:
             u, i, r, users, items = PEventStore.find_ratings(
                 p.app_name or ctx.app_name,
@@ -188,7 +211,11 @@ class ALSAlgorithm(Algorithm):
 
     def train(self, ctx, pd: PreparedData) -> ALSModel:
         validate_serving_mode(self.params.sharded_serving)  # before the run
-        factors = train_als(
+        # a partition-local triple (a gang worker's) all-reduces its normal
+        # equations; one process trains through train_als either way
+        trainer = (train_als_partition_local if pd.partition_local
+                   else train_als)
+        factors = trainer(
             pd.user_idx, pd.item_idx, pd.rating, n_users=len(pd.users),
             n_items=len(pd.items), params=self.als_params(self.params),
             device=ctx.device, checkpoint_hook=ctx.checkpoint_hook,

@@ -7,7 +7,10 @@ catalog items whose summed cosine similarity to the query items is
 highest, under the category / whiteList / blackList rules; the query items
 themselves are never returned. The row-normalized catalog is made resident
 on the model's device once, flat or host-sharded (``PIO_SERVE_SHARD_ITEMS``,
-``models/_sharded_serving.py``). Wire format (the template's)::
+``models/_sharded_serving.py``). In a training gang the view events and
+the item categories come from this worker's event-log partitions
+(``workflow/train_feed.py``, one shared shard scan) and the ALS trains
+data-parallel. Wire format (the template's)::
 
   query  {"items": ["i1"], "num": 4, "categories": ["c"],
           "whiteList": [...], "blackList": [...]}
@@ -30,8 +33,11 @@ from ..data.bimap import BiMap
 from ..data.events import aggregate_properties, find_ratings
 from ..data.store import PEventStore
 from ..device import resolve_device
-from ..ops.als import ALSFactors, ALSParams, train_als
+from ..ops.als import (
+    ALSFactors, ALSParams, train_als, train_als_partition_local,
+)
 from ..ops.topk import normalize_rows
+from ..workflow import train_feed
 from ._filters import CategoryIndex, build_exclude_mask
 from ._sharded_serving import (
     ShardedCatalogServing, validate_serving_mode,
@@ -46,9 +52,12 @@ class TrainingData(SanityCheck):
     users: BiMap
     items: BiMap
     item_categories: dict[str, set[str]]  # item id → categories
+    #: True when the triple holds only THIS gang worker's partitions; the
+    #: maps and the categories are the gang's global ones
+    partition_local: bool = False
 
     def sanity_check(self):
-        if len(self.user_idx) == 0:
+        if len(self.users if self.partition_local else self.user_idx) == 0:
             raise ValueError("no view events found")
 
 
@@ -65,19 +74,37 @@ class DataSourceParams(Params):
 class SimilarProductDataSource(DataSource):
     params_cls = DataSourceParams
     params_aliases = {"appName": "app_name", "eventNames": "event_names"}
+    partition_feed = True
 
     def read_training(self, ctx) -> TrainingData:
         """The view events as a triple and the item categories replayed
         from the ``$set``/``$unset``/``$delete`` events: from ``ctx.events``
         when the caller handed events over, else from the event store (the
-        reference's ``find_ratings`` + ``aggregate_properties`` read)."""
+        reference's ``find_ratings`` + ``aggregate_properties`` read), or —
+        with the partition feed armed — from this gang worker's
+        partitions, both extractions off one shard scan."""
         p: DataSourceParams = self.params
         t0 = time.perf_counter()
+        local = False
         if ctx.events is not None:
             u, i, r, users, items = find_ratings(
                 ctx.events, event_names=list(p.event_names),
                 rating_from_props=False)
             props = aggregate_properties(ctx.events, p.item_entity_type)
+        elif train_feed.partition_feed_active(ctx.get_storage()):
+            app_name = p.app_name or ctx.app_name
+            storage = ctx.get_storage()
+            feed_ctx = train_feed.open_feed(app_name, storage,
+                                            ctx.channel_name)
+            u, i, r, users, items = train_feed.partition_ratings(
+                app_name, event_names=list(p.event_names),
+                rating_from_props=False, storage=storage,
+                channel_name=ctx.channel_name, feed_ctx=feed_ctx,
+                report=ctx.read_timings)
+            props = train_feed.partition_properties(
+                app_name, p.item_entity_type, storage=storage,
+                channel_name=ctx.channel_name, feed_ctx=feed_ctx)
+            local = True
         else:
             app_name = p.app_name or ctx.app_name
             storage = ctx.get_storage()
@@ -90,7 +117,8 @@ class SimilarProductDataSource(DataSource):
         cats = {item_id: set(c) for item_id, pm in props.items()
                 if (c := pm.get("categories"))}
         ctx.record_read(time.perf_counter() - t0, len(u))
-        return TrainingData(u, i, r, users, items, cats)
+        return TrainingData(u, i, r, users, items, cats,
+                            partition_local=local)
 
 
 @dataclasses.dataclass
@@ -168,7 +196,9 @@ class SimilarProductAlgorithm(Algorithm):
             implicit_prefs=True, alpha=p.alpha,
             seed=p.seed if p.seed is not None else 3,
             compute_dtype=p.compute_dtype, chunk_tiles=p.chunk_tiles)
-        factors = train_als(
+        trainer = (train_als_partition_local if pd.partition_local
+                   else train_als)
+        factors = trainer(
             pd.user_idx, pd.item_idx, pd.rating, n_users=len(pd.users),
             n_items=len(pd.items), params=als_params, device=ctx.device,
             checkpoint_hook=ctx.checkpoint_hook,

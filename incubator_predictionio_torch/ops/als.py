@@ -32,8 +32,23 @@ left them to XLA. Only float32 compute is ported (``compute_dtype="auto"``
 resolves to float32, the reference's rule off a TPU).
 
 :func:`train_als` also carries the reference's checkpoint/resume, NaN
-guard and ``timings`` hooks; :func:`fold_in_factors` is the closed-form
-fold-in, one half-step for the touched rows, solved by the same kernels.
+guard and ``timings`` hooks, and the gang hooks of a supervised worker
+(``fault_point("train.sweep")`` before each dispatch, a heartbeat after
+each dispatch and save, the gang-wide drain flag at chunk boundaries);
+:func:`fold_in_factors` is the closed-form fold-in, one half-step for the
+touched rows, solved by the same kernels.
+
+:func:`train_als_partition_local` is the data-parallel trainer of a gang
+(the reference's ``train_als_partition_local`` :1436 and
+``_make_dp_train_fn`` :1282): each rank holds only its event-log
+partitions' events; per half-step it sums per-event outer products into
+per-row normal equations for EVERY row (an ordered scatter-add,
+:func:`_sum_rows_`), all-reduces them over the gang's gloo group, solves
+its own row block in solve buffers of
+``_SOLVE_BUFFER_BYTES`` (one launch of the warp kernel per buffer on the
+card at rank ≤ 32), and re-assembles the replicated factor matrix with one
+more all-reduce of a zero-filled matrix (exact: the other ranks' rows are
+0).
 """
 
 from __future__ import annotations
@@ -46,8 +61,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..common.faultinject import fault_point
 from ..common.nan_guard import NaNGuardError
 from ..device import resolve_device
+from ..parallel import supervisor as gang
 from ..workflow.checkpoint import CheckpointIncompatibleError
 from .rowblocks import BucketArrays, LayoutPlan, plan_and_fill_both
 from .spd_solve import MAX_GJ_K, batched_spd_solve, build_kernel
@@ -525,27 +542,12 @@ def train_als(user_idx: np.ndarray, item_idx: np.ndarray, rating: np.ndarray,
 
     chunk = (checkpoint_hook.every_n
              if checkpoint_hook is not None and checkpoint_hook.enabled else 0)
-    if nan_guard:
-        for it in range(start, n_iters):
-            trainer.iterate(1)
-            if not trainer.finite():
-                raise NaNGuardError(
-                    f"stage: {nan_guard_stage}, iteration {it + 1}: "
-                    "non-finite factors (check input ratings for NaN/Inf "
-                    "or raise the regularization)")
-            done = it + 1
-            if chunk and done % chunk == 0 and done < n_iters:
-                save(done)
-    elif chunk and n_iters - start > chunk:
-        it = start
-        while it < n_iters:
-            n = min(chunk, n_iters - it)
-            trainer.iterate(n)
-            it += n
-            if it < n_iters:
-                save(it)
+    if nan_guard or (chunk and n_iters - start > chunk):
+        _checkpointed_loop(trainer, start, chunk, save, nan_guard,
+                           nan_guard_stage)
     elif timings is None:
         trainer.iterate(n_iters - start)
+        gang.beat()
     else:
         timings["upload_seconds"] = trainer.upload_seconds
         t0 = time.perf_counter()
@@ -556,6 +558,420 @@ def train_als(user_idx: np.ndarray, item_idx: np.ndarray, rating: np.ndarray,
         trainer.iterate(n_iters - start)
         _sync(trainer.device)
         timings["device_train_seconds"] = time.perf_counter() - t0
+        gang.beat()
+    return trainer.factors()
+
+
+def _checkpointed_loop(trainer, start: int, chunk: int, save, nan_guard: bool,
+                       nan_guard_stage: str) -> None:
+    """The NaN-guarded (one iteration per dispatch) or chunked
+    (``chunk`` iterations per dispatch) training loop of both trainers,
+    with the reference's gang hooks (als.py:925-983): the ``train.sweep``
+    fault point before each dispatch, a heartbeat after each dispatch and
+    each save, and at each boundary before the last the gang-wide drain
+    flag — a drain saves (when this boundary has no snapshot yet) and
+    raises :class:`..parallel.supervisor.GangDrainRequested`. Every rank
+    of a gang takes the same branches at the same iterations."""
+    n_iters = trainer.params.num_iterations
+    if nan_guard:
+        for it in range(start, n_iters):
+            fault_point("train.sweep")
+            trainer.iterate(1)
+            gang.beat()  # after the dispatch: the first sweep is the slowest
+            if not trainer.finite():
+                raise NaNGuardError(
+                    f"stage: {nan_guard_stage}, iteration {it + 1}: "
+                    "non-finite factors (check input ratings for NaN/Inf "
+                    "or raise the regularization)")
+            done = it + 1
+            saved = False
+            if chunk and done % chunk == 0 and done < n_iters:
+                save(done)
+                saved = True
+                gang.beat()
+            # one dispatch per iteration: a drain honours EVERY boundary;
+            # one off the snapshot cadence writes its own snapshot
+            if done < n_iters and gang.drain_requested_global():
+                if chunk and not saved:
+                    save(done)
+                raise gang.GangDrainRequested(done)
+        return
+    it = start
+    while it < n_iters:
+        fault_point("train.sweep")
+        n = min(chunk, n_iters - it)
+        trainer.iterate(n)
+        gang.beat()
+        it += n
+        if it < n_iters:
+            save(it)
+            gang.beat()  # a save (and its barrier) can be slow too
+            if gang.drain_requested_global():
+                raise gang.GangDrainRequested(it)
+
+
+#: layout generation of the data-parallel trainer's resume fingerprint
+#: (the reference's ``_DP_LAYOUT_TAG``): a snapshot of one trainer is
+#: refused by the other even when the factor shapes coincide
+_DP_LAYOUT_TAG = 0x70_10_10_01
+#: cap on one chunk's [CH, k, k] per-event outer products
+_DP_CHUNK_BYTES = 64 * 1024 * 1024
+
+
+def _dp_chunk(n_events: int, k: int) -> int:
+    """Events per gram chunk: the [CH, k, k] float32 outer products stay
+    under ``_DP_CHUNK_BYTES``."""
+    ch = max(512, _DP_CHUNK_BYTES // max(k * k * 4, 1))
+    return min(ch, max(n_events, 1))
+
+
+def dp_solve_calls_per_half_step(rows_per_rank: int, k: int) -> int:
+    """SPD-solve calls ONE rank of the data-parallel trainer makes per
+    half-step: its row block, in solve buffers of at most
+    ``_SOLVE_BUFFER_BYTES`` of grams. On the card with k ≤ 128 each call is
+    one launch of a Gauss-Jordan kernel."""
+    buf = max(1, _SOLVE_BUFFER_BYTES // (k * k * 4))
+    return -(-int(rows_per_rank) // buf)
+
+
+def _sum_rows_(out: torch.Tensor, rows: torch.Tensor,
+               vals: torch.Tensor) -> None:
+    """``out[rows] += vals`` with repeated rows summed in a fixed order, so
+    a resumed gang equals an uninterrupted one bit for bit. On the card
+    ``index_add_`` sums repeated targets with atomics, in an order that
+    varies from run to run; ``index_put_(accumulate=True)`` sorts the
+    targets and sums each run in order (the kernel PyTorch's deterministic
+    mode routes ``index_add_`` to, without that mode's global switch, whose
+    first use imports ``torch._inductor``: seconds a process). On the CPU
+    ``index_add_`` is the ordered one."""
+    if out.device.type == "cuda":
+        out.index_put_((rows,), vals, accumulate=True)
+    else:
+        out.index_add_(0, rows, vals)
+
+
+class _GangSums:
+    """The trainer's all-reduces (SUM) over the gang's gloo group, with the
+    bytes they move and the seconds they take. Gloo reduces host memory:
+    a tensor on the card is staged through the host explicitly (the device
+    synchronized before the clock starts, so the seconds are the
+    collective's and its copies', not the gram build's)."""
+
+    def __init__(self, world: int):
+        self.world = world
+        self.bytes = 0
+        self.seconds = 0.0
+        self.calls = 0
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        if self.world <= 1:
+            return t
+        import torch.distributed as dist
+
+        _sync(t.device)
+        t0 = time.perf_counter()
+        if t.device.type == "cpu":
+            dist.all_reduce(t)
+        else:
+            host = t.cpu()
+            dist.all_reduce(host)
+            t.copy_(host)
+            _sync(t.device)
+        self.seconds += time.perf_counter() - t0
+        self.bytes += t.numel() * t.element_size()
+        self.calls += 1
+        return t
+
+
+def _gang_int64s(v: int, world: int) -> np.ndarray:
+    """All-gather one int64 per rank (rank order)."""
+    if world <= 1:
+        return np.asarray([v], np.int64)
+    import torch.distributed as dist
+
+    parts = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
+    dist.all_gather(parts, torch.tensor([v], dtype=torch.int64))
+    return np.asarray([int(p.item()) for p in parts], np.int64)
+
+
+class DataParallelALS:
+    """The training state of one rank of the data-parallel trainer: this
+    rank's events and the replicated (row-padded) factor matrices on
+    ``device``. Every rank of the gang constructs it with its own triple
+    and the same ``n_users``, ``n_items`` and ``params``; every call that
+    follows is collective.
+
+    Rows are padded to a multiple of the gang (``n_pad``); rank r solves
+    rows ``[r·rps, (r+1)·rps)``. The ridge is the slab trainer's:
+    λ (× the row's gang-wide count under ``nratings``) + 1e-6 on empty
+    rows, plus YᵀY for implicit feedback. The init is drawn in global row
+    order with the seed, as :func:`_fresh_init` draws it, so the gang
+    tracks :func:`train_als` on the union triple row for row. There is no
+    event padding: the torch loop has no static shapes, and no collective
+    runs inside the chunk loop, so ranks with more or fewer events (or
+    none) still take the same collectives in the same order."""
+
+    def __init__(self, user_idx, item_idx, rating, n_users: int,
+                 n_items: int, params: ALSParams,
+                 device: "str | torch.device" = "cuda"):
+        from ..parallel.distributed import process_index
+        from ..parallel.mesh import data_axis_size, pad_rows
+
+        self.device = resolve_device(device)
+        self.world = data_axis_size()
+        self.rank = process_index()
+        # the gang must agree on one program: no per-rank detection of
+        # all-ones ratings (the reference pins it the same way)
+        if params.binary_ratings is None:
+            params = dataclasses.replace(params, binary_ratings=False)
+        self.params, _ = _resolve_params(params)
+        self.n_users, self.n_items = int(n_users), int(n_items)
+        u = np.asarray(user_idx, np.int64)
+        i = np.asarray(item_idx, np.int64)
+        r = np.asarray(rating, np.float32)
+        if not len(u) == len(i) == len(r):
+            raise ValueError("user, item and rating arrays differ in length")
+        if u.size and (u.min() < 0 or u.max() >= self.n_users):
+            raise ValueError("user_idx outside [0, n_users)")
+        if i.size and (i.min() < 0 or i.max() >= self.n_items):
+            raise ValueError("item_idx outside [0, n_items)")
+        self.local = (u, i, r)
+        k = self.params.rank
+        w = self.world
+        # the init, drawn in global row order, padded to the gang's rows
+        rng = np.random.default_rng(self.params.seed)
+        x0 = pad_rows((rng.standard_normal((self.n_users, k))
+                       / np.sqrt(k)).astype(np.float32), w)
+        y0 = pad_rows((rng.standard_normal((self.n_items, k))
+                       / np.sqrt(k)).astype(np.float32), w)
+        self.n_u_pad, self.n_i_pad = x0.shape[0], y0.shape[0]
+        self.rps_u, self.rps_i = self.n_u_pad // w, self.n_i_pad // w
+        self.chunk = _dp_chunk(len(u), k)
+        self.sums = _GangSums(w)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        self.u, self.i = put(u), put(i)
+        if self.params.implicit_prefs:
+            # Hu-Koren-Volinsky per-entry weights (the slab trainer's)
+            self.gw = put(self.params.alpha * r)
+            self.bw = put(1.0 + self.params.alpha * r)
+        else:
+            self.gw, self.bw = None, put(r)
+        # per-row gang-wide observation counts, one all-reduce each
+        cnt_u = self.sums(torch.bincount(
+            self.u, minlength=self.n_u_pad).to(torch.float32))
+        cnt_i = self.sums(torch.bincount(
+            self.i, minlength=self.n_i_pad).to(torch.float32))
+        self.lam_u = put(self._lam(cnt_u.cpu().numpy()))
+        self.lam_i = put(self._lam(cnt_i.cpu().numpy()))
+        self.set_factors(x0, y0)
+        # the per-half-step accounting starts after the set-up exchange
+        self.sums = _GangSums(w)
+        self.half_steps = 0
+        self.gram_seconds = self.solve_seconds = 0.0
+
+    def _lam(self, counts: np.ndarray) -> np.ndarray:
+        """Per-row ridge weights from gang-wide counts (``_host_lam``)."""
+        if self.params.lambda_scaling == "nratings":
+            lam = self.params.reg * np.maximum(counts, 1.0)
+        else:
+            lam = np.full(counts.shape, self.params.reg, dtype=np.float32)
+        return (lam + np.where(counts == 0, 1e-6, 0.0)).astype(np.float32)
+
+    def fingerprint(self) -> int:
+        """The gang-wide resume fingerprint (reference als.py:1547-1561):
+        each rank's crc32 chain over its triple, all-gathered, chained with
+        the matrix sizes. Collective."""
+        u, i, r = self.local
+        local_fp = zlib.crc32(r.tobytes(), zlib.crc32(
+            i.tobytes(), zlib.crc32(u.tobytes(), _DP_LAYOUT_TAG)))
+        all_fp = _gang_int64s(local_fp, self.world)
+        return zlib.crc32(all_fp.tobytes(), zlib.crc32(
+            np.int64(self.n_users).tobytes(),
+            zlib.crc32(np.int64(self.n_items).tobytes(), _DP_LAYOUT_TAG)))
+
+    def set_factors(self, x0: np.ndarray, y0: np.ndarray) -> None:
+        self.x = torch.from_numpy(np.ascontiguousarray(x0)).to(self.device)
+        self.y = torch.from_numpy(np.ascontiguousarray(y0)).to(self.device)
+
+    def padded_factors(self) -> tuple[np.ndarray, np.ndarray]:
+        return self.x.cpu().numpy(), self.y.cpu().numpy()
+
+    def finite(self) -> bool:
+        """Whether both (replicated) factor matrices are finite: every rank
+        holds the same bits, so every rank answers alike."""
+        with torch.no_grad():
+            return bool(torch.isfinite(self.x).all()
+                        & torch.isfinite(self.y).all())
+
+    def solve_calls_per_iteration(self) -> int:
+        """SPD-solve calls (kernel launches on the card, rank ≤ 128) of
+        this rank per iteration: both half-steps."""
+        k = self.params.rank
+        return (dp_solve_calls_per_half_step(self.rps_u, k)
+                + dp_solve_calls_per_half_step(self.rps_i, k))
+
+    def _half_step(self, y: torch.Tensor, rows: torch.Tensor,
+                   cols: torch.Tensor, lam: torch.Tensor, n_pad: int,
+                   rps: int) -> torch.Tensor:
+        """Solve one side against the replicated counterpart ``y``; returns
+        the replicated solution [n_pad, k]."""
+        k = self.params.rank
+        dev = y.device
+        t0 = time.perf_counter()
+        grams = torch.zeros((n_pad, k, k), dtype=torch.float32, device=dev)
+        rhs = torch.zeros((n_pad, k), dtype=torch.float32, device=dev)
+        ch = self.chunk
+        for s in range(0, rows.shape[0], ch):
+            e = min(s + ch, rows.shape[0])
+            p = y.index_select(0, cols[s:e])                      # [CH, k]
+            pw = p if self.gw is None else p * self.gw[s:e, None]
+            _sum_rows_(grams, rows[s:e], pw[:, :, None] * p[:, None, :])
+            _sum_rows_(rhs, rows[s:e], p * self.bw[s:e, None])
+        # (the all-reduce synchronizes the device anyway: these clocks
+        # split the half-step at no cost)
+        _sync(dev)
+        t1 = time.perf_counter()
+        # partition partials sum to the full normal equations
+        self.sums(grams)
+        self.sums(rhs)
+        t2 = time.perf_counter()
+        lo = self.rank * rps
+        a, b = grams[lo:lo + rps], rhs[lo:lo + rps]
+        if self.params.implicit_prefs:
+            a += (y.T @ y)[None, :, :]  # shared YᵀY term
+        a.diagonal(dim1=1, dim2=2).add_(lam[lo:lo + rps, None])
+        out = torch.zeros((n_pad, k), dtype=torch.float32, device=dev)
+        buf = max(1, _SOLVE_BUFFER_BYTES // (k * k * 4))
+        for s in range(0, rps, buf):
+            e = min(s + buf, rps)
+            out[lo + s:lo + e] = batched_spd_solve(a[s:e], b[s:e])
+        _sync(dev)
+        self.gram_seconds += t1 - t0
+        self.solve_seconds += time.perf_counter() - t2
+        # the other ranks' rows are 0 here: the sum is the replicated
+        # factor matrix, exactly
+        self.half_steps += 1
+        return self.sums(out)
+
+    def iterate(self, n: int) -> None:
+        """Run ``n`` ALS iterations (user half-step, then item half-step).
+        Collective."""
+        with torch.no_grad():
+            for _ in range(int(n)):
+                self.x = self._half_step(self.y, self.u, self.i, self.lam_u,
+                                         self.n_u_pad, self.rps_u)
+                self.y = self._half_step(self.x, self.i, self.u, self.lam_i,
+                                         self.n_i_pad, self.rps_i)
+
+    def factors(self) -> ALSFactors:
+        x, y = self.padded_factors()
+        return ALSFactors(user_factors=x[:self.n_users],
+                          item_factors=y[:self.n_items],
+                          n_users=self.n_users, n_items=self.n_items)
+
+    def collective_report(self) -> dict:
+        """What the half-steps so far moved over the gang — all-reduce bytes
+        and seconds in total and per half-step — and where the rest of
+        their time went: the gram build (gather, outer products,
+        ``index_add_``) and the ridge + solves, each to a synchronized
+        device."""
+        n = max(self.half_steps, 1)
+        return {"world": self.world, "rank": self.rank,
+                "half_steps": self.half_steps,
+                "gram_seconds_per_half_step": self.gram_seconds / n,
+                "solve_seconds_per_half_step": self.solve_seconds / n,
+                "allreduce_calls": self.sums.calls,
+                "allreduce_bytes": self.sums.bytes,
+                "allreduce_seconds": self.sums.seconds,
+                "allreduce_bytes_per_half_step": self.sums.bytes / n,
+                "allreduce_seconds_per_half_step": self.sums.seconds / n,
+                "solve_calls_per_iteration": self.solve_calls_per_iteration()}
+
+
+def train_als_partition_local(
+    user_idx: np.ndarray, item_idx: np.ndarray, rating: np.ndarray,
+    n_users: int, n_items: int, params: ALSParams,
+    device: "str | torch.device" = "cuda",
+    checkpoint_hook=None, resume: bool = False, nan_guard: bool = False,
+    nan_guard_stage: str = "algorithm[als]", force_dp: bool = False,
+    timings: Optional[dict] = None,
+) -> ALSFactors:
+    """ALS over PARTITION-LOCAL events: each rank of the gang passes only
+    the triple its event-log partitions hold — any rows, any order,
+    already mapped to the GLOBAL indices of the all-gathered id maps
+    (``workflow/train_feed.py``). Per-row normal equations are linear in
+    per-event contributions, so the partials all-reduce to the exact
+    full-data equations (:class:`DataParallelALS`).
+
+    One process calls :func:`train_als` (its data is complete locally)
+    unless ``force_dp=True``, as in the reference (als.py:1470-1475).
+
+    ``checkpoint_hook``/``resume``/``nan_guard``: the contracts of
+    :func:`train_als` (snapshots of the padded replicated factors and the
+    gang-wide fingerprint, written by rank 0 with a barrier after each
+    save; every rank restores the same step; a snapshot of other data
+    raises ``CheckpointIncompatibleError`` on every rank), plus the gang
+    hooks. ``timings`` receives :meth:`DataParallelALS.collective_report`,
+    ``device_train_seconds`` (the iterations and snapshots, the device
+    synchronized) and the snapshots' count and seconds."""
+    from ..parallel.distributed import process_count
+
+    if process_count() == 1 and not force_dp:
+        return train_als(user_idx, item_idx, rating, n_users, n_items,
+                         params, device=device,
+                         checkpoint_hook=checkpoint_hook, resume=resume,
+                         timings=timings, nan_guard=nan_guard,
+                         nan_guard_stage=nan_guard_stage)
+    trainer = DataParallelALS(user_idx, item_idx, rating, n_users, n_items,
+                              params, device=device)
+    n_iters = trainer.params.num_iterations
+    fingerprint = None
+    start = 0
+    if checkpoint_hook is not None:
+        fingerprint = trainer.fingerprint()
+        if resume:
+            step = checkpoint_hook.latest_step()
+            if step is not None and step < n_iters:
+                start, tree = checkpoint_hook.restore(step)
+                rx, ry = tree["user_factors"], tree["item_factors"]
+                if (rx.shape != trainer.x.shape
+                        or ry.shape != trainer.y.shape
+                        or int(np.asarray(tree.get("fingerprint", -1)))
+                        != fingerprint):
+                    raise CheckpointIncompatibleError(
+                        "checkpoint does not match the current partition-"
+                        "local layout/data — retrain from scratch")
+                trainer.set_factors(rx, ry)
+
+    saves = [0, 0.0]
+
+    def save(step: int) -> None:
+        t = time.perf_counter()
+        x, y = trainer.padded_factors()
+        checkpoint_hook.save(step, {"user_factors": x, "item_factors": y,
+                                    "fingerprint": np.int64(fingerprint)})
+        saves[0] += 1
+        saves[1] += time.perf_counter() - t
+
+    chunk = (checkpoint_hook.every_n
+             if checkpoint_hook is not None and checkpoint_hook.enabled else 0)
+    t0 = time.perf_counter()
+    if nan_guard or (chunk and n_iters - start > chunk):
+        _checkpointed_loop(trainer, start, chunk, save, nan_guard,
+                           nan_guard_stage)
+    else:
+        fault_point("train.sweep")
+        trainer.iterate(n_iters - start)
+        gang.beat()
+    _sync(trainer.device)
+    if timings is not None:
+        timings.update(trainer.collective_report(),
+                       device_train_seconds=time.perf_counter() - t0,
+                       checkpoint_saves=saves[0],
+                       checkpoint_save_seconds=saves[1])
     return trainer.factors()
 
 

@@ -32,7 +32,7 @@ scores may differ from it by the GEMM's blocking.
 
 The mesh layout (``ShardedCatalog`` :65, ``_sharded_topk_fn`` :172 and
 ``sharded_*`` :236-273) needs more than one card: ROADMAP.md Queue 1,
-item 7. The policy here names it where it would be chosen.
+item 7.4. The policy here names it where it would be chosen.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ __all__ = [
 ]
 
 #: what the mesh layout waits for
-MESH_ITEM = "ROADMAP.md Queue 1, item 7"
+MESH_ITEM = "ROADMAP.md Queue 1, item 7.4"
 
 
 # -- sharding decision -----------------------------------------------------

@@ -1,35 +1,42 @@
-"""Per-worker supervision of service processes: liveness, heartbeats and
-individual relaunch.
+"""Supervision of worker processes: the training gang and its
+checkpointed restart, and per-worker supervision of services.
 
-The port's own copy of the service half of
-``incubator_predictionio_tpu/parallel/supervisor.py``: :class:`Supervisor`
-with ``restart_scope="worker"`` (services whose workers share nothing at
-run time, such as the engine replica fleet of ``workflow/fleet.py``), its
-dynamic membership (:meth:`Supervisor.add_worker`,
-:meth:`Supervisor.retire_worker`), and the worker-side :func:`beat` and
-:func:`die_with_parent`.
+The port's own copy of ``incubator_predictionio_tpu/parallel/supervisor.py``.
 
-- The supervisor spawns N worker processes with their heartbeat file in
-  the environment (``PIO_WORKER_HEARTBEAT_FILE``; the caller's
-  ``per_worker_env`` adds the identity), watches process liveness AND the
-  per-worker heartbeat files, and kills and relaunches a worker that
-  exits (any exit: a supervised service worker has no reason to stop),
-  never reaches its first beat, or stops beating. Each worker has its own
-  restart budget (``PIO_TRAIN_MAX_RESTARTS``), paced by a jittered
-  exponential backoff; a worker that exhausts it stops the service.
-- Workers call :func:`beat`: a cheap mtime touch of their heartbeat file.
-  A worker that is alive but wedged stops beating and the stall detector
-  catches what ``poll()`` cannot.
-- :meth:`Supervisor.request_stop` drains: every worker gets SIGTERM (its
-  normal drain), stragglers SIGKILL past ``PIO_TRAIN_DRAIN_MS``.
+- :class:`Supervisor` with ``restart_scope="gang"`` (the default, as in
+  the reference) launches N copies of one training command (``pio train
+  --num-workers N``) with the gang wiring in their environment
+  (``PIO_COORDINATOR_ADDRESS`` with a fresh port per attempt,
+  ``PIO_NUM_PROCESSES``, ``PIO_PROCESS_ID``, ``PIO_GANG_WORKER``,
+  ``PIO_GANG_INSTANCE_ID``), watches process liveness AND per-worker
+  heartbeat files, and on a failed exit, a death, or a heartbeat stall
+  kills the WHOLE gang (every rank takes part in every collective, so one
+  lost rank blocks the rest) and relaunches it with ``--resume``, from
+  the latest checkpoint, within ``PIO_TRAIN_MAX_RESTARTS``, paced by a
+  jittered exponential backoff. :meth:`Supervisor.request_stop` drains the
+  gang instead: the workers checkpoint at their next sweep boundary and
+  exit with :data:`DRAIN_EXIT_CODE`; the run stays ``--resume``-able.
+- Workers call :func:`beat` between sweeps (``ops/als.py``,
+  ``workflow/core_workflow.py``): a cheap mtime touch of their heartbeat
+  file. A worker that is alive but wedged stops beating and the stall
+  detector catches what ``poll()`` cannot.
+- Drain is collective: :func:`drain_requested_global` all-reduces the
+  local SIGTERM flag over the gang at each sweep boundary, so every rank
+  takes the drain branch at the same iteration and the checkpoint barrier
+  cannot deadlock against a peer that missed the signal by one sweep.
+- ``restart_scope="worker"`` supervises services whose workers share
+  nothing at run time (the engine replica fleet of ``workflow/fleet.py``,
+  the partitioned event server): a dead or wedged worker is relaunched
+  alone while its peers keep serving, with its own restart budget, and
+  the service has dynamic membership (:meth:`Supervisor.add_worker`,
+  :meth:`Supervisor.retire_worker`; :func:`die_with_parent` on the worker
+  side).
 
 The state (workers, pids, heartbeat ages, restarts and an event log with
-timestamps) is mirrored to ``<run_dir>/supervisor.json``. The reference's
+timestamps) is mirrored to ``<run_dir>/supervisor.json``; a gang's run
+directory is ``$PIO_FS_BASEDIR/gang/<instance id>``. The reference's
 ``pio_train_*`` telemetry waits for the port's metrics registry (ROADMAP
 Queue 1, item 3.3).
-
-The gang half (``restart_scope="gang"``: checkpointed gang restart, the
-collective drain flag) is ROADMAP Queue 1, item 7, and raises here.
 """
 
 from __future__ import annotations
@@ -49,26 +56,42 @@ from ..common import envknobs
 
 log = logging.getLogger("pio.torch.supervisor")
 
-__all__ = ["GangConfig", "Supervisor", "beat"]
+__all__ = [
+    "GangConfig", "GangDrainRequested", "Supervisor", "beat", "beat_while",
+    "die_with_parent", "drain_requested", "drain_requested_global",
+    "gang_active", "install_worker_signal_handlers", "request_drain",
+]
 
 # env the supervisor sets on every worker
 ENV_HEARTBEAT_FILE = "PIO_WORKER_HEARTBEAT_FILE"
+ENV_GANG_WORKER = "PIO_GANG_WORKER"
+ENV_GANG_INSTANCE_ID = "PIO_GANG_INSTANCE_ID"
 
 # terminal states Supervisor.run() can land in
-DRAINED, FAILED = "drained", "failed"
+COMPLETED, DRAINED, FAILED = "completed", "drained", "failed"
 
-#: the reference's exit code of a gang worker that checkpointed at a drain
-#: request; a retiring service worker may exit with it too
+#: exit code of a gang worker that checkpointed and exited at a drain
+#: request (:class:`GangDrainRequested`). Not a failure: an operator may
+#: SIGTERM a worker directly (the all-reduced flag then drains the whole
+#: gang), and restarting a run the operator just stopped would spend the
+#: restart budget on the wrong thing. A retiring service worker may exit
+#: with it too.
 DRAIN_EXIT_CODE = 3
 
 
 # ---------------------------------------------------------------------------
-# worker-side hook (heartbeat)
+# worker-side hooks (heartbeat, drain flag)
 # ---------------------------------------------------------------------------
 
 _hb_lock = threading.Lock()
 _hb_last = 0.0
 _hb_interval: Optional[float] = None
+_drain_event = threading.Event()
+
+
+def gang_active() -> bool:
+    """True inside a supervised training worker."""
+    return os.environ.get(ENV_GANG_WORKER) == "1"
 
 
 def beat() -> None:
@@ -76,7 +99,9 @@ def beat() -> None:
 
     Throttled to half the configured heartbeat interval. The file is
     created on the first call: the supervisor treats creation as "the
-    worker is up" and only then arms the stall detector."""
+    worker is up" and only then arms the stall detector. A training
+    worker beats after its first sweep, so the init grace covers the
+    process group's rendezvous and the read."""
     path = os.environ.get(ENV_HEARTBEAT_FILE)
     if not path:
         return
@@ -96,6 +121,91 @@ def beat() -> None:
         os.utime(path, None)
     except OSError:  # heartbeat dir vanished: the supervisor is gone
         log.debug("heartbeat touch failed for %s", path, exc_info=True)
+
+
+class beat_while:
+    """Context manager: a background thread beats every ``interval``
+    seconds while the body runs. For phases with no natural beat points,
+    such as the gang leader's model persistence: a training job whose
+    training succeeded must not be gang-killed while it saves the result.
+    No-op outside supervision."""
+
+    def __init__(self, interval: float = 5.0):
+        self.interval = interval
+        self._stop: Optional[threading.Event] = None
+        self._t: Optional[threading.Thread] = None
+
+    def __enter__(self):
+        if not os.environ.get(ENV_HEARTBEAT_FILE):
+            return self
+        self._stop = threading.Event()
+
+        def _pump(stop):
+            while not stop.wait(self.interval):
+                beat()
+
+        self._t = threading.Thread(target=_pump, args=(self._stop,),
+                                   daemon=True, name="gang-beat")
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self._stop is not None:
+            self._stop.set()
+            self._t.join(timeout=5)
+        return False
+
+
+def request_drain(signum=None, frame=None) -> None:
+    """SIGTERM handler body: ask the training loop to checkpoint and exit
+    at the next sweep boundary."""
+    _drain_event.set()
+
+
+def drain_requested() -> bool:
+    return _drain_event.is_set()
+
+
+def drain_requested_global() -> bool:
+    """The gang-consistent drain flag, read between sweeps.
+
+    In a gang of more than one rank the local flag is all-reduced (MAX)
+    over the process group, so every rank sees the same answer at the same
+    sweep boundary; otherwise the rank that caught SIGTERM a sweep early
+    would enter the checkpoint barrier while its peers enter the next
+    half-step's all-reduce, and the gang would deadlock. One process reads
+    its local flag; a process outside a gang never pays the collective."""
+    if not gang_active():
+        return _drain_event.is_set()
+    from .distributed import process_count
+
+    if process_count() <= 1:
+        return _drain_event.is_set()
+    import torch
+    import torch.distributed as dist
+
+    flag = torch.tensor([1 if _drain_event.is_set() else 0],
+                        dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
+
+
+def install_worker_signal_handlers() -> None:
+    """Route SIGTERM (and SIGINT, which a terminal forwards to the whole
+    process group on Ctrl-C) to the drain flag instead of killing the
+    worker mid-sweep. Main thread only."""
+    signal.signal(signal.SIGTERM, request_drain)
+    signal.signal(signal.SIGINT, request_drain)
+
+
+class GangDrainRequested(Exception):
+    """Raised by a training loop after it checkpointed at a drain request;
+    the worker exits with :data:`DRAIN_EXIT_CODE` and the supervisor stops
+    without restarting (the run resumes later with ``--resume``)."""
+
+    def __init__(self, step: int):
+        super().__init__(f"gang drain requested; checkpointed at step {step}")
+        self.step = int(step)
 
 
 def die_with_parent(front: str) -> None:
@@ -149,13 +259,16 @@ def die_with_parent(front: str) -> None:
 class GangConfig:
     """Resolved supervision knobs (all overridable via environment).
 
-    - ``PIO_NUM_WORKERS`` — worker count (the caller's count wins)
+    - ``PIO_NUM_WORKERS`` — gang size or worker count (the caller's count
+      wins)
     - ``PIO_WORKER_HEARTBEAT_MS`` — worker touch cadence (default 1s)
     - ``PIO_WORKER_STALL_MS`` — heartbeat age that declares a live
       process wedged (default 120s)
     - ``PIO_WORKER_INIT_GRACE_MS`` — budget from spawn to FIRST beat
-      (default 600s)
-    - ``PIO_TRAIN_MAX_RESTARTS`` — per-worker relaunch budget (default 3)
+      (default 600s: covers the process group's rendezvous, the read and
+      the first sweep, which beat nothing)
+    - ``PIO_TRAIN_MAX_RESTARTS`` — gang relaunch budget, or per-worker
+      relaunch budget of a service (default 3)
     - ``PIO_TRAIN_DRAIN_MS`` — SIGTERM→SIGKILL grace during drain
       (default 30s)
     - ``PIO_SUPERVISOR_POLL_MS`` — monitor cadence (default 200ms)
@@ -233,19 +346,23 @@ class _Worker:
 
 
 class Supervisor:
-    """Launch and babysit N service workers until a drain is requested or
-    one worker exhausts its restart budget.
+    """Launch and babysit one training gang until it completes, drains or
+    exhausts its restart budget; or N service workers until a drain is
+    requested or one worker exhausts its restart budget.
 
     ``worker_argv`` is the full command line of ONE worker; the supervisor
-    adds only environment (identity, heartbeat file). ``per_worker_env``
-    (worker idx → env overrides) applies to the FIRST launch only, so a
-    relaunched worker comes up without the injected chaos that killed it;
-    pass a callable ``(attempt, worker_idx) -> dict`` to control every
-    attempt explicitly.
+    adds only environment (the gang wiring, the heartbeat file) and — on a
+    gang's restart attempts — ``--resume``, so the relaunched gang
+    continues from the latest checkpoint. ``per_worker_env`` (worker idx →
+    env overrides) applies to the FIRST launch only, so a relaunched worker
+    comes up without the injected chaos that killed it; pass a callable
+    ``(attempt, worker_idx) -> dict`` to control every attempt explicitly.
 
-    ``restart_scope`` must be ``"worker"``: the gang scope (and the
-    reference's gang arguments: the coordinator wiring, the resume argv,
-    the gang id) is ROADMAP Queue 1, item 7."""
+    ``restart_scope="gang"`` (training): one failure kills and relaunches
+    every worker. ``"worker"`` (services): a failed worker is relaunched
+    alone, ``max_restarts`` is per worker, and ANY exit — rc 0 included —
+    is a failure. A gang's rendezvous is ``127.0.0.1`` at a fresh port per
+    attempt: the ranks share one host."""
 
     def __init__(self, worker_argv: Sequence[str],
                  num_workers: Optional[int] = None, *,
@@ -253,14 +370,9 @@ class Supervisor:
                  per_worker_env=None,
                  config: Optional[GangConfig] = None,
                  run_dir: Optional[str] = None,
+                 gang_instance_id: Optional[str] = None,
                  restart_scope: str = "gang"):
-        if restart_scope == "gang":
-            raise NotImplementedError(
-                "gang supervision (restart_scope='gang': checkpointed gang "
-                "restart and the collective drain flag) is not ported yet: "
-                "ROADMAP Queue 1, item 7; services use restart_scope="
-                "'worker'")
-        if restart_scope != "worker":
+        if restart_scope not in ("gang", "worker"):
             raise ValueError(f"restart_scope {restart_scope!r}")
         self.worker_argv = list(worker_argv)
         self.config = config or GangConfig.from_env(num_workers)
@@ -274,14 +386,17 @@ class Supervisor:
             first = {int(k): dict(v) for k, v in (per_worker_env or {}).items()}
             self._env_for = lambda attempt, idx: (
                 first.get(idx, {}) if attempt == 0 else {})
-        self.run_dir = run_dir or self._default_run_dir()
+        self.gang_instance_id = gang_instance_id
+        self.run_dir = run_dir or self._default_run_dir(gang_instance_id)
         self.restarts = 0
-        # per-worker relaunch counts, read by the fleet front's /healthz
+        # per-worker relaunch counts (service scope), read by the fleet
+        # front's /healthz; a gang's restarts stay in self.restarts
         self.worker_restarts = [0] * self.config.num_workers
         self.state = "idle"
         self.events: list[dict] = []
         self._workers: list[_Worker] = []
         self._stop = threading.Event()
+        self._attempt = 0
         self._rng = random.Random()
         # dynamic membership: add/retire requests land here from any
         # thread and are applied by the supervision loop itself, so every
@@ -297,10 +412,11 @@ class Supervisor:
     # -- plumbing ----------------------------------------------------------
 
     @staticmethod
-    def _default_run_dir() -> str:
+    def _default_run_dir(gang_id: Optional[str] = None) -> str:
         from ..data.storage.registry import base_dir
 
-        return os.path.join(base_dir(), "gang", f"pid{os.getpid()}")
+        return os.path.join(base_dir(), "gang",
+                            gang_id or f"pid{os.getpid()}")
 
     @staticmethod
     def _free_port() -> int:
@@ -311,6 +427,12 @@ class Supervisor:
     def request_stop(self, signum=None, frame=None) -> None:
         """Drain every worker and stop (no restart)."""
         self._stop.set()
+
+    def install_signal_handlers(self) -> None:
+        """SIGTERM and SIGINT drain (main thread only: the CLI; tests call
+        :meth:`request_stop`)."""
+        signal.signal(signal.SIGTERM, self.request_stop)
+        signal.signal(signal.SIGINT, self.request_stop)
 
     def _event(self, type_: str, **kw) -> None:
         self.events.append({"type": type_, "t": time.time(), **kw})
@@ -343,7 +465,9 @@ class Supervisor:
         None); returns the slot. The spawn itself happens on the
         supervision thread at its next sweep, with the same heartbeat
         registration, restart budget and parent-death arming as a
-        launch-time worker. Thread-safe."""
+        launch-time worker. Thread-safe; service scope only (a gang's size
+        is its process group's world size)."""
+        self._require_service()
         with self._membership_lock:
             taken = {w.idx for w in self._workers}
             taken.update(i for op, i in self._membership_cmds
@@ -361,9 +485,15 @@ class Supervisor:
         """Enqueue a graceful retirement of worker ``idx``: the supervision
         thread SIGTERMs it (the worker's normal drain), exempts it from
         failure detection, and books it out when it exits — SIGKILL only
-        past the drain budget. Thread-safe."""
+        past the drain budget. Thread-safe; service scope only."""
+        self._require_service()
         with self._membership_lock:
             self._membership_cmds.append(("retire", int(idx)))
+
+    def _require_service(self) -> None:
+        if self.restart_scope != "worker":
+            raise RuntimeError("dynamic membership requires "
+                               "restart_scope='worker'")
 
     def _apply_membership(self) -> None:
         """Drain queued add/retire commands (supervision thread)."""
@@ -375,7 +505,8 @@ class Supervisor:
                     continue  # raced a concurrent add of the same slot
                 while len(self.worker_restarts) <= idx:
                     self.worker_restarts.append(0)
-                self._workers.append(self._spawn_worker(idx, attempt=0))
+                self._workers.append(
+                    self._spawn_worker(idx, None, resume=False, attempt=0))
                 self._event("workerAdded", worker=idx)
                 log.info("service worker %d added (now %d on the books)",
                          idx, len(self._workers))
@@ -422,29 +553,46 @@ class Supervisor:
 
     # -- lifecycle -----------------------------------------------------------
 
-    def _spawn_worker(self, i: int, attempt: int) -> _Worker:
+    def _spawn_worker(self, i: int, port: Optional[int], resume: bool,
+                      attempt: int) -> _Worker:
         cfg = self.config
+        argv = list(self.worker_argv)
+        if resume and "--resume" not in argv:
+            argv.append("--resume")
         hb = os.path.join(self.run_dir, f"worker_{i}.hb")
         try:  # stall ages are measured against THIS attempt only
             os.unlink(hb)
         except OSError:
             pass
-        env = {
-            **self.base_env,
-            ENV_HEARTBEAT_FILE: hb,
-            "PIO_WORKER_HEARTBEAT_MS": str(cfg.heartbeat_ms),
-            **self._env_for(attempt, i),
-        }
+        env = {**self.base_env, ENV_HEARTBEAT_FILE: hb,
+               "PIO_WORKER_HEARTBEAT_MS": str(cfg.heartbeat_ms)}
+        if self.restart_scope == "gang":
+            env.update({"PIO_NUM_PROCESSES": str(cfg.num_workers),
+                        "PIO_PROCESS_ID": str(i), ENV_GANG_WORKER: "1"})
+            env["PIO_COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
+            if self.gang_instance_id:
+                env[ENV_GANG_INSTANCE_ID] = self.gang_instance_id
+        env.update(self._env_for(attempt, i))
         log_path = os.path.join(self.run_dir, f"worker_{i}.log")
         logf = open(log_path, "ab")
         try:
-            proc = subprocess.Popen(list(self.worker_argv), env=env,
-                                    stdout=logf, stderr=subprocess.STDOUT)
+            proc = subprocess.Popen(argv, env=env, stdout=logf,
+                                    stderr=subprocess.STDOUT)
         finally:
             logf.close()  # the child holds its own fd now
         return _Worker(i, proc, hb, log_path, time.monotonic())
 
-    def _kill_all(self, sig: int = signal.SIGKILL) -> None:
+    def _spawn_gang(self, resume: bool) -> None:
+        port = self._free_port()
+        self._workers = [self._spawn_worker(i, port, resume, self._attempt)
+                         for i in range(self.config.num_workers)]
+        self._event("gangStart", attempt=self._attempt, resume=resume,
+                    port=port, pids=[w.proc.pid for w in self._workers])
+        log.info("gang attempt %d: %d worker(s) up (resume=%s, "
+                 "rendezvous port %s)", self._attempt,
+                 self.config.num_workers, resume, port)
+
+    def _kill_gang(self, sig: int = signal.SIGKILL) -> None:
         for w in self._workers:
             if w.proc.poll() is None:
                 try:
@@ -457,6 +605,28 @@ class Supervisor:
             except subprocess.TimeoutExpired:  # pragma: no cover
                 w.proc.kill()
                 w.proc.wait()
+
+    def _check_failure(self) -> Optional[dict]:
+        """One gang monitor sweep → failure descriptor or None. A worker
+        that exited 0 or :data:`DRAIN_EXIT_CODE` before its peers is
+        normal; a survivor blocked in a dead collective is caught by the
+        stall detector."""
+        cfg = self.config
+        now = time.monotonic()
+        for w in self._workers:
+            rc = w.proc.poll()
+            if rc is not None:
+                if rc not in (0, DRAIN_EXIT_CODE):
+                    return {"reason": "exit", "worker": w.idx, "rc": rc}
+                continue
+            age = w.heartbeat_age_ms()
+            if age is None:
+                if (now - w.spawned_at) * 1000.0 > cfg.init_grace_ms:
+                    return {"reason": "no_heartbeat", "worker": w.idx}
+            elif age > cfg.stall_ms:
+                return {"reason": "stall", "worker": w.idx,
+                        "age_ms": round(age, 1)}
+        return None
 
     def _publish(self) -> None:
         workers = []
@@ -473,7 +643,10 @@ class Supervisor:
                 "log": w.log_path,
             })
         doc = {
+            "gangInstanceId": self.gang_instance_id,
+            "restartScope": self.restart_scope,
             "state": self.state,
+            "attempt": self._attempt,
             "restarts": self.restarts,
             "config": self.config.to_json(),
             "workers": workers,
@@ -488,8 +661,9 @@ class Supervisor:
             log.debug("could not publish supervisor status", exc_info=True)
 
     def _drain(self) -> None:
-        """SIGTERM every worker, give them the drain budget to exit,
-        SIGKILL stragglers."""
+        """SIGTERM every worker, give them the drain budget to checkpoint
+        (a gang) or finish their requests (a service) and exit, SIGKILL
+        stragglers."""
         self.state = "draining"
         self._event("drainStart")
         self._publish()
@@ -505,11 +679,12 @@ class Supervisor:
                 break
             time.sleep(self.config.poll_ms / 1000.0)
         stragglers = [w.idx for w in self._workers if w.proc.poll() is None]
-        self._kill_all()
+        self._kill_gang()
         self._event("drainDone", stragglers=stragglers,
                     rcs={w.idx: w.proc.poll() for w in self._workers})
         if stragglers:
-            log.warning("drain deadline hit; SIGKILLed worker(s) %s",
+            log.warning("drain deadline hit; SIGKILLed worker(s) %s — a "
+                        "gang resumes from its last completed checkpoint",
                         stragglers)
 
     def _tail(self, w: _Worker, n: int = 2000) -> str:
@@ -555,7 +730,7 @@ class Supervisor:
         cfg = self.config
         per_worker_restarts = self.worker_restarts
         self.state = "running"
-        self._workers = [self._spawn_worker(i, attempt=0)
+        self._workers = [self._spawn_worker(i, None, resume=False, attempt=0)
                          for i in range(cfg.num_workers)]
         self._event("gangStart", pids=[w.proc.pid for w in self._workers])
         log.info("%d service worker(s) up", cfg.num_workers)
@@ -594,7 +769,7 @@ class Supervisor:
                     self._event("gaveUp", worker=idx,
                                 restarts=per_worker_restarts[idx])
                     self._publish()
-                    self._kill_all()
+                    self._kill_gang()
                     log.error("worker %d exhausted its restart budget "
                               "(%d); stopping the service", idx,
                               cfg.max_restarts)
@@ -608,7 +783,8 @@ class Supervisor:
                 if self._stop.wait(delay):
                     continue
                 self._workers[self._workers.index(bad)] = \
-                    self._spawn_worker(idx, attempt=per_worker_restarts[idx])
+                    self._spawn_worker(idx, None, resume=False,
+                                       attempt=per_worker_restarts[idx])
                 self._publish()
             now = time.monotonic()
             if now - last_publish >= 1.0:
@@ -617,6 +793,74 @@ class Supervisor:
             time.sleep(cfg.poll_ms / 1000.0)
 
     def run(self) -> str:
-        """Supervise to a terminal state: ``drained`` (stop requested) or
-        ``failed`` (a worker's restart budget exhausted)."""
-        return self._run_service()
+        """Supervise to a terminal state: ``completed`` (every gang worker
+        exited 0), ``drained`` (stop requested, or the workers drained on
+        their own SIGTERM; checkpoints kept) or ``failed`` (restart budget
+        exhausted)."""
+        if self.restart_scope == "worker":
+            return self._run_service()
+        cfg = self.config
+        resume = False
+        while True:
+            if self._stop.is_set():  # the stop landed during a backoff
+                self.state = DRAINED
+                self._publish()
+                return DRAINED
+            self._attempt = self.restarts
+            self.state = "running"
+            self._spawn_gang(resume=resume)
+            self._publish()
+            last_publish = 0.0
+            while True:
+                if self._stop.is_set():
+                    self._drain()
+                    self.state = DRAINED
+                    self._publish()
+                    log.info("gang drained cleanly; resume with `pio train "
+                             "--resume` (checkpoints kept)")
+                    return DRAINED
+                rcs = [w.proc.poll() for w in self._workers]
+                if all(rc in (0, DRAIN_EXIT_CODE) for rc in rcs):
+                    if DRAIN_EXIT_CODE in rcs:
+                        # drained without our stop flag: someone SIGTERMed
+                        # the workers directly — do not relaunch a run the
+                        # operator just stopped
+                        self.state = DRAINED
+                        self._event("drainedByWorkers", rcs=rcs)
+                        self._publish()
+                        return DRAINED
+                    self.state = COMPLETED
+                    self._event("completed")
+                    self._publish()
+                    return COMPLETED
+                failure = self._check_failure()
+                if failure is not None:
+                    break
+                now = time.monotonic()
+                if now - last_publish >= 1.0:
+                    self._publish()
+                    last_publish = now
+                time.sleep(cfg.poll_ms / 1000.0)
+
+            self._event("failure", **failure)
+            bad = self._workers[failure["worker"]]
+            log.warning("worker %d failed (%s); killing the gang. log "
+                        "tail:\n%s", failure["worker"], failure,
+                        self._tail(bad))
+            self._kill_gang()
+            self._event("gangKilled")
+            if self.restarts >= cfg.max_restarts:
+                self.state = FAILED
+                self._event("gaveUp", restarts=self.restarts)
+                self._publish()
+                log.error("restart budget exhausted (%d); giving up — the "
+                          "last checkpoint remains resumable", self.restarts)
+                return FAILED
+            self.restarts += 1
+            resume = True
+            delay = self._backoff(self.restarts - 1)
+            self._event("restart", n=self.restarts,
+                        backoff_s=round(delay, 3))
+            log.info("gang restart %d/%d in %.2fs (resume from the latest "
+                     "checkpoint)", self.restarts, cfg.max_restarts, delay)
+            self._stop.wait(delay)

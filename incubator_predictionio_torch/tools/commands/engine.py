@@ -18,8 +18,16 @@ its fold-in loop, quality watch and tenant mux. ``deploy --replicas
 N|auto`` (reference :331-371, :432-530) serves as a fleet: the front of
 ``workflow/fleet.py`` supervising N ``deploy --replica-worker`` copies of
 the same command line (``--device`` included), each serving on the card in
-its own process. The reference's gang training (``--num-workers``,
-``--feed``) is not ported yet.
+its own process. ``train --num-workers N`` (or ``$PIO_NUM_WORKERS``;
+reference :78-126, :184-253) trains as a supervised gang: the supervisor of
+``parallel/supervisor.py`` runs N copies of this command line
+(``--device`` included) as the ranks of a gloo process group, each on the
+card (``cuda:{rank % cards}``: ranks share a card when there are more
+ranks than cards), each reading only its own partitions of the JSONL event
+log (``--feed partition``, the gang default), restarting the whole gang
+from the latest checkpoint when a worker dies or stalls, and draining it
+on SIGTERM. ``--feed merged`` with N > 1 is refused (ROADMAP Queue 1,
+item 7.1).
 """
 
 from __future__ import annotations
@@ -133,13 +141,34 @@ def train_cmd(args: list[str]) -> int:
                         "sealed log generations by their manifest "
                         "event-time bounds without decoding them "
                         "(default $PIO_TRAIN_WINDOW)")
+    p.add_argument("--num-workers", type=int, default=None, metavar="N",
+                   help="train as a supervised gang of N worker processes "
+                        "over a gloo process group (heartbeat monitoring, "
+                        "gang restart from the latest checkpoint, drain on "
+                        "SIGTERM; default $PIO_NUM_WORKERS, else 1 = in "
+                        "this process)")
+    p.add_argument("--feed", choices=("partition", "merged"), default=None,
+                   help="the gang's data plane: 'partition' = each worker "
+                        "reads only its event-log partitions, id maps "
+                        "all-gathered once (the gang default); 'merged' = "
+                        "the merged view, in one process only (default "
+                        "$PIO_TRAIN_FEED)")
     ns = p.parse_args(args)
     if (ns.events is None) != (ns.model_out is None):
         p.error("--events and --model-out go together (the file form)")
     if ns.window and ns.events is not None:
         p.error("--window cuts the event store's read, not an --events file")
-    from ...common import train_window
+    from ...common import envknobs, train_window
 
+    num_workers = (ns.num_workers if ns.num_workers is not None
+                   else envknobs.env_int("PIO_NUM_WORKERS", 1, lo=1))
+    supervised_worker = envknobs.env_flag("PIO_GANG_WORKER", False)
+    if num_workers > 1 and ns.events is not None:
+        p.error("--num-workers trains from the event store, not an "
+                "--events file")
+    if ns.feed:
+        # the flag wins over the env, here AND (inherited) in every worker
+        os.environ["PIO_TRAIN_FEED"] = ns.feed
     if ns.window:
         dur = train_window.parse_duration_us(ns.window)
         if dur is None:
@@ -147,10 +176,17 @@ def train_cmd(args: list[str]) -> int:
                   "like 90d, 12h, 30m, or 45s", file=sys.stderr)
             return 1
         os.environ["PIO_TRAIN_WINDOW"] = ns.window
-        # resolved to an absolute bound once, so every read of this train
-        # cuts the log at the same microsecond
+        # resolved to an absolute bound once, so every read of this train —
+        # every gang worker's included — cuts the log at the same
+        # microsecond
         os.environ.setdefault("PIO_TRAIN_WINDOW_START_US",
                               str(train_window.now_us() - dur))
+    if num_workers > 1 and not supervised_worker:
+        # the gang default: the partitioned event log is the data plane
+        os.environ.setdefault("PIO_TRAIN_FEED", "partition")
+        return _train_supervised(args, ns, num_workers)
+    if supervised_worker:
+        _join_gang(ns.device)
     wp = WorkflowParams(
         batch=ns.batch,
         skip_sanity_check=ns.skip_sanity_check,
@@ -163,6 +199,7 @@ def train_cmd(args: list[str]) -> int:
     if ns.events is not None:
         return _train_file(ns, wp)
 
+    from ...parallel.supervisor import DRAIN_EXIT_CODE, GangDrainRequested
     from ...workflow.context import WorkflowContext
     from ...workflow.core_workflow import run_train
 
@@ -172,8 +209,15 @@ def train_cmd(args: list[str]) -> int:
     # the read's and the trainer's phase times, printed below
     ctx.read_timings, ctx.bench_timings = {}, {}
     t0 = time.perf_counter()
-    instance_id = run_train(engine, params, ctx, wp,
-                            engine_factory_name=factory, engine_variant=variant)
+    try:
+        instance_id = run_train(engine, params, ctx, wp,
+                                engine_factory_name=factory,
+                                engine_variant=variant)
+    except GangDrainRequested as e:
+        # not a failure: the supervisor stops without restarting
+        print(f"[info] Drained at step {e.step}; checkpoint kept — resume "
+              "with `pio train --resume`.", flush=True)
+        return DRAIN_EXIT_CODE
     seconds = time.perf_counter() - t0
     print(f"[info] Training completed in {seconds:.2f}s. "
           f"Engine instance ID: {instance_id}")
@@ -184,6 +228,144 @@ def train_cmd(args: list[str]) -> int:
                       "timings": {**ctx.read_timings, **ctx.bench_timings}}),
           flush=True)
     return 0
+
+
+def _join_gang(device: str) -> None:
+    """A supervised gang worker: join the gloo process group (a garbled
+    rank or world size raises here, at start-up), route SIGTERM to the
+    drain flag (checkpoint at the next sweep boundary, then exit), and
+    make this rank's card the current device (on the CPU: give each rank
+    its share of the cores). The first heartbeat comes from the training
+    loop, after the first sweep."""
+    from ...parallel.distributed import initialize_distributed, rank_device
+    from ...parallel.supervisor import install_worker_signal_handlers
+
+    import torch
+
+    initialize_distributed()
+    install_worker_signal_handlers()
+    dev = rank_device(device)
+    if dev.startswith("cuda"):
+        torch.cuda.set_device(dev)
+    else:
+        # the ranks share the host's cores: N ranks each spinning one
+        # thread per core starve each other at every collective
+        from ...parallel.distributed import process_count
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // process_count()))
+
+
+def _strip_num_workers(args: list[str]) -> list[str]:
+    """A worker's argv: the train argv minus the gang flag (a worker that
+    spawned a gang of its own would fork without end)."""
+    out, skip = [], False
+    for tok in args:
+        if skip:
+            skip = False
+            continue
+        if tok == "--num-workers":
+            skip = True
+            continue
+        if tok.startswith("--num-workers="):
+            continue
+        out.append(tok)
+    return out
+
+
+def _last_json(path: str) -> "dict | None":
+    """The last JSON object line of a worker's log (its train report), or
+    None when that attempt printed none."""
+    try:
+        with open(path, encoding="utf-8", errors="replace") as fh:
+            lines = fh.read().splitlines()
+    except OSError:
+        return None
+    for line in reversed(lines):
+        if line.startswith("{"):
+            try:
+                return json.loads(line)
+            except ValueError:
+                return None
+    return None
+
+
+def _train_supervised(args: list[str], ns, num_workers: int) -> int:
+    """`pio train --num-workers N`: N copies of this command line as a
+    supervised gang (``parallel/supervisor.py``). The gang id is a fresh
+    instance id, or on ``--resume`` the interrupted run's (found here, so
+    the leader continues it instead of training from scratch). Prints the
+    outcome and, last, one JSON line with every worker's train report."""
+    from ...data.storage.event import new_event_id
+    from ...parallel.supervisor import (
+        COMPLETED, DRAINED, GangConfig, Supervisor,
+    )
+    from ...workflow import train_feed
+
+    err = train_feed.gang_feed_error(Storage.instance(), num_workers)
+    if err is not None:
+        print(f"[error] {err}", file=sys.stderr)
+        return 1
+    if ns.checkpoint_every <= 0:
+        print("[warn] gang training without --checkpoint-every: a restart "
+              "retrains from scratch instead of resuming mid-run",
+              file=sys.stderr)
+    gang_id = None
+    if ns.resume:
+        from ...workflow.checkpoint import find_resumable_instance
+        from ...workflow.json_extractor import DEFAULT_FACTORY
+
+        engine_json = _engine_json(ns)
+
+        def params_of(key):
+            block = engine_json.get(key) or {}
+            if "params" in block or "name" in block:
+                return block.get("params", {}) or {}
+            return block
+
+        prior = find_resumable_instance(
+            Storage.instance(),
+            engine_json.get("engineFactory") or DEFAULT_FACTORY, "1",
+            engine_json.get("id", "default"),
+            data_source_params=json.dumps(dict(params_of("datasource"))),
+            preparator_params=json.dumps(dict(params_of("preparator"))))
+        if prior is not None:
+            gang_id = prior.id
+            print(f"[info] --resume: continuing interrupted instance "
+                  f"{gang_id}", flush=True)
+        else:
+            print("[info] --resume requested but no resumable instance "
+                  "found; training from scratch", flush=True)
+    gang_id = gang_id or new_event_id()
+    worker_argv = [sys.executable, "-m",
+                   "incubator_predictionio_torch.tools.console", "train",
+                   *_strip_num_workers(args)]
+    sup = Supervisor(worker_argv, num_workers,
+                     config=GangConfig.from_env(num_workers),
+                     gang_instance_id=gang_id)
+    sup.install_signal_handlers()
+    print(f"[info] Gang training: {num_workers} workers, instance "
+          f"{gang_id}, run dir {sup.run_dir}", flush=True)
+    t0 = time.perf_counter()
+    outcome = sup.run()
+    seconds = time.perf_counter() - t0
+    reports = [_last_json(os.path.join(sup.run_dir, f"worker_{i}.log"))
+               for i in range(num_workers)]
+    if outcome == COMPLETED:
+        print(f"[info] Gang training completed ({sup.restarts} restart(s)) "
+              f"in {seconds:.2f}s. Engine instance ID: {gang_id}")
+    elif outcome == DRAINED:
+        print("[info] Gang drained cleanly; resume with `pio train "
+              f"--num-workers {num_workers} --resume` (instance {gang_id}).")
+    else:
+        print(f"[error] Gang training failed after {sup.restarts} "
+              f"restart(s); see the worker logs under {sup.run_dir}",
+              file=sys.stderr)
+    print(json.dumps({"engineInstanceId": gang_id, "state": outcome,
+                      "seconds": seconds, "restarts": sup.restarts,
+                      "runDir": sup.run_dir, "device": ns.device,
+                      "workers": reports}), flush=True)
+    return 1 if outcome not in (COMPLETED, DRAINED) else 0
 
 
 def _train_file(ns, wp: WorkflowParams) -> int:

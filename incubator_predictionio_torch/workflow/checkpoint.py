@@ -8,6 +8,12 @@ its final name, so a reader sees a whole snapshot or none. A snapshot is a
 flat dict of arrays (torch tensors are copied to the host first); loading
 never unpickles.
 
+In a training gang (``parallel/distributed.py``) the factors are
+replicated, so rank 0 alone writes each snapshot and every rank meets at a
+barrier after it; :meth:`CheckpointHook.latest_step` is rank 0's answer,
+broadcast, so every rank restores the same step (and a fingerprint
+mismatch raises on every rank alike).
+
 Where the snapshots live is the caller's choice: ``Engine.train`` gives
 each algorithm the subdirectory ``algo_<idx>_<name>`` of the root hook's
 directory; a train from the event store (``run_train``) keys a run by its
@@ -26,7 +32,6 @@ import tempfile
 from typing import Any, Mapping, Optional
 
 import numpy as np
-import torch
 
 log = logging.getLogger("pio.torch.checkpoint")
 
@@ -39,8 +44,15 @@ class CheckpointIncompatibleError(ValueError):
     discards the stale snapshots and trains from scratch."""
 
 
+def _gang() -> tuple[int, int]:
+    """(world size, rank) of this process's training gang."""
+    from ..parallel.distributed import process_count, process_index
+
+    return process_count(), process_index()
+
+
 def _host(value) -> np.ndarray:
-    if isinstance(value, torch.Tensor):
+    if hasattr(value, "detach"):  # a torch tensor, on any device
         return value.detach().cpu().numpy()
     return np.asarray(value)
 
@@ -75,7 +87,18 @@ class CheckpointHook:
                       if (m := _STEP_FILE.match(name)))
 
     def save(self, step: int, tree: Mapping[str, Any]) -> None:
-        """Write ``tree`` (a flat dict of arrays or tensors) as ``step``."""
+        """Write ``tree`` (a flat dict of arrays or tensors) as ``step``.
+        In a gang: rank 0 writes, then every rank waits at a barrier, so no
+        rank runs ahead of a snapshot that is not on disk yet."""
+        world, rank = _gang()
+        if rank == 0:
+            self._write(step, tree)
+        if world > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
+
+    def _write(self, step: int, tree: Mapping[str, Any]) -> None:
         arrays = {str(k): _host(v) for k, v in tree.items()}
         os.makedirs(self.directory, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=self.directory)
@@ -99,8 +122,20 @@ class CheckpointHook:
         return True
 
     def latest_step(self) -> Optional[int]:
-        steps = self._steps()
-        return steps[-1] if steps else None
+        """The newest snapshot's step, or None. In a gang rank 0 reads the
+        directory and broadcasts its answer (collective)."""
+        world, rank = _gang()
+        steps = self._steps() if rank == 0 else []
+        latest = steps[-1] if steps else None
+        if world > 1:
+            import torch
+            import torch.distributed as dist
+
+            t = torch.tensor([-1 if latest is None else latest],
+                             dtype=torch.int64)
+            dist.broadcast(t, src=0)
+            latest = None if int(t.item()) < 0 else int(t.item())
+        return latest
 
     def restore(self, step: Optional[int] = None) -> tuple[int, dict]:
         step = step if step is not None else self.latest_step()

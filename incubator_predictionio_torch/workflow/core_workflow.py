@@ -14,6 +14,13 @@ Port of ``incubator_predictionio_tpu/workflow/core_workflow.py`` (:34-104,
   cursor row (``model_artifact.foldin_row_id``) with the log position it
   read from, when no such row exists yet — the same row and cursor as the
   reference's train, so a fold-in producer resumes from the right byte.
+- In a training gang (``pio train --num-workers N``, reference :105-135,
+  :215-265) the supervisor pins ONE instance id for every attempt
+  (``PIO_GANG_INSTANCE_ID``): rank 0 (the leader) owns the row — a direct
+  ``get`` on ``--resume``, never a discovery that could pick another
+  interrupted run — and persists the model; the other ranks
+  (:func:`_run_train_follower`) take part in every collective and every
+  checkpoint barrier and persist nothing (the factors are replicated).
 - :func:`load_deployment` picks the newest COMPLETED instance of the
   engine and walks back past any whose artifact fails verification or does
   not load; an explicit instance id never walks back.
@@ -42,6 +49,8 @@ from ..controller.engine import Engine, EngineParams
 from ..controller.persistent_model import PersistentModel
 from ..data.storage.base import EngineInstance
 from ..data.storage.event import new_event_id
+from ..common import envknobs
+from ..parallel import supervisor as gang
 from . import model_artifact
 from .checkpoint import (
     CheckpointHook, CheckpointIncompatibleError, find_resumable_instance,
@@ -198,6 +207,53 @@ def _persist_foldin_anchor(storage, anchor, ctx, engine_factory_name,
                   exc_info=True)
 
 
+def _require_gang_capable(engine: Engine, engine_params: EngineParams,
+                          world: int) -> None:
+    """A gang of ``world`` > 1 trains only templates whose data source reads
+    partition-local (the Recommendation and Similar-Product templates);
+    every rank refuses alike before any collective."""
+    if world <= 1:
+        return
+    ds = engine.make_components(engine_params)[0]
+    if not getattr(ds, "partition_feed", False):
+        raise NotImplementedError(
+            f"{type(ds).__name__} has no partition-local read: gang "
+            "training covers the ALS templates (Recommendation, "
+            "Similar-Product); the other templates' process-local trainers "
+            "are ROADMAP Queue 1, items 7.2-7.3")
+
+
+def _run_train_follower(engine, engine_params, ctx, wp, gang_id: str) -> str:
+    """Gang ranks 1..N-1: take part in every training collective (and the
+    checkpoint barriers) under the supervisor-pinned instance id, and leave
+    ALL metadata and model persistence to the leader — the factors are
+    replicated, so the leader's copy is the gang's."""
+    ctx.engine_instance_id = gang_id
+    if wp.resume:
+        prior = ctx.get_storage().get_meta_data_engine_instances().get(
+            gang_id)
+        if prior is not None and prior.status == "COMPLETED":
+            # the leader's already-COMPLETED exit, mirrored: on a relaunch
+            # that raced the finish line every rank must skip training, or
+            # the ones that do not would wait forever in the first
+            # collective
+            log.info("gang follower: EngineInstance %s already COMPLETED; "
+                     "nothing to do", gang_id)
+            return gang_id
+    if wp.checkpoint_every > 0 or wp.resume:
+        ctx.checkpoint_hook = CheckpointHook(
+            instance_checkpoint_dir(gang_id), every_n=wp.checkpoint_every)
+    try:
+        train_with_stale_checkpoint_fallback(engine, engine_params, ctx, wp)
+    finally:
+        if ctx.checkpoint_hook is not None:
+            ctx.checkpoint_hook.close()
+            ctx.checkpoint_hook = None
+    log.info("gang follower %s: train stage complete",
+             envknobs.env_str("PIO_PROCESS_ID", "?"))
+    return gang_id
+
+
 def run_train(
     engine: Engine,
     engine_params: EngineParams,
@@ -207,9 +263,15 @@ def run_train(
     engine_variant: str = "default",
 ) -> str:
     """Run the training workflow; returns the engine-instance id."""
+    from ..parallel.distributed import process_count
+
     ctx = ctx or WorkflowContext()
     wp = workflow_params or WorkflowParams()
     ctx.workflow_params = wp
+    _require_gang_capable(engine, engine_params, process_count())
+    gang_id = os.environ.get(gang.ENV_GANG_INSTANCE_ID) or None
+    if gang_id and envknobs.env_str("PIO_PROCESS_ID", "0") != "0":
+        return _run_train_follower(engine, engine_params, ctx, wp, gang_id)
     storage = ctx.get_storage()
     instances = storage.get_meta_data_engine_instances()
 
@@ -234,7 +296,39 @@ def run_train(
         ),
         serving_params=json.dumps(dict(engine_params.serving_params)),
     )
-    if wp.resume:
+    if gang_id:
+        # the supervisor-pinned id: the row and the checkpoint directory
+        # are shared by every attempt of the gang
+        instance = EngineInstance(**{**instance.__dict__, "id": gang_id})
+        prior = instances.get(gang_id) if wp.resume else None
+        if prior is not None and prior.status == "COMPLETED":
+            # a relaunch raced the finish line: the job is done, and every
+            # rank takes this same exit (the followers read the same row)
+            log.info("gang resume: EngineInstance %s is already COMPLETED; "
+                     "nothing to do", gang_id)
+            return gang_id
+        if (prior is not None
+                and prior.algorithms_params != instance.algorithms_params):
+            log.warning(
+                "gang --resume: instance %s has different algorithm params; "
+                "discarding its checkpoints and training from scratch",
+                gang_id)
+            CheckpointHook(instance_checkpoint_dir(gang_id)).delete_all()
+            prior = None
+        if (prior is not None
+                and os.path.isdir(instance_checkpoint_dir(gang_id))):
+            instance = EngineInstance(
+                **{**instance.__dict__, "start_time": prior.start_time})
+            instances.update(instance)
+            log.info("gang resume: continuing EngineInstance %s", gang_id)
+        elif instances.get(gang_id) is not None:
+            # the row exists but no snapshot landed before the relaunch:
+            # retake it fresh (an insert would be a duplicate key)
+            instances.update(instance)
+        else:
+            instances.insert(instance)
+        instance_id = gang_id
+    elif wp.resume:
         prior = find_resumable_instance(
             storage, engine_factory_name or "engine", "1", engine_variant,
             data_source_params=instance.data_source_params,
@@ -283,6 +377,7 @@ def run_train(
     try:
         models = train_with_stale_checkpoint_fallback(
             engine, engine_params, ctx, wp)
+        gang.beat()
         if wp.stop_after_read or wp.stop_after_prepare:
             instances.update(instance.with_status("ABORTED", _utcnow()))
             if ctx.checkpoint_hook is not None:
@@ -290,27 +385,31 @@ def run_train(
                 ctx.checkpoint_hook = None
             return instance_id
 
-        _, _, algo_list, _ = engine.make_components(engine_params)
-        persistent = sum(
-            1 for (_, algo), model in zip(algo_list, models)
-            if isinstance(model, PersistentModel)
-            and model.save(instance_id, algo.params))
-        blob = serialize_models(
-            algo_list, models,
-            engine_json_of(engine_params, engine_factory_name, engine_variant))
-        # The Model row must land before the COMPLETED stamp below: a
-        # crash in between leaves a RUNNING row (never deployed) instead
-        # of a COMPLETED row without a model.
-        sha = model_artifact.write_model(storage, instance_id, blob)
-        log.info("models persisted: %d bytes (sha256 %s), %d self-persisted",
-                 len(blob), sha[:12], persistent)
-        done = EngineInstance(
-            **{**instance.__dict__, "id": instance_id}
-        ).with_status("COMPLETED", _utcnow())
-        instances.update(done)
-        if ctx.checkpoint_hook is not None:
-            ctx.checkpoint_hook.delete_all()  # superseded by the model
-            ctx.checkpoint_hook = None
+        # persistence has no natural beat points: a background beat keeps
+        # the supervisor from gang-killing a job whose training succeeded
+        with gang.beat_while():
+            _, _, algo_list, _ = engine.make_components(engine_params)
+            persistent = sum(
+                1 for (_, algo), model in zip(algo_list, models)
+                if isinstance(model, PersistentModel)
+                and model.save(instance_id, algo.params))
+            blob = serialize_models(
+                algo_list, models,
+                engine_json_of(engine_params, engine_factory_name,
+                               engine_variant))
+            # The Model row must land before the COMPLETED stamp below: a
+            # crash in between leaves a RUNNING row (never deployed)
+            # instead of a COMPLETED row without a model.
+            sha = model_artifact.write_model(storage, instance_id, blob)
+            log.info("models persisted: %d bytes (sha256 %s), %d "
+                     "self-persisted", len(blob), sha[:12], persistent)
+            done = EngineInstance(
+                **{**instance.__dict__, "id": instance_id}
+            ).with_status("COMPLETED", _utcnow())
+            instances.update(done)
+            if ctx.checkpoint_hook is not None:
+                ctx.checkpoint_hook.delete_all()  # superseded by the model
+                ctx.checkpoint_hook = None
         _persist_foldin_anchor(storage, foldin_anchor, ctx,
                                engine_factory_name, engine_variant)
         log.info("EngineInstance %s COMPLETED", instance_id)

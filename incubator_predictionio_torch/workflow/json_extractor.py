@@ -29,9 +29,13 @@ import importlib
 import json
 import os
 import sys
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
-from ..controller.engine import Engine, EngineFactory, EngineParams
+if TYPE_CHECKING:
+    from ..controller.engine import Engine, EngineParams
+
+# the controller (torch) is imported where an engine is built, so reading
+# engine.json — the gang supervisor's `--resume` lookup — stays torch-free
 
 PACKAGE = "incubator_predictionio_torch."
 DEFAULT_FACTORY = PACKAGE + "models.recommendation.RecommendationEngine"
@@ -73,6 +77,8 @@ def resolve_engine_factory(dotted: str, engine_dir: Optional[str] = None):
 def engine_from_factory(factory_obj) -> Engine:
     """The Engine a factory builds; it must be an Engine of this
     package."""
+    from ..controller.engine import Engine, EngineFactory
+
     if isinstance(factory_obj, Engine):
         return factory_obj
     if isinstance(factory_obj, type) and issubclass(factory_obj, EngineFactory):
@@ -93,6 +99,8 @@ def engine_and_params_from_json(
 ) -> Tuple[Engine, EngineParams, str]:
     """(Engine, EngineParams, factory name) of an engine.json dict; a user
     engine's modules resolve from ``engine_dir``."""
+    from ..controller.engine import EngineParams
+
     factory_path = engine_json.get("engineFactory") or DEFAULT_FACTORY
     engine = engine_from_factory(
         resolve_engine_factory(factory_path, engine_dir))

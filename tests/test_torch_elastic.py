@@ -260,8 +260,14 @@ def _sup_poll(fn, deadline_s=30, msg="condition"):
 
 class TestDynamicMembership:
     def test_gang_scope_raises(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            Supervisor(["true"], 1, run_dir=str(tmp_path / "g"))
+        # a gang's size is its process group's world size: no dynamic
+        # membership there (the reference's rule)
+        sup = Supervisor(["true"], 1, run_dir=str(tmp_path / "g"))
+        assert sup.restart_scope == "gang"
+        with pytest.raises(RuntimeError, match="restart_scope='worker'"):
+            sup.add_worker()
+        with pytest.raises(RuntimeError, match="restart_scope='worker'"):
+            sup.retire_worker(0)
 
     def test_duplicate_slot_rejected(self, tmp_path):
         sup = _service_sup(tmp_path)

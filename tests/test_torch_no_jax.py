@@ -17,7 +17,8 @@ loads none of them; so do the front and both replicas of ``deploy --replicas
 whose answers equal a single server's on the same persisted model; so do
 host-sharded serving (``PIO_SERVE_SHARD_ITEMS``: the ALS catalog and the
 UR's indicators) and the front and both workers of ``eventserver
---workers 2``.
+--workers 2``, and the supervisor and both gloo ranks of ``train
+--num-workers 2`` off a partitioned JSONL log.
 The same holds for the E-Commerce template and the evaluations (the
 ``eval`` and ``dashboard`` verbs, and the vanilla copy's evaluation from
 its engine directory), and for the Classification and Text-Classification
@@ -84,6 +85,8 @@ def test_port_files_exist():
             "models.py", "online.py", "quality.py", "multitenant.py",
             "holdout.py", "splice.py", "supervisor.py", "fleet.py",
             "elastic.py", "sharded_topk.py", "_sharded_serving.py",
+            "distributed.py", "mesh.py", "partition_feed.py",
+            "train_feed.py", "input_pipeline.py",
             } <= names
     assert (ROOT / "incubator_predictionio_torch" / "e2"
             / "engine.py").is_file()
@@ -860,4 +863,68 @@ def test_partitioned_event_server_in_processes_without_jax(tmp_path):
     docs = [json.loads(p.read_text()) for p in reports.glob("*.json")]
     assert sum("--workers" in d["argv"] for d in docs) == 1, docs
     assert sum("--worker" in d["argv"] for d in docs) == 2, docs
+    assert all(d["loaded"] == [] for d in docs), docs
+
+
+def test_gang_train_in_processes_without_jax(tmp_path):
+    """``train --num-workers 2 --device cpu`` off a partitioned JSONL log:
+    the supervisor and both gang ranks (a gloo process group) load no JAX
+    (each reports its modules at exit), and the gang completes."""
+    import json
+
+    from incubator_predictionio_torch.data.storage import App, Storage
+    from incubator_predictionio_torch.data.storage.jsonl import JSONLEvents
+    from incubator_predictionio_torch.data.storage.event import Event
+    from incubator_predictionio_torch.data.storage.datamap import DataMap
+
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    reports = tmp_path / "modules"
+    reports.mkdir()
+    store_env = {
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "EV",
+        "PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+        "PIO_STORAGE_SOURCES_DB_PATH": str(tmp_path / "meta.sqlite"),
+        "PIO_STORAGE_SOURCES_EV_TYPE": "JSONL",
+        "PIO_STORAGE_SOURCES_EV_PATH": str(tmp_path / "events")}
+    storage = Storage(store_env)
+    app_id = storage.get_meta_data_apps().insert(App(0, "nojax"))
+    events_dir = storage.get_l_events().events_dir
+    storage.close()
+    for part in (0, 1):
+        os.environ["PIO_EVENT_PARTITION"] = str(part)
+        try:
+            log = JSONLEvents(events_dir)
+        finally:
+            del os.environ["PIO_EVENT_PARTITION"]
+        log.insert_batch([Event(
+            event="rate", entity_type="user", entity_id=f"u{(j * 7) % 11}",
+            target_entity_type="item", target_entity_id=f"i{j % 5}",
+            properties=DataMap({"rating": float(1 + j % 5)}))
+            for j in range(part, 60, 2)], app_id)
+    (tmp_path / "engine.json").write_text(json.dumps({
+        "engineFactory": "incubator_predictionio_torch.models."
+                         "recommendation.RecommendationEngine",
+        "datasource": {"params": {"appName": "nojax"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": 4, "numIterations": 2, "lambda": 0.1}}]}))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PIO_", "JAX_"))}
+    env.update(store_env, PYTHONPATH=os.pathsep.join([str(site), str(ROOT)]),
+               PIO_FS_BASEDIR=str(tmp_path / "base"),
+               PIO_TEST_MODULES_DIR=str(reports),
+               PIO_WORKER_HEARTBEAT_MS="100", PIO_SUPERVISOR_POLL_MS="25")
+    out = subprocess.run(
+        [sys.executable, "-m", "incubator_predictionio_torch.tools.console",
+         "train", "--num-workers", "2", "--device", "cpu"], env=env,
+        cwd=str(tmp_path), capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1])["state"] == \
+        "completed"
+    docs = [json.loads(p.read_text()) for p in reports.glob("*.json")]
+    assert sum("--num-workers" in d["argv"] for d in docs) == 1, docs
+    assert len(docs) == 3, docs  # the supervisor and its two ranks
     assert all(d["loaded"] == [] for d in docs), docs
