@@ -51,14 +51,15 @@ Phases (any failure exits non-zero; nothing is caught):
    items × 5,000,000 views, rank 32, 10 iterations, implicit) through the
    Similar-Product engine, 20 item categories from $set events; persist →
    restore → ≥ 50 filtered POST /queries.json held to a host cosine top-k.
-10. pio_workflow: the pio verbs on an SQLite store at ML-1M (app new →
+10. pio_workflow: the pio verbs on an SQLite store at ML-1M (its first
+   50,000 events, cut for the script's time; app new →
    import → 2,000 live events through the event server → train → deploy
    → queries → a corrupted blob walked back past).
 11. codec_vs_plain: the event codec (native/src/event_codec.cc, built with
    g++ beside nvcc in phase 1) and its plain parser on the first 200,000
    lines of the ML-20M log: every column and table equal; MB/s of both.
 12. pio_workflow_jsonl: the pio_workflow scenario with the events on a
-   JSONL log (the first 300,000 ML-1M events, cut from 1,000,209 for the
+   JSONL log (the first 150,000 ML-1M events, cut from 1,000,209 for the
    script's time): two generations compacted, the live batches through the
    codec's one-pass path, a train --window whose read skips generation 1
    and equals a numpy filter of the generated events, the full train
@@ -93,7 +94,21 @@ Phases (any failure exits non-zero; nothing is caught):
    SIGTERM drain at a sweep boundary, then --resume on the same instance;
    a Similar-Product gang (categories as $set events) served through
    pio deploy.
-13. pio_workflow_jsonl_ml20m: the first 2,500,000 of the ML-20M ratings
+12c. gang_train_merged / gang_train_alx (inside 12a, on its store): pio
+   train --num-workers 2 --feed merged (the slab gang: every rank reads
+   the merged view and solves its data shard with the warp kernel), then
+   PIO_MESH_SHAPE=2x2 pio train --num-workers 4 --feed merged (the 2-D
+   ALX layout: four ranks on the card, each holding half of each factor
+   matrix and summing its partial grams over its model group), factors
+   within 2e-4 of the in-process train_als of the merged triple, warp
+   launches = the plan's; the 2-D model served through pio deploy, one
+   query held to the host top-k.
+12d. als_process_sharded: train_als_process_sharded at the main path's
+   width (the ML-20M-shaped triple, rank 32, 3 iterations, λ 0.01·n) on a
+   (2, 2) mesh of four ranks (this script re-invoked as each rank), each
+   range-reading only its rows; factors within 2e-4 of train_als of the
+   same triple in this process, warp launches = the plan's.
+13. pio_workflow_jsonl_ml20m: the first 1,250,000 of the ML-20M ratings
    as the log (byte for byte insert_batch's lines; cut from 20,000,263
    for the script's time, ``reduced``) → eventlog compact → the read held
    exactly to the generated arrays → train at rank 32, 10 iterations
@@ -129,7 +144,7 @@ Phases (any failure exits non-zero; nothing is caught):
 15. similar_product (phase 9 above, run here).
 16. ecommerce_jsonl: bench_templates.py's config 6 (100,000 users ×
    20,000 items × 5,000,000 view/buy events, 10 % buys, 20 categories;
-   its first 1,250,000 events, cut for the script's time)
+   its first 625,000 events, cut for the script's time)
    written as an uncompacted JSONL log → pio train with the E-Commerce
    template's engine.json (rank 32, 10 iterations; warp launches =
    implied) → pio eventserver + pio deploy → 60 queries → a $set of
@@ -138,7 +153,7 @@ Phases (any failure exits non-zero; nothing is caught):
    computed from the generated arrays; query latency split into the
    LEventStore reads, the top-k and the rest.
 17. pio_eval: pio eval on the ML-100K shape as one JSONL app (the first
-   50,000 of its ratings and 250 views, cut for the script's time):
+   25,000 of its ratings and 250 views, cut for the script's time):
    RecommendationEvaluation + ParamsList and ECommerceEvaluation +
    ECommerceParamsList (4 candidates × 3 folds each) on the card (warp
    launches = the folds' implied count), the E-Commerce sweep again on
@@ -146,7 +161,7 @@ Phases (any failure exits non-zero; nothing is caught):
    two differ by more than 0.05); seconds per candidate and the K7
    ranking_metrics calls and ms per call.
 18. classification_jsonl: bench_templates.py's config 2 (4 Poisson
-   attributes × 3 classes; 500,000 of its 2,000,000 entities, cut for the
+   attributes × 3 classes; 250,000 of its 2,000,000 entities, cut for the
    script's time) as $set events on a JSONL
    log → pio train (the Classification template's values: naive, lambda
    1.0) → the model equal to a host numpy NB of the generated arrays →
@@ -174,8 +189,8 @@ Phases (any failure exits non-zero; nothing is caught):
    top-k times, and score_user's; the indicators served host-sharded
    (4,096 rows a shard: 5 shards) for 200 users with history, every
    answer bit-identical to the flat score_user's.
-21. universal_recommender_jsonl: config 5's first 200,000 buys and
-   800,000 views (10 % of its events) and one $set per item (20 categories, an
+21. universal_recommender_jsonl: config 5's first 25,000 buys and
+   100,000 views (1.25 % of its events) and one $set per item (20 categories, an
    available/expire window on 5 % of the items) as a JSONL log → pio
    train with templates/universal-recommender/engine.json (factory
    rewritten) → pio eventserver + pio deploy → 60 queries (user-based,
@@ -1556,11 +1571,13 @@ ML1M = (6_040, 3_706, 1_000_209)  # bench.py SCALES["ml1m"]
 #: the live events of the pio_workflow phase: single POSTs, batches of 50,
 #: new users (10 events each) and new items
 LIVE = (1_000, 20, 200, 50)
-#: events the SQLite pio_workflow phase imports (of ML-1M's 1,000,209)
-SQLITE_IMPORT = 100_000
+#: events the SQLite pio_workflow phase imports (of ML-1M's 1,000,209;
+#: 100,000 until the slab-gang phases needed the time)
+SQLITE_IMPORT = 50_000
 #: events the JSONL pio_workflow phase imports (of ML-1M's 1,000,209; all
-#: of them until the partitioned event server's phase needed the time)
-JSONL_IMPORT = 300_000
+#: of them until the partitioned event server's phase needed the time,
+#: 300,000 until the slab-gang phases did)
+JSONL_IMPORT = 150_000
 PIO_RANK, PIO_ITERS, PIO_LAMBDA = 32, 10, 0.01
 T0_MS = 1_704_067_200_000  # 2024-01-01T00:00:00Z
 
@@ -1700,7 +1717,7 @@ def phase_pio_workflow(workdir: str) -> None:
     corrupted in the SQLite file, and a deploy that walks back past it.
     Cut to the first SQLITE_IMPORT events of the ML-1M file so the JSONL
     phases fit the script's 1,200 s: on an H100 host the whole script takes
-    679–791 s with the cut, the phase ≈ 74 s at 100,000 events against
+    679–791 s with a cut to 100,000, the phase ≈ 74 s there against
     ≈ 280 s at all 1,000,209, and the ML-20M phase alone varies by ≈ 100 s
     from host to host, so the full import would leave under 100 s of
     margin. The JSONL lines label the numbers they quote from this phase
@@ -1880,8 +1897,9 @@ CREATED_ISO = "2024-06-01T00:00:00.000Z"
 #: cut again to 5,000,000 for the two linear-template phases (≈ 116 s for
 #: classification_jsonl alone on one H100 host), and to 2,500,000 when the
 #: host-sharded and partitioned-ingest phases took the script to 1,177 s
-#: on a slow host (the phase 111 s there, 44 s of it the compaction)
-ML20M_LOG_EVENTS = 2_500_000
+#: on a slow host (the phase 111 s there, 44 s of it the compaction), and
+#: to 1,250,000 when the slab-gang phases needed the time
+ML20M_LOG_EVENTS = 1_250_000
 ML20M_QUERIES = 20
 
 
@@ -2598,7 +2616,7 @@ def _items(res: dict) -> list:
 def phase_engine_server_load(env: dict, cwd: str, instance_id: str,
                              stored: dict, want: dict) -> dict:
     """The engine server on the ML-20M-shaped store (pio_workflow_jsonl_ml20m's
-    2,500,000 events, rank 32): pio deploy --probe-latency (the probe's
+    1,250,000 events, rank 32): pio deploy --probe-latency (the probe's
     split from /status), one keep-alive client × SERVE_QUERIES, then 8 and
     32 clients without and with micro-batching (--batch-window-ms 2
     --max-batch 64), the result cache (hits and misses), a 504 deadline,
@@ -4035,8 +4053,9 @@ def phase_engine_server_tenants(workdir: str) -> None:
 #: events, drawn with seed 6; rank 32 × 10 iterations
 ECOMMERCE = (100_000, 20_000, 5_000_000)
 #: the first events of config 6 the phase writes: cut from 5,000,000 for
-#: the script's time, to 2,500,000, then (with the gang phases) 1,250,000
-ECOMMERCE_LOG_EVENTS = 1_250_000
+#: the script's time, to 2,500,000, then (with the gang phases) 1,250,000,
+#: then (with the slab-gang phases) 625,000
+ECOMMERCE_LOG_EVENTS = 625_000
 ECOMMERCE_CATEGORIES = 20
 ECOMMERCE_BUY_SHARE = 0.1
 #: queries before and after the constraint/unavailableItems $set
@@ -4285,7 +4304,7 @@ def _split(client_ms: list, records: list, parts: dict) -> dict:
 
 def phase_ecommerce_jsonl(workdir: str) -> None:
     """bench_templates.py config 6 through the E-Commerce template and the
-    verbs, on a JSONL log: the first ECOMMERCE_LOG_EVENTS (1,250,000 of
+    verbs, on a JSONL log: the first ECOMMERCE_LOG_EVENTS (625,000 of
     5,000,000) view/buy events (100,000 users × 20,000 items, 10 % buys)
     and one category $set per item written as
     the log itself (not compacted: the train and the serve-time reads
@@ -4442,8 +4461,9 @@ def phase_ecommerce_jsonl(workdir: str) -> None:
 
 ML100K_SEED = 11
 #: the Recommendation sweep's rate events: the first EVAL_RATES of
-#: ML-100K's ratings (all 100,000 until the gang phases needed the time)
-EVAL_RATES = 50_000
+#: ML-100K's ratings (all 100,000 until the gang phases needed the time,
+#: 50,000 until the slab-gang phases did)
+EVAL_RATES = 25_000
 #: the E-Commerce sweep's events: view events of the first EVAL_VIEWS
 #: ML-100K pairs (see phase_pio_eval for the cut; 500 until the gang
 #: phases needed the time)
@@ -4593,8 +4613,9 @@ def phase_pio_eval(workdir: str) -> None:
 CLASSIFICATION = (2_000_000, 4, 3)
 #: the entities classification_jsonl writes, cut from config 2's 2,000,000
 #: for the script's time: the whole script took 1,110 s on one H100 host
-#: with all of them, this phase 114 s
-CLASSIFICATION_ENTITIES = 500_000
+#: with all of them, this phase 114 s; 500,000 until the slab-gang phases
+#: needed the time
+CLASSIFICATION_ENTITIES = 250_000
 CLASSIFICATION_ID_SEED = 9
 CLASSIFICATION_ENGINE = os.path.join(ROOT, "templates", "classification",
                                      "engine.json")
@@ -5033,8 +5054,9 @@ CCO_SAMPLE = 64
 #: the verbs' buys and views (config 5's first ones, over the full id
 #: space; 2.5 % of its events), cut for the script's time: pio train reads
 #: the log through find_batch, a Python object per event (2,000,000 events
-#: took 66.9 s end to end on one H100 host, 55.3 s of it the read)
-UR_LOG = (50_000, 200_000)
+#: took 66.9 s end to end on one H100 host, 55.3 s of it the read); half
+#: that (1.25 %) since the slab-gang phases needed the time
+UR_LOG = (25_000, 100_000)
 UR_CATEGORIES = 20
 #: the share of items with an availableDate / expireDate window (the
 #: window below; before it, after it and without a currentDate they are
@@ -5050,7 +5072,8 @@ CP_ENGINE = os.path.join(ROOT, "templates", "complementary-purchase",
 CP_FACTORY = ("incubator_predictionio_torch.models.complementary_purchase."
               "ComplementaryPurchaseEngine")
 #: the verbs' buys (the first of config 7's; 200,000 before the script's
-#: time needed a cut), and the basket queries
+#: time needed a cut; at 50,000 fewer than CP_QUERIES baskets hold two
+#: items), and the basket queries
 CP_LOG_BUYS = 100_000
 CP_QUERIES = 30
 #: pio eval's shoppers: 4 buys each in one basket (≈ 1,000 buys)
@@ -6407,6 +6430,7 @@ def phase_eventserver_partitioned(workdir: str) -> None:
          read_seconds=trained["timings"]["read_seconds"],
          max_abs_err_vs_train_als=err)
     phase_gang_train(cwd, envs[2], trained["wall_seconds"])
+    phase_gang_train_merged(cwd, envs[2])
     shutil.rmtree(cwd)
 
 
@@ -6762,6 +6786,273 @@ def phase_gang_train(cwd: str, env: dict, single_train_s: float) -> None:
          query_ms=query_ms)
 
 
+#: the slab gang's 2-D layout: PIO_MESH_SHAPE (d, m) = (2, 2), four ranks
+#: on the one card
+ALX_MESH = (2, 2)
+
+
+def _slab_calls(u, i, n_users: int, n_items: int, params: ALSParams,
+                dims: tuple) -> int:
+    """Solve calls ONE rank of a slab gang on a (d, m) mesh makes per
+    iteration: its data shard of both sides' plans."""
+    return sum(solve_calls_per_half_step(plan_layout(
+        np.bincount(rows, minlength=n), dims[0], dims[1]), params, 1)
+        for rows, n in ((u, n_users), (i, n_items)))
+
+
+def _slab_verb(env: dict, gdir: str, workers: int, mesh: str = "") -> dict:
+    """``pio train --num-workers N --feed merged --checkpoint-every 2`` (the
+    card, gloo; ``PIO_MESH_SHAPE`` when given); its last JSON line with
+    ``wall_seconds``."""
+    out, wall = _verb(["train", "--num-workers", str(workers), "--feed",
+                       "merged", "--checkpoint-every", "2"],
+                      env | ({"PIO_MESH_SHAPE": mesh} if mesh else {}), gdir,
+                      timeout=300)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    got["wall_seconds"] = wall
+    return got
+
+
+def _hold_slab(got: dict, store: Storage, dims: tuple, path: str,
+               ref: ALSFactors, want: dict, params: ALSParams) -> tuple:
+    """A completed merged gang: every rank read the whole merged view, the
+    persisted id maps are that read's, the warp launches those the (d, m)
+    plan implies, the factors within TOL of the in-process train_als of
+    the merged triple. Returns (stored model, launches, max |err|,
+    expected launches)."""
+    world = dims[0] * dims[1]
+    launches = _gang_launches(got)
+    check(len(got["workers"]) == world, f"{path}: {len(got['workers'])} "
+          "workers reported")
+    stored = _gang_factors(store, got["engineInstanceId"])
+    check(list(BiMap.from_persisted(stored["users"]).keys()) == want["users"]
+          and list(BiMap.from_persisted(stored["items"]).keys())
+          == want["items"], f"{path}: id maps differ from the merged read")
+    for w in got["workers"]:
+        t = w["timings"]
+        check(t["feed"] == "merged" and t["local_ratings"] == len(want["u"])
+              and t["mesh"] == list(dims), f"{path}: worker timings {t}")
+    err = max(max_err(stored["user_factors"], ref.user_factors),
+              max_err(stored["item_factors"], ref.item_factors))
+    check(within(stored["user_factors"], ref.user_factors)
+          and within(stored["item_factors"], ref.item_factors),
+          f"{path}: gang vs train_als max |err| {err}")
+    per_rank = _slab_calls(want["u"], want["i"], len(want["users"]),
+                           len(want["items"]), params, dims)
+    expected = world * params.num_iterations * per_rank
+    check(launches == {"warp": expected, "wide": 0},
+          f"{path}: launches {launches} != implied {expected} warp")
+    check(all(w["timings"]["solve_calls_per_iteration"] == per_rank
+              for w in got["workers"]), f"{path}: solve calls per rank")
+    record(path, launches)
+    return stored, launches, err, expected
+
+
+def _slab_numbers(got: dict) -> dict:
+    keys = ("rank", "coords", "read_seconds", "layout_seconds",
+            "upload_seconds", "device_train_seconds", "half_steps",
+            "gram_seconds_per_half_step", "solve_seconds_per_half_step",
+            "allreduce_bytes_per_half_step",
+            "allreduce_seconds_per_half_step",
+            "allgather_bytes_per_half_step",
+            "allgather_seconds_per_half_step", "factor_bytes_resident",
+            "checkpoint_save_seconds")
+    return {"seconds_end_to_end": got["wall_seconds"],
+            "restarts": got["restarts"],
+            "workers": [dict({k: w["timings"].get(k) for k in keys},
+                             train_seconds=w["seconds"],
+                             kernel_launches=w["kernel_launches"])
+                        for w in got["workers"]]}
+
+
+def phase_gang_train_merged(cwd: str, env: dict) -> None:
+    """The slab gang on eventserver_partitioned's store (ROADMAP items 7.1
+    and 7.6): ``pio train --num-workers 2 --feed merged`` for the
+    Recommendation template (rank 32, 10 iterations, GANG_LAMBDA·n), every
+    rank reading the merged view, each solving its data shard with the
+    warp kernel against the replicated counterpart; then
+    ``PIO_MESH_SHAPE=2x2 pio train --num-workers 4 --feed merged``, the 2-D
+    ALX layout (four ranks, four CUDA contexts on the card: each holds half
+    of each factor matrix and sums its partial grams over its model
+    group), whose model serves one query through ``deploy`` held to the
+    host top-k. Both within TOL of the in-process train_als of the merged
+    triple, warp launches = the plan's."""
+    env = env | GANG_KNOBS
+    store = _storage_of(env)
+    factory = ("incubator_predictionio_torch.models.recommendation."
+               "RecommendationEngine")
+    gdir = os.path.join(cwd, "gang_merged")
+    _gang_engine(gdir, factory, "part",
+                 extra_algo={"lambdaScaling": "nratings"})
+    u, i, r, users, items = PEventStore.find_ratings(
+        "part", event_names=["rate", "buy"], storage=store)
+    want = {"u": u, "i": i, "users": list(users.keys()),
+            "items": list(items.keys())}
+    params = ALSParams(rank=PIO_RANK, num_iterations=PIO_ITERS,
+                       reg=GANG_LAMBDA, lambda_scaling="nratings")
+    t0 = time.perf_counter()
+    ref = train_als(u, i, r, len(users), len(items), params, device="cuda")
+    ref_s = time.perf_counter() - t0
+    got = _slab_verb(env, gdir, GANG_WORKERS)
+    _, launches, err, expected = _hold_slab(
+        got, store, (GANG_WORKERS, 1), "gang_train_merged", ref, want,
+        params)
+    one_d = _slab_numbers(got)
+    emit("gang_train_merged", **one_d, train_als_seconds=ref_s,
+         kernel_launches=launches, expected_launches=expected,
+         max_abs_err_vs_train_als=err)
+
+    world = ALX_MESH[0] * ALX_MESH[1]
+    alx = _slab_verb(env, gdir, world, mesh="x".join(map(str, ALX_MESH)))
+    stored, launches, err, expected = _hold_slab(
+        alx, store, ALX_MESH, "gang_train_alx", ref, want, params)
+    store.close()
+    resident = {"alx": [w["timings"]["factor_bytes_resident"]
+                        for w in alx["workers"]],
+                "one_d": [w["timings"]["factor_bytes_resident"]
+                          for w in got["workers"]]}
+    check(all(abs(2 * b / resident["one_d"][0] - 1) < 0.01
+              for b in resident["alx"]),
+          f"the 2-D layout keeps half of each matrix per rank: {resident}")
+    user = want["users"][0]
+    with _Served(["deploy"], env, gdir) as srv:
+        check(srv.info["engineInstanceId"] == alx["engineInstanceId"],
+              f"deployed {srv.info}")
+        q = {"user": user, "num": 10}
+        status, res, query_ms = srv.request("POST", "/queries.json", q)
+    check(status == 200, f"alx query {status}: {res}")
+    answer = _hold_als_answer(stored, user, res)
+    emit("gang_train_alx", **_slab_numbers(alx), mesh=list(ALX_MESH),
+         factor_bytes_resident=resident,
+         kernel_launches=launches, expected_launches=expected,
+         max_abs_err_vs_train_als=err, query=q, answer=answer,
+         query_ms=query_ms)
+
+
+#: the process-sharded trainer's run: the main path's ML-20M triple at
+#: rank 32, 3 iterations, λ 0.01·n_ratings (at plain λ 0.01 two correct
+#: float32 solvers differ by ≈ 1e-3 on nearly singular rows), on a (2, 2)
+#: mesh of four ranks on the one card
+SHARDED_PARAMS = ALSParams(rank=RANK, num_iterations=ITERS, reg=0.01,
+                           lambda_scaling="nratings")
+SHARDED_RANK_FLAG = "--als-process-sharded-rank"
+
+
+def als_process_sharded_rank(out_dir: str) -> int:
+    """One rank of ``als_process_sharded`` (this script re-invoked with
+    :data:`SHARDED_RANK_FLAG` and the gang's ``PIO_*`` wiring): build the
+    seeded ML-20M triple, keep only the rows ``process_row_ranges`` gives
+    this rank on each side, train, and write this rank's report (rank 0
+    also the factors) into ``out_dir``."""
+    from incubator_predictionio_torch.parallel.distributed import (
+        initialize_distributed, process_index, rank_device,
+    )
+
+    initialize_distributed()
+    torch.cuda.set_device(rank_device("cuda"))
+    rank = process_index()
+    t0 = time.perf_counter()
+    u, i, r = synth_ratings(*ML20M)
+    lo_u, hi_u = als.process_row_ranges(ML20M[0])
+    lo_i, hi_i = als.process_row_ranges(ML20M[1])
+    su = (u >= lo_u) & (u < hi_u)
+    si = (i >= lo_i) & (i < hi_i)
+    user_slice = (u[su], i[su], r[su])
+    item_slice = (u[si], i[si], r[si])
+    del u, i, r
+    read_s = time.perf_counter() - t0
+    reset_launches()
+    timings: dict = {}
+    t0 = time.perf_counter()
+    f = als.train_als_process_sharded(user_slice, item_slice, ML20M[0],
+                                      ML20M[1], SHARDED_PARAMS,
+                                      device="cuda", timings=timings)
+    timings.update(read_seconds=read_s,
+                   train_seconds=time.perf_counter() - t0,
+                   kernel_launches=launches())
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "factors.npz"), user=f.user_factors,
+                 item=f.item_factors)
+    with open(os.path.join(out_dir, f"rank_{rank}.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(timings, fh)
+    return 0
+
+
+def phase_als_process_sharded(ratings) -> None:
+    """``train_als_process_sharded`` at the main path's full width: the
+    ML-20M-shaped triple (seed 7) on a (2, 2) mesh of four ranks on the
+    card, each rank range-reading only its rows of each side (the m ranks
+    of a data row share it), the global plan from all-gathered counts,
+    each rank's shard solved with the warp kernel after the model group's
+    sum of its partial grams. Factors within TOL of the in-process
+    train_als of the same triple and params; warp launches = the plan's.
+    The reference train runs while the ranks start."""
+    u, i, r = ratings
+    world = ALX_MESH[0] * ALX_MESH[1]
+    out_dir = tempfile.mkdtemp()
+    env = _console_env() | {
+        "PIO_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}",
+        "PIO_NUM_PROCESSES": str(world),
+        "PIO_MESH_SHAPE": "x".join(map(str, ALX_MESH))}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), SHARDED_RANK_FLAG,
+         out_dir], env=env | {"PIO_PROCESS_ID": str(rank)}, cwd=ROOT,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for rank in range(world)]
+    try:
+        t1 = time.perf_counter()
+        ref = train_als(u, i, r, ML20M[0], ML20M[1], SHARDED_PARAMS,
+                        device="cuda")
+        ref_s = time.perf_counter() - t1
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    check(all(p.returncode == 0 for p in procs),
+          "process-sharded ranks exited "
+          f"{[p.returncode for p in procs]}: {[e[-1500:] for e in errs]}")
+    reports = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank_{rank}.json"),
+                  encoding="utf-8") as fh:
+            reports.append(json.load(fh))
+    got = np.load(os.path.join(out_dir, "factors.npz"))
+    err = max(max_err(got["user"], ref.user_factors),
+              max_err(got["item"], ref.item_factors))
+    check(within(got["user"], ref.user_factors)
+          and within(got["item"], ref.item_factors),
+          f"process-sharded vs train_als max |err| {err}")
+    shutil.rmtree(out_dir)
+    launches_got = {k: sum(w["kernel_launches"][k] for w in reports)
+                    for k in ("warp", "wide")}
+    per_rank = _slab_calls(u, i, ML20M[0], ML20M[1], SHARDED_PARAMS,
+                           ALX_MESH)
+    expected = world * ITERS * per_rank
+    check(launches_got == {"warp": expected, "wide": 0},
+          f"als_process_sharded: launches {launches_got} != implied "
+          f"{expected} warp")
+    record("als_process_sharded", launches_got)
+    keys = ("rank", "coords", "local_ratings", "read_seconds",
+            "layout_seconds", "upload_seconds", "device_train_seconds",
+            "train_seconds", "counts_allgather_bytes",
+            "gram_seconds_per_half_step", "solve_seconds_per_half_step",
+            "allreduce_bytes_per_half_step",
+            "allreduce_seconds_per_half_step",
+            "allgather_bytes_per_half_step",
+            "allgather_seconds_per_half_step", "factor_bytes_resident",
+            "solve_calls_per_iteration")
+    emit("als_process_sharded", mesh=list(ALX_MESH), ratings=int(len(r)),
+         seconds_end_to_end=wall_s, train_als_seconds=ref_s,
+         kernel_launches=launches_got, expected_launches=expected,
+         max_abs_err_vs_train_als=err,
+         workers=[{k: w.get(k) for k in keys} for w in reports])
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -6779,6 +7070,7 @@ def main() -> int:
         phase_codec_vs_plain(main_path["ratings"])
         phase_pio_workflow_jsonl(workdir)
         phase_eventserver_partitioned(workdir)
+        phase_als_process_sharded(main_path["ratings"])
         phase_pio_workflow_jsonl_ml20m(workdir, main_path["ratings"])
         phase_engine_server_tenants(workdir)
         phase_similar_product(workdir)
@@ -6835,4 +7127,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [SHARDED_RANK_FLAG]:
+        sys.exit(als_process_sharded_rank(sys.argv[2]))
     sys.exit(main())

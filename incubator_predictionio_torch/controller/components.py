@@ -17,10 +17,10 @@ from .persistent_model import PersistentModel
 class DataSource(AbstractDoer):
     """``read_training(ctx)`` feeds ``pio train``; ``read_eval(ctx)`` gives
     the folds of ``pio eval``: [(training data, eval info, [(query,
-    actual), ...]), ...]. ``partition_feed``: the source reads a gang
-    worker's event-log partitions (``workflow/train_feed.py``) and its
-    algorithm trains data-parallel, so ``pio train --num-workers N`` may
-    run it."""
+    actual), ...]), ...]. ``partition_feed``: with the partition feed
+    armed the source reads only a gang worker's event-log partitions
+    (``workflow/train_feed.py``), and marks its training data
+    ``partition_local`` for the data-parallel trainer."""
 
     partition_feed = False
 
@@ -45,6 +45,12 @@ class IdentityPreparator(Preparator):
 
 
 class Algorithm(AbstractDoer):
+    """``slab_gang``: the algorithm trains through ``ops.als`` (the slab
+    gang on a merged read, the data-parallel trainer on a partition-local
+    one), so ``pio train --num-workers N`` may run it."""
+
+    slab_gang = False
+
     def train(self, ctx, prepared_data) -> Any:
         raise NotImplementedError
 

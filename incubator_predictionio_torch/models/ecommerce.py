@@ -12,7 +12,11 @@ time the mask takes, besides the category / whiteList / blackList rules,
 the items of the user's 200 latest ``seenEvents`` events (unless
 ``unseenOnly`` is false) and the items of the latest ``$set`` of the
 entity ``constraint/unavailableItems``: both are read from the event
-store through ``LEventStore`` on every query. Wire format (the
+store through ``LEventStore`` on every query. In a training gang
+(``pio train --num-workers N``) the data source is Similar-Product's:
+with the partition feed each rank reads its event-log partitions and the
+train is data-parallel, with ``--feed merged`` every rank reads the whole
+view and the train runs on the slab gang. Wire format (the
 template's)::
 
   query  {"user": "u1", "num": 4, "categories": [...],
@@ -38,7 +42,9 @@ from ..data.storage.registry import StorageError
 from ..data.store import LEventStore
 from ..device import resolve_device
 from ..e2.cross_validation import k_fold_indices
-from ..ops.als import ALSFactors, ALSParams, train_als
+from ..ops.als import (
+    ALSFactors, ALSParams, train_als, train_als_partition_local,
+)
 from ._filters import CategoryIndex, build_exclude_mask
 from ._sharded_serving import (
     ShardedCatalogServing, validate_serving_mode,
@@ -171,6 +177,7 @@ class ECommerceAlgoParams(Params):
 
 
 class ECommerceAlgorithm(Algorithm):
+    slab_gang = True
     params_cls = ECommerceAlgoParams
     params_aliases = {
         "appName": "app_name", "lambda": "reg",
@@ -182,7 +189,11 @@ class ECommerceAlgorithm(Algorithm):
     def train(self, ctx, pd: TrainingData) -> ECommerceModel:
         p = self.params
         validate_serving_mode(p.sharded_serving)  # before the run
-        factors = train_als(
+        # in a gang: a partition-local triple (the partition feed) trains
+        # data-parallel, the merged view on the slab gang (train_als)
+        trainer = (train_als_partition_local if pd.partition_local
+                   else train_als)
+        factors = trainer(
             pd.user_idx, pd.item_idx, pd.rating, n_users=len(pd.users),
             n_items=len(pd.items),
             params=ALSParams(

@@ -12,9 +12,13 @@ quickstart's)::
 Ranking mode: a query with ``"items"`` ranks the given candidates instead
 of searching the catalog.
 
-In a training gang (``pio train --num-workers N``) the data source reads
-only this worker's event-log partitions (``workflow/train_feed.py``) and
-the algorithm trains data-parallel (``ops.als.train_als_partition_local``).
+In a training gang (``pio train --num-workers N``) with the partition
+feed the data source reads only this worker's event-log partitions
+(``workflow/train_feed.py``) and the algorithm trains data-parallel
+(``ops.als.train_als_partition_local``); with ``--feed merged`` every
+worker reads the whole view and ``ops.als.train_als`` trains on the slab
+gang (1-D, or the 2-D ALX layout of ``PIO_MESH_SHAPE=DxM``). Rank 0
+persists the model either way.
 """
 
 from __future__ import annotations
@@ -186,6 +190,7 @@ class AlgorithmParams(Params):
 
 class ALSAlgorithm(Algorithm):
     """ALS recommender (the reference template's ALSAlgorithm)."""
+    slab_gang = True
 
     params_cls = AlgorithmParams
     params_aliases = {
@@ -212,7 +217,8 @@ class ALSAlgorithm(Algorithm):
     def train(self, ctx, pd: PreparedData) -> ALSModel:
         validate_serving_mode(self.params.sharded_serving)  # before the run
         # a partition-local triple (a gang worker's) all-reduces its normal
-        # equations; one process trains through train_als either way
+        # equations; the merged view trains through train_als, on the slab
+        # gang in a gang and in this process otherwise
         trainer = (train_als_partition_local if pd.partition_local
                    else train_als)
         factors = trainer(

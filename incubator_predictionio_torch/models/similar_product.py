@@ -7,10 +7,12 @@ catalog items whose summed cosine similarity to the query items is
 highest, under the category / whiteList / blackList rules; the query items
 themselves are never returned. The row-normalized catalog is made resident
 on the model's device once, flat or host-sharded (``PIO_SERVE_SHARD_ITEMS``,
-``models/_sharded_serving.py``). In a training gang the view events and
-the item categories come from this worker's event-log partitions
-(``workflow/train_feed.py``, one shared shard scan) and the ALS trains
-data-parallel. Wire format (the template's)::
+``models/_sharded_serving.py``). In a training gang with the partition
+feed the view events and the item categories come from this worker's
+event-log partitions (``workflow/train_feed.py``, one shared shard scan)
+and the ALS trains data-parallel; with ``--feed merged`` every worker
+reads the whole view and the ALS trains on the slab gang. Wire format
+(the template's)::
 
   query  {"items": ["i1"], "num": 4, "categories": ["c"],
           "whiteList": [...], "blackList": [...]}
@@ -181,6 +183,7 @@ class SimilarProductAlgoParams(Params):
 
 
 class SimilarProductAlgorithm(Algorithm):
+    slab_gang = True
     params_cls = SimilarProductAlgoParams
     params_aliases = {
         "lambda": "reg", "numIterations": "num_iterations",

@@ -49,6 +49,15 @@ its own row block in solve buffers of
 card at rank ≤ 32), and re-assembles the replicated factor matrix with one
 more all-reduce of a zero-filled matrix (exact: the other ranks' rows are
 0).
+
+:class:`SlabGangALS` is the multi-process slab trainer (the reference's
+``_make_train_fn`` :417 on a multi-process mesh): the layout planned for
+the ``d`` data shards of a ``(d, m)`` mesh, each rank solving its shard
+with the single-process bucket loop, on the 2-D ALX layout against its
+model block of the counterpart with the partial grams summed over its
+model group. :func:`train_als` runs on it in a gang (every rank passes
+the whole triple: the merged feed), and :func:`train_als_process_sharded`
+when each rank passes only its :func:`process_row_ranges` rows.
 """
 
 from __future__ import annotations
@@ -65,8 +74,14 @@ from ..common.faultinject import fault_point
 from ..common.nan_guard import NaNGuardError
 from ..device import resolve_device
 from ..parallel import supervisor as gang
+from ..parallel.distributed import (
+    HostCollectives, all_gather_int64s, process_count, process_index,
+)
 from ..workflow.checkpoint import CheckpointIncompatibleError
-from .rowblocks import BucketArrays, LayoutPlan, plan_and_fill_both
+from .rowblocks import (
+    LADDER_GROWTH, OVERFLOW_LEN, BucketArrays, LayoutPlan, fill_buckets,
+    plan_and_fill_both, plan_layout,
+)
 from .spd_solve import MAX_GJ_K, batched_spd_solve, build_kernel
 
 
@@ -194,16 +209,20 @@ def _solve_buffer_rows(R: int, chunk_r: int, k: int) -> int:
     return min(max(chunk_r, cap // chunk_r * chunk_r), max(R, 1))
 
 
-def solve_calls_per_half_step(plan: LayoutPlan, params: ALSParams) -> int:
+def solve_calls_per_half_step(plan: LayoutPlan, params: ALSParams,
+                              shards: Optional[int] = None) -> int:
     """SPD-solve calls one half-step makes on this side: the solve buffers
     of every non-heavy bucket plus one for the heavy bucket. On the card
-    with rank ≤ 128 each call is one launch of a Gauss-Jordan kernel."""
+    with rank ≤ 128 each call is one launch of a Gauss-Jordan kernel.
+    ``shards``: how many of the plan's shards one process solves (default
+    all of them; 1 on a rank of the slab gang)."""
     params, entries = _resolve_params(params)
     budget = entries if params.chunk_tiles > 0 else None
     n_fused = len(plan.lengths) - (1 if plan.has_heavy_bucket else 0)
     calls = 0
     for bi in range(n_fused):
-        R = int(plan.bucket_rows[bi]) * plan.n_shards
+        R = int(plan.bucket_rows[bi]) * (plan.n_shards if shards is None
+                                         else int(shards))
         chunk_r = min(_fused_chunk_rows(int(plan.lengths[bi]), params.rank,
                                         budget), max(R, 1))
         calls += -(-R // _solve_buffer_rows(R, chunk_r, params.rank))
@@ -265,11 +284,13 @@ def layout_fingerprint(plan_u: LayoutPlan, plan_i: LayoutPlan, user_idx,
 class _Side:
     """One side's slabs and ridge weights, resident on the device.
     ``col_sentinel`` is the counterpart's sentinel slot: when it is at most
-    :data:`_NARROW_COL_MAX` the column slabs are kept as uint16."""
+    :data:`_NARROW_COL_MAX` the column slabs are kept as uint16.
+    ``v_parent``: the heavy rows' parent slots when ``arrs`` holds one
+    shard of a multi-shard plan (that shard's part of ``plan.v_parent``)."""
 
     def __init__(self, plan: LayoutPlan, arrs: BucketArrays,
                  lam: np.ndarray, binary: bool, device: torch.device,
-                 col_sentinel: int):
+                 col_sentinel: int, v_parent: Optional[np.ndarray] = None):
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -288,7 +309,9 @@ class _Side:
             self.v_cols = put_cols(arrs.v_cols)
             self.v_vals = None if binary else put(arrs.v_vals)
             self.v_passes = [(put(src), put(dst)) for src, dst
-                             in overflow_merge_passes(plan.v_parent)]
+                             in overflow_merge_passes(
+                                 plan.v_parent if v_parent is None
+                                 else v_parent)]
 
 
 def overflow_merge_passes(parent: np.ndarray) -> list:
@@ -305,6 +328,68 @@ def overflow_merge_passes(parent: np.ndarray) -> list:
     rank = np.arange(len(parent)) - np.repeat(starts, group_len)
     return [(order[rank == j], sorted_parent[rank == j])
             for j in range(int(rank.max()) + 1 if len(parent) else 0)]
+
+
+def _bucket_loop(side: _Side, params: ALSParams, entries_per_step: int,
+                 entries_budget: Optional[int], gather, solve,
+                 device: torch.device) -> None:
+    """One half-step's bucket loop over a side's slabs in slot order:
+    ``gather(cols)`` → [R, C, k] counterpart rows, then per-row grams and
+    right-hand sides written 512 rows at a time into bucket-wide solve
+    buffers; ``solve(a, b, lo)`` takes each buffer's systems, whose rows
+    start at slot ``lo`` of the side. The heavy bucket materializes its
+    grams, adds its virtual rows' in the fixed passes of
+    :func:`overflow_merge_passes` and is solved in one call."""
+    k = params.rank
+
+    def grams(cols, vals, out=None):
+        return _grams_rows(gather(cols), vals, implicit=params.implicit_prefs,
+                           alpha=params.alpha, out=out)
+
+    def slab_normal_eq(colb, valb):
+        # grams/rhs of a whole slab, chunked so the gather stays bounded
+        R, C = colb.shape
+        step = max(1, min(R, entries_per_step // max(C, 1)))
+        parts = [grams(colb[s:s + step],
+                       None if valb is None else valb[s:s + step])
+                 for s in range(0, R, step)]
+        return (torch.cat([a for a, _ in parts]),
+                torch.cat([b for _, b in parts]))
+
+    plan = side.plan
+    n_fused = len(plan.lengths) - (1 if plan.has_heavy_bucket else 0)
+    base = 0
+    for bi in range(n_fused):
+        colb = side.cols[bi]
+        valb = None if side.vals is None else side.vals[bi]
+        R, C = colb.shape
+        chunk_r = min(_fused_chunk_rows(C, k, entries_budget), max(R, 1))
+        buf_r = _solve_buffer_rows(R, chunk_r, k)
+        if R:
+            a_buf = torch.empty((buf_r, k, k), dtype=torch.float32,
+                                device=device)
+            b_buf = torch.empty((buf_r, k), dtype=torch.float32,
+                                device=device)
+        for s0 in range(0, R, buf_r):
+            m = min(buf_r, R - s0)
+            for s in range(s0, s0 + m, chunk_r):
+                e = min(s + chunk_r, s0 + m)
+                grams(colb[s:e], None if valb is None else valb[s:e],
+                      out=(a_buf[s - s0:e - s0], b_buf[s - s0:e - s0]))
+            solve(a_buf[:m], b_buf[:m], base + s0)
+        base += R
+
+    if plan.has_heavy_bucket:
+        colb = side.cols[n_fused]
+        valb = None if side.vals is None else side.vals[n_fused]
+        a, b = slab_normal_eq(colb, valb)
+        vg, vr = slab_normal_eq(side.v_cols, side.v_vals)
+        # merge overflow chunks into their parent rows (all in this, the
+        # last, bucket: re-base the slots), one pass per chunk rank
+        for src, dst in side.v_passes:
+            a.index_add_(0, dst - base, vg.index_select(0, src))
+            b.index_add_(0, dst - base, vr.index_select(0, src))
+        solve(a, b, base)
 
 
 class ALSTrainer:
@@ -376,71 +461,19 @@ class ALSTrainer:
     def _half_step(self, y: torch.Tensor, side: _Side, out: torch.Tensor):
         """Solve one side's factors against ``y`` (counterpart + sentinel
         row) into ``out[:total_slots]``, bucket by bucket in slot order."""
-        p = self.params
-        k = p.rank
-        plan = side.plan
-        yty = (y.T @ y) if p.implicit_prefs else None
+        k = self.params.rank
+        yty = (y.T @ y) if self.params.implicit_prefs else None
 
         def gather(cols):
             R, C = cols.shape
             return y.index_select(0, _widen(cols).reshape(-1)).view(R, C, k)
 
-        def grams(cols, vals):
-            return _grams_rows(gather(cols), vals, implicit=p.implicit_prefs,
-                               alpha=p.alpha)
+        def solve(a, b, lo):
+            out[lo:lo + a.shape[0]] = _ridge_solve(
+                a, b, side.lam[lo:lo + a.shape[0]], yty)
 
-        def slab_normal_eq(colb, valb):
-            # grams/rhs of a whole slab, chunked so the gather stays bounded
-            R, C = colb.shape
-            step = max(1, min(R, self.entries_per_step // max(C, 1)))
-            parts = [grams(colb[s:s + step],
-                           None if valb is None else valb[s:s + step])
-                     for s in range(0, R, step)]
-            return (torch.cat([a for a, _ in parts]),
-                    torch.cat([b for _, b in parts]))
-
-        n_buckets = len(plan.lengths)
-        n_fused = n_buckets - (1 if plan.has_heavy_bucket else 0)
-        base = 0
-        for bi in range(n_fused):
-            colb = side.cols[bi]
-            valb = None if side.vals is None else side.vals[bi]
-            R, C = colb.shape
-            chunk_r = min(_fused_chunk_rows(C, k, self.entries_budget),
-                          max(R, 1))
-            buf_r = _solve_buffer_rows(R, chunk_r, k)
-            if R:
-                a_buf = torch.empty((buf_r, k, k), dtype=torch.float32,
-                                    device=y.device)
-                b_buf = torch.empty((buf_r, k), dtype=torch.float32,
-                                    device=y.device)
-            for s0 in range(0, R, buf_r):
-                m = min(buf_r, R - s0)
-                for s in range(s0, s0 + m, chunk_r):
-                    e = min(s + chunk_r, s0 + m)
-                    _grams_rows(gather(colb[s:e]),
-                                None if valb is None else valb[s:e],
-                                implicit=p.implicit_prefs, alpha=p.alpha,
-                                out=(a_buf[s - s0:e - s0],
-                                     b_buf[s - s0:e - s0]))
-                out[base + s0:base + s0 + m] = _ridge_solve(
-                    a_buf[:m], b_buf[:m],
-                    side.lam[base + s0:base + s0 + m], yty)
-            base += R
-
-        if plan.has_heavy_bucket:
-            colb = side.cols[n_fused]
-            valb = None if side.vals is None else side.vals[n_fused]
-            R_h = colb.shape[0]
-            a, b = slab_normal_eq(colb, valb)
-            vg, vr = slab_normal_eq(side.v_cols, side.v_vals)
-            # merge overflow chunks into their parent rows (all in this,
-            # the last, bucket: re-base the slots), one pass per chunk rank
-            for src, dst in side.v_passes:
-                a.index_add_(0, dst - base, vg.index_select(0, src))
-                b.index_add_(0, dst - base, vr.index_select(0, src))
-            out[base:base + R_h] = _ridge_solve(
-                a, b, side.lam[base:base + R_h], yty)
+        _bucket_loop(side, self.params, self.entries_per_step,
+                     self.entries_budget, gather, solve, y.device)
 
     def iterate(self, n: int) -> None:
         """Run ``n`` ALS iterations (user half-step, then item half-step)."""
@@ -516,6 +549,10 @@ def train_als(user_idx: np.ndarray, item_idx: np.ndarray, rating: np.ndarray,
     naming ``nan_guard_stage`` and the iteration. Snapshots keep their
     chunk schedule.
 
+    In a gang (a process group of more than one rank) every rank passes
+    the same whole triple and the train runs on the slab gang
+    (:func:`_train_als_merged`, the reference's multi-process ``train_als``).
+
     ``timings``: a dict that receives ``upload_seconds`` (host → device
     copies of the slabs and initial factors), ``compile_seconds`` (the
     counterpart of the reference's XLA compile: building or loading the
@@ -524,6 +561,12 @@ def train_als(user_idx: np.ndarray, item_idx: np.ndarray, rating: np.ndarray,
     synchronized after the last). Filled only without the NaN guard and
     with at most one chunk left, as in the reference.
     """
+    if process_count() > 1:
+        return _train_als_merged(
+            user_idx, item_idx, rating, n_users, n_items, params,
+            device=device, checkpoint_hook=checkpoint_hook, resume=resume,
+            timings=timings, nan_guard=nan_guard,
+            nan_guard_stage=nan_guard_stage)
     trainer = ALSTrainer(user_idx, item_idx, rating, n_users, n_items,
                          params, device=device)
     n_iters = trainer.params.num_iterations
@@ -610,6 +653,464 @@ def _checkpointed_loop(trainer, start: int, chunk: int, save, nan_guard: bool,
                 raise gang.GangDrainRequested(it)
 
 
+class SlabGangALS:
+    """One rank of the multi-process slab trainer on a ``(d, m)`` mesh of
+    one device per rank (the reference's ``_make_train_fn`` :417 with
+    ``_half_step_local`` :297 on a multi-process mesh).
+
+    The layout is planned for ``d`` data shards with rows per shard
+    divisible by ``m``; rank ``(di, mi)`` holds data shard ``di``'s slabs of
+    both sides (``arrs_u``/``arrs_i``: one shard each) and solves that
+    shard's slots with the single-process bucket loop (:func:`_bucket_loop`:
+    the same 512-row chunks, solve buffers and heavy-bucket merge passes).
+
+    - 1-D (``m = 1``): the counterpart is replicated (its slot matrix plus
+      the zero sentinel row).
+    - 2-D (the ALX layout): the counterpart is held as model block ``mi``,
+      ``total_slots / m`` rows, plus one zero row that every slot outside
+      the block (the sentinel too) gathers. The partial grams and
+      right-hand sides are all-reduced over the model group (the ``m``
+      ranks of data row ``di``) once per solve buffer, before the ridge and
+      the solve; YᵀY of implicit feedback is the model group's sum of the
+      blocks' YᵀY.
+
+    After each half-step every rank gives its ``1/m`` part of its shard's
+    solution to one all-gather over the gang: in rank order the parts are
+    the slot matrix, which every rank keeps on the host (the snapshots,
+    the NaN probe and the result read it) and uploads its block of (all of
+    it when ``m = 1``). Every rank makes the same collectives in the same
+    order: the bucket rows per shard, the solve buffers and the heavy
+    bucket are the plan's, identical on every shard, and nothing in a
+    rank's own data changes them.
+    """
+
+    def __init__(self, plan_u: LayoutPlan, plan_i: LayoutPlan,
+                 arrs_u: BucketArrays, arrs_i: BucketArrays,
+                 n_users: int, n_items: int, params: ALSParams,
+                 dims: tuple[int, int],
+                 device: "str | torch.device" = "cuda"):
+        from ..parallel.mesh import mesh_coords, mesh_groups
+
+        self.device = resolve_device(device)
+        self.params, self.entries_per_step = _resolve_params(params)
+        self.entries_budget = (self.entries_per_step
+                               if self.params.chunk_tiles > 0 else None)
+        self.binary = bool(self.params.binary_ratings)
+        self.n_users, self.n_items = int(n_users), int(n_items)
+        self.plan_u, self.plan_i = plan_u, plan_i
+        self.d, self.m = dims
+        self.rank = process_index()
+        self.di, self.mi = mesh_coords(self.rank, dims)
+        self.model_group, _ = mesh_groups(dims)
+        self.coll = HostCollectives()
+        di = self.di
+
+        def local(plan: LayoutPlan, arrs, cp: LayoutPlan) -> _Side:
+            rps, rv = plan.rows_per_shard, plan.v_rows_per_shard
+            lam = _host_lam(plan, self.params)[di * rps:(di + 1) * rps]
+            # this shard's virtual rows: its real ones first, then padding
+            # up to the busiest shard's count (all-sentinel rows whose
+            # zero grams merge nowhere)
+            mine = plan.shard_of_row(np.arange(plan.n_rows)) == di
+            n_real = int(plan.v_chunks_of_row[mine].sum())
+            return _Side(plan, arrs, lam, self.binary, self.device,
+                         col_sentinel=cp.total_slots,
+                         v_parent=plan.v_parent[di * rv:di * rv + n_real])
+
+        t0 = time.perf_counter()
+        self.side_u = local(plan_u, arrs_u, plan_i)
+        self.side_i = local(plan_i, arrs_i, plan_u)
+        k = self.params.rank
+        # the device's factor storage: this rank's block of each slot
+        # matrix (all of it when m = 1) and a trailing zero row
+        self.x = torch.zeros((plan_u.total_slots // self.m + 1, k),
+                             dtype=torch.float32, device=self.device)
+        self.y = torch.zeros((plan_i.total_slots // self.m + 1, k),
+                             dtype=torch.float32, device=self.device)
+        self.x_host = np.zeros((plan_u.total_slots, k), np.float32)
+        self.y_host = np.zeros((plan_i.total_slots, k), np.float32)
+        _sync(self.device)
+        self.upload_seconds = time.perf_counter() - t0
+        self.half_steps = 0
+        self.gram_seconds = self.solve_seconds = 0.0
+
+    @property
+    def factor_bytes_resident(self) -> int:
+        """Bytes of factor storage on this rank's device (both sides)."""
+        return (self.x.numel() + self.y.numel()) * 4
+
+    def _upload(self, dev: torch.Tensor, host: np.ndarray) -> None:
+        rows = dev.shape[0] - 1
+        lo = self.mi * rows
+        dev[:rows] = torch.from_numpy(
+            np.ascontiguousarray(host[lo:lo + rows])).to(self.device)
+
+    def set_slot_factors(self, x0: np.ndarray, y0: np.ndarray) -> None:
+        """Load slot-order factors (every rank the same) onto the device."""
+        self.x_host = np.array(x0, np.float32, copy=True)
+        self.y_host = np.array(y0, np.float32, copy=True)
+        self._upload(self.x, self.x_host)
+        self._upload(self.y, self.y_host)
+
+    def slot_factors(self) -> tuple[np.ndarray, np.ndarray]:
+        """Both slot matrices as the last all-gathers left them (host)."""
+        return self.x_host, self.y_host
+
+    def finite(self) -> bool:
+        """Whether both factor matrices are finite: every rank holds the
+        same host copies, so every rank answers alike."""
+        return bool(np.isfinite(self.x_host).all()
+                    and np.isfinite(self.y_host).all())
+
+    def solve_calls_per_iteration(self) -> int:
+        """SPD-solve calls (kernel launches on the card, rank ≤ 128) of
+        this rank per iteration: its shard of both sides."""
+        return (solve_calls_per_half_step(self.plan_u, self.params, 1)
+                + solve_calls_per_half_step(self.plan_i, self.params, 1))
+
+    def _model_sum(self, t: torch.Tensor) -> None:
+        if self.m > 1:
+            self.coll.all_reduce(t, self.model_group)
+
+    def _half_step(self, y: torch.Tensor, side: _Side) -> np.ndarray:
+        """Solve this rank's shard of one side against its counterpart
+        storage ``y``; returns the side's slot matrix (host, all-gathered)."""
+        k = self.params.rank
+        rps = side.plan.rows_per_shard
+        dev = y.device
+        cp_rows = y.shape[0] - 1  # the counterpart block's slot rows
+        cp_lo = self.mi * cp_rows
+        yty = None
+        if self.params.implicit_prefs:
+            yty = y.T @ y
+            self._model_sum(yty)
+
+        def gather(cols):
+            R, C = cols.shape
+            idx = _widen(cols).reshape(-1)
+            if self.m > 1:
+                # slots outside this block (the sentinel too) → the zero row
+                lc = idx - cp_lo
+                idx = torch.where((lc >= 0) & (lc < cp_rows), lc, cp_rows)
+            return y.index_select(0, idx).view(R, C, k)
+
+        clock = [time.perf_counter()]
+
+        def solve(a, b, lo):
+            # the clocks split the half-step: gram build | sums | solve
+            _sync(dev)
+            t1 = time.perf_counter()
+            self.gram_seconds += t1 - clock[0]
+            self._model_sum(a)
+            self._model_sum(b)
+            t2 = time.perf_counter()
+            x[lo:lo + a.shape[0]] = _ridge_solve(
+                a, b, side.lam[lo:lo + a.shape[0]], yty)
+            _sync(dev)
+            clock[0] = time.perf_counter()
+            self.solve_seconds += clock[0] - t2
+
+        x = torch.empty((rps, k), dtype=torch.float32, device=dev)
+        _bucket_loop(side, self.params, self.entries_per_step,
+                     self.entries_budget, gather, solve, dev)
+        # the re-shard: rank (di, mi) gives rows [mi·rps/m, (mi+1)·rps/m)
+        # of shard di; in rank order the parts are the slot matrix
+        part = rps // self.m
+        self.half_steps += 1
+        return self.coll.all_gather(
+            x[self.mi * part:(self.mi + 1) * part]).numpy()
+
+    def iterate(self, n: int) -> None:
+        """Run ``n`` ALS iterations (user half-step, then item half-step).
+        Collective."""
+        with torch.no_grad():
+            for _ in range(int(n)):
+                self.x_host = self._half_step(self.y, self.side_u)
+                self._upload(self.x, self.x_host)
+                self.y_host = self._half_step(self.x, self.side_i)
+                self._upload(self.y, self.y_host)
+
+    def factors(self) -> ALSFactors:
+        return ALSFactors(
+            user_factors=self.x_host[self.plan_u.slot_of_row],
+            item_factors=self.y_host[self.plan_i.slot_of_row],
+            n_users=self.n_users, n_items=self.n_items)
+
+    def collective_report(self) -> dict:
+        """The half-steps' collectives (the model group's all-reduces of
+        the partial grams and the all-gather of the solution: calls, bytes
+        and seconds, in total and per half-step), the gram build and the
+        ridge + solves (each to a synchronized device), and this rank's
+        place on the mesh."""
+        n = max(self.half_steps, 1)
+        return {"world": self.d * self.m, "rank": self.rank,
+                "mesh": [self.d, self.m], "coords": [self.di, self.mi],
+                "half_steps": self.half_steps,
+                "gram_seconds_per_half_step": self.gram_seconds / n,
+                "solve_seconds_per_half_step": self.solve_seconds / n,
+                **self.coll.report(self.half_steps),
+                "factor_bytes_resident": self.factor_bytes_resident,
+                "upload_seconds": self.upload_seconds,
+                "solve_calls_per_iteration": self.solve_calls_per_iteration()}
+
+
+def _plan_signature(plan: LayoutPlan) -> tuple:
+    """What a rank's collectives depend on for one side (the reference's
+    ``_plan_signature``, als.py:546)."""
+    return (tuple(int(x) for x in plan.lengths),
+            tuple(int(x) for x in plan.bucket_rows),
+            plan.rows_per_shard, plan.n_shards, plan.v_rows_per_shard,
+            plan.overflow_len, plan.total_slots)
+
+
+def _crc_of(values) -> int:
+    return zlib.crc32(repr(tuple(values)).encode("ascii"))
+
+
+def _disagree(what: str, got: np.ndarray) -> None:
+    """Raise when the all-gathered rows (one per rank) differ."""
+    if not (got == got[:1]).all():
+        raise ValueError(
+            f"the gang's ranks disagree on {what}: "
+            + "; ".join(f"rank {r}: {[int(v) for v in row]}"
+                        for r, row in enumerate(got))
+            + " — every rank must run the same code on the same event "
+            "store with the same PIO_MESH_SHAPE")
+
+
+#: what :func:`_header` covers, for the error that names a disagreement
+_HEADER_WHAT = ("the plan signature's inputs (n_users, n_items, d, m, rank, "
+                "overflow length, ladder growth, params)")
+
+
+def _header(n_users: int, n_items: int, dims, params: ALSParams) -> list:
+    """The inputs every rank's plan and program depend on. The port fixes
+    the ladder growth, so the reference's PIO_ALS_LADDER_GROWTH check
+    (als.py:1092-1109) becomes a part of this signature."""
+    growth = int(np.frombuffer(np.float64(LADDER_GROWTH).tobytes(),
+                               np.int64)[0])
+    return [int(n_users), int(n_items), int(dims[0]), int(dims[1]),
+            int(params.rank), OVERFLOW_LEN, growth,
+            _crc_of(dataclasses.astuple(params))]
+
+
+def _plan_crc(plan_u: LayoutPlan, plan_i: LayoutPlan) -> list:
+    return [_crc_of(_plan_signature(plan_u) + _plan_signature(plan_i))]
+
+
+def _gang_loop(trainer, checkpoint_hook, resume: bool, fingerprint,
+               nan_guard: bool, nan_guard_stage: str,
+               timings: Optional[dict], extra: dict) -> ALSFactors:
+    """Resume, then the chunked, NaN-guarded or single-dispatch loop of a
+    slab gang with the reference's gang hooks; rank 0 writes the
+    snapshots (:class:`..workflow.checkpoint.CheckpointHook` in a gang).
+    ``timings`` receives the trainer's collective report, ``extra`` and
+    the loop's seconds and snapshots."""
+    n_iters = trainer.params.num_iterations
+    start = 0
+    if checkpoint_hook is not None and resume:
+        start = _restore(trainer, checkpoint_hook, fingerprint)
+    saves = [0, 0.0]
+
+    def save(step: int) -> None:
+        t = time.perf_counter()
+        x, y = trainer.slot_factors()
+        checkpoint_hook.save(step, {"user_factors": x, "item_factors": y,
+                                    "fingerprint": np.int64(fingerprint)})
+        saves[0] += 1
+        saves[1] += time.perf_counter() - t
+
+    chunk = (checkpoint_hook.every_n
+             if checkpoint_hook is not None and checkpoint_hook.enabled else 0)
+    t0 = time.perf_counter()
+    if nan_guard or (chunk and n_iters - start > chunk):
+        _checkpointed_loop(trainer, start, chunk, save, nan_guard,
+                           nan_guard_stage)
+    else:
+        fault_point("train.sweep")
+        trainer.iterate(n_iters - start)
+        gang.beat()
+    _sync(trainer.device)
+    if timings is not None:
+        timings.update(trainer.collective_report(), **extra,
+                       device_train_seconds=time.perf_counter() - t0,
+                       checkpoint_saves=saves[0],
+                       checkpoint_save_seconds=saves[1])
+    return trainer.factors()
+
+
+def _train_als_merged(user_idx, item_idx, rating, n_users: int, n_items: int,
+                      params: ALSParams, device="cuda", checkpoint_hook=None,
+                      resume: bool = False, timings: Optional[dict] = None,
+                      nan_guard: bool = False,
+                      nan_guard_stage: str = "algorithm[als]") -> ALSFactors:
+    """:func:`train_als` on a gang (the merged feed): every rank passes the
+    same whole triple, as every process of the reference's multi-process
+    ``train_als`` holds it (als.py:853-867). The layout is planned for the
+    ``(d, m)`` mesh of :func:`..parallel.mesh.mesh_dims`; each rank fills
+    and uploads only its data shard's slabs and holds its share of the
+    counterpart (:class:`SlabGangALS`). The resume fingerprint is the
+    single-process one (:func:`layout_fingerprint`), which every rank
+    computes from the same triple."""
+    from ..parallel.mesh import mesh_coords, mesh_dims
+
+    dims = mesh_dims()
+    di, _ = mesh_coords(dims=dims)
+    if params.binary_ratings is None:
+        params = dataclasses.replace(
+            params, binary_ratings=bool(np.all(np.asarray(rating) == 1.0)))
+    _disagree(_HEADER_WHAT, all_gather_int64s(
+        _header(n_users, n_items, dims, params)))
+    t0 = time.perf_counter()
+    plan_u, plan_i, arrs_u, arrs_i = plan_and_fill_both(
+        user_idx, item_idx, rating, int(n_users), int(n_items),
+        fill_vals=not params.binary_ratings, n_shards=dims[0],
+        m_div=dims[1], shard=di)
+    layout_s = time.perf_counter() - t0
+    _disagree("the plan signature",
+              all_gather_int64s(_plan_crc(plan_u, plan_i)))
+    trainer = SlabGangALS(plan_u, plan_i, arrs_u, arrs_i, n_users, n_items,
+                          params, dims, device=device)
+    trainer.set_slot_factors(*_fresh_init(trainer.params, plan_u, plan_i,
+                                          int(n_users), int(n_items)))
+    fingerprint = (layout_fingerprint(plan_u, plan_i, user_idx, item_idx,
+                                      rating)
+                   if checkpoint_hook is not None else None)
+    return _gang_loop(trainer, checkpoint_hook, resume, fingerprint,
+                      nan_guard, nan_guard_stage, timings,
+                      {"layout_seconds": layout_s, "feed": "merged",
+                       "local_ratings": int(len(rating))})
+
+
+def process_row_ranges(n_rows: int, dims: Optional[tuple[int, int]] = None
+                       ) -> tuple[int, int]:
+    """``[row0, row1)`` of the rows this rank owns on the data axis of the
+    ``(d, m)`` mesh (default :func:`..parallel.mesh.mesh_dims`): each rank
+    of a process-sharded train range-reads only the events whose solved-
+    side row falls in its range (one range per side). The reference's
+    rule (als.py:996) gives each process ``d / processes`` consecutive
+    shards; with one device per rank the ``m`` ranks of data row ``di``
+    share shard ``di``'s range. Logical row ids; ``row1`` may pass
+    ``n_rows`` on the last shard."""
+    from ..parallel.mesh import mesh_coords, mesh_dims
+
+    dims = dims or mesh_dims()
+    di, _ = mesh_coords(dims=dims)
+    rpl = -(-int(n_rows) // dims[0])
+    return di * rpl, (di + 1) * rpl
+
+
+def train_als_process_sharded(
+    user_slice: tuple, item_slice: tuple, n_users: int, n_items: int,
+    params: ALSParams, device: "str | torch.device" = "cuda",
+    checkpoint_hook=None, resume: bool = False, nan_guard: bool = False,
+    nan_guard_stage: str = "algorithm[als]",
+    timings: Optional[dict] = None,
+) -> ALSFactors:
+    """Gang ALS where each rank ingests ONLY its shard (the reference's
+    ``train_als_process_sharded``, als.py:1022): ``user_slice`` =
+    ``(user_idx, item_idx, rating)`` of exactly the events whose USER row
+    this rank owns (:func:`process_row_ranges` of ``n_users``),
+    ``item_slice`` the same tuple order for the ITEM rows it owns.
+
+    One fixed-size all-gather first checks that the ranks agree on what
+    the plan depends on and that every rank's rows lie in its range: a
+    rank fed other rows raises the reference's message, its peers raise
+    naming it, before any exchange whose size depends on the data. The
+    layout is a pure function of the per-row counts: the data group's
+    all-gather of each side's local counts gives every rank the identical
+    global plan, whose signature is checked once more; each rank fills
+    only its data shard. All-ones ratings are the gang's AND of the
+    ranks' verdicts. The fingerprint chains the all-gathered per-rank
+    crc32s with both count vectors (als.py:1179-1201). Factors match
+    :func:`train_als` of the union triple up to float32 summation order."""
+    from ..parallel.mesh import mesh_coords, mesh_dims, mesh_groups
+
+    dims = mesh_dims()
+    d, m = dims
+    di, _ = mesh_coords(dims=dims)
+    _, data_group = mesh_groups(dims)
+    u_rows = np.asarray(user_slice[0], np.int64)
+    i_rows = np.asarray(item_slice[1], np.int64)
+    ranges = {"user": (u_rows, int(n_users)), "item": (i_rows, int(n_items))}
+    ok = {}
+    for side, (rows, n_rows) in ranges.items():
+        lo, hi = process_row_ranges(n_rows, dims)
+        ok[side] = not rows.size or (rows.min() >= lo and rows.max() < hi)
+    local_bin = bool(np.all(np.asarray(user_slice[2]) == 1.0)
+                     and np.all(np.asarray(item_slice[2]) == 1.0))
+    head = _header(n_users, n_items, dims,
+                   dataclasses.replace(params, binary_ratings=None))
+    got = all_gather_int64s(head + [int(ok["user"]), int(ok["item"]),
+                                    int(local_bin)])
+    for side, (rows, n_rows) in ranges.items():
+        if not ok[side]:
+            lo, hi = process_row_ranges(n_rows, dims)
+            raise ValueError(
+                "sharded ingest: got rows outside this process's range "
+                f"[{lo}, {hi}) — the caller must range-read only owned "
+                f"rows (process_row_ranges); got rows in [{rows.min()}, "
+                f"{rows.max()}] (n_rows={n_rows}, p={process_index()}, "
+                f"n_local=1, d={d}; {side} side)")
+    bad = [r for r, row in enumerate(got) if not (row[-3] and row[-2])]
+    if bad:
+        raise ValueError(f"sharded ingest: rank(s) {bad} got rows outside "
+                         "their range (process_row_ranges)")
+    _disagree(_HEADER_WHAT, got[:, :len(head)])
+    if params.binary_ratings is None:
+        params = dataclasses.replace(params,
+                                     binary_ratings=bool(got[:, -1].all()))
+    binary = bool(params.binary_ratings)
+    coll = HostCollectives()
+    t0 = time.perf_counter()
+
+    def global_counts(side: str) -> np.ndarray:
+        rows, n_rows = ranges[side]
+        lo, hi = process_row_ranges(n_rows, dims)
+        local = torch.from_numpy(np.bincount(
+            rows - lo, minlength=hi - lo)[:hi - lo].astype(np.int64))
+        if d > 1:
+            local = coll.all_gather(local, data_group)
+        return local.numpy()[:n_rows]
+
+    counts_u, counts_i = global_counts("user"), global_counts("item")
+    plan_u = plan_layout(counts_u, d, m_div=m)
+    plan_i = plan_layout(counts_i, d, m_div=m)
+    _disagree("the plan signature",
+              all_gather_int64s(_plan_crc(plan_u, plan_i)))
+    arrs_u = fill_buckets(plan_u, user_slice[0], user_slice[1], user_slice[2],
+                          col_slot_map=plan_i.slot_of_row,
+                          sentinel=plan_i.total_slots, fill_vals=not binary,
+                          shard0=di, n_local_shards=1)
+    arrs_i = fill_buckets(plan_i, item_slice[1], item_slice[0], item_slice[2],
+                          col_slot_map=plan_u.slot_of_row,
+                          sentinel=plan_u.total_slots, fill_vals=not binary,
+                          shard0=di, n_local_shards=1)
+    layout_s = time.perf_counter() - t0
+    trainer = SlabGangALS(plan_u, plan_i, arrs_u, arrs_i, n_users, n_items,
+                          params, dims, device=device)
+    trainer.set_slot_factors(*_fresh_init(trainer.params, plan_u, plan_i,
+                                          int(n_users), int(n_items)))
+    fingerprint = None
+    if checkpoint_hook is not None:
+        layout_fp = zlib.crc32(plan_i.slot_of_row.tobytes(), zlib.crc32(
+            plan_u.slot_of_row.tobytes(), _LAYOUT_TAG))
+        local_fp = zlib.crc32(
+            np.asarray(user_slice[2], np.float32).tobytes(),
+            zlib.crc32(np.asarray(user_slice[1], np.int64).tobytes(),
+                       zlib.crc32(u_rows.tobytes(), layout_fp)))
+        all_fp = all_gather_int64s([local_fp]).reshape(-1)
+        fingerprint = zlib.crc32(all_fp.tobytes(), zlib.crc32(
+            np.asarray(counts_u).tobytes(),
+            zlib.crc32(np.asarray(counts_i).tobytes(), layout_fp)))
+    return _gang_loop(trainer, checkpoint_hook, resume, fingerprint,
+                      nan_guard, nan_guard_stage, timings,
+                      {"layout_seconds": layout_s, "feed": "process_sharded",
+                       "counts_allgather_bytes": coll.bytes["allgather"],
+                       "local_ratings": [int(len(user_slice[2])),
+                                         int(len(item_slice[2]))]})
+
+
 #: layout generation of the data-parallel trainer's resume fingerprint
 #: (the reference's ``_DP_LAYOUT_TAG``): a snapshot of one trainer is
 #: refused by the other even when the factor shapes coincide
@@ -650,50 +1151,6 @@ def _sum_rows_(out: torch.Tensor, rows: torch.Tensor,
         out.index_add_(0, rows, vals)
 
 
-class _GangSums:
-    """The trainer's all-reduces (SUM) over the gang's gloo group, with the
-    bytes they move and the seconds they take. Gloo reduces host memory:
-    a tensor on the card is staged through the host explicitly (the device
-    synchronized before the clock starts, so the seconds are the
-    collective's and its copies', not the gram build's)."""
-
-    def __init__(self, world: int):
-        self.world = world
-        self.bytes = 0
-        self.seconds = 0.0
-        self.calls = 0
-
-    def __call__(self, t: torch.Tensor) -> torch.Tensor:
-        if self.world <= 1:
-            return t
-        import torch.distributed as dist
-
-        _sync(t.device)
-        t0 = time.perf_counter()
-        if t.device.type == "cpu":
-            dist.all_reduce(t)
-        else:
-            host = t.cpu()
-            dist.all_reduce(host)
-            t.copy_(host)
-            _sync(t.device)
-        self.seconds += time.perf_counter() - t0
-        self.bytes += t.numel() * t.element_size()
-        self.calls += 1
-        return t
-
-
-def _gang_int64s(v: int, world: int) -> np.ndarray:
-    """All-gather one int64 per rank (rank order)."""
-    if world <= 1:
-        return np.asarray([v], np.int64)
-    import torch.distributed as dist
-
-    parts = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
-    dist.all_gather(parts, torch.tensor([v], dtype=torch.int64))
-    return np.asarray([int(p.item()) for p in parts], np.int64)
-
-
 class DataParallelALS:
     """The training state of one rank of the data-parallel trainer: this
     rank's events and the replicated (row-padded) factor matrices on
@@ -714,7 +1171,6 @@ class DataParallelALS:
     def __init__(self, user_idx, item_idx, rating, n_users: int,
                  n_items: int, params: ALSParams,
                  device: "str | torch.device" = "cuda"):
-        from ..parallel.distributed import process_index
         from ..parallel.mesh import data_axis_size, pad_rows
 
         self.device = resolve_device(device)
@@ -747,7 +1203,7 @@ class DataParallelALS:
         self.n_u_pad, self.n_i_pad = x0.shape[0], y0.shape[0]
         self.rps_u, self.rps_i = self.n_u_pad // w, self.n_i_pad // w
         self.chunk = _dp_chunk(len(u), k)
-        self.sums = _GangSums(w)
+        self.coll = HostCollectives()
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -760,15 +1216,15 @@ class DataParallelALS:
         else:
             self.gw, self.bw = None, put(r)
         # per-row gang-wide observation counts, one all-reduce each
-        cnt_u = self.sums(torch.bincount(
+        cnt_u = self.coll.all_reduce(torch.bincount(
             self.u, minlength=self.n_u_pad).to(torch.float32))
-        cnt_i = self.sums(torch.bincount(
+        cnt_i = self.coll.all_reduce(torch.bincount(
             self.i, minlength=self.n_i_pad).to(torch.float32))
         self.lam_u = put(self._lam(cnt_u.cpu().numpy()))
         self.lam_i = put(self._lam(cnt_i.cpu().numpy()))
         self.set_factors(x0, y0)
         # the per-half-step accounting starts after the set-up exchange
-        self.sums = _GangSums(w)
+        self.coll = HostCollectives()
         self.half_steps = 0
         self.gram_seconds = self.solve_seconds = 0.0
 
@@ -787,7 +1243,7 @@ class DataParallelALS:
         u, i, r = self.local
         local_fp = zlib.crc32(r.tobytes(), zlib.crc32(
             i.tobytes(), zlib.crc32(u.tobytes(), _DP_LAYOUT_TAG)))
-        all_fp = _gang_int64s(local_fp, self.world)
+        all_fp = all_gather_int64s([local_fp]).reshape(-1)
         return zlib.crc32(all_fp.tobytes(), zlib.crc32(
             np.int64(self.n_users).tobytes(),
             zlib.crc32(np.int64(self.n_items).tobytes(), _DP_LAYOUT_TAG)))
@@ -835,8 +1291,8 @@ class DataParallelALS:
         _sync(dev)
         t1 = time.perf_counter()
         # partition partials sum to the full normal equations
-        self.sums(grams)
-        self.sums(rhs)
+        self.coll.all_reduce(grams)
+        self.coll.all_reduce(rhs)
         t2 = time.perf_counter()
         lo = self.rank * rps
         a, b = grams[lo:lo + rps], rhs[lo:lo + rps]
@@ -854,7 +1310,7 @@ class DataParallelALS:
         # the other ranks' rows are 0 here: the sum is the replicated
         # factor matrix, exactly
         self.half_steps += 1
-        return self.sums(out)
+        return self.coll.all_reduce(out)
 
     def iterate(self, n: int) -> None:
         """Run ``n`` ALS iterations (user half-step, then item half-step).
@@ -883,11 +1339,7 @@ class DataParallelALS:
                 "half_steps": self.half_steps,
                 "gram_seconds_per_half_step": self.gram_seconds / n,
                 "solve_seconds_per_half_step": self.solve_seconds / n,
-                "allreduce_calls": self.sums.calls,
-                "allreduce_bytes": self.sums.bytes,
-                "allreduce_seconds": self.sums.seconds,
-                "allreduce_bytes_per_half_step": self.sums.bytes / n,
-                "allreduce_seconds_per_half_step": self.sums.seconds / n,
+                **self.coll.report(self.half_steps),
                 "solve_calls_per_iteration": self.solve_calls_per_iteration()}
 
 
@@ -917,8 +1369,6 @@ def train_als_partition_local(
     hooks. ``timings`` receives :meth:`DataParallelALS.collective_report`,
     ``device_train_seconds`` (the iterations and snapshots, the device
     synchronized) and the snapshots' count and seconds."""
-    from ..parallel.distributed import process_count
-
     if process_count() == 1 and not force_dp:
         return train_als(user_idx, item_idx, rating, n_users, n_items,
                          params, device=device,

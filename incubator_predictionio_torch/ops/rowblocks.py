@@ -215,11 +215,16 @@ class BucketArrays:
 
 def fill_buckets(plan: LayoutPlan, row: np.ndarray, col: np.ndarray,
                  val: np.ndarray, col_slot_map: np.ndarray, sentinel: int,
-                 fill_vals: bool = True) -> BucketArrays:
-    """Scatter entries into the planned slabs (every shard). ``col`` is
-    global counterpart row ids, mapped through ``col_slot_map``; each row's
-    entries keep their original order (stable), as in the reference."""
-    S = plan.n_shards
+                 fill_vals: bool = True, shard0: int = 0,
+                 n_local_shards: "int | None" = None) -> BucketArrays:
+    """Scatter entries into the planned slabs of shards ``[shard0,
+    shard0 + n_local_shards)`` (default: from ``shard0`` to the last).
+    ``row`` must hold only rows those shards own (the range-read contract
+    of a process-sharded train); ``col`` is global counterpart row ids,
+    mapped through ``col_slot_map``; each row's entries keep their
+    original order (stable), as in the reference."""
+    S = (plan.n_shards - shard0 if n_local_shards is None
+         else int(n_local_shards))
     if fill_vals:
         val = np.asarray(val, dtype=np.float32)
     n_buckets = len(plan.lengths)
@@ -242,6 +247,12 @@ def fill_buckets(plan: LayoutPlan, row: np.ndarray, col: np.ndarray,
         col64 = np.asarray(col, np.int64)
         if row64.min() < 0 or row64.max() >= plan.n_rows:
             raise ValueError("fill_buckets: row ids outside the plan")
+        s_lo, s_hi = (int(x) for x in plan.shard_of_row(
+            np.array([row64.min(), row64.max()], np.int64)))
+        if s_lo < shard0 or s_hi >= shard0 + S:
+            raise ValueError(
+                "fill_buckets: entries reference rows outside shards "
+                f"[{shard0}, {shard0 + S}) — range-read only owned rows")
         if col64.min() < 0 or col64.max() >= len(col_slot_map):
             raise ValueError(
                 "fill_buckets: column ids outside the counterpart slot map")
@@ -251,13 +262,16 @@ def fill_buckets(plan: LayoutPlan, row: np.ndarray, col: np.ndarray,
         b_r = plan.bucket_of_row
         rib = (plan.slot_of_row - shard_r * plan.rows_per_shard
                - bucket_base[b_r])
+        # (garbage for rows of other shards: the range check above keeps
+        # them unreferenced)
         prim_base = (offsets[b_r]
-                     + (shard_r * plan.bucket_rows[b_r] + rib)
+                     + ((shard_r - shard0) * plan.bucket_rows[b_r] + rib)
                      * plan.lengths[b_r])
         vc_r = plan.v_chunks_of_row
         # a row's virtual chunks are consecutive v-slots, so its first
         # vc*OV entries land contiguously at v_base + pos
-        v_base = offsets[n_buckets] + (shard_r * Rv + plan.v_base_of_row) * OV
+        v_base = (offsets[n_buckets]
+                  + ((shard_r - shard0) * Rv + plan.v_base_of_row) * OV)
 
         order = np.argsort(np.asarray(row, np.int32), kind="stable")
         rs = row64[order]
@@ -289,9 +303,15 @@ def fill_buckets(plan: LayoutPlan, row: np.ndarray, col: np.ndarray,
 
 
 def plan_and_fill_both(user_idx, item_idx, rating, n_users: int,
-                       n_items: int, fill_vals: bool = True):
-    """Plan and fill BOTH sides' slabs (one shard):
-    ``(plan_u, plan_i, arrs_u, arrs_i)``. The two sides run on two threads
+                       n_items: int, fill_vals: bool = True,
+                       n_shards: int = 1, m_div: int = 1,
+                       shard: "int | None" = None):
+    """Plan and fill BOTH sides' slabs: ``(plan_u, plan_i, arrs_u,
+    arrs_i)``, planned for ``n_shards`` data shards with rows per shard
+    divisible by ``m_div`` (the reference's :275). ``shard``: fill only
+    that shard's slabs, from the entries of the rows it owns (each side
+    filters the full triple in order, so the slabs equal that shard's
+    part of a fill of every shard). The two sides run on two threads
     (numpy's sorts and scatters release the GIL); nothing is shared but
     read-only inputs, so the results are those of a serial run."""
     counts_u = np.bincount(np.asarray(user_idx, np.int64), minlength=n_users)
@@ -302,16 +322,24 @@ def plan_and_fill_both(user_idx, item_idx, rating, n_users: int,
             futs = [pool.submit(t) for t in thunks]
             return [f.result() for f in futs]
 
-    plan_u, plan_i = run(lambda: plan_layout(counts_u),
-                         lambda: plan_layout(counts_i))
-    arrs_u, arrs_i = run(
-        lambda: fill_buckets(plan_u, user_idx, item_idx, rating,
-                             col_slot_map=plan_i.slot_of_row,
-                             sentinel=plan_i.total_slots,
-                             fill_vals=fill_vals),
-        lambda: fill_buckets(plan_i, item_idx, user_idx, rating,
-                             col_slot_map=plan_u.slot_of_row,
-                             sentinel=plan_u.total_slots,
-                             fill_vals=fill_vals),
-    )
+    plan_u, plan_i = run(lambda: plan_layout(counts_u, n_shards, m_div),
+                         lambda: plan_layout(counts_i, n_shards, m_div))
+
+    def fill(plan, row, col, cp_plan):
+        if shard is None:
+            return fill_buckets(plan, row, col, rating,
+                                col_slot_map=cp_plan.slot_of_row,
+                                sentinel=cp_plan.total_slots,
+                                fill_vals=fill_vals)
+        keep = plan.shard_of_row(np.asarray(row, np.int64)) == shard
+        return fill_buckets(plan, np.asarray(row)[keep],
+                            np.asarray(col)[keep],
+                            np.asarray(rating)[keep] if fill_vals else None,
+                            col_slot_map=cp_plan.slot_of_row,
+                            sentinel=cp_plan.total_slots,
+                            fill_vals=fill_vals, shard0=shard,
+                            n_local_shards=1)
+
+    arrs_u, arrs_i = run(lambda: fill(plan_u, user_idx, item_idx, plan_i),
+                         lambda: fill(plan_i, item_idx, user_idx, plan_u))
     return plan_u, plan_i, arrs_u, arrs_i

@@ -27,15 +27,16 @@ import atexit
 import datetime
 import logging
 import os
+import time
 from typing import Optional
 
 from ..common import envknobs
 
 log = logging.getLogger("pio.torch.distributed")
 
-__all__ = ["initialize_distributed", "is_multi_host", "process_count",
-           "process_index", "rank_device", "resolve_distributed_timeouts",
-           "shutdown_distributed"]
+__all__ = ["HostCollectives", "all_gather_int64s", "initialize_distributed",
+           "is_multi_host", "process_count", "process_index", "rank_device",
+           "resolve_distributed_timeouts", "shutdown_distributed"]
 
 
 def _group_ready() -> bool:
@@ -148,6 +149,9 @@ def shutdown_distributed() -> None:
     if _group_ready():
         import torch.distributed as dist
 
+        from . import mesh
+
+        mesh._GROUPS.clear()
         dist.destroy_process_group()
 
 
@@ -165,3 +169,102 @@ def rank_device(requested: str = "cuda") -> str:
             "device 'cuda' requested but torch.cuda.is_available() is "
             "False; pass --device cpu to train on the CPU")
     return f"cuda:{process_index() % torch.cuda.device_count()}"
+
+
+def _sync(t) -> None:
+    if t.device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(t.device)
+
+
+def _group_size(group) -> int:
+    if not _group_ready():
+        return 1
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)
+
+
+class HostCollectives:
+    """A trainer's collectives over the gang's gloo group or a subgroup of
+    it, with the bytes they move and the seconds they take, per kind.
+    Gloo works on host memory: a tensor on the card is staged through the
+    host explicitly, and the device is synchronized before the clock
+    starts, so the seconds are the collective's and its copies', not the
+    work that produced the tensor. A group of one rank (or no process
+    group) moves nothing and counts nothing."""
+
+    KINDS = ("allreduce", "allgather")
+
+    def __init__(self):
+        self.bytes = dict.fromkeys(self.KINDS, 0)
+        self.seconds = dict.fromkeys(self.KINDS, 0.0)
+        self.calls = dict.fromkeys(self.KINDS, 0)
+
+    def _count(self, kind: str, n_bytes: int, t0: float) -> None:
+        self.seconds[kind] += time.perf_counter() - t0
+        self.bytes[kind] += int(n_bytes)
+        self.calls[kind] += 1
+
+    def all_reduce(self, t, group=None):
+        """SUM ``t`` in place over ``group`` (default: the whole gang);
+        returns ``t``."""
+        if _group_size(group) <= 1:
+            return t
+        import torch.distributed as dist
+
+        _sync(t)
+        t0 = time.perf_counter()
+        if t.device.type == "cpu":
+            dist.all_reduce(t, group=group)
+        else:
+            host = t.cpu()
+            dist.all_reduce(host, group=group)
+            t.copy_(host)
+            _sync(t)
+        self._count("allreduce", t.numel() * t.element_size(), t0)
+        return t
+
+    def all_gather(self, t, group=None):
+        """The ranks' ``t`` (same shape on every rank) concatenated along
+        dim 0 in rank order, as a host tensor."""
+        n = _group_size(group)
+        if n <= 1:
+            return t.cpu()
+        import torch
+        import torch.distributed as dist
+
+        _sync(t)
+        t0 = time.perf_counter()
+        mine = t.cpu().contiguous()
+        parts = [torch.empty_like(mine) for _ in range(n)]
+        dist.all_gather(parts, mine, group=group)
+        out = torch.cat(parts)
+        self._count("allgather", out.numel() * out.element_size(), t0)
+        return out
+
+    def report(self, half_steps: int) -> dict:
+        """Totals and per-half-step figures of each kind, under the keys the
+        gang's train reports carry (``allreduce_bytes_per_half_step``,
+        ...)."""
+        n = max(int(half_steps), 1)
+        out = {}
+        for kind in self.KINDS:
+            out.update({
+                f"{kind}_calls": self.calls[kind],
+                f"{kind}_bytes": self.bytes[kind],
+                f"{kind}_seconds": self.seconds[kind],
+                f"{kind}_bytes_per_half_step": self.bytes[kind] / n,
+                f"{kind}_seconds_per_half_step": self.seconds[kind] / n})
+        return out
+
+
+def all_gather_int64s(values, group=None):
+    """All-gather a short int64 vector per rank (the same length on
+    every rank); returns a numpy [ranks, len] array in rank order."""
+    import numpy as np
+    import torch
+
+    mine = torch.as_tensor(np.asarray(values, np.int64).reshape(-1))
+    return HostCollectives().all_gather(mine[None, :], group=group).numpy()

@@ -1,13 +1,20 @@
-"""The gang's data axis.
+"""The gang's mesh: a data axis, and for the slab trainer a model axis.
 
-What the data-parallel trainer needs of
-``incubator_predictionio_tpu/parallel/mesh.py``: each rank of a gang
-drives one device, so the data axis is the gang (its size the world size),
-``PIO_MESH_SHAPE`` is parsed as there ("D" or "DxM"), and :func:`pad_rows`
-pads a row count to a multiple of the axis. The port has no model axis
-yet (the 2-D ALX layout is ROADMAP Queue 1, item 7.6): a shape that names
-one is refused by :func:`data_axis_size`, as the reference's
-partition-local trainer refuses it.
+What the gang trainers need of ``incubator_predictionio_tpu/parallel/
+mesh.py``: each rank of a gang drives one device, ``PIO_MESH_SHAPE`` is
+parsed as there ("D" or "DxM"), and :func:`pad_rows` pads a row count to a
+multiple of the axis.
+
+- The data-parallel trainer's mesh is the data axis alone (its size the
+  world size): :func:`data_axis_size` refuses a shape that names a model
+  axis, as the reference's ``_make_dp_train_fn`` does.
+- The slab trainer's mesh is ``(d, m)`` with ``d·m`` = the world size
+  (:func:`mesh_dims`): rank ``r`` sits at ``(r // m, r % m)``
+  (:func:`mesh_coords`), the reference's row-major device order of
+  ``mesh_from_devices``. :func:`mesh_groups` gives this rank's two gloo
+  subgroups: the ``m`` ranks of its data row (the model group, over which
+  the 2-D ALX layout sums its partial grams) and the ``d`` ranks of its
+  model column (the data group).
 """
 
 from __future__ import annotations
@@ -17,10 +24,10 @@ from typing import Optional
 import numpy as np
 
 from ..common import envknobs
-from .distributed import process_count
+from .distributed import process_count, process_index
 
-__all__ = ["data_axis_size", "local_device_count", "mesh_shape_from_env",
-           "pad_rows"]
+__all__ = ["data_axis_size", "local_device_count", "mesh_coords",
+           "mesh_dims", "mesh_groups", "mesh_shape_from_env", "pad_rows"]
 
 
 def local_device_count() -> int:
@@ -60,6 +67,68 @@ def data_axis_size() -> int:
             f"PIO_MESH_SHAPE={shape}: the data axis is the gang, one device "
             f"per rank ({d} here)")
     return d
+
+
+def mesh_dims(world: Optional[int] = None) -> tuple[int, int]:
+    """``(d, m)`` of the slab trainer's mesh over ``world`` ranks (default:
+    this gang's), one device each: ``(world, 1)`` without
+    ``PIO_MESH_SHAPE``; a shape whose product is not the world raises."""
+    world = (process_count() if world is None else int(world)) \
+        * local_device_count()
+    shape = mesh_shape_from_env()
+    if shape is None:
+        return world, 1
+    d, m = (shape + (1,))[:2]
+    if d * m != world:
+        raise ValueError(
+            f"PIO_MESH_SHAPE={'x'.join(map(str, shape))} names {d * m} "
+            f"devices but the gang has {world} (one device per rank): "
+            "the shape's product must be the number of workers")
+    return d, m
+
+
+def mesh_coords(rank: Optional[int] = None,
+                dims: Optional[tuple[int, int]] = None) -> tuple[int, int]:
+    """``(di, mi)`` of ``rank`` (default: this process's) on a ``(d, m)``
+    mesh: row-major, as the reference orders its devices."""
+    rank = process_index() if rank is None else int(rank)
+    m = (dims or mesh_dims())[1]
+    return rank // m, rank % m
+
+
+#: (d, m) → (model group, data group) of this process: gloo subgroups are
+#: made once per process and shape (every rank makes every group)
+_GROUPS: dict = {}
+
+
+def mesh_groups(dims: tuple[int, int]) -> tuple:
+    """This rank's ``(model_group, data_group)`` on a ``(d, m)`` mesh: the
+    ranks of its data row and of its model column, as gloo subgroups
+    (``None`` for a group of one rank: nothing to exchange). Collective:
+    every rank makes every group, rows first, in the same order, or the
+    groups' rendezvous hangs."""
+    d, m = dims
+    if process_count() <= 1:
+        return None, None
+    if dims not in _GROUPS:
+        import torch.distributed as dist
+
+        di, mi = mesh_coords(dims=dims)
+        model = data = None
+        if m > 1:
+            for row in range(d):
+                g = dist.new_group([row * m + j for j in range(m)],
+                                   backend="gloo")
+                if row == di:
+                    model = g
+        if d > 1:
+            for col in range(m):
+                g = dist.new_group([j * m + col for j in range(d)],
+                                   backend="gloo")
+                if col == mi:
+                    data = g
+        _GROUPS[dims] = (model, data)
+    return _GROUPS[dims]
 
 
 def pad_rows(x: np.ndarray, multiple: int, fill=0) -> np.ndarray:

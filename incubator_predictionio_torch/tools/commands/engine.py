@@ -24,10 +24,13 @@ reference :78-126, :184-253) trains as a supervised gang: the supervisor of
 (``--device`` included) as the ranks of a gloo process group, each on the
 card (``cuda:{rank % cards}``: ranks share a card when there are more
 ranks than cards), each reading only its own partitions of the JSONL event
-log (``--feed partition``, the gang default), restarting the whole gang
-from the latest checkpoint when a worker dies or stalls, and draining it
-on SIGTERM. ``--feed merged`` with N > 1 is refused (ROADMAP Queue 1,
-item 7.1).
+log (``--feed partition``, the gang default) or the whole merged view
+(``--feed merged``, and any store that is not the JSONL log: the
+multi-process slab loop, on the 2-D ALX layout with ``PIO_MESH_SHAPE=DxM``
+and ``--num-workers D·M``), restarting the whole gang from the latest
+checkpoint when a worker dies or stalls, and draining it on SIGTERM. A
+template that does not train ALS, or a mesh shape that is not the gang,
+is refused before anything spawns.
 """
 
 from __future__ import annotations
@@ -151,8 +154,9 @@ def train_cmd(args: list[str]) -> int:
                    help="the gang's data plane: 'partition' = each worker "
                         "reads only its event-log partitions, id maps "
                         "all-gathered once (the gang default); 'merged' = "
-                        "the merged view, in one process only (default "
-                        "$PIO_TRAIN_FEED)")
+                        "every worker reads the merged view and the gang "
+                        "trains on the multi-process slab loop (2-D with "
+                        "PIO_MESH_SHAPE=DxM) (default $PIO_TRAIN_FEED)")
     ns = p.parse_args(args)
     if (ns.events is None) != (ns.model_out is None):
         p.error("--events and --model-out go together (the file form)")
@@ -300,9 +304,22 @@ def _train_supervised(args: list[str], ns, num_workers: int) -> int:
     from ...parallel.supervisor import (
         COMPLETED, DRAINED, GangConfig, Supervisor,
     )
+    from ...parallel.mesh import mesh_dims
     from ...workflow import train_feed
+    from ...workflow.json_extractor import DEFAULT_FACTORY
 
-    err = train_feed.gang_feed_error(Storage.instance(), num_workers)
+    try:
+        engine_json = _engine_json(ns)
+        d, m = mesh_dims(num_workers)
+        err = train_feed.gang_template_error(
+            engine_json.get("engineFactory") or DEFAULT_FACTORY, num_workers)
+        if err is None and m > 1 and train_feed.partition_feed_active(
+                Storage.instance()):
+            err = (f"PIO_MESH_SHAPE={d}x{m}: the 2-D layout is the slab "
+                   "gang's (--feed merged); the partition feed's "
+                   "data-parallel trainer needs a 1-D data mesh")
+    except (OSError, ValueError) as e:
+        err = str(e)
     if err is not None:
         print(f"[error] {err}", file=sys.stderr)
         return 1
@@ -313,9 +330,6 @@ def _train_supervised(args: list[str], ns, num_workers: int) -> int:
     gang_id = None
     if ns.resume:
         from ...workflow.checkpoint import find_resumable_instance
-        from ...workflow.json_extractor import DEFAULT_FACTORY
-
-        engine_json = _engine_json(ns)
 
         def params_of(key):
             block = engine_json.get(key) or {}

@@ -51,7 +51,7 @@ from ..data.storage.base import EngineInstance
 from ..data.storage.event import new_event_id
 from ..common import envknobs
 from ..parallel import supervisor as gang
-from . import model_artifact
+from . import model_artifact, train_feed
 from .checkpoint import (
     CheckpointHook, CheckpointIncompatibleError, find_resumable_instance,
     instance_checkpoint_dir,
@@ -209,18 +209,22 @@ def _persist_foldin_anchor(storage, anchor, ctx, engine_factory_name,
 
 def _require_gang_capable(engine: Engine, engine_params: EngineParams,
                           world: int) -> None:
-    """A gang of ``world`` > 1 trains only templates whose data source reads
-    partition-local (the Recommendation and Similar-Product templates);
-    every rank refuses alike before any collective."""
+    """A gang of ``world`` > 1 trains only templates whose algorithms train
+    through ``ops.als`` (``Algorithm.slab_gang``): the slab gang on the
+    merged view, the data-parallel trainer on a partition-local triple.
+    Every rank refuses alike, before any collective; the CLI refuses the
+    port's own other templates before it spawns
+    (``train_feed.gang_template_error``)."""
     if world <= 1:
         return
-    ds = engine.make_components(engine_params)[0]
-    if not getattr(ds, "partition_feed", False):
+    ds, _, algos, _ = engine.make_components(engine_params)
+    if not all(getattr(a, "slab_gang", False) for _, a in algos):
         raise NotImplementedError(
-            f"{type(ds).__name__} has no partition-local read: gang "
+            f"{type(ds).__name__} / "
+            f"{', '.join(type(a).__name__ for _, a in algos)}: gang "
             "training covers the ALS templates (Recommendation, "
-            "Similar-Product); the other templates' process-local trainers "
-            "are ROADMAP Queue 1, items 7.2-7.3")
+            "Similar-Product, E-Commerce); the other templates' "
+            f"process-local trainers are {train_feed.OTHER_TEMPLATES_ITEM}")
 
 
 def _run_train_follower(engine, engine_params, ctx, wp, gang_id: str) -> str:

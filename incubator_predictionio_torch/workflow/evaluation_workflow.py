@@ -10,7 +10,7 @@ or EVALABORTED when a candidate raises (the error propagates).
 ``parallelism`` > 1 runs up to min(parallelism, cards, candidates)
 candidates at once, each on a card of its own for its whole run (a
 thread per card). A one-card host, and a run on the CPU, evaluate the
-candidates one after another.
+candidates one after another; a process of a gang refuses it.
 """
 
 from __future__ import annotations
@@ -40,7 +40,18 @@ def _utcnow():
 
 def candidate_devices(ctx: WorkflowContext, parallelism: int,
                       n_candidates: int) -> list[torch.device]:
-    """The devices the candidates run on: one per worker."""
+    """The devices the candidates run on: one per worker. Parallel
+    candidates are refused in a process of a gang, as in the reference
+    (evaluation_workflow.py:49-54)."""
+    if parallelism > 1:
+        from ..parallel.distributed import process_count
+
+        if process_count() > 1:
+            raise ValueError(
+                "--parallel-candidates requires a single-controller run: "
+                "per-candidate single-device meshes would hand workers "
+                "devices owned by other processes (their collectives would "
+                "hang). Run the sweep sequentially on multi-host.")
     if ctx.device.type != "cuda" or parallelism <= 1:
         return [ctx.device]
     n = max(1, min(parallelism, torch.cuda.device_count(), n_candidates))

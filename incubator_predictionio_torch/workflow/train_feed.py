@@ -22,12 +22,13 @@ The mapped partition-local triple then trains through
 ``ops.als.train_als_partition_local`` (per-row normal equations
 all-reduced, factor row blocks solved per rank).
 
-A gang reads only this way: ``--feed merged`` with more than one worker,
-or a gang on an event store that is not the JSONL log, raises and names
-:data:`MERGED_GANG_ITEM` (the reference runs every worker over the whole
-log on its multi-process slab loop there). One process keeps the
-reference's rule: without the knob, or on another store, it reads the
-merged view.
+With ``--feed merged``, and on an event store that is not the JSONL log
+(the reference's warning, then the merged read), every worker reads the
+whole merged view and the gang trains on the multi-process slab loop
+(``ops.als.train_als`` in a gang). Which templates a gang may run is
+:func:`gang_template_error`'s rule: the ALS templates, whose algorithms
+train through ``train_als``; the other templates' process-local trainers
+are :data:`OTHER_TEMPLATES_ITEM`.
 """
 
 from __future__ import annotations
@@ -45,14 +46,18 @@ from ..data.bimap import BiMap
 log = logging.getLogger("pio.torch.trainfeed")
 
 __all__ = [
-    "MERGED_GANG_ITEM", "feed_identity", "feed_mode", "gang_feed_error",
-    "open_feed", "partition_feed_active", "partition_properties",
-    "partition_ratings",
+    "GANG_TEMPLATES", "OTHER_TEMPLATES_ITEM", "feed_identity", "feed_mode",
+    "gang_template_error", "open_feed", "partition_feed_active",
+    "partition_properties", "partition_ratings",
 ]
 
-#: where the merged feed of a multi-process gang waits to be ported
-MERGED_GANG_ITEM = ("ROADMAP Queue 1, item 7.1 (the merged-feed "
-                    "multi-process slab loop)")
+#: where the gang trainers of the templates that do not train ALS wait to
+#: be ported
+OTHER_TEMPLATES_ITEM = "ROADMAP Queue 1, items 7.2-7.3"
+#: the port's templates a gang trains (their algorithms train through
+#: ``ops.als.train_als``): modules of ``incubator_predictionio_torch.models``
+GANG_TEMPLATES = ("recommendation", "similar_product", "ecommerce")
+_MODELS = "incubator_predictionio_torch.models."
 
 _TIME_ABSENT = np.iinfo(np.int64).min
 
@@ -79,40 +84,37 @@ def feed_identity() -> tuple[int, int]:
     return w, n
 
 
-def gang_feed_error(storage, num_workers: int) -> Optional[str]:
-    """Why a gang of ``num_workers`` cannot train off this store with the
-    resolved feed, or None. A pure function of the environment and the
-    storage config, so the CLI refuses before it spawns and every worker
-    refuses alike."""
-    if num_workers <= 1:
+def gang_template_error(engine_factory: str, num_workers: int
+                        ) -> Optional[str]:
+    """Why a gang of ``num_workers`` cannot train ``engine_factory``, or
+    None. Decided from the factory's dotted path alone (no import: the CLI
+    asks before it spawns, and the supervisor never imports torch): a
+    template of the port's own ``models`` package that does not train ALS
+    is refused; a user engine's factory is left to the workers, whose
+    ``core_workflow`` check reads its components."""
+    if num_workers <= 1 or not engine_factory.startswith(_MODELS):
         return None
-    if feed_mode() != "partition":
-        return (f"--feed merged with --num-workers {num_workers}: a gang "
-                "trains off the partitioned event log only; every worker "
-                f"over the whole log is {MERGED_GANG_ITEM}")
-    le = storage.get_l_events()
-    if getattr(le, "events_dir", None) is None:
-        return (f"the event store ({type(le).__name__}) is not the JSONL "
-                f"log: a gang of {num_workers} has no partitions to feed "
-                f"from, and the merged read of a gang is {MERGED_GANG_ITEM}")
-    return None
+    module = engine_factory[len(_MODELS):].split(".")[0]
+    if module in GANG_TEMPLATES:
+        return None
+    return (f"{engine_factory} does not train through ALS: gang training "
+            "covers the ALS templates (Recommendation, Similar-Product, "
+            "E-Commerce); the other templates' process-local trainers are "
+            f"{OTHER_TEMPLATES_ITEM}")
 
 
 def partition_feed_active(storage) -> bool:
-    """Whether training reads feed partition-local: the knob says so AND
-    the event store is the JSONL log. A gang for which that does not hold
-    raises (:func:`gang_feed_error`); one process falls back to the merged
-    read, warned, as in the reference."""
-    _, n = feed_identity()
-    err = gang_feed_error(storage, n)
-    if err is not None:
-        raise NotImplementedError(err)
+    """Whether training reads feed partition-local: True only when the
+    knob says so AND the event store is the JSONL log (anything else has
+    no shard files: the merged read is all there is, warned, as in the
+    reference). A pure function of the environment and the storage
+    config, so every rank of a gang answers alike."""
     if feed_mode() != "partition":
         return False
     le = storage.get_l_events()
     if getattr(le, "events_dir", None) is None:
-        log.warning("PIO_TRAIN_FEED=partition but the event store (%s) is "
-                    "not the JSONL log; reading the merged view",
+        log.warning("PIO_TRAIN_FEED=partition but the event backend (%s) is "
+                    "not the JSONL log; falling back to the merged read",
                     type(le).__name__)
         return False
     return True

@@ -259,22 +259,35 @@ def test_property_merge_rule_matches_reference():
 
 
 def test_gang_feed_guards(logs, monkeypatch, caplog):
-    port, _, _ = logs
-    monkeypatch.setenv("PIO_TRAIN_FEED", "merged")
-    err = train_feed.gang_feed_error(port, 2)
-    assert "item 7.1" in err and "--feed merged" in err
-    assert train_feed.gang_feed_error(port, 1) is None
-    _as_gang_worker(monkeypatch, 1, 2)
-    with pytest.raises(NotImplementedError, match="item 7.1"):
-        train_feed.partition_feed_active(port)
-    _as_gang_worker(monkeypatch, 0, 1)
-    assert train_feed.partition_feed_active(port) is False
-    monkeypatch.setenv("PIO_TRAIN_FEED", "partition")
-    assert train_feed.partition_feed_active(port) is True
-    # a store without a JSONL log: a gang refuses, one process reads merged
+    """The feed rule of a gang as the reference's: the merged feed reads
+    the merged view in every worker (the slab gang), the partition feed
+    reads partitions on the JSONL log and falls back to the merged read,
+    warned, on any other store; which templates a gang may run is decided
+    from the factory's path before anything spawns."""
+    port, ref, _ = logs
     mem = Storage({"PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
                    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM",
                    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
                    "PIO_STORAGE_SOURCES_MEM_TYPE": "MEMORY"})
-    assert "item 7.1" in train_feed.gang_feed_error(mem, 2)
-    assert train_feed.partition_feed_active(mem) is False
+    for world in (1, 2):
+        _as_gang_worker(monkeypatch, world - 1, world)
+        monkeypatch.setenv("PIO_TRAIN_FEED", "merged")
+        assert train_feed.partition_feed_active(port) is False
+        assert train_feed.partition_feed_active(mem) is False
+        monkeypatch.setenv("PIO_TRAIN_FEED", "partition")
+        assert train_feed.partition_feed_active(port) is True
+        assert ref_feed.partition_feed_active(ref) is True
+        caplog.clear()
+        assert train_feed.partition_feed_active(mem) is False
+        assert "falling back to the merged read" in caplog.text
+    models = "incubator_predictionio_torch.models."
+    for name in ("recommendation.RecommendationEngine",
+                 "similar_product.SimilarProductEngine",
+                 "ecommerce.ECommerceEngine"):
+        assert train_feed.gang_template_error(models + name, 2) is None
+    err = train_feed.gang_template_error(
+        models + "classification.ClassificationEngine", 2)
+    assert "items 7.2-7.3" in err
+    assert train_feed.gang_template_error(
+        models + "classification.ClassificationEngine", 1) is None
+    assert train_feed.gang_template_error("my_engine.Factory", 2) is None

@@ -18,7 +18,8 @@ whose answers equal a single server's on the same persisted model; so do
 host-sharded serving (``PIO_SERVE_SHARD_ITEMS``: the ALS catalog and the
 UR's indicators) and the front and both workers of ``eventserver
 --workers 2``, and the supervisor and both gloo ranks of ``train
---num-workers 2`` off a partitioned JSONL log.
+--num-workers 2`` off a partitioned JSONL log and with ``--feed merged``
+(the slab gang).
 The same holds for the E-Commerce template and the evaluations (the
 ``eval`` and ``dashboard`` verbs, and the vanilla copy's evaluation from
 its engine directory), and for the Classification and Text-Classification
@@ -870,6 +871,18 @@ def test_gang_train_in_processes_without_jax(tmp_path):
     """``train --num-workers 2 --device cpu`` off a partitioned JSONL log:
     the supervisor and both gang ranks (a gloo process group) load no JAX
     (each reports its modules at exit), and the gang completes."""
+    _gang_train_without_jax(tmp_path, [])
+
+
+def test_merged_gang_train_in_processes_without_jax(tmp_path):
+    """``train --num-workers 2 --feed merged --device cpu``: the slab gang
+    (``ops.als`` ``SlabGangALS``, ``parallel.mesh`` groups,
+    ``parallel.distributed`` ``HostCollectives``) — the supervisor and
+    both ranks load no JAX, and the gang completes."""
+    _gang_train_without_jax(tmp_path, ["--feed", "merged"])
+
+
+def _gang_train_without_jax(tmp_path, extra: list) -> None:
     import json
 
     from incubator_predictionio_torch.data.storage import App, Storage
@@ -919,7 +932,7 @@ def test_gang_train_in_processes_without_jax(tmp_path):
                PIO_WORKER_HEARTBEAT_MS="100", PIO_SUPERVISOR_POLL_MS="25")
     out = subprocess.run(
         [sys.executable, "-m", "incubator_predictionio_torch.tools.console",
-         "train", "--num-workers", "2", "--device", "cpu"], env=env,
+         "train", "--num-workers", "2", "--device", "cpu", *extra], env=env,
         cwd=str(tmp_path), capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert json.loads(out.stdout.strip().splitlines()[-1])["state"] == \
