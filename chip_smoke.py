@@ -52,7 +52,7 @@ Phases (any failure exits non-zero; nothing is caught):
    Similar-Product engine, 20 item categories from $set events; persist →
    restore → ≥ 50 filtered POST /queries.json held to a host cosine top-k.
 10. pio_workflow: the pio verbs on an SQLite store at ML-1M (its first
-   50,000 events, cut for the script's time; app new →
+   25,000 events, cut for the script's time; app new →
    import → 2,000 live events through the event server → train → deploy
    → queries → a corrupted blob walked back past).
 11. codec_vs_plain: the event codec (native/src/event_codec.cc, built with
@@ -108,7 +108,7 @@ Phases (any failure exits non-zero; nothing is caught):
    (2, 2) mesh of four ranks (this script re-invoked as each rank), each
    range-reading only its rows; factors within 2e-4 of train_als of the
    same triple in this process, warp launches = the plan's.
-13. pio_workflow_jsonl_ml20m: the first 1,250,000 of the ML-20M ratings
+13. pio_workflow_jsonl_ml20m: the first 625,000 of the ML-20M ratings
    as the log (byte for byte insert_batch's lines; cut from 20,000,263
    for the script's time, ``reduced``) → eventlog compact → the read held
    exactly to the generated arrays → train at rank 32, 10 iterations
@@ -144,7 +144,7 @@ Phases (any failure exits non-zero; nothing is caught):
 15. similar_product (phase 9 above, run here).
 16. ecommerce_jsonl: bench_templates.py's config 6 (100,000 users ×
    20,000 items × 5,000,000 view/buy events, 10 % buys, 20 categories;
-   its first 625,000 events, cut for the script's time)
+   its first 312,500 events, cut for the script's time)
    written as an uncompacted JSONL log → pio train with the E-Commerce
    template's engine.json (rank 32, 10 iterations; warp launches =
    implied) → pio eventserver + pio deploy → 60 queries → a $set of
@@ -153,7 +153,7 @@ Phases (any failure exits non-zero; nothing is caught):
    computed from the generated arrays; query latency split into the
    LEventStore reads, the top-k and the rest.
 17. pio_eval: pio eval on the ML-100K shape as one JSONL app (the first
-   25,000 of its ratings and 250 views, cut for the script's time):
+   12,500 of its ratings and 125 views, cut for the script's time):
    RecommendationEvaluation + ParamsList and ECommerceEvaluation +
    ECommerceParamsList (4 candidates × 3 folds each) on the card (warp
    launches = the folds' implied count), the E-Commerce sweep again on
@@ -169,6 +169,16 @@ Phases (any failure exits non-zero; nothing is caught):
    == CPU bit for bit, and LR (regParam 0.01, 100 iterations) card vs CPU: final loss
    within 1e-5 relative, the same argmax wherever the top two logits
    differ by more than 1e-3; iterations, loss evaluations and host syncs.
+18a. classification_gang: phase 18's events (byte for byte) as two
+   partitions (.p0, .p1) of a new store → pio train --num-workers 2 of
+   the NB engine on the partition feed (each rank replays its own
+   partition, one gloo all-reduce of the statistics) → the persisted
+   model equal to phase 18's bit for bit → pio deploy of it, 20 queries
+   held to the host NB; pio train --num-workers 2 --feed merged of the LR
+   engine on phase 18's log (each rank's row block, the loss and gradient
+   all-reduced at every evaluation) held to the single-process card LR by
+   the rule of phase 18; each rank's read, statistics, all-reduce and
+   L-BFGS seconds and bytes.
 19. text_classification_jsonl: bench_templates.py's config 4 (18,846
    documents, 120-200 tokens over 3,000 words, 20 classes) as documents
    events → pio train (numFeatures 4096, nb, lambda 1.0) → the model
@@ -177,6 +187,21 @@ Phases (any failure exits non-zero; nothing is caught):
    to the Python loop, the COO statistics card == CPU bit for bit, and
    TextLRAlgorithm's L-BFGS card vs CPU under the rule of phase 18.
    Neither template launches a solve kernel (their paths are read as 0).
+19a. text_classification_gang: pio train --num-workers 2 on phase 19's
+   log (every rank reads the merged corpus and fits the same vectorizer,
+   scatters its block of documents, one all-reduce of the [C·D] sums):
+   the persisted model equal to phase 19's bit for bit.
+19b. linear_streams: in process, the streamed input pipeline: config 2 at
+   its full 2,000,000 × 4 × 3 through Naive Bayes under PIO_PIPELINE=auto
+   (2 chunks) and on (chunks of 250,000), each equal to the single-shot
+   statistics bit for bit, and LR (regParam 0.01, 100 iterations) on the
+   streamed matrix equal to LR on the single-shot upload bit for bit;
+   config 4's 18,846 documents through TextPreparator + TextNBAlgorithm
+   under auto with chunk_docs 2,048, equal to the one-shot prepare + train
+   bit for bit; each run's stage seconds, wall, chunks, in-flight chunks,
+   overlap efficiency and the ring's peak device bytes (at most depth + 1
+   chunks).
+   None of 18a–19b launches a solve kernel (their paths are read as 0).
 20. universal_recommender: bench_templates.py's config 5 (100,000 users ×
    20,000 items, 2,000,000 buys + 8,000,000 views, seed 4) through the
    Universal Recommender's URAlgorithm.train on the card (the fused CCO
@@ -204,7 +229,7 @@ Phases (any failure exits non-zero; nothing is caught):
    sampled count rows exact, the top-k rule); the first 100,000 buys
    through pio train → pio deploy → 30 basket queries held to the host
    scorer; pio eval of ComplementaryEvaluation + ComplementaryParamsList
-   on ≈ 1,000 basket buys on the card and on the CPU (scores within 0.02,
+   on ≈ 500 basket buys on the card and on the CPU (scores within 0.02,
    the same best where the top two differ by more than 0.05). Neither
    template launches a solve kernel.
 23. train_rank128: the main path's ratings at rank 128 through the same
@@ -1572,8 +1597,9 @@ ML1M = (6_040, 3_706, 1_000_209)  # bench.py SCALES["ml1m"]
 #: new users (10 events each) and new items
 LIVE = (1_000, 20, 200, 50)
 #: events the SQLite pio_workflow phase imports (of ML-1M's 1,000,209;
-#: 100,000 until the slab-gang phases needed the time)
-SQLITE_IMPORT = 50_000
+#: 100,000 until the slab-gang phases needed the time, 50,000 until the
+#: linear gang and stream phases did)
+SQLITE_IMPORT = 25_000
 #: events the JSONL pio_workflow phase imports (of ML-1M's 1,000,209; all
 #: of them until the partitioned event server's phase needed the time,
 #: 300,000 until the slab-gang phases did)
@@ -1898,8 +1924,9 @@ CREATED_ISO = "2024-06-01T00:00:00.000Z"
 #: classification_jsonl alone on one H100 host), and to 2,500,000 when the
 #: host-sharded and partitioned-ingest phases took the script to 1,177 s
 #: on a slow host (the phase 111 s there, 44 s of it the compaction), and
-#: to 1,250,000 when the slab-gang phases needed the time
-ML20M_LOG_EVENTS = 1_250_000
+#: to 1,250,000 when the slab-gang phases needed the time, and to 625,000
+#: when the linear gang and stream phases did
+ML20M_LOG_EVENTS = 625_000
 ML20M_QUERIES = 20
 
 
@@ -2441,7 +2468,9 @@ def phase_pio_workflow_jsonl_ml20m(workdir: str, ratings) -> None:
 
 #: queries of engine_server_load: one client's, and per client at 8 and at
 #: 32 keep-alive clients; pio batchpredict's
-SERVE_QUERIES, CLIENT_QUERIES, BATCHPREDICT_QUERIES = 200, 100, 10_000
+#: CLIENT_QUERIES: each load client's queries (100 until the linear gang
+#: and stream phases needed the time)
+SERVE_QUERIES, CLIENT_QUERIES, BATCHPREDICT_QUERIES = 200, 50, 10_000
 #: clients in flight at the SIGTERM of engine_server_load
 DRAIN_CLIENTS = 16
 
@@ -2616,7 +2645,7 @@ def _items(res: dict) -> list:
 def phase_engine_server_load(env: dict, cwd: str, instance_id: str,
                              stored: dict, want: dict) -> dict:
     """The engine server on the ML-20M-shaped store (pio_workflow_jsonl_ml20m's
-    1,250,000 events, rank 32): pio deploy --probe-latency (the probe's
+    625,000 events, rank 32): pio deploy --probe-latency (the probe's
     split from /status), one keep-alive client × SERVE_QUERIES, then 8 and
     32 clients without and with micro-batching (--batch-window-ms 2
     --max-batch 64), the result cache (hits and misses), a 504 deadline,
@@ -4054,8 +4083,9 @@ def phase_engine_server_tenants(workdir: str) -> None:
 ECOMMERCE = (100_000, 20_000, 5_000_000)
 #: the first events of config 6 the phase writes: cut from 5,000,000 for
 #: the script's time, to 2,500,000, then (with the gang phases) 1,250,000,
-#: then (with the slab-gang phases) 625,000
-ECOMMERCE_LOG_EVENTS = 625_000
+#: then (with the slab-gang phases) 625,000, then (with the linear gang and
+#: stream phases) 312,500: the query users are drawn from the log's
+ECOMMERCE_LOG_EVENTS = 312_500
 ECOMMERCE_CATEGORIES = 20
 ECOMMERCE_BUY_SHARE = 0.1
 #: queries before and after the constraint/unavailableItems $set
@@ -4304,7 +4334,7 @@ def _split(client_ms: list, records: list, parts: dict) -> dict:
 
 def phase_ecommerce_jsonl(workdir: str) -> None:
     """bench_templates.py config 6 through the E-Commerce template and the
-    verbs, on a JSONL log: the first ECOMMERCE_LOG_EVENTS (625,000 of
+    verbs, on a JSONL log: the first ECOMMERCE_LOG_EVENTS (312,500 of
     5,000,000) view/buy events (100,000 users × 20,000 items, 10 % buys)
     and one category $set per item written as
     the log itself (not compacted: the train and the serve-time reads
@@ -4316,7 +4346,7 @@ def phase_ecommerce_jsonl(workdir: str) -> None:
     server → 12 more queries; every answer held to a host top-k with the
     exclusions computed from the generated arrays. Query latency split
     into the LEventStore reads, the top-k and the rest."""
-    n_users, n_items, _ = ECOMMERCE
+    _, n_items, _ = ECOMMERCE
     nnz = ECOMMERCE_LOG_EVENTS
     u, i, buy, times, cats = _ecommerce_events()
     cwd = tempfile.mkdtemp(dir=workdir)
@@ -4375,7 +4405,10 @@ def phase_ecommerce_jsonl(workdir: str) -> None:
                             "users": range(nu), "items": range(ni)}, params)
 
     n_before, n_after = ECOMMERCE_QUERIES
-    qusers = np.random.default_rng(64).choice(n_users, n_before + n_after,
+    # the query users have events in the log (not every one of the
+    # 100,000 does in its first ECOMMERCE_LOG_EVENTS)
+    qusers = np.random.default_rng(64).choice(np.unique(u),
+                                              n_before + n_after,
                                               replace=False)
     seen = _latest_items(u, i, times, qusers)
     head = 2_000
@@ -4462,12 +4495,13 @@ def phase_ecommerce_jsonl(workdir: str) -> None:
 ML100K_SEED = 11
 #: the Recommendation sweep's rate events: the first EVAL_RATES of
 #: ML-100K's ratings (all 100,000 until the gang phases needed the time,
-#: 50,000 until the slab-gang phases did)
-EVAL_RATES = 25_000
+#: 50,000 until the slab-gang phases did, 25,000 until the linear gang and
+#: stream phases did)
+EVAL_RATES = 12_500
 #: the E-Commerce sweep's events: view events of the first EVAL_VIEWS
 #: ML-100K pairs (see phase_pio_eval for the cut; 500 until the gang
-#: phases needed the time)
-EVAL_VIEWS = 250
+#: phases needed the time, 250 until the linear gang and stream phases did)
+EVAL_VIEWS = 125
 EVAL_MODULES = {
     "recommendation": (
         "incubator_predictionio_torch.models.recommendation_eval."
@@ -4632,11 +4666,12 @@ LR_LOSS_RTOL, LR_MARGIN = 1e-5, 1e-3
 LINEAR_QUERIES = 60
 
 
-def _classification_data() -> tuple:
+def _classification_data(n: int = 0) -> tuple:
     """bench_classification's draws: Poisson attributes around seeded
-    class centres (default_rng(1))."""
+    class centres (default_rng(1)), ``n`` entities (default
+    CLASSIFICATION_ENTITIES)."""
     _, d, c = CLASSIFICATION
-    n = CLASSIFICATION_ENTITIES
+    n = n or CLASSIFICATION_ENTITIES
     rng = np.random.default_rng(1)
     centers = rng.random((c, d)) * 3 + 0.5
     y = rng.integers(0, c, n).astype(np.int32)
@@ -4811,7 +4846,7 @@ def _op_times(fn, n_bytes: int) -> dict:
             "bound_ms": n_bytes / bw * 1e3, "bound_by": "bytes"}
 
 
-def phase_classification_jsonl(workdir: str) -> None:
+def phase_classification_jsonl(workdir: str) -> dict:
     """bench_templates.py config 2 through the Classification template and
     the verbs, on a JSONL log: CLASSIFICATION_ENTITIES ``$set`` events
     (user u<n>,
@@ -4822,7 +4857,9 @@ def phase_classification_jsonl(workdir: str) -> None:
     deploy → 60 queries held to that host NB. In process, on the same
     training data: the NB statistics on the card equal the CPU's bit for
     bit, and LR (regParam 0.01, 100 iterations) on the card against the
-    CPU (_lr_card_vs_cpu). Neither solve kernel launches."""
+    CPU (_lr_card_vs_cpu). Neither solve kernel launches. Returns the
+    store, the arrays and the models classification_gang holds its gangs
+    to (it removes the phase's directory)."""
     from incubator_predictionio_torch.models import classification
     from incubator_predictionio_torch.ops.linear import (
         nb_model_from_counts, nb_stats,
@@ -4913,10 +4950,12 @@ def phase_classification_jsonl(workdir: str) -> None:
          lr=lr, queries=len(queries), query_ms=_percentiles(query_ms[1:]),
          host_nb_accuracy_on_training_rows=correct / len(qrows),
          kernel_launches=launched)
-    shutil.rmtree(cwd)
+    return {"cwd": cwd, "env": env, "x": x, "y": y, "times": times,
+            "attributes": attributes, "host": host, "stored": stored,
+            "lr": lr, "trained": trained, "smoothing": smoothing}
 
 
-def phase_text_classification_jsonl(workdir: str) -> None:
+def phase_text_classification_jsonl(workdir: str) -> dict:
     """bench_templates.py config 4 through the Text-Classification template
     and the verbs, on a JSONL log: 18,846 ``documents`` events (120-200
     tokens over 3,000 words, 20 classes) → pio train (the template's
@@ -4926,7 +4965,9 @@ def phase_text_classification_jsonl(workdir: str) -> None:
     codec's tokenize timed, the COO statistics on the card equal the
     CPU's bit for bit, and TextLRAlgorithm's fit (regParam 0.01, 100
     iterations, dense TF-IDF 18,846 × 4,096) on the card against the CPU.
-    Neither solve kernel launches."""
+    Neither solve kernel launches. Returns the store, the corpus and the
+    persisted model text_classification_gang and linear_streams use (the
+    gang phase removes the phase's directory)."""
     from incubator_predictionio_torch.models import text_classification
     from incubator_predictionio_torch.ops.linear import (
         _nb_model_from_stats, nb_stats_coo,
@@ -5035,7 +5076,353 @@ def phase_text_classification_jsonl(workdir: str) -> None:
          queries=len(q_texts), query_ms=_percentiles(query_ms[1:]),
          host_nb_accuracy_on_new_documents=correct / len(q_texts),
          kernel_launches=launched)
-    shutil.rmtree(cwd)
+    return {"cwd": cwd, "env": env, "texts": texts, "y": y,
+            "stored": stored, "trained": trained, "n_features": n_features,
+            "ngram": ngram, "host": host}
+
+
+# -- the linear templates' gangs and streams ----------------------------------
+
+#: the linear gangs' ranks (sharing the one card) and the queries held to
+#: the gang's deployed NB model
+LINEAR_GANG_WORKERS = 2
+LINEAR_GANG_QUERIES = 20
+#: linear_streams: the dense chunk of the forced stream (rows) and the text
+#: stream's documents per tokenizer chunk
+STREAM_CHUNK_ON = 250_000
+STREAM_CHUNK_DOCS = 2_048
+NB_ARRAYS = ("log_prior", "log_likelihood", "feat_counts", "class_counts")
+#: a linear gang worker's train report: what linear_*_gang prints per rank
+LINEAR_RANK_KEYS = (
+    "rank", "world", "read_seconds", "ratings_read", "local_rows",
+    "local_entries", "n_global", "stats_seconds", "allreduce_calls",
+    "allreduce_bytes", "allreduce_seconds", "lbfgs_seconds", "iterations",
+    "loss_evals", "host_syncs", "collectives", "loss")
+
+
+def _linear_gang_verb(env: dict, cwd: str, extra=()) -> dict:
+    """``pio train --num-workers 2`` of a linear engine (the ranks share
+    the card over gloo; no snapshots: the linear trainers take none): its
+    last JSON line with ``wall_seconds``, every worker completed without a
+    restart and launched no solve kernel."""
+    out, wall = _verb(["train", "--num-workers", str(LINEAR_GANG_WORKERS),
+                       *extra], env | GANG_KNOBS, cwd, timeout=600)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    got["wall_seconds"] = wall
+    check(_gang_launches(got) == {"warp": 0, "wide": 0},
+          f"a linear gang launched {_gang_launches(got)}")
+    return got
+
+
+def _linear_gang_numbers(got: dict) -> dict:
+    return {"seconds_end_to_end": got["wall_seconds"],
+            "restarts": got["restarts"],
+            "workers": [{"train_seconds": w["seconds"],
+                         **{k: w["timings"][k] for k in LINEAR_RANK_KEYS
+                            if k in w["timings"]}}
+                        for w in got["workers"]]}
+
+
+def _lr_rule(x, y, got, got_iters: int, want, want_iters: int,
+             what: str) -> dict:
+    """The LR rule of tests/test_torch_linear.py for two models on the
+    same examples: the final loss (float64 on the host) within
+    LR_LOSS_RTOL relative, the iterations within ±2, the same argmax
+    wherever both models' top two logits differ by more than LR_MARGIN."""
+    def loss_and_logits(m):
+        z = x.astype(np.float64) @ m.weights + m.intercept
+        zs = z - z.max(axis=1, keepdims=True)
+        logp = zs - np.log(np.exp(zs).sum(axis=1, keepdims=True))
+        return (-logp[np.arange(len(y)), y].mean() + 0.5 * LR_REG * float(
+            (np.asarray(m.weights, np.float64) ** 2).sum())), z
+
+    def margin(z):
+        top2 = np.sort(z, axis=1)[:, -2:]
+        return top2[:, 1] - top2[:, 0]
+
+    loss_got, z_got = loss_and_logits(got)
+    loss_want, z_want = loss_and_logits(want)
+    rel = abs(loss_got - loss_want) / loss_want
+    held = (margin(z_got) > LR_MARGIN) & (margin(z_want) > LR_MARGIN)
+    differ = int((z_got.argmax(1) != z_want.argmax(1))[held].sum())
+    check(rel <= LR_LOSS_RTOL, f"{what}: loss {loss_got} against {loss_want}")
+    check(abs(got_iters - want_iters) <= 2,
+          f"{what}: {got_iters} iterations against {want_iters}")
+    check(differ == 0, f"{what}: {differ} rows past the margin differ")
+    return {"loss": loss_got, "loss_single": loss_want, "loss_rel_gap": rel,
+            "iterations": got_iters, "iterations_single": want_iters,
+            "rows_held": int(held.sum()), "rows_total": len(y)}
+
+
+def phase_classification_gang(cls: dict) -> None:
+    """classification_gang, on classification_jsonl's entities: the same
+    ``$set`` events (byte for byte) written as two partitions
+    (``events_1.p0.jsonl``, ``.p1``: the partitioned log's layout) of a
+    new store → pio train --num-workers 2 of the NB engine on the
+    partition feed (each rank replays its own partition, the entity table
+    agreed by all-gather, the statistics summed by one gloo all-reduce) →
+    the persisted model equal to classification_jsonl's single-process one
+    bit for bit → pio deploy of the gang's model, 20 queries held to the
+    host NB (the server boots while the next gang trains). pio train
+    --num-workers 2 --feed merged of the LR engine (regParam 0.01, 100
+    iterations) on classification_jsonl's own log: every rank reads the
+    merged view and trains its contiguous row block, the loss and the
+    gradient all-reduced at every evaluation; held to the single-process
+    LR on the card by the LR rule (:func:`_lr_rule`). Each rank's read,
+    statistics, all-reduce and L-BFGS seconds and bytes are printed. No
+    solve kernel launches."""
+    from incubator_predictionio_torch.ops.linear import (
+        LogisticRegressionModel, train_logistic_regression,
+    )
+
+    x, y, times = cls["x"], cls["y"], cls["times"]
+    attributes, n = cls["attributes"], len(cls["y"])
+    c = CLASSIFICATION[2]
+    factory = ("incubator_predictionio_torch.models.classification."
+               "ClassificationEngine")
+    reset_launches()
+    gdir = tempfile.mkdtemp(dir=cls["cwd"])
+    env = _jsonl_env(os.path.join(gdir, "pio_cls_gang"))
+    _verb(["app", "new", "cls"], env, gdir)
+    _template_engine(CLASSIFICATION_ENGINE, factory, "cls", gdir,
+                     attributes=attributes)
+    store = _storage_of(env)
+    app_id = store.get_meta_data_apps().get_by_name("cls").id
+    events_dir = store.get_l_events().events_dir
+    store.close()
+    os.makedirs(events_dir, exist_ok=True)
+    half = -(-n // LINEAR_GANG_WORKERS)
+    t0 = time.perf_counter()
+    for part, lo in enumerate(range(0, n, half)):
+        hi = min(lo + half, n)
+        _write_log(os.path.join(events_dir, f"events_{app_id}.p{part}.jsonl"),
+                   x[lo:hi], y[lo:hi], times[lo:hi], times[lo:hi],
+                   lines=lambda a, b, t, _u, first, lo=lo:
+                   _classification_lines(a, b, t, None, lo + first))
+    write_s = time.perf_counter() - t0
+
+    nb = _linear_gang_verb(env, gdir)
+    stored = _persisted(env, nb["engineInstanceId"])
+    for name in NB_ARRAYS + ("label_values",):
+        check(np.array_equal(stored[name], cls["stored"][name]),
+              f"classification_gang: the gang's {name} differs from the "
+              "single-process pio train's")
+    workers = [w["timings"] for w in nb["workers"]]
+    check(sorted(p for t in workers for p in t["shards"])
+          == sorted(jsonl_shard_paths(events_dir, app_id))
+          and sum(t["local_rows"] for t in workers) == n
+          and all(t["n_global"] == n and t["allreduce_calls"] == 1
+                  for t in workers),
+          f"classification_gang: the ranks' blocks {workers}")
+    # the gang's NB model boots in a server while the LR gang trains (a
+    # server's start is seconds of the script's time)
+    srv = _Served(["deploy"], env, gdir)
+    try:
+        ldir = tempfile.mkdtemp(dir=cls["cwd"])
+        engine_json = _template_engine(CLASSIFICATION_ENGINE, factory, "cls",
+                                       ldir, attributes=attributes)
+        engine_json["algorithms"] = [{"name": "lr", "params": {
+            "regParam": LR_REG, "maxIterations": LR_ITERS}}]
+        with open(os.path.join(ldir, "engine.json"), "w",
+                  encoding="utf-8") as fh:
+            json.dump(engine_json, fh)
+        lr = _linear_gang_verb(cls["env"], ldir, ["--feed", "merged"])
+        lr_workers = [w["timings"] for w in lr["workers"]]
+        check(len({(t["iterations"], t["loss_evals"], t["collectives"])
+                   for t in lr_workers}) == 1
+              and [t["local_rows"] for t in lr_workers] == [half, n - half],
+              f"classification_gang LR: the ranks disagree: {lr_workers}")
+        lr_stored = _persisted(cls["env"], lr["engineInstanceId"])
+        single_stats: dict = {}
+        single, single_s = _timed(lambda: train_logistic_regression(
+            x, y, c, reg=LR_REG, max_iters=LR_ITERS, device="cuda",
+            stats=single_stats))
+        rule = _lr_rule(
+            x, y, LogisticRegressionModel(lr_stored["weights"],
+                                          lr_stored["intercept"], c),
+            lr_workers[0]["iterations"], single, single_stats["iterations"],
+            "classification_gang LR")
+    except BaseException:
+        srv.__exit__(None, None, None)
+        raise
+    qrows = np.random.default_rng(74).choice(n, LINEAR_GANG_QUERIES,
+                                             replace=False)
+    query_ms = []
+    with srv:
+        check(srv.info["engineInstanceId"] == nb["engineInstanceId"],
+              f"deployed {srv.info}")
+        conn = srv.connect()
+        for k in qrows:
+            q = dict(zip(attributes, x[k].tolist()))
+            status, res, ms = srv.request("POST", "/queries.json", q, conn)
+            want = float(np.argmax(cls["host"].predict_log_joint(
+                x[k:k + 1])[0]))
+            check(status == 200 and res == {"label": want},
+                  f"gang NB answer {status} {res}, host {want}")
+            query_ms.append(ms)
+        conn.close()
+    launched = launches()
+    check(launched["total"] == 0, f"classification_gang launched {launched}")
+    PATH_LAUNCHES["classification_gang"] = {"warp": 0, "wide": 0}
+    emit("classification_gang", entities=n, partitions=LINEAR_GANG_WORKERS,
+         workers=LINEAR_GANG_WORKERS, partition_write_seconds=write_s,
+         nb=_linear_gang_numbers(nb),
+         nb_single_train_seconds_end_to_end=cls["trained"]["wall_seconds"],
+         nb_equal_to_single="bit for bit", queries=len(qrows),
+         query_ms=_percentiles(query_ms[1:]),
+         lr_merged=_linear_gang_numbers(lr), lr_rule=rule,
+         lr_single_card_seconds=single_s,
+         lr_single_lbfgs_seconds=single_stats["lbfgs_seconds"],
+         kernel_launches=launched)
+    shutil.rmtree(cls["cwd"])
+
+
+def phase_text_classification_gang(text: dict) -> None:
+    """text_classification_gang, on text_classification_jsonl's log: pio
+    train --num-workers 2 of the NB engine (every rank reads the merged
+    corpus and fits the same vectorizer, scatter-adds its contiguous block
+    of documents on the card, the [C·D] sums all-reduced once); the
+    persisted model equal to text_classification_jsonl's single-process
+    one bit for bit. Each rank's read, statistics and all-reduce seconds
+    and bytes are printed. No solve kernel launches."""
+    reset_launches()
+    got = _linear_gang_verb(text["env"], text["cwd"])
+    stored = _persisted(text["env"], got["engineInstanceId"])
+    for name in ("log_prior", "log_likelihood", "vectorizer_idf",
+                 "label_values"):
+        check(np.array_equal(stored[name], text["stored"][name]),
+              f"text_classification_gang: the gang's {name} differs from "
+              "the single-process pio train's")
+    workers = [w["timings"] for w in got["workers"]]
+    n_docs = len(text["texts"])
+    check(sum(t["local_rows"] for t in workers) == n_docs
+          and all(t["allreduce_bytes"] == TEXT[1] * text["n_features"] * 4
+                  for t in workers),
+          f"text_classification_gang: the ranks' blocks {workers}")
+    launched = launches()
+    check(launched["total"] == 0, f"text gang launched {launched}")
+    PATH_LAUNCHES["text_classification_gang"] = {"warp": 0, "wide": 0}
+    emit("text_classification_gang", documents=n_docs,
+         workers=LINEAR_GANG_WORKERS, nb=_linear_gang_numbers(got),
+         single_train_seconds_end_to_end=text["trained"]["wall_seconds"],
+         equal_to_single="bit for bit", kernel_launches=launched)
+    shutil.rmtree(text["cwd"])
+
+
+def _ring_bound(stats, cfg, what: str) -> dict:
+    """The ring's peak device bytes above the accumulator, held to
+    (depth + 1) chunks of the largest chunk."""
+    bound = (cfg.depth + 1) * stats.chunk_bytes_max
+    check(stats.ring_peak_bytes <= bound,
+          f"{what}: the ring held {stats.ring_peak_bytes} bytes, more than "
+          f"{cfg.depth + 1} chunks ({bound})")
+    return {**stats.as_dict(), "ring_bound_bytes": bound}
+
+
+def phase_linear_streams(text: dict) -> None:
+    """linear_streams, in process on the card: bench_templates.py config 2
+    at its full 2,000,000 entities × 4 Poisson attributes × 3 classes —
+    Naive Bayes under PIO_PIPELINE's default ``auto`` (2 chunks of
+    1,000,000 rows) and forced ``on`` in chunks of 250,000, each equal to
+    the single-shot statistics bit for bit; LR (regParam 0.01, 100
+    iterations) on the streamed matrix equal to LR on the single-shot
+    upload bit for bit. Config 4 (text_classification_jsonl's 18,846
+    documents, numFeatures 4096) through TextPreparator + TextNBAlgorithm
+    under ``auto`` with chunk_docs 2,048 (the featurization deferred into
+    the stream), equal to the one-shot prepare + train bit for bit. Each
+    run's stage seconds, wall, chunks, in-flight chunks, overlap efficiency
+    and the ring's peak device bytes above the accumulator (at most
+    depth + 1 chunks). No solve kernel launches."""
+    from incubator_predictionio_torch.models import text_classification as tc
+    from incubator_predictionio_torch.ops.linear import (
+        train_logistic_regression, train_naive_bayes,
+    )
+    from incubator_predictionio_torch.workflow.input_pipeline import (
+        PipelineConfig, PipelineStats,
+    )
+
+    n, d, c = CLASSIFICATION
+    x, y = _classification_data(n)
+    off = PipelineConfig(mode="off")
+    auto = PipelineConfig.from_env(mode="auto")  # 1,000,000-row chunks
+    forced = PipelineConfig(mode="on", chunk_rows=STREAM_CHUNK_ON)
+    check(auto.enabled_for(n, device="cuda")
+          and not auto.enabled_for(n, device="cpu")
+          and not auto.enabled_for(2 * auto.chunk_rows - 1, device="cuda"),
+          "PIO_PIPELINE=auto: the gate")
+    reset_launches()
+    single, single_s = _timed(lambda: train_naive_bayes(
+        x, y, c, device="cuda", pipeline=off))
+    nb_runs = {"single_shot_seconds": single_s}
+    for name, cfg in (("auto", auto), ("on", forced)):
+        st = PipelineStats()
+        got, secs = _timed(lambda: train_naive_bayes(
+            x, y, c, device="cuda", pipeline=cfg, pipeline_stats=st))
+        _same_arrays({k: getattr(got, k) for k in NB_ARRAYS}, single,
+                     NB_ARRAYS, f"linear_streams NB {name}")
+        check(st.n_chunks == -(-n // cfg.chunk_rows),
+              f"linear_streams NB {name}: {st.n_chunks} chunks")
+        nb_runs[name] = {"seconds": secs, "chunk_rows": cfg.chunk_rows,
+                         **_ring_bound(st, cfg, f"NB {name}")}
+    lr_single_stats, lr_stream_stats, st = {}, {}, PipelineStats()
+    lr0, lr0_s = _timed(lambda: train_logistic_regression(
+        x, y, c, reg=LR_REG, max_iters=LR_ITERS, device="cuda",
+        stats=lr_single_stats, pipeline=off))
+    lr1, lr1_s = _timed(lambda: train_logistic_regression(
+        x, y, c, reg=LR_REG, max_iters=LR_ITERS, device="cuda",
+        stats=lr_stream_stats, pipeline=auto, pipeline_stats=st))
+    check(np.array_equal(lr0.weights, lr1.weights)
+          and np.array_equal(lr0.intercept, lr1.intercept)
+          and st.n_chunks == -(-n // auto.chunk_rows),
+          "linear_streams: LR on the streamed matrix differs from LR on the "
+          "single-shot upload")
+    lr = {"single_shot_seconds": lr0_s, "streamed_seconds": lr1_s,
+          "iterations": lr_stream_stats["iterations"],
+          "lbfgs_seconds": lr_stream_stats["lbfgs_seconds"],
+          "single_shot_lbfgs_seconds": lr_single_stats["lbfgs_seconds"],
+          **_ring_bound(st, auto, "LR")}
+
+    texts = text["texts"]
+    label_values, yl = np.unique(np.asarray([str(v) for v in text["y"]]),
+                                 return_inverse=True)
+    td = tc.TrainingData(texts, yl.astype(np.int32), label_values)
+    text_cfg = PipelineConfig(chunk_rows=auto.chunk_rows,
+                              chunk_docs=STREAM_CHUNK_DOCS)
+    check(text_cfg.enabled_for(len(texts), chunk=STREAM_CHUNK_DOCS,
+                               device="cuda"), "the text stream's gate")
+
+    def text_run(cfg, timings):
+        ctx = WorkflowContext(app_name="text", device="cuda",
+                              input_pipeline=cfg, bench_timings=timings)
+        prep = tc.TextPreparator(tc.PreparatorParams(
+            n_features=text["n_features"], ngram=text["ngram"]))
+        pd = prep.prepare(ctx, td)
+        return pd, tc.TextNBAlgorithm(tc.TextAlgorithmParams()).train(ctx, pd)
+
+    (pd0, m0), text0_s = _timed(lambda: text_run(off, {}))
+    timings: dict = {}
+    (pd1, m1), text1_s = _timed(lambda: text_run(text_cfg, timings))
+    check(pd0.coo is not None and pd1.coo is None and pd1.texts is not None,
+          "the streamed text preparation did not defer its featurization")
+    check(all(np.array_equal(getattr(m0.inner, k), getattr(m1.inner, k))
+              for k in ("log_prior", "log_likelihood"))
+          and np.array_equal(m0.vectorizer.idf, m1.vectorizer.idf),
+          "linear_streams: the streamed text model differs from the "
+          "one-shot prepare + train's")
+    tst = PipelineStats(**{k: v for k, v in timings["pipeline"].items()
+                           if k != "overlap_efficiency"})
+    text_run_numbers = {"one_shot_seconds": text0_s,
+                        "streamed_seconds": text1_s,
+                        "chunk_docs": STREAM_CHUNK_DOCS,
+                        "chunk_entries": text_cfg.chunk_rows,
+                        **_ring_bound(tst, text_cfg, "text NB")}
+    launched = launches()
+    check(launched["total"] == 0, f"linear_streams launched {launched}")
+    PATH_LAUNCHES["linear_streams"] = {"warp": 0, "wide": 0}
+    emit("linear_streams", entities=n, attributes=d, classes=c,
+         documents=len(texts), depth=auto.depth, workers=auto.workers,
+         nb=nb_runs, lr=lr, text_nb=text_run_numbers,
+         equal_to_single_shot="bit for bit", kernel_launches=launched)
 
 
 # -- the Universal Recommender and Complementary Purchase templates ----------
@@ -5076,8 +5463,9 @@ CP_FACTORY = ("incubator_predictionio_torch.models.complementary_purchase."
 #: items), and the basket queries
 CP_LOG_BUYS = 100_000
 CP_QUERIES = 30
-#: pio eval's shoppers: 4 buys each in one basket (≈ 1,000 buys)
-CP_EVAL_SHOPPERS = 250
+#: pio eval's shoppers: 4 buys each in one basket (≈ 500 buys; 250
+#: shoppers until the linear gang and stream phases needed the time)
+CP_EVAL_SHOPPERS = 125
 
 
 def tf32_peak() -> float:
@@ -5728,7 +6116,7 @@ def phase_complementary_purchase(workdir: str) -> None:
     template's engine.json, factory rewritten) → pio deploy → CP_QUERIES
     basket queries held to a host scorer of the persisted indicators; then
     pio eval of ComplementaryEvaluation / ComplementaryParamsList on
-    ≈ 1,000 basket buys on the card and on the CPU (scores within 0.02, the
+    ≈ 500 basket buys on the card and on the CPU (scores within 0.02, the
     same best where the top two differ by more than 0.05). No solve kernel
     launches."""
     n_shoppers, n_items, nnz = CP
@@ -7076,8 +7464,11 @@ def main() -> int:
         phase_similar_product(workdir)
         phase_ecommerce_jsonl(workdir)
         phase_pio_eval(workdir)
-        phase_classification_jsonl(workdir)
-        phase_text_classification_jsonl(workdir)
+        phase_classification_gang(phase_classification_jsonl(workdir))
+        text = phase_text_classification_jsonl(workdir)
+        phase_text_classification_gang(text)
+        phase_linear_streams(text)
+        del text
         phase_universal_recommender()
         phase_universal_recommender_jsonl(workdir)
         phase_complementary_purchase(workdir)

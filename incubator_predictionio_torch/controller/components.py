@@ -45,11 +45,12 @@ class IdentityPreparator(Preparator):
 
 
 class Algorithm(AbstractDoer):
-    """``slab_gang``: the algorithm trains through ``ops.als`` (the slab
-    gang on a merged read, the data-parallel trainer on a partition-local
-    one), so ``pio train --num-workers N`` may run it."""
+    """``gang_capable``: the algorithm trains in a gang, so ``pio train
+    --num-workers N`` may run it: through ``ops.als`` (the slab gang on a
+    merged read, the data-parallel trainer on a partition-local one) or
+    through the linear trainers' process-local forms (``ops.linear``)."""
 
-    slab_gang = False
+    gang_capable = False
 
     def train(self, ctx, prepared_data) -> Any:
         raise NotImplementedError

@@ -11,8 +11,14 @@ answered on the host. Wire format (the template's)::
   result {"label": 1.0}
 
 The model persists as arrays and JSON (:func:`inner_to_persisted`), never
-as a pickle. Not ported: the gang's partition-local reads and trainers,
-and the placement cost model (``stage_model``).
+as a pickle. In a gang (``pio train --num-workers N``) both algorithms
+train through ``ops.linear``'s process-local trainers: under the partition
+feed each rank reads its strided slice of the entities
+(``train_feed.partition_examples``); on the merged view (``--feed
+merged``, a store that is not the JSONL log) each rank trains its
+contiguous row block (``ops.linear.gang_rows``). In one process a large
+input streams (``pipeline_of(ctx)``). Not ported: the placement cost model
+(``stage_model``).
 """
 
 from __future__ import annotations
@@ -31,9 +37,14 @@ from ..data.events import aggregate_properties
 from ..data.store import PEventStore
 from ..e2.cross_validation import k_fold_indices
 from ..ops.linear import (
-    LogisticRegressionModel, NaiveBayesModel, lr_sgd_steps, nb_fold_in,
-    train_logistic_regression, train_naive_bayes,
+    LogisticRegressionModel, NaiveBayesModel, gang_rows, lr_sgd_steps,
+    nb_fold_in, train_logistic_regression,
+    train_logistic_regression_process_local, train_naive_bayes,
+    train_naive_bayes_process_local,
 )
+from ..parallel.distributed import process_count
+from ..workflow import train_feed
+from ..workflow.input_pipeline import pipeline_of, stats_into
 
 log = logging.getLogger("pio.torch.classification")
 
@@ -44,9 +55,17 @@ class TrainingData(SanityCheck):
     labels: np.ndarray  # [N] int32
     attribute_names: Sequence[str]
     label_values: np.ndarray  # class index → original label value
+    #: True when features/labels hold only this gang worker's strided
+    #: entity slice (``train_feed.partition_examples``) while label_values
+    #: is the gang's GLOBAL class vocabulary: the trainers all-reduce
+    partition_local: bool = False
+    #: the gang-wide labeled-entity count (len(features) when not
+    #: partition-local)
+    n_global: int = -1
 
     def sanity_check(self):
-        assert len(self.features) > 0, "no labeled entities found"
+        n = self.n_global if self.partition_local else len(self.features)
+        assert n > 0, "no labeled entities found"
         assert len(self.features) == len(self.labels)
 
 
@@ -68,10 +87,25 @@ class ClassificationDataSource(DataSource):
     def read_training(self, ctx) -> TrainingData:
         """Every entity whose aggregated properties hold all the attributes
         and the label, in the aggregate's order: from ``ctx.events`` when
-        the caller handed events over, else from the event store."""
+        the caller handed events over, else from the event store, or —
+        with the partition feed armed — this gang worker's strided slice
+        of the entities its partitions' replays agree on
+        (``partition_local``; the label vocabulary is the gang's)."""
         p: DataSourceParams = self.params
         required = list(p.attributes) + [p.label]
         t0 = time.perf_counter()
+        if ctx.events is None and train_feed.partition_feed_active(
+                ctx.get_storage()):
+            feats, y, label_values, n_global = train_feed.partition_examples(
+                p.app_name or ctx.app_name, p.entity_type,
+                list(p.attributes), p.label, storage=ctx.get_storage(),
+                channel_name=ctx.channel_name, report=ctx.read_timings)
+            ctx.record_read(time.perf_counter() - t0, len(feats))
+            return TrainingData(
+                features=feats, labels=y,
+                attribute_names=tuple(p.attributes),
+                label_values=label_values, partition_local=True,
+                n_global=n_global)
         if ctx.events is not None:
             props = aggregate_properties(ctx.events, p.entity_type,
                                          required=required)
@@ -222,7 +256,21 @@ def model_from_persisted(stored: dict) -> ClassifierModel:
                       for k, (x, y) in seen.items()}))
 
 
+def _gang_block(pd: PreparedData):
+    """(features, labels) this process trains on, or None outside a gang:
+    a partition-local read's own block, else this rank's contiguous rows
+    of the merged read."""
+    if not pd.partition_local and process_count() == 1:
+        return None
+    if pd.partition_local:
+        return pd.features, pd.labels
+    lo, hi = gang_rows(len(pd.labels))
+    return pd.features[lo:hi], pd.labels[lo:hi]
+
+
 class _ClassifierAlgorithm(Algorithm):
+    gang_capable = True
+
     def predict(self, model: ClassifierModel, query: dict) -> dict:
         x = np.asarray([float(query[a]) for a in model.attribute_names],
                        np.float32)
@@ -246,9 +294,19 @@ class NaiveBayesAlgorithm(_ClassifierAlgorithm):
     params_aliases = {"lambda": "smoothing"}
 
     def train(self, ctx, pd: PreparedData) -> ClassifierModel:
-        model = train_naive_bayes(
-            pd.features, pd.labels, n_classes=len(pd.label_values),
-            smoothing=self.params.smoothing, device=ctx.device)
+        block = _gang_block(pd)
+        if block is not None:
+            # the gang: the statistics summed over every rank
+            model = train_naive_bayes_process_local(
+                *block, n_classes=len(pd.label_values),
+                smoothing=self.params.smoothing, device=ctx.device,
+                timings=ctx.bench_timings)
+        else:
+            with stats_into(ctx.bench_timings) as streamed:
+                model = train_naive_bayes(
+                    pd.features, pd.labels, n_classes=len(pd.label_values),
+                    smoothing=self.params.smoothing, device=ctx.device,
+                    pipeline=pipeline_of(ctx), pipeline_stats=streamed)
         return ClassifierModel(model, pd.attribute_names, pd.label_values)
 
     def fold_in(self, model: ClassifierModel, events, ctx=None,
@@ -296,10 +354,20 @@ class LogisticRegressionAlgorithm(_ClassifierAlgorithm):
     params_aliases = {"regParam": "reg", "maxIterations": "max_iters"}
 
     def train(self, ctx, pd: PreparedData) -> ClassifierModel:
-        model = train_logistic_regression(
-            pd.features, pd.labels, n_classes=len(pd.label_values),
-            reg=self.params.reg, max_iters=self.params.max_iters,
-            device=ctx.device)
+        block = _gang_block(pd)
+        if block is not None:
+            # the gang: the gradient summed over every rank at every step
+            model = train_logistic_regression_process_local(
+                *block, n_classes=len(pd.label_values), reg=self.params.reg,
+                max_iters=self.params.max_iters, device=ctx.device,
+                stats=ctx.bench_timings)
+        else:
+            with stats_into(ctx.bench_timings) as streamed:
+                model = train_logistic_regression(
+                    pd.features, pd.labels, n_classes=len(pd.label_values),
+                    reg=self.params.reg, max_iters=self.params.max_iters,
+                    device=ctx.device, stats=ctx.bench_timings,
+                    pipeline=pipeline_of(ctx), pipeline_stats=streamed)
         return ClassifierModel(model, pd.attribute_names, pd.label_values)
 
     def fold_in(self, model: ClassifierModel, events, ctx=None,

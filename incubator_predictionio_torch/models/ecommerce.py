@@ -177,7 +177,7 @@ class ECommerceAlgoParams(Params):
 
 
 class ECommerceAlgorithm(Algorithm):
-    slab_gang = True
+    gang_capable = True
     params_cls = ECommerceAlgoParams
     params_aliases = {
         "appName": "app_name", "lambda": "reg",

@@ -190,7 +190,7 @@ class AlgorithmParams(Params):
 
 class ALSAlgorithm(Algorithm):
     """ALS recommender (the reference template's ALSAlgorithm)."""
-    slab_gang = True
+    gang_capable = True
 
     params_cls = AlgorithmParams
     params_aliases = {

@@ -183,7 +183,7 @@ class SimilarProductAlgoParams(Params):
 
 
 class SimilarProductAlgorithm(Algorithm):
-    slab_gang = True
+    gang_capable = True
     params_cls = SimilarProductAlgoParams
     params_aliases = {
         "lambda": "reg", "numIterations": "num_iterations",

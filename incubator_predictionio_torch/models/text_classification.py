@@ -11,8 +11,17 @@ query is answered on the host. Wire format (the template's)::
   query  {"text": "I like speed and fast motorcycles."}
   result {"category": "motorcycles", "confidence": 0.87}
 
-Not ported: the streamed input pipeline (the preparator always fits the
-COO at once) and the placement cost model (``stage_model``).
+With the input pipeline on (``pipeline_of(ctx)`` enables it for the
+corpus, in ``chunk_docs`` documents), the preparator defers the
+featurization and Naive Bayes streams it: tokenizer workers feed COO
+blocks that are uploaded and scatter-added while the next block
+tokenizes, and the idf is applied after the last one
+(:meth:`TextNBAlgorithm._train_streamed`). In a gang every rank reads the
+merged corpus and fits the same vectorizer (the template has no partition
+branch, as the reference's); NB scatter-adds each rank's contiguous block
+of documents and all-reduces the [C·D] sums, LR trains data-parallel on
+the ranks' row blocks (``ops.linear``'s process-local trainers). Not
+ported: the placement cost model (``stage_model``).
 """
 
 from __future__ import annotations
@@ -31,10 +40,16 @@ from ..data.events import event_time_us
 from ..data.store import PEventStore
 from ..e2.cross_validation import k_fold_indices
 from ..ops.linear import (
-    NaiveBayesModel, train_logistic_regression, train_naive_bayes,
-    train_naive_bayes_coo,
+    NaiveBayesModel, gang_rows, train_logistic_regression,
+    train_logistic_regression_process_local, train_naive_bayes,
+    train_naive_bayes_coo, train_naive_bayes_coo_process_local,
+    train_naive_bayes_coo_stream,
 )
 from ..ops.tfidf import TfIdfVectorizer
+from ..parallel.distributed import process_count
+from ..workflow.input_pipeline import (
+    PipelineConfig, chunk_ranges, pipeline_of, prefetch, stats_into,
+)
 from .classification import inner_from_persisted, inner_to_persisted
 
 
@@ -59,17 +74,32 @@ class PreparedData:
     features_are_tf: bool = False
     #: (doc_ptr, feat, counts) of ``TfIdfVectorizer.fit_tf_coo``
     coo: Optional[tuple] = None
+    #: the streaming preparation: the featurization is deferred (``coo`` is
+    #: None) and the corpus rides along, so NB tokenizes, uploads and
+    #: scatter-adds it chunk by chunk; a consumer that needs every
+    #: document at once fits the same vectorizer in one go (:meth:`ensure_coo`)
+    texts: Optional[list] = None
 
-    def dense_tf(self) -> np.ndarray:
+    def ensure_coo(self):
+        """The one-shot COO of a deferred (streaming) preparation."""
+        if self.coo is None and self.texts is not None:
+            self.coo = self.vectorizer.fit_tf_coo(self.texts)
+        return self.coo
+
+    def dense_tf(self, rows: Optional[tuple] = None) -> np.ndarray:
         """The raw term-frequency matrix, made from the COO (LR needs whole
-        rows; NB never calls this)."""
+        rows; NB never calls this); ``rows`` = (lo, hi) makes only those
+        documents' rows."""
         if self.features is not None:
-            return self.features
-        doc_ptr, feat, cnt = self.coo
-        n, d = len(doc_ptr) - 1, self.vectorizer.n_features
-        x = np.zeros((n, d), np.float32)
-        rows = np.repeat(np.arange(n), np.diff(np.asarray(doc_ptr)))
-        x[rows, feat] = cnt
+            return (self.features if rows is None
+                    else self.features[rows[0]:rows[1]])
+        doc_ptr, feat, cnt = self.ensure_coo()
+        doc_ptr = np.asarray(doc_ptr)
+        lo, hi = (0, len(doc_ptr) - 1) if rows is None else rows
+        a, b = int(doc_ptr[lo]), int(doc_ptr[hi])
+        x = np.zeros((hi - lo, self.vectorizer.n_features), np.float32)
+        x[np.repeat(np.arange(hi - lo), np.diff(doc_ptr[lo:hi + 1])),
+          feat[a:b]] = cnt[a:b]
         return x
 
 
@@ -156,6 +186,13 @@ class TextPreparator(Preparator):
     def prepare(self, ctx, td: TrainingData) -> PreparedData:
         vec = TfIdfVectorizer(n_features=self.params.n_features,
                               ngram=self.params.ngram)
+        cfg = pipeline_of(ctx)
+        if cfg is not None and cfg.enabled_for(
+                len(td.texts), chunk=cfg.chunk_docs, device=ctx.device):
+            # tokenizing here would run the template's largest host cost
+            # ahead of the upload and the statistics: defer it to the stream
+            return PreparedData(None, td.labels, td.label_values, vec,
+                                features_are_tf=True, texts=list(td.texts))
         coo = vec.fit_tf_coo(td.texts)
         return PreparedData(None, td.labels, td.label_values, vec,
                             features_are_tf=True, coo=coo)
@@ -207,22 +244,70 @@ class TextNBAlgorithm(Algorithm):
     params_cls = TextAlgorithmParams
     params_aliases = {"lambda": "smoothing", "regParam": "reg"}
 
+    gang_capable = True
+
     def train(self, ctx, pd: PreparedData) -> TextModel:
+        cfg = pipeline_of(ctx)
+        if pd.coo is None and pd.texts is not None:
+            inner = self._train_streamed(ctx, pd, cfg)
+            return TextModel(inner, pd.vectorizer, pd.label_values)
         scale = pd.vectorizer.idf if pd.features_are_tf else None
         if pd.coo is not None:
             doc_ptr, feat, cnt = pd.coo
-            inner = train_naive_bayes_coo(
-                doc_ptr, feat, cnt, pd.labels,
-                n_classes=len(pd.label_values),
-                n_features=pd.vectorizer.n_features,
-                smoothing=self.params.smoothing, col_scale=scale,
-                device=ctx.device)
+            args = (doc_ptr, feat, cnt, pd.labels, len(pd.label_values),
+                    pd.vectorizer.n_features, self.params.smoothing, scale)
+            if process_count() > 1:
+                # the gang: each rank's documents, the sums all-reduced
+                inner = train_naive_bayes_coo_process_local(
+                    *args, device=ctx.device, timings=ctx.bench_timings)
+            else:
+                with stats_into(ctx.bench_timings) as streamed:
+                    inner = train_naive_bayes_coo(
+                        *args, device=ctx.device, pipeline=cfg,
+                        pipeline_stats=streamed)
         else:
-            inner = train_naive_bayes(
-                pd.features, pd.labels, len(pd.label_values),
-                smoothing=self.params.smoothing, col_scale=scale,
-                device=ctx.device)
+            with stats_into(ctx.bench_timings) as streamed:
+                inner = train_naive_bayes(
+                    pd.features, pd.labels, len(pd.label_values),
+                    smoothing=self.params.smoothing, col_scale=scale,
+                    device=ctx.device, pipeline=cfg, pipeline_stats=streamed)
         return TextModel(inner, pd.vectorizer, pd.label_values)
+
+    def _train_streamed(self, ctx, pd: PreparedData,
+                        cfg: Optional[PipelineConfig]) -> NaiveBayesModel:
+        """The overlapped text path (``_train_streamed`` :242): tokenizer
+        workers featurize document chunk N+2 while chunk N+1 uploads and
+        chunk N scatter-adds into the statistics on the card. The document
+        frequencies accumulate on the consumer, in corpus order, and the
+        idf is fitted from them after the last chunk: the one-shot
+        prepare + train's model, bit for bit."""
+        cfg = cfg or PipelineConfig.from_env()
+        vec, texts, labels = pd.vectorizer, pd.texts, pd.labels
+        n_docs = len(texts)
+        df_acc = np.zeros(vec.n_features, np.int64)
+
+        def featurize(rng):
+            s, e = rng
+            doc_ptr, feat, cnt, df = vec.tf_coo_block(texts[s:e])
+            return (np.repeat(labels[s:e], np.diff(np.asarray(doc_ptr))),
+                    feat, cnt, df)
+
+        with stats_into(ctx.bench_timings) as streamed:
+            def blocks():
+                # the workers stay pure: df is summed here (int64, exact)
+                for cls, feat, cnt, df in prefetch(
+                        chunk_ranges(n_docs, cfg.chunk_docs), featurize,
+                        workers=cfg.workers, lookahead=cfg.depth + 1,
+                        stats=streamed):
+                    np.add(df_acc, df, out=df_acc)
+                    yield cls, feat, cnt
+
+            return train_naive_bayes_coo_stream(
+                blocks(), labels, n_classes=len(pd.label_values),
+                n_features=vec.n_features, smoothing=self.params.smoothing,
+                col_scale=((lambda: vec.set_idf_from_df(df_acc, n_docs))
+                           if pd.features_are_tf else None),
+                device=ctx.device, pipeline=cfg, pipeline_stats=streamed)
 
     def predict(self, model: TextModel, query: dict) -> dict:
         category, confidence = model.classify(str(query["text"]))
@@ -237,14 +322,25 @@ class TextNBAlgorithm(Algorithm):
 
 class TextLRAlgorithm(TextNBAlgorithm):
     def train(self, ctx, pd: PreparedData) -> TextModel:
-        features = pd.dense_tf()
+        gang = process_count() > 1
+        rows = gang_rows(len(pd.labels)) if gang else None
+        features = pd.dense_tf(rows)
         if pd.features_are_tf:
             # LR is not linear in x: the idf scales the matrix itself
             features = features * pd.vectorizer.idf
-        inner = train_logistic_regression(
-            features, pd.labels, len(pd.label_values),
-            reg=self.params.reg, max_iters=self.params.max_iters,
-            device=ctx.device)
+        if gang:
+            # the gang: this rank's documents, the gradient all-reduced
+            inner = train_logistic_regression_process_local(
+                features, pd.labels[rows[0]:rows[1]], len(pd.label_values),
+                reg=self.params.reg, max_iters=self.params.max_iters,
+                device=ctx.device, stats=ctx.bench_timings)
+        else:
+            with stats_into(ctx.bench_timings) as streamed:
+                inner = train_logistic_regression(
+                    features, pd.labels, len(pd.label_values),
+                    reg=self.params.reg, max_iters=self.params.max_iters,
+                    device=ctx.device, stats=ctx.bench_timings,
+                    pipeline=pipeline_of(ctx), pipeline_stats=streamed)
         return TextModel(inner, pd.vectorizer, pd.label_values)
 
 

@@ -156,7 +156,8 @@ def train_cmd(args: list[str]) -> int:
                         "all-gathered once (the gang default); 'merged' = "
                         "every worker reads the merged view and the gang "
                         "trains on the multi-process slab loop (2-D with "
-                        "PIO_MESH_SHAPE=DxM) (default $PIO_TRAIN_FEED)")
+                        "PIO_MESH_SHAPE=DxM), the linear templates on each "
+                        "rank's row block (default $PIO_TRAIN_FEED)")
     ns = p.parse_args(args)
     if (ns.events is None) != (ns.model_out is None):
         p.error("--events and --model-out go together (the file form)")

@@ -31,7 +31,9 @@ class WorkflowContext:
     (a dict a benchmark plants to receive ``train_als``'s phase times; None
     in normal training). ``read_timings``: a dict a caller plants to
     receive the data source's read (``read_seconds``, events → triple, and
-    ``ratings_read``); None in normal training.
+    ``ratings_read``); None in normal training. ``input_pipeline``: the
+    run's :class:`..workflow.input_pipeline.PipelineConfig`, resolved once
+    by :meth:`get_input_pipeline`.
     """
 
     events: Optional[Sequence[Mapping]] = None
@@ -46,6 +48,7 @@ class WorkflowContext:
     stage_label: str = "algorithm[als]"
     bench_timings: Optional[dict] = None
     read_timings: Optional[dict] = None
+    input_pipeline: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -56,6 +59,25 @@ class WorkflowContext:
         if self.read_timings is not None:
             self.read_timings["read_seconds"] = seconds
             self.read_timings["ratings_read"] = int(ratings)
+
+    def get_input_pipeline(self):
+        """The streaming configuration of this run, resolved once: the
+        workflow params' fields win over the ``PIO_PIPELINE*`` environment,
+        which wins over the defaults."""
+        if self.input_pipeline is None:
+            from .input_pipeline import PipelineConfig
+
+            wp = self.workflow_params
+            cfg = PipelineConfig.from_env(mode=wp.pipeline or None)
+            over = {}
+            if wp.pipeline_chunk > 0:
+                over["chunk_rows"] = wp.pipeline_chunk
+            if wp.pipeline_depth > 0:
+                over["depth"] = wp.pipeline_depth
+            if wp.pipeline_workers > 0:
+                over["workers"] = wp.pipeline_workers
+            self.input_pipeline = dataclasses.replace(cfg, **over)
+        return self.input_pipeline
 
     def get_storage(self):
         if self.storage is None:

@@ -209,22 +209,22 @@ def _persist_foldin_anchor(storage, anchor, ctx, engine_factory_name,
 
 def _require_gang_capable(engine: Engine, engine_params: EngineParams,
                           world: int) -> None:
-    """A gang of ``world`` > 1 trains only templates whose algorithms train
-    through ``ops.als`` (``Algorithm.slab_gang``): the slab gang on the
-    merged view, the data-parallel trainer on a partition-local triple.
-    Every rank refuses alike, before any collective; the CLI refuses the
-    port's own other templates before it spawns
-    (``train_feed.gang_template_error``)."""
+    """A gang of ``world`` > 1 trains only engines whose algorithms train
+    in a gang (``Algorithm.gang_capable``): the ALS templates through
+    ``ops.als`` (the slab gang on the merged view, the data-parallel
+    trainer on a partition-local triple) and the linear templates through
+    ``ops.linear``'s process-local trainers. Every rank refuses alike,
+    before any collective; the CLI refuses the port's own other templates
+    before it spawns (``train_feed.gang_template_error``)."""
     if world <= 1:
         return
     ds, _, algos, _ = engine.make_components(engine_params)
-    if not all(getattr(a, "slab_gang", False) for _, a in algos):
+    if not all(getattr(a, "gang_capable", False) for _, a in algos):
         raise NotImplementedError(
             f"{type(ds).__name__} / "
             f"{', '.join(type(a).__name__ for _, a in algos)}: gang "
-            "training covers the ALS templates (Recommendation, "
-            "Similar-Product, E-Commerce); the other templates' "
-            f"process-local trainers are {train_feed.OTHER_TEMPLATES_ITEM}")
+            f"training covers {train_feed.GANG_TEMPLATE_NAMES}; the other "
+            f"templates' gang trainers are {train_feed.OTHER_TEMPLATES_ITEM}")
 
 
 def _run_train_follower(engine, engine_params, ctx, wp, gang_id: str) -> str:
@@ -272,6 +272,12 @@ def run_train(
     ctx = ctx or WorkflowContext()
     wp = workflow_params or WorkflowParams()
     ctx.workflow_params = wp
+    # resolved once for every stage of this run, and logged: whether a
+    # train streamed must be readable from its log
+    pl = ctx.get_input_pipeline()
+    log.info("input pipeline: mode=%s chunk_rows=%d chunk_docs=%d depth=%d "
+             "workers=%d", pl.mode, pl.chunk_rows, pl.chunk_docs, pl.depth,
+             pl.workers)
     _require_gang_capable(engine, engine_params, process_count())
     gang_id = os.environ.get(gang.ENV_GANG_INSTANCE_ID) or None
     if gang_id and envknobs.env_str("PIO_PROCESS_ID", "0") != "0":

@@ -20,15 +20,19 @@ process group:
 
 The mapped partition-local triple then trains through
 ``ops.als.train_als_partition_local`` (per-row normal equations
-all-reduced, factor row blocks solved per rank).
+all-reduced, factor row blocks solved per rank), and the Classification
+template's labeled examples (:func:`partition_examples`: this worker's
+strided slice of the agreed entity table, the global label vocabulary)
+through ``ops.linear``'s process-local Naive Bayes and L-BFGS LR.
 
 With ``--feed merged``, and on an event store that is not the JSONL log
 (the reference's warning, then the merged read), every worker reads the
-whole merged view and the gang trains on the multi-process slab loop
-(``ops.als.train_als`` in a gang). Which templates a gang may run is
-:func:`gang_template_error`'s rule: the ALS templates, whose algorithms
-train through ``train_als``; the other templates' process-local trainers
-are :data:`OTHER_TEMPLATES_ITEM`.
+whole merged view: the ALS templates train on the multi-process slab loop
+(``ops.als.train_als`` in a gang), the linear templates on each rank's
+contiguous row block. Which templates a gang may run is
+:func:`gang_template_error`'s rule: the ALS and the linear templates; the
+Universal Recommender's and Complementary Purchase's gang trainers are
+:data:`OTHER_TEMPLATES_ITEM`.
 """
 
 from __future__ import annotations
@@ -46,17 +50,23 @@ from ..data.bimap import BiMap
 log = logging.getLogger("pio.torch.trainfeed")
 
 __all__ = [
-    "GANG_TEMPLATES", "OTHER_TEMPLATES_ITEM", "feed_identity", "feed_mode",
-    "gang_template_error", "open_feed", "partition_feed_active",
-    "partition_properties", "partition_ratings",
+    "GANG_TEMPLATES", "GANG_TEMPLATE_NAMES", "OTHER_TEMPLATES_ITEM",
+    "feed_identity", "feed_mode", "gang_template_error", "open_feed",
+    "partition_examples", "partition_feed_active", "partition_properties",
+    "partition_ratings",
 ]
 
-#: where the gang trainers of the templates that do not train ALS wait to
-#: be ported
-OTHER_TEMPLATES_ITEM = "ROADMAP Queue 1, items 7.2-7.3"
-#: the port's templates a gang trains (their algorithms train through
-#: ``ops.als.train_als``): modules of ``incubator_predictionio_torch.models``
-GANG_TEMPLATES = ("recommendation", "similar_product", "ecommerce")
+#: where the gang trainers of the CCO templates (the Universal Recommender,
+#: Complementary Purchase) wait to be ported
+OTHER_TEMPLATES_ITEM = "ROADMAP Queue 1, item 7.3"
+#: the port's templates a gang trains (through ``ops.als`` or the
+#: process-local ``ops.linear`` trainers): modules of
+#: ``incubator_predictionio_torch.models``
+GANG_TEMPLATES = ("recommendation", "similar_product", "ecommerce",
+                  "classification", "text_classification")
+GANG_TEMPLATE_NAMES = ("the ALS templates (Recommendation, Similar-Product, "
+                       "E-Commerce) and the linear templates "
+                       "(Classification, Text-Classification)")
 _MODELS = "incubator_predictionio_torch.models."
 
 _TIME_ABSENT = np.iinfo(np.int64).min
@@ -89,18 +99,17 @@ def gang_template_error(engine_factory: str, num_workers: int
     """Why a gang of ``num_workers`` cannot train ``engine_factory``, or
     None. Decided from the factory's dotted path alone (no import: the CLI
     asks before it spawns, and the supervisor never imports torch): a
-    template of the port's own ``models`` package that does not train ALS
-    is refused; a user engine's factory is left to the workers, whose
-    ``core_workflow`` check reads its components."""
+    template of the port's own ``models`` package outside
+    :data:`GANG_TEMPLATES` is refused; a user engine's factory is left to
+    the workers, whose ``core_workflow`` check reads its components."""
     if num_workers <= 1 or not engine_factory.startswith(_MODELS):
         return None
     module = engine_factory[len(_MODELS):].split(".")[0]
     if module in GANG_TEMPLATES:
         return None
-    return (f"{engine_factory} does not train through ALS: gang training "
-            "covers the ALS templates (Recommendation, Similar-Product, "
-            "E-Commerce); the other templates' process-local trainers are "
-            f"{OTHER_TEMPLATES_ITEM}")
+    return (f"{engine_factory} has no gang trainer: gang training covers "
+            f"{GANG_TEMPLATE_NAMES}; the other templates' gang trainers "
+            f"are {OTHER_TEMPLATES_ITEM}")
 
 
 def partition_feed_active(storage) -> bool:
@@ -278,6 +287,72 @@ def partition_ratings(
                       shards=[sh.path for sh in shards],
                       local_ratings=int(len(r_loc)))
     return u_loc, i_loc, r_loc, users, items
+
+
+def partition_examples(
+    app_name: str,
+    entity_type: str,
+    attributes: Sequence[str],
+    label: str,
+    storage=None,
+    channel_name: Optional[str] = None,
+    report: Optional[dict] = None,
+):
+    """Partition-local mirror of the Classification read (the aggregated
+    properties → labeled examples): the per-shard ``$set`` replays are
+    all-gathered as per-entity partial aggregates and merged
+    (:func:`partition_properties`), so every rank computes the identical
+    entity table, label vocabulary and example order; each then keeps its
+    strided slice (:func:`_examples_from_map`). Returns ``(features,
+    labels, label_values, n_entities)``: this worker's example block, the
+    GLOBAL label vocabulary and the global labeled-entity count. Exact
+    whenever each entity's property events live in one partition (the
+    import shape); the feed's caveats of :func:`partition_properties`
+    hold. ``report`` (a dict) receives ``rank``, ``world``, ``shards`` and
+    ``local_rows``."""
+    feed_ctx = open_feed(app_name, storage, channel_name)
+    merged = partition_properties(app_name, entity_type, storage=storage,
+                                  channel_name=channel_name,
+                                  feed_ctx=feed_ctx)
+    worker, num_workers = feed_identity()
+    features, y_local, label_values, kept = _examples_from_map(
+        merged, attributes, label, worker, num_workers)
+    log.info("partition feed: worker %d/%d holds %d of %d labeled "
+             "entit(ies), %d class(es)", worker, num_workers, len(features),
+             kept, len(label_values))
+    if report is not None:
+        report.update(rank=worker, world=num_workers,
+                      shards=[sh.path for sh in feed_ctx[1]],
+                      local_rows=int(len(features)))
+    return features, y_local, label_values, kept
+
+
+def _examples_from_map(merged: dict, attributes: Sequence[str], label: str,
+                       worker: int, num_workers: int):
+    """The global entity map → (this worker's strided example block, the
+    GLOBAL label vocabulary, the global kept-entity count). Entities sort
+    by id, so every worker sees one order; the label vocabulary covers ALL
+    kept entities (``np.unique``: sorted, identical everywhere) while the
+    feature rows are the ``kept_index % num_workers == worker`` slice."""
+    required = set(attributes) | {label}
+    feats, labels, kept = [], [], 0
+    for eid in sorted(merged):
+        props = merged[eid]
+        if not required.issubset(props):
+            continue
+        if kept % num_workers == worker:
+            feats.append([float(props[a]) for a in attributes])
+        else:
+            feats.append(None)
+        labels.append(props[label])  # the global vocabulary needs them all
+        kept += 1
+    label_values, y_all = np.unique(np.asarray(labels), return_inverse=True)
+    mine = [j for j, f in enumerate(feats) if f is not None]
+    features = np.asarray([feats[j] for j in mine], np.float32)
+    if features.size == 0:
+        features = features.reshape(0, len(attributes))
+    y_local = np.asarray(y_all).reshape(-1)[mine].astype(np.int32)
+    return features, y_local, label_values, kept
 
 
 def partition_properties(

@@ -1,8 +1,8 @@
 """WorkflowParams: the flags of one train run.
 
 Port of ``incubator_predictionio_tpu/workflow/workflow_params.py`` with the
-fields this package honors. The profiler, placement and input-pipeline
-fields come with the slices that port those layers.
+fields this package honors. The profiler and placement fields are not
+ported (ROADMAP Queue 1, item 9; placement is not to port).
 """
 
 from __future__ import annotations
@@ -24,3 +24,10 @@ class WorkflowParams:
     # check every stage's output for NaN/Inf with stage attribution;
     # iterative trainers run one iteration at a time to name the iteration
     nan_guard: bool = False
+    # the streamed input pipeline (workflow/input_pipeline.py): "" defers
+    # to PIO_PIPELINE (default auto), else auto/on/off for this run; the
+    # 0 values defer to PIO_PIPELINE_{CHUNK,DEPTH,WORKERS} or the defaults
+    pipeline: str = ""
+    pipeline_chunk: int = 0
+    pipeline_depth: int = 0
+    pipeline_workers: int = 0

@@ -6,8 +6,8 @@ held against the JAX package's ``train_als`` on the CPU:
 - the process group's knobs: the timeouts parse as the reference's, a
   garbled ``PIO_PROCESS_ID`` crashes a gang worker at start-up, and a
   ``PIO_MESH_SHAPE`` with a model axis is refused;
-- a merged gang of a template that does not train ALS is refused before
-  anything spawns, naming its ROADMAP items.
+- a merged gang of a template without a gang trainer is refused before
+  anything spawns, naming its ROADMAP item.
 
 (The reference's own data-parallel trainer is not the yardstick: its
 parity test has been red since it was written.)
@@ -148,19 +148,20 @@ def test_garbled_process_id_crashes_at_startup(tmp_path):
 
 
 def test_merged_feed_gang_is_refused(tmp_path):
-    """A merged gang trains the ALS templates (tests/test_torch_slab_gang*);
-    one of a template that does not train ALS is refused before anything
-    spawns, naming its ROADMAP items."""
+    """A merged gang trains the ALS templates (tests/test_torch_slab_gang*)
+    and the linear ones (tests/test_torch_linear_gang.py); one of a
+    template without a gang trainer (the Universal Recommender) is refused
+    before anything spawns, naming its ROADMAP item."""
     env = _console_env(tmp_path)
     with open(tmp_path / "engine.json", "w", encoding="utf-8") as fh:
         json.dump({"id": "default", "engineFactory":
-                   "incubator_predictionio_torch.models.classification."
-                   "ClassificationEngine",
+                   "incubator_predictionio_torch.models.universal_recommender."
+                   "UniversalRecommenderEngine",
                    "datasource": {"params": {"appName": "a"}}}, fh)
     out = subprocess.run(
         CONSOLE + ["train", "--num-workers", "2", "--feed", "merged",
                    "--device", "cpu"], env=env, cwd=str(tmp_path),
         capture_output=True, text=True, timeout=60)
     assert out.returncode == 1, out.stderr
-    assert "ROADMAP Queue 1, items 7.2-7.3" in out.stderr
+    assert "ROADMAP Queue 1, item 7.3" in out.stderr
     assert not os.path.isdir(tmp_path / "store" / "gang")  # nothing spawned

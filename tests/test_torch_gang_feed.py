@@ -283,11 +283,13 @@ def test_gang_feed_guards(logs, monkeypatch, caplog):
     models = "incubator_predictionio_torch.models."
     for name in ("recommendation.RecommendationEngine",
                  "similar_product.SimilarProductEngine",
-                 "ecommerce.ECommerceEngine"):
+                 "ecommerce.ECommerceEngine",
+                 "classification.ClassificationEngine",
+                 "text_classification.TextClassificationEngine"):
         assert train_feed.gang_template_error(models + name, 2) is None
-    err = train_feed.gang_template_error(
-        models + "classification.ClassificationEngine", 2)
-    assert "items 7.2-7.3" in err
-    assert train_feed.gang_template_error(
-        models + "classification.ClassificationEngine", 1) is None
+    for name in ("universal_recommender.UniversalRecommenderEngine",
+                 "complementary_purchase.ComplementaryPurchaseEngine"):
+        err = train_feed.gang_template_error(models + name, 2)
+        assert "ROADMAP Queue 1, item 7.3" in err
+        assert train_feed.gang_template_error(models + name, 1) is None
     assert train_feed.gang_template_error("my_engine.Factory", 2) is None

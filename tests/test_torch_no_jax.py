@@ -19,7 +19,9 @@ host-sharded serving (``PIO_SERVE_SHARD_ITEMS``: the ALS catalog and the
 UR's indicators) and the front and both workers of ``eventserver
 --workers 2``, and the supervisor and both gloo ranks of ``train
 --num-workers 2`` off a partitioned JSONL log and with ``--feed merged``
-(the slab gang).
+(the slab gang), and of the linear templates' gangs (Classification's
+Naive Bayes off the partition feed, Text-Classification's LR on the
+merged corpus).
 The same holds for the E-Commerce template and the evaluations (the
 ``eval`` and ``dashboard`` verbs, and the vanilla copy's evaluation from
 its engine directory), and for the Classification and Text-Classification
@@ -882,13 +884,61 @@ def test_merged_gang_train_in_processes_without_jax(tmp_path):
     _gang_train_without_jax(tmp_path, ["--feed", "merged"])
 
 
-def _gang_train_without_jax(tmp_path, extra: list) -> None:
+@pytest.mark.parametrize("kind,extra", [("classification", []),
+                                        ("text", ["--feed", "merged"])])
+def test_linear_gang_train_in_processes_without_jax(tmp_path, kind, extra):
+    """``train --num-workers 2`` of the linear templates: Classification's
+    Naive Bayes off the partition feed (``train_feed.partition_examples``,
+    ``ops.linear`` process-local NB) and Text-Classification's LR on the
+    merged corpus (the codec's tokenizer, the process-local L-BFGS) — the
+    supervisor and both ranks load no JAX, and the gang completes."""
+    _gang_train_without_jax(tmp_path, extra, kind)
+
+
+def _gang_events(kind: str, part: int) -> list:
+    from incubator_predictionio_torch.data.storage.datamap import DataMap
+    from incubator_predictionio_torch.data.storage.event import Event
+
+    if kind == "classification":
+        return [Event(event="$set", entity_type="user", entity_id=f"u{j}",
+                      properties=DataMap({"attr0": j % 3, "attr1": j % 5,
+                                          "attr2": 1, "plan": j % 2}))
+                for j in range(part, 40, 2)]
+    if kind == "text":
+        return [Event(event="documents", entity_type="content",
+                      entity_id=f"d{j}", properties=DataMap({
+                          "text": f"w{j % 7} w{j % 3} common",
+                          "label": f"c{j % 2}"}))
+                for j in range(part, 40, 2)]
+    return [Event(
+        event="rate", entity_type="user", entity_id=f"u{(j * 7) % 11}",
+        target_entity_type="item", target_entity_id=f"i{j % 5}",
+        properties=DataMap({"rating": float(1 + j % 5)}))
+        for j in range(part, 60, 2)]
+
+
+_GANG_ENGINES = {
+    "als": {"engineFactory": "incubator_predictionio_torch.models."
+                             "recommendation.RecommendationEngine",
+            "algorithms": [{"name": "als", "params": {
+                "rank": 4, "numIterations": 2, "lambda": 0.1}}]},
+    "classification": {
+        "engineFactory": "incubator_predictionio_torch.models."
+                         "classification.ClassificationEngine",
+        "algorithms": [{"name": "naive", "params": {"lambda": 1.0}}]},
+    "text": {"engineFactory": "incubator_predictionio_torch.models."
+                              "text_classification.TextClassificationEngine",
+             "preparator": {"params": {"numFeatures": 64}},
+             "algorithms": [{"name": "lr", "params": {
+                 "regParam": 0.1, "max_iters": 5}}]},
+}
+
+
+def _gang_train_without_jax(tmp_path, extra: list, kind: str = "als") -> None:
     import json
 
     from incubator_predictionio_torch.data.storage import App, Storage
     from incubator_predictionio_torch.data.storage.jsonl import JSONLEvents
-    from incubator_predictionio_torch.data.storage.event import Event
-    from incubator_predictionio_torch.data.storage.datamap import DataMap
 
     site = tmp_path / "site"
     site.mkdir()
@@ -913,17 +963,10 @@ def _gang_train_without_jax(tmp_path, extra: list) -> None:
             log = JSONLEvents(events_dir)
         finally:
             del os.environ["PIO_EVENT_PARTITION"]
-        log.insert_batch([Event(
-            event="rate", entity_type="user", entity_id=f"u{(j * 7) % 11}",
-            target_entity_type="item", target_entity_id=f"i{j % 5}",
-            properties=DataMap({"rating": float(1 + j % 5)}))
-            for j in range(part, 60, 2)], app_id)
+        log.insert_batch(_gang_events(kind, part), app_id)
     (tmp_path / "engine.json").write_text(json.dumps({
-        "engineFactory": "incubator_predictionio_torch.models."
-                         "recommendation.RecommendationEngine",
-        "datasource": {"params": {"appName": "nojax"}},
-        "algorithms": [{"name": "als", "params": {
-            "rank": 4, "numIterations": 2, "lambda": 0.1}}]}))
+        **_GANG_ENGINES[kind],
+        "datasource": {"params": {"appName": "nojax"}}}))
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("PIO_", "JAX_"))}
     env.update(store_env, PYTHONPATH=os.pathsep.join([str(site), str(ROOT)]),

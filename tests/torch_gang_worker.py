@@ -18,6 +18,15 @@ worker through ``PIO_FAULT_SPEC`` (``train.sweep:crash:N``,
 
 Imported by the tests, it also gives :func:`supervise`, which runs a
 gang of this script under the port's supervisor within a time limit.
+
+Linear gangs: ``torch_gang_worker.py linear <out> <split>`` trains the
+port's process-local Naive Bayes, L-BFGS LR (reg :data:`LINEAR_REG`) and
+COO Naive Bayes on the seeded examples of :func:`linear_data`; rank r
+holds the rows ``LINEAR_SPLITS[split][world][r]`` (the blocks differ
+widely in size, and one may be empty) and the whole COO corpus (each rank
+scatters its own documents). Every rank writes its models to
+``<out>.<rank>.npz`` and prints its LR stats as one JSON line;
+:func:`run_linear` starts such a gang without a supervisor.
 """
 
 import os
@@ -107,7 +116,107 @@ def supervise(tmp_path, out: str, ckpt: str, n_iters: int, modes: str,
     return sup, box["outcome"]
 
 
+#: the linear gang's examples: rows × attributes × classes, and the COO
+#: corpus's documents × features × classes
+LINEAR = (300, 5, 3)
+LINEAR_COO = (120, 64, 4)
+LINEAR_REG = 0.1
+#: split → world → each rank's [lo, hi) rows of :func:`linear_data`
+LINEAR_SPLITS = {
+    "skewed": {2: [(0, 40), (40, 300)],
+               3: [(0, 0), (0, 250), (250, 300)]},
+    "empty": {2: [(0, 300), (300, 300)]},
+}
+
+
+def linear_data(seed: int = 21):
+    """Seeded Poisson counts around class centres (x, y): Naive Bayes
+    trains on them, LR on ``x * 0.1`` (so L-BFGS at :data:`LINEAR_REG`
+    stops before 100 iterations); and a COO corpus (doc_ptr, feat,
+    counts, y)."""
+    n, d, c = LINEAR
+    rng = np.random.default_rng(seed)
+    centers = rng.random((c, d)) * 3 + 0.5
+    y = rng.integers(0, c, n).astype(np.int32)
+    x = rng.poisson(centers[y]).astype(np.float32)
+    n_docs, n_feat, n_cls = LINEAR_COO
+    lens = rng.integers(0, 12, n_docs)
+    doc_ptr = np.r_[0, np.cumsum(lens)].astype(np.int64)
+    feat = np.concatenate([np.sort(rng.choice(n_feat, k, replace=False))
+                           for k in lens]).astype(np.int32)
+    cnt = rng.integers(1, 6, len(feat)).astype(np.float32)
+    y_doc = rng.integers(0, n_cls, n_docs).astype(np.int32)
+    return x, y, (doc_ptr, feat, cnt, y_doc)
+
+
+def run_linear(world: int, out: str, split: str,
+               timeout_s: float = 90.0) -> list:
+    """Start ``world`` ranks of the linear gang on the CPU (gloo) and wait
+    for each within ``timeout_s`` (a hang fails); [(rc, stdout, stderr)]
+    in rank order."""
+    import socket
+    import subprocess
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PIO_", "JAX_"))}
+    env.update(PYTHONPATH=root + os.pathsep + env.get("PYTHONPATH", ""),
+               PIO_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+               PIO_NUM_PROCESSES=str(world),
+               PIO_COORDINATOR_TIMEOUT_MS="30000")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "linear", out, split],
+        env=dict(env, PIO_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    got = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=timeout_s)
+            got.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return got
+
+
+def linear_main(out_path: str, split: str) -> int:
+    import json
+
+    from incubator_predictionio_torch.ops import linear
+
+    initialize_distributed()
+    torch.set_num_threads(1)
+    world, rank = process_count(), process_index()
+    x, y, (doc_ptr, feat, cnt, y_doc) = linear_data()
+    lo, hi = LINEAR_SPLITS[split][world][rank]
+    c = LINEAR[2]
+    nb_timings: dict = {}
+    nb = linear.train_naive_bayes_process_local(
+        x[lo:hi], y[lo:hi], c, device="cpu", timings=nb_timings)
+    stats: dict = {}
+    lr = linear.train_logistic_regression_process_local(
+        x[lo:hi] * np.float32(0.1), y[lo:hi], c, reg=LINEAR_REG, max_iters=100,
+        device="cpu", stats=stats)
+    coo = linear.train_naive_bayes_coo_process_local(
+        doc_ptr, feat, cnt, y_doc, LINEAR_COO[2], LINEAR_COO[1],
+        device="cpu")
+    np.savez(f"{out_path}.{rank}.npz", nb_log_prior=nb.log_prior,
+             nb_log_likelihood=nb.log_likelihood, nb_feat=nb.feat_counts,
+             nb_counts=nb.class_counts, lr_weights=lr.weights,
+             lr_intercept=lr.intercept, coo_log_prior=coo.log_prior,
+             coo_log_likelihood=coo.log_likelihood)
+    print(json.dumps({"lr": stats, "nb": nb_timings}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1] == "linear":
+        return linear_main(*sys.argv[2:4])
     out_path, ckpt_dir, n_iters, modes = sys.argv[1:5]
     resume = "--resume" in sys.argv[5:]
     initialize_distributed()
