@@ -5,7 +5,11 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 0. device: the card's name and power limit (nvidia-smi).
-1. build: every CUDA kernel of the path, from the sources in the checkout.
+1. build: every CUDA kernel of the path, from the sources in the checkout;
+   beside it, one process warms a Python bytecode cache (build/pycache)
+   that every process the script starts reads and writes: the card host
+   sets PYTHONDONTWRITEBYTECODE and its torch ships no .pyc files, so
+   each process compiled torch's sources again (≈ 6 s of a verb's start).
 2. kernel vs plain: both Gauss-Jordan SPD solve kernels (the warp kernel,
    k ≤ 32, and the wide kernel, 32 < k ≤ 128, every K it is built for)
    against their plain PyTorch version at the reference's test shapes and
@@ -44,6 +48,14 @@ Phases (any failure exits non-zero; nothing is caught):
    into it (2 warp launches) and the rebuilt catalog held to the host
    top-k; an engine.json with "shardedServing": "always" trained at the
    ML-100K shape and served.
+7b. serving_mesh: the serving mesh on the one card (4 shards, each named
+   cuda:0): the main path's model and the 10^6-item catalog flat and
+   split, 200 single queries (a third with an exclusion mask) and 50
+   similarity queries bit-identical, a batch of 64 index-identical, p50
+   per query; the Recommendation template trained with a 4-device context
+   mesh and "shardedServing": "always", restored with it, its answers
+   equal to the flat deployment's (its train's warp launches are this
+   path's).
 8. console: train → deploy → query; a checkpointed console train that
    crashes and its ``--resume``; the Similar-Product template's own
    engine.json values through train → deploy → query.
@@ -56,10 +68,10 @@ Phases (any failure exits non-zero; nothing is caught):
    import → 2,000 live events through the event server → train → deploy
    → queries → a corrupted blob walked back past).
 11. codec_vs_plain: the event codec (native/src/event_codec.cc, built with
-   g++ beside nvcc in phase 1) and its plain parser on the first 200,000
+   g++ beside nvcc in phase 1) and its plain parser on the first 100,000
    lines of the ML-20M log: every column and table equal; MB/s of both.
 12. pio_workflow_jsonl: the pio_workflow scenario with the events on a
-   JSONL log (the first 150,000 ML-1M events, cut from 1,000,209 for the
+   JSONL log (the first 75,000 ML-1M events, cut from 1,000,209 for the
    script's time): two generations compacted, the live batches through the
    codec's one-pass path, a train --window whose read skips generation 1
    and equals a numpy filter of the generated events, the full train
@@ -108,7 +120,7 @@ Phases (any failure exits non-zero; nothing is caught):
    (2, 2) mesh of four ranks (this script re-invoked as each rank), each
    range-reading only its rows; factors within 2e-4 of train_als of the
    same triple in this process, warp launches = the plan's.
-13. pio_workflow_jsonl_ml20m: the first 625,000 of the ML-20M ratings
+13. pio_workflow_jsonl_ml20m: the first 312,500 of the ML-20M ratings
    as the log (byte for byte insert_batch's lines; cut from 20,000,263
    for the script's time, ``reduced``) → eventlog compact → the read held
    exactly to the generated arrays → train at rank 32, 10 iterations
@@ -161,7 +173,7 @@ Phases (any failure exits non-zero; nothing is caught):
    two differ by more than 0.05); seconds per candidate and the K7
    ranking_metrics calls and ms per call.
 18. classification_jsonl: bench_templates.py's config 2 (4 Poisson
-   attributes × 3 classes; 250,000 of its 2,000,000 entities, cut for the
+   attributes × 3 classes; 125,000 of its 2,000,000 entities, cut for the
    script's time) as $set events on a JSONL
    log → pio train (the Classification template's values: naive, lambda
    1.0) → the model equal to a host numpy NB of the generated arrays →
@@ -214,8 +226,8 @@ Phases (any failure exits non-zero; nothing is caught):
    top-k times, and score_user's; the indicators served host-sharded
    (4,096 rows a shard: 5 shards) for 200 users with history, every
    answer bit-identical to the flat score_user's.
-21. universal_recommender_jsonl: config 5's first 25,000 buys and
-   100,000 views (1.25 % of its events) and one $set per item (20 categories, an
+21. universal_recommender_jsonl: config 5's first 12,500 buys and
+   50,000 views (0.625 % of its events) and one $set per item (20 categories, an
    available/expire window on 5 % of the items) as a JSONL log → pio
    train with templates/universal-recommender/engine.json (factory
    rewritten) → pio eventserver + pio deploy → 60 queries (user-based,
@@ -223,6 +235,12 @@ Phases (any failure exits non-zero; nothing is caught):
    currentDate inside and before the window, cold users) held to a host
    scorer of the persisted model; latency split into the history read,
    the scoring and the rest.
+21a. ur_gang: pio train --num-workers 2 on the same log (started while
+   the servers boot): every rank reads the merged log and counts its
+   block of the user ranges, both pairs' [I, I] counts all-reduced
+   through the host; the persisted model equal to the single-process
+   train's bit for bit; each rank's counts, all-reduce and G² + top-k
+   times and bytes.
 22. complementary_purchase: bench_templates.py's config 7 (200,000
    shoppers × 10,000 items × 2,000,000 buys over 30 days, 1 h baskets, 20
    correlators) in process on the card (basket count = the host's,
@@ -232,6 +250,10 @@ Phases (any failure exits non-zero; nothing is caught):
    on ≈ 500 basket buys on the card and on the CPU (scores within 0.02,
    the same best where the top two differ by more than 0.05). Neither
    template launches a solve kernel.
+22a. cp_gang: pio train --num-workers 2 of the verbs' log with
+   PIO_UR_FULL_MATRIX_ELEMS below I² (started while the server boots):
+   the striped path, each [4,096, I] stripe all-reduced; the persisted
+   model equal to the single-process (full path) train's bit for bit.
 23. train_rank128: the main path's ratings at rank 128 through the same
    engine, 2 iterations: wide-kernel launches equal to the implied count
    and no warp-kernel launch, the RMSE check, steady seconds per
@@ -516,16 +538,57 @@ def phase_device() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+#: where the Python processes this script starts keep their compiled
+#: bytecode: the card host sets PYTHONDONTWRITEBYTECODE and its torch has
+#: no .pyc files, so without it every process compiled torch's sources
+#: again (≈ 6 s of each verb's start)
+PYCACHE = os.path.join(ROOT, "build", "pycache")
+#: what the bytecode cache is warmed with (the verbs' imports)
+PYCACHE_WARM = (
+    "import torch, torch.distributed, torch.profiler; "
+    "import incubator_predictionio_torch.tools.console, "
+    "incubator_predictionio_torch.tools.commands.engine, "
+    "incubator_predictionio_torch.workflow.core_workflow, "
+    "incubator_predictionio_torch.workflow.create_server, "
+    "incubator_predictionio_torch.workflow.evaluation_workflow, "
+    "incubator_predictionio_torch.parallel.supervisor, "
+    "incubator_predictionio_torch.models.recommendation, "
+    "incubator_predictionio_torch.models.similar_product, "
+    "incubator_predictionio_torch.models.ecommerce, "
+    "incubator_predictionio_torch.models.classification, "
+    "incubator_predictionio_torch.models.text_classification, "
+    "incubator_predictionio_torch.models.universal_recommender, "
+    "incubator_predictionio_torch.models.complementary_purchase, "
+    "incubator_predictionio_torch.models.template_evals")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
+    # every process started from here on reads and writes compiled
+    # bytecode under PYCACHE; one process warms it beside nvcc
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    warm = subprocess.Popen([sys.executable, "-c", PYCACHE_WARM],
+                            env=_console_env(), cwd=ROOT,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
     # the event codec (g++, host code) builds beside nvcc
     codec: dict = {}
     thread = threading.Thread(
         target=lambda: codec.update(line=native.status(),
                                     seconds=native.build_seconds))
     thread.start()
-    spd_solve.build_kernel()
-    thread.join()
+    try:
+        spd_solve.build_kernel()
+        thread.join()
+        _, warm_err = warm.communicate(timeout=600)
+    finally:
+        if warm.poll() is None:
+            warm.kill()
+            warm.wait()
+    check(warm.returncode == 0,
+          f"warming the bytecode cache failed: {warm_err[-2000:]}")
+    warm_s = time.perf_counter() - t0
     check("line" in codec, "the event codec did not build")
     info = _build.build_info["gauss_jordan"]
     log = info["log"].splitlines()
@@ -535,12 +598,15 @@ def phase_build() -> None:
          nvcc_seconds=info["seconds"],
          ptxas=[ln.strip() for ln in log if "Compiling entry" in ln
                 or "registers" in ln or "spill" in ln],
-         codec=codec["line"], codec_seconds=codec["seconds"])
+         codec=codec["line"], codec_seconds=codec["seconds"],
+         bytecode_cache=PYCACHE, bytecode_warm_seconds=warm_s)
 
 
 WIDE_KS = tuple(range(40, 129, 8))  # every K the wide kernel is built for
-TIMED = ((512, 32, 200), (ML20M[0], 32, 10), (512, 64, 50), (512, 96, 50),
-         (512, 128, 50), (8192, 128, 10))
+#: (n, k, reps) of each timed shape (reps halved for the script's time
+#: when the CCO gang and serving-mesh phases came)
+TIMED = ((512, 32, 100), (ML20M[0], 32, 5), (512, 64, 25), (512, 96, 25),
+         (512, 128, 25), (8192, 128, 5))
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -1602,8 +1668,9 @@ LIVE = (1_000, 20, 200, 50)
 SQLITE_IMPORT = 25_000
 #: events the JSONL pio_workflow phase imports (of ML-1M's 1,000,209; all
 #: of them until the partitioned event server's phase needed the time,
-#: 300,000 until the slab-gang phases did)
-JSONL_IMPORT = 150_000
+#: 300,000 until the slab-gang phases did, 150,000 until the CCO gang and
+#: serving-mesh phases did)
+JSONL_IMPORT = 75_000
 PIO_RANK, PIO_ITERS, PIO_LAMBDA = 32, 10, 0.01
 T0_MS = 1_704_067_200_000  # 2024-01-01T00:00:00Z
 
@@ -1913,7 +1980,8 @@ def _sqlite_beside(numbers: dict | None) -> dict:
     return {"imported_events": SQLITE_NUMBERS.get("events"),
             **(numbers or {})}
 #: lines of the ML-20M log the codec_vs_plain phase parses both ways
-CODEC_SLICE = 200_000
+#: (200,000 until the CCO gang and serving-mesh phases needed the time)
+CODEC_SLICE = 100_000
 #: the ML-20M log's event times (a permutation of nnz milliseconds) and ids
 ML20M_TIME_SEED, ML20M_ID_SEED = 8, 7
 CREATED_ISO = "2024-06-01T00:00:00.000Z"
@@ -1924,9 +1992,10 @@ CREATED_ISO = "2024-06-01T00:00:00.000Z"
 #: classification_jsonl alone on one H100 host), and to 2,500,000 when the
 #: host-sharded and partitioned-ingest phases took the script to 1,177 s
 #: on a slow host (the phase 111 s there, 44 s of it the compaction), and
-#: to 1,250,000 when the slab-gang phases needed the time, and to 625,000
-#: when the linear gang and stream phases did
-ML20M_LOG_EVENTS = 625_000
+#: to 1,250,000 when the slab-gang phases needed the time, to 625,000
+#: when the linear gang and stream phases did, and to 312,500 when the CCO
+#: gang and serving-mesh phases did
+ML20M_LOG_EVENTS = 312_500
 ML20M_QUERIES = 20
 
 
@@ -2002,7 +2071,7 @@ def _same_columns(a, b) -> None:
 
 def phase_codec_vs_plain(ratings) -> None:
     """The event codec (native/src/event_codec.cc, g++) and its plain
-    Python parser on the first 200,000 lines of the ML-20M log: every
+    Python parser on the first CODEC_SLICE lines of the ML-20M log: every
     column and table equal; MB/s of both."""
     u, i, r = (a[:CODEC_SLICE] for a in ratings)
     buf = _log_lines(u, i, r, _ml20m_times(len(ratings[0]))[:CODEC_SLICE], 0)
@@ -2645,7 +2714,7 @@ def _items(res: dict) -> list:
 def phase_engine_server_load(env: dict, cwd: str, instance_id: str,
                              stored: dict, want: dict) -> dict:
     """The engine server on the ML-20M-shaped store (pio_workflow_jsonl_ml20m's
-    625,000 events, rank 32): pio deploy --probe-latency (the probe's
+    312,500 events, rank 32): pio deploy --probe-latency (the probe's
     split from /status), one keep-alive client × SERVE_QUERIES, then 8 and
     32 clients without and with micro-batching (--batch-window-ms 2
     --max-batch 64), the result cache (hits and misses), a 504 deadline,
@@ -4541,27 +4610,58 @@ def _sweep_launches(u, i, implicit: bool) -> int:
     return total
 
 
+class _EvalRun:
+    """``pio eval`` of one sweep, started at once in its own process (so a
+    CPU sweep can run beside a card sweep); :meth:`result` waits for it
+    and returns its JSON line with the leaderboard text, the wall seconds
+    and the per-candidate and per-call times. Leaving the ``with`` block
+    stops it if it still runs."""
+
+    def __init__(self, name: str, env: dict, cwd: str, device: str,
+                 app: str = "ml100k"):
+        evaluation, generator = EVAL_MODULES[name]
+        self.name = name
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            CONSOLE + ["eval", evaluation, generator, "--app-name", app,
+                       "--device", device], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=cwd)
+
+    def __enter__(self):
+        return self
+
+    def result(self) -> dict:
+        out, err = self.proc.communicate(timeout=900)
+        wall = time.perf_counter() - self.t0
+        check(self.proc.returncode == 0,
+              f"verb eval failed ({self.proc.returncode}): {err[-2000:]}")
+        lines = out.strip().splitlines()
+        result = json.loads(lines[-1])
+        result["wall_seconds"] = wall
+        result["leaderboard"] = lines[:lines.index(
+            "[MetricEvaluator] best engine params:")]
+        check(result["candidates"] == len(EVAL_GRID),
+              f"{self.name} sweep ran {result['candidates']} candidates")
+        check(all(0.0 <= s <= 1.0 for s in result["scores"]),
+              f"{self.name} scores out of range: {result['scores']}")
+        rm = result["ranking_metrics"]
+        result["seconds_per_candidate"] = (result["seconds"]
+                                           / result["candidates"])
+        result["ranking_metrics_ms_per_call"] = (
+            rm["seconds"] / rm["calls"] * 1e3 if rm["calls"] else None)
+        return result
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
 def _eval_verb(name: str, env: dict, cwd: str, device: str,
                app: str = "ml100k") -> dict:
-    """``pio eval`` of one sweep; its JSON line with the leaderboard text,
-    the wall seconds and the per-candidate and per-call times."""
-    evaluation, generator = EVAL_MODULES[name]
-    out, wall = _verb(["eval", evaluation, generator, "--app-name", app,
-                       "--device", device], env, cwd, timeout=900)
-    lines = out.stdout.strip().splitlines()
-    result = json.loads(lines[-1])
-    result["wall_seconds"] = wall
-    result["leaderboard"] = lines[:lines.index(
-        "[MetricEvaluator] best engine params:")]
-    check(result["candidates"] == len(EVAL_GRID),
-          f"{name} sweep ran {result['candidates']} candidates")
-    check(all(0.0 <= s <= 1.0 for s in result["scores"]),
-          f"{name} scores out of range: {result['scores']}")
-    rm = result["ranking_metrics"]
-    result["seconds_per_candidate"] = result["seconds"] / result["candidates"]
-    result["ranking_metrics_ms_per_call"] = (
-        rm["seconds"] / rm["calls"] * 1e3 if rm["calls"] else None)
-    return result
+    """``pio eval`` of one sweep, waited for (:class:`_EvalRun`)."""
+    with _EvalRun(name, env, cwd, device, app) as run:
+        return run.result()
 
 
 def phase_pio_eval(workdir: str) -> None:
@@ -4583,7 +4683,8 @@ def phase_pio_eval(workdir: str) -> None:
     calls, one after another on the host, so all 100,000 events (400,000
     queries per sweep) would take the phase's time many times over, on
     the card and again on the CPU; ``reduced`` carries the measured time
-    per query."""
+    per query. The CPU sweep runs beside the card's E-Commerce sweep
+    (both processes at once), for the script's time."""
     n_users, n_items, full = ML100K
     u, i, r = (a[:EVAL_RATES] for a in synth_ratings(
         n_users, n_items, full, seed=ML100K_SEED))
@@ -4606,9 +4707,14 @@ def phase_pio_eval(workdir: str) -> None:
         "recommendation": _sweep_launches(u[rate_order], i[rate_order], False),
         "ecommerce": _sweep_launches(u[:EVAL_VIEWS][view_order],
                                      i[:EVAL_VIEWS][view_order], True)}
-    sweeps = {}
+    sweeps = {"recommendation": _eval_verb("recommendation", env, cwd,
+                                           "cuda")}
+    # the E-Commerce sweep on the CPU runs beside the card's
+    with _EvalRun("ecommerce", env, cwd, "cpu") as cpu_run:
+        sweeps["ecommerce"] = _eval_verb("ecommerce", env, cwd, "cuda")
+        cpu = sweeps["ecommerce_cpu"] = cpu_run.result()
     for name in ("recommendation", "ecommerce"):
-        res = sweeps[name] = _eval_verb(name, env, cwd, "cuda")
+        res = sweeps[name]
         got = res["kernel_launches"]
         check(got["warp"] == expected[name] and got["wide"] == 0,
               f"{name} sweep launches {got} != implied {expected[name]} warp")
@@ -4616,9 +4722,9 @@ def phase_pio_eval(workdir: str) -> None:
     check(sweeps["ecommerce"]["ranking_metrics"]["calls"] > 0,
           "the E-Commerce sweep made no ranking_metrics call")
     record("pio_eval", {
-        "warp": sum(s["kernel_launches"]["warp"] for s in sweeps.values()),
+        "warp": sum(sweeps[name]["kernel_launches"]["warp"]
+                    for name in ("recommendation", "ecommerce")),
         "wide": 0})
-    cpu = sweeps["ecommerce_cpu"] = _eval_verb("ecommerce", env, cwd, "cpu")
     card = sweeps["ecommerce"]
     top = sorted(card["scores"], reverse=True)
     check(cpu["candidates"] == card["candidates"],
@@ -4648,8 +4754,8 @@ CLASSIFICATION = (2_000_000, 4, 3)
 #: the entities classification_jsonl writes, cut from config 2's 2,000,000
 #: for the script's time: the whole script took 1,110 s on one H100 host
 #: with all of them, this phase 114 s; 500,000 until the slab-gang phases
-#: needed the time
-CLASSIFICATION_ENTITIES = 250_000
+#: needed the time, 250,000 until the CCO gang and serving-mesh phases did
+CLASSIFICATION_ENTITIES = 125_000
 CLASSIFICATION_ID_SEED = 9
 CLASSIFICATION_ENGINE = os.path.join(ROOT, "templates", "classification",
                                      "engine.json")
@@ -5100,18 +5206,86 @@ LINEAR_RANK_KEYS = (
     "loss_evals", "host_syncs", "collectives", "loss")
 
 
+class _GangTrain:
+    """``pio train --num-workers 2`` of an engine that solves nothing (the
+    linear and the CCO templates), started at once in its own process (so
+    a server can boot meanwhile); :meth:`result` waits for it and returns its last JSON line
+    with ``wall_seconds`` (from the start), every worker completed without
+    a restart and launched no solve kernel. Leaving the ``with`` block
+    stops it if it still runs."""
+
+    def __init__(self, env: dict, cwd: str, extra=()):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            CONSOLE + ["train", "--num-workers", str(LINEAR_GANG_WORKERS),
+                       *extra], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env | GANG_KNOBS,
+            cwd=cwd)
+
+    def __enter__(self):
+        return self
+
+    def result(self, timeout: float = 600) -> dict:
+        out, err = self.proc.communicate(timeout=timeout)
+        wall = time.perf_counter() - self.t0
+        check(self.proc.returncode == 0,
+              f"gang train failed ({self.proc.returncode}): {err[-2000:]}")
+        got = json.loads(out.strip().splitlines()[-1])
+        got["wall_seconds"] = wall
+        check(_gang_launches(got) == {"warp": 0, "wide": 0},
+              f"a gang launched {_gang_launches(got)}")
+        return got
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
 def _linear_gang_verb(env: dict, cwd: str, extra=()) -> dict:
     """``pio train --num-workers 2`` of a linear engine (the ranks share
-    the card over gloo; no snapshots: the linear trainers take none): its
-    last JSON line with ``wall_seconds``, every worker completed without a
-    restart and launched no solve kernel."""
-    out, wall = _verb(["train", "--num-workers", str(LINEAR_GANG_WORKERS),
-                       *extra], env | GANG_KNOBS, cwd, timeout=600)
-    got = json.loads(out.stdout.strip().splitlines()[-1])
-    got["wall_seconds"] = wall
-    check(_gang_launches(got) == {"warp": 0, "wide": 0},
-          f"a linear gang launched {_gang_launches(got)}")
-    return got
+    the card over gloo; no snapshots: the linear trainers take none),
+    waited for (:class:`_GangTrain`)."""
+    with _GangTrain(env, cwd, extra) as run:
+        return run.result()
+
+
+#: what a CCO gang rank reports (_cco_gang)
+CCO_RANK_KEYS = (
+    "rank", "world", "read_seconds", "ratings_read", "path", "n_ranges",
+    "local_ranges", "gemms", "counts_ms", "g2_topk_ms", "allreduce_calls",
+    "allreduce_bytes", "allreduce_seconds")
+
+
+def _cco_gang(env: dict, gang: dict, stored: dict, single: dict, path: str,
+              calls: int, call_bytes: int, what: str) -> dict:
+    """A CCO gang held to its single-process ``pio train``: every
+    persisted array equal bit for bit, every rank on ``path`` with
+    ``calls`` all-reduces of ``call_bytes`` each; returns its numbers."""
+    got = _persisted(env, gang["engineInstanceId"])
+    check(sorted(got) == sorted(stored), f"{what}: persisted keys differ")
+    for name, want in stored.items():
+        check(np.array_equal(np.asarray(got[name]), np.asarray(want))
+              if isinstance(want, np.ndarray) else got[name] == want,
+              f"{what}: the gang's {name} differs from the single-process "
+              "pio train's")
+    ranks = [w["timings"] for w in gang["workers"]]
+    check([t["rank"] for t in ranks] == list(range(LINEAR_GANG_WORKERS))
+          and all(t["path"] == path and t["allreduce_calls"] == calls
+                  and t["allreduce_bytes"] == calls * call_bytes
+                  for t in ranks),
+          f"{what}: the ranks' counts {ranks}")
+    seconds = [t["allreduce_seconds"] for t in ranks]
+    return {"seconds_end_to_end": gang["wall_seconds"],
+            "single_seconds_end_to_end": single["wall_seconds"],
+            "restarts": gang["restarts"], "equal_to_single": "bit for bit",
+            "allreduce_bytes_per_rank": calls * call_bytes,
+            "allreduce_gb_per_s": [calls * call_bytes / 1e9 / max(x, 1e-9)
+                                   for x in seconds],
+            "workers": [{"train_seconds": w["seconds"],
+                         **{k: w["timings"][k] for k in CCO_RANK_KEYS
+                            if k in w["timings"]}}
+                        for w in gang["workers"]]}
 
 
 def _linear_gang_numbers(got: dict) -> dict:
@@ -5442,8 +5616,9 @@ CCO_SAMPLE = 64
 #: space; 2.5 % of its events), cut for the script's time: pio train reads
 #: the log through find_batch, a Python object per event (2,000,000 events
 #: took 66.9 s end to end on one H100 host, 55.3 s of it the read); half
-#: that (1.25 %) since the slab-gang phases needed the time
-UR_LOG = (25_000, 100_000)
+#: that (1.25 %) since the slab-gang phases needed the time, half again
+#: (0.625 %) since the CCO gang and serving-mesh phases did
+UR_LOG = (12_500, 50_000)
 UR_CATEGORIES = 20
 #: the share of items with an availableDate / expireDate window (the
 #: window below; before it, after it and without a currentDate they are
@@ -5466,6 +5641,9 @@ CP_QUERIES = 30
 #: pio eval's shoppers: 4 buys each in one basket (≈ 500 buys; 250
 #: shoppers until the linear gang and stream phases needed the time)
 CP_EVAL_SHOPPERS = 125
+#: cp_gang's PIO_UR_FULL_MATRIX_ELEMS: below I² of the verbs' catalog
+#: (≈ 10,000 items), so the gang takes the striped path
+CP_GANG_CAP = 10_000_000
 
 
 def tf32_peak() -> float:
@@ -6028,6 +6206,10 @@ def phase_universal_recommender_jsonl(workdir: str) -> None:
     check_answer, counts = _ur_check(stored, history, cats, dated)
     split_out = os.path.join(cwd, "query_split.json")
     client_ms = []
+    # ur_gang: the same train by a gang of two on the same log, started
+    # before the servers so that it trains while they boot; the queries
+    # wait for it to end
+    gang_run = _GangTrain(env, cwd)
     t0 = time.perf_counter()
     events_srv = _Served(["eventserver", "--ip", "127.0.0.1"], env, cwd)
     srv = _timed_deploy(env, cwd, split_out, "universal_recommender",
@@ -6036,8 +6218,9 @@ def phase_universal_recommender_jsonl(workdir: str) -> None:
                                         "torch.models._sharded_serving:"
                                         "ShardedIndicators.score_user"})
     try:
-        with events_srv, srv:
+        with gang_run, events_srv, srv:
             ready_s = time.perf_counter() - t0
+            gang = gang_run.result()
             check(srv.info["engineInstanceId"] == trained["engineInstanceId"],
                   f"deployed {srv.info}")
             conn = srv.connect()
@@ -6048,8 +6231,8 @@ def phase_universal_recommender_jsonl(workdir: str) -> None:
                 check_answer(q, res)
                 client_ms.append(ms)
             conn.close()
-    finally:  # a server whose start failed is stopped here
-        for proc in (events_srv.proc, srv.proc):
+    finally:  # a process whose start failed is stopped here
+        for proc in (events_srv.proc, srv.proc, gang_run.proc):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -6072,7 +6255,16 @@ def phase_universal_recommender_jsonl(workdir: str) -> None:
          query_ms=_split(client_ms[1:], records[1:],
                          {"history_read": "history_s",
                           "scoring": "score_s"}),
-         kernel_launches=trained["kernel_launches"])
+         kernel_launches=trained["kernel_launches"],
+         deploy_booted_beside="the ur_gang train")
+    n_ur = len(stored["items"])
+    PATH_LAUNCHES["ur_gang"] = {"warp": 0, "wide": 0}
+    emit("ur_gang", events=nb + nv, items=n_ur,
+         **_cco_gang(env, gang, stored, trained, "fused", 2,
+                     4 * n_ur * n_ur, "ur_gang"),
+         reckoned=("two pairs x I^2 x 4 B all-reduced per rank, each "
+                   "[I, I] in turn; every rank reads the merged log"),
+         booted_beside="the universal_recommender_jsonl servers")
     shutil.rmtree(cwd)
 
 
@@ -6116,8 +6308,9 @@ def phase_complementary_purchase(workdir: str) -> None:
     template's engine.json, factory rewritten) → pio deploy → CP_QUERIES
     basket queries held to a host scorer of the persisted indicators; then
     pio eval of ComplementaryEvaluation / ComplementaryParamsList on
-    ≈ 500 basket buys on the card and on the CPU (scores within 0.02, the
-    same best where the top two differ by more than 0.05). No solve kernel
+    ≈ 500 basket buys on the card and, beside it, on the CPU (scores
+    within 0.02, the same best where the top two differ by more than
+    0.05). cp_gang's train starts while the deploy boots. No solve kernel
     launches."""
     n_shoppers, n_items, nnz = CP
     u, i, t = _cp_events()
@@ -6175,7 +6368,14 @@ def phase_complementary_purchase(workdir: str) -> None:
     multi = np.random.default_rng(53).choice(
         np.flatnonzero(np.bincount(log_baskets) >= 2), CP_QUERIES,
         replace=False)
-    with _Served(["deploy"], env, cwd) as srv:
+    # cp_gang: the same train by a gang of two with the accumulator capped
+    # below I² (the striped path), training while the server boots
+    n_cp = len(items)
+    cap = CP_GANG_CAP
+    check(n_cp * n_cp > cap, f"cp_gang: {n_cp}² items fit the cap {cap}")
+    gang_run = _GangTrain(env | {"PIO_UR_FULL_MATRIX_ELEMS": str(cap)}, cwd)
+    with gang_run, _Served(["deploy"], env, cwd) as srv:
+        gang = gang_run.result()
         check(srv.info["engineInstanceId"] == trained["engineInstanceId"],
               f"deployed {srv.info}")
         conn = srv.connect()
@@ -6202,8 +6402,10 @@ def phase_complementary_purchase(workdir: str) -> None:
     with open(os.path.join(eval_base, "events", "pio_eventdata",
                            "events_1.jsonl"), "wb") as fh:
         fh.write(lines)
-    card = _eval_verb("complementary", eval_env, cwd, "cuda", "cpeval")
-    cpu = _eval_verb("complementary", eval_env, cwd, "cpu", "cpeval")
+    # the CPU sweep runs beside the card's, for the script's time
+    with _EvalRun("complementary", eval_env, cwd, "cpu", "cpeval") as run:
+        card = _eval_verb("complementary", eval_env, cwd, "cuda", "cpeval")
+        cpu = run.result()
     check(card["kernel_launches"] == {"warp": 0, "wide": 0}
           and card["ranking_metrics"]["calls"] > 0,
           f"the CP sweep launched {card['kernel_launches']}")
@@ -6230,7 +6432,18 @@ def phase_complementary_purchase(workdir: str) -> None:
          reduced=(f"the verbs on the first {n_log} of the {nnz} buys; pio "
                   f"eval on {n_eval} basket buys"),
          eval={"buys": n_eval, "card": card, "cpu": cpu},
-         kernel_launches=launched)
+         kernel_launches=launched, deploy_booted_beside="the cp_gang train")
+    block = min(4096, n_cp)  # the template's item_block
+    stripes = -(-n_cp // block)
+    PATH_LAUNCHES["cp_gang"] = {"warp": 0, "wide": 0}
+    emit("cp_gang", buys=n_log, items=n_cp, full_matrix_elems=cap,
+         stripes=stripes,
+         **_cco_gang(env, gang, stored, trained, "striped", stripes,
+                     4 * block * n_cp, "cp_gang"),
+         single_path=vt["path"],
+         reckoned=("one [block, I] stripe all-reduced at a time; the "
+                   "single-process train took the full path"),
+         booted_beside="the complementary_purchase server")
     shutil.rmtree(cwd)
 
 
@@ -6490,6 +6703,134 @@ def phase_serving_sharded_catalog(main: dict) -> None:
     emit("serving_sharded_always", ratings=nnz, kernel_launches=got,
          expected_launches=expected, shards=dep.models[0].catalog().n_shards,
          queries=len(queries), **_percentiles(ms))
+
+
+# -- the serving mesh (ROADMAP item 7.4) ---------------------------------------
+
+#: the serving mesh on the one card: 4 shards, each on MESH_DEVICE
+MESH_SHARDS, MESH_DEVICE = 4, "cuda:0"
+MESH_USERS, MESH_SIMILAR = 200, 50
+
+
+def _mesh_vs_flat(itf: np.ndarray, uf: np.ndarray, users, mesh: list,
+                  what: str) -> dict:
+    """One catalog resident flat and split over ``mesh`` on the card:
+    every user's top 10 (a third of them with 1 % of the items excluded)
+    and MESH_SIMILAR similarity queries on the row-normalized catalog
+    bit-identical, a batch of SHARDED_BATCH index-identical; each layout's
+    per-query p50 (host clock: the call to the answer on the host)."""
+    from incubator_predictionio_torch.models._sharded_serving import (
+        ShardedCatalog,
+    )
+    from incubator_predictionio_torch.ops.topk import normalize_rows
+
+    card = resolve_device("cuda")
+    rng = np.random.default_rng(65)
+    cats = {"flat": ShardedCatalog(itf, card),
+            "mesh": ShardedCatalog(itf, card, mesh)}
+    check(cats["flat"].layout == "flat" and cats["mesh"].layout == "mesh"
+          and cats["mesh"].n_shards == len(mesh),
+          f"{what}: layouts {cats['flat'].layout} / {cats['mesh'].layout}")
+    excl = rng.random(len(itf)) < 0.01
+    ms = {"flat": [], "mesh": []}
+    for j, u in enumerate(users):
+        got = {}
+        for name, cat in cats.items():
+            t0 = time.perf_counter()
+            got[name] = cat.top_k(uf[u], 10,
+                                  exclude=excl if j % 3 == 0 else None)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(got["mesh"][1], got["flat"][1])
+              and np.array_equal(got["mesh"][0], got["flat"][0]),
+              f"{what}: user {u}'s mesh answer differs from flat")
+    uvs = uf[rng.integers(0, len(uf), SHARDED_BATCH)]
+    check(np.array_equal(cats["mesh"].batch_top_k(uvs, 10)[1],
+                         cats["flat"].batch_top_k(uvs, 10)[1]),
+          f"{what}: batched indices differ between flat and the mesh")
+    del cats
+    normed = normalize_rows(itf)
+    sims = {"flat": ShardedCatalog(normed, card),
+            "mesh": ShardedCatalog(normed, card, mesh)}
+    for q in rng.integers(0, len(itf), (MESH_SIMILAR, 2)):
+        got = {name: cat.similar(itf[q], 10, exclude=excl)
+               for name, cat in sims.items()}
+        check(np.array_equal(got["mesh"][1], got["flat"][1])
+              and np.array_equal(got["mesh"][0], got["flat"][0]),
+              f"{what}: a similarity answer differs between the layouts")
+    del sims
+    torch.cuda.empty_cache()
+    return {"items": len(itf), "rank": itf.shape[1], "shards": len(mesh),
+            "queries": len(users), "similarity_queries": MESH_SIMILAR,
+            "batch": SHARDED_BATCH, "identical": True,
+            "flat": _percentiles(ms["flat"][1:]),
+            "mesh": _percentiles(ms["mesh"][1:])}
+
+
+def phase_serving_mesh(main: dict) -> None:
+    """The serving mesh on the one card: MESH_SHARDS shards, each on
+    cuda:0. The main path's ML-20M model and the million-item catalog
+    (rank 32, random, seed 64) resident flat and split over the mesh:
+    single queries (some with an exclusion mask) and similarity
+    bit-identical, a batch of 64 index-identical, p50 per query beside
+    flat's. Then the Recommendation template at the ML-100K shape with
+    "shardedServing": "always": trained with a 4-device context mesh
+    (the model picks the mesh through serving_mesh_for), persisted,
+    restored with the same context (the mesh again), every query's answer
+    equal to the flat deployment's bit for bit and a batch's items equal.
+    The train's warp launches are this path's. Multi-card times are not
+    measured: the host has one card."""
+    mesh = [MESH_DEVICE] * MESH_SHARDS
+    model = main["model"]
+    uf, itf = model.factors.user_factors, model.factors.item_factors
+    users = np.random.default_rng(64).integers(0, len(uf), MESH_USERS)
+    points = [_mesh_vs_flat(itf, uf, users, mesh, "ML-20M")]
+    rng = np.random.default_rng(64)
+    big = rng.normal(size=(SHARDED_SIZES[-1], RANK)).astype(np.float32)
+    buf = rng.normal(size=(SHARDED_USERS, RANK)).astype(np.float32)
+    points.append(_mesh_vs_flat(big, buf, rng.integers(0, SHARDED_USERS,
+                                                       MESH_USERS),
+                                mesh, "10^6 items"))
+    del big
+
+    n_u, n_i, nnz = ML100K
+    u, i, r = synth_ratings(n_u, n_i, nnz, seed=66)
+    engine, engine_json, _ = als_engine(RANK, ITERS, 0.1, "nratings")
+    deployments = {}
+    reset_launches()
+    for mode in ("never", "always"):
+        engine_json["algorithms"][0]["params"]["shardedServing"] = mode
+        params = EngineParams.from_json(engine_json)
+        _, _, algos, _ = engine.make_components(params)
+        ctx = WorkflowContext(device="cuda", mesh=mesh)
+        trained = algos[0][1].train(ctx, TrainingData(
+            u, i, r, IdentityBiMap(n_u), IdentityBiMap(n_i)))
+        check((trained.serving_mesh is not None) == (mode == "always"),
+              f"serving_mesh: the {mode} train's mesh "
+              f"{trained.serving_mesh}")
+        dep = engine.prepare_deployment(
+            WorkflowContext(device="cuda", mesh=mesh), params,
+            [model_to_persisted(trained)])
+        dep.models[0].warm_up()
+        layout = dep.models[0].catalog().layout
+        check(layout == ("mesh" if mode == "always" else "flat"),
+              f"serving_mesh: the restored {mode} model serves {layout}")
+        deployments[mode] = dep
+    got = launches()
+    record("serving_mesh", got)
+    queries = [{"user": str(x), "num": 10} for x in range(0, n_u, 7)]
+    for q in queries:
+        check(deployments["always"].query(q) == deployments["never"].query(q),
+              f"serving_mesh: {q}'s mesh answer differs from flat")
+    batch = deployments["always"].batch_query(queries[:SHARDED_BATCH])
+    flat = deployments["never"].batch_query(queries[:SHARDED_BATCH])
+    check([[x["item"] for x in a["itemScores"]] for a in batch]
+          == [[x["item"] for x in a["itemScores"]] for a in flat],
+          "serving_mesh: a batch's items differ between the layouts")
+    emit("serving_mesh", points=points, mesh=mesh,
+         template={"ratings": nnz, "queries": len(queries),
+                   "batch": min(SHARDED_BATCH, len(queries)),
+                   "identical": True, "kernel_launches": got},
+         not_measured="multi-card times: the host has one card")
 
 
 # -- the partitioned event log's write side (ROADMAP item 3.1.1) ------------
@@ -7452,6 +7793,7 @@ def main() -> int:
         phase_train_nan_guard(main_path)
         phase_fold_in_main(workdir, main_path)
         phase_serving_sharded_catalog(main_path)
+        phase_serving_mesh(main_path)
         phase_console(workdir)
         phase_console_similar_product(workdir)
         phase_pio_workflow(workdir)

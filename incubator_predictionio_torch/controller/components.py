@@ -47,8 +47,9 @@ class IdentityPreparator(Preparator):
 class Algorithm(AbstractDoer):
     """``gang_capable``: the algorithm trains in a gang, so ``pio train
     --num-workers N`` may run it: through ``ops.als`` (the slab gang on a
-    merged read, the data-parallel trainer on a partition-local one) or
-    through the linear trainers' process-local forms (``ops.linear``)."""
+    merged read, the data-parallel trainer on a partition-local one),
+    through the linear trainers' process-local forms (``ops.linear``) or
+    through the CCO counts split over the ranks (``ops.llr``)."""
 
     gang_capable = False
 

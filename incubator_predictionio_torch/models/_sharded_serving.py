@@ -5,6 +5,10 @@ Port of ``incubator_predictionio_tpu/models/_sharded_serving.py``.
 the device layout at construction and the templates never see which path
 answered (only this module touches ``ops/sharded_topk``):
 
+- ``mesh`` — a serving mesh was assigned (``serving_mesh_for`` at train
+  and restore: a catalog past one device's budget, or
+  ``"shardedServing": "always"``): dim 0 split over the mesh's devices,
+  each shard's partial top-k gathered to the first and merged.
 - ``host`` — ``PIO_SERVE_SHARD_ITEMS`` > 0 and the vocabulary is larger:
   the catalog lives stacked [S, rows, rank] on the model's device and each
   shard's partial top-k is merged exactly, so the batched path's score
@@ -12,15 +16,12 @@ answered (only this module touches ``ops/sharded_topk``):
 - ``flat`` — the whole matrix on the model's device (the default; knob
   unset ⇒ the flat kernels of ``ops/topk.py``, unchanged).
 
-Both layouts answer bit-identically on the single-query and similarity
-paths, and with identical indices on the batched path. The reference's
-third layout, ``mesh``, splits the catalog over several cards and is not
-ported (ROADMAP.md Queue 1, item 7.4): a model here serves from its one
-torch device, where the policy never picks it.
+All three layouts answer bit-identically on the single-query and
+similarity paths, and with identical indices on the batched path.
 
-Each template model keeps one dataclass field (``_sharded_cat``) and mixes
-in ``ShardedCatalogServing`` for the caching, so the layout policy lives in
-one place.
+Each template model keeps two dataclass fields (``serving_mesh``,
+``_sharded_cat``) and mixes in ``ShardedCatalogServing`` for the caching,
+so the layout policy lives in one place.
 """
 
 from __future__ import annotations
@@ -28,9 +29,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.sharded_topk import (  # noqa: F401  (validate_serving_mode
-    # is re-exported: templates import the whole sharding surface from
-    # HERE, never from ops.sharded_topk)
+from ..ops.sharded_topk import (  # noqa: F401  (serving_mesh_for and
+    # validate_serving_mode are re-exported: templates import the whole
+    # sharding surface from HERE, never from ops.sharded_topk)
     env_serve_shard_items,
     host_sharded_batch_top_k,
     host_sharded_score_user,
@@ -38,6 +39,11 @@ from ..ops.sharded_topk import (  # noqa: F401  (validate_serving_mode
     host_sharded_top_k_items,
     put_host_sharded_catalog,
     put_host_sharded_indicators,
+    put_sharded_catalog,
+    serving_mesh_for,
+    sharded_batch_top_k,
+    sharded_similar_items,
+    sharded_top_k_items,
     validate_serving_mode,
 )
 from ..ops.llr import score_user
@@ -45,19 +51,23 @@ from ..ops.topk import batch_top_k, similar_items, top_k_items
 
 __all__ = [
     "ShardedCatalog", "ShardedCatalogServing", "ShardedIndicators",
-    "validate_serving_mode",
+    "serving_mesh_for", "validate_serving_mode",
 ]
 
 
 class ShardedCatalog:
-    """Layout-selecting serving catalog: factor rows resident on one
-    device in the layout the knob picked, scored through one API."""
+    """Layout-selecting serving catalog: factor rows resident in the
+    layout the policy picked (over ``serving_mesh``'s devices, else on
+    ``device`` as the knob says), scored through one API."""
 
-    def __init__(self, host_factors, device):
+    def __init__(self, host_factors, device, serving_mesh=None):
         x = np.ascontiguousarray(host_factors, np.float32)
         self.n_items = int(x.shape[0])
         rows = env_serve_shard_items()
-        if 0 < rows < self.n_items:
+        if serving_mesh is not None:
+            self.layout = "mesh"
+            self._cat = put_sharded_catalog(x, serving_mesh)
+        elif 0 < rows < self.n_items:
             self.layout = "host"
             self._cat = put_host_sharded_catalog(x, rows, device)
         else:
@@ -66,18 +76,24 @@ class ShardedCatalog:
 
     @property
     def n_shards(self) -> int:
-        return self._cat.n_shards if self.layout == "host" else 1
+        return self._cat.n_shards if self.layout != "flat" else 1
 
     @property
-    def resident(self) -> torch.Tensor:
+    def resident(self):
         """The device tensor holding the catalog: [N, rank] flat, or
-        [S, rows, rank] host-sharded."""
+        [S, rows, rank] host-sharded; on a mesh, the list of its shards'
+        [rows, rank] tensors."""
+        if self.layout == "mesh":
+            return list(self._cat.shards)
         return self._cat.dev if self.layout == "host" else self._cat
 
     def top_k(self, user_vec, k: int, exclude=None):
         """(scores[k'], idx[k']) host numpy; ``exclude`` an optional
         bool [n_items] business-rule mask (True = suppressed), applied
         per shard BEFORE the partial top-k."""
+        if self.layout == "mesh":
+            return sharded_top_k_items(user_vec, self._cat, k,
+                                       exclude=exclude)
         if self.layout == "host":
             return host_sharded_top_k_items(user_vec, self._cat, k,
                                             exclude=exclude)
@@ -86,6 +102,8 @@ class ShardedCatalog:
     def batch_top_k(self, user_vecs, k: int):
         """Micro-batch window path: one call for the whole coalesced
         batch, whatever the layout."""
+        if self.layout == "mesh":
+            return sharded_batch_top_k(user_vecs, self._cat, k)
         if self.layout == "host":
             return host_sharded_batch_top_k(user_vecs, self._cat, k)
         return batch_top_k(user_vecs, self._cat, k)
@@ -93,6 +111,9 @@ class ShardedCatalog:
     def similar(self, query_vecs, k: int, exclude=None):
         """Summed-cosine similarity — the catalog must hold ROW-NORMALIZED
         factors (Similar-Product's ``_host_catalog``)."""
+        if self.layout == "mesh":
+            return sharded_similar_items(query_vecs, self._cat, k,
+                                         exclude=exclude)
         if self.layout == "host":
             return host_sharded_similar_items(query_vecs, self._cat, k,
                                               exclude=exclude)
@@ -139,10 +160,10 @@ class ShardedIndicators:
 
 
 class ShardedCatalogServing:
-    """Caches the device-resident ``ShardedCatalog`` the
-    ``PIO_SERVE_SHARD_ITEMS`` knob picks. Without the cache every query
-    would upload the whole matrix: the serving path uploads only the
-    rank-float query vector.
+    """Caches the device-resident ``ShardedCatalog`` picked by the
+    deploy-time ``serving_mesh`` decision and the ``PIO_SERVE_SHARD_ITEMS``
+    knob. Without the cache every query would upload the whole matrix: the
+    serving path uploads only the rank-float query vector.
 
     Subclasses override ``_host_catalog()`` when the served factors are
     not the raw item factors (Similar-Product serves row-normalized
@@ -154,8 +175,8 @@ class ShardedCatalogServing:
 
     def catalog(self) -> ShardedCatalog:
         if self._sharded_cat is None:
-            self._sharded_cat = ShardedCatalog(self._host_catalog(),
-                                               self.device)
+            self._sharded_cat = ShardedCatalog(
+                self._host_catalog(), self.device, self.serving_mesh)
         return self._sharded_cat
 
     def warm_catalog(self) -> None:

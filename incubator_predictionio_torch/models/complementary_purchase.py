@@ -30,6 +30,7 @@ from ..data.store import PEventStore
 from ..device import resolve_device
 from ..e2.cross_validation import k_fold_indices
 from ..ops.llr import Indicators, cco_indicators, score_user
+from ..parallel.distributed import gang_collectives
 
 
 @dataclasses.dataclass
@@ -172,6 +173,11 @@ class ComplementaryModel:
 
 
 class ComplementaryAlgorithm(Algorithm):
+    """In a gang every rank reads the merged view and forms the same
+    baskets, counts its block of the basket ranges and sums the counts
+    with the others; the leader persists."""
+    gang_capable = True
+
     params_cls = AlgoParams
     params_aliases = {
         "basketWindowSecs": "basket_window_secs",
@@ -189,7 +195,7 @@ class ComplementaryAlgorithm(Algorithm):
             n_users=max(n_baskets, 1), n_items=len(td.items),
             max_correlators=p.max_correlators,
             llr_threshold=p.llr_threshold, device=ctx.device,
-            timings=ctx.bench_timings)
+            timings=ctx.bench_timings, collectives=gang_collectives())
         if ctx.bench_timings is not None:
             ctx.bench_timings["baskets"] = n_baskets
         return ComplementaryModel(ind, td.items, ctx.device)

@@ -47,7 +47,7 @@ from ..ops.als import (
 )
 from ._filters import CategoryIndex, build_exclude_mask
 from ._sharded_serving import (
-    ShardedCatalogServing, validate_serving_mode,
+    ShardedCatalogServing, serving_mesh_for, validate_serving_mode,
 )
 from .similar_product import (
     DataSourceParams as SPDataSourceParams, SimilarProductDataSource,
@@ -98,7 +98,11 @@ class ECommerceModel(ShardedCatalogServing):
     #: the event store the serve-time reads go to (None: the process's
     #: ``Storage.instance()``)
     storage: Any = dataclasses.field(default=None, repr=False, compare=False)
-    # catalog caching + layout selection: ShardedCatalogServing
+    # the serving mesh (a list of devices) or None: decided at train and
+    # restore by serving_mesh_for; catalog caching + layout selection:
+    # ShardedCatalogServing
+    serving_mesh: object = dataclasses.field(
+        default=None, repr=False, compare=False)
     _sharded_cat: object = dataclasses.field(
         default=None, repr=False, compare=False)
     _cat_index: Optional[CategoryIndex] = dataclasses.field(
@@ -205,12 +209,15 @@ class ECommerceAlgorithm(Algorithm):
             resume=ctx.workflow_params.resume,
             nan_guard=ctx.workflow_params.nan_guard,
             nan_guard_stage=ctx.stage_label, timings=ctx.bench_timings)
-        return ECommerceModel(
+        model = ECommerceModel(
             factors=factors, users=pd.users, items=pd.items,
             item_categories=pd.item_categories,
             app_name=p.app_name or ctx.app_name,
             seen_event_names=tuple(p.seen_events), device=ctx.device,
             storage=ctx.storage)
+        model.serving_mesh = serving_mesh_for(ctx, len(pd.items), p.rank,
+                                              p.sharded_serving)
+        return model
 
     def predict(self, model: ECommerceModel, query: dict) -> dict:
         pairs = model.recommend(
@@ -225,7 +232,11 @@ class ECommerceAlgorithm(Algorithm):
         return model_to_persisted(model)
 
     def restore_model(self, stored, ctx) -> ECommerceModel:
-        return model_from_persisted(stored, ctx.device, ctx.storage)
+        model = model_from_persisted(stored, ctx.device, ctx.storage)
+        itf = model.factors.item_factors
+        model.serving_mesh = serving_mesh_for(
+            ctx, itf.shape[0], itf.shape[1], self.params.sharded_serving)
+        return model
 
 
 def model_to_persisted(model: ECommerceModel) -> dict:

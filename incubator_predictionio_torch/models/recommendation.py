@@ -45,7 +45,7 @@ from ..ops.als import (
 )
 from ..workflow import train_feed
 from ._sharded_serving import (
-    ShardedCatalogServing, validate_serving_mode,
+    ShardedCatalogServing, serving_mesh_for, validate_serving_mode,
 )
 
 log = logging.getLogger("pio.torch.recommendation")
@@ -79,7 +79,11 @@ class ALSModel(ShardedCatalogServing):
     users: BiMap
     items: BiMap
     device: torch.device
-    # catalog caching + layout selection: ShardedCatalogServing
+    # the serving mesh (a list of devices) or None: decided at train and
+    # restore by serving_mesh_for; catalog caching + layout selection:
+    # ShardedCatalogServing
+    serving_mesh: object = dataclasses.field(
+        default=None, repr=False, compare=False)
     _sharded_cat: object = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -230,8 +234,11 @@ class ALSAlgorithm(Algorithm):
             nan_guard_stage=ctx.stage_label,
             # a benchmark plants a dict here to read the phase times
             timings=ctx.bench_timings)
-        return ALSModel(factors=factors, users=pd.users, items=pd.items,
-                        device=ctx.device)
+        model = ALSModel(factors=factors, users=pd.users, items=pd.items,
+                         device=ctx.device)
+        model.serving_mesh = serving_mesh_for(
+            ctx, len(pd.items), self.params.rank, self.params.sharded_serving)
+        return model
 
     @staticmethod
     def _is_ranking_query(query: dict) -> bool:
@@ -390,16 +397,22 @@ class ALSAlgorithm(Algorithm):
         u_rows, u_idx, u_val = touched(0)
         uf[u_rows] = fold_in_factors(itf, u_idx, u_val, anchor=uf[u_rows],
                                      anchor_weight=mu_for(u_rows, n_u0), **kw)
-        # the same device as the live model; the catalog cache starts
-        # empty and is rebuilt from the new factors when it warms up
+        # the same device and serving layout as the live model; the
+        # catalog cache starts empty and is rebuilt from the new factors
+        # when it warms up
         return ALSModel(factors=ALSFactors(uf, itf, len(users), len(items)),
-                        users=users, items=items, device=model.device)
+                        users=users, items=items, device=model.device,
+                        serving_mesh=model.serving_mesh)
 
     def prepare_model_for_persistence(self, model: ALSModel) -> dict:
         return model_to_persisted(model)
 
     def restore_model(self, stored, ctx) -> ALSModel:
-        return model_from_persisted(stored, ctx.device)
+        model = model_from_persisted(stored, ctx.device)
+        itf = model.factors.item_factors
+        model.serving_mesh = serving_mesh_for(
+            ctx, itf.shape[0], itf.shape[1], self.params.sharded_serving)
+        return model
 
 
 def model_to_persisted(model: ALSModel) -> dict:

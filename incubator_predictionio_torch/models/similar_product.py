@@ -42,7 +42,7 @@ from ..ops.topk import normalize_rows
 from ..workflow import train_feed
 from ._filters import CategoryIndex, build_exclude_mask
 from ._sharded_serving import (
-    ShardedCatalogServing, validate_serving_mode,
+    ShardedCatalogServing, serving_mesh_for, validate_serving_mode,
 )
 
 
@@ -129,7 +129,11 @@ class SimilarProductModel(ShardedCatalogServing):
     items: BiMap
     item_categories: dict[str, set[str]]
     device: torch.device
-    # catalog caching + layout selection: ShardedCatalogServing
+    # the serving mesh (a list of devices) or None: decided at train and
+    # restore by serving_mesh_for; catalog caching + layout selection:
+    # ShardedCatalogServing
+    serving_mesh: object = dataclasses.field(
+        default=None, repr=False, compare=False)
     _sharded_cat: object = dataclasses.field(
         default=None, repr=False, compare=False)
     _cat_index: Optional[CategoryIndex] = dataclasses.field(
@@ -208,8 +212,11 @@ class SimilarProductAlgorithm(Algorithm):
             resume=ctx.workflow_params.resume,
             nan_guard=ctx.workflow_params.nan_guard,
             nan_guard_stage=ctx.stage_label, timings=ctx.bench_timings)
-        return SimilarProductModel(factors, pd.items, pd.item_categories,
-                                   device=ctx.device)
+        model = SimilarProductModel(factors, pd.items, pd.item_categories,
+                                    device=ctx.device)
+        model.serving_mesh = serving_mesh_for(ctx, len(pd.items), p.rank,
+                                              p.sharded_serving)
+        return model
 
     def predict(self, model: SimilarProductModel, query: dict) -> dict:
         pairs = model.similar(
@@ -224,7 +231,11 @@ class SimilarProductAlgorithm(Algorithm):
         return model_to_persisted(model)
 
     def restore_model(self, stored, ctx) -> SimilarProductModel:
-        return model_from_persisted(stored, ctx.device)
+        model = model_from_persisted(stored, ctx.device)
+        itf = model.factors.item_factors
+        model.serving_mesh = serving_mesh_for(
+            ctx, itf.shape[0], itf.shape[1], self.params.sharded_serving)
+        return model
 
 
 def model_to_persisted(model: SimilarProductModel) -> dict:

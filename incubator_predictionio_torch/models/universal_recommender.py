@@ -45,6 +45,7 @@ from ..data.storage.registry import StorageError
 from ..data.store import LEventStore, PEventStore
 from ..device import resolve_device
 from ..ops.llr import Indicators, cco_indicators_multi
+from ..parallel.distributed import gang_collectives
 from ._filters import CategoryIndex, build_exclude_mask
 from ._sharded_serving import ShardedIndicators
 
@@ -311,6 +312,11 @@ class URAlgorithmParams(Params):
 
 
 class URAlgorithm(Algorithm):
+    """In a gang every rank reads the merged view (the data source has no
+    partition branch, as the reference's), counts its block of the user
+    ranges and sums the counts with the others; the leader persists."""
+    gang_capable = True
+
     params_cls = URAlgorithmParams
     params_aliases = {
         "appName": "app_name",
@@ -331,7 +337,8 @@ class URAlgorithm(Algorithm):
             n_items=len(pd.items),
             max_correlators=p.max_correlators_per_item,
             llr_threshold=p.llr_threshold, u_chunk=p.user_chunk,
-            device=ctx.device, timings=ctx.bench_timings)
+            device=ctx.device, timings=ctx.bench_timings,
+            collectives=gang_collectives())
         popularity = np.bincount(np.asarray(pi, np.int64),
                                  minlength=len(pd.items)).astype(np.float32)
         return URModel(

@@ -1,10 +1,10 @@
 """Correlated cross-occurrence (CCO) with log-likelihood-ratio scoring.
 
-Port of the single-device functions of ``incubator_predictionio_tpu/ops/
-llr.py`` (its ``_sharded`` variants and ``mesh=`` branches go with
-multi-card training; the functions here take ``device=`` instead). The
-Universal Recommender and the Complementary Purchase template train
-through it: for a pair of event types, the co-occurrence counts
+Port of ``incubator_predictionio_tpu/ops/llr.py``; the functions take
+``device=`` where the reference takes a device, and ``collectives=`` (the
+gang's :class:`..parallel.distributed.HostCollectives`) where it takes a
+multi-device ``mesh=``. The Universal Recommender and the Complementary
+Purchase template train through it: for a pair of event types, the co-occurrence counts
 C = Σ_ranges A_pᵀ A_s over binary user × item membership slabs, Dunning's
 G² over each 2×2 contingency of distinct-user counts, and the top-k
 correlators of every item as static [I, K] arrays (:class:`Indicators`).
@@ -30,6 +30,19 @@ matrix when it fits a quarter of the card's memory
 rebuilt per stripe. The G² and the top-k run on the same [block, I]
 stripes either way, so the full, striped, fused and per-pair paths give
 the same indicators bit for bit.
+
+In a gang (``collectives`` given and more than one rank: the reference's
+``_full_cco_topk_sharded``, ``_full_cco_topk_multi_sharded`` and
+``_all_stripes_sharded``), every rank lays out the same deduped data, pads
+the range axis (the light ranges, and the heavy ranges separately) to a
+multiple of the gang with sentinel-only ranges (:func:`_pad_ranges`) and
+counts only its own contiguous block of it, as ``P(DATA_AXIS)`` splits it
+over the reference's devices. The partial float32 counts are all-reduced
+through the host: on the full path each pair's [I, I] matrix in turn, on
+the striped path each [block, I] stripe. The G² and the top-k then run on
+every rank. The counts are exact integers, so every rank's indicators equal
+the single process's bit for bit. A rank whose block is all padding still
+takes part in every all-reduce.
 
 G², on the device: float32 in the reference's operation order. ``x·ln x``
 is ``torch.xlogy``, whose CPU kernel has no vectorized branch: the CPU's
@@ -114,6 +127,43 @@ def _partition_by_user(u: np.ndarray, i: np.ndarray, u_chunk: int,
     eu[chunk_of, pos] = (us - chunk_of * u_chunk).astype(u_dtype)
     ei[chunk_of, pos] = is_.astype(i_dtype)
     return eu, ei
+
+
+def _pad_ranges(arrs, mult: int, u_chunk: int):
+    """Pad the leading (range) axis of (eu, ei, eu, ei, ...) to a multiple
+    of ``mult`` with sentinel-only ranges (offset ``u_chunk``: an empty
+    slab, which adds nothing)."""
+    n = arrs[0].shape[0]
+    target = -(-n // mult) * mult
+    if target == n:
+        return tuple(arrs)
+    out = []
+    for j, a in enumerate(arrs):
+        fill = u_chunk if j % 2 == 0 else 0  # (eu, ei) alternating
+        pad = np.full((target - n, a.shape[1]), fill, a.dtype)
+        out.append(np.concatenate([np.asarray(a), pad], axis=0))
+    return tuple(out)
+
+
+def _gang(collectives) -> tuple[int, int]:
+    """(world, rank) the counts are split over: the gang's when
+    ``collectives`` is given, else one process."""
+    if collectives is None:
+        return 1, 0
+    from ..parallel.distributed import process_count, process_index
+
+    return process_count(), process_index()
+
+
+def _rank_block(arrs, rows: int, world: int, rank: int):
+    """This rank's contiguous block of the range axis of every layout
+    array in ``arrs`` (eu, ei alternating), the axis padded to a multiple
+    of ``world`` first. The arrays unchanged for one process."""
+    if world == 1:
+        return tuple(arrs)
+    arrs = _pad_ranges(arrs, world, rows)
+    per = arrs[0].shape[0] // world
+    return tuple(a[rank * per:(rank + 1) * per] for a in arrs)
 
 
 def _fits_uint16(u_chunk: int, n_items: int) -> bool:
@@ -304,6 +354,16 @@ class _Clock:
             self._add("gemms", gemms)
             self.timings.update(path=path, **layout)
 
+    def gang(self, coll, world: int, rank: int, local_ranges: int) -> None:
+        """A gang rank's share: its rank, the light ranges it counted and
+        its all-reduces' calls, bytes and seconds."""
+        if self.timings is not None and world > 1:
+            self.timings.update(
+                rank=rank, world=world, local_ranges=local_ranges,
+                allreduce_calls=coll.calls["allreduce"],
+                allreduce_bytes=coll.bytes["allreduce"],
+                allreduce_seconds=coll.seconds["allreduce"])
+
     def finish(self) -> None:
         """Read the CUDA events (waits for the card)."""
         if self.events:
@@ -394,15 +454,21 @@ def cco_indicators(
     item_block: int = 4096,
     device="cuda",
     timings: Optional[dict] = None,
+    collectives=None,
 ) -> Indicators:
     """The LLR-thresholded cross-occurrence indicators between a primary
     event's items and a secondary event's items (one item-id space;
     self-co-occurrence when they are the same events), on ``device``: the
     full [I, I] accumulator when it fits :func:`_full_matrix_elem_cap`,
     else item stripes. ``timings``: a dict that receives the phase times
-    (host seconds, device ms), the path and the GEMM count."""
+    (host seconds, device ms), the path and the GEMM count.
+    ``collectives``: the gang's, when every rank of a gang passes the same
+    events: each counts its block of the user ranges and the counts are
+    all-reduced (in a gang of one, or without it, this process counts
+    them all)."""
     dev = resolve_device(device)
     _check_exact(n_users)
+    world, rank = _gang(collectives)
     clock = _Clock(dev, timings)
     pu, pi, cnt_p = native.pair_dedupe(primary_u, primary_i, n_users,
                                        n_items)
@@ -410,28 +476,32 @@ def cco_indicators(
                                        n_items)
     clock.host("dedupe_s")
     n_ranges = max((n_users + u_chunk - 1) // u_chunk, 1)
-    rank, n_heavy = _heavy_split(cnt_p + cnt_s, n_users)
-    pu_l, pi_l, hp_u, hp_i = _split_heavy(rank, pu, pi)
-    su_l, si_l, hs_u, hs_i = _split_heavy(rank, su, si)
-    layouts = [_partition_by_user(pu_l, pi_l, u_chunk, n_ranges, n_items,
-                                  assume_sorted=True),
-               _partition_by_user(su_l, si_l, u_chunk, n_ranges, n_items,
-                                  assume_sorted=True)]
+    hrank, n_heavy = _heavy_split(cnt_p + cnt_s, n_users)
+    pu_l, pi_l, hp_u, hp_i = _split_heavy(hrank, pu, pi)
+    su_l, si_l, hs_u, hs_i = _split_heavy(hrank, su, si)
+    # (eu, ei) of the primary, then of the secondary, per part: the light
+    # ranges, then (with heavy users) the heavy ranges; this rank's block
+    parts = [(_rank_block(
+        _partition_by_user(pu_l, pi_l, u_chunk, n_ranges, n_items,
+                           assume_sorted=True)
+        + _partition_by_user(su_l, si_l, u_chunk, n_ranges, n_items,
+                             assume_sorted=True), u_chunk, world, rank),
+        u_chunk)]
     if n_heavy:
         h_ranges = max((n_heavy + _HEAVY_RANGE - 1) // _HEAVY_RANGE, 1)
-        layouts += [
+        parts.append((_rank_block(
             _partition_by_user(hp_u, hp_i, _HEAVY_RANGE, h_ranges, n_items,
-                               assume_sorted=True),
-            _partition_by_user(hs_u, hs_i, _HEAVY_RANGE, h_ranges, n_items,
-                               assume_sorted=True)]
+                               assume_sorted=True)
+            + _partition_by_user(hs_u, hs_i, _HEAVY_RANGE, h_ranges,
+                                 n_items, assume_sorted=True),
+            _HEAVY_RANGE, world, rank), _HEAVY_RANGE))
     n_i = np.bincount(pi, minlength=n_items).astype(np.float32)
     n_j = np.bincount(si, minlength=n_items).astype(np.float32)
     clock.host("partition_s")
 
-    rows = (u_chunk, u_chunk, _HEAVY_RANGE, _HEAVY_RANGE)
-    up = [_Ranges.upload(eu, ei, h, n_items, dev)
-          for (eu, ei), h in zip(layouts, rows)]
-    scans = [(up[0], up[1])] + ([(up[2], up[3])] if n_heavy else [])
+    scans = [(_Ranges.upload(peu, pei, h, n_items, dev),
+              _Ranges.upload(seu, sei, h, n_items, dev))
+             for (peu, pei, seu, sei), h in parts]
     n_i_dev = torch.from_numpy(n_i).to(dev)
     n_j_dev = torch.from_numpy(n_j).to(dev)
     clock.host("upload_s")
@@ -447,6 +517,8 @@ def cco_indicators(
             with clock.device("counts_ms"):
                 for p, s in scans:
                     gemms += _accumulate([c], p, [s], n_items)
+            if world > 1:
+                collectives.all_reduce(c)
             with clock.device("g2_topk_ms"):
                 ss, ixs = _topk_stripes(c, n_i_dev, n_j_dev, lo_effs, block,
                                         float(n_users), k, llr_threshold)
@@ -459,6 +531,8 @@ def cco_indicators(
                 with clock.device("counts_ms"):
                     for p, s in scans:
                         gemms += _accumulate([c], p, [s], n_items, lo, block)
+                if world > 1:
+                    collectives.all_reduce(c)
                 with clock.device("g2_topk_ms"):
                     s, ix = _stripe_topk(c, n_i_dev[lo:lo + block], n_j_dev,
                                          lo, float(n_users), k,
@@ -468,42 +542,48 @@ def cco_indicators(
                 del c
     clock.note(path="full" if full else "striped", gemms=gemms,
                n_ranges=n_ranges, heavy_users=n_heavy)
+    clock.gang(collectives, world, rank, parts[0][0][0].shape[0])
     clock.finish()
     return _gather_indicators(ss, ixs, los, lo_effs, block, n_items)
 
 
-def _partition_put(u, i, rank, n_users: int, u_chunk: int, n_ranges: int,
-                   n_items: int, h_ranges: int, dev: torch.device):
+def _partition_put(u, i, hrank, n_users: int, u_chunk: int, n_ranges: int,
+                   n_items: int, h_ranges: int, dev: torch.device,
+                   world: int = 1, rank: int = 0):
     """One event type's layout (the codec's one-pass ``cco_partition`` on
-    the uint16 wire, else the int32 layout of :func:`_partition_by_user`)
+    the uint16 wire, else the int32 layout of :func:`_partition_by_user`;
+    ``hrank``: the heavy users' ranks), this gang rank's block of it
     uploaded: (light _Ranges, heavy _Ranges or None, item counts)."""
     if _fits_uint16(u_chunk, n_items):
         light, heavy, counts = native.cco_partition(
-            u, i, rank, n_users, u_chunk, n_ranges, n_items, _HEAVY_RANGE,
+            u, i, hrank, n_users, u_chunk, n_ranges, n_items, _HEAVY_RANGE,
             h_ranges)
     else:
-        lu, li, hu, hi = _split_heavy(rank, u, i)
+        lu, li, hu, hi = _split_heavy(hrank, u, i)
         light = _partition_by_user(lu, li, u_chunk, n_ranges, n_items,
                                    assume_sorted=True)
         heavy = None
-        if rank is not None:
+        if hrank is not None:
             heavy = _partition_by_user(hu, hi, _HEAVY_RANGE, h_ranges,
                                        n_items, assume_sorted=True)
         counts = np.bincount(i, minlength=n_items)
-    light_dev = _Ranges.upload(*light, u_chunk, n_items, dev)
-    heavy_dev = (None if heavy is None
-                 else _Ranges.upload(*heavy, _HEAVY_RANGE, n_items, dev))
+    light_dev = _Ranges.upload(*_rank_block(light, u_chunk, world, rank),
+                               u_chunk, n_items, dev)
+    heavy_dev = (None if heavy is None else _Ranges.upload(
+        *_rank_block(heavy, _HEAVY_RANGE, world, rank), _HEAVY_RANGE,
+        n_items, dev))
     return light_dev, heavy_dev, counts.astype(np.float32)
 
 
 def _fused_layout(primary_u, primary_i, secondaries: dict, n_users: int,
                   n_items: int, u_chunk: int, dev: torch.device,
-                  clock: _Clock):
+                  clock: _Clock, world: int = 1, rank: int = 0):
     """The fused path's prep: the primary deduped and laid out once, each
     secondary that is not the primary itself (by identity) likewise, the
-    heavy users chosen over the combined activity. Returns (primary
-    (light, heavy, n_i), [per secondary: None for the self-pair, else
-    (light, heavy, n_j)], heavy-user count)."""
+    heavy users chosen over the combined activity; only this gang rank's
+    block of the ranges is uploaded. Returns (primary (light, heavy,
+    n_i), [per secondary: None for the self-pair, else (light, heavy,
+    n_j)], heavy-user count, range count)."""
     pu, pi, per_user = native.pair_dedupe(primary_u, primary_i, n_users,
                                           n_items)
     per_user = per_user.astype(np.int64, copy=True)
@@ -517,14 +597,14 @@ def _fused_layout(primary_u, primary_i, secondaries: dict, n_users: int,
             # the threshold shapes the layout only, never the counts
             per_user += cnt
     clock.host("dedupe_s")
-    rank, n_heavy = _heavy_split(per_user, n_users)
+    hrank, n_heavy = _heavy_split(per_user, n_users)
     n_ranges = max((n_users + u_chunk - 1) // u_chunk, 1)
     h_ranges = max((n_heavy + _HEAVY_RANGE - 1) // _HEAVY_RANGE, 1)
-    prim = _partition_put(pu, pi, rank, n_users, u_chunk, n_ranges, n_items,
-                          h_ranges, dev)
+    prim = _partition_put(pu, pi, hrank, n_users, u_chunk, n_ranges,
+                          n_items, h_ranges, dev, world, rank)
     secs = [None if pair is None else
-            _partition_put(*pair, rank, n_users, u_chunk, n_ranges, n_items,
-                           h_ranges, dev)
+            _partition_put(*pair, hrank, n_users, u_chunk, n_ranges,
+                           n_items, h_ranges, dev, world, rank)
             for pair in deduped.values()]
     clock.host("partition_upload_s")
     return prim, secs, n_heavy, n_ranges
@@ -547,18 +627,22 @@ def _fused_counts(prim, secs, n_items: int, dev: torch.device) -> tuple:
 
 def cooccurrence_counts(primary_u, primary_i, secondaries: dict,
                         n_users: int, n_items: int, u_chunk: int = 2048,
-                        device="cuda") -> dict:
+                        device="cuda", collectives=None) -> dict:
     """name → the [I, I] float32 count matrix (exact integers) of every
-    pair, on ``device``, by the fused path's own layout and scan: what
-    :func:`cco_indicators_multi` ranks. For holding the counts to a
-    reference."""
+    pair, on ``device``, by the fused path's own layout and scan (summed
+    over the gang with ``collectives``): what :func:`cco_indicators_multi`
+    ranks. For holding the counts to a reference."""
     dev = resolve_device(device)
     _check_exact(n_users)
+    world, rank = _gang(collectives)
     prim, secs, _, _ = _fused_layout(primary_u, primary_i, secondaries,
                                      n_users, n_items, u_chunk, dev,
-                                     _Clock(dev, None))
+                                     _Clock(dev, None), world, rank)
     with torch.no_grad():
         cs, _ = _fused_counts(prim, secs, n_items, dev)
+        if world > 1:
+            for c in cs:
+                collectives.all_reduce(c)
     return dict(zip(secondaries, cs))
 
 
@@ -574,6 +658,7 @@ def cco_indicators_multi(
     item_block: int = 4096,
     device="cuda",
     timings: Optional[dict] = None,
+    collectives=None,
 ) -> dict:
     """All cross-occurrence indicators of one primary event at once
     (``secondaries``: name → (u, i); the primary's own arrays, by
@@ -581,7 +666,9 @@ def cco_indicators_multi(
     pairs share the primary's dedupe, layout, upload and per-range slab.
     When the fused accumulators would not fit twice
     :func:`_full_matrix_elem_cap` (or there is one pair), each pair goes
-    through :func:`cco_indicators`. Bit-identical either way."""
+    through :func:`cco_indicators`. Bit-identical either way.
+    ``collectives``: the gang's, as for :func:`cco_indicators`; the fused
+    path all-reduces each pair's [I, I] counts in turn."""
     dev = resolve_device(device)
     names = list(secondaries)
     if not names:
@@ -593,17 +680,19 @@ def cco_indicators_multi(
                 primary_u, primary_i, su, si, n_users, n_items,
                 max_correlators=max_correlators,
                 llr_threshold=llr_threshold, u_chunk=u_chunk,
-                item_block=item_block, device=dev, timings=timings)
+                item_block=item_block, device=dev, timings=timings,
+                collectives=collectives)
             for name, (su, si) in secondaries.items()}
         if timings is not None:
             timings["path"] = "per_pair_" + timings["path"]
         return out
 
     _check_exact(n_users)
+    world, rank = _gang(collectives)
     clock = _Clock(dev, timings)
     prim, secs, n_heavy, n_ranges = _fused_layout(
         primary_u, primary_i, secondaries, n_users, n_items, u_chunk, dev,
-        clock)
+        clock, world, rank)
     n_i = torch.from_numpy(prim[2]).to(dev)
     n_js = [n_i if s is None else torch.from_numpy(s[2]).to(dev)
             for s in secs]
@@ -615,12 +704,15 @@ def cco_indicators_multi(
         with clock.device("counts_ms"):
             cs, gemms = _fused_counts(prim, secs, n_items, dev)
         for name, c, n_j in zip(names, cs, n_js):
+            if world > 1:  # pair by pair: one [I, I] staged at a time
+                collectives.all_reduce(c)
             with clock.device("g2_topk_ms"):
                 out[name] = _topk_stripes(c, n_i, n_j, lo_effs, block,
                                           float(n_users), k, llr_threshold)
         del cs
     clock.note(path="fused", gemms=gemms, n_ranges=n_ranges,
                heavy_users=n_heavy)
+    clock.gang(collectives, world, rank, prim[0].flat.shape[0])
     clock.finish()
     return {name: _gather_indicators(ss, ixs, los, lo_effs, block, n_items)
             for name, (ss, ixs) in out.items()}

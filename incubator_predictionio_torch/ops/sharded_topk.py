@@ -1,14 +1,26 @@
-"""Host-sharded top-k: million-item catalogs on one device.
+"""Sharded top-k: catalogs split over a serving mesh, and million-item
+catalogs on one device.
 
-Port of the host half of ``incubator_predictionio_tpu/ops/sharded_topk.py``
-(``env_serve_shard_items`` :275 through ``host_sharded_score_user`` :492)
-and of its serving policy (``_serving_shard_threshold_bytes`` :102,
-``validate_serving_mode`` :135, ``should_shard_serving`` :144). The
-reference's XLA programs (``_host_topk_fn`` :333, ``_host_ur_topk_fn``
-:454) become torch ops on the model's device; ``lax.scan`` over the shard
-axis becomes one batched pass over the stacked ``[S, rows, rank]`` catalog
-for a single query and a loop over the shards for a batch, so the batched
-path's score memory peaks at one shard's ``[b, rows]`` row block.
+Port of ``incubator_predictionio_tpu/ops/sharded_topk.py``: its serving
+policy (``_serving_shard_threshold_bytes`` :102, ``validate_serving_mode``
+:135, ``should_shard_serving`` :144, ``serving_mesh_for`` :160), its mesh
+layout (``ShardedCatalog`` :65, ``put_sharded_catalog`` :90,
+``_sharded_topk_fn`` :172, ``sharded_*`` :236-273) and its host layout
+(``env_serve_shard_items`` :275 through ``host_sharded_score_user`` :492).
+The reference's XLA programs become torch ops:
+
+- the mesh (``shard_map`` over every device of the mesh): a serving mesh
+  is an explicit list of torch devices (``parallel/mesh.py``
+  ``default_mesh``), shard ``s`` of the row-padded catalog lives on device
+  ``s``, each shard scores and keeps its partial top-k on its device, and
+  the candidates are gathered to the first device and merged there (the
+  reference's ``all_gather`` + sort). A list may name one device more than
+  once (``["cuda:0"] * 4``: four shards on one card, or ``["cpu"] * 8``);
+- the host layout (``_host_topk_fn`` :333, ``_host_ur_topk_fn`` :454):
+  ``lax.scan`` over the shard axis becomes one batched pass over the
+  stacked ``[S, rows, rank]`` catalog for a single query and a loop over
+  the shards for a batch, so the batched path's score memory peaks at one
+  shard's ``[b, rows]`` row block.
 
 The contract is the reference's:
 
@@ -22,17 +34,14 @@ The contract is the reference's:
   in ascending global index, so one stable descending sort gives that
   order.
 
-The single-query and similarity scores are computed on the flattened
-``[S·rows, rank]`` view with the flat scorer's own mul+reduce
-(``ops/topk.py``), whose reduction over the rank is per row and does not
-depend on the row count; the UR scores every row with ``ops/llr.py``'s
-``_score_history`` on the flattened correlator tables. The batched path
-runs one GEMM per shard: its indices equal the flat ``[b, N]`` GEMM's, its
-scores may differ from it by the GEMM's blocking.
-
-The mesh layout (``ShardedCatalog`` :65, ``_sharded_topk_fn`` :172 and
-``sharded_*`` :236-273) needs more than one card: ROADMAP.md Queue 1,
-item 7.4. The policy here names it where it would be chosen.
+The single-query and similarity scores are computed with the flat
+scorer's own mul+reduce (``ops/topk.py``: on each mesh shard, or on the
+flattened ``[S·rows, rank]`` view of the host layout), whose reduction over
+the rank is per row and does not depend on the row count; the UR scores
+every row with ``ops/llr.py``'s ``_score_history`` on the flattened
+correlator tables. The batched path runs one GEMM per shard: its indices
+equal the flat ``[b, N]`` GEMM's, its scores may differ from it by the
+GEMM's blocking.
 """
 
 from __future__ import annotations
@@ -47,21 +56,21 @@ import numpy as np
 import torch
 
 from ..common import envknobs
+from ..parallel.mesh import pad_rows
 from .llr import _score_history
 from .topk import bucket_k, normalize_rows, pad_batch_pow2
 
 log = logging.getLogger("pio.torch.sharded_topk")
 
 __all__ = [
-    "HostShardedCatalog", "HostShardedIndicators", "env_serve_shard_items",
-    "host_sharded_batch_top_k", "host_sharded_score_user",
-    "host_sharded_similar_items", "host_sharded_top_k_items",
-    "put_host_sharded_catalog", "put_host_sharded_indicators",
-    "serving_mesh_for", "should_shard_serving", "validate_serving_mode",
+    "HostShardedCatalog", "HostShardedIndicators", "ShardedCatalog",
+    "env_serve_shard_items", "host_sharded_batch_top_k",
+    "host_sharded_score_user", "host_sharded_similar_items",
+    "host_sharded_top_k_items", "put_host_sharded_catalog",
+    "put_host_sharded_indicators", "put_sharded_catalog",
+    "serving_mesh_for", "sharded_batch_top_k", "sharded_similar_items",
+    "sharded_top_k_items", "should_shard_serving", "validate_serving_mode",
 ]
-
-#: what the mesh layout waits for
-MESH_ITEM = "ROADMAP.md Queue 1, item 7.4"
 
 
 # -- sharding decision -----------------------------------------------------
@@ -114,19 +123,134 @@ def should_shard_serving(n_items: int, rank: int, n_devices: int,
     return n_items * rank * 4 > _serving_shard_threshold_bytes(device)
 
 
-def serving_mesh_for(device, n_items: int, rank: int, mode: str,
-                     n_devices: int = 1) -> None:
-    """The layout decision for a catalog served over ``n_devices``: None
-    (the flat catalog, or the host-sharded one under
-    PIO_SERVE_SHARD_ITEMS) wherever the policy keeps one device, which is
-    always the case for a model on one torch device. Where the policy
-    would pick the mesh layout it raises, naming the item that ports it
-    and wires this decision into the templates' train and restore."""
-    if should_shard_serving(n_items, rank, n_devices, mode, device):
-        raise NotImplementedError(
-            f"shardedServing={mode!r} over {n_devices} devices picks the "
-            f"mesh layout, which is not ported yet: {MESH_ITEM}")
+def serving_mesh_for(ctx, n_items: int, rank: int, mode: str):
+    """The deploy-time layout decision every ALS-family algorithm shares
+    (train and restore_model): the context's serving mesh (a list of
+    torch devices, ``ctx.get_mesh()``) where the policy shards over it,
+    else None (one device: the flat catalog, or the host-sharded one under
+    PIO_SERVE_SHARD_ITEMS)."""
+    mesh = ctx.get_mesh() if ctx is not None else None
+    if mesh and should_shard_serving(n_items, rank, len(mesh), mode,
+                                     mesh[0]):
+        return mesh
     return None
+
+
+# -- mesh sharding: one shard per device of the serving mesh ---------------
+
+
+@dataclasses.dataclass
+class ShardedCatalog:
+    """Item factors split over the devices of a serving mesh: shard ``s``
+    (``[rows, rank]``, rows = the padded row count / the shard count) on
+    ``mesh[s]``. Rows ``n_items..`` of the padded catalog are zero padding,
+    which the scorer masks to -inf so they can never displace a real
+    item."""
+
+    shards: list
+    n_items: int
+    mesh: list
+    #: per shard, [rows] True on its padding rows (made once)
+    pad: list = dataclasses.field(default=None, repr=False)
+
+    @property
+    def rank(self) -> int:
+        return self.shards[0].shape[1]
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.shards[0].shape[0]
+
+    @property
+    def padded_rows(self) -> int:
+        return self.rows_per_shard * self.n_shards
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.mesh)
+
+
+def put_sharded_catalog(item_factors, mesh) -> ShardedCatalog:
+    """Host factors → a catalog split on dim 0 over the devices of
+    ``mesh`` (rows padded to a multiple of the shard count)."""
+    mesh = [torch.device(d) for d in mesh]
+    x = np.asarray(item_factors, np.float32)
+    padded = pad_rows(x, len(mesh))
+    rows = padded.shape[0] // len(mesh)
+    shards, pad = [], []
+    for s, dev in enumerate(mesh):
+        shards.append(torch.from_numpy(np.ascontiguousarray(
+            padded[s * rows:(s + 1) * rows])).to(dev))
+        pad.append(torch.arange(s * rows, (s + 1) * rows, device=dev)
+                   >= x.shape[0])
+    return ShardedCatalog(shards, x.shape[0], mesh, pad)
+
+
+def _sharded_topk(qv: np.ndarray, cat: ShardedCatalog,
+                  excl: Optional[np.ndarray], k: int):
+    """(scores [b, kk], global idx [b, kk]) on the first device of the
+    mesh, of the query rows ``qv`` [b, rank] (host) over every shard:
+    each shard's ``kl = min(k, rows)`` candidates in the flat order, then
+    the gathered candidates merged."""
+    rows, first = cat.rows_per_shard, cat.mesh[0]
+    kl = min(k, rows)
+    cand_s, cand_i = [], []
+    on = {}  # the query rows, uploaded once to each device of the mesh
+    for s, (items, dev) in enumerate(zip(cat.shards, cat.mesh)):
+        q = on.get(dev)
+        if q is None:
+            q = on[dev] = torch.from_numpy(qv).to(dev)
+        if q.shape[0] == 1:
+            # the flat scorer's mul+reduce: the flat catalog's bits
+            scores = (items * q[0][None, :]).sum(dim=1)[None, :]
+        else:
+            scores = q @ items.T  # [b, rows]
+        dead = cat.pad[s]
+        if excl is not None:
+            dead = dead | torch.from_numpy(
+                excl[s * rows:(s + 1) * rows]).to(dev)
+        scores = scores.masked_fill(dead[None, :], float("-inf"))
+        vals, cols = _select_partial(scores, kl)
+        cand_s.append(vals.to(first))
+        cand_i.append((cols + s * rows).to(first))
+        del scores
+    return _merge(torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1),
+                  min(k, cat.n_shards * kl))
+
+
+def sharded_top_k_items(user_vec, cat: ShardedCatalog, k: int,
+                        exclude=None):
+    """Mesh analog of ops.topk.top_k_items — (scores[k], idx[k]) host
+    numpy, bit-identical to the flat catalog's answer."""
+    k = min(int(k), cat.n_items)
+    kp = bucket_k(k, cat.n_items)
+    qv = np.asarray(user_vec, np.float32)[None, :]
+    excl = (None if exclude is None else
+            pad_rows(np.asarray(exclude, bool), cat.n_shards, fill=True))
+    with torch.no_grad():
+        s, i = _sharded_topk(qv, cat, excl, kp)
+    return s[0, :k].cpu().numpy(), i[0, :k].cpu().numpy()
+
+
+def sharded_batch_top_k(user_vecs, cat: ShardedCatalog, k: int):
+    """Mesh analog of ops.topk.batch_top_k (the same pow2 batch padding):
+    one GEMM per shard; the indices equal the flat catalog's."""
+    user_vecs = np.asarray(user_vecs, np.float32)
+    k = min(int(k), cat.n_items)
+    b = user_vecs.shape[0]
+    kp = bucket_k(k, cat.n_items)
+    with torch.no_grad():
+        s, i = _sharded_topk(pad_batch_pow2(user_vecs), cat, None, kp)
+    return s[:b, :k].cpu().numpy(), i[:b, :k].cpu().numpy()
+
+
+def sharded_similar_items(query_vecs, cat: ShardedCatalog, k: int,
+                          exclude=None):
+    """Mesh analog of ops.topk.similar_items — ``cat`` holds
+    ROW-NORMALIZED factors; the query fold keeps this on the bit-exact
+    single-query path."""
+    qn = normalize_rows(np.atleast_2d(np.asarray(query_vecs, np.float32)))
+    return sharded_top_k_items(qn.sum(axis=0), cat, k, exclude=exclude)
 
 
 # -- host sharding: million-item catalogs on ONE device --------------------

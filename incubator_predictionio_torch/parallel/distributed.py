@@ -34,7 +34,8 @@ from ..common import envknobs
 
 log = logging.getLogger("pio.torch.distributed")
 
-__all__ = ["HostCollectives", "all_gather_int64s", "initialize_distributed",
+__all__ = ["HostCollectives", "all_gather_int64s", "gang_collectives",
+           "initialize_distributed",
            "is_multi_host", "process_count", "process_index", "rank_device",
            "resolve_distributed_timeouts", "shutdown_distributed"]
 
@@ -258,6 +259,13 @@ class HostCollectives:
                 f"{kind}_bytes_per_half_step": self.bytes[kind] / n,
                 f"{kind}_seconds_per_half_step": self.seconds[kind] / n})
         return out
+
+
+def gang_collectives() -> Optional[HostCollectives]:
+    """Fresh :class:`HostCollectives` over the whole gang when this process
+    is a rank of a gang of more than one, else None (one process: nothing
+    to sum)."""
+    return HostCollectives() if process_count() > 1 else None
 
 
 def all_gather_int64s(values, group=None):

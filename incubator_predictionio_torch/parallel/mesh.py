@@ -8,6 +8,11 @@ multiple of the axis.
 - The data-parallel trainer's mesh is the data axis alone (its size the
   world size): :func:`data_axis_size` refuses a shape that names a model
   axis, as the reference's ``_make_dp_train_fn`` does.
+- The serving mesh (:func:`default_mesh`, the reference's
+  ``default_mesh``) is an explicit list of torch devices, one catalog
+  shard per entry (``ops/sharded_topk.py``): every visible card by
+  default. A caller may name a device more than once (``["cuda:0"] * 4``,
+  ``["cpu"] * 8``).
 - The slab trainer's mesh is ``(d, m)`` with ``d·m`` = the world size
   (:func:`mesh_dims`): rank ``r`` sits at ``(r // m, r % m)``
   (:func:`mesh_coords`), the reference's row-major device order of
@@ -26,8 +31,21 @@ import numpy as np
 from ..common import envknobs
 from .distributed import process_count, process_index
 
-__all__ = ["data_axis_size", "local_device_count", "mesh_coords",
-           "mesh_dims", "mesh_groups", "mesh_shape_from_env", "pad_rows"]
+__all__ = ["data_axis_size", "default_mesh", "local_device_count",
+           "mesh_coords", "mesh_dims", "mesh_groups", "mesh_shape_from_env",
+           "pad_rows"]
+
+
+def default_mesh(device="cuda") -> list:
+    """The serving mesh of a model on ``device``: every visible card for a
+    CUDA device, else ``[device]`` (the CPU is one device)."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [device]
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def local_device_count() -> int:

@@ -312,10 +312,8 @@ def _train_supervised(args: list[str], ns, num_workers: int) -> int:
     try:
         engine_json = _engine_json(ns)
         d, m = mesh_dims(num_workers)
-        err = train_feed.gang_template_error(
-            engine_json.get("engineFactory") or DEFAULT_FACTORY, num_workers)
-        if err is None and m > 1 and train_feed.partition_feed_active(
-                Storage.instance()):
+        err = None
+        if m > 1 and train_feed.partition_feed_active(Storage.instance()):
             err = (f"PIO_MESH_SHAPE={d}x{m}: the 2-D layout is the slab "
                    "gang's (--feed merged); the partition feed's "
                    "data-parallel trainer needs a 1-D data mesh")

@@ -33,7 +33,11 @@ class WorkflowContext:
     receive the data source's read (``read_seconds``, events → triple, and
     ``ratings_read``); None in normal training. ``input_pipeline``: the
     run's :class:`..workflow.input_pipeline.PipelineConfig`, resolved once
-    by :meth:`get_input_pipeline`.
+    by :meth:`get_input_pipeline`. ``mesh``: the serving mesh, a list of
+    torch devices the ALS-family templates may split a large catalog over
+    (``ops/sharded_topk.py``); :meth:`get_mesh` defaults it to every
+    visible card (``parallel/mesh.py`` ``default_mesh``), or to the one
+    device of a CPU context.
     """
 
     events: Optional[Sequence[Mapping]] = None
@@ -49,9 +53,18 @@ class WorkflowContext:
     bench_timings: Optional[dict] = None
     read_timings: Optional[dict] = None
     input_pipeline: Any = None
+    mesh: Optional[Sequence] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+
+    def get_mesh(self) -> list:
+        """The serving mesh as a list of torch devices (made once)."""
+        if self.mesh is None:
+            from ..parallel.mesh import default_mesh
+
+            self.mesh = default_mesh(self.device)
+        return [torch.device(d) for d in self.mesh]
 
     def record_read(self, seconds: float, ratings: int) -> None:
         """A data source's read (events → triple), into a planted

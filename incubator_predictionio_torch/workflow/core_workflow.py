@@ -51,7 +51,7 @@ from ..data.storage.base import EngineInstance
 from ..data.storage.event import new_event_id
 from ..common import envknobs
 from ..parallel import supervisor as gang
-from . import model_artifact, train_feed
+from . import model_artifact
 from .checkpoint import (
     CheckpointHook, CheckpointIncompatibleError, find_resumable_instance,
     instance_checkpoint_dir,
@@ -210,21 +210,20 @@ def _persist_foldin_anchor(storage, anchor, ctx, engine_factory_name,
 def _require_gang_capable(engine: Engine, engine_params: EngineParams,
                           world: int) -> None:
     """A gang of ``world`` > 1 trains only engines whose algorithms train
-    in a gang (``Algorithm.gang_capable``): the ALS templates through
-    ``ops.als`` (the slab gang on the merged view, the data-parallel
-    trainer on a partition-local triple) and the linear templates through
-    ``ops.linear``'s process-local trainers. Every rank refuses alike,
-    before any collective; the CLI refuses the port's own other templates
-    before it spawns (``train_feed.gang_template_error``)."""
+    in a gang (``Algorithm.gang_capable``): every template of the port
+    does (the ALS templates through ``ops.als``, the linear ones through
+    ``ops.linear``'s process-local trainers, the CCO ones through
+    ``ops.llr``'s split counts); a user engine's algorithm must say so.
+    Every rank refuses alike, before any collective."""
     if world <= 1:
         return
     ds, _, algos, _ = engine.make_components(engine_params)
     if not all(getattr(a, "gang_capable", False) for _, a in algos):
         raise NotImplementedError(
             f"{type(ds).__name__} / "
-            f"{', '.join(type(a).__name__ for _, a in algos)}: gang "
-            f"training covers {train_feed.GANG_TEMPLATE_NAMES}; the other "
-            f"templates' gang trainers are {train_feed.OTHER_TEMPLATES_ITEM}")
+            f"{', '.join(type(a).__name__ for _, a in algos)}: an algorithm "
+            "without gang_capable = True cannot train in a gang (--num-"
+            "workers > 1); train it in one process")
 
 
 def _run_train_follower(engine, engine_params, ctx, wp, gang_id: str) -> str:

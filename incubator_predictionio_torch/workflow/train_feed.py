@@ -29,10 +29,10 @@ With ``--feed merged``, and on an event store that is not the JSONL log
 (the reference's warning, then the merged read), every worker reads the
 whole merged view: the ALS templates train on the multi-process slab loop
 (``ops.als.train_als`` in a gang), the linear templates on each rank's
-contiguous row block. Which templates a gang may run is
-:func:`gang_template_error`'s rule: the ALS and the linear templates; the
-Universal Recommender's and Complementary Purchase's gang trainers are
-:data:`OTHER_TEMPLATES_ITEM`.
+contiguous row block. The Universal Recommender and Complementary
+Purchase read the merged view whatever the feed (their data sources have
+no partition branch, as the reference's) and sum the CCO counts of each
+rank's block of users (``ops.llr``).
 """
 
 from __future__ import annotations
@@ -50,24 +50,9 @@ from ..data.bimap import BiMap
 log = logging.getLogger("pio.torch.trainfeed")
 
 __all__ = [
-    "GANG_TEMPLATES", "GANG_TEMPLATE_NAMES", "OTHER_TEMPLATES_ITEM",
-    "feed_identity", "feed_mode", "gang_template_error", "open_feed",
-    "partition_examples", "partition_feed_active", "partition_properties",
-    "partition_ratings",
+    "feed_identity", "feed_mode", "open_feed", "partition_examples",
+    "partition_feed_active", "partition_properties", "partition_ratings",
 ]
-
-#: where the gang trainers of the CCO templates (the Universal Recommender,
-#: Complementary Purchase) wait to be ported
-OTHER_TEMPLATES_ITEM = "ROADMAP Queue 1, item 7.3"
-#: the port's templates a gang trains (through ``ops.als`` or the
-#: process-local ``ops.linear`` trainers): modules of
-#: ``incubator_predictionio_torch.models``
-GANG_TEMPLATES = ("recommendation", "similar_product", "ecommerce",
-                  "classification", "text_classification")
-GANG_TEMPLATE_NAMES = ("the ALS templates (Recommendation, Similar-Product, "
-                       "E-Commerce) and the linear templates "
-                       "(Classification, Text-Classification)")
-_MODELS = "incubator_predictionio_torch.models."
 
 _TIME_ABSENT = np.iinfo(np.int64).min
 
@@ -92,24 +77,6 @@ def feed_identity() -> tuple[int, int]:
     if w >= n:
         raise ValueError(f"PIO_PROCESS_ID={w} outside the gang size {n}")
     return w, n
-
-
-def gang_template_error(engine_factory: str, num_workers: int
-                        ) -> Optional[str]:
-    """Why a gang of ``num_workers`` cannot train ``engine_factory``, or
-    None. Decided from the factory's dotted path alone (no import: the CLI
-    asks before it spawns, and the supervisor never imports torch): a
-    template of the port's own ``models`` package outside
-    :data:`GANG_TEMPLATES` is refused; a user engine's factory is left to
-    the workers, whose ``core_workflow`` check reads its components."""
-    if num_workers <= 1 or not engine_factory.startswith(_MODELS):
-        return None
-    module = engine_factory[len(_MODELS):].split(".")[0]
-    if module in GANG_TEMPLATES:
-        return None
-    return (f"{engine_factory} has no gang trainer: gang training covers "
-            f"{GANG_TEMPLATE_NAMES}; the other templates' gang trainers "
-            f"are {OTHER_TEMPLATES_ITEM}")
 
 
 def partition_feed_active(storage) -> bool:

@@ -6,8 +6,8 @@ held against the JAX package's ``train_als`` on the CPU:
 - the process group's knobs: the timeouts parse as the reference's, a
   garbled ``PIO_PROCESS_ID`` crashes a gang worker at start-up, and a
   ``PIO_MESH_SHAPE`` with a model axis is refused;
-- a merged gang of a template without a gang trainer is refused before
-  anything spawns, naming its ROADMAP item.
+- a merged gang of a user engine whose algorithm cannot train in a gang
+  is refused by every rank.
 
 (The reference's own data-parallel trainer is not the yardstick: its
 parity test has been red since it was written.)
@@ -148,20 +148,25 @@ def test_garbled_process_id_crashes_at_startup(tmp_path):
 
 
 def test_merged_feed_gang_is_refused(tmp_path):
-    """A merged gang trains the ALS templates (tests/test_torch_slab_gang*)
-    and the linear ones (tests/test_torch_linear_gang.py); one of a
-    template without a gang trainer (the Universal Recommender) is refused
-    before anything spawns, naming its ROADMAP item."""
-    env = _console_env(tmp_path)
-    with open(tmp_path / "engine.json", "w", encoding="utf-8") as fh:
-        json.dump({"id": "default", "engineFactory":
-                   "incubator_predictionio_torch.models.universal_recommender."
-                   "UniversalRecommenderEngine",
-                   "datasource": {"params": {"appName": "a"}}}, fh)
+    """Every template of the port trains in a merged gang (the ALS ones in
+    tests/test_torch_slab_gang*, the linear ones in test_torch_linear_gang,
+    the CCO ones in test_torch_cco_gang). A user engine whose algorithm
+    does not declare ``gang_capable`` is refused by every rank before any
+    collective, and the gang fails naming the flag."""
+    import shutil
+
+    env = _console_env(tmp_path) | {"PIO_TRAIN_MAX_RESTARTS": "0"}
+    engine_dir = tmp_path / "vanilla"
+    shutil.copytree(os.path.join(ROOT, "incubator_predictionio_torch",
+                                 "templates", "vanilla"), engine_dir)
     out = subprocess.run(
         CONSOLE + ["train", "--num-workers", "2", "--feed", "merged",
-                   "--device", "cpu"], env=env, cwd=str(tmp_path),
-        capture_output=True, text=True, timeout=60)
-    assert out.returncode == 1, out.stderr
-    assert "ROADMAP Queue 1, item 7.3" in out.stderr
-    assert not os.path.isdir(tmp_path / "store" / "gang")  # nothing spawned
+                   "--device", "cpu", "--engine-dir", str(engine_dir)],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode != 0, out.stdout[-2000:] + out.stderr[-2000:]
+    logs = "".join(
+        open(os.path.join(d, f), encoding="utf-8", errors="replace").read()
+        for d, _, files in os.walk(tmp_path / "store") for f in files
+        if f.endswith(".log"))
+    assert "gang_capable" in out.stderr + logs

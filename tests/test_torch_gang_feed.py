@@ -13,8 +13,9 @@ seeded ``.p<i>`` event logs, one written by each package:
 - the gang of one reads the merged view's events as a multiset;
 - the property merge rule (last update wins, ties by canonical shard
   position) equals the reference's;
-- the feed's guards: ``--feed merged`` in a gang raises, naming its
-  ROADMAP item, and one process falls back to the merged read.
+- the feed's guards: the partition feed reads partitions only on the
+  JSONL log and falls back to the merged read elsewhere; every template
+  of the port may train in a gang.
 """
 
 import collections
@@ -262,8 +263,10 @@ def test_gang_feed_guards(logs, monkeypatch, caplog):
     """The feed rule of a gang as the reference's: the merged feed reads
     the merged view in every worker (the slab gang), the partition feed
     reads partitions on the JSONL log and falls back to the merged read,
-    warned, on any other store; which templates a gang may run is decided
-    from the factory's path before anything spawns."""
+    warned, on any other store; every template of the port trains in a
+    gang (its algorithms declare ``gang_capable``, which every rank checks
+    before any collective), a user engine's algorithm only by its own
+    declaration."""
     port, ref, _ = logs
     mem = Storage({"PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
                    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM",
@@ -280,16 +283,20 @@ def test_gang_feed_guards(logs, monkeypatch, caplog):
         caplog.clear()
         assert train_feed.partition_feed_active(mem) is False
         assert "falling back to the merged read" in caplog.text
+    import importlib
+
+    from incubator_predictionio_torch.controller import Algorithm
+
     models = "incubator_predictionio_torch.models."
     for name in ("recommendation.RecommendationEngine",
                  "similar_product.SimilarProductEngine",
                  "ecommerce.ECommerceEngine",
                  "classification.ClassificationEngine",
-                 "text_classification.TextClassificationEngine"):
-        assert train_feed.gang_template_error(models + name, 2) is None
-    for name in ("universal_recommender.UniversalRecommenderEngine",
+                 "text_classification.TextClassificationEngine",
+                 "universal_recommender.UniversalRecommenderEngine",
                  "complementary_purchase.ComplementaryPurchaseEngine"):
-        err = train_feed.gang_template_error(models + name, 2)
-        assert "ROADMAP Queue 1, item 7.3" in err
-        assert train_feed.gang_template_error(models + name, 1) is None
-    assert train_feed.gang_template_error("my_engine.Factory", 2) is None
+        module, cls = name.split(".")
+        engine = getattr(importlib.import_module(models + module), cls)()
+        algos = engine.apply().algorithm_class_map.values()
+        assert algos and all(a.gang_capable for a in algos), name
+    assert Algorithm.gang_capable is False  # a user engine opts in

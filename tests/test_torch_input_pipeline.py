@@ -34,6 +34,7 @@ from incubator_predictionio_tpu.workflow import (  # noqa: E402
     input_pipeline as ref_pipe,
 )
 from incubator_predictionio_torch.ops import linear as port  # noqa: E402
+from lbfgs_stop import ref_stop  # noqa: E402
 from incubator_predictionio_torch.workflow import input_pipeline as pipe  # noqa: E402
 from incubator_predictionio_torch.workflow.input_pipeline import (  # noqa: E402
     DeviceRing, PipelineConfig, PipelineStats, PipelineWorkerError,
@@ -406,13 +407,10 @@ def _ref_lr(x, y, c, reg, max_iters, pipeline):
 
 def _ref_stop(x, y, c, reg, pipeline):
     """The reference's iteration count: the least max_iters whose result
-    equals the uncapped fit's (None when it runs to 100)."""
-    full = _ref_lr(x, y, c, reg, 100, pipeline)
-    for k in range(1, 101):
-        if all(np.array_equal(a, b) for a, b in zip(
-                _ref_lr(x, y, c, reg, k, pipeline), full)):
-            return k if k < 100 else None
-    return None
+    equals the uncapped fit's (None when it runs to 100), read where the
+    fits repeat bit for bit (tests/lbfgs_stop.py); ``pipeline``: the
+    reference PipelineConfig's fields."""
+    return ref_stop(x, y, c, reg, pipeline)
 
 
 def test_lr_stream_bit_identical():
@@ -434,7 +432,7 @@ def test_lr_stream_bit_identical():
     ref_cfg = ref_pipe.PipelineConfig(mode="on", chunk_rows=700)
     w_ref, b_ref = _ref_lr(x, y, c, 0.1, 100, ref_cfg)
     _hold_lr(x, y, 0.1, streamed, stats1, w_ref, b_ref,
-             _ref_stop(x, y, c, 0.1, ref_cfg))
+             _ref_stop(x, y, c, 0.1, {"mode": "on", "chunk_rows": 700}))
 
 
 # -- the templates ----------------------------------------------------------

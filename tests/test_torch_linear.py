@@ -27,6 +27,7 @@ from incubator_predictionio_tpu.workflow.input_pipeline import (  # noqa: E402
     PipelineConfig,
 )
 from incubator_predictionio_torch.ops import linear as port  # noqa: E402
+from lbfgs_stop import ref_stop  # noqa: E402
 
 #: the single-shot reference paths (the streamed ones are proven equal to
 #: them by the reference's own tests)
@@ -190,13 +191,12 @@ def _hold_lr(x, y, c, reg, w_ref, b_ref, model):
 def test_lbfgs_stops_where_the_reference_stops():
     """A well-conditioned problem the stop rule ends: the reference's
     count is the least ``max_iters`` whose result equals the uncapped
-    fit's (each of its steps moves the parameters)."""
+    fit's (each of its steps moves the parameters), read where the fits
+    repeat bit for bit (tests/lbfgs_stop.py)."""
     x, y = _counts(500, 4, 3, 11, scale=0.1)
     w_ref, b_ref = _ref_lr(x, y, 3, 0.1, 100)
-    ref_iters = next(k for k in range(1, 101)
-                     if all(np.array_equal(a, b) for a, b in zip(
-                         _ref_lr(x, y, 3, 0.1, k), (w_ref, b_ref))))
-    assert ref_iters < 100
+    ref_iters = ref_stop(x, y, 3, 0.1)
+    assert ref_iters is not None and ref_iters < 100
     stats = {}
     model = port.train_logistic_regression(x, y, 3, reg=0.1, max_iters=100,
                                            device="cpu", stats=stats)

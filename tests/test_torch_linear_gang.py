@@ -21,8 +21,10 @@ differ by more than 1e-3):
   persisting the single-process ``pio train``'s model bit for bit;
   Classification LR with ``--feed merged`` by the LR rule against the JAX
   trainer on the merged read;
-- a gang of the Universal Recommender or Complementary Purchase is still
-  refused before anything spawns, naming ROADMAP item 7.3.
+- the Universal Recommender and Complementary Purchase on the partition
+  feed: refused before anything spawns under a 2-D ``PIO_MESH_SHAPE``,
+  else every rank reads the merged view and the gang persists one
+  process's model bit for bit.
 """
 
 import json
@@ -59,6 +61,7 @@ from incubator_predictionio_torch.workflow.persist import (  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_gang_worker as W  # noqa: E402
+from lbfgs_stop import ref_stop  # noqa: E402
 
 pytestmark = [pytest.mark.gang]
 
@@ -87,22 +90,19 @@ def _ref_lr(x, y, c, reg, max_iters=100):
     return m.weights, m.intercept
 
 
-def _ref_stop(x, y, c, reg, full):
+def _ref_stop(x, y, c, reg):
     """The reference's iteration count: the least max_iters whose fit
-    equals the uncapped one's (None when it runs all 100)."""
-    for k in range(1, 100):
-        if all(np.array_equal(a, b)
-               for a, b in zip(_ref_lr(x, y, c, reg, k), full)):
-            return k
-    return None
+    equals the uncapped one's (None when it runs all 100), read where the
+    fits repeat bit for bit (tests/lbfgs_stop.py)."""
+    return ref_stop(x, y, c, reg)
 
 
 def _hold_lr(x, y, c, reg, w, b, iterations):
-    w_ref, b_ref = full = _ref_lr(x, y, c, reg)
+    w_ref, b_ref = _ref_lr(x, y, c, reg)
     want = _loss(x, y, w_ref, b_ref, reg)
     got = _loss(x, y, w, b, reg)
     assert abs(got - want) <= LOSS_RTOL * want, (got, want)
-    stop = _ref_stop(x, y, c, reg, full)
+    stop = _ref_stop(x, y, c, reg)
     assert stop is not None and abs(iterations - stop) <= ITER_SLACK, \
         (iterations, stop)
     z_got, z_ref = x @ w + b, x @ w_ref + b_ref
@@ -445,17 +445,56 @@ def test_text_classification_gang_equals_one_process(tmp_path):
                      "label_values"))
 
 
+def _cco_parts(seed=9):
+    """Two ``.p<i>`` partitions of buy and view events, a user's events
+    split over both, one basket window apart per user."""
+    import datetime as dt
+
+    rng = np.random.default_rng(seed)
+    t0 = dt.datetime(2024, 1, 1, tzinfo=dt.timezone.utc)
+    parts = [[], []]
+    for u in range(120):
+        for j, (name, i) in enumerate(
+                [("buy", rng.integers(0, 30)) for _ in range(3)]
+                + [("view", rng.integers(0, 30)) for _ in range(4)]):
+            parts[int(rng.integers(0, 2))].append(Event(
+                event=name, entity_type="user", entity_id=f"u{u}",
+                target_entity_type="item", target_entity_id=f"i{i}",
+                event_time=t0 + dt.timedelta(hours=3 * u, minutes=j)))
+    return parts
+
+
 @pytest.mark.parametrize("factory", [
     "universal_recommender.UniversalRecommenderEngine",
     "complementary_purchase.ComplementaryPurchaseEngine"])
 def test_cco_gangs_are_refused_before_anything_spawns(tmp_path, factory):
+    """The CCO templates train in a gang (tests/test_torch_cco_gang.py).
+    What is still refused before anything spawns is the partition feed
+    under a 2-D ``PIO_MESH_SHAPE``; without one, a gang on the partition
+    feed reads the merged view (the data sources have no partition
+    branch, as the reference's) and persists one process's model bit for
+    bit."""
     env = _cli_env(tmp_path)
-    _engine(tmp_path, factory, "ur", {})
-    for feed in ("partition", "merged"):
-        out = subprocess.run(
-            CONSOLE + ["train", "--num-workers", "2", "--feed", feed,
-                       "--device", "cpu"], env=env, cwd=str(tmp_path),
-            capture_output=True, text=True, timeout=60)
-        assert out.returncode == 1, out.stderr
-        assert "ROADMAP Queue 1, item 7.3" in out.stderr
-        assert not os.path.isdir(tmp_path / "store" / "gang")
+    _write_partitions(_store_env(tmp_path), _cco_parts())
+    algo = "ur" if factory.startswith("universal") else "cooccurrence"
+    params = ({"appName": "lin", "maxCorrelatorsPerItem": 6}
+              if algo == "ur" else {"maxCorrelatorsPerItem": 6})
+    _engine(tmp_path, factory, algo, params,
+            datasource={"eventNames": ["buy", "view"]} if algo == "ur"
+            else {})
+    out = subprocess.run(
+        CONSOLE + ["train", "--num-workers", "2", "--feed", "partition",
+                   "--device", "cpu"], env=dict(env, PIO_MESH_SHAPE="1x2"),
+        cwd=str(tmp_path), capture_output=True, text=True, timeout=60)
+    assert out.returncode == 1, out.stderr
+    assert "the 2-D layout" in out.stderr
+    assert not os.path.isdir(tmp_path / "store" / "gang")
+    gang = _train(env, tmp_path, "--num-workers", "2", "--feed", "partition")
+    single = _train(env, tmp_path)
+    got = _persisted(env, gang["engineInstanceId"])
+    want = _persisted(env, single["engineInstanceId"])
+    names = ("idx", "score") if algo == "cooccurrence" else tuple(
+        k for k in want if k.startswith("indicators"))
+    assert names
+    _same_persisted(got, want, names)
+    assert [w["timings"]["world"] for w in gang["workers"]] == [2, 2]

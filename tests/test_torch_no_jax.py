@@ -895,6 +895,14 @@ def test_linear_gang_train_in_processes_without_jax(tmp_path, kind, extra):
     _gang_train_without_jax(tmp_path, extra, kind)
 
 
+def test_ur_gang_train_in_processes_without_jax(tmp_path):
+    """``train --num-workers 2`` of the Universal Recommender on the
+    partitioned log (read as the merged view): each rank counts its block
+    of the user ranges (``ops.llr`` with ``HostCollectives``) — the
+    supervisor and both ranks load no JAX, and the gang completes."""
+    _gang_train_without_jax(tmp_path, [], "ur")
+
+
 def _gang_events(kind: str, part: int) -> list:
     from incubator_predictionio_torch.data.storage.datamap import DataMap
     from incubator_predictionio_torch.data.storage.event import Event
@@ -904,6 +912,12 @@ def _gang_events(kind: str, part: int) -> list:
                       properties=DataMap({"attr0": j % 3, "attr1": j % 5,
                                           "attr2": 1, "plan": j % 2}))
                 for j in range(part, 40, 2)]
+    if kind == "ur":
+        return [Event(event=("buy", "view")[j % 2], entity_type="user",
+                      entity_id=f"u{(j * 7) % 13}",
+                      target_entity_type="item",
+                      target_entity_id=f"i{(j * 3) % 11}")
+                for j in range(part, 80, 2)]
     if kind == "text":
         return [Event(event="documents", entity_type="content",
                       entity_id=f"d{j}", properties=DataMap({
@@ -926,6 +940,12 @@ _GANG_ENGINES = {
         "engineFactory": "incubator_predictionio_torch.models."
                          "classification.ClassificationEngine",
         "algorithms": [{"name": "naive", "params": {"lambda": 1.0}}]},
+    "ur": {"engineFactory": "incubator_predictionio_torch.models."
+                            "universal_recommender."
+                            "UniversalRecommenderEngine",
+           "algorithms": [{"name": "ur", "params": {
+               "appName": "nojax", "maxCorrelatorsPerItem": 4,
+               "user_chunk": 4}}]},
     "text": {"engineFactory": "incubator_predictionio_torch.models."
                               "text_classification.TextClassificationEngine",
              "preparator": {"params": {"numFeatures": 64}},
@@ -964,9 +984,11 @@ def _gang_train_without_jax(tmp_path, extra: list, kind: str = "als") -> None:
         finally:
             del os.environ["PIO_EVENT_PARTITION"]
         log.insert_batch(_gang_events(kind, part), app_id)
+    ds = {"appName": "nojax"}
+    if kind == "ur":
+        ds["eventNames"] = ["buy", "view"]
     (tmp_path / "engine.json").write_text(json.dumps({
-        **_GANG_ENGINES[kind],
-        "datasource": {"params": {"appName": "nojax"}}}))
+        **_GANG_ENGINES[kind], "datasource": {"params": ds}}))
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("PIO_", "JAX_"))}
     env.update(store_env, PYTHONPATH=os.pathsep.join([str(site), str(ROOT)]),

@@ -19,6 +19,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 import pytest
@@ -183,10 +184,17 @@ def test_deadline_default_header_override_and_poison_values(store,
         deadline.Deadline(float("nan"))
 
 
-def test_deadline_rides_into_the_worker_and_stops_the_next_stage():
+def test_deadline_rides_into_the_worker_and_stops_the_next_stage(
+        monkeypatch):
     """The budget crosses into the worker thread through the copied
     context: Deployment.query's spend-point between predict and serve
-    raises once it is spent."""
+    raises once it is spent. The deadline reads a clock the test moves,
+    only inside ``predict``: however late the pool's thread starts, the
+    budget is whole at the spend-point before predict and spent at the
+    one after it."""
+    now = [0.0]
+    monkeypatch.setattr(deadline, "time",
+                        types.SimpleNamespace(monotonic=lambda: now[0]))
     dl = deadline.Deadline(10)
     seen = []
 
@@ -200,7 +208,7 @@ def test_deadline_rides_into_the_worker_and_stops_the_next_stage():
 
     class Algo:
         def predict(self, model, q):
-            time.sleep(0.03)
+            now[0] += 0.03  # predict outlasts the 10 ms budget
             return q
 
     from incubator_predictionio_torch.controller.engine import Deployment

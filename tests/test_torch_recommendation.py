@@ -308,15 +308,18 @@ def test_engine_factory_outside_the_port_is_refused():
 
 
 def test_sharded_serving_always_is_refused():
-    """``shardedServing: always`` is refused only where it would pick the
-    mesh layout (more than one device); on one device it serves (F5), and
-    a value outside auto|always|never is refused before the train."""
+    """``shardedServing: always`` is refused by nothing now: over a mesh of
+    several devices it picks the mesh layout, on one device it serves flat
+    (F5); only a value outside auto|always|never is refused, before the
+    train."""
     from incubator_predictionio_torch.ops import sharded_topk
 
     port_rec.ALSAlgorithm(port_rec.AlgorithmParams(sharded_serving="always"))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        sharded_topk.serving_mesh_for("cpu", 100, 8, "always", n_devices=8)
-    assert sharded_topk.serving_mesh_for("cpu", 100, 8, "always") is None
+    mesh = WorkflowContext(device="cpu", mesh=["cpu"] * 8)
+    assert sharded_topk.serving_mesh_for(mesh, 100, 8, "always") == \
+        [torch.device("cpu")] * 8
+    assert sharded_topk.serving_mesh_for(
+        WorkflowContext(device="cpu"), 100, 8, "always") is None
     algo = port_rec.ALSAlgorithm(
         port_rec.AlgorithmParams(sharded_serving="sometimes"))
     with pytest.raises(ValueError, match="auto.always.never"):

@@ -12,7 +12,8 @@ host-sharded functions on the same numpy inputs — the 1,003 × 16 catalog of
 - the layout selection of ``ShardedCatalog`` and ``ShardedIndicators``;
 - the serving policy against the reference's ``should_shard_serving``
   over a grid of sizes, ranks, modes, ``PIO_SHARDED_SERVING_BYTES`` values
-  and meshes of 1 and 8 CPU devices;
+  and meshes of 1 and 8 CPU devices, and ``serving_mesh_for`` returning
+  the context's mesh where it shards;
 - Recommendation, Similar-Product, E-Commerce and the UR: answers with
   ``PIO_SERVE_SHARD_ITEMS`` set equal the answers without it, and the
   reference's on the same persisted model; ``shardedServing: always``
@@ -317,14 +318,15 @@ def test_policy_matches_reference(monkeypatch, budget):
                         got = st.should_shard_serving(
                             n_items, rank, n_dev, mode, "cpu")
                         assert got == want, (n_items, rank, mode, n_dev)
+                        # the decision: the context's mesh, or None
+                        ctx = WorkflowContext(device="cpu",
+                                              mesh=["cpu"] * n_dev)
+                        picked = st.serving_mesh_for(ctx, n_items, rank,
+                                                     mode)
                         if got:
-                            with pytest.raises(NotImplementedError,
-                                               match="item 7"):
-                                st.serving_mesh_for("cpu", n_items, rank,
-                                                    mode, n_devices=n_dev)
+                            assert picked == [CPU] * n_dev
                         else:
-                            assert st.serving_mesh_for(
-                                "cpu", n_items, rank, mode, n_dev) is None
+                            assert picked is None
     if budget == "junk":  # a malformed budget warns, as the reference's
         with pytest.warns(UserWarning, match="not a positive"):
             st.should_shard_serving(10**6, 64, 8, "auto", "cpu")
