@@ -6991,12 +6991,22 @@ def phase_eventserver_partitioned(workdir: str) -> None:
     `pio eventserver scale 3` then `scale 2` (partition 2's lease parked
     on the front, epoch bumped); then `pio train` off the merged log:
     warp launches = implied, factors within 2e-4 of train_als on the
-    triple read back."""
+    triple read back. Both topologies run with the write-ahead log
+    (PIO_WAL=1, PIO_WAL_FSYNC=group, bench_ingest.py's _mw_env): the
+    relaunched worker 1 replays its <wal>/p1 after its lease claim, and
+    the scale-down replays p2 on the front; neither leaves an uncommitted
+    record."""
+    from incubator_predictionio_torch.data.api import ingest_wal
+
     cwd = tempfile.mkdtemp(dir=workdir)
     envs, keys = {}, {}
     for w in (1, 2):
         envs[w] = _jsonl_env(os.path.join(cwd, f"pio_w{w}")) | {
-            "PIO_SUPERVISOR_POLL_MS": "50"}
+            "PIO_SUPERVISOR_POLL_MS": "50", "PIO_WAL": "1",
+            "PIO_WAL_FSYNC": "group",
+            "PIO_WAL_DIR": os.path.join(cwd, f"wal_w{w}")}
+        for k in ("PIO_INGEST_ACK", "PIO_INGEST_GROUP"):
+            envs[w].pop(k, None)
         out, _ = _verb(["app", "new", "part"], envs[w], cwd)
         keys[w] = out.stdout.split("Access Key:")[1].split()[0]
     path = os.path.join(cwd, "ml1m.jsonl")
@@ -7038,6 +7048,9 @@ def phase_eventserver_partitioned(workdir: str) -> None:
             _event_key(e) for e in main_ev),
               "the merged read's events differ from the posted ones")
         emit("eventserver_partitioned_ingest", events=PART_EVENTS,
+             configuration="PIO_WAL=1, PIO_WAL_FSYNC=group, group commit "
+                           "(earlier runs of this phase: no WAL, a store "
+                           "write per request)",
              clients=PART_CLIENTS, batch=PART_BATCH, round_events=PART_ROUND,
              events_per_s_rounds={f"workers_{w}": v
                                   for w, v in rates.items()},
@@ -7069,12 +7082,20 @@ def phase_eventserver_partitioned(workdir: str) -> None:
         read_ids, _ = _log_view(envs[2])
         lost = [eid for eid in flood_ids if eid not in read_ids]
         check(not lost, f"{len(lost)} acknowledged events lost")
+        check(max(read_ids.values()) == 1, "an event id landed twice")
         check(restarts[1] == 1, f"restarts {restarts}")
+        # the relaunched worker replayed its WAL subdirectory
+        w1_replayed = _metric(_metrics_text(two.port_of(1)),
+                              "pio_wal_replayed_events_total")
+        p1 = [r for r in ingest_wal.inspect(ingest_wal.WalConfig(
+            enabled=True, dir=envs[2]["PIO_WAL_DIR"])) if r["partition"] == 1]
+        check(not any(r["uncommittedEvents"] for r in p1),
+              f"worker 1's WAL after its relaunch: {p1}")
         emit("eventserver_partitioned_sigkill", events=len(flood_ev),
              acknowledged=len(flood_ids), lost=0, batches_sent_again=retried,
              landed_unacknowledged=sum(read_ids.values()) - len(acked),
              seconds_until_relaunched_ready=back_s, flood_seconds=flood_s,
-             restarts=restarts)
+             restarts=restarts, wal_replayed_by_relaunch=w1_replayed)
 
         # fence partition 0 under its live worker
         p0 = os.path.join(ev_dir, "events_1.p0.jsonl")
@@ -7112,6 +7133,14 @@ def phase_eventserver_partitioned(workdir: str) -> None:
             h["readyWorkers"] == 3 and len(h["workers"]) == 3))
         up3_s = time.perf_counter() - t0
         owned = event_log.lease_info(ev_dir, 2)
+        w2 = _Endpoint(two.port_of(2))
+        for b in range(2):
+            status, res, _ = w2.request(
+                "POST", f"/batch/events.json?accessKey={keys[2]}",
+                flood_ev[PART_BATCH * (b + 1):PART_BATCH * (b + 2)])
+            check(status == 200 and all(x["status"] == 201 for x in res),
+                  f"worker 2 answered {status}")
+            acked += [x["eventId"] for x in res]
         t0 = time.perf_counter()
         _verb(["eventserver", "scale", "2"], envs[2], cwd)
         two.wait_health("partition 2 parked", lambda h: (
@@ -7121,6 +7150,14 @@ def phase_eventserver_partitioned(workdir: str) -> None:
         check(parked["held"] and parked["pid"] == two.proc.pid
               and parked["epoch"] == owned["epoch"] + 1,
               f"partition 2: owned {owned}, parked {parked}")
+        p2 = [r for r in ingest_wal.inspect(ingest_wal.WalConfig(
+            enabled=True, dir=envs[2]["PIO_WAL_DIR"])) if r["partition"] == 2]
+        check(not any(r["uncommittedEvents"] for r in p2),
+              f"partition 2's WAL after the scale-down: {p2}")
+        read_ids, _ = _log_view(envs[2])
+        lost = [eid for eid in acked if eid not in read_ids]
+        check(not lost and max(read_ids.values()) == 1,
+              f"{len(lost)} acknowledged events lost after the scale-down")
         emit("eventserver_partitioned_fence_scale", fence_epoch=epoch0 + 1,
              fenced_status=503, shard_bytes_unchanged=True,
              relaunch_epoch=epoch_back, scale_up_seconds=up3_s,
@@ -7160,6 +7197,365 @@ def phase_eventserver_partitioned(workdir: str) -> None:
          max_abs_err_vs_train_als=err)
     phase_gang_train(cwd, envs[2], trained["wall_seconds"])
     phase_gang_train_merged(cwd, envs[2])
+    shutil.rmtree(cwd)
+
+
+# -- the event tier's durable write path (ROADMAP items 3.1.2, 3.2, 3.3) ----
+
+#: bench_ingest.py's single-event sweep (its 128 clients cut for time):
+#: keep-alive connections, 2,000 events a point (PIO_INGEST_N_SINGLE's
+#: default), each point with group commit off, on, and on with the WAL
+WAL_SWEEP_CLIENTS = (1, 8, 32)
+WAL_SWEEP_EVENTS = 2_000
+WAL_SWEEP_MODES = {
+    "group_off": {"PIO_INGEST_GROUP": "off"},
+    "group_on": {"PIO_INGEST_GROUP": "on"},
+    "group_wal": {"PIO_INGEST_GROUP": "on", "PIO_WAL": "1",
+                  "PIO_WAL_FSYNC": "group"},
+}
+#: the ack=enqueue flood the server is killed in, and the group commit it
+#: dies inside (a group holds up to 256 events, so 20,000 events take at
+#: least 79 commits: the 78th always comes mid-flood)
+WAL_FLOOD_EVENTS, WAL_FLOOD_CLIENTS, WAL_CRASH_COMMIT = 20_000, 32, 78
+#: the window of the archive train: every generation of the log
+WAL_TRAIN_WINDOW = "36500d"
+
+
+def _lockstep(port: int, path: str, bodies: list, conc: int,
+              headers=None) -> dict:
+    """bench_ingest.py's run_single_sweep: ``conc`` keep-alive connections
+    driven by at most 8 threads, each thread sending one request on every
+    one of its connections, then reading every answer (one request in
+    flight per connection). Every answer must be 201; returns events/s,
+    the ack's p50 / p99 and the ids."""
+    import concurrent.futures
+
+    threads = max(t for t in range(1, min(8, conc) + 1) if conc % t == 0)
+    per_thread = conc // threads
+    per_conn = len(bodies) // conc
+    hdrs = {"Content-Type": "application/json", **(headers or {})}
+
+    def worker(w):
+        conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                 for _ in range(per_thread)]
+        lat, ids = [], []
+        try:
+            for j in range(per_conn):
+                t0s = []
+                for c, conn in enumerate(conns):
+                    body = bodies[((w * per_thread + c) * per_conn) + j]
+                    t0s.append(time.perf_counter())
+                    conn.request("POST", path, body=body, headers=hdrs)
+                for conn, t0 in zip(conns, t0s):
+                    resp = conn.getresponse()
+                    doc = json.loads(resp.read())
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    check(resp.status == 201, f"single POST {resp.status}: "
+                          f"{doc}")
+                    ids.append(doc["eventId"])
+        finally:
+            for conn in conns:
+                conn.close()
+        return lat, ids
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        got = list(pool.map(worker, range(threads)))
+    seconds = time.perf_counter() - t0
+    lat = [x for g in got for x in g[0]]
+    return {"events_per_s": len(lat) / seconds, **_percentiles(lat),
+            "ids": [x for g in got for x in g[1]]}
+
+
+def _metrics_text(port: int) -> str:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        text = resp.read().decode()
+        check(resp.status == 200, f"/metrics {resp.status}")
+        return text
+    finally:
+        conn.close()
+
+
+def _metric(text: str, name: str, **labels) -> float:
+    """The sum of a family's samples whose labels include ``labels``."""
+    total = 0.0
+    for line in text.splitlines():
+        if not (line.startswith(name + "{") or line.startswith(name + " ")):
+            continue
+        if all(f'{k}="{v}"' in line for k, v in labels.items()):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def _wal_rows(env: dict) -> list:
+    """The rows `pio wal inspect` prints for ``env``'s WAL dir."""
+    from incubator_predictionio_torch.data.api import ingest_wal
+
+    return ingest_wal.inspect(ingest_wal.WalConfig(
+        enabled=True, dir=env["PIO_WAL_DIR"]))
+
+
+def _crash_flood(port: int, key: str, bodies: list, acked: list,
+                 lock) -> None:
+    """ack=enqueue single POSTs from WAL_FLOOD_CLIENTS keep-alive clients
+    until the bodies run out or the server dies; each 201 read lands in
+    ``acked`` as (body index, eventId)."""
+    import queue
+
+    work: queue.Queue = queue.Queue()
+    for j in range(len(bodies)):
+        work.put(j)
+    path = f"/events.json?accessKey={key}"
+    errors = []
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            while True:
+                try:
+                    j = work.get_nowait()
+                except queue.Empty:
+                    return
+                conn.request("POST", path, body=bodies[j], headers={
+                    "Content-Type": "application/json"})
+                resp = conn.getresponse()
+                doc = json.loads(resp.read())
+                if resp.status != 201:
+                    errors.append((resp.status, doc))
+                    return
+                with lock:
+                    acked.append((j, doc["eventId"]))
+        except (OSError, http.client.HTTPException, ValueError):
+            return  # the server died under this client
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client)
+               for _ in range(WAL_FLOOD_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"enqueue POSTs refused: {errors[:2]}")
+
+
+def phase_eventserver_wal(workdir: str) -> None:
+    """`pio eventserver` on a JSONL store with the durable write path:
+    (1) bench_ingest.py's single-event sweep (1, 8, 32 keep-alive clients,
+    2,000 ML-1M events a point) with group commit off, on, and on with the
+    WAL (PIO_WAL_FSYNC=group); (2) an ack=enqueue flood of 20,000 events
+    from 32 clients killed inside a mid-flood group commit (PIO_FAULT_SPEC
+    ingest.commit:crash:N), the restart's WAL replay, the unacknowledged
+    rest sent again in batches of 50: every acknowledged id exactly once
+    in the merged
+    read, `pio wal inspect` with nothing uncommitted, /metrics and
+    /stats.json equal to the events the restarted server acknowledged or
+    replayed; (3) the background compaction loop seals the log, `pio
+    eventlog archive` moves its first generation to a localfs cold source,
+    a windowed `pio train` refuses it (ArchivedGenerationError), the same
+    train with PIO_EVENT_RESTORE_ON_DEMAND=1 restores it: warp launches =
+    implied, factors equal bit for bit to the train before the archive and
+    within 2e-4 of train_als on the triples read back."""
+    import collections
+
+    t_phase = time.perf_counter()
+    cwd = tempfile.mkdtemp(dir=workdir)
+    base = os.path.join(cwd, "pio")
+    env = _jsonl_env(base) | {
+        "PIO_WAL_DIR": os.path.join(cwd, "wal"),
+        "PIO_STORAGE_SOURCES_COLD_TYPE": "LOCALFS",
+        "PIO_STORAGE_SOURCES_COLD_PATH": os.path.join(cwd, "cold"),
+        "PIO_EVENT_ARCHIVE_SOURCE": "COLD"}
+    for k in ("PIO_WAL", "PIO_INGEST_GROUP", "PIO_INGEST_ACK",
+              "PIO_FAULT_SPEC", "PIO_EVENT_RESTORE_ON_DEMAND"):
+        env.pop(k, None)
+    out, _ = _verb(["app", "new", "walapp"], env, cwd)
+    key = out.stdout.split("Access Key:")[1].split()[0]
+    n_sweep = len(WAL_SWEEP_MODES) * len(WAL_SWEEP_CLIENTS) * WAL_SWEEP_EVENTS
+    path = os.path.join(cwd, "ml1m.jsonl")
+    _write_ml1m_jsonl(path, n_sweep + WAL_FLOOD_EVENTS)
+    with open(path, encoding="utf-8") as fh:
+        bodies = [line.strip().encode() for line in fh]
+    os.unlink(path)
+    posted = collections.Counter()
+
+    # (1) the sweep: one server per mode, the client counts in turn
+    sweep, at, swept = {}, 0, 0
+    for mode, knobs in WAL_SWEEP_MODES.items():
+        menv = dict(env, **knobs)
+        with _Served(["eventserver", "--ip", "127.0.0.1"], menv, cwd) as srv:
+            sweep[mode] = {}
+            for conc in WAL_SWEEP_CLIENTS:
+                chunk = bodies[at:at + WAL_SWEEP_EVENTS]
+                at += WAL_SWEEP_EVENTS
+                chunk = chunk[:len(chunk) - len(chunk) % conc]
+                got = _lockstep(srv.port, f"/events.json?accessKey={key}",
+                                chunk, conc)
+                posted.update(chunk)
+                swept += len(chunk)
+                check(len(set(got.pop("ids"))) == len(chunk),
+                      f"{mode} x{conc}: ids not distinct")
+                sweep[mode][f"clients_{conc}"] = got
+            _, root, _ = srv.request("GET", "/")
+            sweep[mode]["ingest"] = {
+                k: root["ingest"][k] for k in ("groupsCommitted",
+                                                "eventsCommitted",
+                                                "maxGroup")}
+        check(srv.proc.returncode == 0, f"{mode} server exited "
+              f"{srv.proc.returncode}: {srv.stderr[-2000:]}")
+    check(not any(r["uncommittedEvents"] for r in _wal_rows(env)),
+          "the sweep left uncommitted WAL records")
+    emit("eventserver_wal_sweep", events_per_point=WAL_SWEEP_EVENTS,
+         clients=list(WAL_SWEEP_CLIENTS), modes=sweep,
+         cut="bench_ingest.py's 128-client point (time)")
+
+    # (2) the crash: ack=enqueue, killed inside a mid-flood group commit
+    flood = bodies[at:at + WAL_FLOOD_EVENTS]
+    crash_env = dict(env, PIO_WAL="1", PIO_WAL_FSYNC="group",
+                     PIO_INGEST_ACK="enqueue",
+                     PIO_FAULT_SPEC=f"ingest.commit:crash:{WAL_CRASH_COMMIT}")
+    acked, lock = [], threading.Lock()
+    srv = _Served(["eventserver", "--ip", "127.0.0.1", "--stats"], crash_env,
+                  cwd)
+    with srv:
+        t0 = time.perf_counter()
+        _crash_flood(srv.port, key, flood, acked, lock)
+        flood_s = time.perf_counter() - t0
+        rc = srv.proc.wait(timeout=60)
+    check(rc == -signal.SIGKILL, f"the server exited {rc}, not killed")
+    acked_at_crash = len(acked)
+    check(0 < acked_at_crash < WAL_FLOOD_EVENTS,
+          f"{acked_at_crash} of {WAL_FLOOD_EVENTS} acknowledged at the crash")
+    rows = _wal_rows(env)
+    pending = sum(r["uncommittedEvents"] for r in rows)
+    check(pending > 0, f"no uncommitted WAL record after the crash: {rows}")
+    # the restart replays, then the rest is sent again (ack=commit) while
+    # the background compaction loop seals the log
+    restart_env = dict(env, PIO_WAL="1", PIO_WAL_FSYNC="group",
+                       PIO_COMPACT_INTERVAL_MS="250",
+                       PIO_COMPACT_MIN_BYTES="0")
+    t0 = time.perf_counter()
+    with _Served(["eventserver", "--ip", "127.0.0.1", "--stats"],
+                 restart_env, cwd) as srv:
+        up_s = time.perf_counter() - t0
+        replayed = _metric(_metrics_text(srv.port),
+                           "pio_wal_replayed_events_total")
+        deduped = _metric(_metrics_text(srv.port),
+                          "pio_wal_replay_deduped_events_total")
+        done = {j for j, _ in acked}
+        rest = [json.loads(flood[j]) for j in range(len(flood))
+                if j not in done]
+        resent_ids, resent_s, _ = _drive(srv.port, key, _bodies(rest))
+        posted.update(flood)
+        text = _metrics_text(srv.port)
+        _, stats, _ = srv.request("GET", f"/stats.json?accessKey={key}")
+        stat_201 = sum(c["count"] for c in stats["counts"]
+                       if c["status"] == 201)
+        metric_201 = _metric(text, "pio_ingest_events_total", status="201")
+        expect = int(replayed) + len(resent_ids)
+        check(stat_201 == metric_201 == expect,
+              f"/stats.json {stat_201}, /metrics {metric_201}, want "
+              f"{expect} (replayed {replayed} + resent {len(resent_ids)})")
+        # the background loop has sealed every byte of the log
+        log_path = os.path.join(base, "events", "pio_eventdata",
+                                "events_1.jsonl")
+        deadline = time.time() + 60
+        while True:
+            manifest = event_log._read_manifest(log_path)
+            if manifest is not None and manifest.get("covered") == \
+                    os.path.getsize(log_path):
+                break
+            check(time.time() < deadline, "background compaction stalled")
+            time.sleep(0.1)
+        compactions = _metric(_metrics_text(srv.port),
+                              "pio_eventlog_compactions_total")
+    check(srv.proc.returncode == 0, f"restarted server exited "
+          f"{srv.proc.returncode}: {srv.stderr[-2000:]}")
+    out, _ = _verb(["wal", "inspect"], env | {"PIO_WAL": "1"}, cwd)
+    check("No WAL segments on disk" in out.stdout
+          or all(r["uncommittedEvents"] == 0 for r in _wal_rows(env)),
+          f"pio wal inspect: {out.stdout[-1500:]}")
+    ids, content = _log_view(env, "walapp")
+    acked_ids = [eid for _, eid in acked] + resent_ids
+    check(all(ids[eid] == 1 for eid in acked_ids),
+          "an acknowledged event is missing or doubled")
+    check(max(ids.values()) == 1, "an event id landed twice")
+    want_content = collections.Counter(_event_key(json.loads(b))
+                                       for b in posted)
+    check(all(content[k] >= 1 for k in want_content),
+          "a posted event is missing from the merged read")
+    emit("eventserver_wal_crash", events=WAL_FLOOD_EVENTS,
+         clients=WAL_FLOOD_CLIENTS, crash_commit=WAL_CRASH_COMMIT,
+         acknowledged_at_crash=acked_at_crash, flood_seconds=flood_s,
+         uncommitted_at_crash=pending, replayed=replayed, deduped=deduped,
+         restart_seconds=up_s, resent=len(resent_ids),
+         resent_events_per_s=len(resent_ids) / resent_s,
+         landed_unacknowledged=sum(ids.values()) - swept
+         - len(acked_ids),
+         stats_201=stat_201, metrics_201=metric_201,
+         background_compactions=compactions, lost=0, doubled=0)
+
+    # (3) archive the first generation; the windowed train restores it
+    _write_engine_json(cwd, "walapp")
+    window = ["--window", WAL_TRAIN_WINDOW]
+    before = _train_verb(env, cwd, "eventserver_wal_train_before", window)
+    store = _storage_of(env)
+    u, i, r, users, items = PEventStore.find_ratings("walapp", storage=store)
+    want = {"u": u, "i": i, "r": r, "users": list(users.keys()),
+            "items": list(items.keys())}
+    check(len(u) == sum(ids.values()), f"read {len(u)} ratings, the log "
+          f"holds {sum(ids.values())}")
+    _hold_train(before, want, "eventserver_wal_train_before")
+    first = manifest["generations"][0]
+    snap = os.path.join(os.path.dirname(log_path), first["file"])
+    t0 = time.perf_counter()
+    out, _ = _verb(["eventlog", "archive", "--log", "events_1.jsonl",
+                    "--generation", str(first["generation"])], env, cwd)
+    archive_s = time.perf_counter() - t0
+    check("tier archived" in out.stdout and not os.path.exists(snap),
+          f"archive: {out.stdout[-500:]}")
+    refused = subprocess.run(CONSOLE + ["train", *window], env=env, cwd=cwd,
+                             capture_output=True, text=True, timeout=600)
+    check(refused.returncode != 0 and "are archived" in refused.stderr,
+          f"a windowed train over an archived generation ran "
+          f"({refused.returncode}): {refused.stderr[-1500:]}")
+    restored = _train_verb(env | {"PIO_EVENT_RESTORE_ON_DEMAND": "1"}, cwd,
+                           "eventserver_wal_train_restored", window)
+    check(os.path.exists(snap) and event_log._read_manifest(log_path)[
+        "generations"][0].get("tier", "hot") == "hot",
+          "the train did not restore the archived generation")
+    _hold_train(restored, want, "eventserver_wal_train_restored")
+    a = _hold_model(store, before, want, "eventserver_wal_train_before")
+    stored = _hold_model(store, restored, want,
+                         "eventserver_wal_train_restored")
+    store.close()
+    check(all(np.array_equal(a[k], stored[k])
+              for k in ("user_factors", "item_factors")),
+          "the restored train's factors differ from the train before the "
+          "archive")
+    algo = als_engine(PIO_RANK, PIO_ITERS, PIO_LAMBDA)[2]
+    ref = train_als(u, i, r, n_users=len(users), n_items=len(items),
+                    params=algo.als_params(algo.params), device="cuda")
+    err = {"user": max_err(stored["user_factors"], ref.user_factors),
+           "item": max_err(stored["item_factors"], ref.item_factors)}
+    check(within(stored["user_factors"], ref.user_factors)
+          and within(stored["item_factors"], ref.item_factors),
+          f"restored train vs train_als: {err}")
+    emit("eventserver_wal_archive_train", ratings=len(u),
+         generations=len(manifest["generations"]),
+         archived_generation=first["generation"],
+         archive_verb_seconds=archive_s,
+         read_seconds_before=before["timings"]["read_seconds"],
+         read_seconds_restored=restored["timings"]["read_seconds"],
+         train_seconds_before=before["wall_seconds"],
+         train_seconds_restored=restored["wall_seconds"],
+         kernel_launches=restored["kernel_launches"],
+         expected_launches=restored["expected_launches"],
+         bit_equal_to_before=True, max_abs_err_vs_train_als=err,
+         phase_seconds=time.perf_counter() - t_phase, card=CARD)
     shutil.rmtree(cwd)
 
 
@@ -7800,6 +8196,7 @@ def main() -> int:
         phase_codec_vs_plain(main_path["ratings"])
         phase_pio_workflow_jsonl(workdir)
         phase_eventserver_partitioned(workdir)
+        phase_eventserver_wal(workdir)
         phase_als_process_sharded(main_path["ratings"])
         phase_pio_workflow_jsonl_ml20m(workdir, main_path["ratings"])
         phase_engine_server_tenants(workdir)

@@ -47,12 +47,23 @@ read, compacted and claimed by the other.
   ``quarantine/``, never deleted) and the log keeps serving from its JSONL
   bytes.
 
-Not ported yet (ROADMAP.md Queue 1, item 3): the write-ahead log under
-the workers (``PIO_WAL`` with ``--workers`` is refused) with its replay on
-a scale-down, the ingest buffer, the workers' background compaction and
-``/stats.json``, archiving generations to a cold source and restoring them
-(an archived generation is read back from the log's bytes, or named in
-:class:`ArchivedGenerationError`), and the telemetry counters.
+- **Archive and restore** (:func:`archive_generation`,
+  :func:`restore_generation`, ``pio eventlog archive|restore``). A sealed
+  hot generation streams to the cold source named by
+  ``PIO_EVENT_ARCHIVE_SOURCE`` (a Models DAO of any configured storage
+  source: localfs or SQLite here), CRC-verified on the round trip before
+  the local copy goes; a windowed train that needs it restores it on
+  demand (``PIO_EVENT_RESTORE_ON_DEMAND=1``) or raises
+  :class:`ArchivedGenerationError` naming it; serving reads re-parse its
+  log bytes.
+- **The write-ahead log under the workers.** Each worker gets its own
+  ``PIO_WAL_DIR=<wal_dir>/p<i>`` (:func:`worker_env`), replayed by the
+  worker after it claimed its lease; the front replays the WAL root
+  before the workers start and a retired partition's subdirectory on a
+  scale-down (:func:`run_partitioned_event_server`).
+- **Telemetry.** Snapshot loads, compactions, retired, archived and
+  restored generations and the generations a window skipped count into
+  the process registry (``GET /metrics``).
 """
 
 from __future__ import annotations
@@ -71,18 +82,43 @@ from typing import Optional
 
 import numpy as np
 
-from ...common import envknobs
+from ...common import envknobs, telemetry
 from ...common.faultinject import fault_point
 
 log = logging.getLogger("pio.torch.eventlog")
 
 __all__ = [
     "ArchivedGenerationError", "IngestOverloadError", "Lease",
-    "PartitionFencedError", "PartitionHeldError", "claim_partition",
-    "compact_log", "front_info_path", "lease_info", "load_chain",
-    "load_snapshot", "parse_floor", "partition_health", "retire_expired",
-    "run_partitioned_event_server", "scrub_log_dir", "worker_env",
+    "PartitionFencedError", "PartitionHeldError", "archive_generation",
+    "claim_partition", "compact_log", "front_info_path", "lease_info",
+    "load_chain", "load_snapshot", "parse_floor", "partition_health",
+    "restore_generation", "retire_expired", "run_partitioned_event_server",
+    "scrub_log_dir", "worker_env",
 ]
+
+_M_SNAP_LOADS = telemetry.registry().counter(
+    "pio_eventlog_snapshot_loads_total",
+    "Compacted columnar snapshots loaded in place of a JSON "
+    "re-parse").labels()
+_M_COMPACTIONS = telemetry.registry().counter(
+    "pio_eventlog_compactions_total",
+    "Event-log compaction passes that committed a new snapshot").labels()
+_M_RETIRED = telemetry.registry().counter(
+    "pio_eventlog_retired_generations_total",
+    "Fully-expired generations moved to the retired tier by "
+    "PIO_EVENT_RETENTION / pio eventlog retire").labels()
+_M_ARCHIVED = telemetry.registry().counter(
+    "pio_eventlog_archived_generations_total",
+    "Sealed generations streamed to the cold archive source with a "
+    "verified round-trip").labels()
+_M_RESTORED = telemetry.registry().counter(
+    "pio_eventlog_restored_generations_total",
+    "Archived generations restored to the hot tier (operator command "
+    "or restore-on-demand)").labels()
+_M_WINDOW_SKIPS = telemetry.registry().counter(
+    "pio_train_window_generations_skipped_total",
+    "Whole generations skipped by manifest event-time bounds during a "
+    "windowed read — zero snapshot bytes decoded").labels()
 
 SNAPSHOT_VERSION = 1
 MANIFEST_VERSION = 2
@@ -94,6 +130,9 @@ RETIRED_DIR = "retired"
 #: subdirectory corrupt snapshots move into (the reference's
 #: ``data/api/ingest_wal.py`` name, shared by both packages' directories)
 QUARANTINE_DIR = "quarantine"
+#: the Models namespace archived generations live under on the cold
+#: source (the reference's, so either package restores the other's)
+ARCHIVE_NAMESPACE = "pio_eventlog_archive"
 #: sentinel the codec stores for rows without an eventTime
 _TIME_ABSENT_US = int(np.iinfo(np.int64).min)
 
@@ -562,6 +601,7 @@ def compact_log(log_path: str, min_new_bytes: int = 0) -> Optional[dict]:
     fault_point("compact.manifest")
     os.replace(mtmp, _manifest_path(log_path))
     _fsync_dir(dirpath)
+    _M_COMPACTIONS.inc()
     _gc_generations(dirpath, base,
                     keep={e["file"] for e in chain
                           if e.get("file") and e.get("tier") != "archived"})
@@ -628,19 +668,18 @@ def _discard_stale(log_path: str, manifest: Optional[dict]) -> None:
 
 
 class ArchivedGenerationError(RuntimeError):
-    """A windowed read needs a generation whose snapshot lives only on the
-    cold archive source (written by the reference's ``pio eventlog
-    archive``). Names the generations; restoring them is not ported yet
-    (restore them with the reference's ``pio eventlog restore``)."""
+    """A read needs a generation whose snapshot lives only on the cold
+    archive source (and restore-on-demand is off). Names the generations
+    so the operator knows exactly what to ``pio eventlog restore``."""
 
     def __init__(self, log_path: str, generations: list):
         self.log_path = log_path
         self.generations = list(generations)
         gens = ", ".join(str(g) for g in self.generations)
         super().__init__(
-            f"generation(s) {gens} of {log_path!r} are archived; restore "
-            "them with `pio eventlog restore` (the reference's; this "
-            "package does not restore archived generations yet)")
+            f"generation(s) {gens} of {log_path!r} are archived; run "
+            f"`pio eventlog restore` or set "
+            f"PIO_EVENT_RESTORE_ON_DEMAND=1")
 
 
 def parse_floor(log_path: str) -> int:
@@ -703,7 +742,7 @@ def _truncate_chain(log_path: str, manifest: dict, bad_gen: int) -> None:
 
 
 def load_chain(log_path: str, start_us=None, until_us=None,
-               on_archived: str = "raise") -> Optional[dict]:
+               on_archived: str = "raise", storage=None) -> Optional[dict]:
     """Load the committed generation chain of one log, fully verified,
     optionally windowed by event time.
 
@@ -724,8 +763,9 @@ def load_chain(log_path: str, start_us=None, until_us=None,
 
     ``on_archived`` picks the policy for an archived generation the
     window actually needs: ``"raise"`` (windowed trains —
-    :class:`ArchivedGenerationError` names the generation) or
-    ``"parse"``.
+    :class:`ArchivedGenerationError` names the generation; flipped to a
+    restore from ``storage``'s archive source by
+    ``PIO_EVENT_RESTORE_ON_DEMAND``) or ``"parse"``.
 
     Corruption handling is per-generation: a CRC-mismatched or
     undecodable snapshot is quarantined and the chain self-truncates to
@@ -767,11 +807,18 @@ def load_chain(log_path: str, start_us=None, until_us=None,
             skipped += 1
             continue
         if entry.get("tier") == "archived":
-            if on_archived == "parse":
+            if envknobs.env_flag("PIO_EVENT_RESTORE_ON_DEMAND", False):
+                restore_generation(log_path,
+                                   int(entry.get("generation", 0)),
+                                   storage=storage)
+                # the restored file now sits in the hot dir under the
+                # same name and crc: load it below
+            elif on_archived == "parse":
                 pieces.append(("gap", entry))
                 continue
-            raise ArchivedGenerationError(
-                log_path, [entry.get("generation")])
+            else:
+                raise ArchivedGenerationError(
+                    log_path, [entry.get("generation")])
         snap_path = os.path.join(dirpath, entry.get("file") or "")
         try:
             with open(snap_path, "rb") as f:
@@ -805,6 +852,9 @@ def load_chain(log_path: str, start_us=None, until_us=None,
             return None
         pieces.append(("cols", cols, entry))
         decoded += len(blob)
+    if skipped:
+        _M_WINDOW_SKIPS.inc(skipped)
+    _M_SNAP_LOADS.inc()
     return {"pieces": pieces, "covered": covered, "floor": floor,
             "skipped": skipped, "decodedBytes": decoded,
             "generations": chain}
@@ -970,6 +1020,7 @@ def retire_expired(log_path: str, ttl_us: Optional[int] = None,
         fault_point("retire.rename")
         os.replace(mtmp, _manifest_path(log_path))
         _fsync_dir(dirpath)
+        _M_RETIRED.inc(len(newly))
         log.info("retired %d generation(s) of %s (event-time TTL)",
                  len(newly), log_path)
     swept = _sweep_retired(dirpath, chain)
@@ -1006,6 +1057,173 @@ def remove_artifacts(log_path: str) -> None:
     # not silently retain them (archived blobs live on the cold source
     # and are the operator's to purge — `pio eventlog` names them)
     sweep(os.path.join(dirpath, RETIRED_DIR))
+
+
+def _archive_models(storage=None):
+    """(Models DAO on the cold source, source name). The source comes
+    from ``PIO_EVENT_ARCHIVE_SOURCE`` and resolves through the storage
+    registry: any configured source the port has (localfs, SQLite) can
+    be the cold tier."""
+    source = envknobs.env_str("PIO_EVENT_ARCHIVE_SOURCE", "",
+                              lower=False)
+    if not source:
+        raise RuntimeError(
+            "PIO_EVENT_ARCHIVE_SOURCE is not set: name the storage "
+            "source (PIO_STORAGE_SOURCES_<NAME>_*) archived event-log "
+            "generations should stream to")
+    if storage is None:
+        from ..storage.registry import Storage
+
+        storage = Storage.instance()
+    return storage._client_for_source(source).models(
+        ARCHIVE_NAMESPACE), source
+
+
+def archive_generation(log_path: str, generation: int,
+                       storage=None) -> dict:
+    """Stream one sealed hot generation to the cold archive source.
+
+    Protocol — every step before the manifest commit leaves the hot
+    state untouched and serving:
+
+    1. read + CRC-verify the local snapshot (corruption is never
+       archived);
+    2. put the blob on the cold source (``archive.put``) under
+       ``<log basename>.g<N>``;
+    3. read it BACK and CRC-verify — the round-trip proof;
+    4. commit the manifest marking the entry ``tier="archived"``
+       (``archive.manifest`` precedes the rename);
+    5. only after the commit, unlink the local file (the archived copy
+       is now the record; a crash before this leaves a stray the next
+       call or compaction gc converges).
+
+    Returns the updated entry. Raises on an unknown/retired
+    generation, a missing archive source, or any verification
+    failure."""
+    from ..storage import base as storage_base
+
+    manifest = _read_manifest(log_path)
+    if manifest is None:
+        raise ValueError(f"no committed manifest for {log_path!r}")
+    dirpath = os.path.dirname(log_path) or "."
+    chain = [dict(e) for e in _generations(manifest)]
+    entry = next((e for e in chain
+                  if int(e.get("generation", -1)) == int(generation)),
+                 None)
+    if entry is None:
+        raise ValueError(
+            f"{log_path!r} has no generation {generation}")
+    snap_path = os.path.join(dirpath, entry.get("file") or "")
+    if entry.get("tier") == "retired":
+        raise ValueError(
+            f"generation {generation} of {log_path!r} is retired; "
+            "only hot generations archive")
+    models, source = _archive_models(storage)
+    blob_id = f"{os.path.basename(log_path)}.g{int(generation)}"
+    if entry.get("tier") == "archived":
+        # converge a crashed earlier run: the commit landed, the local
+        # unlink may not have
+        try:
+            os.remove(snap_path)
+        except OSError:
+            pass
+        return entry
+    with open(snap_path, "rb") as f:
+        blob = f.read()
+    if zlib.crc32(blob) != entry.get("crc32"):
+        raise RuntimeError(
+            f"generation {generation} of {log_path!r} fails CRC "
+            "locally; refusing to archive a corrupt snapshot (run "
+            "`pio eventlog scrub`)")
+    fault_point("archive.put")
+    models.insert(storage_base.Model(id=blob_id, models=blob))
+    got = models.get(blob_id)
+    if got is None or zlib.crc32(got.models) != entry.get("crc32"):
+        raise RuntimeError(
+            f"round-trip verification failed archiving generation "
+            f"{generation} of {log_path!r} to source {source!r}; "
+            "the hot copy remains authoritative")
+    entry["tier"] = "archived"
+    entry["archive"] = {
+        "source": source, "id": blob_id,
+        "archivedAt": _dt.datetime.now(_dt.timezone.utc).isoformat(),
+    }
+    committed = dict(manifest)
+    committed["generations"] = chain
+    mtmp = _manifest_path(log_path) + ".tmp"
+    with open(mtmp, "w") as f:
+        json.dump(committed, f)
+        f.flush()
+        os.fsync(f.fileno())
+    fault_point("archive.manifest")
+    os.replace(mtmp, _manifest_path(log_path))
+    _fsync_dir(dirpath)
+    try:
+        os.remove(snap_path)
+    except OSError:  # pragma: no cover — gc converges later
+        pass
+    _M_ARCHIVED.inc()
+    log.info("archived generation %d of %s to source %s", generation,
+             log_path, source)
+    return entry
+
+
+def restore_generation(log_path: str, generation: int,
+                       storage=None) -> dict:
+    """Fetch one archived generation back to the hot tier, verified.
+
+    The blob is CRC-checked against the manifest entry (the archived
+    copy must be checksum-identical to what left), shadow-written +
+    fsynced + atomically renamed into the hot directory FIRST, and only
+    then does the manifest commit flip the entry back to
+    ``tier="hot"`` — a crash in between leaves a stray file the next
+    restore (or compaction gc) handles, never a manifest pointing at
+    nothing."""
+    manifest = _read_manifest(log_path)
+    if manifest is None:
+        raise ValueError(f"no committed manifest for {log_path!r}")
+    dirpath = os.path.dirname(log_path) or "."
+    chain = [dict(e) for e in _generations(manifest)]
+    entry = next((e for e in chain
+                  if int(e.get("generation", -1)) == int(generation)),
+                 None)
+    if entry is None:
+        raise ValueError(
+            f"{log_path!r} has no generation {generation}")
+    if entry.get("tier") != "archived":
+        return entry  # already hot (converged) or retired (no-op)
+    models, _source = _archive_models(storage)
+    blob_id = (entry.get("archive") or {}).get("id") or (
+        f"{os.path.basename(log_path)}.g{int(generation)}")
+    got = models.get(blob_id)
+    if got is None:
+        raise RuntimeError(
+            f"archived blob {blob_id!r} for generation {generation} of "
+            f"{log_path!r} is missing from the archive source")
+    if zlib.crc32(got.models) != entry.get("crc32"):
+        raise RuntimeError(
+            f"archived blob {blob_id!r} fails CRC against the manifest "
+            f"for generation {generation} of {log_path!r}; refusing to "
+            "restore a corrupt copy")
+    snap_path = os.path.join(dirpath, entry.get("file") or "")
+    tmp = snap_path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(got.models)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, snap_path)
+    _fsync_dir(dirpath)
+    entry["tier"] = "hot"
+    entry.pop("archive", None)
+    entry["restoredAt"] = _dt.datetime.now(
+        _dt.timezone.utc).isoformat()
+    committed = dict(manifest)
+    committed["generations"] = chain
+    _commit_manifest(log_path, committed)
+    _M_RESTORED.inc()
+    log.info("restored generation %d of %s from the archive source",
+             generation, log_path)
+    return entry
 
 
 def scrub_log_dir(dirpath: str) -> dict:
@@ -1106,15 +1324,34 @@ def partition_health(events_dir: str) -> dict:
 # multi-worker event serving (front listener + supervised workers)
 # ---------------------------------------------------------------------------
 
-#: what ``--workers`` with the write-ahead log waits for
-WAL_ITEM = "ROADMAP.md Queue 1, item 3.2"
+def worker_env(idx: int, port: int, wal_dir: Optional[str] = None) -> dict:
+    """Env overrides one event worker runs under: its partition identity,
+    its private listen port and (when the WAL is armed) its OWN WAL
+    subdirectory — per-partition WAL dirs keep the dir flock, the replay
+    and the segment lifecycle single-owner."""
+    env = {"PIO_EVENT_PARTITION": str(idx),
+           "PIO_EVENT_WORKER_PORT": str(port)}
+    if wal_dir:
+        env["PIO_WAL_DIR"] = os.path.join(wal_dir, f"p{idx}")
+    return env
 
 
-def worker_env(idx: int, port: int) -> dict:
-    """Env overrides one event worker runs under: its partition identity
-    and its private listen port."""
-    return {"PIO_EVENT_PARTITION": str(idx),
-            "PIO_EVENT_WORKER_PORT": str(port)}
+def _replay_wal(config, what: str) -> None:
+    """One recovery pass of a WAL directory the front owns (the root
+    before the workers start, a retired partition's subdirectory). A dead
+    store is logged, not fatal: ``pio wal replay`` lands it later."""
+    from ..storage.registry import Storage
+    from . import ingest_wal
+
+    try:
+        rec = ingest_wal.recover(Storage.instance(), config)
+    except Exception:  # noqa: BLE001 - serve; the operator replays
+        log.exception("%s WAL replay failed; run `pio wal replay` once "
+                      "storage is healthy", what)
+        return
+    if rec["replayed"] or rec["deduped"]:
+        log.info("%s: replayed %d WAL event(s), %d deduped", what,
+                 rec["replayed"], rec["deduped"])
 
 
 def front_info_path() -> str:
@@ -1126,7 +1363,8 @@ def front_info_path() -> str:
     return os.path.join(base_dir(), "eventserver_front.json")
 
 
-def run_partitioned_event_server(host: str, port: int, workers: int) -> int:
+def run_partitioned_event_server(host: str, port: int, workers: int,
+                                 enable_stats: bool = False) -> int:
     """Blocking entry for ``pio eventserver --workers N``: spawn N
     supervised worker processes (disjoint partitions, per-worker restart)
     and splice client connections to them.
@@ -1150,15 +1388,21 @@ def run_partitioned_event_server(host: str, port: int, workers: int) -> int:
     and the front then claims the orphaned lease with an epoch bump
     (fencing any wedged straggler writer) and PARKS it until a scale-up
     hands it — released, for a fresh claim — to the newcomer. The
-    orphaned shard stays readable through the merged view."""
-    from ...common import envknobs
+    orphaned shard stays readable through the merged view.
+
+    **The write-ahead log** (``PIO_WAL=1``): worker i logs into
+    ``<wal_dir>/p<i>`` and replays it at start-up, after its lease claim.
+    The front replays the WAL root once before the workers start (what a
+    single-process deployment left), and a retired partition's
+    subdirectory once it has parked the lease (acknowledged events a
+    crashed drain left uncommitted)."""
     from ...common.splice import FrontProxy, probe_ready
     from ...parallel.supervisor import Supervisor
+    from . import ingest_wal
 
-    if envknobs.env_flag("PIO_WAL", False):
-        raise NotImplementedError(
-            "PIO_WAL with `eventserver --workers`: the write-ahead log "
-            f"under the partitioned workers is not ported yet: {WAL_ITEM}")
+    wal_cfg = ingest_wal.WalConfig.from_env()
+    if wal_cfg.enabled and os.path.isdir(wal_cfg.dir):
+        _replay_wal(wal_cfg, "the front (WAL root)")
     workers = max(1, int(workers))
     ports: list = [Supervisor._free_port() for _ in range(workers)]
     base_env = dict(os.environ)
@@ -1176,14 +1420,15 @@ def run_partitioned_event_server(host: str, port: int, workers: int) -> int:
             # before the worker binds): each respawn re-picks, and the
             # front routes off the live list
             ports[idx] = Supervisor._free_port()
-        env = worker_env(idx, ports[idx])
+        env = worker_env(idx, ports[idx],
+                         wal_cfg.dir if wal_cfg.enabled else None)
         spec = per_worker_chaos.get(idx, chaos)
         if spec and attempt == 0:
             env["PIO_FAULT_SPEC"] = spec
         return env
 
     argv = [sys.executable, "-m", "incubator_predictionio_torch.tools.console",
-            "eventserver", "--worker"]
+            "eventserver", "--worker"] + (["--stats"] if enable_stats else [])
     proxy_ref: dict = {"proxy": None}
     sup = Supervisor(argv, workers, env=base_env, per_worker_env=env_for,
                      restart_scope="worker")
@@ -1246,15 +1491,23 @@ def run_partitioned_event_server(host: str, port: int, workers: int) -> int:
 
     def adopt_partition(idx: int) -> None:
         """After a retirement: claim the orphan's lease (the epoch bump
-        fences any straggler) and keep it parked on the front."""
-        if le_dir is None or idx in parked:
-            return
-        try:
-            parked[idx] = claim_partition(le_dir, idx)
-        except PartitionHeldError:
-            # the drained worker's flock went with it; a HELD flock here
-            # is a wedged straggler — fence past it
-            parked[idx] = claim_partition(le_dir, idx, force=True)
+        fences any straggler), keep it parked on the front, and replay the
+        partition's WAL subdirectory — every acknowledged event lands once
+        even when the drain died mid-commit."""
+        if le_dir is not None and idx not in parked:
+            try:
+                parked[idx] = claim_partition(le_dir, idx)
+            except PartitionHeldError:
+                # the drained worker's flock went with it; a HELD flock
+                # here is a wedged straggler — fence past it
+                parked[idx] = claim_partition(le_dir, idx, force=True)
+        if wal_cfg.enabled:
+            pdir = os.path.join(wal_cfg.dir, f"p{idx}")
+            if os.path.isdir(pdir):
+                _replay_wal(ingest_wal.WalConfig(
+                    enabled=True, fsync=wal_cfg.fsync, dir=pdir,
+                    segment_bytes=wal_cfg.segment_bytes),
+                    f"retired partition {idx}")
 
     #: the worker pid each positive readiness probe answered for: a
     #: relaunched worker is not ready on the strength of its predecessor's

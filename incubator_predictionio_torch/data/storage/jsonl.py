@@ -480,11 +480,12 @@ def _fsync_enabled() -> bool:
 
 
 class AppendHandle:
-    """Lazily-(re)opened long-lived append handle over one file: one
-    ``write`` + ``flush`` per append, so the bytes reach the OS page
-    cache — they survive a SIGKILL of THIS process — and an explicit
-    per-call ``fsync`` for crash-of-the-HOST durability. Not
-    thread-safe; the JSONL per-table lock serializes callers."""
+    """Lazily-(re)opened long-lived append handle over one file (the
+    JSONL tables and the write-ahead log's segments): one ``write`` +
+    ``flush`` per append, so the bytes reach the OS page cache — they
+    survive a SIGKILL of THIS process — and an explicit per-call
+    ``fsync`` for crash-of-the-HOST durability. Not thread-safe; the
+    JSONL per-table lock and the WAL's per-key lock serialize callers."""
 
     __slots__ = ("path", "fh")
 
@@ -500,6 +501,18 @@ class AppendHandle:
         fh.flush()
         if fsync:
             os.fsync(fh.fileno())
+
+    def fsync(self) -> None:
+        """fsync without writing (the write-ahead log's
+        ``PIO_WAL_FSYNC=group`` syncs once per commit group)."""
+        if self.fh is not None and not self.fh.closed:
+            os.fsync(self.fh.fileno())
+
+    def tell(self) -> int:
+        """Current append offset (0 when the handle was never opened)."""
+        if self.fh is None or self.fh.closed:
+            return 0
+        return self.fh.tell()
 
     def close(self) -> None:
         if self.fh is not None:

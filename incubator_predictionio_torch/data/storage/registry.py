@@ -145,7 +145,7 @@ class Storage:
                 if stype in _NOT_PORTED:
                     raise StorageError(
                         f"Storage type {stype} is not ported to this package "
-                        f"yet (ROADMAP.md Queue 1, item 3: "
+                        f"yet (ROADMAP.md Queue 1, item 3.4: "
                         f"{_NOT_PORTED[stype]}); use SQLITE, MEMORY, "
                         "LOCALFS or JSONL")
                 raise StorageError(f"Unknown storage type {stype}")

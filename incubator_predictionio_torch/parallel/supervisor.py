@@ -35,8 +35,8 @@ The port's own copy of ``incubator_predictionio_tpu/parallel/supervisor.py``.
 The state (workers, pids, heartbeat ages, restarts and an event log with
 timestamps) is mirrored to ``<run_dir>/supervisor.json``; a gang's run
 directory is ``$PIO_FS_BASEDIR/gang/<instance id>``. The reference's
-``pio_train_*`` telemetry waits for the port's metrics registry (ROADMAP
-Queue 1, item 3.3).
+``pio_train_*`` telemetry waits for the engine server's half of ROADMAP
+Queue 1, item 3.3 (the port's registry, ``common/telemetry.py``, exists).
 """
 
 from __future__ import annotations

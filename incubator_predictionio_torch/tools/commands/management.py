@@ -6,15 +6,15 @@ The port's own copy of those verbs of ``incubator_predictionio_tpu/tools/
 commands/management.py`` (``status`` :18 with its fold-in cursor rows
 ``_print_foldin_cursors`` :921, ``--engine-url``'s
 ``_print_engine_overload`` :160 with its fold-in, quality (``_print_quality``
-:330) and tenant (``_print_tenants`` :291) lines, ``eventserver`` :538,
-``eventserver --workers N`` / ``--worker`` :540-578 and ``eventserver
-scale N`` :489-537, ``eventlog`` :687-1002, ``export`` :1113, ``import``
-:1155) for JSON-lines files; ``import`` writes to whichever event store is
-configured (SQLite or the JSONL log). ``eventlog`` has ``compact``,
-``scrub``, ``status``, ``fence``, ``retire`` and ``tail``; ``archive`` and
-``restore`` wait for the archive source. ``status`` also names a running
-partitioned event-server front. Parquet, the write-ahead log,
-the storage server, the dashboard and the admin server are not ported
+:330) and tenant (``_print_tenants`` :291) lines, ``wal`` :405-487,
+``eventserver [--stats]`` :538, ``eventserver --workers N`` / ``--worker``
+:540-578 and ``eventserver scale N`` :489-537, ``eventlog`` :687-1002,
+``export`` :1113, ``import`` :1155) for JSON-lines files; ``import`` writes
+to whichever event store is configured (SQLite or the JSONL log).
+``eventlog`` has ``compact``, ``scrub``, ``status``, ``fence``,
+``retire``, ``archive``, ``restore`` and ``tail``; ``wal`` has ``inspect``
+and ``replay``. ``status`` also names a running partitioned event-server
+front. Parquet, the storage server and the admin server are not ported
 yet. ``fleet plan`` (:582) and the fleet and autoscaler lines of
 ``status --engine-url`` (``_print_fleet`` :355, ``_print_autoscaler``
 :262) read a serving fleet's front.
@@ -503,8 +503,10 @@ def eventlog_cmd(args: list[str]) -> int:
     generations' event-time bounds, `fence` force-claims a partition
     lease (split-brain last resort: bumps the epoch so a wedged previous
     owner is refused on its next write), `retire` moves fully expired
-    generations to the retired/ tier, and `tail` reads events past a
-    durable byte cursor."""
+    generations to the retired/ tier, `archive` streams one sealed
+    generation to the cold source ($PIO_EVENT_ARCHIVE_SOURCE) and
+    `restore` fetches it back, and `tail` reads events past a durable
+    byte cursor."""
     p = argparse.ArgumentParser(prog="pio eventlog")
     sub = p.add_subparsers(dest="sub", required=True)
     p_compact = sub.add_parser(
@@ -530,6 +532,20 @@ def eventlog_cmd(args: list[str]) -> int:
     p_retire.add_argument("--ttl", default=None, metavar="DUR",
                           help="retention TTL (90d/12h/30m/45s); "
                                "default $PIO_EVENT_RETENTION")
+    p_archive = sub.add_parser(
+        "archive", help="stream one sealed generation to the cold "
+                        "archive source named by "
+                        "$PIO_EVENT_ARCHIVE_SOURCE (round-trip "
+                        "CRC-verified before the local copy goes)")
+    p_archive.add_argument("--log", required=True, metavar="NAME",
+                           help="log file name as printed by "
+                                "`pio eventlog status`")
+    p_archive.add_argument("--generation", type=int, required=True)
+    p_restore = sub.add_parser(
+        "restore", help="fetch an archived generation back to the hot "
+                        "tier (checksum-verified against the manifest)")
+    p_restore.add_argument("--log", required=True, metavar="NAME")
+    p_restore.add_argument("--generation", type=int, required=True)
     p_tail = sub.add_parser(
         "tail", help="read events past a durable byte cursor: prints "
                      "events as JSONL on stdout and the advanced cursor "
@@ -615,6 +631,22 @@ def eventlog_cmd(args: list[str]) -> int:
             swept += r["swept"]
         print(f"[info] Retired {retired} generation(s) ({swept} "
               f"snapshot file(s) swept to retired/) in {log_dir}")
+        return 0
+    if ns.sub in ("archive", "restore"):
+        path = os.path.join(log_dir, ns.log)
+        fn = (event_log.archive_generation if ns.sub == "archive"
+              else event_log.restore_generation)
+        try:
+            entry = fn(path, ns.generation, storage=s)
+        except Exception as e:  # noqa: BLE001 - operator-facing
+            print(f"[error] {ns.sub} failed: {e}", file=sys.stderr)
+            return 1
+        arch = entry.get("archive") or {}
+        print(f"[info] {ns.log} generation {ns.generation}: "
+              f"tier {entry.get('tier')}"
+              + (f" (source {arch.get('source')}, blob "
+                 f"{arch.get('id')})"
+                 if entry.get("tier") == "archived" else ""))
         return 0
     # status
     health = event_log.partition_health(log_dir)
@@ -844,6 +876,90 @@ def _fleet_plan(url: str) -> int:
     return 0
 
 
+@verb("wal", "inspect or replay the ingest write-ahead log")
+def wal_cmd(args: list[str]) -> int:
+    """Operator surface of the write-ahead log (PIO_WAL=1,
+    data/api/ingest_wal.py): `inspect` lists per-(app, channel) segment
+    state without touching storage; `replay` runs the recovery pass the
+    event server runs at start-up — replays uncommitted records (deduped
+    by event_id) and truncates the segments."""
+    p = argparse.ArgumentParser(prog="pio wal")
+    sub = p.add_subparsers(dest="sub", required=True)
+    sub.add_parser("inspect", help="list WAL segments and uncommitted "
+                                   "record counts per (app, channel)")
+    sub.add_parser("replay", help="replay uncommitted records into the "
+                                  "configured event store, then truncate")
+    ns = p.parse_args(args)
+    from ...data.api import ingest_wal
+
+    cfg = ingest_wal.WalConfig.from_env()
+    if ns.sub == "inspect":
+        rows = ingest_wal.inspect(cfg)
+        print(f"[info] WAL dir: {cfg.dir} (fsync={cfg.fsync})")
+        if not rows:
+            print("[info] No WAL segments on disk — nothing to replay.")
+            s = Storage.instance()
+            log_dir = getattr(s.get_l_events(), "events_dir", None)
+            if log_dir is not None and os.path.isdir(log_dir):
+                from ...data.api import event_log
+
+                _print_partition_health(
+                    event_log.partition_health(log_dir), log_dir)
+            return 0
+        live = ingest_wal.dir_is_live(cfg)
+        if live:
+            print("[info] A live event server owns this WAL dir: counts "
+                  "below include in-flight writes (uncommitted records "
+                  "and even a transient torn tail are expected, not "
+                  "corruption).")
+        for r in rows:
+            chan = "" if r["channelId"] is None else f" channel {r['channelId']}"
+            marker = "[warn]" if (r["corruptSegments"]
+                                  or r["quarantinedSegments"]
+                                  or (not live and (r["uncommittedEvents"]
+                                                    or r["tornTailBytes"]))) \
+                else "[info]"
+            extra = ""
+            if r["corruptSegments"]:
+                extra += (f", {r['corruptSegments']} CORRUPT segment(s) "
+                          "(mid-file; quarantined at next replay)")
+            if r["quarantinedSegments"]:
+                extra += (f", {r['quarantinedSegments']} quarantined "
+                          "segment(s)")
+            print(f"{marker}   app {r['appId']}{chan}: "
+                  f"{r['segments']} segment(s), {r['bytes']} bytes, "
+                  f"{r['uncommittedEvents']} uncommitted event(s), "
+                  f"{r['committedRecords']} committed / "
+                  f"{r['abortedRecords']} aborted record(s), "
+                  f"{r['tornTailBytes']} torn-tail byte(s){extra}")
+        # the partitioned event log rides the same operator surface:
+        # shard sizes, lease holders + epochs, compaction recency
+        s = Storage.instance()
+        log_dir = getattr(s.get_l_events(), "events_dir", None)
+        if log_dir is not None and os.path.isdir(log_dir):
+            from ...data.api import event_log
+
+            _print_partition_health(
+                event_log.partition_health(log_dir), log_dir)
+        return 0
+    # replay
+    s = Storage.instance()
+    try:
+        summary = ingest_wal.recover(s, cfg)
+    except ingest_wal.WalLockedError as e:
+        print(f"[error] {e}", file=sys.stderr)
+        return 1
+    except Exception as e:  # noqa: BLE001 - operator-facing
+        print(f"[error] WAL replay failed (storage unreachable?): {e}",
+              file=sys.stderr)
+        return 1
+    print(f"[info] WAL replay: {summary['replayed']} event(s) replayed, "
+          f"{summary['deduped']} deduped, {summary['discardedBytes']} "
+          f"torn-tail byte(s) discarded, {summary['segmentsRemoved']} "
+          f"segment(s) truncated across {summary['keys']} key(s).")
+    return 0
+
+
 def _raise_exit(signum, frame):
     raise SystemExit(0)
 
@@ -913,6 +1029,9 @@ def eventserver_cmd(args: list[str]) -> int:
     p = argparse.ArgumentParser(prog="pio eventserver")
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=7070)
+    p.add_argument("--stats", action="store_true",
+                   help="count ingested events per app, event, entity "
+                        "type and status (GET /stats.json, /metrics)")
     p.add_argument("--workers", type=int,
                    default=envknobs.env_int("PIO_EVENT_WORKERS", 0, lo=0),
                    help="run N supervised worker processes owning "
@@ -935,23 +1054,26 @@ def eventserver_cmd(args: list[str]) -> int:
         from ...parallel.supervisor import die_with_parent
 
         die_with_parent("event-server front")
-        return _serve_events("127.0.0.1", port, worker=True)
+        return _serve_events("127.0.0.1", port, ns.stats, worker=True)
     if ns.workers >= 1:
         from ...data.api.event_log import run_partitioned_event_server
 
-        return run_partitioned_event_server(ns.ip, ns.port, ns.workers)
-    return _serve_events(ns.ip, ns.port)
+        return run_partitioned_event_server(ns.ip, ns.port, ns.workers,
+                                            enable_stats=ns.stats)
+    return _serve_events(ns.ip, ns.port, ns.stats)
 
 
-def _serve_events(ip: str, port: int, worker: bool = False) -> int:
+def _serve_events(ip: str, port: int, stats: bool,
+                  worker: bool = False) -> int:
     """One event-server process until SIGTERM: the accept loop stops, the
-    requests in flight finish (every acknowledged write answered), then
-    the store's handles close and the partition lease is released."""
+    requests in flight finish (every acknowledged write answered), the
+    ingest buffer flushes, then the store's handles and the WAL close and
+    the partition lease is released."""
     import threading
 
     from ...data.api.event_server import EventServer
 
-    server = EventServer(Storage.instance(), ip, port)
+    server = EventServer(Storage.instance(), ip, port, enable_stats=stats)
     stop = threading.Event()
     beats = None
     if worker:

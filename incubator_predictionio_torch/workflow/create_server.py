@@ -50,9 +50,11 @@ The deployment form (``EngineServer(deployment=...)``, the console's
 store, so ``/reload`` and ``/rollback`` answer 409, and refresh, fold-in,
 quality and tenants are off.
 
-Not ported here, each with its own ROADMAP item: ``/metrics`` and the
-telemetry registry (3.3: the counts of fold-in, quality, tenants and the
-fleet's divergence ride ``/status`` instead), TLS and the storage breakers
+Not ported here, each with its own ROADMAP item: the engine server's
+``/metrics`` families and sampled tracing through the serving path (3.3,
+the engine server's half: the counts of fold-in, quality, tenants and the
+fleet's divergence ride ``/status`` instead; ``common/telemetry.py`` and
+the event server's ``/metrics`` are ported), TLS and the storage breakers
 of ``/readyz`` (3.3, 3.4: ``openBreakers`` is always empty).
 """
 

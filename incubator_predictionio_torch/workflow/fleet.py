@@ -34,8 +34,8 @@ alone) becomes the replicas' ``PIO_FAULT_SPEC`` on their FIRST launch
 only; ``fleet.spawn`` fires in the replica entry, ``fleet.promote``
 before a promote commits, ``fleet.record`` in front of directive writes.
 
-The reference's ``pio_fleet_*`` telemetry waits for the port's metrics
-registry (ROADMAP Queue 1, item 3.3): the same counts
+The reference's ``pio_fleet_*`` telemetry waits for the engine server's
+half of ROADMAP Queue 1, item 3.3: the same counts
 (:attr:`FleetCoordinator.counts`) ride the front's ``/healthz``
 (``metrics``).
 """

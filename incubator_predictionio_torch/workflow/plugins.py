@@ -6,8 +6,8 @@ and outputsniffer hooks, and data/.../data/api/EventServerPlugin.scala).
 Plugins are registered explicitly or named by dotted paths in
 ``PIO_ENGINE_SERVER_PLUGINS`` / ``PIO_EVENT_SERVER_PLUGINS`` (comma
 separated). The engine server runs :class:`EngineServerPluginContext`;
-the event server's wiring of :class:`EventServerPluginContext` comes with
-ROADMAP Queue 1, item 3.3.
+the event server's group commit calls :class:`EventServerPluginContext`
+for every committed event.
 """
 
 from __future__ import annotations

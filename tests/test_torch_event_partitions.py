@@ -23,11 +23,16 @@ package's lease files, write paths and fenced-write answer:
 - ``eventserver scale 3`` then ``scale 2``: the lease of partition 2 is
   parked on the front with a bumped epoch, and a further ``scale 3``
   hands it back;
-- ``eventlog fence --partition i`` fences a live holder.
+- ``eventlog fence --partition i`` fences a live holder;
+- ``PIO_WAL=1`` with ``--workers``: each worker logs into its own
+  ``<wal_dir>/p<i>``; a worker killed inside a group commit and a retired
+  partition replay their acknowledged events exactly once, and the front
+  replays a WAL left at the root.
 
 Every subprocess runs under its own time limit.
 """
 
+import collections
 import json
 import os
 import signal
@@ -47,7 +52,7 @@ from incubator_predictionio_tpu.data.api.event_server import (  # noqa: E402
 )
 from incubator_predictionio_tpu.data.storage import jsonl as ref_jsonl  # noqa: E402
 from incubator_predictionio_torch.data import storage as port_pkg  # noqa: E402
-from incubator_predictionio_torch.data.api import event_log  # noqa: E402
+from incubator_predictionio_torch.data.api import event_log, ingest_wal  # noqa: E402
 from incubator_predictionio_torch.data.api.event_server import EventServer  # noqa: E402
 from incubator_predictionio_torch.data.storage import Storage  # noqa: E402
 from incubator_predictionio_torch.data.storage import jsonl as port_jsonl  # noqa: E402
@@ -609,12 +614,114 @@ def test_scale_parks_and_hands_back_the_lease(tmp_path):
 
 
 def test_wal_with_workers_is_refused(tmp_path):
-    env = _front_env(tmp_path) | {"PIO_WAL": "1"}
-    out = subprocess.run(CONSOLE + ["eventserver", "--workers", "2",
-                                    "--port", str(free_port())],
-                         env=env, cwd=ROOT, capture_output=True, text=True,
-                         timeout=60)
-    assert out.returncode != 0 and "item 3.2" in out.stderr
+    """``PIO_WAL`` with ``eventserver --workers`` was refused before the
+    WAL came to the workers; now it serves: each worker logs into its own
+    ``<wal_dir>/p<i>`` (flocked by that worker), a write lands, and
+    SIGTERM drains with exit 0 and nothing left uncommitted."""
+    wal_dir = tmp_path / "wal"
+    env = _front_env(tmp_path) | {"PIO_WAL": "1", "PIO_WAL_DIR": str(wal_dir)}
+    front = _Front(env, 2, deadline_s=120)
+    try:
+        front.all_ready(2)
+        r = requests.post(f"{front.base}/events.json?accessKey={KEY}",
+                          json=_ev(1), timeout=30)
+        assert r.status_code == 201, r.text
+        assert sorted(os.listdir(wal_dir)) == ["p0", "p1"]
+        for i in (0, 1):
+            assert ingest_wal.dir_is_live(ingest_wal.WalConfig(
+                enabled=True, dir=str(wal_dir / f"p{i}")))
+        assert front.stop() == 0, front.output[-2000:]
+    finally:
+        front.kill()
+    assert all(r["uncommittedEvents"] == 0 for r in ingest_wal.inspect(
+        ingest_wal.WalConfig(enabled=True, dir=str(wal_dir))))
+
+
+def _acked_once(env, acked) -> collections.Counter:
+    store = Storage({k: v for k, v in env.items()
+                     if k.startswith("PIO_STORAGE_")})
+    app_id = store.get_meta_data_apps().get_by_name("partapp").id
+    ids = collections.Counter(e.event_id for e in
+                              store.get_l_events().find(app_id, limit=None))
+    store.close()
+    missing = [a for a in acked if ids[a] != 1]
+    assert not missing, f"{len(missing)} acknowledged events missing or " \
+        "doubled"
+    assert max(ids.values()) == 1
+    return ids
+
+
+def test_wal_under_workers_loses_no_acknowledged_event(tmp_path):
+    """``--workers 2`` with ``PIO_WAL=1`` and ack=enqueue: worker 1 dies
+    (SIGKILL, inside a group commit) with acknowledged events only in its
+    WAL subdirectory, and its relaunch replays them after its lease claim;
+    a third worker whose commits all fail defers its acknowledged events
+    to its WAL, and ``scale 2`` retires it and the front replays its
+    subdirectory. Every acknowledged event is in the merged read exactly
+    once; a WAL left at the root is replayed by the front at start-up."""
+    import threading
+
+    wal_dir = tmp_path / "wal"
+    # the per-worker specs cover the workers the front starts with; the
+    # plain one reaches a worker a scale-up adds (first launches only)
+    env = _front_env(tmp_path) | {
+        "PIO_WAL": "1", "PIO_WAL_DIR": str(wal_dir),
+        "PIO_INGEST_ACK": "enqueue",
+        "PIO_EVENT_WORKER_FAULT_SPEC_0": "no.such.point:fail:1",
+        "PIO_EVENT_WORKER_FAULT_SPEC_1": "ingest.commit:crash:5",
+        "PIO_EVENT_WORKER_FAULT_SPEC": "ingest.commit:fail:100000"}
+    # a single-process server's leftover at the WAL root
+    root_wal = ingest_wal.IngestWal(ingest_wal.WalConfig(
+        enabled=True, dir=str(wal_dir)))
+    line = json.dumps(dict(_ev(7), eventId="rootleftover" + "0" * 20,
+                           creationTime="2024-01-01T00:00:00.000Z"))
+    root_wal.append_events((1, None), line.encode() + b"\n", 1)
+    root_wal.close()
+    front = _Front(env, 2, deadline_s=240)
+    acked: list = []
+    try:
+        health = front.all_ready(2)
+        assert ingest_wal.inspect(ingest_wal.WalConfig(
+            enabled=True, dir=str(wal_dir))) == [], "root not replayed"
+        pid1 = next(b["pid"] for b in health["backends"] if b["worker"] == 1)
+        w1 = next(b["port"] for b in health["backends"] if b["worker"] == 1)
+        stop = threading.Event()
+        got: list = []
+        # straight to worker 1 until it dies at its fifth group commit
+        _flood(f"http://127.0.0.1:{w1}", "w1", 1, stop, got)
+        acked += [eid for eid, _ in got]
+        assert len(acked) >= 4
+        front.wait("worker 1 relaunched", lambda h: any(
+            b["worker"] == 1 and b["ready"] and b["pid"] not in (None, pid1)
+            for b in h["backends"]))
+        _acked_once(env, acked)
+        front.verb("eventserver", "scale", "3")
+        health = front.all_ready(3)
+        w2 = next(b["port"] for b in health["backends"] if b["worker"] == 2)
+        for i in range(12):
+            r = requests.post(f"http://127.0.0.1:{w2}/events.json"
+                              f"?accessKey={KEY}", json=_ev(100 + i),
+                              timeout=30)
+            assert r.status_code == 201, r.text
+            acked.append(r.json()["eventId"])
+        rows = ingest_wal.inspect(ingest_wal.WalConfig(
+            enabled=True, dir=str(wal_dir)))
+        assert any(r["partition"] == 2 and r["uncommittedEvents"] > 0
+                   for r in rows), rows
+        front.verb("eventserver", "scale", "2")
+        front.wait("partition 2 parked", lambda h: (
+            h["parkedPartitions"] == [2] and h["workers"] == [0, 1]))
+        deadline = time.monotonic() + 30
+        while any(r["uncommittedEvents"] for r in ingest_wal.inspect(
+                ingest_wal.WalConfig(enabled=True, dir=str(wal_dir)))):
+            assert time.monotonic() < deadline, "partition 2 not replayed"
+            time.sleep(0.1)
+        ids = _acked_once(env, acked)
+        assert ids["rootleftover" + "0" * 20] == 1
+        assert front.stop() == 0, front.output[-2000:]
+    finally:
+        front.kill()
+    _acked_once(env, acked)
 
 
 def test_eventlog_fence_verb(tmp_path):

@@ -17,7 +17,8 @@ loads none of them; so do the front and both replicas of ``deploy --replicas
 whose answers equal a single server's on the same persisted model; so do
 host-sharded serving (``PIO_SERVE_SHARD_ITEMS``: the ALS catalog and the
 UR's indicators) and the front and both workers of ``eventserver
---workers 2``, and the supervisor and both gloo ranks of ``train
+--workers 2 --stats`` with the write-ahead log (and the ``wal`` and
+``eventlog archive|restore`` verbs), and the supervisor and both gloo ranks of ``train
 --num-workers 2`` off a partitioned JSONL log and with ``--feed merged``
 (the slab gang), and of the linear templates' gangs (Classification's
 Naive Bayes off the partition feed, Text-Classification's LR on the
@@ -89,7 +90,9 @@ def test_port_files_exist():
             "holdout.py", "splice.py", "supervisor.py", "fleet.py",
             "elastic.py", "sharded_topk.py", "_sharded_serving.py",
             "distributed.py", "mesh.py", "partition_feed.py",
-            "train_feed.py", "input_pipeline.py",
+            "train_feed.py", "input_pipeline.py", "telemetry.py",
+            "stats.py", "ingest_wal.py", "ingest_buffer.py", "segmentio.py",
+            "mailchimp.py",
             } <= names
     assert (ROOT / "incubator_predictionio_torch" / "e2"
             / "engine.py").is_file()
@@ -565,6 +568,47 @@ def test_jsonl_verb_in_a_process_without_jax(verb, jsonl_verb_store):
     assert '"loaded": []' in last, last
 
 
+@pytest.mark.parametrize("verb", [
+    ["eventlog", "compact"],
+    ["eventlog", "archive", "--log", "events_1.jsonl", "--generation", "1"],
+    ["eventlog", "restore", "--log", "events_1.jsonl", "--generation", "1"],
+    ["wal", "inspect"],
+    ["wal", "replay"],
+], ids=lambda v: "-".join(v[:2]))
+def test_wal_and_archive_verbs_in_a_process_without_jax(verb, tmp_path,
+                                                        jsonl_verb_store):
+    """``eventlog archive|restore`` (to a localfs cold source) and ``wal
+    inspect|replay`` (over a WAL holding one uncommitted event) load no
+    JAX."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PIO_STORAGE_", "PIO_WAL", "PIO_EVENT"))}
+    env.update(_jsonl_env(jsonl_verb_store), PYTHONPATH=str(ROOT),
+               PIO_FS_BASEDIR=str(jsonl_verb_store / "base"),
+               PIO_STORAGE_SOURCES_COLD_TYPE="LOCALFS",
+               PIO_STORAGE_SOURCES_COLD_PATH=str(jsonl_verb_store / "cold"),
+               PIO_EVENT_ARCHIVE_SOURCE="COLD", PIO_WAL="1",
+               PIO_WAL_DIR=str(tmp_path / "wal"))
+    if verb[0] == "wal":
+        from incubator_predictionio_torch.data.api import ingest_wal
+
+        wal = ingest_wal.IngestWal(ingest_wal.WalConfig(
+            enabled=True, dir=str(tmp_path / "wal")))
+        wal.append_events((1, None), (
+            '{"eventId": "%032x", "event": "view", "entityType": "user", '
+            '"entityId": "w", "eventTime": "2024-01-01T00:00:00.000Z"}\n'
+            % 7).encode(), 1)
+        wal.close()
+    out = subprocess.run([sys.executable, "-c", _VERB] + verb,
+                         capture_output=True, text=True, env=env,
+                         cwd=str(jsonl_verb_store), timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert {"archive": "tier archived", "restore": "tier hot",
+            "inspect": "1 uncommitted event(s)",
+            "replay": "1 event(s) replayed"}.get(verb[1], "") in out.stdout
+    last = out.stdout.strip().splitlines()[-1]
+    assert '"loaded": []' in last, last
+
+
 def test_online_deploy_in_a_process_without_jax(jsonl_verb_store):
     """``deploy --device cpu --online-foldin --quality-eval --multitenant``
     on the JSONL store arms the fold-in, quality and tenant loops (their
@@ -796,9 +840,10 @@ def test_host_sharded_serving_in_a_process_without_jax(tmp_path):
 
 
 def test_partitioned_event_server_in_processes_without_jax(tmp_path):
-    """``eventserver --workers 2`` on a JSONL log: the front and both
-    workers load no JAX (each reports its modules at exit), every worker
-    ready on the front's /healthz, SIGTERM drains with exit 0."""
+    """``eventserver --workers 2 --stats`` with the write-ahead log on a
+    JSONL log: the front and both workers load no JAX (each reports its
+    modules at exit), every worker ready on the front's /healthz, SIGTERM
+    drains with exit 0."""
     import json
     import signal
     import time
@@ -831,11 +876,12 @@ def test_partitioned_event_server_in_processes_without_jax(tmp_path):
            if not k.startswith(("PIO_STORAGE_", "PIO_EVENT", "PIO_FAULT"))}
     env.update(store_env, PYTHONPATH=os.pathsep.join([str(site), str(ROOT)]),
                PIO_FS_BASEDIR=str(tmp_path / "base"),
-               PIO_TEST_MODULES_DIR=str(reports))
+               PIO_TEST_MODULES_DIR=str(reports), PIO_WAL="1",
+               PIO_WAL_DIR=str(tmp_path / "wal"))
     front = subprocess.Popen(
         [sys.executable, "-m", "incubator_predictionio_torch.tools.console",
-         "eventserver", "--workers", "2", "--ip", "127.0.0.1", "--port",
-         str(port)], env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+         "eventserver", "--workers", "2", "--stats", "--ip", "127.0.0.1",
+         "--port", str(port)], env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     base = f"http://127.0.0.1:{port}"
     try:
