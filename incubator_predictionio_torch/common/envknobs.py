@@ -14,14 +14,16 @@ RESOLVE_MS,MS}`` and the tenant mux's
 ``PIO_FLEET_{MIN,MAX}_REPLICAS``, ``PIO_FLEET_APP``,
 ``PIO_FLEET_WORKER_FAULT_SPEC[_<i>]`` and ``PIO_SCALE_*``, and the
 supervisor's ``PIO_WORKER_*``, ``PIO_TRAIN_MAX_RESTARTS``,
-``PIO_TRAIN_DRAIN_MS`` and ``PIO_SUPERVISOR_POLL_MS``), with the same
-semantics:
+``PIO_TRAIN_DRAIN_MS`` and ``PIO_SUPERVISOR_POLL_MS``, and the network
+stores' ``PIO_PG_FETCH_SIZE``, ``PIO_SQL_PAGE_SIZE`` and
+``PIO_STORAGESERVER_SECRET``), with the same semantics:
 
 - unset / empty         → ``default`` (always)
 - unparsable            → ``default`` (an operator typo must never crash
   a deploy or a train); integer knobs take no float spelling, so
   ``PIO_FOO=3.5`` falls back rather than silently truncating, unless
-  ``float_ok=True`` (``"1e3"`` → 1000)
+  ``float_ok=True`` (``"1e3"`` → 1000); ``warn=True`` also emits a
+  ``UserWarning`` naming the variable and the value it fell back to
 - ``lo``                → clamp the PARSED integer from below (clamping is
   not an error)
 """
@@ -29,13 +31,21 @@ semantics:
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Optional
 
 __all__ = ["env_int", "env_float", "env_ms", "env_flag", "env_str"]
 
 
+def _fallback(name: str, raw: str, default, warn: bool):
+    if warn:
+        warnings.warn(f"{name}={raw!r} is not a valid value; using {default}",
+                      stacklevel=4)
+    return default
+
+
 def env_int(name: str, default: int, *, lo: Optional[int] = None,
-            float_ok: bool = False) -> int:
+            float_ok: bool = False, warn: bool = False) -> int:
     """Integer knob (see the module docstring)."""
     raw = os.environ.get(name)
     if raw is None or raw.strip() == "":
@@ -44,14 +54,14 @@ def env_int(name: str, default: int, *, lo: Optional[int] = None,
         v = int(raw.strip())
     except ValueError:
         if not float_ok:
-            return default
+            return _fallback(name, raw, default, warn)
         try:
             f = float(raw.strip())
             if f != f or f in (float("inf"), float("-inf")):
-                return default
+                return _fallback(name, raw, default, warn)
             v = int(f)
         except (ValueError, OverflowError):
-            return default
+            return _fallback(name, raw, default, warn)
     if lo is not None:
         v = max(lo, v)
     return v

@@ -9,7 +9,8 @@ the engine server's (``query.featurize``, ``query.predict``,
 ``query.serve``, ``query.batch_predict``, ``swap.validate``), the online
 fold-in's (``foldin.read``, ``foldin.apply``, ``foldin.publish``) and the
 ALS trainers' (``train.sweep``, before each dispatch of iterations: the
-gang supervisor's chaos point) consult it. The active plan comes from the
+gang supervisor's chaos point) and the HTTP storage transport's
+(``http.call``, ``http.ping``, ``http.blob``, ``http.stream``) consult it. The active plan comes from the
 ``PIO_FAULT_SPEC`` environment variable, so a scenario works the same
 in-process and across subprocesses:
 

@@ -4,7 +4,8 @@ Port of ``incubator_predictionio_tpu/controller/engine.py`` (``EngineParams``,
 ``Engine`` :110, ``Engine.train`` :169, ``Engine.eval`` :248,
 ``Deployment``, ``SimpleEngine`` :364, ``EngineFactory`` :377), with the
 workflow flags, the NaN guard and per-algorithm checkpoints, the serving
-stages' fault points and deadline spend-points, without telemetry or
+stages' fault points, deadline spend-points, stage histograms
+(``pio_query_stage_seconds``) and ``query.*`` trace spans, without
 placement (one device: ``ctx.device``).
 """
 
@@ -13,9 +14,10 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import time
 from typing import Any, Mapping, Optional, Sequence, Type
 
-from ..common import deadline, faultinject
+from ..common import deadline, faultinject, telemetry
 from ..common.nan_guard import check_finite
 from ..workflow.checkpoint import CheckpointHook
 from ..workflow.workflow_params import WorkflowParams
@@ -23,6 +25,22 @@ from .base import SanityCheck, doer
 from .components import FirstServing, IdentityPreparator
 
 log = logging.getLogger("pio.torch.engine")
+
+# Per-query serving-stage latency (featurize = Serving.supplement, predict
+# = every algorithm's predict, serve = the blend). The batched path
+# records the same stages once per coalesced batch under batched="1".
+_STAGE_SECONDS = telemetry.registry().histogram(
+    "pio_query_stage_seconds",
+    "Per-query serving stage latency by stage "
+    "(featurize/predict/serve); batched=1 rows are one observation "
+    "per micro-batch dispatch",
+    ("stage", "batched"))
+_ST_FEATURIZE = _STAGE_SECONDS.labels("featurize", "0")
+_ST_PREDICT = _STAGE_SECONDS.labels("predict", "0")
+_ST_SERVE = _STAGE_SECONDS.labels("serve", "0")
+_ST_FEATURIZE_B = _STAGE_SECONDS.labels("featurize", "1")
+_ST_PREDICT_B = _STAGE_SECONDS.labels("predict", "1")
+_ST_SERVE_B = _STAGE_SECONDS.labels("serve", "1")
 
 
 def _as_class_map(spec) -> dict[str, Type]:
@@ -229,31 +247,56 @@ class Deployment:
         """supplement → predict per algorithm → serve. Each stage opens
         with a fault point and, past the first, a deadline spend-point: a
         worker past its request's budget (``common/deadline.py``) frees
-        itself at the next stage boundary."""
+        itself at the next stage boundary. Every stage feeds its
+        histogram; a sampled request (the trace the handler thread bound,
+        carried into the query worker with its context) gets one span per
+        stage."""
         dl = deadline.current()
+        tr = telemetry.current_trace()
+        t0 = (time.perf_counter_ns()
+              if tr is not None else telemetry.timer_start())
         faultinject.fault_point("query.featurize")
         q = self.serving.supplement(q)
+        t1 = time.perf_counter_ns() if t0 else 0
+        _ST_FEATURIZE.observe_since(t0)
         if dl is not None:
             dl.check("query.predict")
         faultinject.fault_point("query.predict")
         predictions = [algo.predict(model, q)
                        for (_, algo), model in zip(self.algo_list, self.models)]
+        t2 = time.perf_counter_ns() if t0 else 0
+        _ST_PREDICT.observe_since(t1)
         if dl is not None:
             dl.check("query.serve")
         faultinject.fault_point("query.serve")
-        return self.serving.serve(q, predictions)
+        result = self.serving.serve(q, predictions)
+        _ST_SERVE.observe_since(t2)
+        if tr is not None:
+            t3 = time.perf_counter_ns()
+            tr.add_span("query.featurize", t1 - t0)
+            tr.add_span("query.predict", t2 - t1,
+                        algorithms=len(self.algo_list))
+            tr.add_span("query.serve", t3 - t2)
+        return result
 
     def batch_query(self, queries) -> list[Any]:
         """One batched predict per algorithm for the whole list (the
         engine server's micro-batches and ``pio batchpredict``). No
         deadline spend-point: a batch mixes requests with different
         budgets, which the server enforces per request."""
+        t0 = telemetry.timer_start()
         faultinject.fault_point("query.batch_predict")
         qs = [self.serving.supplement(q) for q in queries]
+        t1 = time.perf_counter_ns() if t0 else 0
+        _ST_FEATURIZE_B.observe_since(t0)
         per_algo = [algo.batch_predict(model, qs)
                     for (_, algo), model in zip(self.algo_list, self.models)]
-        return [self.serving.serve(q, [pred[j] for pred in per_algo])
-                for j, q in enumerate(qs)]
+        t2 = time.perf_counter_ns() if t0 else 0
+        _ST_PREDICT_B.observe_since(t1)
+        out = [self.serving.serve(q, [pred[j] for pred in per_algo])
+               for j, q in enumerate(qs)]
+        _ST_SERVE_B.observe_since(t2)
+        return out
 
 
 class SimpleEngine(Engine):

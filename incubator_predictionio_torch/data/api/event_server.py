@@ -28,8 +28,9 @@ concurrent requests coalesce into one store write per (app, channel).
 ``PIO_INGEST_ACK`` (or the request's ``X-Pio-Ack`` header) picks the ack:
 ``commit`` (default) answers after the group's store write, ``enqueue``
 as soon as the validated event is queued. A full buffer, a draining
-server and a disk-full append answer 503 with a jittered ``Retry-After``,
-counted in ``shedRequests`` on ``GET /``, which also carries the buffer's
+server, a disk-full append and an open circuit breaker of a network store
+(``common/resilience.py``: the store is failing fast) answer 503 with a
+jittered ``Retry-After``, counted in ``shedRequests`` on ``GET /``, which also carries the buffer's
 counters (``ingest``: groups, ``droppedEvents``, the WAL's).
 
 With ``PIO_WAL=1`` the write-ahead log (:mod:`.ingest_wal`) holds every
@@ -59,6 +60,10 @@ Telemetry: ``GET /metrics`` renders the process registry (the ingest
 histograms and counters, the WAL's, the event log's, and with ``--stats``
 the per-app counters); ``PIO_TRACE`` samples requests and echoes
 ``X-Pio-Trace-Id``.
+
+TLS: with ``PIO_SSL_CERTFILE`` and ``PIO_SSL_KEYFILE`` set the server
+answers HTTPS only (``common/ssl_config.py``); a missing or bad file stops
+it at start-up.
 """
 
 from __future__ import annotations
@@ -75,7 +80,8 @@ from urllib.parse import parse_qs, unquote, urlsplit
 
 from ... import native
 from ...common import envknobs, faultinject, telemetry
-from ...common.resilience import retry_after_jitter
+from ...common.resilience import CircuitOpenError, retry_after_jitter
+from ...common.ssl_config import TLSServerMixin, ssl_context_from_env
 from ...workflow.plugins import EventServerPluginContext
 from ..storage.base import AccessKey
 from ..storage.event import (
@@ -186,6 +192,13 @@ class _Handler(BaseHTTPRequestHandler):
             return (*handler(self, path, query, raw), ())
         except _HTTPError as e:
             return e.status, {"message": e.message}, ()
+        except CircuitOpenError as e:
+            # the network store's breaker is open: its calls fail fast,
+            # and the refusal becomes the HTTP backpressure contract
+            app.count_shed()
+            return 503, {"message": "event store temporarily unavailable "
+                                    f"({e.breaker_name}); retry later"}, (
+                ("Retry-After", str(retry_after_jitter(e.retry_after))),)
         except IngestOverloadError as e:
             # a full buffer, a draining buffer, a fenced partition or a
             # disk-full append: 503 + jittered Retry-After
@@ -534,7 +547,7 @@ class EventServer:
             ids, lines = fast
             try:
                 self.ingest.ingest_lines(lines, ids, access_key, channel_id)
-            except IngestOverloadError:
+            except (CircuitOpenError, IngestOverloadError):
                 raise  # the whole request sheds
             except Exception as e:  # noqa: BLE001 - storage fault, per item
                 # one entry: every item failed together
@@ -574,7 +587,7 @@ class EventServer:
                     [(event, obj if isinstance(obj, dict) else None)
                      for _, event, obj in valid],
                     access_key, channel_id)
-            except IngestOverloadError:
+            except (CircuitOpenError, IngestOverloadError):
                 raise  # the whole request sheds
             except Exception as e:  # noqa: BLE001 - storage fault, per item
                 for pos, _event, _obj in valid:
@@ -688,7 +701,7 @@ class EventServer:
         self.stats.record(app_id, name, etype, status)
 
 
-class _Server(ThreadingHTTPServer):
+class _Server(TLSServerMixin, ThreadingHTTPServer):
     daemon_threads = True
     # the listen backlog (socketserver's default is 5): a burst of client
     # connects — a front splicing 16 clients to one worker — would
@@ -696,5 +709,7 @@ class _Server(ThreadingHTTPServer):
     request_queue_size = 128
 
     def __init__(self, addr, app: EventServer):
+        # a bad PIO_SSL_* file raises here, before the socket is bound
+        self.ssl_context = ssl_context_from_env()
         super().__init__(addr, _Handler)
         self.app = app

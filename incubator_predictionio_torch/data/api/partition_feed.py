@@ -34,6 +34,7 @@ from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
+from ...common import telemetry
 from ..storage.jsonl import (
     _TIME_ABSENT, _to_us, aggregate_replay, scan_log_file, shard_paths,
 )
@@ -77,6 +78,24 @@ class FeedShard:
     tail_bytes: int = 0
 
 
+_M_SHARDS = telemetry.registry().counter(
+    "pio_train_feed_shards_total",
+    "Event-log shards scanned by partition-local training feeds"
+).labels()
+_M_SNAP_BYTES = telemetry.registry().counter(
+    "pio_train_feed_snapshot_bytes_total",
+    "Feed bytes served from committed colseg snapshots (no JSON parse)"
+).labels()
+_M_TAIL_BYTES = telemetry.registry().counter(
+    "pio_train_feed_tail_bytes_total",
+    "Feed bytes JSON-parsed past the snapshot generation (uncovered "
+    "tails)").labels()
+_M_WINDOW_ROWS = telemetry.registry().counter(
+    "pio_train_window_rows_filtered_total",
+    "Rows dropped by the event-time window's row-wise filter in "
+    "boundary generations and uncovered tails").labels()
+
+
 def scan_shard(path: str, start_us: Optional[int] = None,
                until_us: Optional[int] = None) -> FeedShard:
     """Scan ONE shard: snapshot generations plus a tail-only parse. With an
@@ -84,6 +103,11 @@ def scan_shard(path: str, start_us: Optional[int] = None,
     skipped whole. ``tombstone_ids`` stays the shard's real deletes
     (including ones replayed from skipped generations)."""
     scan, snap_b, tail_b = scan_log_file(path, start_us, until_us)
+    _M_SHARDS.inc()
+    if snap_b:
+        _M_SNAP_BYTES.inc(snap_b)
+    if tail_b:
+        _M_TAIL_BYTES.inc(tail_b)
     return FeedShard(
         path=path, cols=scan.cols, live=scan.live_mask(),
         tombstone_ids=frozenset(scan.tombstones),
@@ -162,6 +186,9 @@ class PartitionFeed:
                 tmask &= cols.time_us >= start_us
             if until_us is not None:
                 tmask &= cols.time_us < until_us
+            dropped = int((mask & ~tmask).sum())
+            if dropped:
+                _M_WINDOW_ROWS.inc(dropped)
             mask &= tmask
         rows = np.nonzero(mask)[0]
         return rows[np.argsort(cols.time_us[rows], kind="stable")]

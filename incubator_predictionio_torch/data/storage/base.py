@@ -455,3 +455,11 @@ class BaseStorageClient(abc.ABC):
 
     def close(self) -> None:
         pass
+
+    def breaker_states(self) -> list[dict]:
+        """Circuit-breaker snapshots for this client's endpoints.
+
+        Wire-protocol backends override this (one entry per endpoint
+        breaker, see common/resilience.py); embedded backends have no
+        circuits — an empty list means "always reachable"."""
+        return []

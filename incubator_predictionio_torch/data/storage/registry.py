@@ -19,9 +19,14 @@ other. A JSONL source (``data/storage/jsonl.py``; ``PATH``, default
 ``$PIO_FS_BASEDIR/events``) serves the event repository from the same log
 files as the reference's.
 
-The reference's other types (HTTP, S3, ELASTICSEARCH, PGSQL, MYSQL, HBASE,
-HDFS) are not ported yet: selecting one raises :class:`StorageError`
-naming the ROADMAP item; nothing falls back to SQLite.
+The network stores: HTTP (a ``pio storageserver``,
+``data/storage/http_backend.py``), PGSQL (``postgres.py`` over
+``pgwire.py``) and MYSQL (``mysql.py`` over ``mysqlwire.py``), with the
+reference's wire bytes and tables. A store that fails to connect or to
+authenticate raises; nothing falls back to SQLite. JDBC is refused as the
+reference refuses it. The reference's S3, ELASTICSEARCH, HBASE and HDFS
+are not ported yet: selecting one raises :class:`StorageError` naming the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,9 +36,12 @@ import threading
 from typing import Callable, Optional
 
 from . import base
+from .http_backend import HTTPStorageClient
 from .jsonl import JSONLClient
 from .localfs import LocalFSClient
 from .memory import StorageClient as MemoryClient
+from .mysql import MySQLClient
+from .postgres import PGClient
 from .sqlite import SQLiteClient
 
 
@@ -46,18 +54,28 @@ _BACKENDS: dict[str, Callable[[base.StorageClientConfig], base.BaseStorageClient
     "SQLITE": SQLiteClient,
     "LOCALFS": LocalFSClient,
     "JSONL": JSONLClient,
+    # a `pio storageserver` shared by many hosts (http_backend.py)
+    "HTTP": HTTPStorageClient,
+    # the Postgres wire protocol (v3, SCRAM-SHA-256), all three repositories
+    "PGSQL": PGClient,
+    # the MySQL protocol (caching_sha2/native auth, binary prepared
+    # statements), all three repositories
+    "MYSQL": MySQLClient,
 }
+
+#: the network stores: a failed connect or login raises StorageError
+_NETWORK = {"HTTP", "PGSQL", "MYSQL"}
+
+#: types whose wire protocol this package does not speak: the message
+#: points at the HTTP backend (the same shared-network-store shape)
+_UNSUPPORTED = {"JDBC"}
 
 #: the reference's backend types this package does not serve yet
 _NOT_PORTED = {
-    "HTTP": "the network storage backends",
-    "S3": "the network storage backends",
-    "ELASTICSEARCH": "the network storage backends",
-    "PGSQL": "the network storage backends",
-    "MYSQL": "the network storage backends",
-    "JDBC": "the network storage backends",
-    "HBASE": "the network storage backends",
-    "HDFS": "the network storage backends",
+    "S3": "the object and search stores",
+    "ELASTICSEARCH": "the object and search stores",
+    "HBASE": "the object and search stores",
+    "HDFS": "the object and search stores",
 }
 
 REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
@@ -141,19 +159,31 @@ class Storage:
                     for k, v in self._env.items()
                     if k.startswith(prefix) and k != prefix + "TYPE"
                 }
+            if stype in _UNSUPPORTED and stype not in _BACKENDS:
+                raise StorageError(
+                    f"Storage type {stype} requires an external service not "
+                    f"bundled with this build; for a shared network store "
+                    f"run `pio storageserver` and set TYPE=HTTP, or use "
+                    f"PGSQL, MYSQL, SQLITE, MEMORY, LOCALFS or JSONL.")
             if stype not in _BACKENDS:
                 if stype in _NOT_PORTED:
                     raise StorageError(
                         f"Storage type {stype} is not ported to this package "
                         f"yet (ROADMAP.md Queue 1, item 3.4: "
-                        f"{_NOT_PORTED[stype]}); use SQLITE, MEMORY, "
-                        "LOCALFS or JSONL")
+                        f"{_NOT_PORTED[stype]}); use HTTP, PGSQL, MYSQL, "
+                        "SQLITE, MEMORY, LOCALFS or JSONL")
                 raise StorageError(f"Unknown storage type {stype}")
-            client = _BACKENDS[stype](
-                base.StorageClientConfig(
-                    test=self._env.get("PIO_TEST", "") == "1", properties=props
-                )
-            )
+            config = base.StorageClientConfig(
+                test=self._env.get("PIO_TEST", "") == "1", properties=props)
+            try:
+                client = _BACKENDS[stype](config)
+            except Exception as e:
+                if stype not in _NETWORK:
+                    raise
+                # an unreachable store or a refused login: no fallback
+                raise StorageError(
+                    f"Storage source {source_name} ({stype}) cannot be "
+                    f"opened: {e}") from e
             self._clients[source_name] = client
             return client
 
@@ -204,6 +234,29 @@ class Storage:
             except Exception as e:  # noqa: BLE001 — surfaced to operator
                 errors.append(f"{fn.__name__}: {e}")
         return errors
+
+    def breaker_states(self) -> dict[str, list[dict]]:
+        """Circuit-breaker snapshots per instantiated source (a source
+        never touched has no client and no circuits yet)."""
+        with self._lock:
+            clients = dict(self._clients)
+        return {name: client.breaker_states()
+                for name, client in clients.items()}
+
+    def backend_health(self) -> dict[str, dict]:
+        """Per-repository backend and circuit state for operators
+        (`pio status`, the engine server's /readyz)."""
+        out: dict[str, dict] = {}
+        for repo in REPOSITORIES:
+            source = self._repo_source_name(repo)
+            entry: dict = {"source": source,
+                           "type": self.repo_source_type(repo)}
+            with self._lock:
+                client = self._clients.get(source)
+            if client is not None:
+                entry["breakers"] = client.breaker_states()
+            out[repo] = entry
+        return out
 
     def close(self) -> None:
         with self._lock:

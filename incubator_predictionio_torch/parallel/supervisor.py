@@ -34,9 +34,11 @@ The port's own copy of ``incubator_predictionio_tpu/parallel/supervisor.py``.
 
 The state (workers, pids, heartbeat ages, restarts and an event log with
 timestamps) is mirrored to ``<run_dir>/supervisor.json``; a gang's run
-directory is ``$PIO_FS_BASEDIR/gang/<instance id>``. The reference's
-``pio_train_*`` telemetry waits for the engine server's half of ROADMAP
-Queue 1, item 3.3 (the port's registry, ``common/telemetry.py``, exists).
+directory is ``$PIO_FS_BASEDIR/gang/<instance id>``. Telemetry, in the
+supervising process's registry: ``pio_train_restarts_total{reason}``,
+``pio_train_worker_alive{worker}``,
+``pio_train_worker_heartbeat_age_seconds{worker}`` and
+``pio_train_gang_state`` (0 idle, 1 running, 2 draining, 3 failed).
 """
 
 from __future__ import annotations
@@ -52,9 +54,29 @@ import threading
 import time
 from typing import Optional, Sequence
 
-from ..common import envknobs
+from ..common import envknobs, telemetry
 
 log = logging.getLogger("pio.torch.supervisor")
+
+
+def _metrics():
+    # created at first use: a process that never supervises registers none
+    reg = telemetry.registry()
+    return (
+        reg.counter("pio_train_restarts_total",
+                    "Gang restarts by failure reason", ("reason",)),
+        reg.gauge("pio_train_worker_alive",
+                  "1 while the worker process is running", ("worker",)),
+        reg.gauge("pio_train_worker_heartbeat_age_seconds",
+                  "Seconds since the worker last touched its heartbeat file",
+                  ("worker",)),
+        reg.gauge("pio_train_gang_state",
+                  "0 idle, 1 running, 2 draining, 3 failed").labels(),
+    )
+
+
+#: pio_train_gang_state's code of each supervisor state (ended runs read 0)
+_STATE_CODE = {"running": 1.0, "draining": 2.0, "failed": 3.0}
 
 __all__ = [
     "GangConfig", "GangDrainRequested", "Supervisor", "beat", "beat_while",
@@ -629,14 +651,20 @@ class Supervisor:
         return None
 
     def _publish(self) -> None:
+        _, alive_g, age_g, state_g = _metrics()
+        state_g.set(_STATE_CODE.get(self.state, 0.0))
         workers = []
         for w in self._workers:
+            alive = w.proc.poll() is None
+            age = w.heartbeat_age_ms()
+            alive_g.labels(str(w.idx)).set(1.0 if alive else 0.0)
+            age_g.labels(str(w.idx)).set(-1.0 if age is None else age / 1000.0)
             workers.append({
                 "worker": w.idx,
                 "pid": w.proc.pid,
-                "alive": w.proc.poll() is None,
+                "alive": alive,
                 "returncode": w.proc.poll(),
-                "heartbeatAgeMs": w.heartbeat_age_ms(),
+                "heartbeatAgeMs": age,
                 "retiring": w.idx in self._retiring,
                 "restarts": (self.worker_restarts[w.idx]
                              if w.idx < len(self.worker_restarts) else 0),
@@ -760,6 +788,7 @@ class Supervisor:
                     except OSError:
                         pass
                     bad.proc.wait()
+                _metrics()[0].labels(failure["reason"]).inc()
                 while len(per_worker_restarts) <= idx:
                     per_worker_restarts.append(0)
                 per_worker_restarts[idx] += 1
@@ -849,6 +878,7 @@ class Supervisor:
                         self._tail(bad))
             self._kill_gang()
             self._event("gangKilled")
+            _metrics()[0].labels(failure["reason"]).inc()
             if self.restarts >= cfg.max_restarts:
                 self.state = FAILED
                 self._event("gaveUp", restarts=self.restarts)

@@ -489,8 +489,12 @@ def deploy_cmd(args: list[str]) -> int:
     if ns.rollback:
         from .models import rollback_via_url
 
+        # the scheme the server itself deploys with; loopback https skips
+        # verification (its certificate need not name 127.0.0.1)
+        scheme = "https" if _tls_requested() else "http"
         host = "127.0.0.1" if ns.ip in ("0.0.0.0", "::") else ns.ip
-        return rollback_via_url(f"http://{host}:{ns.port}")
+        return rollback_via_url(f"{scheme}://{host}:{ns.port}",
+                                insecure=True)
     if ns.replica_worker:
         return _deploy_replica_worker(ns)
     from ...common import envknobs

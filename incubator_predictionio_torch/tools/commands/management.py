@@ -9,15 +9,16 @@ commands/management.py`` (``status`` :18 with its fold-in cursor rows
 :330) and tenant (``_print_tenants`` :291) lines, ``wal`` :405-487,
 ``eventserver [--stats]`` :538, ``eventserver --workers N`` / ``--worker``
 :540-578 and ``eventserver scale N`` :489-537, ``eventlog`` :687-1002,
-``export`` :1113, ``import`` :1155) for JSON-lines files; ``import`` writes
-to whichever event store is configured (SQLite or the JSONL log).
-``eventlog`` has ``compact``, ``scrub``, ``status``, ``fence``,
-``retire``, ``archive``, ``restore`` and ``tail``; ``wal`` has ``inspect``
-and ``replay``. ``status`` also names a running partitioned event-server
-front. Parquet, the storage server and the admin server are not ported
-yet. ``fleet plan`` (:582) and the fleet and autoscaler lines of
-``status --engine-url`` (``_print_fleet`` :355, ``_print_autoscaler``
-:262) read a serving fleet's front.
+``export`` :1113, ``import`` :1155, ``storageserver`` :1005) for
+JSON-lines files; ``import`` writes to whichever event store is
+configured. ``eventlog`` has ``compact``, ``scrub``, ``status``,
+``fence``, ``retire``, ``archive``, ``restore`` and ``tail``; ``wal`` has
+``inspect`` and ``replay``. ``status`` also names a running partitioned
+event-server front and prints each network store's circuit breakers.
+Parquet and the admin server are not ported yet. ``fleet plan`` (:582)
+and the fleet and autoscaler lines of ``status --engine-url``
+(``_print_fleet`` :355, ``_print_autoscaler`` :262) read a serving
+fleet's front.
 """
 
 from __future__ import annotations
@@ -76,6 +77,14 @@ def status_cmd(args: list[str]) -> int:
     for repo in REPOSITORIES:
         print(f"[info]   {repo}: {s.repo_source_type(repo)}")
     errors = s.verify_all_data_objects()
+    # per-backend circuit-breaker state (common/resilience.py): which wire
+    # endpoints are healthy, tripped open, or probing half-open
+    for repo, health in s.backend_health().items():
+        for b in health.get("breakers", []):
+            marker = "[info]" if b["state"] == "closed" else "[warn]"
+            print(f"{marker}   {repo}: breaker {b['name']} is "
+                  f"{b['state']} (failures={b['failure']}, "
+                  f"opened={b['opened']})")
     if errors:
         for e in errors:
             print(f"[error] {e}", file=sys.stderr)
@@ -1082,7 +1091,8 @@ def _serve_events(ip: str, port: int, stats: bool,
         beats.start()
     signal.signal(signal.SIGTERM, _raise_exit)
     host, port = server.address
-    print(f"[info] Event Server listening on http://{host}:{port}"
+    scheme = "https" if server._httpd.ssl_context is not None else "http"
+    print(f"[info] Event Server listening on {scheme}://{host}:{port}"
           + (f" (partition {server.lease.partition})"
              if server.lease is not None else ""), flush=True)
     try:
@@ -1094,4 +1104,35 @@ def _serve_events(ip: str, port: int, stats: bool,
         server.drain(timeout=envknobs.env_ms(
             "PIO_DRAIN_DEADLINE_MS", 30_000.0, lo_ms=0.0))
         server.close()
+    return 0
+
+
+@verb("storageserver", "host this node's storage over HTTP (:7072)")
+def storageserver_cmd(args: list[str]) -> int:
+    """Serve the DAO surface of this node's PIO_STORAGE_* backends to
+    remote hosts (TYPE=HTTP clients): the shared-store role. See
+    data/api/storage_server.py."""
+    p = argparse.ArgumentParser(prog="pio storageserver")
+    p.add_argument("--ip", default="127.0.0.1",
+                   help="bind address; non-loopback binds REQUIRE a shared "
+                        "secret (--secret / PIO_STORAGESERVER_SECRET)")
+    p.add_argument("--port", type=int, default=7072)
+    p.add_argument("--secret", default=None,
+                   help="shared secret clients must present as "
+                        "'Authorization: Bearer <secret>' (clients set "
+                        "PIO_STORAGE_SOURCES_<N>_SECRET); defaults to "
+                        "$PIO_STORAGESERVER_SECRET")
+    ns = p.parse_args(args)
+    s = Storage.instance()
+    for repo in REPOSITORIES:
+        if s.repo_source_type(repo) == "HTTP":
+            print("[error] this node's own storage is TYPE=HTTP; serving "
+                  "it again would proxy in a loop. Point the server node "
+                  "at an embedded backend (SQLITE/JSONL/LOCALFS).",
+                  file=sys.stderr)
+            return 1
+    from ...data.api.storage_server import run_storage_server
+
+    signal.signal(signal.SIGTERM, _raise_exit)
+    run_storage_server(ns.ip, ns.port, secret=ns.secret)
     return 0

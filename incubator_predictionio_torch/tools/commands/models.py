@@ -19,6 +19,7 @@ import json
 import sys
 
 from ...common import envknobs
+from ...common.ssl_config import loopback_client_context
 from ...data.storage.registry import Storage
 from . import verb
 
@@ -132,15 +133,27 @@ def _list_or_verify(storage, verify: bool) -> int:
     return 0
 
 
-def rollback_via_url(url: str) -> int:
+def _tls_ctx(base: str, insecure: bool):
+    """An unverified TLS context for an https loopback call (the server's
+    own certificate need not name 127.0.0.1); None for http or verified
+    https."""
+    if not insecure or not base.startswith("https://"):
+        return None
+    return loopback_client_context()
+
+
+def rollback_via_url(url: str, insecure: bool = False) -> int:
     """POST /rollback to a live engine server — the one rollback client
-    (`pio models rollback` and `pio deploy --rollback`)."""
+    (`pio models rollback` and `pio deploy --rollback`; the latter passes
+    ``insecure`` for its loopback https call)."""
     import urllib.error
     import urllib.request
 
     req = urllib.request.Request(_base(url) + "/rollback", method="POST")
     try:
-        with urllib.request.urlopen(req, timeout=30) as resp:
+        with urllib.request.urlopen(
+                req, timeout=30,
+                context=_tls_ctx(_base(url), insecure)) as resp:
             doc = json.load(resp)
     except urllib.error.HTTPError as e:
         try:

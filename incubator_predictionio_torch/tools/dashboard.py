@@ -10,10 +10,12 @@ headers (and ``OPTIONS`` preflight on any path):
 - ``GET /instances/<id>``: one evaluation's candidates ranked by score,
   each with its params as a diff against the best;
 - ``GET /instances.json`` and ``GET /instances/<id>.json``: the JSON the
-  pages are built from.
+  pages are built from;
+- ``GET /metrics``: the process registry as Prometheus text, and
+  ``GET /metrics/html``: the same families as a table.
 
-The reference's ``/metrics`` pages show its telemetry registry, which is
-not ported.
+TLS: with ``PIO_SSL_CERTFILE`` and ``PIO_SSL_KEYFILE`` set the dashboard
+answers HTTPS only (``common/ssl_config.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+
+from ..common import telemetry
+from ..common.ssl_config import TLSServerMixin, ssl_context_from_env
 
 log = logging.getLogger("pio.torch.dashboard")
 
@@ -195,6 +200,33 @@ def instances_json(instances) -> list:
     return out
 
 
+def metrics_page() -> str:
+    """Every family in the process registry as a table (name, type,
+    labels, value)."""
+    rows = []
+    for fam in telemetry.registry().collect():
+        for values, child in fam.samples():
+            if fam.kind == "histogram":
+                _counts, total, sum_raw = child.snapshot()
+                shown = f"count={total}, sum={sum_raw * child.scale:.6g}"
+            else:
+                shown = f"{child.value():.10g}"
+            labels = ", ".join(
+                f"{n}={v}" for n, v in zip(fam.labelnames, values))
+            rows.append(
+                "<tr><td><code>{name}</code></td><td>{kind}</td>"
+                "<td>{labels}</td><td>{value}</td></tr>".format(
+                    name=html.escape(fam.name), kind=html.escape(fam.kind),
+                    labels=html.escape(labels) or "—",
+                    value=html.escape(shown)))
+    return _page("Telemetry", (
+        "<h1>Telemetry</h1>"
+        "<p><a href='/'>back</a> · <a href='/metrics'>raw "
+        "(Prometheus text format)</a></p>"
+        "<table><tr><th>Metric</th><th>Type</th><th>Labels</th>"
+        "<th>Value</th></tr>" + "".join(rows) + "</table>"))
+
+
 class _Handler(BaseHTTPRequestHandler):
     server: "_Server"
     protocol_version = "HTTP/1.1"
@@ -224,6 +256,11 @@ class _Handler(BaseHTTPRequestHandler):
         path = self.path.split("?", 1)[0]
         if path == "/":
             self._html(200, index_page(dao.get_completed()))
+        elif path == "/metrics":
+            self._send(200, telemetry.render_all().encode(),
+                       "text/plain; charset=utf-8")
+        elif path == "/metrics/html":
+            self._html(200, metrics_page())
         elif path == "/instances.json":
             self._json(200, instances_json(dao.get_completed()))
         elif path.startswith("/instances/") and path.endswith(".json"):
@@ -251,10 +288,12 @@ class _Handler(BaseHTTPRequestHandler):
         log.debug("%s - " + fmt, self.address_string(), *args)
 
 
-class _Server(ThreadingHTTPServer):
+class _Server(TLSServerMixin, ThreadingHTTPServer):
     daemon_threads = True
 
     def __init__(self, addr, storage):
+        # a bad PIO_SSL_* file raises here, before the socket is bound
+        self.ssl_context = ssl_context_from_env()
         super().__init__(addr, _Handler)
         self.storage = storage
 

@@ -12,7 +12,19 @@ status codes:
   ``batch_window_ms`` > 0 one batcher thread coalesces the queries of a
   window into one ``Deployment.batch_query``.
 - ``GET /`` and ``/status`` (overload, lifecycle, query cache, probe
-  latency), ``/healthz``, ``/readyz``, ``/plugins.json``.
+  latency), ``/healthz``, ``/readyz`` (503 while a storage circuit
+  breaker is open, named in ``openBreakers``), ``/plugins.json``, and
+  ``/metrics``: the process registry as Prometheus text (the query stage
+  histograms, this server's ``pio_engine_*`` gauges, the query cache's
+  counters, fold-in, quality, tenants, storage transport and breakers).
+- Sampled tracing: ``PIO_TRACE`` samples a request (an incoming
+  ``X-Pio-Trace-Id`` is honoured), the handler thread binds it for the
+  whole dispatch (``telemetry.traced_dispatch``), the query worker gets
+  it with its copied context and adds the ``query.featurize`` /
+  ``query.predict`` / ``query.serve`` spans, and the answer carries
+  ``X-Pio-Trace-Id``.
+- TLS: with ``PIO_SSL_CERTFILE`` and ``PIO_SSL_KEYFILE`` set the server
+  answers HTTPS only (``common/ssl_config.py``).
 - The validated model lifecycle: every (re)load passes warm-up, the
   NaN guard and a golden-query smoke predict before it goes live; one
   previous deployment stays resident for an instant ``/rollback``; a
@@ -50,12 +62,8 @@ The deployment form (``EngineServer(deployment=...)``, the console's
 store, so ``/reload`` and ``/rollback`` answer 409, and refresh, fold-in,
 quality and tenants are off.
 
-Not ported here, each with its own ROADMAP item: the engine server's
-``/metrics`` families and sampled tracing through the serving path (3.3,
-the engine server's half: the counts of fold-in, quality, tenants and the
-fleet's divergence ride ``/status`` instead; ``common/telemetry.py`` and
-the event server's ``/metrics`` are ported), TLS and the storage breakers
-of ``/readyz`` (3.3, 3.4: ``openBreakers`` is always empty).
+What rides ``/status`` (fold-in, quality, tenants, the fleet view) stays
+there as well as on ``/metrics``.
 """
 
 from __future__ import annotations
@@ -80,8 +88,13 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from ..common import deadline, envknobs, faultinject
+from ..common import deadline, envknobs, faultinject, telemetry
 from ..common.resilience import retry_after_jitter
+from ..common.ssl_config import (
+    TLSServerMixin,
+    loopback_client_context,
+    ssl_context_from_env,
+)
 from ..data.storage.datamap import DataMap
 from ..data.storage.event import Event
 from ..data.storage.registry import Storage
@@ -97,6 +110,28 @@ def _env_int(name: str, default: int) -> int:
     """Tolerant integer knob: unset/unparsable degrades to the default;
     float spellings like ``"1e3"`` are accepted."""
     return envknobs.env_int(name, default, float_ok=True)
+
+
+# query-cache telemetry is process-wide monotonic (counters survive a
+# server object being rebuilt in-process, like the fold-in counters)
+_M_CACHE_HITS = telemetry.registry().counter(
+    "pio_query_cache_hits_total",
+    "Queries answered from the served-result cache without a model "
+    "dispatch").labels()
+_M_CACHE_MISSES = telemetry.registry().counter(
+    "pio_query_cache_misses_total",
+    "Cache-armed queries that had to run a model dispatch (entry "
+    "absent, expired, or invalidated)").labels()
+_M_CACHE_INVALIDATIONS = telemetry.registry().counter(
+    "pio_query_cache_invalidations_total",
+    "Query-cache invalidation events by trigger: foldin = targeted "
+    "per-user eviction from an increment's freshness footprint; swap "
+    "= full flush on any other model swap; rollback = full flush "
+    "when a rollback restores the previous model", ("reason",))
+
+
+class _Text(str):
+    """A plain-text answer body (``GET /metrics``)."""
 
 
 class QueryResultCache:
@@ -146,10 +181,12 @@ class QueryResultCache:
             if ent is not None and ent[0] > now:
                 self._entries.move_to_end(key)
                 self.hits += 1
+                _M_CACHE_HITS.inc()
                 return copy.deepcopy(ent[1])
             if ent is not None:
                 del self._entries[key]  # expired
             self.misses += 1
+        _M_CACHE_MISSES.inc()
         return None
 
     def put(self, key: tuple, result, generation: Optional[int] = None
@@ -179,19 +216,24 @@ class QueryResultCache:
         users = {str(u) for u in users}
         app = None if app is None else str(app)
         with self._lock:
-            return self._drop([k for k in self._entries
-                               if k[0] in users
-                               and (app is None or k[2] == app)])
+            n = self._drop([k for k in self._entries
+                            if k[0] in users and (app is None or k[2] == app)])
+        _M_CACHE_INVALIDATIONS.labels("foldin").inc()
+        return n
 
     def flush_app(self, app: str, reason: str) -> int:
         """Drop every entry of one app."""
         app = str(app)
         with self._lock:
-            return self._drop([k for k in self._entries if k[2] == app])
+            n = self._drop([k for k in self._entries if k[2] == app])
+        _M_CACHE_INVALIDATIONS.labels(reason).inc()
+        return n
 
     def flush(self, reason: str) -> int:
         with self._lock:
-            return self._drop(list(self._entries))
+            n = self._drop(list(self._entries))
+        _M_CACHE_INVALIDATIONS.labels(reason).inc()
+        return n
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -240,7 +282,8 @@ class Request(NamedTuple):
     body: bytes
 
 
-#: a route handler's answer: (status, JSON body, extra headers)
+#: a route handler's answer: (status, JSON body or :class:`_Text`, extra
+#: headers)
 Reply = tuple
 
 
@@ -337,6 +380,13 @@ class EngineServer:
         # failed reload; /status and /readyz surface it
         self._degraded_reason: Optional[str] = None
         self._dropped_feedback = 0
+        # per-algorithm warm-up accounting of the live instance (gauges: a
+        # reload measures the new instance's warm-up from scratch, and
+        # _load_once swaps in fresh families so a variant's dead labels go)
+        self._m_compile_count, self._m_compile_seconds = \
+            self._new_compile_families()
+        telemetry.registry().register_collector(
+            "engineserver", self._collect_metrics)
         self._feedback_executor = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="pio-feedback")
         self.deployment = None
@@ -348,7 +398,8 @@ class EngineServer:
         self._refresh_stop = threading.Event()
         self._refresh_thread: Optional[threading.Thread] = None
         if deployment is not None:
-            self._prepare(deployment, "deployment", None)
+            self._m_compile_count, self._m_compile_seconds = self._prepare(
+                deployment, "deployment", None)
             self.deployment = deployment
         elif self.fleet_mode and instance_id is None:
             self._fleet_bootstrap_load()
@@ -621,7 +672,8 @@ class EngineServer:
             log.info("refresh: no newer deployable instance than %s",
                      current.id)
             return False
-        self._prepare(deployment, instance.id, instance)
+        m_count, m_seconds = self._prepare(deployment, instance.id, instance)
+        self._m_compile_count, self._m_compile_seconds = m_count, m_seconds
         with self._lock:
             prev_dep, prev_inst = self.deployment, self.instance
             swapped = (prev_inst is not None
@@ -664,27 +716,49 @@ class EngineServer:
         log.info("deployed engine instance %s", instance.id)
         return True
 
-    def _prepare(self, deployment, label: str, instance) -> None:
+    @staticmethod
+    def _new_compile_families():
+        """The warm-up gauges, under the reference's names: "compile"
+        there is XLA's, here the warm-up (catalog upload, first launch)."""
+        return (telemetry.GaugeFamily(
+                    "pio_engine_compile_count",
+                    "Warm-up compilations performed for the live engine "
+                    "instance, per algorithm", ("algorithm",)),
+                telemetry.GaugeFamily(
+                    "pio_engine_compile_seconds",
+                    "Warm-up compilation wall seconds for the live engine "
+                    "instance, per algorithm", ("algorithm",)))
+
+    def _prepare(self, deployment, label: str, instance):
         """Warm every model up (its catalog resident on the card), run
         each pow2 batch shape the micro-batcher can produce once, then the
-        validation gate. Raises :class:`SwapValidationError`."""
+        validation gate. Returns the deployment's warm-up families (the
+        caller publishes them with the deployment); raises
+        :class:`SwapValidationError`."""
+        m_count, m_seconds = self._new_compile_families()
         warmup_errors: list[str] = []
         for (algo_name, _algo), model in zip(deployment.algo_list,
                                              deployment.models):
             warm = getattr(model, "warm_up", None)
             if callable(warm):
+                name = algo_name or type(model).__name__
+                t0 = _time.perf_counter()
                 try:
                     warm()
                 except Exception as e:  # noqa: BLE001 - gate decides below
                     log.exception("model warm-up failed")
-                    warmup_errors.append(
-                        f"{algo_name or type(model).__name__}: {e}")
+                    warmup_errors.append(f"{name}: {e}")
+                else:
+                    m_count.labels(name).set(1)
+                    m_seconds.labels(name).set(_time.perf_counter() - t0)
         if self.batch_window_ms > 0:
             example = self._find_example_query(deployment)
             if example is not None:
                 # up to the next pow2 ≥ max_batch: a full window pads there
                 top = 1 << max(self.max_batch - 1, 0).bit_length()
                 b = 1
+                n_shapes = 0
+                t0 = _time.perf_counter()
                 while b <= top:
                     try:
                         deployment.batch_query([dict(example)] * b)
@@ -692,11 +766,15 @@ class EngineServer:
                         log.exception("batch warm-up failed at size %d", b)
                         warmup_errors.append(f"batch[{b}]: {e}")
                         break
+                    n_shapes += 1
                     b *= 2
+                m_count.labels("batch").set(n_shapes)
+                m_seconds.labels("batch").set(_time.perf_counter() - t0)
         if self.swap_validate and warmup_errors:
             raise SwapValidationError(
                 label, "warm-up failed: " + "; ".join(warmup_errors))
         self._validate_swap(deployment, label, instance)
+        return m_count, m_seconds
 
     @staticmethod
     def _foldin_footprint(instance, prev_inst) -> Optional[list]:
@@ -834,22 +912,122 @@ class EngineServer:
         """Liveness: the process serves HTTP."""
         return _json(200, {"status": "alive"})
 
+    def _collect_metrics(self):
+        """Render-time families owned by THIS server instance."""
+        qc = telemetry.GaugeFamily(
+            "pio_engine_query_count",
+            "Queries served by the live engine server (excludes "
+            "synthetic startup probes)")
+        qc.labels().set(self._query_count)
+        dropped = telemetry.GaugeFamily(
+            "pio_engine_dropped_feedback_total",
+            "Feedback self-log events dropped by event-store failures")
+        dropped.labels().set(self._dropped_feedback)
+        ov = self.overload_snapshot()
+        fams = [self._m_compile_count, self._m_compile_seconds, qc,
+                dropped]
+        for name, help_, value in (
+            ("pio_engine_query_pending",
+             "Accepted queries currently queued or running in the "
+             "admission-gated executor", ov["pending"]),
+            ("pio_engine_query_pending_limit",
+             "Admission cap: PIO_QUERY_CONC + PIO_QUERY_MAX_PENDING",
+             ov["pendingLimit"]),
+            ("pio_engine_query_pending_peak",
+             "High-water mark of accepted in-flight + queued queries",
+             ov["peakPending"]),
+            ("pio_engine_query_shed_total",
+             "Queries refused 503 at admission (queue full or "
+             "draining)", ov["shed"]),
+            ("pio_engine_query_deadline_exceeded_total",
+             "Queries answered 504 because their deadline budget ran "
+             "out", ov["deadlineExceeded"]),
+            ("pio_engine_query_orphaned_total",
+             "Deadline-exceeded queries whose worker thread was still "
+             "running at 504 time (freed at the next spend-point)",
+             ov["orphaned"]),
+            ("pio_engine_draining",
+             "1 while the server drains for shutdown (readyz answers "
+             "503)", 1 if ov["draining"] else 0),
+            ("pio_engine_drain_stragglers",
+             "Accepted queries still unfinished when the drain "
+             "deadline expired", ov["drainStragglers"]),
+        ):
+            fam = telemetry.GaugeFamily(name, help_)
+            fam.labels().set(value)
+            fams.append(fam)
+        lc = self.lifecycle_snapshot()
+        rb = telemetry.GaugeFamily(
+            "pio_engine_rollbacks_total",
+            "Deployment rollbacks to the retained previous model, by "
+            "reason (error-rate = automatic post-swap watch, quality = "
+            "shadow-scorer breach, manual = /rollback)", ("reason",))
+        # the automatic-rollback rows always show, so an alert can fire on
+        # their first increment, plus any reason already seen
+        for reason in sorted({"error-rate", "quality", *lc["rollbacks"]}):
+            rb.labels(reason).set(lc["rollbacks"].get(reason, 0))
+        fams.append(rb)
+        for name, help_, value in (
+            ("pio_engine_model_swaps_total",
+             "Hot swaps to a different engine instance since start "
+             "(reload, explicit target, or refresh)", lc["swaps"]),
+            ("pio_engine_swap_validate_failures_total",
+             "Reload/refresh attempts refused by the swap validation "
+             "gate (nan_guard, warm-up, golden-query smoke predict)",
+             lc["validateFailures"]),
+            ("pio_engine_pinned_instances",
+             "Engine instances pinned against redeployment (rolled "
+             "back or validation-refused)", len(lc["pinned"])),
+            ("pio_engine_model_refresh_swaps_total",
+             "Hot swaps performed by the continuous-refresh loop",
+             lc["refreshSwaps"]),
+        ):
+            fam = telemetry.GaugeFamily(name, help_)
+            fam.labels().set(value)
+            fams.append(fam)
+        if self.fleet_mode:
+            view = self._fleet_view
+            div = telemetry.GaugeFamily(
+                "pio_fleet_divergence",
+                "1 while this replica's cached peer view shows the "
+                "fleet serving more than one engine instance (mixed "
+                "brain; converges within PIO_FLEET_SYNC_MS)")
+            div.labels().set(1 if (view and view.get("divergence")) else 0)
+            fams.append(div)
+        return fams
+
+    def handle_metrics(self, request: Request) -> Reply:
+        """Prometheus text exposition of the process registry."""
+        return _json(200, _Text(telemetry.render_all()))
+
+    def _storage_breakers(self) -> list[dict]:
+        if self.storage is None:
+            return []
+        try:
+            return [b for states in self.storage.breaker_states().values()
+                    for b in states]
+        except Exception:  # noqa: BLE001 - readiness must never crash
+            log.exception("breaker state collection failed")
+            return []
+
     def handle_readyz(self, request: Request) -> Reply:
-        """Readiness: a model is loaded and the server is not draining;
-        503 otherwise, so load balancers rotate it out. The degraded flag
-        is telemetry, not a rotation signal. ``openBreakers`` is always
-        empty: the storage breakers come with the network backends."""
+        """Readiness: a model is loaded, no storage circuit breaker is
+        open and the server is not draining; 503 otherwise, so load
+        balancers rotate it out. The degraded flag is telemetry, not a
+        rotation signal."""
         with self._lock:
             loaded = self.deployment is not None
+        open_breakers = [b["name"] for b in self._storage_breakers()
+                         if b.get("state") == "open"]
         with self._adm_lock:
             draining = self._draining
-        ready = loaded and not draining
+        ready = loaded and not open_breakers and not draining
         return _json(200 if ready else 503, {
             "ready": ready,
             "modelLoaded": loaded,
             "degraded": self._degraded_reason is not None,
             "draining": draining,
-            "openBreakers": [],
+            "openBreakers": open_breakers,
         })
 
     def handle_plugins(self, request: Request) -> Reply:
@@ -1383,11 +1561,18 @@ class EngineServer:
         parsed = urllib.parse.urlsplit(base_url)
         conn_box: list = [None]
 
+        def connect():
+            if parsed.scheme != "https":
+                return http.client.HTTPConnection(
+                    parsed.hostname, parsed.port, timeout=60)
+            return http.client.HTTPSConnection(
+                parsed.hostname, parsed.port, timeout=60,
+                context=loopback_client_context())
+
         def post():
             for attempt in (0, 1):
                 if conn_box[0] is None:
-                    conn_box[0] = http.client.HTTPConnection(
-                        parsed.hostname, parsed.port, timeout=60)
+                    conn_box[0] = connect()
                 conn = conn_box[0]
                 try:
                     conn.request(
@@ -2416,6 +2601,7 @@ class EngineServer:
                               ("/status", self.handle_status),
                               ("/healthz", self.handle_healthz),
                               ("/readyz", self.handle_readyz),
+                              ("/metrics", self.handle_metrics),
                               ("/plugins.json", self.handle_plugins)):
             out[("GET", path)] = handler
         out[("POST", "/queries.json")] = self.handle_query
@@ -2529,7 +2715,6 @@ class _Handler(BaseHTTPRequestHandler):
     wbufsize = -1
 
     def _route(self, method: str) -> None:
-        es = self.server.engine_server
         path, _, qs = self.path.partition("?")
         try:
             length = max(0, int(self.headers.get("Content-Length") or 0))
@@ -2537,6 +2722,12 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_error(400, "bad Content-Length")
             return
         body = self.rfile.read(length) if length else b""
+        telemetry.traced_dispatch(
+            self.headers, method, path,
+            lambda: self._serve(method, path, qs, body))
+
+    def _serve(self, method: str, path: str, qs: str, body: bytes) -> int:
+        es = self.server.engine_server
         table = self.server.routes
         handler = table.get((method, path))
         try:
@@ -2549,15 +2740,24 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 status, obj, headers = _json(
                     404, {"message": f"no route {path}"})
-            data = json.dumps(obj).encode()
+            if isinstance(obj, _Text):
+                data = obj.encode()
+                ctype = "text/plain; charset=utf-8"
+            else:
+                data = json.dumps(obj).encode()
+                ctype = "application/json; charset=utf-8"
             self.send_response(status)
-            self.send_header("Content-Type", "application/json; charset=utf-8")
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
             for k, v in headers.items():
                 self.send_header(k, v)
+            tr = telemetry.current_trace()
+            if tr is not None:
+                self.send_header(telemetry.TRACE_HEADER, tr.trace_id)
             self.end_headers()
             self.wfile.write(data)
             self.wfile.flush()
+            return status
         finally:
             es._answered()
 
@@ -2571,7 +2771,7 @@ class _Handler(BaseHTTPRequestHandler):
         log.debug("%s - " + fmt, self.address_string(), *args)
 
 
-class _HTTPServer(ThreadingHTTPServer):
+class _HTTPServer(TLSServerMixin, ThreadingHTTPServer):
     daemon_threads = True
     # the listen backlog: a burst of new keep-alive clients must not meet
     # dropped SYNs (the default 5 costs a 1 s retransmit each)
@@ -2580,6 +2780,9 @@ class _HTTPServer(ThreadingHTTPServer):
     def __init__(self, addr, engine_server: EngineServer):
         self.engine_server = engine_server
         self.routes = engine_server.routes()
+        # HTTPS only when PIO_SSL_CERTFILE and PIO_SSL_KEYFILE are set; a
+        # bad file raises here, before the socket is bound
+        self.ssl_context = ssl_context_from_env()
         super().__init__(addr, _Handler)
 
 
@@ -2611,9 +2814,11 @@ def run_engine_server(server: EngineServer, host: str = "0.0.0.0",
     for signame in ("SIGTERM", "SIGINT"):
         _signal.signal(getattr(_signal, signame), _on_term)
     if probe_latency:
+        scheme = "https" if server._httpd.ssl_context is not None else "http"
+
         def probe():
             try:
-                server.probe_and_record(f"http://127.0.0.1:{bound_port}")
+                server.probe_and_record(f"{scheme}://127.0.0.1:{bound_port}")
             except Exception:  # noqa: BLE001 - diagnostics never kill serving
                 log.exception("startup latency probe failed; serving anyway")
 

@@ -25,10 +25,11 @@ reason, ``quiet``, and drains the least-loaded READY replica (ties toward
 the highest slot, so the canary's slot 0 stays); while a spawned replica
 is still settling toward ready the loop holds (``settling``).
 
-The reference's ``pio_fleet_scale_events_total`` and
-``pio_fleet_replicas_target`` wait for the port's metrics registry: the
-acted decisions ride the front's ``/healthz`` (``elastic.decisions``) and
-the directive record's ``scale`` payload.
+Telemetry: ``pio_fleet_scale_events_total{direction,reason}`` counts
+acted decisions; ``pio_fleet_replicas_target`` gauges the current target
+(the front process's registry). The acted decisions also ride the front's
+``/healthz`` (``elastic.decisions``) and the directive record's ``scale``
+payload.
 """
 
 from __future__ import annotations
@@ -39,12 +40,25 @@ import json
 import time
 from typing import Optional, Sequence
 
-from ..common import envknobs
+from ..common import envknobs, telemetry
 
 __all__ = [
     "Decision", "ElasticConfig", "ElasticController", "ReplicaSample",
     "plan", "sample_status",
 ]
+
+
+def _metrics():
+    reg = telemetry.registry()
+    return (
+        reg.counter("pio_fleet_scale_events_total",
+                    "Acted autoscaler decisions, by direction "
+                    "(up/down) and reason (floor/shed/utilization/"
+                    "quiet)", ("direction", "reason")),
+        reg.gauge("pio_fleet_replicas_target",
+                  "Replica count the autoscaler is currently driving "
+                  "the fleet toward").labels(),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +282,9 @@ class ElasticController:
         now = time.monotonic() if now is None else now
         self.last_action_at = now
         self._over = self._under = 0
+        events_c, target_g = _metrics()
+        events_c.labels(decision.direction, decision.reason).inc()
+        target_g.set(float(decision.target))
         entry = {**decision.to_json(), "at": time.time()}
         self.decisions.append(entry)
         del self.decisions[:-16]

@@ -34,10 +34,13 @@ alone) becomes the replicas' ``PIO_FAULT_SPEC`` on their FIRST launch
 only; ``fleet.spawn`` fires in the replica entry, ``fleet.promote``
 before a promote commits, ``fleet.record`` in front of directive writes.
 
-The reference's ``pio_fleet_*`` telemetry waits for the engine server's
-half of ROADMAP Queue 1, item 3.3: the same counts
-(:attr:`FleetCoordinator.counts`) ride the front's ``/healthz``
-(``metrics``).
+Telemetry (front process; mirrored into the front's ``/healthz`` as
+``metrics``, :attr:`FleetCoordinator.counts`): ``pio_fleet_state``,
+``pio_fleet_promotes_total``, ``pio_fleet_rollbacks_total{reason}``,
+``pio_fleet_canary_refusals_total{reason}``, ``pio_fleet_replicas_ready``,
+in the front process's registry. The front serves no ``/metrics`` (the
+reference's does not either); each replica's ``/metrics`` carries its own
+``pio_fleet_divergence``.
 """
 
 from __future__ import annotations
@@ -50,12 +53,37 @@ import threading
 import time
 from typing import Optional, Sequence
 
-from ..common import envknobs, faultinject
+from ..common import envknobs, faultinject, telemetry
 from ..common.splice import FrontProxy, probe_ready
 
 log = logging.getLogger("pio.torch.fleet")
 
 __all__ = ["FleetCoordinator", "run_fleet"]
+
+
+def _metrics():
+    reg = telemetry.registry()
+    return (
+        reg.gauge("pio_fleet_state",
+                  "Staged-rollout state of the fleet coordinator "
+                  "(0 steady, 1 canary)").labels(),
+        reg.counter("pio_fleet_promotes_total",
+                    "Canary watch windows that closed clean and "
+                    "promoted the remaining replicas").labels(),
+        reg.counter("pio_fleet_rollbacks_total",
+                    "Fleet-wide rollbacks propagated by the "
+                    "coordinator, by the originating pin reason",
+                    ("reason",)),
+        reg.gauge("pio_fleet_replicas_ready",
+                  "Replicas whose /readyz currently answers 200 "
+                  "(front readiness poll)").labels(),
+        reg.counter("pio_fleet_canary_refusals_total",
+                    "Canary targets refused before the fleet moved "
+                    "(gate refusal or watch breach ON the canary), by "
+                    "pin reason — NOT fleet rollbacks: the other "
+                    "replicas never served the target",
+                    ("reason",)),
+    )
 
 
 class FleetCoordinator:
@@ -105,8 +133,8 @@ class FleetCoordinator:
         # must neither block a promote forever nor vote on adoption
         # (the shared rule: `pio status` uses the same one)
         self.fresh_s = model_artifact.fleet_fresh_s(sync_ms)
-        # the reference's pio_fleet_* families, by name; the front's
-        # /healthz reports them (the port has no metrics registry yet)
+        # the pio_fleet_* counts by name, for the front's /healthz (the
+        # registry's families move in step)
         self.counts: dict = {
             "pio_fleet_state": 0,
             "pio_fleet_promotes_total": 0,
@@ -188,6 +216,7 @@ class FleetCoordinator:
     def step(self) -> dict:
         """One coordinator tick; returns a snapshot of the record."""
         counts = self.counts
+        state_g, promotes_c, rollbacks_c, _ready_g, refusals_c = _metrics()
         rows = self._rows()
         rec = self.rec
         # 1. merge replica-reported pins (manual /rollback, watch
@@ -228,6 +257,7 @@ class FleetCoordinator:
                             rec["instance"])
                 refusals = counts["pio_fleet_canary_refusals_total"]
                 refusals[reason] = refusals.get(reason, 0) + 1
+                refusals_c.labels(reason).inc()
                 rec.update(state="steady", target=None,
                            canaryReplica=None)
                 self._dirty = True
@@ -246,6 +276,7 @@ class FleetCoordinator:
                              rec["canaryReplica"], rec["target"],
                              rec["lastGood"])
                     counts["pio_fleet_promotes_total"] += 1
+                    promotes_c.inc()
                     rec.update(state="steady", instance=rec["target"],
                                target=None, canaryReplica=None)
                     self._dirty = True
@@ -266,6 +297,7 @@ class FleetCoordinator:
                                 rec["instance"], reason, back)
                     rollbacks = counts["pio_fleet_rollbacks_total"]
                     rollbacks[reason] = rollbacks.get(reason, 0) + 1
+                    rollbacks_c.labels(reason).inc()
                     rec.update(instance=back, lastGood=None)
                     self._dirty = True
                 else:
@@ -334,6 +366,7 @@ class FleetCoordinator:
         # coordinator's record, replacing the dict `rec` aliases
         rec = self.rec
         counts["pio_fleet_state"] = 1 if rec["state"] == "canary" else 0
+        state_g.set(counts["pio_fleet_state"])
         return {**rec, "pinned": dict(rec["pinned"]),
                 "scale": dict(rec.get("scale") or {})}
 
@@ -574,6 +607,7 @@ def run_fleet(worker_argv: Sequence[str], replicas: int, host: str,
                 front.set_ready(i, ok is True)
             coordinator.counts["pio_fleet_replicas_ready"] = \
                 front.ready_count()
+            _metrics()[3].set(front.ready_count())
             await asyncio.sleep(ready_ms / 1000.0)
 
     async def coord_loop() -> None:

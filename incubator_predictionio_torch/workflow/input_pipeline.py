@@ -33,8 +33,10 @@ Knobs (environment; a workflow's params override them, see
 - ``PIO_PIPELINE_WORKERS``: featurize threads, 2.
 
 A rank of a training gang never streams (the reference's rule for a
-multi-process run). The reference's ``pio_pipeline_*`` gauges wait for
-``/metrics``; :class:`PipelineStats` carries the same numbers.
+multi-process run). The last streamed run's decomposition goes to the
+process registry (``pio_pipeline_stage_seconds{stage}``,
+``pio_pipeline_chunks``, ``pio_pipeline_overlap_efficiency``) and, through
+:class:`PipelineStats`, into the train report's ``timings.pipeline``.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
 
-from ..common import envknobs
+from ..common import envknobs, telemetry
 
 __all__ = ["DeviceRing", "PipelineConfig", "PipelineStats",
            "PipelineWorkerError", "chunk_ranges", "pipeline_of", "prefetch",
@@ -128,6 +130,22 @@ class PipelineConfig:
         return n_rows >= 2 * (self.chunk_rows if chunk is None else chunk)
 
 
+# last-run stage gauges (training is episodic: "the most recent run's
+# decomposition", not a histogram of runs)
+_M_STAGE = telemetry.registry().gauge(
+    "pio_pipeline_stage_seconds",
+    "Input-pipeline stage busy seconds for the most recent streamed "
+    "train (featurize/upload/consume are per-stage sums, wall is "
+    "end-to-end)", ("stage",))
+_M_CHUNKS = telemetry.registry().gauge(
+    "pio_pipeline_chunks",
+    "Chunks streamed by the most recent pipelined train")
+_M_EFFICIENCY = telemetry.registry().gauge(
+    "pio_pipeline_overlap_efficiency",
+    "wall / max(stage) for the most recent streamed train (1.0 = "
+    "perfect stage overlap, higher = serialization waste)")
+
+
 @dataclasses.dataclass
 class PipelineStats:
     """One streamed run's accounting. ``featurize_seconds`` sums the time
@@ -162,6 +180,17 @@ class PipelineStats:
         top = max(self.featurize_seconds, self.upload_seconds,
                   self.consume_seconds)
         return self.wall_seconds / top if top > 0 else None
+
+    def publish(self) -> None:
+        """Export this run's decomposition to the registry's gauges (the
+        last run wins)."""
+        _M_STAGE.labels("featurize").set(self.featurize_seconds)
+        _M_STAGE.labels("upload").set(self.upload_seconds)
+        _M_STAGE.labels("consume").set(self.consume_seconds)
+        _M_STAGE.labels("wall").set(self.wall_seconds)
+        _M_CHUNKS.labels().set(self.n_chunks)
+        if self.overlap_efficiency is not None:
+            _M_EFFICIENCY.labels().set(self.overlap_efficiency)
 
     def as_dict(self) -> dict:
         out = {f.name: getattr(self, f.name)
@@ -288,6 +317,7 @@ def run_pipeline(host_chunks: Iterable[Any], upload: Callable[[Any], Any],
                 close()
             if stats is not None:
                 stats.wall_seconds = time.perf_counter() - t_start
+                stats.publish()
     return n
 
 

@@ -20,7 +20,9 @@ reference's verdict ("legacy", accepted by ``unwrap_verified``), and the
 port's deserializer then refuses it (``deserialize``), so a pickle is never
 loaded.
 
-Failure kinds (counted per kind in :func:`integrity_failure_counts`):
+Failure kinds (counted per kind in :func:`integrity_failure_counts` and
+``pio_model_integrity_failures_total{kind}``; a legacy blob passed on counts
+into ``pio_model_legacy_loads_total``):
 ``missing`` (COMPLETED row without a model), ``header`` (envelope damaged),
 ``version`` (written by a newer format), ``size`` (payload length mismatch —
 truncation), ``checksum`` (sha256 mismatch — corruption) and ``deserialize``
@@ -39,7 +41,7 @@ import struct
 import threading
 from typing import Optional
 
-from ..common import faultinject
+from ..common import faultinject, telemetry
 from ..data.storage.base import Model
 
 log = logging.getLogger("pio.torch.model_artifact")
@@ -53,6 +55,15 @@ _LEN = struct.Struct(">I")
 
 _counts_lock = threading.Lock()
 _INTEGRITY_FAILURES: collections.Counter = collections.Counter()
+_M_INTEGRITY_FAILURES = telemetry.registry().counter(
+    "pio_model_integrity_failures_total",
+    "Model blobs refused by the verifying loader, by failure kind "
+    "(missing/header/version/size/checksum/deserialize)",
+    ("kind",))
+_M_LEGACY_LOADS = telemetry.registry().counter(
+    "pio_model_legacy_loads_total",
+    "Pre-checksum model blobs accepted without verification (written "
+    "before the envelope format; re-train to upgrade)")
 
 
 class ModelIntegrityError(RuntimeError):
@@ -69,6 +80,7 @@ class ModelIntegrityError(RuntimeError):
 def count_integrity_failure(kind: str) -> None:
     with _counts_lock:
         _INTEGRITY_FAILURES[kind] += 1
+    _M_INTEGRITY_FAILURES.labels(kind).inc()
 
 
 def integrity_failure_counts() -> dict[str, int]:
@@ -158,6 +170,7 @@ def unwrap_verified(blob: bytes, instance_id: str) -> bytes:
     blob = bytes(blob)
     if not blob.startswith(MAGIC):
         if blob[:1] == b"\x80":
+            _M_LEGACY_LOADS.labels().inc()
             log.warning(
                 "model for engine instance %s predates checksummed "
                 "artifacts; passing it on unverified", instance_id)

@@ -37,9 +37,13 @@ tests use the public surface: ``resolve_app`` / ``admit`` /
 ``ensure_loaded`` / ``note_result`` / ``rollback_tenant`` / ``release`` /
 ``foldin_tick`` / ``snapshot``. In a replica fleet the coordinator and
 every replica scope their directive group to the default app
-(:func:`fleet_app`, :func:`replica_fleet_app`). The reference's ``pio_tenant_*`` telemetry
-waits for the port's metrics registry; the same counts ride
-:meth:`TenantMux.snapshot`, which ``/status`` reports.
+(:func:`fleet_app`, :func:`replica_fleet_app`).
+
+Telemetry (the engine server's ``/metrics``):
+``pio_tenant_queries_total{app}``, ``pio_tenant_shed_total{app}``,
+``pio_tenant_rollbacks_total{app}``, ``pio_tenant_loads_total``,
+``pio_tenant_evictions_total`` and the ``pio_tenant_resident`` gauge; the
+same counts ride :meth:`TenantMux.snapshot`, which ``/status`` reports.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ import threading
 import time
 from typing import Optional
 
-from ..common import envknobs
+from ..common import envknobs, telemetry
 from . import model_artifact
 from .context import WorkflowContext
 from .core_workflow import load_deployment
@@ -81,6 +85,31 @@ def replica_fleet_app() -> Optional[str]:
     """The replica side of :func:`fleet_app`: the app the front scoped this
     fleet to (``PIO_FLEET_APP``), or None for an unscoped fleet."""
     return envknobs.env_str(FLEET_APP_ENV, "", lower=False) or None
+
+_M_QUERIES = telemetry.registry().counter(
+    "pio_tenant_queries_total",
+    "Queries admitted to a non-default tenant, per app", ("app",))
+_M_SHED = telemetry.registry().counter(
+    "pio_tenant_shed_total",
+    "Queries refused 503 by a tenant's OWN admission budget "
+    "(PIO_TENANT_MAX_PENDING) — the process-level gate counts "
+    "separately", ("app",))
+_M_ROLLBACKS = telemetry.registry().counter(
+    "pio_tenant_rollbacks_total",
+    "Per-tenant rollbacks (watch breach or validation refusal pinning "
+    "that app's instance alone), per app", ("app",))
+_M_LOADS = telemetry.registry().counter(
+    "pio_tenant_loads_total",
+    "Tenant model loads: lazy first-query loads, post-eviction "
+    "reloads, rollback walk-backs and fold-in publishes").labels()
+_M_EVICTIONS = telemetry.registry().counter(
+    "pio_tenant_evictions_total",
+    "Tenant deployments evicted from the resident LRU "
+    "(PIO_TENANT_MAX_RESIDENT)").labels()
+_M_RESIDENT = telemetry.registry().gauge(
+    "pio_tenant_resident",
+    "Tenant deployments currently resident in the multi-tenant LRU "
+    "cache").labels()
 
 
 class UnknownTenant(Exception):
@@ -233,6 +262,7 @@ class TenantMux:
         with self._lock:
             if state.pending >= self.max_pending:
                 state.shed += 1
+                _M_SHED.labels(app).inc()
                 raise AdmissionShed(
                     f"tenant {app!r} admission budget full "
                     f"({state.pending}/{self.max_pending})", 1.0, "tenant")
@@ -242,6 +272,7 @@ class TenantMux:
             state.last_used = time.monotonic()
             if app in self._resident_lru:
                 self._resident_lru.move_to_end(app)
+        _M_QUERIES.labels(app).inc()
         return state
 
     def release(self, state: TenantState) -> None:
@@ -283,6 +314,7 @@ class TenantMux:
                 self._resident_lru[state.name] = state
             self._resident_lru.move_to_end(state.name)
             self._shrink_locked()
+            _M_RESIDENT.set(len(self._resident_lru))
         return state
 
     def _shrink_locked(self) -> None:
@@ -291,7 +323,7 @@ class TenantMux:
         while len(self._resident_lru) > self.max_resident:
             victim = self._evict_victim()
             if victim is None:
-                return          # everyone busy: collect at release time
+                break           # everyone busy: collect at release time
             self._resident_lru.pop(victim.name, None)
             self._parked[victim.name] = victim
             # drop ONLY the heavy halves: pins and counters survive, so a
@@ -302,9 +334,11 @@ class TenantMux:
             victim.watch = None
             victim.foldin = None
             self._evictions += 1
+            _M_EVICTIONS.inc()
             log.info("tenant %r evicted from the resident cache (%d/%d "
                      "resident)", victim.name, len(self._resident_lru),
                      self.max_resident)
+        _M_RESIDENT.set(len(self._resident_lru))
 
     def _evict_victim(self) -> Optional[TenantState]:
         """LRU-order scan for the first idle (refcount-zero) tenant."""
@@ -359,6 +393,7 @@ class TenantMux:
         state.degraded = None
         with self._lock:
             self._total_loads += 1
+        _M_LOADS.inc()
         # EVERY tenant load arms the watch (not just swaps): a lazily
         # loaded model is unvetted in this process
         if srv.swap_watch_ms > 0:
@@ -422,6 +457,7 @@ class TenantMux:
             state.pinned.setdefault(bad.id, reason)
             state.watch = None
             state.rollbacks[reason] = state.rollbacks.get(reason, 0) + 1
+            _M_ROLLBACKS.labels(state.name).inc()
             if state.previous is not None:
                 state.deployment, state.instance = state.previous
                 state.previous = None
@@ -450,6 +486,7 @@ class TenantMux:
         with self._lock:
             if self._resident_lru.pop(state.name, None) is not None:
                 self._parked[state.name] = state
+            _M_RESIDENT.set(len(self._resident_lru))
 
     @staticmethod
     def _note_foldin_pin(instance, reason: str) -> None:

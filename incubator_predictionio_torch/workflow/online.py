@@ -33,9 +33,11 @@ is dropped whole.
 
 Fault points: ``foldin.read`` (before the tail read), ``foldin.apply``
 (before the fold), ``foldin.publish`` (after the model blob lands, before
-the COMPLETED stamp). The reference's ``pio_foldin_*`` telemetry waits for
-the port's metrics registry: the same counts ride ``view()`` and
-:func:`rollback_counts`, which the engine server's ``/status`` reports.
+the COMPLETED stamp). Telemetry: ``pio_foldin_events_total``,
+``pio_foldin_publishes_total``, ``pio_foldin_rollbacks_total{reason}`` and
+the ``pio_foldin_freshness_lag_seconds`` gauge (the engine server's
+``/metrics``); the same counts ride ``view()`` and :func:`rollback_counts`,
+which ``/status`` reports.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import threading
 import time
 from typing import Optional
 
-from ..common import faultinject
+from ..common import faultinject, telemetry
 from ..data.api.log_tail import LogCursor, LogTailer
 from ..data.storage.event import new_event_id
 from . import model_artifact
@@ -91,6 +93,24 @@ def _touched_users(events) -> Optional[set]:
     return users
 
 
+_M_EVENTS = telemetry.registry().counter(
+    "pio_foldin_events_total",
+    "Events read from the log tail by the online fold-in loop").labels()
+_M_PUBLISHES = telemetry.registry().counter(
+    "pio_foldin_publishes_total",
+    "Fold-in increments committed as new COMPLETED engine "
+    "instances").labels()
+_M_ROLLBACKS = telemetry.registry().counter(
+    "pio_foldin_rollbacks_total",
+    "Fold-in increments refused or rolled back through the model "
+    "lifecycle (validate = gate refusal, error-rate = post-swap watch "
+    "breach, plus any manual/fleet pin reason)", ("reason",))
+_M_LAG = telemetry.registry().gauge(
+    "pio_foldin_freshness_lag_seconds",
+    "Seconds since the fold-in view last caught up with the event log "
+    "(grows while the loop is failing or falling behind)").labels()
+
+
 def is_foldin_instance(instance) -> bool:
     """Whether this engine-instance row was produced by a fold-in
     increment (the provenance marker ``_commit_increment`` writes)."""
@@ -106,6 +126,7 @@ def note_rollback(reason: str) -> None:
     the fold-in marker)."""
     with _rollback_lock:
         _rollbacks[reason] = _rollbacks.get(reason, 0) + 1
+    _M_ROLLBACKS.labels(reason).inc()
 
 
 def rollback_counts() -> dict[str, int]:
@@ -331,8 +352,10 @@ class FoldInRunner:
             # count events once the cursor commits past them: a tick that
             # faults re-reads the same batch next tick
             self._events += len(batch.events)
+            _M_EVENTS.inc(len(batch.events))
             self._cursor = batch.cursor
             self._caught_up_at = now
+            _M_LAG.set(0.0)
             self._persist_cursor(now)
             self._last_error = None
             out = self.view()
@@ -341,6 +364,8 @@ class FoldInRunner:
             return out
         except Exception as e:
             self._last_error = str(e)
+            if self._caught_up_at is not None:
+                _M_LAG.set(time.time() - self._caught_up_at)
             raise
 
     def _fold_and_commit(self, deployment, instance, batch,
@@ -384,6 +409,7 @@ class FoldInRunner:
         self._pending = (iid, ancestors, new_models, users)
         self._publishes += 1
         self._last_instance = iid
+        _M_PUBLISHES.inc()
         log.info("fold-in: %d event(s) folded into %s -> new instance %s "
                  "(LSN %d)", len(batch.events), base_id, iid,
                  batch.cursor.total())

@@ -24,9 +24,12 @@ with the reference's ``/status`` keys:
    the same rollback path as an error-rate breach, with reason
    ``quality``.
 
-The reference's ``pio_engine_quality_*`` telemetry waits for the port's
-metrics registry; the same counts ride :meth:`QualityShadow.view`, which
-``/status`` reports.
+Telemetry: ``pio_engine_quality_samples_total``,
+``pio_engine_quality_scored_total``, ``pio_engine_quality_expired_total``,
+``pio_engine_quality_breaches_total``, and the
+``pio_engine_quality_metric``/``pio_engine_quality_delta`` gauges
+(labelled by metric), on the engine server's ``/metrics``; the same counts
+ride :meth:`QualityShadow.view`, which ``/status`` reports.
 """
 
 from __future__ import annotations
@@ -39,12 +42,38 @@ import time
 from collections import deque
 from typing import Optional
 
+from ..common import telemetry
 from ..data.api.holdout import HoldoutTailer
 from ..ops import eval as evalops
 
 log = logging.getLogger("pio.torch.quality")
 
 __all__ = ["QualityShadow", "extract_ranking"]
+
+
+_M_SAMPLES = telemetry.registry().counter(
+    "pio_engine_quality_samples_total",
+    "Live queries sampled by the shadow scorer").labels()
+_M_SCORED = telemetry.registry().counter(
+    "pio_engine_quality_scored_total",
+    "Sampled queries that resolved against held-out next events and "
+    "were graded").labels()
+_M_EXPIRED = telemetry.registry().counter(
+    "pio_engine_quality_expired_total",
+    "Sampled queries dropped unresolved (the user never acted inside "
+    "the expiry window, or the served model swapped)").labels()
+_M_BREACHES = telemetry.registry().counter(
+    "pio_engine_quality_breaches_total",
+    "Quality-watch verdicts that crossed the canary-vs-last-good "
+    "threshold (each arms one quality rollback)").labels()
+_M_METRIC = telemetry.registry().gauge(
+    "pio_engine_quality_metric",
+    "Windowed mean ranking quality of the LIVE model against held-out "
+    "next events", ("metric",))
+_M_DELTA = telemetry.registry().gauge(
+    "pio_engine_quality_delta",
+    "Windowed last-good-minus-live quality delta (positive = the live "
+    "model is worse)", ("metric",))
 
 
 def extract_ranking(prediction) -> Optional[list]:
@@ -133,6 +162,7 @@ class QualityShadow:
                                     time.time()))
         with self._offer_lock:
             self._sampled += 1
+        _M_SAMPLES.inc()
 
     # -- bootstrap ----------------------------------------------------------
     def _arm(self, instance) -> bool:
@@ -211,7 +241,10 @@ class QualityShadow:
             raise
 
     def _reset_window(self, instance_id) -> None:
-        self._expired += len(self._pending)
+        dropped = len(self._pending)
+        if dropped:
+            self._expired += dropped
+            _M_EXPIRED.inc(dropped)
         self._pending.clear()
         self._live.reset()
         self._shadow.reset()
@@ -247,6 +280,7 @@ class QualityShadow:
             if not labels:
                 if age >= expire_s:
                     self._expired += 1
+                    _M_EXPIRED.inc()
                 else:
                     keep.append(s)
                 continue
@@ -264,17 +298,24 @@ class QualityShadow:
             self._shadow.add(evalops.ranking_metrics(
                 shadow_lists, shadow_labels, self.k, device=self.device))
         self._scored += len(live_lists)
+        _M_SCORED.inc(len(live_lists))
+        means = self._live.means()
+        for m in ("map", "ndcg", "auc"):
+            _M_METRIC.labels(m).set(round(means[m], 6))
 
     def _verdict(self) -> bool:
         breach, deltas = evalops.quality_verdict(
             self._live.means(), self._shadow.means(),
             min_samples=self.min_samples, max_drop=self.max_drop)
         self._deltas = deltas
+        for m, d in deltas.items():
+            _M_DELTA.labels(m).set(d)
         if breach and not self._breached:
             # latched: one breach verdict per window (the server rolls back
             # once, and the window resets with the swap)
             self._breached = True
             self._breaches += 1
+            _M_BREACHES.inc()
             return True
         return False
 

@@ -29,7 +29,9 @@ its engine directory), and for the Classification and Text-Classification
 templates (Naive Bayes and L-BFGS LR, the codec's tokenizer) with the
 fake workflow, self-cleaning and a self-persisted model, and for the
 Universal Recommender and Complementary Purchase templates (train → persist
-→ serve, with the codec's CCO layout). (This pytest process has JAX loaded by
+→ serve, with the codec's CCO layout), for ``pio storageserver``, and for a
+``train`` whose metadata and events are read over a storage server (HTTP)
+and whose model lands in PostgreSQL (``tests/pg_mock.py``). (This pytest process has JAX loaded by
 tests/conftest.py, so the run-time check needs its own process.)
 """
 
@@ -92,7 +94,9 @@ def test_port_files_exist():
             "distributed.py", "mesh.py", "partition_feed.py",
             "train_feed.py", "input_pipeline.py", "telemetry.py",
             "stats.py", "ingest_wal.py", "ingest_buffer.py", "segmentio.py",
-            "mailchimp.py",
+            "mailchimp.py", "ssl_config.py", "storage_server.py",
+            "http_backend.py", "pgwire.py", "postgres.py", "mysqlwire.py",
+            "mysql.py",
             } <= names
     assert (ROOT / "incubator_predictionio_torch" / "e2"
             / "engine.py").is_file()
@@ -481,6 +485,7 @@ def verb_store(tmp_path_factory):
     ["batchpredict", "--device", "cpu", "--input", "queries.jsonl",
      "--output", "predictions.jsonl"],
     ["models", "list"],
+    ["storageserver", "--port", "{port}"],
 ], ids=lambda v: v[0])
 def test_verb_in_a_process_without_jax(verb, verb_store):
     port = str(_free_port())
@@ -1052,3 +1057,72 @@ def _gang_train_without_jax(tmp_path, extra: list, kind: str = "als") -> None:
     assert sum("--num-workers" in d["argv"] for d in docs) == 1, docs
     assert len(docs) == 3, docs  # the supervisor and its two ranks
     assert all(d["loaded"] == [] for d in docs), docs
+
+
+def test_network_store_train_in_a_process_without_jax(tmp_path):
+    """``train`` on the network stores: apps, keys and events over the
+    port's storage server (TYPE=HTTP), the model into PostgreSQL."""
+    import json
+
+    from pg_mock import MockPGServer
+
+    from incubator_predictionio_torch.data.api.storage_server import (
+        StorageServer,
+    )
+    from incubator_predictionio_torch.data.storage import App, Event, Storage
+
+    backing = Storage({
+        f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "S"
+        for r in ("METADATA", "EVENTDATA", "MODELDATA")} | {
+        "PIO_STORAGE_SOURCES_S_TYPE": "SQLITE",
+        "PIO_STORAGE_SOURCES_S_PATH": str(tmp_path / "backing.sqlite")})
+    app_id = backing.get_meta_data_apps().insert(App(0, "netapp"))
+    backing.get_l_events().insert_batch([Event.from_json({
+        "event": "rate", "entityType": "user", "entityId": f"u{u}",
+        "targetEntityType": "item", "targetEntityId": f"i{(u * 7 + k) % 9}",
+        "properties": {"rating": float(1 + (u + k) % 5)}})
+        for u in range(12) for k in range(4)], app_id)
+    (tmp_path / "engine.json").write_text(json.dumps({
+        "engineFactory": "incubator_predictionio_torch.models."
+                         "recommendation.RecommendationEngine",
+        "datasource": {"params": {"appName": "netapp"}},
+        "algorithms": [{"name": "als", "params": {"rank": 4,
+                                                  "numIterations": 2}}]}))
+    srv = StorageServer(backing, "127.0.0.1", 0, secret="tok")
+    port = srv.start()[1]
+    try:
+        with MockPGServer(user="pio", password="pw") as pg:
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith("PIO_STORAGE_")}
+            env.update({
+                "PYTHONPATH": str(ROOT),
+                "PIO_FS_BASEDIR": str(tmp_path / "base"),
+                "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "NET",
+                "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "NET",
+                "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "PG",
+                "PIO_STORAGE_SOURCES_NET_TYPE": "HTTP",
+                "PIO_STORAGE_SOURCES_NET_HOSTS": "127.0.0.1",
+                "PIO_STORAGE_SOURCES_NET_PORTS": str(port),
+                "PIO_STORAGE_SOURCES_NET_SECRET": "tok",
+                "PIO_STORAGE_SOURCES_PG_TYPE": "PGSQL",
+                "PIO_STORAGE_SOURCES_PG_HOST": "127.0.0.1",
+                "PIO_STORAGE_SOURCES_PG_PORT": str(pg.port),
+                "PIO_STORAGE_SOURCES_PG_USERNAME": "pio",
+                "PIO_STORAGE_SOURCES_PG_PASSWORD": "pw"})
+            out = subprocess.run(
+                [sys.executable, "-c", _VERB, "train", "--device", "cpu"],
+                capture_output=True, text=True, env=env, cwd=str(tmp_path),
+                timeout=300)
+            assert out.returncode == 0, out.stderr[-3000:]
+            assert '"loaded": []' in out.stdout.strip().splitlines()[-1]
+            iid = json.loads(out.stdout.strip().splitlines()[-2])[
+                "engineInstanceId"]
+            models = Storage({k: v for k, v in env.items()
+                              if k.startswith("PIO_STORAGE_")})
+            assert models.get_model_data_models().get(iid) is not None
+            assert models.get_meta_data_engine_instances().get(
+                iid).status == "COMPLETED"
+            models.close()
+    finally:
+        srv.stop()
+        backing.close()

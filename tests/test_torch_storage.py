@@ -3,7 +3,9 @@
 the JAX package's.
 
 The reference's storage contract (``tests/test_storage_contract.py``) runs
-as one parametrised test over the port's MEMORY and SQLITE backends. Across
+as one parametrised test over the port's MEMORY, SQLITE and JSONL backends
+and its network stores: HTTP (the port's ``pio storageserver`` over
+SQLite), PGSQL (``tests/pg_mock.py``) and MYSQL (``tests/mysql_mock.py``). Across
 packages: one SQLite file is written by either package's ``Storage`` and
 read by the other with equal rows; ``PEventStore.find_ratings`` gives the
 identical triple and id maps from either package (tied event times,
@@ -12,6 +14,7 @@ byte-identical and ``describe`` / ``unwrap_verified`` give the same
 verdicts on intact, truncated and bit-flipped blobs.
 """
 
+import contextlib
 import dataclasses
 import datetime as dt
 import json
@@ -57,6 +60,50 @@ def _env(kind, tmp_path, name="S"):
         for r in ("METADATA", "EVENTDATA", "MODELDATA")
     } | {f"PIO_STORAGE_SOURCES_{name}_TYPE": "SQLITE",
          f"PIO_STORAGE_SOURCES_{name}_PATH": str(tmp_path / "pio.sqlite")}
+
+
+def _net_env(name, stype, props):
+    return {f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": name
+            for r in ("METADATA", "EVENTDATA", "MODELDATA")} | {
+        f"PIO_STORAGE_SOURCES_{name}_TYPE": stype} | {
+        f"PIO_STORAGE_SOURCES_{name}_{k}": v for k, v in props.items()}
+
+
+@contextlib.contextmanager
+def _store(kind, tmp_path):
+    """A port ``Storage`` of ``kind``, with its server for a network one."""
+    if kind == "http":
+        from incubator_predictionio_torch.data.api.storage_server import (
+            StorageServer,
+        )
+
+        backing = Storage(_env("sqlite", tmp_path, "B"))
+        srv = StorageServer(backing, "127.0.0.1", 0)
+        host, port = srv.start()
+        try:
+            s = Storage(_net_env("NET", "HTTP",
+                                 {"HOSTS": host, "PORTS": str(port)}))
+            yield s
+            s.close()
+        finally:
+            srv.stop()
+            backing.close()
+        return
+    if kind in ("pgsql", "mysql"):
+        if kind == "pgsql":
+            from pg_mock import MockPGServer as Mock
+        else:
+            from mysql_mock import MockMySQLServer as Mock
+        with Mock(user="pio", password="piosecret") as srv:
+            s = Storage(_net_env("DB", kind.upper(), {
+                "HOST": "127.0.0.1", "PORT": str(srv.port),
+                "USERNAME": "pio", "PASSWORD": "piosecret"}))
+            yield s
+            s.close()
+        return
+    s = Storage(_env(kind, tmp_path))
+    yield s
+    s.close()
 
 
 def _ts(i):
@@ -326,13 +373,11 @@ CONTRACT = [
 
 
 @pytest.mark.parametrize("case", CONTRACT, ids=lambda f: f.__name__[1:])
-@pytest.mark.parametrize("backend", ["memory", "sqlite", "jsonl"])
+@pytest.mark.parametrize("backend", ["memory", "sqlite", "jsonl", "http",
+                                     "pgsql", "mysql"])
 def test_storage_contract(backend, case, tmp_path):
-    storage = Storage(_env(backend, tmp_path))
-    try:
+    with _store(backend, tmp_path) as storage:
         case(storage)
-    finally:
-        storage.close()
 
 
 # -- registry --------------------------------------------------------------
@@ -355,7 +400,7 @@ def test_default_store_is_the_reference_sqlite_file(tmp_path, monkeypatch):
             if Storage({}).repo_source_type(r) != "SQLITE"] == []
 
 
-@pytest.mark.parametrize("stype", ["S3", "HTTP", "PGSQL", "ELASTICSEARCH",
+@pytest.mark.parametrize("stype", ["S3", "ELASTICSEARCH", "HBASE", "HDFS",
                                    "BOGUS"])
 def test_unported_backend_raises(stype, tmp_path):
     env = _env("sqlite", tmp_path) | {"PIO_STORAGE_SOURCES_S_TYPE": stype}
