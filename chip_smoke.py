@@ -132,6 +132,14 @@ Phases (any failure exits non-zero; nothing is caught):
    /metrics, a traced query's spans) and a TLS event server; the storage
    server SIGKILLed (503 + Retry-After, /readyz 503 naming the breaker)
    and restarted (ready again, every acknowledged event once).
+12g. object_search_storage (after 12f, on its events and its SQLite
+   twin): the stand-in servers of tests/ as threads of this process;
+   Elasticsearch metadata and events with S3 models, and HBase events
+   over the native RPC (two regions) with HDFS models; in-process app new
+   and import, both pio trains at once (launches = implied, bit-equal to
+   the twin, within 2e-4 of train_als), the same events through the HBase
+   REST gateway read equal to the RPC read, pio deploy restoring from S3
+   (200 queries held to the host top-k).
 13. pio_workflow_jsonl_ml20m: the first 312,500 of the ML-20M ratings
    as the log (byte for byte insert_batch's lines; cut from 20,000,263
    for the script's time, ``reduced``) → eventlog compact → the read held
@@ -276,6 +284,14 @@ Phases (any failure exits non-zero; nothing is caught):
    iteration, one iteration profiled; one fold-in batch (2 wide launches,
    card vs CPU).
 
+Two overlaps keep the script inside its time: phases 15–19b run in a
+second process (this script with --tail-group) while the main one runs
+14 and 20–23, and 12d runs in a thread beside 12g (it launches no kernel
+that a path of this process counts). Each pair is bound by process starts
+and the host, so it takes about as long as its longer half. The second
+process's phase lines are printed when both groups are done; its paths'
+launches join the kernels line.
+
 Each path runs with every launch counter at 0 just before it and is read
 just after; the kernels line sums the paths' launches per kernel.
 
@@ -368,13 +384,18 @@ CARD = ""  # "name, power limit" from nvidia-smi, set in phase 0
 #: each path's kernel launches, counted from 0 over that path's run
 PATH_LAUNCHES: dict = {}
 START = time.perf_counter()
+#: held while a line is printed, and while a verb called in process has
+#: stdout redirected: a phase that runs beside another (_Beside) neither
+#: splits a line nor loses one into the verb's capture
+STDOUT_LOCK = threading.Lock()
 
 
 def emit(phase: str, **fields) -> None:
     """One phase line, with the seconds since the script started."""
-    print(json.dumps({"phase": phase, "card": CARD,
-                      "elapsed_s": time.perf_counter() - START, **fields}),
-          flush=True)
+    line = json.dumps({"phase": phase, "card": CARD,
+                       "elapsed_s": time.perf_counter() - START, **fields})
+    with STDOUT_LOCK:
+        print(line, flush=True)
 
 
 def peak_rates() -> tuple[float, float, str]:
@@ -1743,6 +1764,14 @@ def _verb(args: list, env: dict, cwd: str, timeout: int = 900):
     return out, seconds
 
 
+def _import_seconds(stdout: str, count: int, what: str) -> float:
+    """The seconds an ``import`` verb reports, once it is checked to have
+    imported ``count`` events and skipped none."""
+    line = [ln for ln in stdout.splitlines() if "Imported" in ln][-1]
+    check(f"Imported {count} events (0 skipped)" in line, f"{what}: {line}")
+    return float(line.rsplit(" in ", 1)[1].rstrip("s."))
+
+
 def _percentiles(ms: list) -> dict:
     a = np.asarray(ms)
     return {"p50_ms": float(np.percentile(a, 50)),
@@ -1876,9 +1905,7 @@ def phase_pio_workflow(workdir: str) -> None:
     out, wall_s = _verb(["import", "--app-name", "ml1m", "--input",
                          events_path], env, workdir)
     cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
-    line = [ln for ln in out.stdout.splitlines() if "Imported" in ln][-1]
-    check(f"Imported {nnz} events (0 skipped)" in line, f"import: {line}")
-    import_s = float(line.rsplit(" in ", 1)[1].rstrip("s."))
+    import_s = _import_seconds(out.stdout, nnz, "import")
     SQLITE_NUMBERS.update(events=nnz, import_events_per_s=nnz / import_s)
     emit("pio_workflow_import", events=nnz, reduced=(
         f"first {nnz} of the {ML1M[2]} ML-1M events (time budget)"),
@@ -2159,10 +2186,11 @@ def _storage_of(env: dict) -> Storage:
                     if k.startswith("PIO_STORAGE_")})
 
 
-def _write_engine_json(workdir: str, app: str) -> None:
+def _write_engine_json(workdir: str, app: str,
+                       variant: str = "default") -> None:
     with open(os.path.join(workdir, "engine.json"), "w",
               encoding="utf-8") as fh:
-        json.dump({"id": "default",
+        json.dump({"id": variant,
                    "engineFactory": "incubator_predictionio_torch.models."
                                     "recommendation.RecommendationEngine",
                    "datasource": {"params": {"appName": app}},
@@ -2316,10 +2344,7 @@ def phase_pio_workflow_jsonl(workdir: str) -> None:
     for k, (part, count) in enumerate(halves):
         out, _ = _verb(["import", "--app-name", "ml1m", "--input", part],
                        env, workdir)
-        line = [ln for ln in out.stdout.splitlines() if "Imported" in ln][-1]
-        check(f"Imported {count} events (0 skipped)" in line,
-              f"import: {line}")
-        import_s.append(float(line.rsplit(" in ", 1)[1].rstrip("s.")))
+        import_s.append(_import_seconds(out.stdout, count, "import"))
         os.unlink(part)
         if k == 0:
             out, wall = _verb(["eventlog", "compact"], env, workdir)
@@ -7783,7 +7808,7 @@ def _query_run(srv: _Served, users: list, stored: dict) -> dict:
     return _percentiles(ms[1:])
 
 
-def phase_network_storage(workdir: str) -> None:
+def phase_network_storage(workdir: str) -> dict:
     """The port's network stores on the card host: ``pio storageserver``
     (a subprocess over its own SQLite file, bearer token) holds METADATA
     and EVENTDATA (TYPE=HTTP), tests/pg_mock.py's PostgreSQL server in this
@@ -7805,7 +7830,11 @@ def phase_network_storage(workdir: str) -> None:
     answers 503 naming it after a /reload reaches the dead store; the
     storage server restarts on its port: after the reset time /readyz
     answers 200 and POSTs are accepted; every acknowledged event is read
-    back exactly once."""
+    back exactly once.
+
+    Returns what ``object_search_storage`` reuses: the events file, the
+    plain triple, the SQLite twin's persisted model, train_als's factors
+    on the triple and the SQLite read seconds."""
     # tests/pg_mock.py by its path (the standard library only): tests/ never
     # joins sys.path, where its other helpers would shadow later imports
     spec = importlib.util.spec_from_file_location(
@@ -7846,10 +7875,8 @@ def phase_network_storage(workdir: str) -> None:
         _verb(["app", "new", "netapp"], env, cwd)
         out, _ = _verb(["import", "--app-name", "netapp", "--input",
                         events_path], env, cwd)
-        line = [ln for ln in out.stdout.splitlines() if "Imported" in ln][-1]
-        check(f"Imported {NET_IMPORT} events (0 skipped)" in line,
-              f"import over HTTP: {line}")
-        import_s["http"] = float(line.rsplit(" in ", 1)[1].rstrip("s."))
+        import_s["http"] = _import_seconds(out.stdout, NET_IMPORT,
+                                           "import over HTTP")
         out, _ = _verb(["app", "new", "netlive"], env, cwd)
         live_key = out.stdout.split("Access Key:")[1].split()[0]
         # the twin: the same file into a plain SQLite store, in this process
@@ -7866,7 +7893,6 @@ def phase_network_storage(workdir: str) -> None:
             sqlite_store.get_l_events().insert_batch(
                 [Event.from_json(json.loads(ln)) for ln in fh], twin_app)
         import_s["sqlite_in_process"] = time.perf_counter() - t0
-        os.unlink(events_path)
 
         # train over the network stores, and over plain SQLite
         want = _expected_triple(imported, [])
@@ -7913,7 +7939,6 @@ def phase_network_storage(workdir: str) -> None:
         check(within(stored["user_factors"], ref.user_factors)
               and within(stored["item_factors"], ref.item_factors),
               f"network_storage train vs train_als: {err}")
-        del ref
 
         # deploy under TLS and plaintext, the event server under TLS
         tls = {"PIO_SSL_CERTFILE": TLS_CERT, "PIO_SSL_KEYFILE": TLS_KEY}
@@ -8071,10 +8096,273 @@ def phase_network_storage(workdir: str) -> None:
                       "storage_server_boot_seconds": boot_s},
              acknowledged=len(acked),
              phase_seconds=time.perf_counter() - t_phase)
+        # the events file outlives this phase's directory
+        kept = os.path.join(workdir, "network_storage_events.jsonl")
+        shutil.move(events_path, kept)
+        return {"events_path": kept, "imported": imported,
+                "want": want, "twin": twin, "ref": ref,
+                "sqlite_read_seconds": plain["timings"]["read_seconds"],
+                "sqlite_import_seconds": import_s["sqlite_in_process"]}
     finally:
         node.stop()
         pg.__exit__(None, None, None)
         shutil.rmtree(cwd, ignore_errors=True)
+
+
+# -- the object and search stores ----------------------------------------
+
+#: the stand-in servers of tests/ (standard library; the RPC one on the
+#: port's own hbase_rpc codec), loaded by path as tests/pg_mock.py is
+STAND_INS = {"es": "torch_es_server", "s3": "torch_s3_server",
+             "hbase_rest": "torch_hbase_server",
+             "hbase_rpc": "torch_hbase_rpc_server",
+             "hdfs": "torch_hdfs_server"}
+OBJ_S3_KEYS = ("AKCHIPSMOKE", "chip-smoke-secret")
+OBJ_PATHS = ("object_search_es_s3", "object_search_hbase_hdfs")
+
+
+def _load_test_module(name: str):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tests", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def _process_store(env: dict):
+    """This process's Storage singleton on ``env``'s stores while a verb
+    function runs in process (the verbs read ``Storage.instance()``);
+    the previous singleton back after."""
+    prev = Storage._singleton
+    Storage._singleton = _storage_of(env)
+    try:
+        yield Storage._singleton
+    finally:
+        Storage._singleton.close()
+        Storage._singleton = prev
+
+
+def _in_process_verb(fn, args: list, env: dict) -> str:
+    """A ``pio`` verb's function called in this process; its stdout."""
+    buf = io.StringIO()
+    with STDOUT_LOCK, _process_store(env), contextlib.redirect_stdout(buf):
+        rc = fn(args)
+    check(rc == 0, f"{fn.__name__} {args} returned {rc}: "
+          f"{buf.getvalue()[-500:]}")
+    return buf.getvalue()
+
+
+def _sources(name: str, props: dict) -> dict:
+    return {f"PIO_STORAGE_SOURCES_{name}_{k}": v for k, v in props.items()}
+
+
+def _repos(meta: str, events: str, models: str) -> dict:
+    return {"PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": meta,
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": events,
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": models}
+
+
+def _same_triples(a: tuple, b: tuple) -> bool:
+    return (all(np.array_equal(x, y) for x, y in zip(a[:3], b[:3]))
+            and list(a[3].to_dict().items()) == list(b[3].to_dict().items())
+            and list(a[4].to_dict().items()) == list(b[4].to_dict().items()))
+
+
+def phase_object_search_storage(workdir: str, net: dict) -> None:
+    """The object and search stores on the card host, on the stand-in
+    servers of tests/ (tests/torch_{es,s3,hbase,hbase_rpc,hdfs}_server.py)
+    run as threads of this process, over network_storage's NET_IMPORT
+    ML-1M-shaped events (the same file).
+
+    Path A: METADATA and EVENTDATA on ELASTICSEARCH, MODELDATA on S3
+    (SigV4 checked by the server): ``pio app new`` and ``pio import``
+    through the verbs' functions in this process, then ``pio train``
+    (rank 32, 10 iterations, λ 0.01; the ES read is the sliced PIT scan)
+    and ``pio deploy``, which restores the model from S3; NET_QUERIES
+    queries held to the host top-k. Path B: EVENTDATA on HBASE over the
+    native RPC (each event table in two regions, split at the events'
+    median time), MODELDATA on HDFS (WebHDFS, the 307 redirect), METADATA
+    on the same Elasticsearch; its ``pio train`` starts together with
+    path A's. Meanwhile, in this process, the same events through the
+    HBase REST gateway and ``PEventStore.find_ratings`` over REST held
+    equal to the one over RPC. Both trains: warp launches = implied, the
+    factors bit-equal to network_storage's SQLite twin of the same events
+    and within 2e-4 of its train_als."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from incubator_predictionio_torch.data.storage.hbase import HBLEvents
+    from incubator_predictionio_torch.tools.commands.app import app_cmd
+    from incubator_predictionio_torch.tools.commands.management import (
+        import_cmd,
+    )
+
+    mods = {k: _load_test_module(v) for k, v in STAND_INS.items()}
+    t_phase = time.perf_counter()
+    cwd = tempfile.mkdtemp(dir=workdir)
+    want, twin, ref = net["want"], net["twin"], net["ref"]
+    events = net["events_path"]
+    # each event table in two regions, split at the events' median time
+    split = HBLEvents._data_key(int(np.median(net["imported"][3])) * 1000, 0)
+    with contextlib.ExitStack() as stack:
+        es = stack.enter_context(mods["es"].ESServer())
+        s3 = stack.enter_context(mods["s3"].S3Server(*OBJ_S3_KEYS))
+        rest = stack.enter_context(mods["hbase_rest"].HBaseRestServer())
+        rpc = stack.enter_context(
+            mods["hbase_rpc"].HBaseRpcServer(default_split=split))
+        hdfs = stack.enter_context(mods["hdfs"].HDFSServer())
+        base = _pio_env(os.path.join(cwd, "pio"))
+        for k in ("PIO_SSL_CERTFILE", "PIO_SSL_KEYFILE", "PIO_TRACE",
+                  "PIO_TRACE_SINK", "PIO_FAULT_SPEC", "PIO_ES_SLICES"):
+            base.pop(k, None)
+        es_src = _sources("ES", {"TYPE": "ELASTICSEARCH",
+                                 "HOSTS": "127.0.0.1", "PORTS": str(es.port)})
+        env_a = base | _repos("ES", "ES", "OBJ") | es_src | _sources("OBJ", {
+            "TYPE": "S3", "ENDPOINT": f"http://127.0.0.1:{s3.port}",
+            "BUCKET": "pio-models", "ACCESS_KEY": OBJ_S3_KEYS[0],
+            "SECRET_KEY": OBJ_S3_KEYS[1]})
+        env_b = base | _repos("ES", "HB", "DFS") | es_src | _sources("HB", {
+            "TYPE": "HBASE", "HOSTS": "127.0.0.1", "PORTS": str(rpc.port),
+            "PROTOCOL": "rpc"}) | _sources("DFS", {
+                "TYPE": "HDFS", "HOSTS": "127.0.0.1",
+                "PORTS": str(hdfs.port), "PATH": "/pio/models"})
+        env_rest = env_b | _sources("HB", {
+            "TYPE": "HBASE", "HOSTS": "127.0.0.1", "PORTS": str(rest.port),
+            "PROTOCOL": "rest"})
+
+        # app new + import through the verbs' functions, in this process
+        import_s = {}
+        for name, env, app in (("elasticsearch", env_a, "objapp"),
+                               ("hbase_rpc", env_b, "hbapp")):
+            _in_process_verb(app_cmd, ["new", app], env)
+            import_s[name] = _import_seconds(_in_process_verb(
+                import_cmd, ["--app-name", app, "--input", events], env),
+                NET_IMPORT, f"import into {name}")
+        meta = _storage_of(env_b)
+        hb_app = meta.get_meta_data_apps().get_by_name("hbapp").id
+        meta.close()
+        table = rpc.tables[f"pio_eventdata_{hb_app}"]
+        rows_by_region = [
+            sum(1 for k in table.region_rows(name) if k.startswith(b"t:"))
+            for _s, _e, name in table.regions]
+        check(len(rows_by_region) == 2 and min(rows_by_region) > 0
+              and sum(rows_by_region) == NET_IMPORT,
+              f"hbase_rpc data rows by region {rows_by_region}")
+
+        # both trains at once, each in its own process
+        dirs = {path: os.path.join(cwd, path) for path in OBJ_PATHS}
+        for (path, app, variant) in zip(OBJ_PATHS, ("objapp", "hbapp"),
+                                        ("default", "hbase-hdfs")):
+            os.makedirs(dirs[path])
+            _write_engine_json(dirs[path], app, variant)
+        # the two processes share the host's cores: each takes half for
+        # its host-side torch threads (two at full width oversubscribe)
+        half = {"OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // 2))}
+        envs = dict(zip(OBJ_PATHS, (env_a | half, env_b | half)))
+        pool = stack.enter_context(ThreadPoolExecutor(2))
+        futures = {path: pool.submit(_train_verb, envs[path], dirs[path],
+                                     path) for path in OBJ_PATHS}
+
+        # meanwhile, in this process: the same events through the REST
+        # gateway
+        import_s["hbase_rest"] = _import_seconds(_in_process_verb(
+            import_cmd, ["--app-name", "hbapp", "--input", events],
+            env_rest), NET_IMPORT, "import into hbase_rest")
+
+        trained, stored, err = {}, {}, {}
+        for path in OBJ_PATHS:
+            trained[path] = futures[path].result()
+            _hold_train(trained[path], want, path)
+            store = _storage_of(envs[path])
+            stored[path] = _hold_model(store, trained[path], want, path)
+            store.close()
+            check(all(np.array_equal(stored[path][k], twin[k]) for k in
+                      ("user_factors", "item_factors", "users", "items")),
+                  f"{path}: the factors differ from the SQLite twin's")
+            got_u, got_i = (stored[path]["user_factors"],
+                            stored[path]["item_factors"])
+            err[path] = {"user": max_err(got_u, ref.user_factors),
+                         "item": max_err(got_i, ref.item_factors)}
+            check(within(got_u, ref.user_factors)
+                  and within(got_i, ref.item_factors),
+                  f"{path} vs train_als: {err[path]}")
+            if path == OBJ_PATHS[0]:
+                # pio deploy of path A's model (restored from S3) boots
+                # while path B still trains
+                t_up = time.perf_counter()
+                booting = _Served(["deploy", "--ip", "127.0.0.1"], env_a,
+                                  dirs[path])
+                stack.push(booting.__exit__)
+        iid_a, iid_b = (trained[p]["engineInstanceId"] for p in OBJ_PATHS)
+        check(any(iid_a in k for k in s3.objects),
+              f"no S3 object holds {iid_a}: {sorted(s3.objects)}")
+        check(any(iid_b in k for k in hdfs.files) and hdfs.redirects > 0,
+              f"no HDFS file holds {iid_b} through a 307: "
+              f"{sorted(hdfs.files)}")
+        check(es.stats["sliced_search"] > 0 and es.stats["pit_open"] > 0,
+              f"the ES training read took no sliced PIT scan: {es.stats}")
+        store = _storage_of(env_a)
+        t0 = time.perf_counter()
+        model_artifact.read_model(store, iid_a)
+        s3_restore_s = time.perf_counter() - t0
+        store.close()
+
+        # while the deploy boots: the training read over HBase REST and
+        # over RPC, in this process (after the trains: the stand-ins share
+        # this process's interpreter lock with the reads)
+        reads, triples = {}, {}
+        for name, env in (("hbase_rest", env_rest), ("hbase_rpc", env_b)):
+            store = _storage_of(env)
+            t0 = time.perf_counter()
+            triples[name] = PEventStore.find_ratings("hbapp", storage=store)
+            reads[name] = time.perf_counter() - t0
+            store.close()
+            _hold_triple(triples[name], want, f"find_ratings over {name}")
+        check(_same_triples(triples["hbase_rest"], triples["hbase_rpc"]),
+              "find_ratings over HBase REST differs from the one over RPC")
+        del triples
+
+        # the deploy restored path A's model from S3
+        rng = np.random.default_rng(43)
+        users = [want["users"][int(k)]
+                 for k in rng.integers(0, len(want["users"]), NET_QUERIES)]
+        srv = booting.__enter__()
+        up_s = time.perf_counter() - t_up
+        check(srv.info["engineInstanceId"] == iid_a,
+              f"the deploy serves {srv.info}")
+        queries = _query_run(srv, users, stored[OBJ_PATHS[0]])
+    os.unlink(events)
+    emit("object_search_storage", events=NET_IMPORT, reduced=(
+        f"network_storage's first {NET_IMPORT} of the {ML1M[2]} ML-1M "
+        "events (time budget)"),
+        stores={"A": {"METADATA": "ELASTICSEARCH",
+                      "EVENTDATA": "ELASTICSEARCH", "MODELDATA": "S3"},
+                "B": {"METADATA": "ELASTICSEARCH",
+                      "EVENTDATA": "HBASE (rpc, 2 regions)",
+                      "MODELDATA": "HDFS"},
+                "in_process": "HBASE (rest) beside HBASE (rpc)"},
+        servers="tests/torch_*_server.py, threads of this process",
+        import_events_per_s={k: NET_IMPORT / v for k, v in import_s.items()}
+        | {"sqlite_in_process": NET_IMPORT / net["sqlite_import_seconds"]},
+        read_seconds={
+            "elasticsearch": trained[OBJ_PATHS[0]]["timings"]["read_seconds"],
+            "hbase_rpc": trained[OBJ_PATHS[1]]["timings"]["read_seconds"],
+            "hbase_rest_in_process": reads["hbase_rest"],
+            "hbase_rpc_in_process": reads["hbase_rpc"],
+            "sqlite": net["sqlite_read_seconds"]},
+        train_seconds_end_to_end={p: trained[p]["wall_seconds"]
+                                  for p in OBJ_PATHS},
+        kernel_launches={p: trained[p]["kernel_launches"] for p in OBJ_PATHS},
+        expected_launches={p: trained[p]["expected_launches"]
+                           for p in OBJ_PATHS},
+        bit_equal_to_sqlite=True, max_abs_err_vs_train_als=err,
+        es_requests=dict(es.stats),
+        hbase_rpc_data_rows_by_region=rows_by_region,
+        hdfs_create_redirects=hdfs.redirects,
+        s3_restore_seconds=s3_restore_s,
+        deploy_up_seconds_from_train_a_end=up_s,
+        query=queries, phase_seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(cwd, ignore_errors=True)
 
 
 #: the gang's size: two ranks of a gloo process group on the one card
@@ -8579,6 +8867,99 @@ def phase_gang_train_merged(cwd: str, env: dict) -> None:
 SHARDED_PARAMS = ALSParams(rank=RANK, num_iterations=ITERS, reg=0.01,
                            lambda_scaling="nratings")
 SHARDED_RANK_FLAG = "--als-process-sharded-rank"
+TAIL_FLAG = "--tail-group"
+
+
+def tail_group(out_dir: str, elapsed_at_spawn: str) -> int:
+    """The tail's second group of phases (this script re-invoked with
+    :data:`TAIL_FLAG` by :class:`_TailGroup`), beside the main process's
+    CCO and rank-128 phases: similar_product, ecommerce_jsonl, pio_eval,
+    the linear phases and their gangs. Its ``elapsed_s`` continues the
+    main process's clock; its paths' launches go to ``out_dir``."""
+    global START
+    START = time.perf_counter() - float(elapsed_at_spawn)
+    phase_device()
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_similar_product(workdir)
+        phase_ecommerce_jsonl(workdir)
+        phase_pio_eval(workdir)
+        phase_classification_gang(phase_classification_jsonl(workdir))
+        text = phase_text_classification_jsonl(workdir)
+        phase_text_classification_gang(text)
+        phase_linear_streams(text)
+    with open(os.path.join(out_dir, "launches.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(PATH_LAUNCHES, fh)
+    return 0
+
+
+class _Beside:
+    """``fn(*args)`` in a thread while the ``with`` body runs (both bound
+    by process starts: the pair takes ≈ the longer one); joined on exit,
+    its exception re-raised. Only for a phase that launches no kernel in
+    this process that a path counts (the counters are per process) and
+    prints only through :func:`emit`."""
+
+    def __init__(self, fn, *args):
+        self.error: list = []
+
+        def run():
+            try:
+                fn(*args)
+            except BaseException as e:  # noqa: BLE001 — re-raised on exit
+                self.error.append(e)
+
+        self.thread = threading.Thread(target=run, name=fn.__name__)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        self.thread.join()
+        if self.error and exc_type is None:
+            raise self.error[0]
+
+
+class _TailGroup:
+    """:func:`tail_group` in a process of its own while the ``with`` body
+    runs: the two groups are independent and each is bound by process
+    starts and the host, so together they take ≈ the longer one. On exit
+    its phase lines are printed, its paths' launches join
+    ``PATH_LAUNCHES``, and a failure of either fails the run (the child
+    is killed if the body raised)."""
+
+    def __enter__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_tail_")
+        self.out = open(os.path.join(self.dir, "stdout"), "w+",
+                        encoding="utf-8")
+        self.err = open(os.path.join(self.dir, "stderr"), "w+",
+                        encoding="utf-8")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), TAIL_FLAG, self.dir,
+             str(time.perf_counter() - START)],
+            stdout=self.out, stderr=self.err, env=_console_env(), cwd=ROOT)
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        try:
+            if exc_type is not None:
+                self.proc.kill()
+            rc = self.proc.wait()
+            self.out.seek(0)
+            sys.stdout.write(self.out.read())
+            sys.stdout.flush()
+            if exc_type is None:
+                self.err.seek(0)
+                check(rc == 0, f"the tail group failed ({rc}): "
+                      f"{self.err.read()[-3000:]}")
+                with open(os.path.join(self.dir, "launches.json"),
+                          encoding="utf-8") as fh:
+                    PATH_LAUNCHES.update(json.load(fh))
+        finally:
+            self.out.close()
+            self.err.close()
+            shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def als_process_sharded_rank(out_dir: str) -> int:
@@ -8715,24 +9096,20 @@ def main() -> int:
         phase_pio_workflow_jsonl(workdir)
         phase_eventserver_partitioned(workdir)
         phase_eventserver_wal(workdir)
-        phase_network_storage(workdir)
-        phase_als_process_sharded(main_path["ratings"])
+        net = phase_network_storage(workdir)
+        with _Beside(phase_als_process_sharded, main_path["ratings"]):
+            phase_object_search_storage(workdir, net)
+        del net
         phase_pio_workflow_jsonl_ml20m(workdir, main_path["ratings"])
-        phase_engine_server_tenants(workdir)
-        phase_similar_product(workdir)
-        phase_ecommerce_jsonl(workdir)
-        phase_pio_eval(workdir)
-        phase_classification_gang(phase_classification_jsonl(workdir))
-        text = phase_text_classification_jsonl(workdir)
-        phase_text_classification_gang(text)
-        phase_linear_streams(text)
-        del text
-        phase_universal_recommender()
-        phase_universal_recommender_jsonl(workdir)
-        phase_complementary_purchase(workdir)
-    ratings = main_path.pop("ratings")
-    main_path.clear()
-    phase_train_rank128(ratings)
+        with _TailGroup():
+            phase_engine_server_tenants(workdir)
+            phase_universal_recommender()
+            phase_universal_recommender_jsonl(workdir)
+            phase_complementary_purchase(workdir)
+            ratings = main_path.pop("ratings")
+            main_path.clear()
+            phase_train_rank128(ratings)
+            del ratings
     t = kv["timings"]
 
     def entry(name, kind, replaces, serves, shape, extra_shapes):
@@ -8778,4 +9155,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [SHARDED_RANK_FLAG]:
         sys.exit(als_process_sharded_rank(sys.argv[2]))
+    if sys.argv[1:2] == [TAIL_FLAG]:
+        sys.exit(tail_group(sys.argv[2], sys.argv[3]))
     sys.exit(main())

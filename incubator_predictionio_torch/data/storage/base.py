@@ -51,6 +51,26 @@ def new_access_key() -> str:
             return key
 
 
+def check_reachable(endpoint: str, what: str,
+                    timeout: float = 5.0) -> None:
+    """One TCP connect to an ``http(s)://host[:port]`` endpoint, closed at
+    once: the network stores that open no connection until their first
+    request (S3, HDFS, Elasticsearch, the HBase gateway) call it from
+    their constructors, so a dead endpoint fails when the source is
+    opened, not at the first read. Sends no bytes. Raises
+    :class:`OSError` naming ``what`` and the endpoint."""
+    import socket
+    import urllib.parse
+
+    parts = urllib.parse.urlsplit(endpoint)
+    port = parts.port or (443 if parts.scheme == "https" else 80)
+    try:
+        socket.create_connection((parts.hostname, port),
+                                 timeout=timeout).close()
+    except OSError as e:
+        raise OSError(f"{what} unreachable: {endpoint} ({e})") from e
+
+
 @dataclass(frozen=True)
 class Channel:
     id: int

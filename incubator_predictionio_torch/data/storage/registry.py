@@ -22,11 +22,13 @@ files as the reference's.
 The network stores: HTTP (a ``pio storageserver``,
 ``data/storage/http_backend.py``), PGSQL (``postgres.py`` over
 ``pgwire.py``) and MYSQL (``mysql.py`` over ``mysqlwire.py``), with the
-reference's wire bytes and tables. A store that fails to connect or to
-authenticate raises; nothing falls back to SQLite. JDBC is refused as the
-reference refuses it. The reference's S3, ELASTICSEARCH, HBASE and HDFS
-are not ported yet: selecting one raises :class:`StorageError` naming the
-ROADMAP item.
+reference's wire bytes and tables. The object and search stores: S3
+(``s3.py``, model data), HDFS (``hdfs.py`` over WebHDFS, model data),
+ELASTICSEARCH (``elasticsearch.py``, metadata and events) and HBASE
+(``hbase.py``, events, over the REST gateway or the native RPC of
+``hbase_rpc.py``). A network store that fails to connect or to
+authenticate raises :class:`StorageError` naming the source; nothing
+falls back to SQLite. JDBC is refused as the reference refuses it.
 """
 
 from __future__ import annotations
@@ -36,12 +38,16 @@ import threading
 from typing import Callable, Optional
 
 from . import base
+from .elasticsearch import ESClient
+from .hbase import HBaseClient
+from .hdfs import HDFSClient
 from .http_backend import HTTPStorageClient
 from .jsonl import JSONLClient
 from .localfs import LocalFSClient
 from .memory import StorageClient as MemoryClient
 from .mysql import MySQLClient
 from .postgres import PGClient
+from .s3 import S3Client
 from .sqlite import SQLiteClient
 
 
@@ -61,22 +67,23 @@ _BACKENDS: dict[str, Callable[[base.StorageClientConfig], base.BaseStorageClient
     # the MySQL protocol (caching_sha2/native auth, binary prepared
     # statements), all three repositories
     "MYSQL": MySQLClient,
+    # S3 REST with SigV4, model data only
+    "S3": S3Client,
+    # the Elasticsearch REST API (ES 7/8, OpenSearch), metadata and events
+    "ELASTICSEARCH": ESClient,
+    # events over the HBase REST gateway or the native RPC (PROTOCOL)
+    "HBASE": HBaseClient,
+    # WebHDFS, model data only
+    "HDFS": HDFSClient,
 }
 
 #: the network stores: a failed connect or login raises StorageError
-_NETWORK = {"HTTP", "PGSQL", "MYSQL"}
+_NETWORK = {"HTTP", "PGSQL", "MYSQL", "S3", "ELASTICSEARCH", "HBASE",
+            "HDFS"}
 
 #: types whose wire protocol this package does not speak: the message
 #: points at the HTTP backend (the same shared-network-store shape)
 _UNSUPPORTED = {"JDBC"}
-
-#: the reference's backend types this package does not serve yet
-_NOT_PORTED = {
-    "S3": "the object and search stores",
-    "ELASTICSEARCH": "the object and search stores",
-    "HBASE": "the object and search stores",
-    "HDFS": "the object and search stores",
-}
 
 REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
@@ -166,12 +173,6 @@ class Storage:
                     f"run `pio storageserver` and set TYPE=HTTP, or use "
                     f"PGSQL, MYSQL, SQLITE, MEMORY, LOCALFS or JSONL.")
             if stype not in _BACKENDS:
-                if stype in _NOT_PORTED:
-                    raise StorageError(
-                        f"Storage type {stype} is not ported to this package "
-                        f"yet (ROADMAP.md Queue 1, item 3.4: "
-                        f"{_NOT_PORTED[stype]}); use HTTP, PGSQL, MYSQL, "
-                        "SQLITE, MEMORY, LOCALFS or JSONL")
                 raise StorageError(f"Unknown storage type {stype}")
             config = base.StorageClientConfig(
                 test=self._env.get("PIO_TEST", "") == "1", properties=props)

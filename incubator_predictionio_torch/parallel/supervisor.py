@@ -426,6 +426,12 @@ class Supervisor:
         # signal binds to the spawning thread)
         self._membership_lock = threading.Lock()
         self._membership_cmds: list[tuple[str, int]] = []
+        # service slots with no live process only because this thread is
+        # about to start one: the launch-time slots before the first
+        # spawn, a queued add, a failed worker in its relaunch backoff
+        self._launching: set[int] = (
+            set(range(self.config.num_workers))
+            if restart_scope == "worker" else set())
         # idx -> monotonic SIGKILL deadline; a retiring worker is EXPECTED
         # to exit, so the failure sweep skips it
         self._retiring: dict[int, float] = {}
@@ -480,6 +486,13 @@ class Supervisor:
     def is_retiring(self, idx: int) -> bool:
         return idx in self._retiring
 
+    def is_launching(self, idx: int) -> bool:
+        """Whether service slot ``idx`` has no live process only because
+        the supervisor is about to start one (before the first spawn, a
+        queued add, a relaunch backoff): the slot is not missing, and an
+        owner must not replace it."""
+        return idx in self._launching
+
     # -- dynamic membership --------------------------------------------------
 
     def add_worker(self, idx: Optional[int] = None) -> int:
@@ -501,6 +514,7 @@ class Supervisor:
             elif idx in taken:
                 raise ValueError(f"worker {idx} is already on the books")
             self._membership_cmds.append(("add", int(idx)))
+            self._launching.add(int(idx))
         return int(idx)
 
     def retire_worker(self, idx: int) -> None:
@@ -529,6 +543,7 @@ class Supervisor:
                     self.worker_restarts.append(0)
                 self._workers.append(
                     self._spawn_worker(idx, None, resume=False, attempt=0))
+                self._launching.discard(idx)
                 self._event("workerAdded", worker=idx)
                 log.info("service worker %d added (now %d on the books)",
                          idx, len(self._workers))
@@ -760,6 +775,7 @@ class Supervisor:
         self.state = "running"
         self._workers = [self._spawn_worker(i, None, resume=False, attempt=0)
                          for i in range(cfg.num_workers)]
+        self._launching.difference_update(range(cfg.num_workers))
         self._event("gangStart", pids=[w.proc.pid for w in self._workers])
         log.info("%d service worker(s) up", cfg.num_workers)
         self._publish()
@@ -782,6 +798,7 @@ class Supervisor:
                             "it. log tail:\n%s", idx, failure,
                             self._tail(bad))
                 self._event("workerFailure", **failure)
+                self._launching.add(idx)
                 if bad.proc.poll() is None:
                     try:
                         bad.proc.send_signal(signal.SIGKILL)
@@ -814,6 +831,7 @@ class Supervisor:
                 self._workers[self._workers.index(bad)] = \
                     self._spawn_worker(idx, None, resume=False,
                                        attempt=per_worker_restarts[idx])
+                self._launching.discard(idx)
                 self._publish()
             now = time.monotonic()
             if now - last_publish >= 1.0:

@@ -632,8 +632,13 @@ def run_fleet(worker_argv: Sequence[str], replicas: int, host: str,
             samples = []
             for i, doc in zip(idxs, docs):
                 drng = front.is_draining(i)
+                # a slot the supervisor is (re)starting counts as alive:
+                # read as missing (a tick before the supervisor's first
+                # spawn, a relaunch backoff) it would vote `floor` and
+                # spawn one more replica over the target
                 s = ReplicaSample(
-                    slot=i, alive=sup.worker_pid(i) is not None,
+                    slot=i, alive=(sup.worker_pid(i) is not None
+                                   or sup.is_launching(i)),
                     ready=front.is_ready(i) and not drng, draining=drng)
                 if isinstance(doc, dict):
                     ov = doc.get("overload") or {}

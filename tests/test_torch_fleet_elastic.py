@@ -3,10 +3,12 @@
 launched at the floor (1 replica), a query flood makes the autoscaler
 spawn replica 1 through the supervisor; on quiet it drains the
 least-loaded replica back to the floor, every client answer in
-{200, 503, 504} throughout.
+{200, 503, 504} throughout. A slot the supervisor is still starting
+counts as alive, so the first tick never votes ``floor`` over it.
 """
 
 import http.client
+import sys
 import threading
 
 import pytest
@@ -15,6 +17,9 @@ pytest.importorskip("torch")
 
 import torch_fleet as tf  # noqa: E402
 import torch_serving as ts  # noqa: E402
+from incubator_predictionio_torch.parallel.supervisor import (  # noqa: E402
+    Supervisor,
+)
 from incubator_predictionio_torch.workflow import model_artifact  # noqa: E402
 
 pytestmark = [pytest.mark.fleet, pytest.mark.chaos]
@@ -100,3 +105,27 @@ def test_elastic_fleet_scales_up_under_flood_and_drains_on_quiet(tmp_path):
     finally:
         storage.close()
         fleet.kill()
+
+
+def test_a_slot_the_supervisor_is_launching_is_not_missing(tmp_path):
+    """A service slot with no process yet only because the supervisor is
+    about to start one (before its first spawn, a queued add) reads as
+    launching, so the elastic loop counts it as alive: read as missing,
+    the first tick of a loaded host voted ``floor`` and spawned a second
+    replica over a target of 1."""
+    sup = Supervisor([sys.executable, "-c", "import time; time.sleep(60)"],
+                     1, restart_scope="worker", run_dir=str(tmp_path))
+    assert sup.worker_pid(0) is None and sup.is_launching(0)
+    assert not sup.is_launching(1)
+    t = threading.Thread(target=sup.run, daemon=True)
+    t.start()
+    try:
+        tf.poll(lambda: sup.worker_pid(0), 30, msg="worker 0 spawned")
+        assert not sup.is_launching(0)
+        assert sup.add_worker() == 1 and sup.is_launching(1)
+        tf.poll(lambda: sup.worker_pid(1), 30, msg="worker 1 spawned")
+        assert not sup.is_launching(1)
+    finally:
+        sup.request_stop()
+        t.join(60)
+    assert not t.is_alive()

@@ -31,7 +31,11 @@ fake workflow, self-cleaning and a self-persisted model, and for the
 Universal Recommender and Complementary Purchase templates (train → persist
 → serve, with the codec's CCO layout), for ``pio storageserver``, and for a
 ``train`` whose metadata and events are read over a storage server (HTTP)
-and whose model lands in PostgreSQL (``tests/pg_mock.py``). (This pytest process has JAX loaded by
+and whose model lands in PostgreSQL (``tests/pg_mock.py``), and for a
+``train`` over Elasticsearch (metadata and events) into S3 and a
+``deploy`` that restores that model from S3 (the stand-ins
+``tests/torch_es_server.py`` and ``tests/torch_s3_server.py``, which the
+static check covers with the other stand-ins ``chip_smoke.py`` loads). (This pytest process has JAX loaded by
 tests/conftest.py, so the run-time check needs its own process.)
 """
 
@@ -49,9 +53,16 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "orbax", "optax", "incubator_predictionio_tpu")
 
 
+#: the stand-in servers ``chip_smoke.py`` loads on the card host
+STAND_INS = ("torch_s3_server.py", "torch_es_server.py",
+             "torch_hbase_server.py", "torch_hbase_rpc_server.py",
+             "torch_hdfs_server.py")
+
+
 def _port_files():
     files = sorted((ROOT / "incubator_predictionio_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py"] + [ROOT / "tests" / name
+                                               for name in STAND_INS]
 
 
 def _imports(path: Path):
@@ -96,7 +107,8 @@ def test_port_files_exist():
             "stats.py", "ingest_wal.py", "ingest_buffer.py", "segmentio.py",
             "mailchimp.py", "ssl_config.py", "storage_server.py",
             "http_backend.py", "pgwire.py", "postgres.py", "mysqlwire.py",
-            "mysql.py",
+            "mysql.py", "s3.py", "hdfs.py", "elasticsearch.py", "hbase.py",
+            "hbase_rpc.py", *STAND_INS,
             } <= names
     assert (ROOT / "incubator_predictionio_torch" / "e2"
             / "engine.py").is_file()
@@ -1126,3 +1138,65 @@ def test_network_store_train_in_a_process_without_jax(tmp_path):
     finally:
         srv.stop()
         backing.close()
+
+
+def test_object_store_train_and_deploy_in_a_process_without_jax(tmp_path):
+    """``train`` with metadata and events on Elasticsearch and the model
+    into S3, then ``deploy`` restoring that model from S3 (the stand-in
+    servers in this process)."""
+    import json
+
+    from torch_es_server import ESServer
+    from torch_s3_server import S3Server
+
+    from incubator_predictionio_torch.data.storage import App, Event, Storage
+
+    (tmp_path / "engine.json").write_text(json.dumps({
+        "engineFactory": "incubator_predictionio_torch.models."
+                         "recommendation.RecommendationEngine",
+        "datasource": {"params": {"appName": "objapp"}},
+        "algorithms": [{"name": "als", "params": {"rank": 4,
+                                                  "numIterations": 2}}]}))
+    with ESServer() as es, S3Server("AKNOJAX", "sk") as s3:
+        store_env = {
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "ES",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "ES",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "OBJ",
+            "PIO_STORAGE_SOURCES_ES_TYPE": "ELASTICSEARCH",
+            "PIO_STORAGE_SOURCES_ES_HOSTS": "127.0.0.1",
+            "PIO_STORAGE_SOURCES_ES_PORTS": str(es.port),
+            "PIO_STORAGE_SOURCES_OBJ_TYPE": "S3",
+            "PIO_STORAGE_SOURCES_OBJ_ENDPOINT": s3.endpoint,
+            "PIO_STORAGE_SOURCES_OBJ_BUCKET": "models",
+            "PIO_STORAGE_SOURCES_OBJ_ACCESS_KEY": "AKNOJAX",
+            "PIO_STORAGE_SOURCES_OBJ_SECRET_KEY": "sk"}
+        storage = Storage(store_env)
+        app_id = storage.get_meta_data_apps().insert(App(0, "objapp"))
+        storage.get_l_events().insert_batch([Event.from_json({
+            "event": "rate", "entityType": "user", "entityId": f"u{u}",
+            "targetEntityType": "item",
+            "targetEntityId": f"i{(u * 7 + k) % 9}",
+            "properties": {"rating": float(1 + (u + k) % 5)}})
+            for u in range(12) for k in range(4)], app_id)
+        storage.close()
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("PIO_STORAGE_")}
+        env.update(store_env, PYTHONPATH=str(ROOT),
+                   PIO_FS_BASEDIR=str(tmp_path / "base"))
+        out = subprocess.run(
+            [sys.executable, "-c", _VERB, "train", "--device", "cpu"],
+            capture_output=True, text=True, env=env, cwd=str(tmp_path),
+            timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert '"loaded": []' in out.stdout.strip().splitlines()[-1]
+        iid = json.loads(out.stdout.strip().splitlines()[-2])[
+            "engineInstanceId"]
+        assert [k for k in s3.objects if iid in k], sorted(s3.objects)
+        port = str(_free_port())
+        out = subprocess.run(
+            [sys.executable, "-c", _VERB, "deploy", "--device", "cpu",
+             "--ip", "127.0.0.1", "--port", port],
+            capture_output=True, text=True, env=env | {"PROBE_PORT": port},
+            cwd=str(tmp_path), timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert '"loaded": []' in out.stdout.strip().splitlines()[-1]

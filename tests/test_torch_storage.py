@@ -5,7 +5,11 @@ the JAX package's.
 The reference's storage contract (``tests/test_storage_contract.py``) runs
 as one parametrised test over the port's MEMORY, SQLITE and JSONL backends
 and its network stores: HTTP (the port's ``pio storageserver`` over
-SQLite), PGSQL (``tests/pg_mock.py``) and MYSQL (``tests/mysql_mock.py``). Across
+SQLite), PGSQL (``tests/pg_mock.py``), MYSQL (``tests/mysql_mock.py``), and
+the object and search stores on the reference's mocks: ELASTICSEARCH
+(metadata and events), HBASE over REST and over the native RPC (a table
+in two regions; events), S3 and HDFS (models; the models-only sources
+keep metadata and events on SQLite, as the reference's contract does). Across
 packages: one SQLite file is written by either package's ``Storage`` and
 read by the other with equal rows; ``PEventStore.find_ratings`` gives the
 identical triple and id maps from either package (tied event times,
@@ -69,9 +73,72 @@ def _net_env(name, stype, props):
         f"PIO_STORAGE_SOURCES_{name}_{k}": v for k, v in props.items()}
 
 
+#: the object and search stores: the repositories each serves
+_OBJECT_REPOS = {"es": ("METADATA", "EVENTDATA"),
+                 "hbase-rest": ("EVENTDATA",), "hbase-rpc": ("EVENTDATA",),
+                 "s3": ("MODELDATA",), "hdfs": ("MODELDATA",)}
+
+
+def object_store_env(kind, port, tmp_path) -> dict:
+    """The ``PIO_STORAGE_*`` lines of an object or search store on
+    ``port`` for the repositories it serves; SQLite for the rest."""
+    props = {
+        "es": {"TYPE": "ELASTICSEARCH", "HOSTS": "127.0.0.1",
+               "PORTS": str(port)},
+        "hbase-rest": {"TYPE": "HBASE", "HOSTS": "127.0.0.1",
+                       "PORTS": str(port), "PROTOCOL": "rest"},
+        "hbase-rpc": {"TYPE": "HBASE", "HOSTS": "127.0.0.1",
+                      "PORTS": str(port), "PROTOCOL": "rpc"},
+        "s3": {"TYPE": "S3", "ENDPOINT": f"http://127.0.0.1:{port}",
+               "BUCKET": "pio-models", "ACCESS_KEY": "AKPIOTEST",
+               "SECRET_KEY": "s3cr3t"},
+        "hdfs": {"TYPE": "HDFS", "HOSTS": "127.0.0.1", "PORTS": str(port),
+                 "PATH": "/pio/models"},
+    }[kind]
+    env = _env("sqlite", tmp_path, "DB")
+    for repo in _OBJECT_REPOS[kind]:
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "OBJ"
+    return env | {f"PIO_STORAGE_SOURCES_OBJ_{k}": v for k, v in props.items()}
+
+
+@contextlib.contextmanager
+def reference_mock(kind):
+    """The reference's mock server of an object or search store."""
+    if kind == "hbase-rpc":
+        from hbase_rpc_mock import MockHBaseRpcServer
+
+        # every event table in two regions: index rows | data rows
+        with MockHBaseRpcServer(split_keys={
+                f"pio_eventdata_{app}": [b"t:"] for app in range(1, 100)}
+                ) as srv:
+            yield srv
+        return
+    from server_utils import ServerThread
+
+    if kind == "es":
+        from es_mock import build_es_app as build
+    elif kind == "hbase-rest":
+        from hbase_mock import build_hbase_app as build
+    elif kind == "hdfs":
+        from hdfs_mock import build_hdfs_app as build
+    else:
+        from s3_mock import build_s3_app
+
+        def build():
+            return build_s3_app("AKPIOTEST", "s3cr3t")
+    with ServerThread(build()) as srv:
+        yield srv
+
+
 @contextlib.contextmanager
 def _store(kind, tmp_path):
     """A port ``Storage`` of ``kind``, with its server for a network one."""
+    if kind in _OBJECT_REPOS:
+        with reference_mock(kind) as srv:
+            s = Storage(object_store_env(kind, srv.port, tmp_path))
+            yield s
+            s.close()
+        return
     if kind == "http":
         from incubator_predictionio_torch.data.api.storage_server import (
             StorageServer,
@@ -374,7 +441,8 @@ CONTRACT = [
 
 @pytest.mark.parametrize("case", CONTRACT, ids=lambda f: f.__name__[1:])
 @pytest.mark.parametrize("backend", ["memory", "sqlite", "jsonl", "http",
-                                     "pgsql", "mysql"])
+                                     "pgsql", "mysql", "es", "hbase-rest",
+                                     "hbase-rpc", "s3", "hdfs"])
 def test_storage_contract(backend, case, tmp_path):
     with _store(backend, tmp_path) as storage:
         case(storage)
@@ -403,8 +471,12 @@ def test_default_store_is_the_reference_sqlite_file(tmp_path, monkeypatch):
 @pytest.mark.parametrize("stype", ["S3", "ELASTICSEARCH", "HBASE", "HDFS",
                                    "BOGUS"])
 def test_unported_backend_raises(stype, tmp_path):
+    """A source the registry cannot open raises StorageError naming it:
+    an unknown type, or one of the object and search stores without the
+    properties that locate it (they are served now; nothing falls back)."""
     env = _env("sqlite", tmp_path) | {"PIO_STORAGE_SOURCES_S_TYPE": stype}
-    with pytest.raises(StorageError, match="ROADMAP" if stype != "BOGUS"
+    with pytest.raises(StorageError, match=f"source S \\({stype}\\) cannot "
+                       "be opened" if stype != "BOGUS"
                        else "Unknown storage type"):
         Storage(env).get_l_events()
     assert Storage(env).verify_all_data_objects()  # reported, not raised
