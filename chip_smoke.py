@@ -140,6 +140,20 @@ Phases (any failure exits non-zero; nothing is caught):
    the twin, within 2e-4 of train_als), the same events through the HBase
    REST gateway read equal to the RPC read, pio deploy restoring from S3
    (200 queries held to the host top-k).
+12h. operator_tools (after 12f, on its SQLite twin; in a thread beside
+   12g and 13): pio template get recommendation (the port's bundle) at
+   the twin's rank 32, λ and iterations → pio train --profile-dir (the
+   torch.profiler trace names the warp kernel as often as the counter and
+   the layout imply; factors bit-equal to the twin's unprofiled train);
+   pio shell -c running pypio.train of the same directory (launches =
+   implied, bit-equal); pio adminserver through the reference test's
+   sequence; pio export --format parquet with pyarrow unimportable (exit
+   1 naming it, no file) and, where the host has pyarrow, with it; pio
+   soak of the template on the card (2 event workers, 2 replicas, 30 s of
+   the reference's default traffic, the faults enospc_shed, worker_kill,
+   replica_kill, good_retrain, compact_crash): verdict PASS, every fault
+   fired with evidence, every acknowledged event reconciled once, its
+   trains' warp launches counted.
 13. pio_workflow_jsonl_ml20m: the first 312,500 of the ML-20M ratings
    as the log (byte for byte insert_batch's lines; cut from 20,000,263
    for the script's time, ``reduced``) → eventlog compact → the read held
@@ -284,10 +298,11 @@ Phases (any failure exits non-zero; nothing is caught):
    iteration, one iteration profiled; one fold-in batch (2 wide launches,
    card vs CPU).
 
-Two overlaps keep the script inside its time: phases 15–19b run in a
+Three overlaps keep the script inside its time: phases 15–19b run in a
 second process (this script with --tail-group) while the main one runs
-14 and 20–23, and 12d runs in a thread beside 12g (it launches no kernel
-that a path of this process counts). Each pair is bound by process starts
+14 and 20–23, 12d runs in a thread beside 12g, and 12h in a thread beside
+12g and 13 (neither launches a kernel that a path of this process
+counts). Each pair is bound by process starts
 and the host, so it takes about as long as its longer half. The second
 process's phase lines are printed when both groups are done; its paths'
 launches join the kernels line.
@@ -7832,8 +7847,9 @@ def phase_network_storage(workdir: str) -> dict:
     answers 200 and POSTs are accepted; every acknowledged event is read
     back exactly once.
 
-    Returns what ``object_search_storage`` reuses: the events file, the
-    plain triple, the SQLite twin's persisted model, train_als's factors
+    Returns what ``object_search_storage`` and ``operator_tools`` reuse:
+    the events file, the plain triple, the SQLite twin's persisted model,
+    its store (kept in ``workdir``) and train seconds, train_als's factors
     on the triple and the SQLite read seconds."""
     # tests/pg_mock.py by its path (the standard library only): tests/ never
     # joins sys.path, where its other helpers would shadow later imports
@@ -7926,6 +7942,14 @@ def phase_network_storage(workdir: str) -> dict:
         twin = _hold_model(sqlite_store, plain, want,
                            "network_storage_sqlite")
         sqlite_store.close()
+        # the twin's store outlives this phase: operator_tools trains the
+        # Recommendation template over it
+        twin_path = os.path.join(workdir, "network_storage_twin.sqlite")
+        for name in os.listdir(cwd):
+            if name.startswith("plain.sqlite"):
+                shutil.move(os.path.join(cwd, name), os.path.join(
+                    workdir, name.replace("plain.sqlite",
+                                          "network_storage_twin.sqlite")))
         check(all(np.array_equal(stored[k], twin[k]) for k in
                   ("user_factors", "item_factors", "users", "items")),
               "the train over HTTP + PGSQL differs from the SQLite train")
@@ -8102,7 +8126,8 @@ def phase_network_storage(workdir: str) -> dict:
         return {"events_path": kept, "imported": imported,
                 "want": want, "twin": twin, "ref": ref,
                 "sqlite_read_seconds": plain["timings"]["read_seconds"],
-                "sqlite_import_seconds": import_s["sqlite_in_process"]}
+                "sqlite_import_seconds": import_s["sqlite_in_process"],
+                "twin_path": twin_path, "twin_seconds": plain["seconds"]}
     finally:
         node.stop()
         pg.__exit__(None, None, None)
@@ -9077,6 +9102,270 @@ def phase_als_process_sharded(ratings) -> None:
          workers=[{k: w.get(k) for k in keys} for w in reports])
 
 
+# -- the operator tools: the operator_tools phase ------------------------------
+
+#: the soak of operator_tools: the reference's default traffic (3 apps, 400
+#: users, ingest 50/s, queries 20/s) for 30 s on 2 event workers and 2
+#: replicas, with the menu's faults that need no poison controls
+SOAK_ARGS = ["--device", "cuda", "--duration-s", "30", "--event-workers",
+             "2", "--replicas", "2", "--seed", "20260804", "--faults",
+             "enospc_shed,worker_kill,replica_kill,good_retrain,"
+             "compact_crash"]
+#: pypio.train under ``pio shell -c``: the instance, its seconds and this
+#: process's solve-kernel launches as one JSON line
+SHELL_TRAIN = (
+    "import json, time, torch\n"
+    "from incubator_predictionio_torch.ops import spd_solve\n"
+    "t0 = time.perf_counter()\n"
+    "iid = pypio.train('.')\n"
+    "torch.cuda.synchronize()\n"
+    "print(json.dumps({'engineInstanceId': iid, "
+    "'seconds': time.perf_counter() - t0, 'kernel_launches': {"
+    "'warp': spd_solve.gauss_jordan_warp_launches.count, "
+    "'wide': spd_solve.gauss_jordan_wide_launches.count}}))\n")
+WARP_SYMBOL = "gauss_jordan_warp_kernel"
+
+
+def _admin_sequence(srv: _Served) -> dict:
+    """tests/test_eval_and_ops_servers.py's admin sequence against a
+    running ``pio adminserver``: new, 409 on a duplicate, list, data
+    delete, delete, then 404; the client ms of each call."""
+    ms = []
+
+    def call(method, path, body=None):
+        status, doc, t = srv.request(method, path, body)
+        ms.append(t)
+        return status, doc
+
+    st, doc = call("POST", "/cmd/app", {"name": "opsapp"})
+    check(st == 201 and doc["name"] == "opsapp" and doc["accessKey"],
+          f"admin new: {st} {doc}")
+    key = doc["accessKey"]
+    st, _ = call("POST", "/cmd/app", {"name": "opsapp"})
+    check(st == 409, f"admin duplicate: {st}")
+    st, listing = call("GET", "/cmd/app")
+    check(st == 200 and [a["name"] for a in listing] == ["opsapp"]
+          and listing[0]["accessKeys"] == [key], f"admin list: {listing}")
+    st, doc = call("DELETE", "/cmd/app/opsapp/data")
+    check(st == 200 and "deleted" in doc["message"], f"admin data: {doc}")
+    st, _ = call("DELETE", "/cmd/app/opsapp")
+    check(st == 200, f"admin delete: {st}")
+    st, _ = call("DELETE", "/cmd/app/opsapp")
+    check(st == 404, f"admin delete again: {st}")
+    st, listing = call("GET", "/cmd/app")
+    check(st == 200 and listing == [], f"admin list after: {listing}")
+    return {"calls": len(ms), **_percentiles(ms)}
+
+
+#: the console with pyarrow made unimportable (``import pyarrow`` raises
+#: ImportError), whether or not the host has it
+_NO_PYARROW = [sys.executable, "-c",
+               "import sys\n"
+               "sys.modules['pyarrow'] = sys.modules['pyarrow.parquet'] = None\n"
+               "from incubator_predictionio_torch.tools import console\n"
+               "sys.exit(console.main(sys.argv[1:]))"]
+
+
+def _parquet_export(env: dict, cwd: str) -> dict:
+    """``pio export --format parquet`` of the twin's app without pyarrow:
+    a non-zero exit naming pyarrow and no file. Where the host has
+    pyarrow, the same export then writes every event."""
+    import importlib.util
+
+    out_file = os.path.join(cwd, "netapp.parquet")
+    args = ["export", "--app-name", "netapp", "--output", out_file,
+            "--format", "parquet"]
+    t0 = time.perf_counter()
+    out = subprocess.run(_NO_PYARROW + args, capture_output=True, text=True,
+                         env=env, cwd=cwd, timeout=300)
+    seconds = time.perf_counter() - t0
+    check(out.returncode != 0 and "pyarrow" in out.stderr
+          and not os.path.exists(out_file),
+          f"parquet export without pyarrow: rc {out.returncode}, "
+          f"file {os.path.exists(out_file)}, {out.stderr[-500:]}")
+    got = {"without_pyarrow": {
+        "returncode": out.returncode, "seconds": seconds,
+        "message": out.stderr.strip().splitlines()[-1:],
+        "file_written": os.path.exists(out_file)}}
+    got["pyarrow_on_host"] = importlib.util.find_spec("pyarrow") is not None
+    if got["pyarrow_on_host"]:
+        t0 = time.perf_counter()
+        out = subprocess.run(CONSOLE + args, capture_output=True, text=True,
+                             env=env, cwd=cwd, timeout=300)
+        check(out.returncode == 0 and f"Exported {NET_IMPORT} events"
+              in out.stdout, f"parquet export: {out.stderr[-1000:]}")
+        got["with_pyarrow"] = {"seconds": time.perf_counter() - t0,
+                               "bytes": os.path.getsize(out_file)}
+    return got
+
+
+def phase_operator_tools(workdir: str, net: dict) -> None:
+    """The operator tools on the card, over network_storage's SQLite twin
+    (its 20,000 ML-1M events; rank 32, λ and iterations the twin's):
+
+    (a) ``pio template get recommendation`` (the port's bundle), its
+        engine.json pointed at the twin's app, then ``pio train
+        --profile-dir``: the Chrome trace names the warp kernel as often
+        as the launch counter counted and the layout implies, and the
+        factors are bit-equal to the twin's unprofiled train;
+    (b) ``pio shell -c`` running ``pypio.train`` of the same directory:
+        launches = implied, factors bit-equal to (a)'s;
+    (c) ``pio adminserver``: the reference test's sequence;
+    (d) ``pio export --format parquet`` with pyarrow made unimportable: a
+        non-zero exit naming it and no file (and, where the host has
+        pyarrow, the export of every event);
+    (e) ``pio soak`` of (a)'s template on the card (:data:`SOAK_ARGS`):
+        verdict PASS, every fault fired with evidence, every acknowledged
+        event reconciled once; its trains launched the warp kernel.
+
+    Every verb runs in a process of its own (nothing launches a kernel in
+    this one, and nothing swaps its Storage singleton), so the phase runs
+    in a thread beside others (:class:`_Beside`)."""
+    from incubator_predictionio_torch.tools.commands.management import (
+        template_cmd,
+    )
+
+    t_phase = time.perf_counter()
+    cwd = tempfile.mkdtemp(dir=workdir)
+    want = net["want"]
+    env = _pio_env(os.path.join(cwd, "pio")) | {
+        f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "S"
+        for r in ("METADATA", "EVENTDATA", "MODELDATA")} | {
+        "PIO_STORAGE_SOURCES_S_TYPE": "SQLITE",
+        "PIO_STORAGE_SOURCES_S_PATH": net["twin_path"]}
+    for k in ("PIO_SSL_CERTFILE", "PIO_SSL_KEYFILE", "PIO_FAULT_SPEC"):
+        env.pop(k, None)
+
+    # (a) the template, then the profiled train
+    tpl = os.path.join(cwd, "recommendation")
+    buf = io.StringIO()
+    with STDOUT_LOCK, contextlib.redirect_stdout(buf):
+        rc = template_cmd(["get", "recommendation", tpl])
+    check(rc == 0, f"template get: {buf.getvalue()[-500:]}")
+    path = os.path.join(tpl, "engine.json")
+    with open(path, encoding="utf-8") as fh:
+        engine_json = json.load(fh)
+    check(engine_json["engineFactory"].startswith(
+        "incubator_predictionio_torch."), f"the bundle's factory: {engine_json}")
+    engine_json["datasource"]["params"]["appName"] = "netapp"
+    engine_json["algorithms"][0]["params"].update(
+        rank=PIO_RANK, numIterations=PIO_ITERS, **{"lambda": PIO_LAMBDA})
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(engine_json, fh)
+    trace_dir = os.path.join(cwd, "trace")
+    profiled = _train_verb(env, tpl, "operator_tools_profiled_train",
+                           extra=["--profile-dir", trace_dir])
+    template_to_trained_s = time.perf_counter() - t_phase
+    _hold_train(profiled, want, "operator_tools_profiled_train")
+    from incubator_predictionio_torch.workflow.core_workflow import (
+        trace_kernels, trace_path,
+    )
+
+    trace = trace_path(trace_dir, profiled["engineInstanceId"])
+    check(os.path.isfile(trace), f"no trace at {trace}: "
+          f"{os.listdir(trace_dir) if os.path.isdir(trace_dir) else None}")
+    kernels = trace_kernels(trace)
+    traced_warp = sum(n for name, n in kernels.items() if WARP_SYMBOL in name)
+    check(traced_warp == profiled["kernel_launches"]["warp"]
+          == profiled["expected_launches"],
+          f"the trace names the warp kernel {traced_warp} times; counter "
+          f"{profiled['kernel_launches']}, implied "
+          f"{profiled['expected_launches']}")
+    store = Storage({k: v for k, v in env.items()
+                     if k.startswith("PIO_STORAGE_")})
+    got = _hold_model(store, profiled, want, "operator_tools_profiled_train")
+    keys = ("user_factors", "item_factors", "users", "items")
+    check(all(np.array_equal(got[k], net["twin"][k]) for k in keys),
+          "the profiled train differs from the twin's unprofiled train")
+
+    # (b) pypio.train under pio shell -c
+    out, shell_wall = _verb(["shell", "-c", SHELL_TRAIN], env, tpl,
+                            timeout=900)
+    shell = json.loads(out.stdout.strip().splitlines()[-1])
+    record("operator_tools_shell_train", shell["kernel_launches"])
+    check(shell["kernel_launches"] == {
+        "warp": profiled["expected_launches"], "wide": 0},
+        f"shell train launches {shell['kernel_launches']} != implied "
+        f"{profiled['expected_launches']}")
+    via_shell = _hold_model(store, shell, want, "operator_tools_shell_train")
+    store.close()
+    check(all(np.array_equal(via_shell[k], got[k]) for k in keys),
+          "pypio.train under pio shell -c differs from pio train's")
+
+    # (c) the admin server on a store of its own, (d) Parquet
+    with _Served(["adminserver", "--ip", "127.0.0.1"],
+                 _pio_env(os.path.join(cwd, "admin")), cwd) as admin:
+        admin_ms = _admin_sequence(admin)
+    parquet = _parquet_export(env, cwd)
+
+    # (e) the soak, on (a)'s template
+    t_soak = time.perf_counter()
+    scorecard_path = os.path.join(cwd, "SOAK.json")
+    soak = subprocess.run(
+        CONSOLE + ["soak", "--engine-dir", tpl, "--out", scorecard_path,
+                   "--workdir", os.path.join(cwd, "soak"), *SOAK_ARGS],
+        capture_output=True, text=True, env=_console_env(), cwd=cwd,
+        timeout=900)
+    soak_s = time.perf_counter() - t_soak
+    card = (json.load(open(scorecard_path, encoding="utf-8"))
+            if os.path.isfile(scorecard_path) else None)
+
+    def log_tail(label: str) -> str:
+        try:
+            with open(os.path.join(cwd, "soak", "logs", f"{label}.log"),
+                      encoding="utf-8", errors="replace") as fh:
+                return fh.read()[-1500:]
+        except OSError:
+            return "<no log>"
+
+    check(soak.returncode == 0 and card is not None
+          and card["verdict"] == "PASS",
+          f"pio soak: rc {soak.returncode}, "
+          f"{[(s['name'], s['value']) for s in card['slos'] if not s['ok']] if card else None}; "
+          f"{soak.stdout[-1500:]} {soak.stderr[-1500:]}; engine: "
+          f"{log_tail('engine')}; eventserver: {log_tail('eventserver')}")
+    check(all(f["fired"] and f.get("evidence") for f in card["faults"]),
+          f"soak faults: {card['faults']}")
+    check(card["reconciliation"]["ackedEvents"] == card["traffic"]["acked"],
+          f"soak ledger: {card['reconciliation']} vs {card['traffic']}")
+    soak_launches = {k: sum(t["kernelLaunches"][k] for t in card["trains"])
+                     for k in ("warp", "wide")}
+    check(soak_launches["warp"] > 0 and soak_launches["wide"] == 0
+          and len(card["trains"]) == 2,
+          f"the soak's trains: {card['trains']}")
+    record("operator_tools_soak", soak_launches)
+    fresh = next(s for s in card["slos"] if s["name"] == "foldin-freshness")
+    emit("operator_tools",
+         template_to_trained_seconds=template_to_trained_s,
+         profiled_train={"seconds": profiled["seconds"],
+                         "wall_seconds": profiled["wall_seconds"],
+                         "kernel_launches": profiled["kernel_launches"],
+                         "trace_warp_kernels": traced_warp,
+                         "trace_kernel_names": len(kernels),
+                         "trace_bytes": os.path.getsize(trace)},
+         expected_launches=profiled["expected_launches"],
+         shell_train={"seconds": shell["seconds"],
+                      "wall_seconds": shell_wall,
+                      "kernel_launches": shell["kernel_launches"]},
+         twin_train_seconds_in_process=net["twin_seconds"],
+         profiler_overhead=profiled["seconds"] / shell["seconds"],
+         bit_equal_to_twin=True, shell_bit_equal=True,
+         admin_ms=admin_ms, parquet=parquet,
+         soak={"seconds": soak_s, "verdict": card["verdict"],
+               "wallS": card["wallS"], "traffic": card["traffic"],
+               "faults_fired": [f["name"] for f in card["faults"]
+                                if f["fired"]],
+               "slos": {s["name"]: s["value"] for s in card["slos"]},
+               "foldin": fresh["detail"],
+               "recovery": card["recovery"], "trains": card["trains"],
+               "reconciliation": {k: card["reconciliation"][k] for k in (
+                   "ackedEvents", "storeMarkers", "ambiguousSends",
+                   "ambiguousLanded", "walReplay")},
+               "kernel_launches": soak_launches},
+         phase_seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(cwd, ignore_errors=True)
+
+
 def main() -> int:
     phase_device()
     phase_build()
@@ -9097,10 +9386,11 @@ def main() -> int:
         phase_eventserver_partitioned(workdir)
         phase_eventserver_wal(workdir)
         net = phase_network_storage(workdir)
-        with _Beside(phase_als_process_sharded, main_path["ratings"]):
-            phase_object_search_storage(workdir, net)
-        del net
-        phase_pio_workflow_jsonl_ml20m(workdir, main_path["ratings"])
+        with _Beside(phase_operator_tools, workdir, net):
+            with _Beside(phase_als_process_sharded, main_path["ratings"]):
+                phase_object_search_storage(workdir, net)
+            del net
+            phase_pio_workflow_jsonl_ml20m(workdir, main_path["ratings"])
         with _TailGroup():
             phase_engine_server_tenants(workdir)
             phase_universal_recommender()

@@ -131,6 +131,9 @@ def train_cmd(args: list[str]) -> int:
                    help="fail with stage/iteration attribution when a stage "
                         "produces NaN/Inf (iterative trainers run one "
                         "iteration at a time)")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler trace (Chrome JSON, CPU and "
+                        "CUDA activity) of the train stage here")
     p.add_argument("--events", default=None,
                    help="file form: a JSON-lines events file instead of the "
                         "event store (needs --model-out)")
@@ -200,6 +203,7 @@ def train_cmd(args: list[str]) -> int:
         checkpoint_every=ns.checkpoint_every,
         resume=ns.resume,
         nan_guard=ns.nan_guard,
+        profile_dir=ns.profile_dir,
     )
     if ns.events is not None:
         return _train_file(ns, wp)

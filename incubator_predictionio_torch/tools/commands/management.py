@@ -9,16 +9,22 @@ commands/management.py`` (``status`` :18 with its fold-in cursor rows
 :330) and tenant (``_print_tenants`` :291) lines, ``wal`` :405-487,
 ``eventserver [--stats]`` :538, ``eventserver --workers N`` / ``--worker``
 :540-578 and ``eventserver scale N`` :489-537, ``eventlog`` :687-1002,
-``export`` :1113, ``import`` :1155, ``storageserver`` :1005) for
-JSON-lines files; ``import`` writes to whichever event store is
-configured. ``eventlog`` has ``compact``, ``scrub``, ``status``,
-``fence``, ``retire``, ``archive``, ``restore`` and ``tail``; ``wal`` has
+``export`` :1113, ``import`` :1155, ``storageserver`` :1005, and the
+operator tools :1235-1352: ``adminserver``, ``template``, ``run``,
+``upgrade``, ``shell``) for JSON-lines and Parquet files; ``import``
+writes to whichever event store is configured. Parquet needs pyarrow,
+imported only when the format is Parquet: without it the verb fails
+naming pyarrow and writes nothing (there is no JSON-lines fallback).
+``eventlog`` has ``compact``, ``scrub``, ``status``, ``fence``,
+``retire``, ``archive``, ``restore`` and ``tail``; ``wal`` has
 ``inspect`` and ``replay``. ``status`` also names a running partitioned
-event-server front and prints each network store's circuit breakers.
-Parquet and the admin server are not ported yet. ``fleet plan`` (:582)
-and the fleet and autoscaler lines of ``status --engine-url``
-(``_print_fleet`` :355, ``_print_autoscaler`` :262) read a serving
-fleet's front.
+event-server front, prints each network store's circuit breakers and the
+last soak's one-liner (``SOAK.json`` in the working directory). ``fleet
+plan`` (:582) and the fleet and autoscaler lines of ``status
+--engine-url`` (``_print_fleet`` :355, ``_print_autoscaler`` :262) read a
+serving fleet's front. ``template`` lists and copies the port's own
+bundle (``incubator_predictionio_torch/templates/``), whose engine.json
+files name the port's factories.
 """
 
 from __future__ import annotations
@@ -116,9 +122,35 @@ def status_cmd(args: list[str]) -> int:
     # where each app's online fold-in tailer stands, with the freshness-lag
     # warn-marker
     _print_foldin_cursors(s)
+    # the last production-day soak's verdict (`pio soak` writes ./SOAK.json)
+    _print_soak_verdict()
     if ns.engine_url:
         _print_engine_overload(ns.engine_url)
     return 0
+
+
+def _print_soak_verdict(path: str = "SOAK.json") -> None:
+    """One line summarizing the last soak scorecard in the working
+    directory: whether production day last went green, with the seed that
+    replays it if it did not."""
+    from ...workflow.soak import read_scorecard
+
+    doc = read_scorecard(path)
+    if not doc or "verdict" not in doc:
+        return
+    ok = doc.get("verdict") == "PASS"
+    slos = doc.get("slos") or []
+    green = sum(1 for s in slos if s.get("ok"))
+    fired = sum(1 for f in (doc.get("faults") or []) if f.get("fired"))
+    age_h = (time.time() - float(doc.get("startedAt") or 0)) / 3600.0
+    marker = "[info]" if ok else "[warn]"
+    extra = "" if ok else (
+        " — VIOLATED: "
+        + ", ".join(s["name"] for s in slos if not s.get("ok"))
+        + f"; replay with `pio soak --seed {doc.get('seed')}`")
+    print(f"{marker} Last soak ({path}): {doc.get('verdict')}, "
+          f"{green}/{len(slos)} SLO(s) green, {fired} fault(s) "
+          f"injected, seed {doc.get('seed')}, {age_h:.1f}h ago{extra}")
 
 
 def _print_event_front() -> None:
@@ -437,63 +469,167 @@ def _channel_id(s: Storage, app_id: int, channel: Optional[str]):
     return True, chans[0].id
 
 
-@verb("export", "export an app's events to a JSON-lines file")
+#: columnar schema of a Parquet export (reference management.py:1049-1113):
+#: the scalar event fields as string columns, the schemaless properties map
+#: as a JSON-text column, times as UTC strings in the wire format, so a
+#: Parquet round trip equals a JSON-lines one
+_PARQUET_FIELDS = ("eventId", "event", "entityType", "entityId",
+                   "targetEntityType", "targetEntityId", "properties",
+                   "eventTime", "tags", "prId", "creationTime")
+
+
+def _events_to_parquet(events, output: str) -> int:
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    schema = pa.schema([(name, pa.string()) for name in _PARQUET_FIELDS])
+    n = 0
+    writer = pq.ParquetWriter(output, schema)
+    try:
+        cols: dict = {k: [] for k in _PARQUET_FIELDS}
+        for e in events:
+            doc = e.to_json()
+            for k in _PARQUET_FIELDS:
+                v = doc.get(k)
+                if k == "properties":
+                    v = json.dumps(v or {})
+                elif k == "tags":
+                    v = json.dumps(v) if v else None
+                cols[k].append(v)
+            n += 1
+            if n % 50_000 == 0:
+                writer.write_table(pa.table(cols, schema=schema))
+                cols = {k: [] for k in _PARQUET_FIELDS}
+        if cols["event"]:
+            writer.write_table(pa.table(cols, schema=schema))
+    finally:
+        writer.close()
+    return n
+
+
+def _parquet_rows(path: str):
+    """Raw string-typed rows; each is decoded in the import loop's
+    per-record try, so one bad cell is a warning and a skip."""
+    import pyarrow.parquet as pq
+
+    for batch in pq.ParquetFile(path).iter_batches():
+        yield from batch.to_pylist()
+
+
+def _parquet_row_to_doc(row: dict) -> dict:
+    doc = {k: v for k, v in row.items()
+           if v is not None and k not in ("properties", "tags")}
+    doc["properties"] = json.loads(row.get("properties") or "{}")
+    if row.get("tags"):
+        doc["tags"] = json.loads(row["tags"])
+    return doc
+
+
+def _detect_format(path: str, flag: str) -> str:
+    if flag != "auto":
+        return flag
+    return "parquet" if path.endswith(".parquet") else "jsonl"
+
+
+def _have_pyarrow(what: str) -> bool:
+    """Whether pyarrow imports; if not, the error that names it."""
+    try:
+        import pyarrow  # noqa: F401
+        import pyarrow.parquet  # noqa: F401
+    except ImportError:
+        print(f"[error] parquet {what} needs pyarrow installed",
+              file=sys.stderr)
+        return False
+    return True
+
+
+def _format_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--format", choices=["auto", "jsonl", "parquet"],
+                   default="auto",
+                   help="auto = by extension (.parquet); the reference's "
+                        "EventsToFile wrote json or parquet")
+
+
+@verb("export", "export an app's events to JSONL or Parquet")
 def export_cmd(args: list[str]) -> int:
     p = argparse.ArgumentParser(prog="pio export")
     p.add_argument("--appid", type=int, default=None)
     p.add_argument("--app-name", default=None)
     p.add_argument("--channel", default=None)
     p.add_argument("--output", required=True)
+    _format_arg(p)
     ns = p.parse_args(args)
     s = Storage.instance()
     app_id = _resolve_app_id(s, ns.appid, ns.app_name)
     ok, channel_id = _channel_id(s, app_id, ns.channel)
     if not ok:
         return 1
-    n = 0
-    with open(ns.output, "w", encoding="utf-8") as f:
-        for e in s.get_p_events().find(app_id, channel_id):
-            f.write(json.dumps(e.to_json()) + "\n")
-            n += 1
-    print(f"[info] Exported {n} events to {ns.output} (jsonl)")
+    fmt = _detect_format(ns.output, ns.format)
+    if fmt == "parquet" and not _have_pyarrow("export"):
+        return 1
+    events = s.get_p_events().find(app_id, channel_id)
+    if fmt == "parquet":
+        n = _events_to_parquet(events, ns.output)
+    else:
+        n = 0
+        with open(ns.output, "w", encoding="utf-8") as f:
+            for e in events:
+                f.write(json.dumps(e.to_json()) + "\n")
+                n += 1
+    print(f"[info] Exported {n} events to {ns.output} ({fmt})")
     return 0
 
 
-@verb("import", "import events from a JSON-lines file into an app")
+@verb("import", "import events from JSONL or Parquet into an app")
 def import_cmd(args: list[str]) -> int:
     p = argparse.ArgumentParser(prog="pio import")
     p.add_argument("--appid", type=int, default=None)
     p.add_argument("--app-name", default=None)
     p.add_argument("--channel", default=None)
     p.add_argument("--input", required=True)
+    _format_arg(p)
     ns = p.parse_args(args)
     s = Storage.instance()
     app_id = _resolve_app_id(s, ns.appid, ns.app_name)
     ok, channel_id = _channel_id(s, app_id, ns.channel)
     if not ok:
         return 1
+    fmt = _detect_format(ns.input, ns.format)
+    if fmt == "parquet" and not _have_pyarrow("import"):
+        return 1
     le = s.get_l_events()
     le.init(app_id, channel_id)
     t0 = time.perf_counter()
+
+    def records():
+        """(record number, raw record); decoded inside the per-record try
+        below, so a malformed record is a warning and a skip, not an
+        aborted import."""
+        if fmt == "parquet":
+            yield from enumerate(_parquet_rows(ns.input), 1)
+            return
+        with open(ns.input, encoding="utf-8") as f:
+            for line_no, line in enumerate(f, 1):
+                line = line.strip()
+                if line:
+                    yield line_no, line
+
     # Streamed in batches: buffering a whole large file as Event objects
-    # would hold every event in memory at once. A malformed record is a
-    # warning and a skip, not an aborted import.
+    # would hold every event in memory at once.
     batch, imported, skipped = [], 0, 0
-    with open(ns.input, encoding="utf-8") as f:
-        for line_no, line in enumerate(f, 1):
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                batch.append(Event.from_json(json.loads(line)))
-            except Exception as e:  # noqa: BLE001 - report and continue
-                skipped += 1
-                print(f"[warn] record {line_no}: {e}", file=sys.stderr)
-                continue
-            if len(batch) >= IMPORT_BATCH:
-                le.insert_batch(batch, app_id, channel_id)
-                imported += len(batch)
-                batch = []
+    for rec_no, raw in records():
+        try:
+            doc = (_parquet_row_to_doc(raw) if fmt == "parquet"
+                   else json.loads(raw))
+            batch.append(Event.from_json(doc))
+        except Exception as e:  # noqa: BLE001 - report and continue
+            skipped += 1
+            print(f"[warn] record {rec_no}: {e}", file=sys.stderr)
+            continue
+        if len(batch) >= IMPORT_BATCH:
+            le.insert_batch(batch, app_id, channel_id)
+            imported += len(batch)
+            batch = []
     if batch:
         le.insert_batch(batch, app_id, channel_id)
         imported += len(batch)
@@ -1135,4 +1271,131 @@ def storageserver_cmd(args: list[str]) -> int:
 
     signal.signal(signal.SIGTERM, _raise_exit)
     run_storage_server(ns.ip, ns.port, secret=ns.secret)
+    return 0
+
+
+@verb("adminserver", "start the admin REST API (:7071)")
+def adminserver_cmd(args: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="pio adminserver")
+    p.add_argument("--ip", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=7071)
+    ns = p.parse_args(args)
+    from ..admin import AdminServer
+
+    server = AdminServer(Storage.instance(), ns.ip, ns.port)
+    signal.signal(signal.SIGTERM, _raise_exit)
+    host, port = server.address
+    print(f"[info] Admin server running on {host}:{port}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+    return 0
+
+
+def templates_dir() -> str:
+    """The port's bundle of engine templates (one directory each, with an
+    engine.json naming this package's factory)."""
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "templates")
+
+
+@verb("template", "list or copy bundled engine templates")
+def template_cmd(args: list[str]) -> int:
+    """Reference: `pio template get` cloned from GitHub; here it copies a
+    template of the port's bundle."""
+    import shutil
+
+    p = argparse.ArgumentParser(prog="pio template")
+    sub = p.add_subparsers(dest="sub", required=True)
+    sub.add_parser("list")
+    p_get = sub.add_parser("get")
+    p_get.add_argument("name")
+    p_get.add_argument("dest")
+    ns = p.parse_args(args)
+    base = templates_dir()
+    if ns.sub == "list":
+        for name in sorted(os.listdir(base)):
+            if os.path.isfile(os.path.join(base, name, "engine.json")):
+                print(name)
+        return 0
+    src = os.path.join(base, ns.name)
+    if not os.path.isfile(os.path.join(src, "engine.json")):
+        print(f"[error] unknown template {ns.name!r}; `pio template list`",
+              file=sys.stderr)
+        return 1
+    shutil.copytree(src, ns.dest,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    print(f"[info] Template {ns.name!r} copied to {ns.dest}")
+    return 0
+
+
+@verb("run", "run an arbitrary main function with the pio environment")
+def run_cmd(args: list[str]) -> int:
+    """Reference: `pio run <main class>`; here the dotted path of a
+    callable (a path into the JAX package is refused, as in
+    engine.json)."""
+    p = argparse.ArgumentParser(prog="pio run")
+    p.add_argument("main", help="dotted path module.function")
+    p.add_argument("--engine-dir", default=".")
+    ns, rest = p.parse_known_args(args)
+    from ...workflow.json_extractor import resolve_engine_factory
+
+    try:
+        fn = resolve_engine_factory(ns.main, ns.engine_dir)
+    except ValueError as e:
+        print(f"[error] {e}", file=sys.stderr)
+        return 1
+    result = fn(*rest) if rest else fn()
+    if result is not None:
+        print(result)
+    return 0
+
+
+@verb("upgrade", "upgrade helper (storage schema is auto-migrating)")
+def upgrade_cmd(args: list[str]) -> int:
+    print("[info] Nothing to do: storage schemas are created on demand and "
+          "engine templates need no rebuild in this distribution.")
+    return 0
+
+
+@verb("shell", "interactive Python shell with the pio environment loaded")
+def shell_cmd(args: list[str]) -> int:
+    """Reference: bin/pio-shell, a REPL wired to the platform (there:
+    spark-shell with the pio assembly on the classpath; here: the Python
+    REPL with ``pypio`` preloaded and storage reachable).
+
+    Preloaded names: ``pypio`` (the facade, already init()-ed against the
+    configured storage: new_app / delete_app / import_events / find_events
+    / find_ratings / train), ``storage`` (the configured Storage) and
+    ``np``. Starting the shell imports no torch: it loads when something
+    trains. ``pio shell -c 'stmt'`` runs one statement and exits.
+    """
+    p = argparse.ArgumentParser(prog="pio shell")
+    p.add_argument("-c", dest="command", default=None,
+                   help="run one statement and exit")
+    ns = p.parse_args(args)
+
+    import code
+
+    import numpy as np
+
+    from ... import pypio
+
+    storage = Storage.instance()
+    pypio.init(storage)
+    banner = ("pio shell — pypio preloaded "
+              "(pypio.new_app / import_events / find_events / train ...; "
+              "`storage` = configured Storage; np available)")
+    local_ns = {"pypio": pypio, "np": np, "storage": storage}
+    if ns.command is not None:
+        exec(compile(ns.command, "<pio shell -c>", "exec"), local_ns)
+        return 0
+    try:
+        import readline  # noqa: F401 — line editing and history
+    except ImportError:  # pragma: no cover — a platform without readline
+        pass
+    code.interact(banner=banner, local=local_ns)
     return 0

@@ -9,7 +9,8 @@ e.g. the events on a JSONL log):
 
     app new|list|show|delete|channel-new|channel-delete|data-delete
     accesskey new|list|delete
-    import --app-name A --input events.jsonl     export --app-name A --output F
+    import --app-name A --input F [--format auto|jsonl|parquet]
+    export --app-name A --output F [--format auto|jsonl|parquet]
     eventserver [--ip H] [--port 7070]
     eventlog compact [--min-new-bytes N] | scrub | status | retire [--ttl D]
              | tail [--app A | --appid N] [--channel C] [--from CURSOR]
@@ -17,6 +18,7 @@ e.g. the events on a JSONL log):
     build [--engine-dir D]
     train [--engine-dir D | --engine-json J] [--device cpu] [--batch B]
           [--window DUR] [--checkpoint-every N] [--resume] [--nan-guard]
+          [--profile-dir D]
           [--skip-sanity-check] [--stop-after-read] [--stop-after-prepare]
     deploy [--engine-dir D | --engine-json J] [--engine-instance-id ID]
            [--ip H] [--port 8000] [--device cpu] [--feedback]
@@ -33,6 +35,12 @@ e.g. the events on a JSONL log):
     eval EVALUATION [GENERATOR] [--engine-dir D] [--app-name A] [--batch B]
          [--parallel-candidates N] [--device cpu]
     dashboard [--ip H] [--port 9000]
+    adminserver [--ip H] [--port 7071]
+    template list | get NAME DEST      run module.function [args]
+    shell [-c STMT]                    upgrade
+    soak [--engine-dir D] [--device cpu] [--seed S] [--duration-s T]
+         [--event-workers N] [--replicas N] [--faults LIST] [--out F]
+         [--dry-run] ...
 
 ``train`` reads the app's events from the event store, trains the engine
 that engine.json names, writes an engine-instance row and a checksummed
@@ -152,6 +160,13 @@ def load_deployment(model_path: str, device: str = "cuda",
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["soak"]:
+        # the soak driver only builds argv for subprocesses (which set up
+        # their own device): it is dispatched before anything can import
+        # torch, so the scenario clock never pays for it
+        from .commands.soak import soak_cmd
+
+        return soak_cmd(argv[1:])
     from . import commands
 
     if not argv or argv[0] in ("-h", "--help", "help"):

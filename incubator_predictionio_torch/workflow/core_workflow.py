@@ -21,6 +21,12 @@ Port of ``incubator_predictionio_tpu/workflow/core_workflow.py`` (:34-104,
   interrupted run — and persists the model; the other ranks
   (:func:`_run_train_follower`) take part in every collective and every
   checkpoint barrier and persist nothing (the factors are replicated).
+- ``pio train --profile-dir D`` (reference :359-372, a
+  ``jax.profiler.trace``) records the train stage with ``torch.profiler``
+  (CPU activity, and CUDA activity on the card: a card whose torch cannot
+  trace CUDA, or a trace that holds no kernel, raises rather than leave a
+  CPU-only trace) and writes it as Chrome JSON to :func:`trace_path`, one
+  file per gang rank.
 - :func:`load_deployment` picks the newest COMPLETED instance of the
   engine and walks back past any whose artifact fails verification or does
   not load; an explicit instance id never walks back.
@@ -37,6 +43,8 @@ shared store are never picked here.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import datetime as _dt
 import json
@@ -124,11 +132,69 @@ def load_persistent_models(stored: list, instance_id: str, ctx) -> list:
             else item for item in stored]
 
 
+def trace_path(profile_dir: str, instance_id: Optional[str],
+               rank: str = "0") -> str:
+    """Where ``--profile-dir`` puts one rank's trace of one train: ranks of
+    a gang, and trains into the same directory, never share a file."""
+    return os.path.join(profile_dir,
+                        f"train-{instance_id or 'file'}-rank{rank}"
+                        ".pt.trace.json")
+
+
+def trace_kernels(path: str) -> dict:
+    """Kernel name → launches in a Chrome trace that ``--profile-dir``
+    wrote (its ``"cat": "kernel"`` events)."""
+    with open(path, encoding="utf-8") as fh:
+        events = json.load(fh).get("traceEvents", [])
+    return dict(collections.Counter(ev.get("name", "") for ev in events
+                                    if ev.get("cat") == "kernel"))
+
+
+@contextlib.contextmanager
+def profiled(ctx, wp: WorkflowParams):
+    """A torch.profiler trace of the ``with`` body into ``wp.profile_dir``
+    (a null context when it is empty). On the card the trace must hold
+    CUDA activity: there is no quiet fall back to a CPU-only trace."""
+    if not wp.profile_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    on_card = torch.device(ctx.device).type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError(
+                "--profile-dir on the card needs torch.profiler's CUDA "
+                "activity, which this torch build does not offer")
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(wp.profile_dir, exist_ok=True)
+    path = trace_path(wp.profile_dir, ctx.engine_instance_id,
+                      envknobs.env_str("PIO_PROCESS_ID", "0"))
+    with profile(activities=activities) as prof:
+        yield path
+        if on_card:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    if on_card and not trace_kernels(path):
+        raise RuntimeError(
+            f"--profile-dir: the trace {path} holds no CUDA kernel; the "
+            "profiler recorded no device activity on this host")
+    log.info("profiler trace written to %s", path)
+
+
 def train_with_stale_checkpoint_fallback(engine, engine_params, ctx, wp):
     """engine.train with the --resume stale-snapshot fallback: a
     CheckpointIncompatibleError (data/rank changed) discards the
     checkpoints and retrains from scratch — otherwise every future
-    --resume re-selects the same instance and fails the same way."""
+    --resume re-selects the same instance and fails the same way. With
+    ``wp.profile_dir`` the train runs under :func:`profiled`."""
+    with profiled(ctx, wp):
+        return _train_with_fallback(engine, engine_params, ctx, wp)
+
+
+def _train_with_fallback(engine, engine_params, ctx, wp):
     try:
         return engine.train(ctx, engine_params, wp)
     except CheckpointIncompatibleError as e:

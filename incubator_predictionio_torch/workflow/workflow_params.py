@@ -1,8 +1,8 @@
 """WorkflowParams: the flags of one train run.
 
 Port of ``incubator_predictionio_tpu/workflow/workflow_params.py`` with the
-fields this package honors. The profiler and placement fields are not
-ported (ROADMAP Queue 1, item 9; placement is not to port).
+fields this package honors. The placement fields are not ported:
+``--device auto`` may train on the CPU, which the device rule forbids.
 """
 
 from __future__ import annotations
@@ -24,6 +24,9 @@ class WorkflowParams:
     # check every stage's output for NaN/Inf with stage attribution;
     # iterative trainers run one iteration at a time to name the iteration
     nan_guard: bool = False
+    # write a torch.profiler trace (CPU and, on the card, CUDA activity) of
+    # the train stage into this directory, one file per gang rank
+    profile_dir: str = ""
     # the streamed input pipeline (workflow/input_pipeline.py): "" defers
     # to PIO_PIPELINE (default auto), else auto/on/off for this run; the
     # 0 values defer to PIO_PIPELINE_{CHUNK,DEPTH,WORKERS} or the defaults

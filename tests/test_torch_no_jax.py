@@ -40,6 +40,7 @@ tests/conftest.py, so the run-time check needs its own process.)
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -108,12 +109,20 @@ def test_port_files_exist():
             "mailchimp.py", "ssl_config.py", "storage_server.py",
             "http_backend.py", "pgwire.py", "postgres.py", "mysqlwire.py",
             "mysql.py", "s3.py", "hdfs.py", "elasticsearch.py", "hbase.py",
-            "hbase_rpc.py", *STAND_INS,
+            "hbase_rpc.py", *STAND_INS, "admin.py", "soak.py",
             } <= names
     assert (ROOT / "incubator_predictionio_torch" / "e2"
             / "engine.py").is_file()
     assert (ROOT / "incubator_predictionio_torch" / "native"
             / "__init__.py").is_file()
+    assert (ROOT / "incubator_predictionio_torch" / "pypio"
+            / "__init__.py").is_file()
+    assert (ROOT / "tests" / "torch_soak_engine.py").is_file()
+    for name in ("classification", "complementary-purchase", "ecommerce",
+                 "recommendation", "similar-product", "text-classification",
+                 "universal-recommender", "vanilla"):
+        assert (ROOT / "incubator_predictionio_torch" / "templates" / name
+                / "engine.json").is_file(), name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -498,6 +507,9 @@ def verb_store(tmp_path_factory):
      "--output", "predictions.jsonl"],
     ["models", "list"],
     ["storageserver", "--port", "{port}"],
+    ["adminserver", "--port", "{port}"],
+    ["template", "get", "recommendation", "template_copy"],
+    ["shell", "-c", "print(1)"],
 ], ids=lambda v: v[0])
 def test_verb_in_a_process_without_jax(verb, verb_store):
     port = str(_free_port())
@@ -513,6 +525,33 @@ def test_verb_in_a_process_without_jax(verb, verb_store):
     assert out.returncode == 0, out.stderr[-3000:]
     last = out.stdout.strip().splitlines()[-1]
     assert '"loaded": []' in last, last
+
+
+_NO_TORCH = r"""
+import json, sys
+from incubator_predictionio_torch.tools import console
+rc = console.main(sys.argv[1:])
+print(json.dumps({"rc": rc, "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in (
+        "torch", "jax", "jaxlib", "orbax", "incubator_predictionio_tpu"))}))
+"""
+
+
+def test_soak_dry_run_in_a_process_without_jax_or_torch(verb_store):
+    """`pio soak --dry-run` plans the scenario in a process that imports
+    neither jax nor torch (the driver never needs either)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PIO_STORAGE_")}
+    env.update(PYTHONPATH=str(ROOT), PIO_FS_BASEDIR=str(verb_store / "base"))
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_TORCH, "soak", "--engine-dir",
+         str(verb_store), "--dry-run", "--duration-s", "30"],
+        capture_output=True, text=True, env=env, cwd=str(verb_store),
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "apps: nojax" in out.stdout and "fault timeline:" in out.stdout
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "rc": 0, "loaded": []}
 
 
 def test_armed_deploy_in_a_process_without_jax(verb_store):
