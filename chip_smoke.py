@@ -58,7 +58,9 @@ Phases (any failure exits non-zero; nothing is caught):
    path's).
 8. console: train → deploy → query; a checkpointed console train that
    crashes and its ``--resume``; the Similar-Product template's own
-   engine.json values through train → deploy → query.
+   engine.json values through train → deploy → query. Beside it, lint:
+   ``pio lint --json`` over the checkout (a parse pass that imports
+   neither torch nor jax) exits 0 with no finding and runs every rule.
 9. similar_product: bench_templates.py's config 3 (100,000 users × 20,000
    items × 5,000,000 views, rank 32, 10 iterations, implicit) through the
    Similar-Product engine, 20 item categories from $set events; persist →
@@ -619,7 +621,10 @@ PYCACHE_WARM = (
 def _warm_first_use(out: dict) -> None:
     """The process's first profile (CUPTI's set-up) and its first cuBLAS
     and cuSOLVER calls (the libraries' load) cost seconds once; made here
-    on a tiny input they stay out of kernel_time's first timed shape."""
+    on a tiny input they stay out of kernel_time's first timed shape.
+    Called on the main thread: CUPTI registers its client on the thread
+    of the first profile, and every later profile (:func:`device_ms`)
+    is taken on the main thread."""
     t0 = time.perf_counter()
     try:
         a, b = random_spd(1, 4, seed=0, device=torch.device("cuda"))
@@ -633,11 +638,21 @@ def _warm_first_use(out: dict) -> None:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    # the first-use set-up of the profiler and the solver libraries runs
-    # beside nvcc (this thread makes the only CUDA calls until the join)
+    # nvcc builds in a helper thread (it only waits on the compiler's
+    # process) while the main thread makes the first-use set-up of the
+    # profiler and the solver libraries: the profiler's first use stays on
+    # the thread that takes every later profile
+    nvcc: dict = {}
+
+    def build_nvcc():
+        try:
+            spd_solve.build_kernel()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            nvcc["error"] = e
+
+    nvcc_thread = threading.Thread(target=build_nvcc, name="nvcc")
+    nvcc_thread.start()
     first_use: dict = {}
-    warm_cuda = threading.Thread(target=_warm_first_use, args=(first_use,))
-    warm_cuda.start()
     # every process started from here on reads and writes compiled
     # bytecode under PYCACHE; one process warms it beside nvcc
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
@@ -653,7 +668,8 @@ def phase_build() -> None:
                                     seconds=native.build_seconds))
     thread.start()
     try:
-        spd_solve.build_kernel()
+        _warm_first_use(first_use)
+        nvcc_thread.join()
         thread.join()
         _, warm_err = warm.communicate(timeout=600)
     finally:
@@ -661,7 +677,9 @@ def phase_build() -> None:
             warm.kill()
             warm.wait()
         warm_s = time.perf_counter() - t0
-        warm_cuda.join()
+        nvcc_thread.join()
+    if "error" in nvcc:
+        raise nvcc["error"]
     check("error" not in first_use,
           f"the first-use warm-up failed: {first_use.get('error')}")
     check(warm.returncode == 0,
@@ -8918,6 +8936,32 @@ def tail_group(out_dir: str, elapsed_at_spawn: str) -> int:
     return 0
 
 
+#: the rules ``pio lint`` runs (its catalog)
+LINT_RULES = 23
+
+
+def phase_lint() -> None:
+    """``pio lint --json`` over this checkout, on the card host: a parse
+    pass that imports neither torch nor jax and touches no card. It must
+    exit 0 with no finding and run every rule; its seconds are printed."""
+    t0 = time.perf_counter()
+    out = subprocess.run(CONSOLE + ["lint", "--json"], capture_output=True,
+                         text=True, env=_console_env(), cwd=ROOT,
+                         timeout=300)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"pio lint exited {out.returncode}: {out.stdout[-3000:]}"
+          f"{out.stderr[-1000:]}")
+    doc = json.loads(out.stdout)
+    check(doc["clean"] and not doc["findings"],
+          f"pio lint found {len(doc['findings'])} finding(s)")
+    check(len(doc["rules"]) == LINT_RULES,
+          f"pio lint ran {len(doc['rules'])} rules, not {LINT_RULES}")
+    emit("lint", seconds=seconds, rules=len(doc["rules"]),
+         modules=doc["modules"], findings=len(doc["findings"]),
+         suppressed=doc["suppressed"])
+
+
 class _Beside:
     """``fn(*args)`` in a thread while the ``with`` body runs (both bound
     by process starts: the pair takes ≈ the longer one); joined on exit,
@@ -9378,7 +9422,8 @@ def main() -> int:
         phase_fold_in_main(workdir, main_path)
         phase_serving_sharded_catalog(main_path)
         phase_serving_mesh(main_path)
-        phase_console(workdir)
+        with _Beside(phase_lint):
+            phase_console(workdir)
         phase_console_similar_product(workdir)
         phase_pio_workflow(workdir)
         phase_codec_vs_plain(main_path["ratings"])

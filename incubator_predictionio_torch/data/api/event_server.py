@@ -475,8 +475,10 @@ class EventServer:
         out = {"status": "alive"}
         if self.lease is not None:
             out["partition"] = self.lease.partition
-        if self.shed_count:
-            out["shedRequests"] = self.shed_count
+        with self._shed_lock:
+            shed = self.shed_count
+        if shed:
+            out["shedRequests"] = shed
         snap = self.ingest.snapshot()
         if (snap["groupsCommitted"] or snap["pending"]
                 or snap["droppedEvents"] or "wal" in snap):

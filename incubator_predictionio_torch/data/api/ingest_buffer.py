@@ -336,20 +336,19 @@ class IngestBuffer:
         return out
 
     # -- submission (handler threads) ----------------------------------------
-    def _admit(self, n: int, key: Optional[Key] = None) -> None:
-        """Caller holds ``_lock``."""
+    def _admit(self, n: int, shed: Optional[tuple] = None) -> None:
+        """Caller holds ``_lock``; ``shed`` is the key's entry of the shed
+        map, which the caller reads under that lock."""
         if self._draining:
             raise IngestOverloadError("event server is shutting down")
-        if key is not None:
-            shed = self._shed.get(key)
-            if shed is not None:
-                remaining = shed[0] - time.monotonic()
-                if remaining > 0:
-                    self.shed_appends += 1
-                    raise AppendShedError(
-                        "event log partition is shedding writes after a "
-                        "disk error; retry later", kind="shed",
-                        retry_after=max(1.0, remaining))
+        if shed is not None:
+            remaining = shed[0] - time.monotonic()
+            if remaining > 0:
+                self.shed_appends += 1
+                raise AppendShedError(
+                    "event log partition is shedding writes after a "
+                    "disk error; retry later", kind="shed",
+                    retry_after=max(1.0, remaining))
         if self._pending + n > self.config.max_pending:
             raise IngestOverloadError(
                 f"ingest buffer full ({self._pending} events pending); "
@@ -400,13 +399,13 @@ class IngestBuffer:
             return self._passthrough(key, entry)
         entry.waiter = _Waiter()
         with self._lock:
-            self._admit(entry.n, key)
+            self._admit(entry.n, self._shed.get(key))
             self._enqueue_locked(key, entry)
         return entry.waiter.wait()
 
     def _passthrough(self, key: Key, entry: _Pending):
         with self._lock:
-            self._admit(entry.n, key)
+            self._admit(entry.n, self._shed.get(key))
             self._pending += entry.n
         t_commit = telemetry.timer_start()
         try:
@@ -463,7 +462,7 @@ class IngestBuffer:
         eid = event.event_id or new_event_id()
         entry = _Pending(_EVENT, event, body=body, ids=[eid])
         with self._lock:
-            self._admit(1, key)
+            self._admit(1, self._shed.get(key))
             if self.wal is None:
                 self._enqueue_locked(key, entry)
                 return eid

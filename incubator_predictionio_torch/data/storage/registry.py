@@ -37,6 +37,7 @@ import os
 import threading
 from typing import Callable, Optional
 
+from ...common import envknobs
 from . import base
 from .elasticsearch import ESClient
 from .hbase import HBaseClient
@@ -90,7 +91,7 @@ REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
 def base_dir() -> str:
     """``$PIO_FS_BASEDIR``, else ``~/.pio_store`` (created if missing)."""
-    d = (os.environ.get("PIO_FS_BASEDIR", "").strip()
+    d = (envknobs.env_str("PIO_FS_BASEDIR", "", lower=False)
          or os.path.expanduser("~/.pio_store"))
     os.makedirs(d, exist_ok=True)
     return d

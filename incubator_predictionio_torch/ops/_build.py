@@ -20,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..common import envknobs
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 NVCC_FLAGS = (
@@ -35,7 +37,7 @@ build_info: dict[str, dict] = {}
 
 
 def build_dir() -> Path:
-    env = os.environ.get("PIO_TORCH_BUILD_DIR")
+    env = envknobs.env_str("PIO_TORCH_BUILD_DIR", "", lower=False)
     if env:
         return Path(env)
     return Path(__file__).resolve().parents[2] / "build" / "torch_kernels"

@@ -259,7 +259,7 @@ def sharded_similar_items(query_vecs, cat: ShardedCatalog, k: int,
 def env_serve_shard_items() -> int:
     """Rows per host shard (PIO_SERVE_SHARD_ITEMS). 0 (the default)
     disables host sharding: serving is then the flat catalog's path."""
-    raw = os.environ.get("PIO_SERVE_SHARD_ITEMS", "").strip()
+    raw = envknobs.env_str("PIO_SERVE_SHARD_ITEMS", "")
     rows = envknobs.env_int("PIO_SERVE_SHARD_ITEMS", 0, lo=0, float_ok=True)
     if raw and rows == 0 and raw not in ("0", "0.0"):
         log.warning("PIO_SERVE_SHARD_ITEMS=%r is not a row count; host "

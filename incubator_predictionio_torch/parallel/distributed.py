@@ -116,9 +116,9 @@ def initialize_distributed(
     # garbled must crash at start-up; a tolerant fallback to rank 0 /
     # world 1 would collide with the real leader or hang its peers
     num_processes = num_processes or int(
-        os.environ.get("PIO_NUM_PROCESSES", "1"))
+        os.environ.get("PIO_NUM_PROCESSES", "1"))  # pio-lint: disable=knob-envknobs -- identity knob: strict crash beats tolerant world=1
     process_id = (process_id if process_id is not None
-                  else int(os.environ.get("PIO_PROCESS_ID", "0")))
+                  else int(os.environ.get("PIO_PROCESS_ID", "0")))  # pio-lint: disable=knob-envknobs -- identity knob: strict crash beats tolerant rank=0
     if num_processes < 1 or not 0 <= process_id < num_processes:
         raise ValueError(f"PIO_PROCESS_ID={process_id} outside a gang of "
                          f"PIO_NUM_PROCESSES={num_processes}")

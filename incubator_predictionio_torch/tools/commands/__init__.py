@@ -12,7 +12,8 @@ import sys
 from typing import Callable
 
 _VERBS: dict[str, tuple[Callable[[list[str]], int], str]] = {}
-_MODULES = ("app", "engine", "evaluation", "management", "models", "soak")
+_MODULES = ("app", "engine", "evaluation", "lint", "management", "models",
+            "soak")
 _loaded = False
 
 

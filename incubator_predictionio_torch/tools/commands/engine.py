@@ -603,8 +603,10 @@ def _strip_replicas(args: list[str]) -> list[str]:
 
 def _tls_requested() -> bool:
     """The reference's TLS knobs (both set) are in the environment."""
-    return bool(os.environ.get("PIO_SSL_CERTFILE")
-                and os.environ.get("PIO_SSL_KEYFILE"))
+    from ...common import envknobs
+
+    return bool(envknobs.env_str("PIO_SSL_CERTFILE", "", lower=False)
+                and envknobs.env_str("PIO_SSL_KEYFILE", "", lower=False))
 
 
 def _deploy_fleet(args: list[str], ns, replicas: int,

@@ -41,6 +41,8 @@ e.g. the events on a JSONL log):
     soak [--engine-dir D] [--device cpu] [--seed S] [--duration-s T]
          [--event-workers N] [--replicas N] [--faults LIST] [--out F]
          [--dry-run] ...
+    lint [--json] [--rule R[,R...]] [--changed [REF]] [--profile]
+         [--list-rules]
 
 ``train`` reads the app's events from the event store, trains the engine
 that engine.json names, writes an engine-instance row and a checksummed
@@ -160,6 +162,13 @@ def load_deployment(model_path: str, device: str = "cuda",
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["lint"]:
+        # static analysis is a parse pass: dispatched before anything that
+        # could import torch, so it runs on a broken runtime and never
+        # touches the card
+        from .lint.cli import main as lint_main
+
+        return lint_main(argv[1:])
     if argv[:1] == ["soak"]:
         # the soak driver only builds argv for subprocesses (which set up
         # their own device): it is dispatched before anything can import

@@ -526,7 +526,8 @@ def load_deployment(
     every candidate's stored model is verified, and a corrupt, missing or
     unloadable artifact makes the loader walk back to the next-older
     COMPLETED instance — the bad blob is counted and kept, never deleted.
-    ``exclude_ids`` skips instances the caller has pinned;
+    ``exclude_ids`` skips instances the caller has pinned, and the fold-in
+    increments folded through them;
     ``on_reject(instance_id, kind)`` is called per skipped instance. An
     explicit ``instance_id`` never walks back: a failure surfaces as an
     error. ``app_name`` confines the walk to one app's instances."""
@@ -548,7 +549,8 @@ def load_deployment(
                 + (f" for app {app_name!r}" if app_name else "")
                 + "; run `pio train` first"
             )
-        candidates = [c for c in candidates if c.id not in excluded]
+        candidates = [c for c in candidates if c.id not in excluded
+                      and not model_artifact.folded_through(c, excluded)]
         if not candidates:
             raise RuntimeError(
                 "Every COMPLETED engine instance "

@@ -499,6 +499,11 @@ class EngineServer:
             if self.query_cache_size > 0 and self.query_cache_ttl_ms > 0
             else None)
         self._previous = None            # (deployment, instance) resident
+        # instance ids swapped in since _previous went out, the live one
+        # last; more than one only while automatic publishes outran the
+        # watch (see _load_once), and every one is pinned by a rollback
+        self._chain: list[str] = []
+        self._chain_since = 0.0          # monotonic swap-in of _chain[0]
         self._pinned: dict[str, str] = {}  # instance id → pin reason
         self._watch = None               # active post-swap watch window
         self._rollbacks: dict[str, int] = {}   # reason → count
@@ -623,9 +628,12 @@ class EngineServer:
 
     # -- lifecycle --------------------------------------------------------
     def _load(self, instance_id: Optional[str],
-              skip_if_current: bool = False, on_reject=None) -> bool:
+              skip_if_current: bool = False, on_reject=None,
+              chain: bool = False) -> bool:
         """(Re)load a deployment; True when one was published, False when
-        ``skip_if_current`` short-circuited.
+        ``skip_if_current`` short-circuited. ``chain`` (the automatic
+        publishes) lets the swap keep the last instance observed healthy
+        as the previous deployment (:meth:`_load_once`).
 
         At the initial deploy (nothing serving yet) a validation-refused
         newest instance is pinned and the walk retries older COMPLETED
@@ -634,7 +642,7 @@ class EngineServer:
         while True:
             try:
                 return self._load_once(instance_id, skip_if_current,
-                                       on_reject)
+                                       on_reject, chain)
             except SwapValidationError as e:
                 with self._lock:
                     has_current = self.deployment is not None
@@ -648,7 +656,19 @@ class EngineServer:
                     "an older COMPLETED instance", e)
 
     def _load_once(self, instance_id: Optional[str],
-                   skip_if_current: bool = False, on_reject=None) -> bool:
+                   skip_if_current: bool = False, on_reject=None,
+                   chain: bool = False) -> bool:
+        """One load and swap. The previous deployment kept resident is the
+        last instance OBSERVED healthy, whose post-swap watch closed
+        without tripping. An automatic publish (``chain``) that lands
+        while the outgoing instance's watch is still open keeps the
+        previous deployment and appends the new instance to the chain of
+        unobserved swaps; the outgoing one is released. The decision is
+        made under ``_lock`` on one clock reading: a watch whose window
+        has passed at that instant closed clean, and its instance becomes
+        the previous deployment. Any other swap (an operator reload, a
+        fleet directive) makes the outgoing instance the previous one and
+        starts a new chain."""
         ctx = WorkflowContext(storage=self.storage, device=self.device)
         with self._lock:
             pinned = tuple(self._pinned) if instance_id is None else ()
@@ -678,17 +698,33 @@ class EngineServer:
             prev_dep, prev_inst = self.deployment, self.instance
             swapped = (prev_inst is not None
                        and prev_inst.id != instance.id)
-            if swapped:
+            now = _time.monotonic()
+            w = self._watch
+            extend = (chain and swapped and w is not None
+                      and w["instance"] == prev_inst.id
+                      and now <= w["until"]
+                      and self._previous is not None
+                      and self._previous[1].id != instance.id)
+            if extend:
+                self._chain.append(instance.id)
+            elif swapped:
                 # ONE previous deployment stays resident (its tensors on
                 # the card intact) for an instant /rollback and the hedge
                 self._previous = (prev_dep, prev_inst)
+                self._chain = [instance.id]
+                self._chain_since = now
+            if swapped:
                 self._swap_count += 1
             self.deployment = deployment
             self.instance = instance
             if swapped and self.swap_watch_ms > 0:
+                # each instance gets a whole window of its own; the
+                # chain's earlier links keep their counts for the trip
                 self._watch = {
-                    "until": _time.monotonic() + self.swap_watch_ms / 1e3,
+                    "until": now + self.swap_watch_ms / 1e3,
                     "total": 0, "errors": 0, "instance": instance.id,
+                    "links": ([*w["links"], (w["total"], w["errors"])]
+                              if extend else []),
                 }
             if (swapped and self.quality_sample > 0
                     and self.quality_watch_ms > 0):
@@ -1726,7 +1762,11 @@ class EngineServer:
         """Record one query outcome against the post-swap watch. True
         when the error rate tripped the rollback threshold: at least 2
         failures AND a failure fraction above PIO_SWAP_MAX_ERROR_RATE, so
-        one flaky query can't roll back a healthy model."""
+        one flaky query can't roll back a healthy model. Within a chain
+        of unobserved swaps the threshold is met by the live instance
+        alone or by it together with the links before it, counted back
+        from the live one: a poisoned increment poisons every increment
+        folded from it, and the links before it must not dilute it."""
         with self._lock:
             w = self._watch
             if w is None or self._close_stale_watch(w):
@@ -1735,15 +1775,38 @@ class EngineServer:
             if ok:
                 return False
             w["errors"] += 1
-            return (w["errors"] >= 2
-                    and w["errors"] / w["total"] > self.swap_max_error_rate)
+            total, errors = w["total"], w["errors"]
+            for t, e in [(0, 0), *reversed(w["links"])]:
+                total, errors = total + t, errors + e
+                if errors >= 2 and errors / total > self.swap_max_error_rate:
+                    return True
+            return False
+
+    def _chain_full(self) -> bool:
+        """Whether an automatic publish must wait: the live instance's
+        watch is open and the chain of unobserved swaps (two or more: a
+        chain of one is bounded by its own window) began a whole watch
+        window ago. The wait ends when that watch closes (clean:
+        the live instance becomes the previous deployment at the next
+        swap) or trips (a rollback). So a chain spans at most one watch
+        window plus one load, and the previous deployment is at most two
+        windows older than the live one."""
+        with self._lock:
+            w, cur = self._watch, self.instance
+            now = _time.monotonic()
+            return (len(self._chain) > 1 and w is not None
+                    and cur is not None
+                    and w["instance"] == cur.id and now <= w["until"]
+                    and now - self._chain_since >= self.swap_watch_ms / 1e3)
 
     def _rollback_to_previous(self, reason: str) -> Optional[str]:
         """Instant swap back to the resident previous deployment (no
-        store round trip: it stayed warm on the card). The bad instance
-        is PINNED so neither the latest-completed walk nor the refresh
-        loop re-picks it; its blob is never deleted. Returns the restored
-        instance id, or None when no previous deployment is resident."""
+        store round trip: it stayed warm on the card). The bad instance,
+        and every instance of the chain swapped in since the previous
+        one went out, is PINNED, so neither the latest-completed walk nor
+        the refresh loop re-picks a poisoned link; no blob is deleted.
+        Returns the restored instance id, or None when no previous
+        deployment is resident."""
         with self._lock:
             if self._previous is None:
                 return None
@@ -1755,7 +1818,10 @@ class EngineServer:
             # the bad instance's quality watch dies with it: the restored
             # model is the last-good baseline, not a canary
             self._quality_watch = None
-            self._pinned.setdefault(bad_inst.id, reason)
+            chain = [i for i in self._chain if i != bad_inst.id]
+            for iid in [*chain, bad_inst.id]:
+                self._pinned.setdefault(iid, reason)
+            self._chain = []
             self._rollbacks[reason] = self._rollbacks.get(reason, 0) + 1
         if self._query_cache is not None:
             # every cached result came from the model rolled away from
@@ -1772,7 +1838,8 @@ class EngineServer:
             # a poisoned increment counts on the fold-in family too
             online.note_rollback(reason)
         log.warning("automatic rollback (%s): %s → %s; %s pinned",
-                    reason, bad_inst.id, restored.id, bad_inst.id)
+                    reason, bad_inst.id, restored.id,
+                    ", ".join([*chain, bad_inst.id]))
         return restored.id
 
     def _watched_failure(self, deployment, query, dl):
@@ -1913,7 +1980,11 @@ class EngineServer:
         validated load of the newest deployable instance (skip-if-
         current), gate refusal pinned with degraded mode, integrity
         rejections pinned, the post-swap watch armed by the swap itself.
-        Returns "swapped" | "current" | "busy" | "refused" | "error"."""
+        Returns "swapped" | "current" | "busy" | "deferred" | "refused" |
+        "error"; "deferred" while the chain of unobserved swaps is full
+        (:meth:`_chain_full`)."""
+        if self._chain_full():
+            return "deferred"
         if not self._reload_lock.acquire(blocking=False):
             return "busy"
         try:
@@ -1922,7 +1993,8 @@ class EngineServer:
             try:
                 swapped = self._load(
                     None, True,
-                    lambda iid, kind: rejected.append((iid, kind)))
+                    lambda iid, kind: rejected.append((iid, kind)),
+                    chain=True)
             except SwapValidationError as e:
                 with self._lock:
                     self._validate_failures += 1
@@ -2486,6 +2558,7 @@ class EngineServer:
         with self._lock:
             self._pins_provisional.discard(cur.id)
             self._previous = None
+            self._chain = []
             self._rollbacks["manual"] = self._rollbacks.get("manual", 0) + 1
             restored = self.instance
             self._watch = None

@@ -262,14 +262,31 @@ def instance_app_name(instance) -> str:
     return ""
 
 
+def folded_through(instance, ids) -> bool:
+    """Whether ``instance`` is a fold-in increment folded through one of
+    ``ids`` (its marker's ``bases``). Such an increment carries whatever
+    got those instances pinned, so a walk that skips them skips it too."""
+    if not ids:
+        return False
+    try:
+        raw = (instance.runtime_conf or {}).get("foldin")
+        if not raw:
+            return False
+        doc = json.loads(raw) if isinstance(raw, str) else raw
+        bases = doc.get("bases")
+        return isinstance(bases, list) and any(b in ids for b in bases)
+    except Exception:  # noqa: BLE001 — an unreadable marker proves nothing
+        return False
+
+
 def newer_completed_instance(instances, engine_factory_name: str,
                              engine_variant: str, current,
                              exclude=(), app_name: Optional[str] = None):
-    """Newest COMPLETED instance not in ``exclude`` and strictly newer
-    than ``current`` (an instance row, an instance id, or None), else
-    None: the one definition of "a newer deployable candidate" of the
-    engine server's refresh poll. With ``app_name`` the walk is confined
-    to that app's instances."""
+    """Newest COMPLETED instance not in ``exclude`` (nor folded through
+    one) and strictly newer than ``current`` (an instance row, an
+    instance id, or None), else None: the one definition of "a newer
+    deployable candidate" of the engine server's refresh poll. With
+    ``app_name`` the walk is confined to that app's instances."""
     done = instances.get_completed(
         engine_factory_name or "engine", "1", engine_variant)
     cur_row = (instances.get(current) if isinstance(current, str)
@@ -277,7 +294,7 @@ def newer_completed_instance(instances, engine_factory_name: str,
     for c in done:
         if app_name is not None and instance_app_name(c) != app_name:
             continue
-        if c.id in exclude:
+        if c.id in exclude or folded_through(c, exclude):
             continue
         if cur_row is not None and (
                 c.id == cur_row.id

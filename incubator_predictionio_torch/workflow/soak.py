@@ -992,14 +992,15 @@ class SoakRunner:
         finally:
             sess.close()
 
-    def _wait_ready(self) -> None:
-        """Both fronts answering before traffic starts."""
+    def _wait_ready(self, labels: tuple) -> None:
+        """The fronts of ``labels`` answering before traffic starts."""
         deadline = time.monotonic() + self.cfg.ready_timeout_s
         ev_base = f"http://127.0.0.1:{self.event_port}"
         en_base = f"http://127.0.0.1:{self.engine_port}"
-        ev_ok = en_ok = False
+        ev_ok = "eventserver" not in labels
+        en_ok = "engine" not in labels
         while time.monotonic() < deadline and not (ev_ok and en_ok):
-            for label in ("eventserver", "engine"):
+            for label in labels:
                 p = self.procs[label]
                 if p.poll() is not None:
                     raise RuntimeError(
@@ -1035,8 +1036,8 @@ class SoakRunner:
                 "soak topology not ready in "
                 f"{self.cfg.ready_timeout_s:.0f}s — eventserver "
                 f"ok={ev_ok} engine ok={en_ok}\n"
-                f"eventserver: {self.tail('eventserver', 1500)}\n"
-                f"engine: {self.tail('engine', 1500)}")
+                + "\n".join(f"{label}: {self.tail(label, 1500)}"
+                            for label in labels))
 
     # -- traffic -----------------------------------------------------------
 
@@ -1533,9 +1534,17 @@ class SoakRunner:
         if cfg.tenant_apps:
             self._train_tenants()
         self._train("initial")
-        self._launch_event_server()
+        # the engine first: the event workers arm their spec faults' clock
+        # when they start, so they start once the engine answers, and their
+        # faults land on the scenario's timeline, not inside the engine's
+        # start (seconds on the card). Armed earlier, a worker's ENOSPC and
+        # its compaction crash both came due by the first append, and the
+        # counter that is the ENOSPC's evidence died with the worker
+        # before a scrape could read it
         self._launch_engine()
-        self._wait_ready()
+        self._wait_ready(("engine",))
+        self._launch_event_server()
+        self._wait_ready(("eventserver",))
 
         scrape_t = threading.Thread(target=self._scrape_loop,
                                     daemon=True, name="soak-scrape")

@@ -356,10 +356,13 @@ def test_template_list_is_the_bundle(capsys):
 
 @pytest.mark.parametrize("name", sorted(
     p.name for p in (ROOT / "templates").iterdir() if p.is_dir()))
-def test_bundled_engine_json_equals_the_reference(name):
+def test_bundled_engine_json_equals_the_reference(name, monkeypatch):
     """Each of the port's engine.json files is the reference's, but for an
     engineFactory that names the port's class (the user's own module for
-    vanilla), which resolves to a factory of the port."""
+    vanilla), which resolves to a factory of the port. Both packages'
+    vanilla modules are called ``vanilla_engine``: the port's is resolved
+    with the name free and removed afterwards, so neither package's test
+    gets the other's cached module."""
     from incubator_predictionio_torch.workflow.json_extractor import (
         engine_from_factory, resolve_engine_factory,
     )
@@ -372,8 +375,15 @@ def test_bundled_engine_json_equals_the_reference(name):
     assert port["engineFactory"] == ref["engineFactory"].replace(
         "incubator_predictionio_tpu.", "incubator_predictionio_torch.")
     assert not port["engineFactory"].startswith("incubator_predictionio_tpu")
-    engine = engine_from_factory(resolve_engine_factory(
-        port["engineFactory"], str(tdir)))
+    saved = sys.modules.pop("vanilla_engine", None)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    try:
+        engine = engine_from_factory(resolve_engine_factory(
+            port["engineFactory"], str(tdir)))
+    finally:
+        sys.modules.pop("vanilla_engine", None)
+        if saved is not None:
+            sys.modules["vanilla_engine"] = saved
     assert type(engine).__module__.startswith("incubator_predictionio_torch")
 
 
