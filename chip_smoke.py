@@ -190,7 +190,12 @@ Phases (any failure exits non-zero; nothing is caught):
    (4 resident, a budget of 2 per tenant): one client per app over the
    four routing keys, every answer its own app's host top-k, evictions
    and no query lost; a hot app shedding 503 while two others answer 200;
-   a poisoned tenant rolled back alone; one tenant's fold-in increment
+   a poisoned tenant rolled back alone; a poisoned fold-in chain of one
+   tenant (two increments inside one watch window, the second folded
+   through the poisoned first) rolled back to the tenant's last observed
+   instance with both links pinned, every other tenant on its own
+   instance, the two increments' warp launches recorded as
+   engine_server_tenants_chain; one tenant's fold-in increment
    evicting only its own cached results; the pio_tenant_* families of
    /metrics equal to /status's counts.
 15. similar_product (phase 9 above, run here).
@@ -299,12 +304,25 @@ Phases (any failure exits non-zero; nothing is caught):
    and no warp-kernel launch, the RMSE check, steady seconds per
    iteration, one iteration profiled; one fold-in batch (2 wide launches,
    card vs CPU).
+24. soak_full_menu (in a thread beside 4–7b): the reference's headline
+   soak, pio soak --device cuda --faults full of tests/torch_soak_engine.py
+   with every other flag at the CLI's default (60 s, 2 event workers, a
+   2-replica fleet, 3 apps, ingest 50/s, queries 20/s, fold-in 250 ms,
+   watch 2,500 ms, quality sample 1.0): PASS, all eight faults fired with
+   evidence, every acknowledged event reconciled once, an observed
+   rollback-window row for each of the three poisoned publishes.
+25. soak_tenants (in a thread beside 8–10): the reference's multi-tenant
+   soak (seed 45, 16 s, 1 worker, one engine process, 5 apps through 2
+   resident slots, ENOSPC and a poisoned fold-in) with the fold-in at
+   250 ms: PASS, a row per tenant offered and answered, evictions ≥ 1,
+   the poisoned increment rolled back within its window.
+   Neither soak's engine launches a solve kernel.
 
-Three overlaps keep the script inside its time: phases 15–19b run in a
+Five overlaps keep the script inside its time: phases 15–19b run in a
 second process (this script with --tail-group) while the main one runs
-14 and 20–23, 12d runs in a thread beside 12g, and 12h in a thread beside
-12g and 13 (neither launches a kernel that a path of this process
-counts). Each pair is bound by process starts
+14 and 20–23, 12d runs in a thread beside 12g, 12h in a thread beside
+12g and 13, 24 beside 4–7b and 25 beside 8–10 (none launches a kernel
+that a path of this process counts). Each pair is bound by process starts
 and the host, so it takes about as long as its longer half. The second
 process's phase lines are printed when both groups are done; its paths'
 launches join the kernels line.
@@ -462,25 +480,67 @@ def cuda_kernels(prof) -> list:
             and e.self_device_time_total > 0]
 
 
-def device_ms(fn, reps: int, required: bool = True):
-    """Device time per call: the card's kernel time summed over reps calls
-    (torch.profiler), divided by reps. Host time between launches is left
-    out, so this is what the work itself costs the card. When the
-    profiler sees no device time: fails, or, not ``required``, None (not
-    measured)."""
+def profiled_ms(kernels, reps: int, symbol: str = "",
+                launches: int = 0) -> tuple:
+    """(device ms per call, records it rests on) from one profile's
+    per-name kernel averages (``key``, ``count``, ``self_device_time_total``
+    in µs). The profiler can drop records of a kernel (one of five
+    launches seen at 8,192 × 128), so each name's time is divided by its
+    own record count, never by ``reps``. With ``symbol``: that kernel's
+    rows only, times the launches per call that its wrapper's counter saw
+    in the window (``launches`` / ``reps``; 1 without a count). Without:
+    each name's time per record times its records per call (rounded, at
+    least 1). (None, 0) when the profile holds no such record."""
+    rows = [e for e in kernels if e.count > 0
+            and (not symbol or symbol in e.key)]
+    records = sum(e.count for e in rows)
+    if not records:
+        return None, 0
+    if symbol:
+        per_call = launches / reps if launches else 1.0
+        us = sum(e.self_device_time_total for e in rows) / records * per_call
+    else:
+        us = sum(e.self_device_time_total / e.count
+                 * max(1, round(e.count / reps)) for e in rows)
+    return us / 1e3, records
+
+
+def device_profile(fn, reps: int, symbol: str = "", counter=None) -> dict:
+    """Device time per call of ``fn`` (torch.profiler over reps calls,
+    :func:`profiled_ms`), the profiler's records of it and the launches
+    ``counter`` (a wrapper's launch counter) saw in the window. Host time
+    between launches is left out, so this is what the work itself costs
+    the card. A profile with no record is taken once more; ``ms`` is
+    None when the second one has none either."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = cuda_kernels(prof)
-    if not kernels:
-        check(not required, "the profiler saw no device time")
-        return None
-    return sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    for attempt in (1, 2):
+        before = counter.count if counter is not None else 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launched = counter.count - before if counter is not None else None
+        ms, records = profiled_ms(cuda_kernels(prof), reps, symbol,
+                                  launched or 0)
+        if ms is not None:
+            break
+    return {"ms": ms, "records": records, "launched": launched,
+            "profiles": attempt}
+
+
+def device_ms(fn, reps: int, required: bool = True):
+    """:func:`device_profile`'s ms per call of every kernel ``fn``
+    launches. When two profiles saw no device time: fails, or, not
+    ``required``, None (not measured)."""
+    ms = device_profile(fn, reps)["ms"]
+    if ms is None:
+        check(not required, "the profiler saw no device time in two "
+              "profiles")
+    return ms
 
 
 def random_spd(n: int, k: int, seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -699,6 +759,9 @@ def phase_build() -> None:
 
 
 WIDE_KS = tuple(range(40, 129, 8))  # every K the wide kernel is built for
+#: the kernels' symbols, as a profile or a trace names them
+WARP_SYMBOL = "gauss_jordan_warp_kernel"
+WIDE_SYMBOL = "gauss_jordan_wide_kernel"
 #: (n, k, reps) of each timed shape (reps halved for the script's time
 #: when the CCO gang and serving-mesh phases came)
 TIMED = ((512, 32, 100), (ML20M[0], 32, 5), (512, 64, 25), (512, 96, 25),
@@ -750,8 +813,14 @@ def phase_kernel_vs_plain() -> dict:
         plain = lambda: spd_solve.gauss_jordan_plain(a, b)  # noqa: E731
         library = lambda: spd_solve.cholesky_solve(a, b)  # noqa: E731
         bound_ms, bound_by = solve_bound_ms(n, k)
+        prof = device_profile(kernel, reps, symbol=(
+            WARP_SYMBOL if k <= spd_solve.MAX_WARP_K else WIDE_SYMBOL),
+            counter=spd_solve.gauss_jordan_launches)
+        check(prof["ms"] is not None, f"the profiler saw no record of the "
+              f"kernel at n={n} k={k} in two profiles")
         timings[(n, k)] = dict(
-            ms=device_ms(kernel, reps),
+            ms=prof["ms"], profiled_records=prof["records"],
+            counted_launches=prof["launched"], profiles=prof["profiles"],
             plain_ms=device_ms(plain, max(1, reps // 10)),
             library_ms=device_ms(library, reps),
             bound_ms=bound_ms, bound_by=bound_by,
@@ -3021,26 +3090,57 @@ def phase_engine_server_lifecycle(workdir: str, env: dict,
 #: ``pio deploy`` with the fold-in runner's kernel launches counted per fold
 #: (the warp and wide counters' deltas across each ``_fold_and_commit``),
 #: the process's totals and the threads still alive at exit, written as
-#: JSON to $PIO_COUNTS_OUT
+#: JSON to $PIO_COUNTS_OUT. With $PIO_POISON_FOLDIN_FILE set, a poisoned
+#: chain: once that file names an app, the app's next increment is
+#: committed with its user factors cut to one row (the golden query
+#: passes, every other user fails), the file is removed, and every later
+#: increment folded through a poisoned one is cut the same way
 _COUNTED_DEPLOY = r"""
-import atexit, json, os, sys, threading
+import atexit, dataclasses, json, os, sys, threading
+import numpy as np
 from incubator_predictionio_torch.ops import spd_solve
 from incubator_predictionio_torch.tools import console
 from incubator_predictionio_torch.workflow import online
 
 calls = []
+poisoned = set()
 real = online.FoldInRunner._fold_and_commit
+real_commit = online.FoldInRunner._commit_increment
+trigger = os.environ.get("PIO_POISON_FOLDIN_FILE")
 
 def counted(self, *a, **kw):
     warp = spd_solve.gauss_jordan_warp_launches.count
     wide = spd_solve.gauss_jordan_wide_launches.count
     iid = real(self, *a, **kw)
     calls.append({"instance": iid, "app": self._app_name,
+                  "poisoned": iid in poisoned,
                   "warp": spd_solve.gauss_jordan_warp_launches.count - warp,
                   "wide": spd_solve.gauss_jordan_wide_launches.count - wide})
     return iid
 
+def cut(model):
+    f = model.factors
+    return dataclasses.replace(model, factors=dataclasses.replace(
+        f, user_factors=np.asarray(f.user_factors)[:1]))
+
+def commit(self, instance, algo_list, models, n_events, cursor, ancestors,
+           users):
+    poison = bool(poisoned & set(ancestors))
+    if not poison and trigger and os.path.exists(trigger):
+        with open(trigger) as fh:
+            poison = fh.read().strip() == self._app_name
+        if poison:
+            os.remove(trigger)
+    if poison:
+        models = [cut(m) for m in models]
+    iid = real_commit(self, instance, algo_list, models, n_events, cursor,
+                      ancestors, users)
+    if poison:
+        poisoned.add(iid)
+    return iid
+
 online.FoldInRunner._fold_and_commit = counted
+online.FoldInRunner._commit_increment = commit
 
 @atexit.register
 def dump():
@@ -3083,12 +3183,15 @@ def _counted_serve(args: list, env: dict, cwd: str, counts: str) -> _Served:
                    console=[sys.executable, "-c", _COUNTED_DEPLOY])
 
 
-def _counted(counts: str, path: str, extra_warp: int = 0) -> dict:
+def _counted(counts: str, path: str, extra_warp: int = 0,
+             split: dict | None = None) -> dict:
     """The deploy process's launch counts after its exit: every fold that
     committed an increment launched the warp kernel exactly twice and the
     wide kernel never, a fold that committed nothing launched nothing, and
     no fold-in or quality thread outlived the drain. Recorded under
-    ``path`` (with ``extra_warp`` launches of the phase's own process)."""
+    ``path`` (with ``extra_warp`` launches of the phase's own process),
+    except the folds of the increments ``split`` names (path → instance
+    ids), which are recorded under their own path."""
     with open(counts, encoding="utf-8") as fh:
         doc = json.load(fh)
     for c in doc["calls"]:
@@ -3101,10 +3204,19 @@ def _counted(counts: str, path: str, extra_warp: int = 0) -> dict:
           f"kernels for {committed} increment(s)")
     check(not {"pio-foldin", "pio-quality"} & set(doc["threads"]),
           f"threads left at exit: {doc['threads']}")
-    record(path, {"warp": doc["warp"] + extra_warp, "wide": doc["wide"]})
-    return {"increments": committed, "folds": len(doc["calls"]),
-            "warp": doc["warp"], "wide": doc["wide"],
-            "threads_at_exit": doc["threads"]}
+    rest = doc["warp"]
+    out = {"increments": committed, "folds": len(doc["calls"]),
+           "warp": doc["warp"], "wide": doc["wide"],
+           "threads_at_exit": doc["threads"]}
+    for own, ids in (split or {}).items():
+        calls = [c for c in doc["calls"] if c["instance"] in set(ids)]
+        check(len(calls) == len(ids), f"{own}: folds {calls} of {ids}")
+        warp = sum(c["warp"] for c in calls)
+        record(own, {"warp": warp, "wide": 0})
+        rest -= warp
+        out[own] = {"warp": warp, "folds": calls}
+    record(path, {"warp": rest + extra_warp, "wide": doc["wide"]})
+    return out
 
 
 class _Pump(threading.Thread):
@@ -4060,6 +4172,87 @@ def _tenant_rows(srv: _Served) -> dict:
             srv.request("GET", "/status")[1]["tenants"]["tenants"]}
 
 
+def _tenant_chain(srv: _Served, store: Storage, poison_file: str,
+                  tenant: str, stored: dict, users: dict, iids: dict,
+                  app_ids: dict) -> dict:
+    """Step 3b of :func:`phase_engine_server_tenants`: ``tenant``'s
+    fold-in runner commits increment B, poisoned by the counted deploy
+    (:data:`_COUNTED_DEPLOY`), and, inside B's watch window, increment C
+    folded through B. B never answered a query, so the tenant's chain keeps
+    its last observed instance A as the previous deployment; C's failures,
+    counted back with B's, trip the tenant's watch, which restores A and
+    pins both links. Every other tenant keeps its instance."""
+    path, headers = _tenant_route(0, tenant)
+    # users no client asked for: no cached answer hides the model
+    fresh = [u for u in stored[tenant]["users"]
+             if stored[tenant]["users"][u] != 0
+             and u not in users[tenant]][:3]
+    status, res, _, _ = srv.request_h("POST", path,
+                                      {"user": fresh[0], "num": 10}, headers)
+    check(status == 200, f"chain tenant {tenant}: {status} {res}")
+    _hold_als_answer(stored[tenant], fresh[0], res)
+    rows = _tenant_rows(srv)
+    a = rows[tenant]["instance"]
+    check(a == iids[tenant] and rows[tenant]["resident"],
+          f"chain tenant row {rows[tenant]}")
+    before = {n: (r["instance"], dict(r["pinned"])) for n, r in rows.items()}
+    items = list(stored[tenant]["items"])
+    le = store.get_l_events()
+
+    def increment(batch: int, after: set) -> tuple:
+        fold = [{"event": "rate", "entityType": "user",
+                 "entityId": f"chain{batch}-{j}", "targetEntityType": "item",
+                 "targetEntityId": items[(7 * j + k) % len(items)],
+                 "properties": {"rating": float(1 + (j + k) % 5)}}
+                for j in range(4) for k in range(3)]
+        le.insert_batch([Event.from_json(e) for e in fold], app_ids[tenant])
+        return _wait_status(srv, f"{tenant}'s increment {batch} published",
+                            lambda d: (lambda r: r if r["instance"] not in
+                                       after else None)(
+                                {x["app"]: x for x in
+                                 d["tenants"]["tenants"]}[tenant]), 60)
+
+    with open(poison_file, "w", encoding="utf-8") as fh:
+        fh.write(tenant)
+    t0 = time.perf_counter()
+    row_b = increment(1, {a})
+    b = row_b["instance"]
+    row_c = increment(2, {a, b})
+    c = row_c["instance"]
+    landed_s = time.perf_counter() - t0
+    check(not os.path.exists(poison_file), "the poison was not consumed")
+    check(row_b["previous"] == a and row_c["previous"] == a,
+          f"the chain's previous deployment: B {row_b}, C {row_c}")
+    first = srv.request_h("POST", path, {"user": fresh[1], "num": 10},
+                          headers)
+    second = srv.request_h("POST", path, {"user": fresh[2], "num": 10},
+                           headers)
+    check(first[0] == 500 and second[0] == 200,
+          f"poisoned chain: {first[:2]}, {second[:2]}")
+    _hold_als_answer(stored[tenant], fresh[2], second[1])
+    rows = _tenant_rows(srv)
+    row = rows[tenant]
+    check(row["instance"] == a and row["previous"] is None
+          and row["pinned"] == {b: "error-rate", c: "error-rate"}
+          and row["rollbacks"] == {"error-rate": 1},
+          f"chain tenant row after the rollback {row}")
+    for n, r in rows.items():
+        if n != tenant:
+            check(r["instance"] in (before[n][0], None)
+                  and r["pinned"] == before[n][1],
+                  f"tenant {n} changed with the chain: {r}")
+    inc = model_artifact.read_model(store, c)
+    check(inc is not None, f"increment {c} has no artifact")
+    marker = json.loads(store.get_meta_data_engine_instances().get(c)
+                        .runtime_conf["foldin"])
+    check(marker["of"] == b and b in marker.get("bases", [b]),
+          f"C was not folded through B: {marker}")
+    return {"tenant": tenant, "last_observed": a, "links": [b, c],
+            "c_marker_of": marker["of"], "two_links_seconds": landed_s,
+            "first_status": first[0], "second_status": second[0],
+            "row": row}
+
+
 def phase_engine_server_tenants(workdir: str) -> None:
     """pio deploy --multitenant --online-foldin on TENANTS apps, each an
     ML-100K-shaped log (bench.py SCALES["ml100k"], synth_ratings seed 40 +
@@ -4074,7 +4267,13 @@ def phase_engine_server_tenants(workdir: str) -> None:
     3. a poisoned instance of an evicted tenant (its user factors cut to
        one row: the golden query passes, every other user fails) rolls
        back alone on the tenant's watch; every other tenant keeps its
-       instance;
+       instance; then a poisoned fold-in chain of another tenant: two
+       increments land inside one watch window, the first poisoned (cut
+       the same way, in the deploy process) and the second folded through
+       it; the tenant rolls back to its last observed instance with both
+       links pinned, every other tenant keeps its instance, and the two
+       increments' warp launches are recorded as
+       ``engine_server_tenants_chain``;
     4. one tenant's fold-in increment (2 warp launches) is published and
        evicts only that tenant's touched users from the result cache."""
     from incubator_predictionio_torch.data.storage import AccessKey, App
@@ -4083,10 +4282,11 @@ def phase_engine_server_tenants(workdir: str) -> None:
     n_users, n_items, nnz = ML100K
     cwd = tempfile.mkdtemp(dir=workdir)
     base = os.path.join(cwd, "pio_tenants")
+    poison_file = os.path.join(cwd, "poison_foldin")
     env = _jsonl_env(base) | {
         "PIO_TENANT_MAX_RESIDENT": str(TENANT_RESIDENT),
         "PIO_TENANT_MAX_PENDING": str(TENANT_PENDING),
-        "PIO_FOLDIN_MS": "250"}
+        "PIO_FOLDIN_MS": "250", "PIO_POISON_FOLDIN_FILE": poison_file}
     os.makedirs(base, exist_ok=True)
     names = [f"tenant{a}" for a in range(TENANTS)]
     store = _storage_of(env)
@@ -4240,6 +4440,12 @@ def phase_engine_server_tenants(workdir: str) -> None:
         out["poison"] = {"tenant": victim, "instance": poison_id,
                          "row": rows[victim]}
 
+        # 3b. a poisoned fold-in chain of one tenant
+        chain = _tenant_chain(srv, store, poison_file, next(
+            n for n in names[4:-1] if n != victim), stored, users, iids,
+            app_ids)
+        out["chain"] = chain
+
         # 4. one tenant's increment evicts only its own cached results
         t1, t2 = calm
         for _ in range(2):
@@ -4313,8 +4519,13 @@ def phase_engine_server_tenants(workdir: str) -> None:
         rc = srv.proc.wait(timeout=120)
         check(rc == 0, f"deploy exited {rc} after SIGTERM")
     store.close()
-    out["launches"] = _counted(counts, "engine_server_tenants",
-                               trained["warp"])
+    out["launches"] = _counted(
+        counts, "engine_server_tenants", trained["warp"],
+        split={"engine_server_tenants_chain": chain["links"]})
+    check(all(c["poisoned"] for c in
+              out["launches"]["engine_server_tenants_chain"]["folds"]),
+          f"the chain's increments were not both poisoned: "
+          f"{out['launches']['engine_server_tenants_chain']}")
     check(out["launches"]["increments"] >= 1,
           "no tenant fold-in increment was committed")
     shutil.rmtree(cwd)
@@ -9167,7 +9378,6 @@ SHELL_TRAIN = (
     "'seconds': time.perf_counter() - t0, 'kernel_launches': {"
     "'warp': spd_solve.gauss_jordan_warp_launches.count, "
     "'wide': spd_solve.gauss_jordan_wide_launches.count}}))\n")
-WARP_SYMBOL = "gauss_jordan_warp_kernel"
 
 
 def _admin_sequence(srv: _Served) -> dict:
@@ -9343,31 +9553,7 @@ def phase_operator_tools(workdir: str, net: dict) -> None:
     parquet = _parquet_export(env, cwd)
 
     # (e) the soak, on (a)'s template
-    t_soak = time.perf_counter()
-    scorecard_path = os.path.join(cwd, "SOAK.json")
-    soak = subprocess.run(
-        CONSOLE + ["soak", "--engine-dir", tpl, "--out", scorecard_path,
-                   "--workdir", os.path.join(cwd, "soak"), *SOAK_ARGS],
-        capture_output=True, text=True, env=_console_env(), cwd=cwd,
-        timeout=900)
-    soak_s = time.perf_counter() - t_soak
-    card = (json.load(open(scorecard_path, encoding="utf-8"))
-            if os.path.isfile(scorecard_path) else None)
-
-    def log_tail(label: str) -> str:
-        try:
-            with open(os.path.join(cwd, "soak", "logs", f"{label}.log"),
-                      encoding="utf-8", errors="replace") as fh:
-                return fh.read()[-1500:]
-        except OSError:
-            return "<no log>"
-
-    check(soak.returncode == 0 and card is not None
-          and card["verdict"] == "PASS",
-          f"pio soak: rc {soak.returncode}, "
-          f"{[(s['name'], s['value']) for s in card['slos'] if not s['ok']] if card else None}; "
-          f"{soak.stdout[-1500:]} {soak.stderr[-1500:]}; engine: "
-          f"{log_tail('engine')}; eventserver: {log_tail('eventserver')}")
+    card, soak_s = _soak(tpl, cwd, SOAK_ARGS, "operator_tools soak")
     check(all(f["fired"] and f.get("evidence") for f in card["faults"]),
           f"soak faults: {card['faults']}")
     check(card["reconciliation"]["ackedEvents"] == card["traffic"]["acked"],
@@ -9410,22 +9596,203 @@ def phase_operator_tools(workdir: str, net: dict) -> None:
     shutil.rmtree(cwd, ignore_errors=True)
 
 
+# -- the reference's headline and multi-tenant soaks: soak_full_menu, ------------
+# -- soak_tenants ----------------------------------------------------------------
+
+#: the port's soak engine: numpy, with the poison controls every fault of
+#: the menu needs (tests/torch_soak_engine.py)
+SOAK_ENGINE = os.path.join(ROOT, "tests", "torch_soak_engine.py")
+#: soak_full_menu: every fault of the menu, every other flag at the CLI's
+#: default (60 s, 2 event workers, 2 replicas, 3 apps, ingest 50/s,
+#: queries 20/s, fold-in 250 ms, watch 2,500 ms, quality sample 1.0)
+SOAK_FULL_ARGS = ["--device", "cuda", "--faults", "full"]
+#: soak_tenants: the reference's multi-tenant soak (tests/test_soak.py:
+#: 790-795: seed 45, 16 s, 1 worker, no replica, 2 apps + 5 tenant apps,
+#: 12/12 per second, ENOSPC and a poisoned fold-in, no quality sampling),
+#: with the fold-in at the CLI's default 250 ms instead of the test's
+#: 1,200 ms; refresh poll and settle are the CLI's (500 ms, 20 s)
+SOAK_TENANT_ARGS = ["--device", "cuda", "--seed", "45", "--duration-s", "16",
+                    "--event-workers", "1", "--replicas", "0", "--apps", "2",
+                    "--tenant-apps", "5", "--ingest-rps", "12",
+                    "--query-rps", "12", "--faults",
+                    "enospc_shed,poison_foldin", "--quality-sample", "0",
+                    "--foldin-ms", "250", "--watch-ms", "2500",
+                    "--rollback-deadline-s", "25"]
+POISON_FAULTS = ("poison_foldin", "poison_retrain", "poison_quality")
+
+
+def _soak_template(cwd: str) -> str:
+    """A template directory of the port's soak engine, as the port's soak
+    tests build it: ``pio train`` / ``pio deploy --engine-dir`` load it like
+    any user engine."""
+    tpl = os.path.join(cwd, "template")
+    os.makedirs(tpl)
+    shutil.copy(SOAK_ENGINE, tpl)
+    with open(os.path.join(tpl, "engine.json"), "w", encoding="utf-8") as fh:
+        json.dump({"id": "default",
+                   "engineFactory": "torch_soak_engine.engine_factory",
+                   "datasource": {"params": {"appName": "soakapp"}},
+                   "algorithms": [{"name": "", "params": {}}]}, fh)
+    return tpl
+
+
+def _soak(tpl: str, cwd: str, args: list, what: str) -> tuple:
+    """``pio soak`` of ``tpl`` with ``args`` (``--device cuda`` among them:
+    every train and deploy it spawns runs on the card) in a workspace under
+    ``cwd``: (the scorecard, seconds). A run that exits non-zero or ends
+    without PASS fails the phase, with its red SLO rows and the tail of
+    every process's log."""
+    check("--device" in args and args[args.index("--device") + 1] == "cuda",
+          f"{what}: the soak must run on the card: {args}")
+    t0 = time.perf_counter()
+    path = os.path.join(cwd, "SOAK.json")
+    wd = os.path.join(cwd, "soak")
+    out = subprocess.run(
+        CONSOLE + ["soak", "--engine-dir", tpl, "--out", path,
+                   "--workdir", wd, *args],
+        capture_output=True, text=True, env=_console_env(), cwd=cwd,
+        timeout=900)
+    seconds = time.perf_counter() - t0
+    card = None
+    if os.path.isfile(path):
+        with open(path, encoding="utf-8") as fh:
+            card = json.load(fh)
+    if out.returncode != 0 or card is None or card["verdict"] != "PASS":
+        logs = os.path.join(wd, "logs")
+        tails = {}
+        for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else []:
+            with open(os.path.join(logs, name), encoding="utf-8",
+                      errors="replace") as fh:
+                tails[name] = fh.read()[-1500:]
+        red = ([(x["name"], x["value"], x.get("detail"))
+                for x in card["slos"] if not x["ok"]] if card else None)
+        check(False, f"{what}: rc {out.returncode}, verdict "
+              f"{card and card['verdict']}, red SLO rows {red}; "
+              f"{out.stdout[-1500:]} {out.stderr[-1500:]}; logs: {tails}")
+    check(card["topology"]["device"] == "cuda",
+          f"{what}: ran on {card['topology']['device']}")
+    return card, seconds
+
+
+def _soak_numbers(card: dict, seconds: float) -> dict:
+    """A scorecard's numbers for the phase line."""
+    slos = {x["name"]: x for x in card["slos"]}
+    return {"verdict": card["verdict"], "seconds": seconds,
+            "wallS": card["wallS"], "traffic": card["traffic"],
+            "faults": [{k: f.get(k) for k in ("name", "fired", "evidence")}
+                       for f in card["faults"]],
+            "slos": {n: x["value"] for n, x in slos.items()},
+            "rollbacks": [{"fault": r["fault"], "firedAtS": r["firedAtS"],
+                           "afterS": (r["observed"] or {}).get("afterS")}
+                          for r in slos["rollback-window"]["value"]],
+            "recovery": card["recovery"], "trains": card["trains"],
+            "reconciliation": {k: card["reconciliation"].get(k) for k in (
+                "ackedEvents", "storeMarkers", "ambiguousSends",
+                "ambiguousLanded", "walReplay")},
+            "planNotes": card["planNotes"], "host": card["host"]}
+
+
+def _hold_poison_rollbacks(card: dict, what: str) -> list:
+    """A rollback-window row, observed, for every poisoned publish."""
+    rows = next(x for x in card["slos"]
+                if x["name"] == "rollback-window")
+    poisons = [f for f in card["faults"] if f["name"] in POISON_FAULTS]
+    check(rows["ok"] and len(rows["value"]) == len(poisons)
+          and all(r["observed"] for r in rows["value"]),
+          f"{what}: rollback-window {rows} for {poisons}")
+    return rows["value"]
+
+
+def phase_soak_full_menu(workdir: str) -> None:
+    """The reference's headline soak on the card: ``pio soak --device cuda
+    --faults full`` of the port's soak engine, every other flag at the
+    CLI's default (:data:`SOAK_FULL_ARGS`): 2 fenced event workers, a
+    2-replica engine fleet with staged canary, fold-in and the quality
+    watch (K7's ranking_metrics on the card), all eight faults of the
+    menu. Held to: PASS; all eight faults fired with evidence; every
+    acknowledged event reconciled once; an observed rollback-window row
+    for each of the three poisoned publishes. Every process is the soak's
+    own (nothing launches a kernel in this one), so it runs beside other
+    phases (:class:`_Beside`)."""
+    from incubator_predictionio_torch.workflow.soak import FAULT_MENU
+
+    t_phase = time.perf_counter()
+    cwd = tempfile.mkdtemp(dir=workdir)
+    card, seconds = _soak(_soak_template(cwd), cwd, SOAK_FULL_ARGS,
+                          "soak_full_menu")
+    names = [f["name"] for f in card["faults"]]
+    check(sorted(names) == sorted(FAULT_MENU)
+          and all(f["fired"] and f.get("evidence") for f in card["faults"]),
+          f"soak_full_menu faults: {card['faults']}")
+    slos = {x["name"]: x for x in card["slos"]}
+    check(slos["acked-event-loss"]["ok"]
+          and card["reconciliation"]["ackedEvents"]
+          == card["traffic"]["acked"] > 0,
+          f"soak_full_menu ledger: {slos['acked-event-loss']}, "
+          f"{card['reconciliation']} vs {card['traffic']}")
+    _hold_poison_rollbacks(card, "soak_full_menu")
+    emit("soak_full_menu", args=SOAK_FULL_ARGS,
+         **_soak_numbers(card, seconds),
+         phase_seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(cwd, ignore_errors=True)
+
+
+def phase_soak_tenants(workdir: str) -> None:
+    """The reference's multi-tenant soak on the card with the fold-in at
+    250 ms (:data:`SOAK_TENANT_ARGS`): one mux-armed engine process serves
+    the primary app and 4 tenant apps through 2 resident slots. Held to:
+    PASS; a per-tenant row for each of the 5 apps, each offered and
+    answered; evictions ≥ 1; both faults fired with evidence and the
+    poisoned increment rolled back within its window; every acknowledged
+    event reconciled once. Runs beside other phases (:class:`_Beside`)."""
+    t_phase = time.perf_counter()
+    cwd = tempfile.mkdtemp(dir=workdir)
+    card, seconds = _soak(_soak_template(cwd), cwd, SOAK_TENANT_ARGS,
+                          "soak_tenants")
+    check(all(f["fired"] and f.get("evidence") for f in card["faults"])
+          and [f["name"] for f in card["faults"]]
+          == ["enospc_shed", "poison_foldin"],
+          f"soak_tenants faults: {card['faults']}")
+    row = next(x for x in card["slos"] if x["name"] == "tenant-isolation")
+    per = row["value"]["perTenant"]
+    check(row["ok"] and len(per) == 5
+          and all(r["offered"] >= 1 and r["accepted"] >= 1 for r in per)
+          and (row["value"]["evictions"] or 0) >= 1
+          and card["tenants"]["maxResident"] == 2,
+          f"soak_tenants isolation: {row}")
+    check(card["reconciliation"]["ackedEvents"] == card["traffic"]["acked"]
+          > 0, f"soak_tenants ledger: {card['reconciliation']}")
+    _hold_poison_rollbacks(card, "soak_tenants")
+    emit("soak_tenants", args=SOAK_TENANT_ARGS,
+         **_soak_numbers(card, seconds), tenant_isolation=row["value"],
+         tenants={k: card["tenants"].get(k) for k in (
+             "maxResident", "evictions", "coldLoads", "loads")},
+         phase_seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(cwd, ignore_errors=True)
+
+
 def main() -> int:
     phase_device()
     phase_build()
     kv = phase_kernel_vs_plain()
     phase_als_card_vs_cpu()
     with tempfile.TemporaryDirectory() as workdir:
-        main_path = phase_main_path(workdir)
-        phase_train_checkpointed(workdir, main_path)
-        phase_train_nan_guard(main_path)
-        phase_fold_in_main(workdir, main_path)
-        phase_serving_sharded_catalog(main_path)
-        phase_serving_mesh(main_path)
-        with _Beside(phase_lint):
-            phase_console(workdir)
-        phase_console_similar_product(workdir)
-        phase_pio_workflow(workdir)
+        # the headline soak's late faults (a poisoned retrain, then the
+        # quality poison) need their retrain published inside its 60 s: it
+        # runs beside the in-process phases, whose host load is one thread,
+        # and not beside the verbs' process starts
+        with _Beside(phase_soak_full_menu, workdir):
+            main_path = phase_main_path(workdir)
+            phase_train_checkpointed(workdir, main_path)
+            phase_train_nan_guard(main_path)
+            phase_fold_in_main(workdir, main_path)
+            phase_serving_sharded_catalog(main_path)
+            phase_serving_mesh(main_path)
+        with _Beside(phase_soak_tenants, workdir):
+            with _Beside(phase_lint):
+                phase_console(workdir)
+            phase_console_similar_product(workdir)
+            phase_pio_workflow(workdir)
         phase_codec_vs_plain(main_path["ratings"])
         phase_pio_workflow_jsonl(workdir)
         phase_eventserver_partitioned(workdir)

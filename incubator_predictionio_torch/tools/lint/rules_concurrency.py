@@ -45,9 +45,9 @@ __all__ = ["RULES", "LOCK_GUARDED", "_LOOP_SCOPES",
 LOCK_GUARDED: dict[str, list[tuple[Optional[str], str, frozenset]]] = {
     "workflow/create_server.py": [
         ("EngineServer", "_lock", frozenset({
-            "_pinned", "_pins_provisional", "_previous", "_rollbacks",
+            "_pinned", "_pins_provisional", "_rollbacks",
             "_swap_count", "_validate_failures", "_refresh_swaps",
-            "_chain", "_chain_since"})),
+            "_chain"})),
         ("EngineServer", "_adm_lock", frozenset({
             "_adm_pending", "_adm_peak", "_shed_count", "_deadline_count",
             "_orphaned", "_draining", "_drain_stragglers", "_unanswered",

@@ -102,6 +102,7 @@ from ..device import resolve_device
 from .context import WorkflowContext
 from .core_workflow import load_deployment
 from .plugins import EngineServerPluginContext
+from .swap_chain import SwapChain
 
 log = logging.getLogger("pio.torch.engineserver")
 
@@ -498,14 +499,10 @@ class EngineServer:
                              self.query_cache_ttl_ms / 1e3)
             if self.query_cache_size > 0 and self.query_cache_ttl_ms > 0
             else None)
-        self._previous = None            # (deployment, instance) resident
-        # instance ids swapped in since _previous went out, the live one
-        # last; more than one only while automatic publishes outran the
-        # watch (see _load_once), and every one is pinned by a rollback
-        self._chain: list[str] = []
-        self._chain_since = 0.0          # monotonic swap-in of _chain[0]
+        # the resident previous deployment, the post-swap watch and the
+        # chain of unobserved swaps (workflow/swap_chain.py)
+        self._chain = SwapChain()
         self._pinned: dict[str, str] = {}  # instance id → pin reason
-        self._watch = None               # active post-swap watch window
         self._rollbacks: dict[str, int] = {}   # reason → count
         self._swap_count = 0
         self._validate_failures = 0
@@ -696,36 +693,15 @@ class EngineServer:
         self._m_compile_count, self._m_compile_seconds = m_count, m_seconds
         with self._lock:
             prev_dep, prev_inst = self.deployment, self.instance
-            swapped = (prev_inst is not None
-                       and prev_inst.id != instance.id)
-            now = _time.monotonic()
-            w = self._watch
-            extend = (chain and swapped and w is not None
-                      and w["instance"] == prev_inst.id
-                      and now <= w["until"]
-                      and self._previous is not None
-                      and self._previous[1].id != instance.id)
-            if extend:
-                self._chain.append(instance.id)
-            elif swapped:
-                # ONE previous deployment stays resident (its tensors on
-                # the card intact) for an instant /rollback and the hedge
-                self._previous = (prev_dep, prev_inst)
-                self._chain = [instance.id]
-                self._chain_since = now
+            # ONE previous deployment stays resident (its tensors on the
+            # card intact) for an instant /rollback and the hedge
+            swapped = self._chain.swap(prev_dep, prev_inst, instance,
+                                       _time.monotonic(), chain=chain,
+                                       watch_ms=self.swap_watch_ms)
             if swapped:
                 self._swap_count += 1
             self.deployment = deployment
             self.instance = instance
-            if swapped and self.swap_watch_ms > 0:
-                # each instance gets a whole window of its own; the
-                # chain's earlier links keep their counts for the trip
-                self._watch = {
-                    "until": now + self.swap_watch_ms / 1e3,
-                    "total": 0, "errors": 0, "instance": instance.id,
-                    "links": ([*w["links"], (w["total"], w["errors"])]
-                              if extend else []),
-                }
             if (swapped and self.quality_sample > 0
                     and self.quality_watch_ms > 0):
                 # the quality watch rides every swap beside the error watch
@@ -1342,8 +1318,7 @@ class EngineServer:
                 return self._finish_query(request, query, cached)
         try:
             result = self._dispatch_query(deployment, query, dl)
-            if self._watch is not None and self._is_live(deployment):
-                self._note_watch(ok=True)
+            self._note_watch(ok=True, deployment=deployment)
             quality = self._quality_runner
             if quality is not None and self._is_live(deployment):
                 # one RNG draw here; the scoring runs on its own thread
@@ -1359,10 +1334,8 @@ class EngineServer:
             reply = self._expired(e)
             # a pathologically SLOW new model trips the watch too (compute
             # stages only; queueing is overload, not the model)
-            if (self._watch is not None
-                    and e.stage not in _QUEUE_STAGES
-                    and self._is_live(deployment)
-                    and self._note_watch(ok=False)):
+            if (e.stage not in _QUEUE_STAGES
+                    and self._note_watch(ok=False, deployment=deployment)):
                 self._rollback_to_previous("error-rate")
             return reply
         except KeyError as e:
@@ -1708,13 +1681,13 @@ class EngineServer:
         from . import model_artifact
 
         with self._lock:
-            cur, prev = self.instance, self._previous
+            cur, prev = self.instance, self._chain.previous
             pinned = dict(self._pinned)
             rollbacks = dict(self._rollbacks)
             swaps = self._swap_count
             validate_failures = self._validate_failures
             refresh_swaps = self._refresh_swaps
-            w = self._watch
+            w = self._chain.watch
             watch = ({"total": w["total"], "errors": w["errors"]}
                      if w is not None else None)
         return {
@@ -1742,62 +1715,33 @@ class EngineServer:
         with self._lock:
             return self.deployment is deployment
 
-    def _close_stale_watch(self, w) -> bool:
-        """Lock held: clear watch ``w`` when a newer swap or rollback
-        superseded it or its window closed; True when it was cleared."""
-        cur = self.instance
-        if cur is None or w["instance"] != cur.id:
-            if self._watch is w:
-                self._watch = None
-            return True
-        if _time.monotonic() > w["until"]:
-            log.info("post-swap watch for %s closed clean (%d queries, "
-                     "%d errors)", w["instance"], w["total"], w["errors"])
-            if self._watch is w:
-                self._watch = None
-            return True
-        return False
+    def _live_id(self) -> Optional[str]:
+        """Lock held: the live instance's id, or None."""
+        return self.instance.id if self.instance is not None else None
 
-    def _note_watch(self, ok: bool) -> bool:
-        """Record one query outcome against the post-swap watch. True
+    def _note_watch(self, ok: bool, deployment=None) -> bool:
+        """Record one query outcome against the post-swap watch (only
+        when ``deployment``, if given, is still the live one: outcomes of
+        queries dispatched to a pre-swap deployment don't count). True
         when the error rate tripped the rollback threshold: at least 2
         failures AND a failure fraction above PIO_SWAP_MAX_ERROR_RATE, so
-        one flaky query can't roll back a healthy model. Within a chain
-        of unobserved swaps the threshold is met by the live instance
-        alone or by it together with the links before it, counted back
-        from the live one: a poisoned increment poisons every increment
-        folded from it, and the links before it must not dilute it."""
+        one flaky query can't roll back a healthy model; within a chain
+        of unobserved swaps, counted back from the live link
+        (:meth:`SwapChain.note`)."""
         with self._lock:
-            w = self._watch
-            if w is None or self._close_stale_watch(w):
+            if deployment is not None and self.deployment is not deployment:
                 return False
-            w["total"] += 1
-            if ok:
-                return False
-            w["errors"] += 1
-            total, errors = w["total"], w["errors"]
-            for t, e in [(0, 0), *reversed(w["links"])]:
-                total, errors = total + t, errors + e
-                if errors >= 2 and errors / total > self.swap_max_error_rate:
-                    return True
-            return False
+            return self._chain.note(ok, self._live_id(), _time.monotonic(),
+                                    self.swap_max_error_rate)
 
     def _chain_full(self) -> bool:
-        """Whether an automatic publish must wait: the live instance's
-        watch is open and the chain of unobserved swaps (two or more: a
-        chain of one is bounded by its own window) began a whole watch
-        window ago. The wait ends when that watch closes (clean:
-        the live instance becomes the previous deployment at the next
-        swap) or trips (a rollback). So a chain spans at most one watch
-        window plus one load, and the previous deployment is at most two
-        windows older than the live one."""
+        """Whether an automatic publish must wait (:meth:`SwapChain.full`):
+        a chain spans at most one watch window plus one load, and the
+        previous deployment is at most two windows older than the live
+        one."""
         with self._lock:
-            w, cur = self._watch, self.instance
-            now = _time.monotonic()
-            return (len(self._chain) > 1 and w is not None
-                    and cur is not None
-                    and w["instance"] == cur.id and now <= w["until"]
-                    and now - self._chain_since >= self.swap_watch_ms / 1e3)
+            return self._chain.full(self._live_id(), _time.monotonic(),
+                                    self.swap_watch_ms)
 
     def _rollback_to_previous(self, reason: str) -> Optional[str]:
         """Instant swap back to the resident previous deployment (no
@@ -1808,20 +1752,17 @@ class EngineServer:
         Returns the restored instance id, or None when no previous
         deployment is resident."""
         with self._lock:
-            if self._previous is None:
+            if self._chain.previous is None:
                 return None
             bad_inst = self.instance
-            self.deployment, self.instance = self._previous
-            self._previous = None
+            prev, pins = self._chain.rollback(bad_inst.id)
+            self.deployment, self.instance = prev
             restored = self.instance
-            self._watch = None
             # the bad instance's quality watch dies with it: the restored
             # model is the last-good baseline, not a canary
             self._quality_watch = None
-            chain = [i for i in self._chain if i != bad_inst.id]
-            for iid in [*chain, bad_inst.id]:
+            for iid in pins:
                 self._pinned.setdefault(iid, reason)
-            self._chain = []
             self._rollbacks[reason] = self._rollbacks.get(reason, 0) + 1
         if self._query_cache is not None:
             # every cached result came from the model rolled away from
@@ -1838,8 +1779,7 @@ class EngineServer:
             # a poisoned increment counts on the fold-in family too
             online.note_rollback(reason)
         log.warning("automatic rollback (%s): %s → %s; %s pinned",
-                    reason, bad_inst.id, restored.id,
-                    ", ".join([*chain, bad_inst.id]))
+                    reason, bad_inst.id, restored.id, ", ".join(pins))
         return restored.id
 
     def _watched_failure(self, deployment, query, dl):
@@ -1852,10 +1792,11 @@ class EngineServer:
         DeadlineExceeded propagate: they are the server's state, 503/504,
         and never count against the watch."""
         with self._lock:
-            w = self._watch
+            w = self._chain.watch
             live_dep = self.deployment
-            prev = self._previous
-            stale = w is not None and self._close_stale_watch(w)
+            prev = self._chain.previous
+            stale = w is not None and self._chain.close_stale(
+                w, self._live_id(), _time.monotonic())
         if w is None:
             # no watch, but the failed deployment is no longer live: a
             # rollback or swap landed mid-flight, and the client deserves
@@ -2224,7 +2165,7 @@ class EngineServer:
         runner = self._quality_runner
         with self._lock:
             deployment, instance = self.deployment, self.instance
-            prev = self._previous
+            prev = self._chain.previous
             qw = self._quality_watch
             if qw is not None and (instance is None
                                    or instance.id != qw["instance"]
@@ -2416,7 +2357,7 @@ class EngineServer:
         from . import model_artifact
 
         with self._lock:
-            prev = self._previous
+            prev = self._chain.previous
         if prev is not None and prev[1].id == want:
             self._rollback_to_previous("fleet")
             return
@@ -2454,13 +2395,13 @@ class EngineServer:
         from . import model_artifact
 
         with self._lock:
-            cur, prev = self.instance, self._previous
+            cur, prev = self.instance, self._chain.previous
             pinned = {i: r for i, r in self._pinned.items()
                       if i not in self._pins_provisional}
             rollbacks = dict(self._rollbacks)
+            w = self._chain.watch
         with self._adm_lock:
             draining = self._draining
-        w = self._watch
         qw = self._quality_watch
         now = _time.monotonic()
         # a canary promotes only once BOTH its error watch and its quality
@@ -2557,11 +2498,9 @@ class EngineServer:
         # watch on the restored one: both wrong for a rollback
         with self._lock:
             self._pins_provisional.discard(cur.id)
-            self._previous = None
-            self._chain = []
+            self._chain.reset()
             self._rollbacks["manual"] = self._rollbacks.get("manual", 0) + 1
             restored = self.instance
-            self._watch = None
         log.warning("fleet rollback via store: %s pinned, restored %s",
                     cur.id, restored.id)
         return restored.id

@@ -19,11 +19,17 @@ engine server serve N apps:
   lifecycle state (pins survive eviction, so a reload cannot re-pick a
   poisoned artifact).
 - **Per-tenant lifecycle**: each tenant owns its post-swap watch, pin set
-  and retained previous deployment: a poisoned tenant rolls back alone.
+  and retained previous deployment (a :class:`~.swap_chain.SwapChain`, the
+  engine server's own rule): a poisoned tenant rolls back alone.
 - **Per-tenant fold-in**: each resident tenant gets its own
   :class:`~.online.FoldInRunner` (its cursor row keys on its app id),
   ticked by the server's fold-in thread; its increments publish through
-  the tenant's own gate and watch.
+  the tenant's own gate and watch. A publish that lands while the
+  outgoing instance's watch is open extends the tenant's chain of
+  unobserved swaps (the previous deployment stays on the last instance
+  observed healthy, and a rollback pins every link), and publishes wait
+  ("deferred") once that chain is a watch window old. Operator loads
+  keep the one-step rule. The reference's mux swaps one step at a time.
 - **Per-tenant admission budgets**: ``PIO_TENANT_MAX_PENDING`` bounds one
   app's admitted queries below the process cap, so a hot app sheds 503
   while the others serve. A slot is released in :meth:`TenantMux.release`
@@ -58,6 +64,7 @@ from ..common import envknobs, telemetry
 from . import model_artifact
 from .context import WorkflowContext
 from .core_workflow import load_deployment
+from .swap_chain import SwapChain
 
 log = logging.getLogger("pio.torch.multitenant")
 
@@ -139,9 +146,10 @@ class TenantState:
         self.lock = threading.Lock()
         self.deployment = None
         self.instance = None
-        self.previous: Optional[tuple] = None   # (deployment, instance)
+        # the previous deployment, post-swap watch and chain of unobserved
+        # swaps of THIS tenant
+        self.chain = SwapChain(f"tenant {name!r}: ")
         self.pinned: dict[str, str] = {}        # instance id → reason
-        self.watch: Optional[dict] = None       # per-tenant post-swap watch
         self.degraded: Optional[str] = None
         self.inflight = 0       # refcount: queries between admit/release
         self.pending = 0        # admission ledger
@@ -156,14 +164,15 @@ class TenantState:
 
     def row(self, resident: bool) -> dict:
         """Status row for /status "tenants" and ``pio status``."""
-        w = self.watch
+        w = self.chain.watch
+        prev = self.chain.previous
         fv = self.foldin_view or {}
         return {
             "app": self.name,
             "appId": self.app_id,
             "resident": resident,
             "instance": self.instance.id if self.instance else None,
-            "previous": self.previous[1].id if self.previous else None,
+            "previous": prev[1].id if prev else None,
             "pinned": dict(self.pinned),
             "watch": ({"total": w["total"], "errors": w["errors"]}
                       if w is not None else None),
@@ -330,8 +339,7 @@ class TenantMux:
             # reload cannot re-pick a poisoned artifact
             victim.deployment = None
             victim.instance = None
-            victim.previous = None
-            victim.watch = None
+            victim.chain.reset()
             victim.foldin = None
             self._evictions += 1
             _M_EVICTIONS.inc()
@@ -349,10 +357,13 @@ class TenantMux:
 
     # -- per-tenant lifecycle -----------------------------------------------
     def _load_tenant_locked(self, state: TenantState,
-                            instance_id: Optional[str] = None) -> None:
+                            instance_id: Optional[str] = None,
+                            chain: bool = False) -> None:
         """Load ``state``'s newest deployable instance (or ``instance_id``)
         through the verified-read walk-back and the validation gate,
-        pinning refused candidates for this tenant. The caller holds
+        pinning refused candidates for this tenant. ``chain`` (the fold-in
+        publish) lets the swap keep the last instance observed healthy as
+        the previous deployment (:meth:`SwapChain.swap`). The caller holds
         ``state.lock``. Raises when nothing of this app is deployable."""
         from .create_server import SwapValidationError
 
@@ -383,9 +394,11 @@ class TenantMux:
                             state.name, e)
                 continue
             break
-        prev_dep, prev_inst = state.deployment, state.instance
-        if prev_inst is not None and prev_inst.id != instance.id:
-            state.previous = (prev_dep, prev_inst)
+        # EVERY tenant load arms the watch (not just swaps): a lazily
+        # loaded model is unvetted in this process
+        if state.chain.swap(state.deployment, state.instance, instance,
+                            time.monotonic(), chain=chain,
+                            watch_ms=srv.swap_watch_ms, arm=True):
             state.swaps += 1
         state.deployment = deployment
         state.instance = instance
@@ -394,13 +407,6 @@ class TenantMux:
         with self._lock:
             self._total_loads += 1
         _M_LOADS.inc()
-        # EVERY tenant load arms the watch (not just swaps): a lazily
-        # loaded model is unvetted in this process
-        if srv.swap_watch_ms > 0:
-            state.watch = {
-                "until": time.monotonic() + srv.swap_watch_ms / 1e3,
-                "total": 0, "errors": 0, "instance": instance.id,
-            }
         if srv.foldin_ms > 0 and state.foldin is None:
             from . import online
 
@@ -421,49 +427,39 @@ class TenantMux:
         """Record one query outcome against the tenant's watch. True when
         the error rate tripped the rollback threshold (the process watch's
         rule: ≥ 2 failures AND a failure fraction above
-        PIO_SWAP_MAX_ERROR_RATE); the caller then runs
-        :meth:`rollback_tenant`."""
+        PIO_SWAP_MAX_ERROR_RATE, counted back from the live link of the
+        tenant's chain); the caller then runs :meth:`rollback_tenant`."""
         with state.lock:
-            w = state.watch
             cur = state.instance
-            if w is None or cur is None or w["instance"] != cur.id:
-                return False
-            if time.monotonic() > w["until"]:
-                log.info("tenant %r: watch for %s closed clean (%d "
-                         "queries, %d errors)", state.name, w["instance"],
-                         w["total"], w["errors"])
-                state.watch = None
-                return False
-            w["total"] += 1
-            if ok:
-                return False
-            w["errors"] += 1
-            return (w["errors"] >= 2 and w["errors"] / w["total"]
-                    > self._server.swap_max_error_rate)
+            return state.chain.note(ok, cur.id if cur else None,
+                                    time.monotonic(),
+                                    self._server.swap_max_error_rate)
 
     def rollback_tenant(self, state: TenantState, reason: str):
-        """Pin the bad instance and restore service for THIS app alone:
-        an instant swap to its resident previous deployment, else a pin and
-        walk-back reload. Returns the restored deployment (to answer the
-        triggering query), or None when nothing older is deployable (the
-        tenant goes degraded; every other tenant is untouched)."""
+        """Pin the bad instance, and every link of the tenant's chain of
+        unobserved swaps, and restore service for THIS app alone: an
+        instant swap to its resident previous deployment (the last
+        instance observed healthy), else a pin and walk-back reload.
+        Returns the restored deployment (to answer the triggering query),
+        or None when nothing older is deployable (the tenant goes
+        degraded; every other tenant is untouched)."""
         with state.lock:
             bad = state.instance
             if bad is None:
                 return None
-            if state.watch is not None \
-                    and state.watch.get("instance") != bad.id:
+            w = state.chain.watch
+            if w is not None and w.get("instance") != bad.id:
                 return state.deployment   # a concurrent swap won
-            state.pinned.setdefault(bad.id, reason)
-            state.watch = None
+            prev, pins = state.chain.rollback(bad.id)
+            for iid in pins:
+                state.pinned.setdefault(iid, reason)
             state.rollbacks[reason] = state.rollbacks.get(reason, 0) + 1
             _M_ROLLBACKS.labels(state.name).inc()
-            if state.previous is not None:
-                state.deployment, state.instance = state.previous
-                state.previous = None
+            if prev is not None:
+                state.deployment, state.instance = prev
                 log.warning("tenant %r: rolled back %s → %s (%s); %s "
                             "pinned", state.name, bad.id,
-                            state.instance.id, reason, bad.id)
+                            state.instance.id, reason, ", ".join(pins))
             else:
                 state.deployment = state.instance = None
                 try:
@@ -524,43 +520,46 @@ class TenantMux:
             self._publish_tenant(state)
             state.foldin_view = runner.view()
 
-    def _publish_tenant(self, state: TenantState) -> None:
+    def _publish_tenant(self, state: TenantState) -> str:
         """Publish a newer COMPLETED instance of THIS app through the
         tenant's own gate and watch (the per-tenant ``_publish_once``): a
-        validation refusal pins for this tenant, a clean swap retains the
-        previous deployment for the watch's instant rollback, and this
+        validation refusal pins for this tenant, a swap extends the
+        tenant's chain of unobserved swaps (or starts one, retaining the
+        outgoing deployment for the watch's instant rollback), and this
         tenant's cache entries are invalidated by the increment's freshness
-        footprint."""
+        footprint. Returns "swapped" | "current" | "deferred" (the chain
+        is a window old: :meth:`SwapChain.full`) | "refused" | "error"."""
         from .create_server import EngineServer, SwapValidationError
 
         srv = self._server
         with state.lock:
             cur = state.instance
             if cur is None:
-                return
+                return "current"
+            if state.chain.full(cur.id, time.monotonic(), srv.swap_watch_ms):
+                return "deferred"
             cand = model_artifact.newer_completed_instance(
                 srv.storage.get_meta_data_engine_instances(),
                 srv.engine_factory_name, srv.engine_variant, cur,
                 exclude=set(state.pinned), app_name=state.name)
             if cand is None:
-                return
-            prev_inst = state.instance
+                return "current"
             try:
-                self._load_tenant_locked(state, cand.id)
+                self._load_tenant_locked(state, cand.id, chain=True)
             except SwapValidationError as e:
                 state.degraded = (f"fold-in publish refused: {e}; "
                                   f"{e.instance_id} pinned")
                 self._note_foldin_pin(cand, "validate")
                 log.warning("tenant %r: %s", state.name, state.degraded)
-                return
+                return "refused"
             except Exception as e:  # noqa: BLE001 — the next tick retries
                 state.degraded = f"fold-in publish failed: {e}"
                 log.exception("tenant %r: fold-in publish failed",
                               state.name)
-                return
-            users = EngineServer._foldin_footprint(state.instance,
-                                                   prev_inst)
+                return "error"
+            users = EngineServer._foldin_footprint(state.instance, cur)
         srv._tenant_cache_invalidate(state.name, users)
+        return "swapped"
 
     # -- status surface -----------------------------------------------------
     def snapshot(self) -> dict:

@@ -42,9 +42,11 @@ spawns, as the port's device rule wants (the event server runs no device
 code and takes no device); the HTTP clients are the standard library's
 (the card host has no ``requests``), with the same keep-alive sessions and
 the same connection-error accounting; the scraper also reads each event
-worker's ``/metrics`` at the address the front's ``/healthz`` lists (a
-front scrape reaches one worker by round-robin, and one worker's ENOSPC
-counter could go unseen); the driver imports neither torch nor jax; and
+worker's and each engine replica's ``/metrics`` at the address its
+front's ``/healthz`` lists (a front scrape reaches one backend: one
+worker's ENOSPC counter, or the quality breach of the replica that
+canaried a poisoned increment, could go unseen); the driver imports
+neither torch nor jax; and
 the scorecard also lists each spawned train's solve-kernel launches
 (``trains``) and the recovery seconds (``recovery``).
 """
@@ -1264,7 +1266,9 @@ class SoakRunner:
         self._scrape_once(ev_base, en_base)     # final sample
 
     def _scrape_once(self, ev_base: str, en_base: str) -> None:
-        for base in (ev_base, en_base, *self._event_worker_bases(ev_base)):
+        fleet = self.cfg.replicas or self.cfg.elastic
+        for base in (ev_base, en_base, *self._backend_bases(ev_base),
+                     *(self._backend_bases(en_base) if fleet else ())):
             try:
                 self.samples.note_metrics(self._http(
                     "GET", base + "/metrics", timeout=4).text)
@@ -1351,13 +1355,15 @@ class SoakRunner:
                         int(h.get("readyReplicas") or 0),
                         int(h.get("targetReplicas") or 0)))
 
-    def _event_worker_bases(self, ev_base: str) -> list:
-        """Each event worker's own address, from the front's /healthz (the
-        front answers it itself): a front /metrics scrape reaches one
-        worker by round-robin, so a counter that only one worker moves
-        (its ENOSPC shed) could go unseen for the whole run."""
+    def _backend_bases(self, front: str) -> list:
+        """Each backend's own address (an event worker, an engine replica),
+        from its front's /healthz (the front answers it itself): a front
+        /metrics scrape reaches one backend, so a counter that only one
+        backend moves (a worker's ENOSPC shed, the quality breach of the
+        replica that canaried an increment) could go unseen for the whole
+        run."""
         try:
-            doc = self._http("GET", ev_base + "/healthz", timeout=4).json()
+            doc = self._http("GET", front + "/healthz", timeout=4).json()
         except Exception:  # noqa: BLE001 — kill windows drop scrapes
             return []
         return [f"http://127.0.0.1:{b['port']}"

@@ -238,7 +238,7 @@ def test_poisoned_tenant_rolls_back_alone_in_process():
     bad = _train(storage, "victim", tag="victim-poison", mode="poison")
     with victim.lock:
         mux._load_tenant_locked(victim, bad)
-    assert victim.instance.id == bad and victim.previous is not None
+    assert victim.instance.id == bad and victim.chain.previous is not None
     assert mux.note_result(victim, ok=True) is False
     assert mux.note_result(victim, ok=False) is False   # errors=1: no trip
     assert mux.note_result(victim, ok=False) is True    # errors=2: trip

@@ -13,9 +13,11 @@ soak.py``, ``tools/commands/soak.py``) held to the reference's
   each of its red paths.
 - The CLI: ``pio soak --dry-run`` prints the reference's plan, and
   ``pio status``'s soak one-liner is the reference's.
-- A scaled-down real-topology soak (the reference smoke test's config,
-  with ``--device cpu`` and ``tests/torch_soak_engine.py``), slow-marked
-  as the reference's is.
+- The reference's three live soaks on the real topology, with ``--device
+  cpu`` and ``tests/torch_soak_engine.py``, slow-marked as the
+  reference's are: the scaled-down smoke soak, the multi-tenant soak (also
+  at the default 250 ms fold-in) and the headline full-menu soak on a
+  2-replica fleet (``-m slow -k soak``).
 """
 
 import json
@@ -76,6 +78,20 @@ PLANS = {
         "enospc_shed", "worker_kill", "replica_kill", "good_retrain",
         "compact_crash")},
     "no-cache": {"query_cache_size": 0, "catalog_items": 5000},
+    # chip_smoke.py's soak_full_menu: `pio soak --faults full`, every other
+    # flag at the CLI's default
+    "card-full-menu": {"duration_s": 60.0, "event_workers": 2,
+                       "replicas": 2, "apps": 3, "ingest_rps": 50.0,
+                       "query_rps": 20.0, "foldin_ms": 250.0,
+                       "swap_watch_ms": 2500.0, "quality_sample": 1.0,
+                       "faults": soak.FAULT_MENU},
+    # chip_smoke.py's soak_tenants: the multi-tenant soak at 250 ms
+    "card-tenants": {"seed": 45, "duration_s": 16.0, "event_workers": 1,
+                     "replicas": 0, "apps": 2, "tenant_apps": 5,
+                     "ingest_rps": 12.0, "query_rps": 12.0,
+                     "faults": ("enospc_shed", "poison_foldin"),
+                     "quality_sample": 0.0, "foldin_ms": 250.0,
+                     "swap_watch_ms": 2500.0, "rollback_deadline_s": 25.0},
 }
 
 
@@ -439,7 +455,14 @@ def test_write_and_read_scorecard_equal_the_reference(tmp_path):
     ["--elastic", "--elastic-max", "4", "--faults", "none"],
     ["--event-workers", "1", "--replicas", "0", "--faults",
      "enospc_shed,poison_foldin,worker_kill"],
-], ids=["default", "tenants", "elastic", "smoke"])
+    ["--faults", "full"],
+    ["--seed", "45", "--duration-s", "16", "--event-workers", "1",
+     "--replicas", "0", "--apps", "2", "--tenant-apps", "5",
+     "--ingest-rps", "12", "--query-rps", "12", "--faults",
+     "enospc_shed,poison_foldin", "--quality-sample", "0", "--foldin-ms",
+     "250", "--watch-ms", "2500", "--rollback-deadline-s", "25"],
+], ids=["default", "tenants", "elastic", "smoke", "card-full-menu",
+        "card-tenants"])
 def test_dry_run_prints_the_reference_plan(argv, tmp_path, capsys):
     from incubator_predictionio_tpu.tools.commands.soak import (
         soak_cmd as ref_soak_cmd,
@@ -601,3 +624,72 @@ def test_smoke_soak_scaled_down_topology_on_the_cpu(tmp_path, monkeypatch):
     assert on_disk and on_disk["verdict"] == "PASS"
     assert not (tmp_path / "wd").exists()
 
+
+def _run(cfg):
+    scorecard = soak.run_soak(soak.plan_scenario(cfg))
+    assert scorecard["verdict"] == "PASS", json.dumps(
+        {"slos": scorecard["slos"], "faults": scorecard["faults"],
+         "traffic": scorecard["traffic"],
+         "planNotes": scorecard["planNotes"]}, indent=1, default=str)
+    return scorecard
+
+
+@pytest.mark.slow
+@pytest.mark.multitenant
+@pytest.mark.parametrize("foldin_ms", [1200.0, 250.0],
+                         ids=["foldin-1200ms", "foldin-250ms"])
+def test_multitenant_soak_per_tenant_slo_rows(tmp_path, monkeypatch,
+                                              foldin_ms):
+    """The reference's multi-tenant soak (tests/test_soak.py:773-809) on
+    the port: one mux-armed engine process serves the whole app universe,
+    per-app instances trained up front, zipfian X-Pio-App traffic after a
+    guaranteed-coverage sweep, the resident LRU churning below the app
+    count, and a poisoned fold-in rolled back while every tenant's
+    availability row stays green. The reference runs the fold-in at
+    1,200 ms, slower than its one-step watch can trip; the second case
+    runs it at the default 250 ms, where increments land inside each
+    other's watch windows and the chain rule has to hold."""
+    monkeypatch.chdir(os.path.dirname(HERE))
+    cfg = soak.SoakConfig(
+        engine_dir=_template(tmp_path), workdir=str(tmp_path / "wd"),
+        seed=45, duration_s=16.0, event_workers=1, replicas=0,
+        apps=2, tenant_apps=5, ingest_rps=12.0, query_rps=12.0,
+        faults=("enospc_shed", "poison_foldin"),
+        quality_sample=0.0,
+        foldin_ms=foldin_ms, refresh_ms=300.0, swap_watch_ms=2500.0,
+        rollback_deadline_s=25.0, freshness_settle_s=15.0,
+        out_path=str(tmp_path / "SOAK.json"), device="cpu")
+    scorecard = _run(cfg)
+    assert scorecard["topology"]["tenantApps"] == 5
+    assert scorecard["topology"]["tenantMaxResident"] == 2
+    row = next(s for s in scorecard["slos"]
+               if s["name"] == "tenant-isolation")
+    per = row["value"]["perTenant"]
+    assert len(per) == 5
+    assert all(r["offered"] >= 1 and r["accepted"] >= 1 for r in per)
+    # the LRU actually churned: 4 mux tenants through 2 resident slots
+    assert (row["value"]["evictions"] or 0) >= 1
+    # the scorecard keeps the scraped tenants table for post-mortems
+    assert scorecard["tenants"]["maxResident"] == 2
+
+
+@pytest.mark.slow
+def test_headline_soak_full_menu_fleet_topology(tmp_path, monkeypatch):
+    """The reference's headline soak (tests/test_soak.py:812-830) on the
+    port: 2 fenced event workers and a 2-replica engine fleet with staged
+    canary and fold-in producer, the full fault menu (replica SIGKILL
+    mid-flood, compaction crash, poisoned retrain under a deploy freeze,
+    a poisoned fold-in and a quality poison among them): a green
+    scorecard, no acknowledged event lost, the rollback windows held."""
+    monkeypatch.chdir(os.path.dirname(HERE))
+    cfg = soak.SoakConfig(
+        engine_dir=_template(tmp_path), workdir=str(tmp_path / "wd"),
+        seed=20260804, duration_s=70.0, event_workers=2, replicas=2,
+        apps=3, ingest_rps=40.0, query_rps=16.0,
+        foldin_ms=250.0, swap_watch_ms=2500.0, fleet_sync_ms=200.0,
+        rollback_deadline_s=30.0, freshness_settle_s=20.0,
+        out_path=str(tmp_path / "SOAK.json"), device="cpu")
+    scorecard = _run(cfg)
+    fired = [f["name"] for f in scorecard["faults"] if f["fired"]]
+    assert len(fired) >= 5 and set(fired) == set(soak.FAULT_MENU)
+    assert scorecard["traffic"]["acked"] > 500

@@ -71,9 +71,9 @@ def _answers(base, users):
 
 def _chain_state(server):
     with server._lock:
-        prev = server._previous
+        prev = server._chain.previous
         return (server.instance.id, prev[1].id if prev else None,
-                list(server._chain))
+                list(server._chain.links))
 
 
 def test_poisoned_chain_rolls_back_to_last_observed_and_pins_every_link(
@@ -136,7 +136,7 @@ def test_swap_at_the_watch_edge_is_decided_on_one_clock_reading(
     b = ts.train_lifecycle(store, "two")
     assert server._publish_once("foldin") == "swapped"
     with server._lock:
-        until = server._watch["until"]
+        until = server._chain.watch["until"]
     c = ts.train_lifecycle(store, "three")
     # one reading for the whole swap: the window's end, or 1 ms past it
     clock.monotonic = lambda: until + past_ms / 1e3
