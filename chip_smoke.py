@@ -20,6 +20,13 @@ Phases (any failure exits non-zero; nothing is caught):
    (the yardstick; the port never calls it) beside the kernel's bound.
 3. ALS on the card vs on the CPU (plain solve), ML-100K shape, rank 32 and
    rank 128, explicit and implicit (binary and weighted).
+3a. als_bf16_card_vs_cpu: the same in bfloat16 (compute_dtype
+   "bfloat16"): rank 32 λ 0.01·n explicit, implicit binary and weighted,
+   rank 128 λ 0.1·n; each within a relative norm of 1e-2 of the CPU's, its
+   training RMSE within 0.1 %, launches = the layout's under bf16 sizing;
+   after one iteration within 2e-4 of the CPU's bfloat16 factors, at most
+   a fifth of the CPU's bfloat16-vs-float32 gap on the same inputs (held
+   ≥ 1e-3), so only a bfloat16 train on the card passes.
 4. main path at full width: ML-20M-shaped synthetic ratings (138,493 users
    × 26,744 items × 20,000,263 ratings), rank 32, trained through the
    Recommendation engine's ALSAlgorithm; warp-kernel launches must equal
@@ -28,6 +35,13 @@ Phases (any failure exits non-zero; nothing is caught):
    load, device seconds: ``train_timings``); steady seconds per iteration
    with the uint16 column narrowing and without it, in turns; one steady
    iteration profiled.
+4a. train_bf16: the main path with "computeDtype": "bfloat16" through
+   the same engine: warp launches = implied, finite factors, training
+   RMSE within 0.1 % of the float32 main path's (the reference's 0.05 ×
+   scale rule reported), factors at least 1e-3 (relative norm) from the
+   float32 main path's, 20 served queries held to the host top-k; a
+   float32 and a bfloat16 trainer's steady iterations in turns and one
+   profiled iteration each (device-busy ms, the gather's share).
 5. train_checkpointed / train_resumed: the same ratings with a snapshot
    every iteration (factors within 2e-4 of the main path's), then a crash
    after the step-2 snapshot and a resumed train whose factors equal the
@@ -116,7 +130,10 @@ Phases (any failure exits non-zero; nothing is caught):
    matrix and summing its partial grams over its model group), factors
    within 2e-4 of the in-process train_als of the merged triple, warp
    launches = the plan's; the 2-D model served through pio deploy, one
-   query held to the host top-k.
+   query held to the host top-k; then gang_train_alx_bf16: the 2-D gang
+   with "computeDtype": "bfloat16", within a relative norm of 1e-2 of the
+   in-process bfloat16 train_als and at least 1e-3 from the float32 one,
+   launches = the plan's, one query served.
 12d. als_process_sharded: train_als_process_sharded at the main path's
    width (the ML-20M-shaped triple, rank 32, 3 iterations, λ 0.01·n) on a
    (2, 2) mesh of four ranks (this script re-invoked as each rank), each
@@ -339,6 +356,7 @@ from __future__ import annotations
 
 import calendar
 import contextlib
+import dataclasses
 import datetime as _dt
 import http.client
 import importlib.util
@@ -603,15 +621,17 @@ def within(a: np.ndarray, b: np.ndarray) -> bool:
 
 
 def als_engine(rank: int, iterations: int, lam: float,
-               scaling: str = "plain"):
-    """(engine, engine.json, ALSAlgorithm) of the Recommendation template."""
+               scaling: str = "plain", dtype: str = ""):
+    """(engine, engine.json, ALSAlgorithm) of the Recommendation template
+    (``dtype``: its ``computeDtype``, when given)."""
     engine_json = {
         "engineFactory": "incubator_predictionio_torch.models.recommendation."
                          "RecommendationEngine",
         "datasource": {"params": {"appName": "ml20m-synth"}},
         "algorithms": [{"name": "als", "params": {
             "rank": rank, "numIterations": iterations, "lambda": lam,
-            "lambdaScaling": scaling}}],
+            "lambdaScaling": scaling,
+            **({"computeDtype": dtype} if dtype else {})}}],
     }
     engine = RecommendationEngine()()
     _, _, algo_list, _ = engine.make_components(
@@ -895,6 +915,107 @@ def phase_als_card_vs_cpu() -> None:
             check(rel < 1e-2, f"ALS factors drift {rel} (relative norm)")
 
 
+#: bfloat16 against the CPU: the relative-norm gap and the training RMSE's
+#: relative difference a case is held to
+BF16_REL_NORM = 1e-2
+BF16_RMSE_REL = 1e-3
+#: bfloat16 after one iteration against the CPU's, relative norm: the
+#: roundings have not yet compounded, so at most a fifth of the
+#: bfloat16-vs-float32 gap after one iteration (held ≥ BF16_ONE_ITER_GAP
+#: on the same inputs)
+BF16_ONE_ITER = 2e-4
+BF16_ONE_ITER_GAP = 5 * BF16_ONE_ITER
+#: a bfloat16 train's factors against the float32 train's of the same
+#: inputs, relative norm, at least: a card dispatch that ignored
+#: compute_dtype would land within float32 noise (~1e-6) of them
+BF16_MIN_GAP = 1e-3
+
+
+def rel_norm(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(np.asarray(a) - np.asarray(b))
+                 / np.linalg.norm(np.asarray(b)))
+
+
+def phase_als_bf16_card_vs_cpu() -> None:
+    """``compute_dtype="bfloat16"`` on the card against the same on the CPU
+    at the ML-100K shape: rank 32 λ 0.01·n explicit, implicit binary and
+    implicit weighted at λ 0.01, and rank 128 at λ 0.1·n, 2 iterations (the
+    wide kernel). Both devices round the same factors to bfloat16, but
+    their float32 sums run in another order, so a few roundings of the
+    counterpart rows flip and add up over the iterations: each case is
+    held to a relative-norm gap of 1e-2 and a training RMSE within 0.1 %
+    of the CPU's, not to 2e-4 elementwise. Launches equal the solve calls
+    of the layout under bfloat16 chunk sizing. After one iteration the
+    flips have not compounded: there the card is held to the CPU's
+    bfloat16 factors within BF16_ONE_ITER, at most a fifth of the
+    bfloat16-vs-float32 gap of the same inputs on the CPU, which a float32
+    train on the card would not meet."""
+    u, i, r = synth_ratings(*ML100K, seed=11)
+    ones = np.ones_like(r)
+    for rank, iters, reg, scaling, implicit, ratings in (
+            (RANK, 3, 0.01, "nratings", False, r),
+            (RANK, 3, 0.01, "plain", True, ones),
+            (RANK, 3, 0.01, "plain", True, r),
+            (WIDE_RANK, 2, 0.1, "nratings", False, r)):
+        params = ALSParams(rank=rank, num_iterations=iters, reg=reg, seed=3,
+                           lambda_scaling=scaling, implicit_prefs=implicit,
+                           alpha=1.0, compute_dtype="bfloat16")
+        expected, _, _ = implied_launches(u, i, ML100K[0], ML100K[1], params,
+                                          iters)
+        reset_launches()
+        t0 = time.perf_counter()
+        f_gpu = train_als(u, i, ratings, ML100K[0], ML100K[1], params,
+                          device="cuda")
+        gpu_s = time.perf_counter() - t0
+        got = launches()
+        f_cpu = train_als(u, i, ratings, ML100K[0], ML100K[1], params,
+                          device="cpu")
+        rel = max(rel_norm(f_gpu.user_factors, f_cpu.user_factors),
+                  rel_norm(f_gpu.item_factors, f_cpu.item_factors))
+        rmse_gpu = predict_rmse(f_gpu, u, i, ratings)
+        rmse_cpu = predict_rmse(f_cpu, u, i, ratings)
+        kind = "wide" if rank > 32 else "warp"
+        emit("als_bf16_card_vs_cpu", shape=ML100K, rank=rank,
+             iterations=iters, reg=reg, lambda_scaling=scaling,
+             implicit=implicit, binary=bool(implicit and ratings is ones),
+             kernel_launches=got, expected_launches=expected,
+             rel_norm_err=rel, max_abs_err_user=max_err(
+                 f_gpu.user_factors, f_cpu.user_factors),
+             max_abs_err_item=max_err(f_gpu.item_factors,
+                                      f_cpu.item_factors),
+             train_rmse_card=rmse_gpu, train_rmse_cpu=rmse_cpu,
+             held_to=f"rel_norm_err<={BF16_REL_NORM}, RMSE within "
+                     f"{BF16_RMSE_REL:.1%}", card_train_seconds=gpu_s)
+        check(got[kind] == expected == got["total"] > 0,
+              f"bf16 launches {got} != implied {expected} {kind}")
+        check(rel <= BF16_REL_NORM,
+              f"bf16 factors on the card drift {rel} (relative norm)")
+        check(abs(rmse_gpu / rmse_cpu - 1) <= BF16_RMSE_REL,
+              f"bf16 RMSE card {rmse_gpu} vs CPU {rmse_cpu}")
+        one = dataclasses.replace(params, num_iterations=1)
+        f1 = [train_als(u, i, ratings, ML100K[0], ML100K[1],
+                        dataclasses.replace(one, compute_dtype=dt),
+                        device=dev)
+              for dev, dt in (("cuda", "bfloat16"), ("cpu", "bfloat16"),
+                              ("cpu", "float32"))]
+        rel1 = max(rel_norm(f1[0].user_factors, f1[1].user_factors),
+                   rel_norm(f1[0].item_factors, f1[1].item_factors))
+        gap1 = max(rel_norm(f1[1].user_factors, f1[2].user_factors),
+                   rel_norm(f1[1].item_factors, f1[2].item_factors))
+        emit("als_bf16_card_vs_cpu_one_iteration", rank=rank,
+             lambda_scaling=scaling, implicit=implicit,
+             binary=bool(implicit and ratings is ones), rel_norm_err=rel1,
+             cpu_bf16_vs_float32=gap1,
+             held_to=f"rel_norm_err<={BF16_ONE_ITER}, cpu_bf16_vs_float32"
+                     f">={BF16_ONE_ITER_GAP}")
+        check(gap1 >= BF16_ONE_ITER_GAP,
+              f"bf16 vs float32 after one iteration only {gap1}: the "
+              f"one-iteration hold cannot tell them apart")
+        check(rel1 <= BF16_ONE_ITER,
+              f"bf16 after one iteration, card vs CPU: {rel1} (relative "
+              f"norm; bf16 vs float32 {gap1})")
+
+
 def _post(conn: http.client.HTTPConnection, obj) -> tuple[int, dict, float]:
     body = json.dumps(obj)
     t0 = time.perf_counter()
@@ -1057,12 +1178,111 @@ def phase_main_path(workdir: str) -> dict:
          seconds_per_iteration_int32_columns=runs["int32"],
          train_events_per_s_device_timings=nnz * ITERS
          / tm["device_train_seconds"])
-    profile_iteration(trainer)
+    profiled = profile_iteration(trainer)
     del trainer
     return {"launches": launches_train["warp"], "expected": expected,
+            "rmse": rmse, "steady_ms": [1e3 * x for x in runs["uint16"]],
+            "profile": profiled,
             "ratings": (u, i, r), "als_params": als_params,
             "calls_per_iteration": calls_u + calls_i, "model": model,
             "engine": engine, "engine_json": engine_json, "algo": algo}
+
+
+def phase_train_bf16(workdir: str, main: dict) -> None:
+    """The main path in bfloat16: the ML-20M triple through the
+    Recommendation engine with ``"computeDtype": "bfloat16"`` (rank 32, 3
+    iterations, λ 0.01) on ``WorkflowContext(device="cuda")``. Held: warp
+    launches equal to the implied count; finite factors; training RMSE
+    within 0.1 % of the float32 main path's, and factors at least
+    BF16_MIN_GAP from its (relative norm), which a float32 train would not
+    meet; 20 served queries held to the host top-k. Reported, not held:
+    the reference's rule (max |bf16 − float32| < 0.05 × the
+    largest float32 factor). Then a float32 and a bfloat16 trainer of the
+    same triple, steady iterations in turns and one profiled iteration
+    each: device-busy ms and the gather's share, beside the main path's."""
+    n_users, n_items, nnz = ML20M
+    u, i, r = main["ratings"]
+    engine, engine_json, algo = als_engine(RANK, ITERS, 0.01,
+                                           dtype="bfloat16")
+    params = algo.als_params(algo.params)
+    check(params.compute_dtype == "bfloat16", f"params {params}")
+    expected, calls_u, calls_i = implied_launches(u, i, n_users, n_items,
+                                                  params, ITERS)
+    td = TrainingData(u, i, r, IdentityBiMap(n_users), IdentityBiMap(n_items))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = algo.train(WorkflowContext(device="cuda"), td)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    got = launches()
+    record("train_bf16", got)
+    check(got["warp"] == expected == got["total"],
+          f"bf16 launches {got} != implied {expected}")
+    uf, itf = model.factors.user_factors, model.factors.item_factors
+    check(uf.shape == (n_users, RANK) and itf.shape == (n_items, RANK)
+          and uf.dtype == np.float32, f"factors {uf.shape} {itf.shape}")
+    check(bool(np.isfinite(uf).all() and np.isfinite(itf).all()),
+          "non-finite bf16 factors")
+    sample = np.random.default_rng(0).choice(nnz, min(nnz, 1_000_000),
+                                             replace=False)
+    rmse = predict_rmse(model.factors, u[sample], i[sample], r[sample])
+    f32 = main["model"].factors
+    scale = float(np.abs(f32.user_factors).max())
+    gap = max_err(uf, f32.user_factors)
+    rule = {"max_abs_gap_user": gap, "scale": scale,
+            "gap_over_scale": gap / scale, "held": False,
+            "within_0.05_scale": gap < 0.05 * scale,
+            "rel_norm_vs_float32": max(
+                rel_norm(uf, f32.user_factors),
+                rel_norm(itf, f32.item_factors))}
+    emit("train_bf16", events=nnz, iterations=ITERS, rank=RANK,
+         train_seconds=train_s, kernel_launches=got,
+         expected_launches=expected, float32_expected=main["expected"],
+         solve_calls_per_iteration={"user": calls_u, "item": calls_i},
+         train_rmse_1m_sample=rmse, float32_rmse_1m_sample=main["rmse"],
+         reference_rule=rule)
+    check(abs(rmse / main["rmse"] - 1) <= BF16_RMSE_REL,
+          f"bf16 RMSE {rmse} vs float32 {main['rmse']}")
+    check(rule["rel_norm_vs_float32"] >= BF16_MIN_GAP,
+          f"bf16 factors within {rule['rel_norm_vs_float32']} of the "
+          f"float32 main path's: not a bfloat16 train")
+
+    path = os.path.join(workdir, "ml20m_bf16_model.npz")
+    save_models(path, engine_json, [algo.prepare_model_for_persistence(model)])
+    engine_json2, stored = load_models(path)
+    deployment = engine.prepare_deployment(
+        WorkflowContext(device="cuda"), EngineParams.from_json(engine_json2),
+        stored)
+    deployment.models[0].warm_up()
+    users = [int(x) for x in np.random.default_rng(2).integers(0, n_users, 20)]
+    lat = serve_checks(
+        deployment, [{"user": str(x), "num": 10} for x in users],
+        lambda q, res: check_user_answer(uf, itf, int(q["user"]), res))
+    del deployment, model
+    emit("train_bf16_serve", **lat, catalog=n_items)
+
+    trainers = {"float32": ALSTrainer(u, i, r, n_users, n_items,
+                                      main["als_params"], device="cuda"),
+                "bfloat16": ALSTrainer(u, i, r, n_users, n_items, params,
+                                       device="cuda")}
+    steady = {name: [] for name in trainers}
+    for t in trainers.values():
+        t.iterate(1)
+    for _ in range(2):
+        for name, t in trainers.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.iterate(ITERS)
+            torch.cuda.synchronize()
+            steady[name].append(1e3 * (time.perf_counter() - t0) / ITERS)
+    profiled = {name: profile_iteration(t, f"train_bf16_profile_{name}")
+                for name, t in trainers.items()}
+    del trainers
+    emit("train_bf16_steady", events=nnz, iterations=ITERS,
+         ms_per_iteration=steady, profile=profiled,
+         main_path_float32={"ms_per_iteration": main["steady_ms"],
+                            "profile": main["profile"]})
 
 
 class _InjectedCrash(RuntimeError):
@@ -1539,14 +1759,21 @@ def phase_train_rank128(ratings) -> dict:
 
 
 def profile_iteration(trainer: ALSTrainer,
-                      phase: str = "profile_iteration") -> None:
+                      phase: str = "profile_iteration") -> dict:
     """Where one steady-state iteration's device time goes."""
-    profile_call(lambda: trainer.iterate(1), phase)
+    return profile_call(lambda: trainer.iterate(1), phase)
 
 
-def profile_call(fn, phase: str) -> None:
+#: the gather's kernels: ``index_select`` of the counterpart rows (the
+#: vectorized gather on torch 2.11's CUDA build) and of the heavy
+#: bucket's merge passes
+GATHER_SYMBOLS = ("vectorized_gather_kernel", "indexSelect")
+
+
+def profile_call(fn, phase: str) -> dict:
     """Where one call's device time goes: torch.profiler kernel times by
-    name, and the device's busy share of the call's wall time."""
+    name, the gather's share, and the device's busy share of the call's
+    wall time. Returns the emitted numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1557,12 +1784,20 @@ def profile_call(fn, phase: str) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = cuda_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    gather_ms = sum(e.self_device_time_total for e in kernels
+                    if any(g in e.key for g in GATHER_SYMBOLS)) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    emit(phase, wall_ms_profiled=wall_ms,
-         device_busy_ms=busy_ms if kernels else "not measured",
-         idle_share=(1 - busy_ms / wall_ms) if kernels else "not measured",
+    got = {"wall_ms_profiled": wall_ms,
+           "device_busy_ms": busy_ms if kernels else "not measured",
+           "idle_share": (1 - busy_ms / wall_ms) if kernels
+           else "not measured",
+           "gather_ms": gather_ms if kernels else "not measured",
+           "gather_share": gather_ms / busy_ms if kernels
+           else "not measured"}
+    emit(phase, **got,
          top=[{"name": e.key[:90], "calls": e.count,
                "device_ms": e.self_device_time_total / 1e3} for e in top])
+    return got
 
 
 def _free_port() -> int:
@@ -8999,12 +9234,14 @@ def _slab_verb(env: dict, gdir: str, workers: int, mesh: str = "") -> dict:
 
 
 def _hold_slab(got: dict, store: Storage, dims: tuple, path: str,
-               ref: ALSFactors, want: dict, params: ALSParams) -> tuple:
+               ref: ALSFactors, want: dict, params: ALSParams,
+               max_rel_norm: float = 0.0) -> tuple:
     """A completed merged gang: every rank read the whole merged view, the
     persisted id maps are that read's, the warp launches those the (d, m)
     plan implies, the factors within TOL of the in-process train_als of
-    the merged triple. Returns (stored model, launches, max |err|,
-    expected launches)."""
+    the merged triple (with ``max_rel_norm``: within that relative-norm
+    gap instead). Returns (stored model, launches, max |err|, expected
+    launches)."""
     world = dims[0] * dims[1]
     launches = _gang_launches(got)
     check(len(got["workers"]) == world, f"{path}: {len(got['workers'])} "
@@ -9019,9 +9256,15 @@ def _hold_slab(got: dict, store: Storage, dims: tuple, path: str,
               and t["mesh"] == list(dims), f"{path}: worker timings {t}")
     err = max(max_err(stored["user_factors"], ref.user_factors),
               max_err(stored["item_factors"], ref.item_factors))
-    check(within(stored["user_factors"], ref.user_factors)
-          and within(stored["item_factors"], ref.item_factors),
-          f"{path}: gang vs train_als max |err| {err}")
+    if max_rel_norm:
+        rel = max(rel_norm(stored["user_factors"], ref.user_factors),
+                  rel_norm(stored["item_factors"], ref.item_factors))
+        check(rel <= max_rel_norm, f"{path}: gang vs train_als relative "
+                                   f"norm {rel}, max |err| {err}")
+    else:
+        check(within(stored["user_factors"], ref.user_factors)
+              and within(stored["item_factors"], ref.item_factors),
+              f"{path}: gang vs train_als max |err| {err}")
     per_rank = _slab_calls(want["u"], want["i"], len(want["users"]),
                            len(want["items"]), params, dims)
     expected = world * params.num_iterations * per_rank
@@ -9112,6 +9355,42 @@ def phase_gang_train_merged(cwd: str, env: dict) -> None:
          kernel_launches=launches, expected_launches=expected,
          max_abs_err_vs_train_als=err, query=q, answer=answer,
          query_ms=query_ms)
+
+    # the same 2-D gang with "computeDtype": "bfloat16", held to the
+    # in-process bfloat16 train by the relative norm (als_bf16_card_vs_cpu)
+    bdir = os.path.join(cwd, "gang_merged_bf16")
+    _gang_engine(bdir, factory, "part", extra_algo={
+        "lambdaScaling": "nratings", "computeDtype": "bfloat16"})
+    bparams = dataclasses.replace(params, compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    bref = train_als(u, i, r, len(users), len(items), bparams, device="cuda")
+    bref_s = time.perf_counter() - t0
+    bf16 = _slab_verb(env, bdir, world, mesh="x".join(map(str, ALX_MESH)))
+    store = _storage_of(env)
+    stored, launches, err, expected = _hold_slab(
+        bf16, store, ALX_MESH, "gang_train_alx_bf16", bref, want, bparams,
+        max_rel_norm=BF16_REL_NORM)
+    store.close()
+    rel = max(rel_norm(stored["user_factors"], bref.user_factors),
+              rel_norm(stored["item_factors"], bref.item_factors))
+    rel_f32 = max(rel_norm(stored["user_factors"], ref.user_factors),
+                  rel_norm(stored["item_factors"], ref.item_factors))
+    check(rel_f32 >= BF16_MIN_GAP,
+          f"gang_train_alx_bf16 within {rel_f32} of the float32 train_als: "
+          f"not a bfloat16 train")
+    with _Served(["deploy"], env, bdir) as srv:
+        check(srv.info["engineInstanceId"] == bf16["engineInstanceId"],
+              f"deployed {srv.info}")
+        status, res, query_ms = srv.request("POST", "/queries.json", q)
+    check(status == 200, f"alx bf16 query {status}: {res}")
+    answer = _hold_als_answer(stored, user, res)
+    emit("gang_train_alx_bf16", **_slab_numbers(bf16), mesh=list(ALX_MESH),
+         kernel_launches=launches, expected_launches=expected,
+         rel_norm_vs_train_als=rel, max_abs_err_vs_train_als=err,
+         rel_norm_vs_float32_train_als=rel_f32,
+         held_to=f"rel_norm<={BF16_REL_NORM}, rel_norm_vs_float32>="
+                 f"{BF16_MIN_GAP}", train_als_seconds=bref_s,
+         query=q, answer=answer, query_ms=query_ms)
 
 
 #: the process-sharded trainer's run: the main path's ML-20M triple at
@@ -9776,6 +10055,7 @@ def main() -> int:
     phase_build()
     kv = phase_kernel_vs_plain()
     phase_als_card_vs_cpu()
+    phase_als_bf16_card_vs_cpu()
     with tempfile.TemporaryDirectory() as workdir:
         # the headline soak's late faults (a poisoned retrain, then the
         # quality poison) need their retrain published inside its 60 s: it
@@ -9783,6 +10063,7 @@ def main() -> int:
         # and not beside the verbs' process starts
         with _Beside(phase_soak_full_menu, workdir):
             main_path = phase_main_path(workdir)
+            phase_train_bf16(workdir, main_path)
             phase_train_checkpointed(workdir, main_path)
             phase_train_nan_guard(main_path)
             phase_fold_in_main(workdir, main_path)

@@ -179,7 +179,7 @@ class SimilarProductAlgoParams(Params):
     reg: float = 0.01
     alpha: float = 1.0
     seed: Optional[int] = None
-    # "auto" → float32; only float32 is ported
+    # "auto" → float32; "float32" | "bfloat16" (ops/als.py)
     compute_dtype: str = "auto"
     chunk_tiles: int = -1
     # engine.json "shardedServing": auto|always|never (ops/sharded_topk)

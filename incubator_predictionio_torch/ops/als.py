@@ -28,8 +28,13 @@ data layout are the reference's:
   widens them per gathered chunk (the reference's ``_side_flat``).
 
 The gather, grams and right-hand sides are plain torch: the JAX package
-left them to XLA. Only float32 compute is ported (``compute_dtype="auto"``
-resolves to float32, the reference's rule off a TPU).
+left them to XLA. ``compute_dtype="auto"`` resolves to float32 (the
+reference's rule off a TPU); ``"bfloat16"`` takes the reference's rounding
+points as its CPU computes them: the counterpart factors (the sentinel row
+too) rounded to bfloat16 once per half-step and gathered as bfloat16 rows,
+every weight rounded before it multiplies, every product and sum formed in
+float32 (:func:`_grams_rows_bf16`); the factors, the grams and the solve
+stay float32, so both kernels serve either dtype unchanged.
 
 :func:`train_als` also carries the reference's checkpoint/resume, NaN
 guard and ``timings`` hooks, and the gang hooks of a supervised worker
@@ -96,7 +101,8 @@ class ALSParams:
     seed: int = 3
     # engine.json blockLen: only scales an explicit chunk_tiles budget
     block_len: int = 32
-    # "auto" → float32 (the reference's rule off a TPU); only float32 is ported
+    # "auto" → float32 (the reference's rule off a TPU); "float32" or
+    # "bfloat16" (the gathered rows and the weights, _grams_rows_bf16)
     compute_dtype: str = "auto"
     # ≤ 0: 512-row chunks (byte-capped); > 0: chunk_tiles × block_len
     # gathered entries per step bound the chunk too
@@ -134,10 +140,10 @@ def _resolve_params(params: ALSParams) -> tuple[ALSParams, int]:
     """Materialize 'auto' knobs; returns (params, entries_per_step)."""
     if params.compute_dtype == "auto":
         params = dataclasses.replace(params, compute_dtype="float32")
-    if params.compute_dtype != "float32":
+    if params.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(
-            f"compute_dtype {params.compute_dtype!r} is not supported here; "
-            "use 'auto' or 'float32'")
+            f"compute_dtype {params.compute_dtype!r} is not supported; "
+            "use 'auto', 'float32' or 'bfloat16'")
     if params.lambda_scaling not in ("plain", "nratings"):
         raise ValueError(f"lambda_scaling must be 'plain' or 'nratings', got "
                          f"{params.lambda_scaling!r}")
@@ -182,6 +188,73 @@ def _grams_rows(p: torch.Tensor, val: Optional[torch.Tensor], *,
     return grams, rhs
 
 
+def _grams_rows_bf16(p: torch.Tensor, w: Optional[torch.Tensor], *,
+                     implicit: bool, alpha: float, out=None):
+    """:func:`_grams_rows` under ``compute_dtype="bfloat16"``, from gathered
+    bfloat16 rows p [R, C, k] and the side's weights as :func:`_bf16_weights`
+    rounded them: the reference's ``_grams_rows`` with
+    ``compute_dtype=bfloat16`` (als.py:129-168) as its CPU computes it.
+    The rows are upcast and every product and sum is formed in float32:
+    ``p·weight`` is NOT rounded back (XLA keeps it in float32), and a
+    product of bfloat16 values, or of one with a bfloat16 weight, is exact
+    in float32, so only the float32 summation order differs from the
+    reference. Grams and rhs are float32."""
+    pf = p.float()
+    if not implicit:
+        return _grams_rows(pf, w, implicit=False, alpha=alpha, out=out)
+    R, _, k = p.shape
+    if out is None:
+        out = (torch.empty((R, k, k), dtype=torch.float32, device=p.device),
+               torch.empty((R, k), dtype=torch.float32, device=p.device))
+    grams, rhs = out
+    pt = pf.transpose(1, 2)
+    if w is None:
+        torch.bmm(pt * _bf16(alpha), pf, out=grams)
+        torch.mul(pf.sum(dim=1), 1.0 + alpha, out=rhs)
+    else:
+        torch.bmm(pt * w[:, 0, None, :], pf, out=grams)
+        torch.bmm(pt, w[:, 1, :, None], out=rhs[:, :, None])
+    return grams, rhs
+
+
+def _bf16(x):
+    """``x`` (a float or a float32 tensor) rounded to bfloat16, as float32."""
+    if isinstance(x, float):
+        return float(torch.tensor(x).to(torch.bfloat16))
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_weights(v: np.ndarray, params: ALSParams) -> torch.Tensor:
+    """A value slab [R, C] as :func:`_grams_rows_bf16` takes it, rounded
+    once when the side is built: ``val`` → bfloat16 (explicit), or
+    ``alpha·val`` and ``1 + alpha·val`` → bfloat16 stacked [R, 2, C] (the
+    implicit grams' and right-hand side's weights)."""
+    v = torch.from_numpy(np.ascontiguousarray(v))
+    if not params.implicit_prefs:
+        return _bf16(v)
+    return torch.stack([_bf16(params.alpha * v),
+                        _bf16(1.0 + params.alpha * v)], dim=1)
+
+
+def _compute_rows(y: torch.Tensor, params: ALSParams):
+    """(the rows a half-step gathers, YᵀY of implicit feedback or None)
+    from the counterpart ``y`` (its zero sentinel row included): float32
+    as stored, or under bfloat16 rounded once (the reference's ``y_cd``,
+    als.py:456-473), YᵀY then summed in float32 from the rounded rows."""
+    if params.compute_dtype != "bfloat16":
+        return y, (y.T @ y) if params.implicit_prefs else None
+    y_cd = y.to(torch.bfloat16)
+    if not params.implicit_prefs:
+        return y_cd, None
+    yf = y_cd.float()
+    return y_cd, yf.T @ yf
+
+
+def _elem_bytes(params: ALSParams) -> int:
+    """Bytes of one gathered element (the reference's ``cd_bytes``)."""
+    return 2 if params.compute_dtype == "bfloat16" else 4
+
+
 def _ridge_solve(a: torch.Tensor, b: torch.Tensor, lam: torch.Tensor,
                  yty: Optional[torch.Tensor]) -> torch.Tensor:
     """(+YᵀY) → +λ on the diagonal → batched SPD solve. Updates ``a`` in
@@ -192,9 +265,10 @@ def _ridge_solve(a: torch.Tensor, b: torch.Tensor, lam: torch.Tensor,
     return batched_spd_solve(a, b)
 
 
-def _fused_chunk_rows(C: int, k: int, entries_budget: Optional[int]) -> int:
+def _fused_chunk_rows(C: int, k: int, entries_budget: Optional[int],
+                      elem_bytes: int = 4) -> int:
     chunk_r = _FUSED_CHUNK_ROWS
-    while chunk_r > 64 and chunk_r * C * k * 4 > _FUSED_SLAB_BYTES:
+    while chunk_r > 64 and chunk_r * C * k * elem_bytes > _FUSED_SLAB_BYTES:
         chunk_r //= 2
     if entries_budget is not None:
         chunk_r = max(1, min(chunk_r, entries_budget // max(C, 1) or 1))
@@ -224,7 +298,8 @@ def solve_calls_per_half_step(plan: LayoutPlan, params: ALSParams,
         R = int(plan.bucket_rows[bi]) * (plan.n_shards if shards is None
                                          else int(shards))
         chunk_r = min(_fused_chunk_rows(int(plan.lengths[bi]), params.rank,
-                                        budget), max(R, 1))
+                                        budget, _elem_bytes(params)),
+                      max(R, 1))
         calls += -(-R // _solve_buffer_rows(R, chunk_r, params.rank))
     return calls + (1 if plan.has_heavy_bucket else 0)
 
@@ -284,15 +359,24 @@ def layout_fingerprint(plan_u: LayoutPlan, plan_i: LayoutPlan, user_idx,
 class _Side:
     """One side's slabs and ridge weights, resident on the device.
     ``col_sentinel`` is the counterpart's sentinel slot: when it is at most
-    :data:`_NARROW_COL_MAX` the column slabs are kept as uint16.
-    ``v_parent``: the heavy rows' parent slots when ``arrs`` holds one
-    shard of a multi-shard plan (that shard's part of ``plan.v_parent``)."""
+    :data:`_NARROW_COL_MAX` the column slabs are kept as uint16. Under
+    ``compute_dtype="bfloat16"`` the value slabs are held as
+    :func:`_bf16_weights`. ``v_parent``: the heavy rows' parent slots when
+    ``arrs`` holds one shard of a multi-shard plan (that shard's part of
+    ``plan.v_parent``)."""
 
     def __init__(self, plan: LayoutPlan, arrs: BucketArrays,
-                 lam: np.ndarray, binary: bool, device: torch.device,
+                 lam: np.ndarray, params: ALSParams, device: torch.device,
                  col_sentinel: int, v_parent: Optional[np.ndarray] = None):
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        binary = bool(params.binary_ratings)
+        if params.compute_dtype == "bfloat16":
+            def put_vals(v):
+                return _bf16_weights(v, params).to(device)
+        else:
+            put_vals = put
 
         self.narrow = col_sentinel <= _NARROW_COL_MAX
 
@@ -301,13 +385,13 @@ class _Side:
 
         self.plan = plan
         self.cols = [put_cols(c) for c in arrs.cols]
-        self.vals = None if binary else [put(v) for v in arrs.vals]
+        self.vals = None if binary else [put_vals(v) for v in arrs.vals]
         self.lam = put(lam)
         self.v_cols = self.v_vals = None
         self.v_passes = []
         if plan.has_heavy_bucket:
             self.v_cols = put_cols(arrs.v_cols)
-            self.v_vals = None if binary else put(arrs.v_vals)
+            self.v_vals = None if binary else put_vals(arrs.v_vals)
             self.v_passes = [(put(src), put(dst)) for src, dst
                              in overflow_merge_passes(
                                  plan.v_parent if v_parent is None
@@ -341,10 +425,12 @@ def _bucket_loop(side: _Side, params: ALSParams, entries_per_step: int,
     grams, adds its virtual rows' in the fixed passes of
     :func:`overflow_merge_passes` and is solved in one call."""
     k = params.rank
+    rows_fn = (_grams_rows_bf16 if params.compute_dtype == "bfloat16"
+               else _grams_rows)
 
     def grams(cols, vals, out=None):
-        return _grams_rows(gather(cols), vals, implicit=params.implicit_prefs,
-                           alpha=params.alpha, out=out)
+        return rows_fn(gather(cols), vals, implicit=params.implicit_prefs,
+                       alpha=params.alpha, out=out)
 
     def slab_normal_eq(colb, valb):
         # grams/rhs of a whole slab, chunked so the gather stays bounded
@@ -363,7 +449,8 @@ def _bucket_loop(side: _Side, params: ALSParams, entries_per_step: int,
         colb = side.cols[bi]
         valb = None if side.vals is None else side.vals[bi]
         R, C = colb.shape
-        chunk_r = min(_fused_chunk_rows(C, k, entries_budget), max(R, 1))
+        chunk_r = min(_fused_chunk_rows(C, k, entries_budget,
+                                        _elem_bytes(params)), max(R, 1))
         buf_r = _solve_buffer_rows(R, chunk_r, k)
         if R:
             a_buf = torch.empty((buf_r, k, k), dtype=torch.float32,
@@ -422,9 +509,9 @@ class ALSTrainer:
         lam_u = _host_lam(plan_u, self.params)
         lam_i = _host_lam(plan_i, self.params)
         t0 = time.perf_counter()
-        self.side_u = _Side(plan_u, arrs_u, lam_u, self.binary, self.device,
+        self.side_u = _Side(plan_u, arrs_u, lam_u, self.params, self.device,
                             col_sentinel=plan_i.total_slots)
-        self.side_i = _Side(plan_i, arrs_i, lam_i, self.binary, self.device,
+        self.side_i = _Side(plan_i, arrs_i, lam_i, self.params, self.device,
                             col_sentinel=plan_u.total_slots)
         k = self.params.rank
         # one trailing all-zero sentinel row: padding slot indices gather 0s
@@ -462,11 +549,11 @@ class ALSTrainer:
         """Solve one side's factors against ``y`` (counterpart + sentinel
         row) into ``out[:total_slots]``, bucket by bucket in slot order."""
         k = self.params.rank
-        yty = (y.T @ y) if self.params.implicit_prefs else None
+        y_cd, yty = _compute_rows(y, self.params)
 
         def gather(cols):
             R, C = cols.shape
-            return y.index_select(0, _widen(cols).reshape(-1)).view(R, C, k)
+            return y_cd.index_select(0, _widen(cols).reshape(-1)).view(R, C, k)
 
         def solve(a, b, lo):
             out[lo:lo + a.shape[0]] = _ridge_solve(
@@ -713,7 +800,7 @@ class SlabGangALS:
             # zero grams merge nowhere)
             mine = plan.shard_of_row(np.arange(plan.n_rows)) == di
             n_real = int(plan.v_chunks_of_row[mine].sum())
-            return _Side(plan, arrs, lam, self.binary, self.device,
+            return _Side(plan, arrs, lam, self.params, self.device,
                          col_sentinel=cp.total_slots,
                          v_parent=plan.v_parent[di * rv:di * rv + n_real])
 
@@ -780,9 +867,8 @@ class SlabGangALS:
         dev = y.device
         cp_rows = y.shape[0] - 1  # the counterpart block's slot rows
         cp_lo = self.mi * cp_rows
-        yty = None
-        if self.params.implicit_prefs:
-            yty = y.T @ y
+        y_cd, yty = _compute_rows(y, self.params)
+        if yty is not None:
             self._model_sum(yty)
 
         def gather(cols):
@@ -792,7 +878,7 @@ class SlabGangALS:
                 # slots outside this block (the sentinel too) → the zero row
                 lc = idx - cp_lo
                 idx = torch.where((lc >= 0) & (lc < cp_rows), lc, cp_rows)
-            return y.index_select(0, idx).view(R, C, k)
+            return y_cd.index_select(0, idx).view(R, C, k)
 
         clock = [time.perf_counter()]
 
@@ -1215,6 +1301,11 @@ class DataParallelALS:
             self.bw = put(1.0 + self.params.alpha * r)
         else:
             self.gw, self.bw = None, put(r)
+        if self.params.compute_dtype == "bfloat16":
+            # the weights rounded once, as the reference rounds each
+            # chunk's (als.py:1338-1363)
+            self.gw, self.bw = (None if w is None else _bf16(w)
+                                for w in (self.gw, self.bw))
         # per-row gang-wide observation counts, one all-reduce each
         cnt_u = self.coll.all_reduce(torch.bincount(
             self.u, minlength=self.n_u_pad).to(torch.float32))
@@ -1277,12 +1368,14 @@ class DataParallelALS:
         k = self.params.rank
         dev = y.device
         t0 = time.perf_counter()
+        y_cd, yty = _compute_rows(y, self.params)
         grams = torch.zeros((n_pad, k, k), dtype=torch.float32, device=dev)
         rhs = torch.zeros((n_pad, k), dtype=torch.float32, device=dev)
         ch = self.chunk
         for s in range(0, rows.shape[0], ch):
             e = min(s + ch, rows.shape[0])
-            p = y.index_select(0, cols[s:e])                      # [CH, k]
+            # [CH, k]; bfloat16 rows upcast: products of them are exact
+            p = y_cd.index_select(0, cols[s:e]).float()
             pw = p if self.gw is None else p * self.gw[s:e, None]
             _sum_rows_(grams, rows[s:e], pw[:, :, None] * p[:, None, :])
             _sum_rows_(rhs, rows[s:e], p * self.bw[s:e, None])
@@ -1296,8 +1389,8 @@ class DataParallelALS:
         t2 = time.perf_counter()
         lo = self.rank * rps
         a, b = grams[lo:lo + rps], rhs[lo:lo + rps]
-        if self.params.implicit_prefs:
-            a += (y.T @ y)[None, :, :]  # shared YᵀY term
+        if yty is not None:
+            a += yty[None, :, :]  # shared YᵀY term
         a.diagonal(dim1=1, dim2=2).add_(lam[lo:lo + rps, None])
         out = torch.zeros((n_pad, k), dtype=torch.float32, device=dev)
         buf = max(1, _SOLVE_BUFFER_BYTES // (k * k * 4))

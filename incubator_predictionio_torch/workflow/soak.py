@@ -41,7 +41,11 @@ What differs from the reference: ``SoakConfig.device`` (``"cuda"`` unless
 spawns, as the port's device rule wants (the event server runs no device
 code and takes no device); the HTTP clients are the standard library's
 (the card host has no ``requests``), with the same keep-alive sessions and
-the same connection-error accounting; the scraper also reads each event
+the same connection-error accounting, except that behind a front of
+several event workers or of a fixed fleet of replicas a traffic lane
+re-opens its connection every ``LANE_RECYCLE_REQUESTS`` requests (the
+reference's lanes keep theirs, so both of its query lanes can land on one
+replica and leave ``replica_kill``'s target without a query); the scraper also reads each event
 worker's and each engine replica's ``/metrics`` at the address its
 front's ``/healthz`` lists (a front scrape reaches one backend: one
 worker's ENOSPC counter, or the quality breach of the replica that
@@ -655,16 +659,28 @@ class _Response:
         return json.loads(self.content)
 
 
+#: a traffic lane re-opens its keep-alive connection after this many
+#: requests where a splice front stands before several backends (event
+#: workers, engine replicas): the front routes CONNECTIONS round-robin, so
+#: a lane that kept one connection for the whole run would feed one
+#: backend, and lanes that all landed on the same one would leave the
+#: others, a scheduled crash's target among them, without a request
+LANE_RECYCLE_REQUESTS = 16
+
+
 class _Session:
     """A keep-alive client of one ``http://host:port`` (like a requests
-    Session): one connection reused until a failure or the server's close;
-    a pooled connection the peer dropped while idle is replaced before it
-    is reused, never written into."""
+    Session): one connection reused until a failure, the server's close
+    or, with ``max_requests`` > 0, that many requests on it; a pooled
+    connection the peer dropped while idle is replaced before it is
+    reused, never written into."""
 
-    def __init__(self, base: str):
+    def __init__(self, base: str, max_requests: int = 0):
         u = urlsplit(base)
         self.host, self.port = u.hostname or "127.0.0.1", u.port or 80
+        self.max_requests = max_requests
         self._conn: Optional[http.client.HTTPConnection] = None
+        self._served = 0
 
     def close(self) -> None:
         if self._conn is not None:
@@ -683,6 +699,7 @@ class _Session:
         if conn is None:
             conn = self._conn = http.client.HTTPConnection(
                 self.host, self.port, timeout=timeout)
+            self._served = 0
         return conn
 
     def request(self, method: str, url: str, *, json_body=None,
@@ -703,7 +720,8 @@ class _Session:
         except (OSError, http.client.HTTPException) as e:
             self.close()
             raise _ConnError(f"{method} {path}: {e!r}") from e
-        if r.will_close:
+        self._served += 1
+        if r.will_close or 0 < self.max_requests <= self._served:
             self.close()
         return _Response(r.status, content)
 
@@ -1062,10 +1080,12 @@ class SoakRunner:
         rng = random.Random(cfg.seed * 1000 + idx)
         base = f"http://127.0.0.1:{self.event_port}"
         # keep-alive like a real SDK: the L4 front splices the
-        # connection once, so steady state costs zero connects; after
+        # connection once, so steady state costs one connect every
+        # LANE_RECYCLE_REQUESTS requests (none with one worker); after
         # any failure the pool is dropped and the next request
         # re-splices (possibly onto a different worker)
-        sess = _Session(base)
+        sess = _Session(base, max_requests=(
+            LANE_RECYCLE_REQUESTS if cfg.event_workers > 1 else 0))
         period = 1.0 / rate
         nxt = time.monotonic()
         n = 0
@@ -1179,7 +1199,13 @@ class SoakRunner:
         cfg = self.cfg
         rng = random.Random(cfg.seed * 2000 + idx)
         base = f"http://127.0.0.1:{self.engine_port}"
-        sess = _Session(base)
+        # a fixed fleet's front splices connections: re-splice every
+        # LANE_RECYCLE_REQUESTS queries so the flood reaches every
+        # replica, replica_kill's target among them (the elastic fleet
+        # keeps its lanes: its scaler is graded on their queue depth)
+        sess = _Session(base, max_requests=(
+            LANE_RECYCLE_REQUESTS if cfg.replicas > 1 and not cfg.elastic
+            else 0))
         nxt = time.monotonic()
         apps = self.plan.app_names
         n = 0

@@ -224,7 +224,7 @@ def test_unsupported_compute_dtype_raises():
     u, i, r, nu, ni = _ratings()
     with pytest.raises(ValueError, match="compute_dtype"):
         port_als.train_als(u, i, r, nu, ni,
-                           port_als.ALSParams(compute_dtype="bfloat16"),
+                           port_als.ALSParams(compute_dtype="float16"),
                            device="cpu")
 
 

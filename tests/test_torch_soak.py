@@ -586,6 +586,77 @@ def test_http_session_reuses_and_replaces_connections():
             f"http://127.0.0.1:{dead}/x", json={}, timeout=2)
 
 
+@pytest.mark.parametrize("max_requests", [0, soak.LANE_RECYCLE_REQUESTS],
+                         ids=["keep-alive", "recycled"])
+def test_traffic_lanes_reach_every_backend_behind_the_front(max_requests):
+    """Two keep-alive lanes behind the splice front of two backends, with a
+    one-shot request spliced between their first connects (as the scraper's
+    are): both lanes land on backend 0. A lane that keeps its connection
+    leaves backend 1 without a lane request for the whole run, which is how
+    replica_kill's target went unqueried; re-opened every
+    ``LANE_RECYCLE_REQUESTS`` requests, the lanes reach both backends."""
+    import asyncio
+    import http.server
+    import threading
+
+    from incubator_predictionio_torch.common.splice import FrontProxy
+
+    hits = {0: 0, 1: 0}
+
+    def handler(idx):
+        class H(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def do_POST(self):  # noqa: N802
+                self.rfile.read(int(self.headers["Content-Length"]))
+                hits[idx] += 1
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *a):
+                pass
+        return H
+
+    backends = [http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler(i))
+                for i in range(2)]
+    for srv in backends:
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    loop = asyncio.new_event_loop()
+    threading.Thread(target=loop.run_forever, daemon=True).start()
+    front = FrontProxy([srv.server_address[1] for srv in backends])
+    asyncio.run_coroutine_threadsafe(
+        front.start("127.0.0.1", 0), loop).result(10)
+    base = f"http://127.0.0.1:{front._server.sockets[0].getsockname()[1]}"
+    lanes = [soak._Session(base, max_requests=max_requests)
+             for _ in range(2)]
+    try:
+        lanes[0].post(base + "/queries.json", json={})
+        one_shot = soak._Session(base)
+        one_shot.post(base + "/queries.json", json={})
+        one_shot.close()
+        assert hits == {0: 1, 1: 1}
+        for _ in range(40):
+            for lane in (lanes[1], lanes[0]):
+                assert lane.post(base + "/queries.json",
+                                 json={}).status_code == 200
+        lane_hits = {0: hits[0], 1: hits[1] - 1}
+        assert sum(lane_hits.values()) == 81
+        if max_requests:
+            assert min(lane_hits.values()) >= 16, lane_hits
+        else:
+            assert lane_hits == {0: 81, 1: 0}
+    finally:
+        for lane in lanes:
+            lane.close()
+        asyncio.run_coroutine_threadsafe(front.stop(), loop).result(10)
+        loop.call_soon_threadsafe(loop.stop)
+        for srv in backends:
+            srv.shutdown()
+            srv.server_close()
+
+
 # ---------------------------------------------------------------------------
 # the real topology, scaled down (slow, as the reference's)
 # ---------------------------------------------------------------------------

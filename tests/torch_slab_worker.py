@@ -7,8 +7,10 @@ Usage: torch_slab_worker.py <out.npz> <runs> [--ckpt DIR] [--resume]
 
 ``runs``: a comma-separated list of ``<feed>:<mode>`` trained one after
 the other by the same gang. ``feed`` is ``merged`` (every rank passes
-the whole triple to ``train_als``) or ``sharded`` (each rank passes only
-its ``process_row_ranges`` rows to ``train_als_process_sharded``);
+the whole triple to ``train_als``), ``sharded`` (each rank passes only
+its ``process_row_ranges`` rows to ``train_als_process_sharded``) or
+``dp`` (rank r passes the events j with j % world == r to the
+data-parallel ``train_als_partition_local``);
 ``mode`` is one of :data:`MODES`. Rank 0 writes each run's factors to
 <out.npz> as ``<feed>:<mode>:user`` / ``:item``, and every rank prints
 its train reports as one JSON line. With ``PIO_TEST_FAULT`` set to
@@ -48,6 +50,13 @@ MODES = {
                              implicit_prefs=True, alpha=2.0)),
     "tiles2": ("plain", dict(rank=8, reg=0.05, block_len=8, chunk_tiles=2)),
     "heavy": ("heavy", dict(rank=4, reg=0.1, lambda_scaling="nratings")),
+    # compute_dtype "bfloat16"
+    "bf16": ("plain", dict(rank=8, reg=0.05, lambda_scaling="nratings",
+                           compute_dtype="bfloat16")),
+    "bf16_implicit": ("plain", dict(rank=8, reg=0.05, implicit_prefs=True,
+                                    alpha=0.5, compute_dtype="bfloat16")),
+    "bf16_heavy": ("heavy", dict(rank=4, reg=0.1, lambda_scaling="nratings",
+                                 compute_dtype="bfloat16")),
 }
 ITERS = 3
 
@@ -119,7 +128,7 @@ def main() -> int:
     from incubator_predictionio_torch.ops import als
     from incubator_predictionio_torch.parallel import supervisor
     from incubator_predictionio_torch.parallel.distributed import (
-        initialize_distributed, process_index,
+        initialize_distributed, process_count, process_index,
     )
     from incubator_predictionio_torch.workflow.checkpoint import (
         CheckpointHook,
@@ -147,6 +156,12 @@ def main() -> int:
                 f = als.train_als(u, i, r, nu, ni, p, device="cpu",
                                   checkpoint_hook=hook, resume=resume,
                                   timings=timings)
+            elif feed == "dp":
+                mine = np.arange(len(u)) % process_count() == rank
+                f = als.train_als_partition_local(
+                    u[mine], i[mine], r[mine], nu, ni, p, device="cpu",
+                    checkpoint_hook=hook, resume=resume, timings=timings,
+                    force_dp=True)
             else:
                 lo_u, hi_u = als.process_row_ranges(nu)
                 lo_i, hi_i = als.process_row_ranges(ni)
